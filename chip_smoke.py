@@ -1,0 +1,404 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/H100 port on the card, end to end.
+
+    python3 chip_smoke.py
+
+Run from the repository root on a machine with one NVIDIA GPU and the CUDA
+toolkit. Phases, each printing one JSON line:
+
+1. ``build`` — compiles the kernels from ``nm03_capstone_project_tpu_torch/
+   csrc`` (nvcc, sm_90a) and reads the card's name and power limit.
+2. ``median``, ``fused``, ``grow`` — each hand-written kernel against its
+   plain PyTorch version on the card, at the main path's shape (25, 256,
+   256) and at a prime-sized canvas: the median and the grow kernel
+   bitwise (mask and per-slice converged, with a truncating ``max_iters``
+   too), the fused kernel bitwise (it rounds every step as the plain ops
+   do). Each prints the kernel's and the plain version's median time over
+   repeats (CUDA events) and the least time the card could take.
+3. ``slice`` — a cohort of 20 patients x 25 slices (the size of the TCIA
+   Brain-Tumor-Progression cohort the reference targets) through
+   ``process_batch`` in batches of 25, with the kernels and again with the
+   plain ops: masks and ``grow_converged`` identical, the first 50 masks
+   equal to the golden the JAX package made
+   (``nm03_capstone_project_tpu_torch/testdata/smoke_masks.json``), every
+   kernel of the path launched. One
+   batch with ``fuse_preprocess=False`` drives the standalone median kernel.
+4. ``kernels`` — one line, ``{"kernels": [...]}``, per kernel: launches in
+   the main path's run, the largest difference from the plain version, its
+   time, the plain time and the bound.
+
+The card's ``nvidia-smi`` name and power limit print on a line of their own;
+the last line is ``{"ok": true, "device": {...}}``. Any failed check exits
+non-zero without that line, as does a machine without CUDA.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import statistics
+import subprocess
+import sys
+import time
+import traceback
+
+import numpy as np
+import torch
+
+# H100 SXM data-sheet peaks (700 W). The 67 TFLOP/s of float32 outside the
+# tensor cores counts an FMA as two flops: one add or multiply instruction
+# issues at half of it. Min/max, 32-bit bitwise ops and shifts issue at 64
+# per SM per clock against 128 float32 lanes (CUDA C++ Programming Guide,
+# arithmetic instruction throughput, compute capability 9.0): a quarter.
+PEAK_F32_FLOPS = 67e12
+OP_RATES = {"add_mul": PEAK_F32_FLOPS / 2, "minmax_bitwise": PEAK_F32_FLOPS / 4}
+PEAK_BYTES = 3.35e12  # H100 SXM HBM3
+MAIN_SHAPE = (25, 256, 256)
+PRIME_SHAPE = (3, 251, 241)
+REPEATS = 20
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def require(cond, what: str) -> None:
+    if not cond:
+        raise RuntimeError(what)
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, repeats: int = REPEATS) -> float:
+    """Median milliseconds of ``fn`` over ``repeats`` runs (CUDA events)."""
+    for _ in range(2):
+        fn()
+    times = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def bound(bytes_moved: float, ops: dict):
+    """Least milliseconds for the work, and whether bytes or ops bound it.
+
+    ``ops`` counts operations by kind of ``OP_RATES``; the kinds issue to
+    separate pipes, so the slowest kind bounds the operations.
+    """
+    t_bytes = bytes_moved / PEAK_BYTES * 1e3
+    t_ops = max(n / OP_RATES[kind] * 1e3 for kind, n in ops.items())
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def max_abs(a, b) -> float:
+    return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; nothing to drive", file=sys.stderr)
+        return 1
+    try:
+        from nm03_capstone_project_tpu_torch.kernels import build
+    except ImportError as e:
+        print(f"chip_smoke: the port package is missing ({e})", file=sys.stderr)
+        return 1
+    from nm03_capstone_project_tpu_torch.config import DEFAULT_BATCH_SIZE, PipelineConfig
+    from nm03_capstone_project_tpu_torch.core import pad_to_canvas, valid_mask
+    from nm03_capstone_project_tpu_torch.data.synthetic import (
+        phantom_slice,
+        smoke_cohort,
+    )
+    from nm03_capstone_project_tpu_torch.ops import hopper_median as hm
+    from nm03_capstone_project_tpu_torch.ops import hopper_region_growing as hg
+    from nm03_capstone_project_tpu_torch.ops.elementwise import clip_intensity, normalize
+    from nm03_capstone_project_tpu_torch.ops.median import vector_median_filter
+    from nm03_capstone_project_tpu_torch.ops.neighborhood import extend_edges
+    from nm03_capstone_project_tpu_torch.ops.region_growing import region_grow
+    from nm03_capstone_project_tpu_torch.ops.seeds import seed_mask
+    from nm03_capstone_project_tpu_torch.ops.selection_network import comparator_counts
+    from nm03_capstone_project_tpu_torch.pipeline import process_batch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    smi = nvidia_smi()
+
+    # -- 1. build ------------------------------------------------------------
+    t0 = time.perf_counter()
+    built = build.build_all()
+    for name in build.SOURCES:
+        build.load(name)
+    ptxas = []
+    for name in build.SOURCES:
+        log = (build.build_dir() / f"{name}.log")
+        if log.exists():
+            ptxas += [ln.strip() for ln in log.read_text().splitlines() if "registers" in ln]
+    emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
+          "compiled": {k: round(v, 3) for k, v in built.items()},
+          "nvidia_smi": smi, "ptxas": ptxas})
+
+    cfg = PipelineConfig(canvas=256)
+    counts = comparator_counts(cfg.median_window)
+    median_ops = counts["presort_minmax"] + counts["merge_minmax_pruned_shared"]
+    ks = cfg.sharpen_kernel
+    # per pixel: the median and the clip's min and max; normalize (3), two
+    # ks-tap passes (ks products, ks - 1 sums each) and the unsharp update (3)
+    fused_ops = {"minmax_bitwise": median_ops + 2, "add_mul": 3 + 2 * (2 * ks - 1) + 3}
+    pre_kw = dict(
+        norm_low=cfg.norm_low, norm_high=cfg.norm_high,
+        norm_min=cfg.norm_intensity_min, norm_max=cfg.norm_intensity_max,
+        clip_low=cfg.clip_low, clip_high=cfg.clip_high,
+        median_window=cfg.median_window, sharpen_gain=cfg.sharpen_gain,
+        sharpen_sigma=cfg.sharpen_sigma, sharpen_kernel=cfg.sharpen_kernel,
+    )
+
+    cohort = smoke_cohort()
+    batches = [
+        pad_to_canvas(cohort[i : i + DEFAULT_BATCH_SIZE], cfg.canvas_hw, device=dev)
+        for i in range(0, len(cohort), DEFAULT_BATCH_SIZE)
+    ]
+    main_px, main_dims = batches[1].pixels, batches[1].dims  # mixed true dims
+    require(tuple(main_px.shape) == MAIN_SHAPE, "main batch shape")
+    prime_px = torch.from_numpy(np.stack(
+        [phantom_slice(*PRIME_SHAPE[1:], seed=s, lesion_radius=0.12) for s in range(3)]
+    )).to(dev)
+    prime_dims = torch.tensor([[251, 241], [240, 241], [251, 200]], dtype=torch.int32,
+                              device=dev)
+    gen = torch.Generator(device="cpu").manual_seed(7)
+    results = {}
+
+    # -- 2a. median ----------------------------------------------------------
+    def median_input(px, dims):
+        x = extend_edges(px, dims)
+        return clip_intensity(normalize(x), cfg.clip_low, cfg.clip_high)
+
+    err, cases = 0.0, []
+    for shape, x in (
+        ("main", median_input(main_px, main_dims)),
+        ("prime", median_input(prime_px, prime_dims)),
+        ("prime_random", (torch.rand(PRIME_SHAPE, generator=gen) * 4000 + 0.68).to(dev)),
+    ):
+        for k in ((7,) if shape == "main" else (3, 5, 7, 9)):
+            got, want = hm.vector_median_filter_kernel(x, k), vector_median_filter(x, k)
+            torch.cuda.synchronize()
+            require(torch.equal(got, want), f"median kernel != plain ({shape}, k={k})")
+            err = max(err, max_abs(got, want))
+            cases.append(f"{shape}:k{k}")
+    x = median_input(main_px, main_dims)
+    ms = cuda_ms(lambda: hm.vector_median_filter_kernel(x, 7))
+    plain_ms = cuda_ms(lambda: vector_median_filter(x, 7), repeats=5)
+    n = x.numel()
+    b_ms, b_by = bound(8 * n, {"minmax_bitwise": median_ops * n})
+    results["median"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                             bound_ms=b_ms, bound_by=b_by)
+    emit({"phase": "median", "bitwise": True, "cases": cases, "ms": ms,
+          "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+          "launches": hm.vector_median_filter_kernel.launches})
+
+    # -- 2b. fused preprocess ------------------------------------------------
+    err, cases = 0.0, []
+    for shape, x in (
+        ("main", extend_edges(main_px, main_dims)),
+        ("prime", extend_edges(prime_px, prime_dims)),
+        ("prime_random", (torch.rand(PRIME_SHAPE, generator=gen) * 9000).to(dev)),
+    ):
+        got = hm.fused_preprocess_kernel(x, **pre_kw)
+        want = hm._fused_preprocess_plain(x, **pre_kw)
+        torch.cuda.synchronize()
+        require(bool(torch.isfinite(got).all()), f"fused kernel not finite ({shape})")
+        require(torch.equal(got, want), f"fused kernel != plain ({shape})")
+        err = max(err, max_abs(got, want))
+        cases.append(shape)
+    x = extend_edges(main_px, main_dims)
+    ms = cuda_ms(lambda: hm.fused_preprocess_kernel(x, **pre_kw))
+    plain_ms = cuda_ms(lambda: hm._fused_preprocess_plain(x, **pre_kw), repeats=5)
+    n = x.numel()
+    b_ms, b_by = bound(8 * n, {k: v * n for k, v in fused_ops.items()})
+    results["fused"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                            bound_ms=b_ms, bound_by=b_by)
+    emit({"phase": "fused", "bitwise": True, "cases": cases, "ms": ms,
+          "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+          "launches": hm.fused_preprocess_kernel.launches})
+
+    # -- 2c. region growing --------------------------------------------------
+    def grow_inputs(px, dims):
+        pre = hm._fused_preprocess_plain(extend_edges(px, dims), **pre_kw)
+        hw = tuple(px.shape[-2:])
+        return pre, seed_mask(dims, hw), valid_mask(dims, hw)
+
+    err, cases, truncated = 0.0, [], 0
+    for shape, (img, seeds, valid) in (
+        ("main", grow_inputs(main_px, main_dims)),
+        ("prime", grow_inputs(prime_px, prime_dims)),
+    ):
+        for bi, mi in ((cfg.grow_block_iters, cfg.grow_max_iters), (2, 4)):
+            kw = dict(valid=valid, block_iters=bi, max_iters=mi, return_steps=True)
+            gm, gc, gs = hg.region_grow_kernel(img, seeds, cfg.grow_low, cfg.grow_high, **kw)
+            wm, wc, ws = region_grow(img, seeds, cfg.grow_low, cfg.grow_high, **kw)
+            torch.cuda.synchronize()
+            require(torch.equal(gm, wm), f"grow kernel mask != plain ({shape}, {mi})")
+            require(torch.equal(gc, wc), f"grow kernel converged != plain ({shape}, {mi})")
+            require(torch.equal(gs, ws), f"grow kernel steps != plain ({shape}, {mi})")
+            if mi == 4:
+                truncated += int((~gc).sum())
+            err = max(err, max_abs(gm, wm))
+            cases.append(f"{shape}:max_iters={mi}")
+    require(truncated > 0, "the truncating grow case truncated no slice")
+    img, seeds, valid = grow_inputs(main_px, main_dims)
+    gkw = dict(valid=valid, block_iters=cfg.grow_block_iters, max_iters=cfg.grow_max_iters)
+    ms = cuda_ms(lambda: hg.region_grow_kernel(
+        img, seeds, cfg.grow_low, cfg.grow_high, **gkw))
+    plain_ms = cuda_ms(lambda: region_grow(
+        img, seeds, cfg.grow_low, cfg.grow_high, **gkw), repeats=5)
+    # the depth of each slice's fixpoint on this data, as the kernel ran it
+    steps = hg.region_grow_kernel(img, seeds, cfg.grow_low, cfg.grow_high,
+                                  return_steps=True, **gkw)[2]
+    b, h, w = img.shape
+    words = h * ((w + 31) // 32)
+    # per step and 32-pixel word: 4 neighbour shifts/ORs, 2 carries, up/down, band AND
+    grow_ops = float(steps.sum()) * words * 9
+    b_ms, b_by = bound(b * h * w * (4 + 1 + 1 + 1) + 4 * b, {"minmax_bitwise": grow_ops})
+    results["grow"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                           bound_ms=b_ms, bound_by=b_by)
+    emit({"phase": "grow", "bitwise": True, "cases": cases,
+          "truncated_slices": truncated, "steps_per_slice": steps.tolist(),
+          "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+          "launches": hg.region_grow_kernel.launches})
+
+    # -- 3. the cohort through process_batch ---------------------------------
+    kernels = {
+        "fused": hm.fused_preprocess_kernel,
+        "grow": hg.region_grow_kernel,
+        "median": hm.vector_median_filter_kernel,
+    }
+
+    def reset():
+        for fn in kernels.values():
+            fn.launches = 0
+
+    def run(c):
+        outs = [process_batch(bt.pixels, bt.dims, c) for bt in batches]
+        torch.cuda.synchronize()
+        return outs
+
+    plain_cfg = PipelineConfig(canvas=256, use_kernels=False)
+    process_batch(batches[0].pixels, batches[0].dims, cfg)  # warm-up, not counted
+    process_batch(batches[0].pixels, batches[0].dims, plain_cfg)
+    torch.cuda.synchronize()
+
+    reset()  # the main path's run: every launch from here to the read counts
+    fast = run(cfg)
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    slow = run(plain_cfg)
+    require(launches["fused"] > 0 and launches["grow"] > 0,
+            f"the main path did not launch every kernel: {launches}")
+    for i, (a, p) in enumerate(zip(fast, slow)):
+        require(torch.equal(a["mask"], p["mask"]), f"batch {i}: kernel masks != plain")
+        require(torch.equal(a["grow_converged"], p["grow_converged"]),
+                f"batch {i}: kernel grow_converged != plain")
+    masks = torch.cat([o["mask"] for o in fast]).cpu().numpy()
+    conv = torch.cat([o["grow_converged"] for o in fast]).cpu().numpy()
+    golden_path = build.PKG / "testdata" / "smoke_masks.json"
+    golden = json.loads(golden_path.read_text())["slices"]
+    for g in golden:
+        i = g["index"]
+        got = {"sha256": hashlib.sha256(masks[i].tobytes()).hexdigest(),
+               "area": int(masks[i].sum()), "converged": bool(conv[i])}
+        require(got == {k: g[k] for k in got}, f"slice {i}: mask differs from the golden")
+    require(masks.shape == (len(cohort), 256, 256), "mask shape")
+    require(int(masks.sum()) > 0, "the cohort segmented nothing")
+
+    # the standalone median kernel's path: one batch, fuse_preprocess=False
+    unfused_cfg = PipelineConfig(canvas=256, fuse_preprocess=False)
+    reset()
+    unfused = process_batch(batches[1].pixels, batches[1].dims, unfused_cfg)
+    torch.cuda.synchronize()
+    unfused_launches = {k: fn.launches for k, fn in kernels.items()}
+    require(unfused_launches["median"] > 0 and unfused_launches["grow"] > 0,
+            f"the unfused path did not launch its kernels: {unfused_launches}")
+    require(torch.equal(unfused["mask"], fast[1]["mask"]), "unfused masks != fused masks")
+    launches["median"] = unfused_launches["median"]
+
+    # throughput, host clock around whole cohort runs ending in a synchronize;
+    # plain, kernels, kernels, plain in turns
+    runs = {"plain": [], "kernels": []}
+    for which in ("plain", "kernels", "kernels", "plain") * 2:
+        t = time.perf_counter()
+        run(cfg if which == "kernels" else plain_cfg)
+        runs[which].append(time.perf_counter() - t)
+    fast_s, slow_s = statistics.median(runs["kernels"]), statistics.median(runs["plain"])
+
+    # where a batch's time goes: device time by kernel over 4 batches
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for bt in batches[:4]:
+            process_batch(bt.pixels, bt.dims, cfg)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    by_kernel = sorted(
+        ((e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+         if getattr(e, "self_device_time_total", 0) > 0),
+        key=lambda r: -r[1],
+    )
+    busy_ms = sum(r[1] for r in by_kernel)
+    emit({"phase": "profile", "batches": 4, "wall_ms": wall_ms,
+          "device_busy_ms": busy_ms if by_kernel else "not measured",
+          "idle_share": 1 - busy_ms / wall_ms if by_kernel else "not measured",
+          "top": [{"kernel": k[:80], "ms": ms, "calls": c} for k, ms, c in by_kernel[:10]]})
+
+    n = len(cohort)
+    emit({"phase": "slice", "slices": n, "batch": DEFAULT_BATCH_SIZE, "canvas": 256,
+          "kernels_slices_per_s": n / fast_s, "plain_slices_per_s": n / slow_s,
+          "kernels_s": runs["kernels"], "plain_s": runs["plain"],
+          "golden_slices": len(golden),
+          "converged": int(conv.sum()), "mask_area": int(masks.sum()),
+          "launches": launches, "unfused_launches": unfused_launches})
+
+    # -- 4. kernels ----------------------------------------------------------
+    meta = {
+        "median": ("vector_median_filter", "csrc/median.cu",
+                   "nm03_capstone_project_tpu/ops/pallas_median.py:101"),
+        "fused": ("fused_preprocess", "csrc/median.cu",
+                  "nm03_capstone_project_tpu/ops/pallas_median.py:165"),
+        "grow": ("region_grow", "csrc/grow.cu",
+                 "nm03_capstone_project_tpu/ops/pallas_region_growing.py:30"),
+    }
+    rows = []
+    for key, (name, src, replaces) in meta.items():
+        r = results[key]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"nm03_capstone_project_tpu_torch/{src}", "replaces": replaces,
+            "launches": launches[key], "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None,
+        })
+    emit({"kernels": rows})
+    print(nvidia_smi(), flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main())
+    except Exception:  # noqa: BLE001 a failed phase fails the run, after its traceback
+        traceback.print_exc()
+        sys.exit(1)

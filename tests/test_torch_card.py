@@ -1,0 +1,112 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked ``cuda``: each test skips where ``torch.cuda.is_available()`` is
+false (the kernels have no CPU mode). This file imports nothing of JAX, so
+it runs on a machine with the card but without JAX, skipping the JAX-bound
+``tests/conftest.py``:
+
+    python -m pytest --noconftest tests/test_torch_card.py -m cuda -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from nm03_capstone_project_tpu_torch.config import PipelineConfig
+from nm03_capstone_project_tpu_torch.core import pad_to_canvas
+from nm03_capstone_project_tpu_torch.data.synthetic import phantom_slice
+from nm03_capstone_project_tpu_torch.ops import hopper_median as hm
+from nm03_capstone_project_tpu_torch.ops import hopper_region_growing as hg
+from nm03_capstone_project_tpu_torch.ops.median import vector_median_filter
+from nm03_capstone_project_tpu_torch.ops.region_growing import region_grow
+from nm03_capstone_project_tpu_torch.pipeline import process_batch
+
+pytestmark = pytest.mark.cuda
+
+PRE = dict(
+    norm_low=0.5, norm_high=2.5, norm_min=0.0, norm_max=10000.0,
+    clip_low=0.68, clip_high=4000.0, median_window=7,
+    sharpen_gain=2.0, sharpen_sigma=0.5, sharpen_kernel=9,
+)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _grow_case(hw=24):
+    """A serpentine band (one path snaking down the image, ~hw²/2 steps
+    long), a random half-in-band field, and an open field cut by valid."""
+    serp = np.full((hw, hw), 0.8, np.float32)
+    for r in range(1, hw, 2):
+        serp[r, :] = 0.5
+        serp[r, -1 if (r // 2) % 2 == 0 else 0] = 0.8
+    rng = np.random.default_rng(9)
+    img = np.stack([serp, (rng.random((hw, hw)) * 0.3 + 0.68).astype(np.float32),
+                    np.full((hw, hw), 0.8, np.float32)])
+    seeds = np.zeros((3, hw, hw), bool)
+    seeds[0, 0, 0] = seeds[1, hw // 2, hw // 2] = seeds[2, 3, 5] = True
+    valid = np.ones((3, hw, hw), bool)
+    valid[2, :, hw - 4 :] = False
+    return img, seeds, valid
+
+
+def test_median(cuda):
+    x = (torch.rand(3, 251, 241) * 4000 + 0.68).to(cuda)
+    for k in (1, 3, 5, 7, 9):
+        assert torch.equal(hm.vector_median_filter_kernel(x, k), vector_median_filter(x, k))
+
+
+def test_fused(cuda):
+    x = (torch.rand(3, 251, 241) * 9000).to(cuda)
+    assert torch.equal(hm.fused_preprocess_kernel(x, **PRE), hm._fused_preprocess_plain(x, **PRE))
+
+
+@pytest.mark.parametrize("connectivity", [4, 8])
+@pytest.mark.parametrize("max_iters", [16, 1024])
+def test_grow(cuda, connectivity, max_iters):
+    img, seeds, valid = (torch.from_numpy(a).to(cuda) for a in _grow_case())
+    kw = dict(valid=valid, connectivity=connectivity, block_iters=4, max_iters=max_iters,
+              return_steps=True)
+    got = hg.region_grow_kernel(img, seeds, 0.74, 0.91, **kw)
+    want = region_grow(img, seeds, 0.74, 0.91, **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert bool(got[1].all()) == (max_iters == 1024)
+
+
+def test_grow_broadcasts_seeds_and_valid(cuda):
+    # one (H, W) seeds and valid for a (B, H, W) image, as the plain op takes them
+    img, seeds, valid = (torch.from_numpy(a).to(cuda) for a in _grow_case())
+    img = torch.stack([img[2]] * 4)
+    img[1:, 10:, :] = 0.5
+    seeds, valid = seeds[2].float() * 3, valid[2]
+    kw = dict(valid=valid, block_iters=4)
+    got = hg.region_grow_kernel(img, seeds, 0.74, 0.91, **kw)
+    want = region_grow(img, seeds, 0.74, 0.91, **kw)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert int(got[0][0].sum()) > int(got[0][1].sum()) > 0
+
+
+def test_grow_refuses_what_it_cannot_take(cuda):
+    img, seeds, valid = (torch.from_numpy(a).to(cuda) for a in _grow_case())
+    with pytest.raises(ValueError, match="seeds is on cpu"):
+        hg.region_grow_kernel(img, seeds.cpu())
+    big = torch.full((1, 1024, 1024), 0.8, device=cuda)
+    launches = hg.region_grow_kernel.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        hg.region_grow_kernel(big, big > 0.9)
+    assert hg.region_grow_kernel.launches == launches
+
+
+def test_pipeline_kernels_equal_plain(cuda):
+    slices = [phantom_slice(256, 256, seed=1), phantom_slice(251, 241, seed=2)]
+    b = pad_to_canvas(slices, (256, 256), device=cuda)
+    for fuse in (True, False):
+        got = process_batch(b.pixels, b.dims, PipelineConfig(fuse_preprocess=fuse))
+        want = process_batch(b.pixels, b.dims, PipelineConfig(use_kernels=False))
+        assert torch.equal(got["mask"], want["mask"])
+        assert torch.equal(got["grow_converged"], want["grow_converged"])

@@ -7,14 +7,19 @@ Run from the repository root on a machine with one NVIDIA GPU and the CUDA
 toolkit. Phases, each printing one JSON line:
 
 1. ``build`` — compiles the kernels from ``nm03_capstone_project_tpu_torch/
-   csrc`` (nvcc, sm_90a) and reads the card's name and power limit.
+   csrc`` (nvcc, sm_90a, one process per source), reads the card's name and
+   power limit, and prints each kernel's registers and spills as ptxas
+   reports them, and the fused kernel's min/max a median for each window.
 2. ``median``, ``fused``, ``grow`` — each hand-written kernel against its
    plain PyTorch version on the card, at the main path's shape (25, 256,
-   256) and at a prime-sized canvas: the median and the grow kernel
-   bitwise (mask and per-slice converged, with a truncating ``max_iters``
-   too), the fused kernel bitwise (it rounds every step as the plain ops
-   do). Each prints the kernel's and the plain version's median time over
-   repeats (CUDA events) and the least time the card could take.
+   256) and at a prime-sized canvas: the median and the fused kernel
+   bitwise for every odd window 3..15 (the fused kernel rounds every step
+   as the plain ops do), the grow kernel bitwise in mask, per-slice
+   converged and steps, with a truncating ``max_iters`` too, and at
+   canvases 512, 1024 and 2048. Each prints the wrapper's and the plain
+   version's median time over repeats (CUDA events), the kernel's own
+   device time a launch (``device_ms``, torch.profiler's self device time
+   by kernel name) and the least time the card could take.
 3. ``slice`` — a cohort of 20 patients x 25 slices (the size of the TCIA
    Brain-Tumor-Progression cohort the reference targets) through
    ``process_batch`` in batches of 25, with the kernels and again with the
@@ -22,10 +27,12 @@ toolkit. Phases, each printing one JSON line:
    equal to the golden the JAX package made
    (``nm03_capstone_project_tpu_torch/testdata/smoke_masks.json``), every
    kernel of the path launched. One
-   batch with ``fuse_preprocess=False`` drives the standalone median kernel.
+   batch with ``fuse_preprocess=False`` drives the standalone median kernel,
+   and a batch of phantoms at canvas 1024 goes through ``process_batch``
+   with the kernels and with the plain ops, masks equal.
 4. ``kernels`` — one line, ``{"kernels": [...]}``, per kernel: launches in
    the main path's run, the largest difference from the plain version, its
-   time, the plain time and the bound.
+   wrapper and device time, the plain time and the bound.
 
 The card's ``nvidia-smi`` name and power limit print on a line of their own;
 the last line is ``{"ok": true, "device": {...}}``. Any failed check exits
@@ -36,6 +43,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -55,6 +63,8 @@ OP_RATES = {"add_mul": PEAK_F32_FLOPS / 2, "minmax_bitwise": PEAK_F32_FLOPS / 4}
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 MAIN_SHAPE = (25, 256, 256)
 PRIME_SHAPE = (3, 251, 241)
+GROW_CANVASES = (512, 1024, 2048)
+WINDOWS = (3, 5, 7, 9, 11, 13, 15)
 REPEATS = 20
 
 
@@ -91,6 +101,45 @@ def cuda_ms(fn, repeats: int = REPEATS) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, kernel: str, repeats: int = REPEATS) -> float:
+    """The kernel's own device time a launch: torch.profiler's self device
+    time of the kernels whose name holds ``kernel``, over ``repeats`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(repeats):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages() if kernel in e.key]
+    calls = sum(e.count for e in hits)
+    require(calls == repeats, f"profiler saw {calls} launches of {kernel}, not {repeats}")
+    return sum(e.self_device_time_total for e in hits) / calls / 1e3
+
+
+def ptxas_report(log: str) -> dict:
+    """``{kernel: {"registers", "spill_stores", "spill_loads"}}`` from ptxas -v."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
+        if m:
+            k = re.search(r"(band_kernel|fused_kernel|grow_kernel)(I(?:Li\d+E)+E)?", m.group(1))
+            name = None if k is None else k.group(1) + (
+                "<%s>" % ",".join(re.findall(r"\d+", k.group(2))) if k.group(2) else "")
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out.setdefault(name, {}).update(spill_stores=int(m.group(1)),
+                                            spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.setdefault(name, {})["registers"] = int(m.group(1))
+    return out
+
+
 def bound(bytes_moved: float, ops: dict):
     """Least milliseconds for the work, and whether bytes or ops bound it.
 
@@ -111,7 +160,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; nothing to drive", file=sys.stderr)
         return 1
     try:
-        from nm03_capstone_project_tpu_torch.kernels import build
+        from nm03_capstone_project_tpu_torch.kernels import build, median_runs
     except ImportError as e:
         print(f"chip_smoke: the port package is missing ({e})", file=sys.stderr)
         return 1
@@ -141,14 +190,19 @@ def main() -> int:
     built = build.build_all()
     for name in build.SOURCES:
         build.load(name)
-    ptxas = []
+    ptxas = {}
     for name in build.SOURCES:
         log = (build.build_dir() / f"{name}.log")
         if log.exists():
-            ptxas += [ln.strip() for ln in log.read_text().splitlines() if "registers" in ln]
+            ptxas.update(ptxas_report(log.read_text()))
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
           "compiled": {k: round(v, 3) for k, v in built.items()},
-          "nvidia_smi": smi, "ptxas": ptxas})
+          "nvidia_smi": smi, "ptxas": ptxas,
+          "fused_minmax_per_median": {
+              f"k{k}_R{r}": round(median_runs.ops_per_output(k, r), 2)
+              for k, r in median_runs.FUSED_RUNS.items()}})
+    require(ptxas.get("fused_kernel<7,%d>" % median_runs.FUSED_RUNS[7], {}).get(
+        "spill_stores") == 0, "the fused kernel spills at k = 7")
 
     cfg = PipelineConfig(canvas=256)
     counts = comparator_counts(cfg.median_window)
@@ -191,7 +245,7 @@ def main() -> int:
         ("prime", median_input(prime_px, prime_dims)),
         ("prime_random", (torch.rand(PRIME_SHAPE, generator=gen) * 4000 + 0.68).to(dev)),
     ):
-        for k in ((7,) if shape == "main" else (3, 5, 7, 9)):
+        for k in ((7,) if shape == "main" else WINDOWS):
             got, want = hm.vector_median_filter_kernel(x, k), vector_median_filter(x, k)
             torch.cuda.synchronize()
             require(torch.equal(got, want), f"median kernel != plain ({shape}, k={k})")
@@ -199,12 +253,13 @@ def main() -> int:
             cases.append(f"{shape}:k{k}")
     x = median_input(main_px, main_dims)
     ms = cuda_ms(lambda: hm.vector_median_filter_kernel(x, 7))
+    dev_ms = device_ms(lambda: hm.vector_median_filter_kernel(x, 7), "band_kernel")
     plain_ms = cuda_ms(lambda: vector_median_filter(x, 7), repeats=5)
     n = x.numel()
     b_ms, b_by = bound(8 * n, {"minmax_bitwise": median_ops * n})
-    results["median"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+    results["median"] = dict(max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
                              bound_ms=b_ms, bound_by=b_by)
-    emit({"phase": "median", "bitwise": True, "cases": cases, "ms": ms,
+    emit({"phase": "median", "bitwise": True, "cases": cases, "ms": ms, "device_ms": dev_ms,
           "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
           "launches": hm.vector_median_filter_kernel.launches})
 
@@ -215,22 +270,29 @@ def main() -> int:
         ("prime", extend_edges(prime_px, prime_dims)),
         ("prime_random", (torch.rand(PRIME_SHAPE, generator=gen) * 9000).to(dev)),
     ):
-        got = hm.fused_preprocess_kernel(x, **pre_kw)
-        want = hm._fused_preprocess_plain(x, **pre_kw)
-        torch.cuda.synchronize()
-        require(bool(torch.isfinite(got).all()), f"fused kernel not finite ({shape})")
-        require(torch.equal(got, want), f"fused kernel != plain ({shape})")
-        err = max(err, max_abs(got, want))
-        cases.append(shape)
+        for k in ((7,) if shape == "main" else WINDOWS):
+            kw = dict(pre_kw, median_window=k)
+            got = hm.fused_preprocess_kernel(x, **kw)
+            want = hm._fused_preprocess_plain(x, **kw)
+            torch.cuda.synchronize()
+            require(bool(torch.isfinite(got).all()), f"fused kernel not finite ({shape}, k={k})")
+            require(torch.equal(got, want), f"fused kernel != plain ({shape}, k={k})")
+            err = max(err, max_abs(got, want))
+            cases.append(f"{shape}:k{k}")
     x = extend_edges(main_px, main_dims)
     ms = cuda_ms(lambda: hm.fused_preprocess_kernel(x, **pre_kw))
+    dev_ms = device_ms(lambda: hm.fused_preprocess_kernel(x, **pre_kw), "fused_kernel")
     plain_ms = cuda_ms(lambda: hm._fused_preprocess_plain(x, **pre_kw), repeats=5)
     n = x.numel()
     b_ms, b_by = bound(8 * n, {k: v * n for k, v in fused_ops.items()})
-    results["fused"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+    tile_h, tile_w, grid, smem = hm.fused_launch_shape(
+        *x.shape, cfg.median_window, cfg.sharpen_kernel,
+        torch.cuda.get_device_properties(0).multi_processor_count)
+    results["fused"] = dict(max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
                             bound_ms=b_ms, bound_by=b_by)
-    emit({"phase": "fused", "bitwise": True, "cases": cases, "ms": ms,
+    emit({"phase": "fused", "bitwise": True, "cases": cases, "ms": ms, "device_ms": dev_ms,
           "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+          "tile": [tile_h, tile_w], "grid": grid, "smem_bytes": smem,
           "launches": hm.fused_preprocess_kernel.launches})
 
     # -- 2c. region growing --------------------------------------------------
@@ -239,11 +301,21 @@ def main() -> int:
         hw = tuple(px.shape[-2:])
         return pre, seed_mask(dims, hw), valid_mask(dims, hw)
 
-    err, cases, truncated = 0.0, [], 0
-    for shape, (img, seeds, valid) in (
-        ("main", grow_inputs(main_px, main_dims)),
-        ("prime", grow_inputs(prime_px, prime_dims)),
-    ):
+    def canvas_batch(c: int):
+        """Phantoms on a c x c canvas, one of full size and one smaller."""
+        dims = [(c, c), (c - c // 8, c - c // 5)]
+        slices = [phantom_slice(h, w, seed=10 + i, lesion_radius=0.12)
+                  for i, (h, w) in enumerate(dims)]
+        return pad_to_canvas(slices, (c, c), device=dev)
+
+    err, cases, truncated, shapes = 0.0, [], 0, {}
+    grow_cases = [("main", grow_inputs(main_px, main_dims)),
+                  ("prime", grow_inputs(prime_px, prime_dims))]
+    for c in GROW_CANVASES:
+        bt = canvas_batch(c)
+        grow_cases.append((f"canvas{c}", grow_inputs(bt.pixels, bt.dims)))
+    for shape, (img, seeds, valid) in grow_cases:
+        shapes[shape] = hg.grow_launch_shape(*img.shape[-2:])
         for bi, mi in ((cfg.grow_block_iters, cfg.grow_max_iters), (2, 4)):
             kw = dict(valid=valid, block_iters=bi, max_iters=mi, return_steps=True)
             gm, gc, gs = hg.region_grow_kernel(img, seeds, cfg.grow_low, cfg.grow_high, **kw)
@@ -252,15 +324,18 @@ def main() -> int:
             require(torch.equal(gm, wm), f"grow kernel mask != plain ({shape}, {mi})")
             require(torch.equal(gc, wc), f"grow kernel converged != plain ({shape}, {mi})")
             require(torch.equal(gs, ws), f"grow kernel steps != plain ({shape}, {mi})")
+            require(mi == 4 or int(wm.sum()) > 0, f"nothing grew ({shape})")
             if mi == 4:
                 truncated += int((~gc).sum())
             err = max(err, max_abs(gm, wm))
-            cases.append(f"{shape}:max_iters={mi}")
+            cases.append(f"{shape}:max_iters={mi}:steps={gs.tolist()}")
     require(truncated > 0, "the truncating grow case truncated no slice")
     img, seeds, valid = grow_inputs(main_px, main_dims)
     gkw = dict(valid=valid, block_iters=cfg.grow_block_iters, max_iters=cfg.grow_max_iters)
     ms = cuda_ms(lambda: hg.region_grow_kernel(
         img, seeds, cfg.grow_low, cfg.grow_high, **gkw))
+    dev_ms = device_ms(lambda: hg.region_grow_kernel(
+        img, seeds, cfg.grow_low, cfg.grow_high, **gkw), "grow_kernel")
     plain_ms = cuda_ms(lambda: region_grow(
         img, seeds, cfg.grow_low, cfg.grow_high, **gkw), repeats=5)
     # the depth of each slice's fixpoint on this data, as the kernel ran it
@@ -271,12 +346,12 @@ def main() -> int:
     # per step and 32-pixel word: 4 neighbour shifts/ORs, 2 carries, up/down, band AND
     grow_ops = float(steps.sum()) * words * 9
     b_ms, b_by = bound(b * h * w * (4 + 1 + 1 + 1) + 4 * b, {"minmax_bitwise": grow_ops})
-    results["grow"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+    results["grow"] = dict(max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
                            bound_ms=b_ms, bound_by=b_by)
     emit({"phase": "grow", "bitwise": True, "cases": cases,
           "truncated_slices": truncated, "steps_per_slice": steps.tolist(),
-          "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-          "launches": hg.region_grow_kernel.launches})
+          "launch_shapes": shapes, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+          "bound_ms": b_ms, "bound_by": b_by, "launches": hg.region_grow_kernel.launches})
 
     # -- 3. the cohort through process_batch ---------------------------------
     kernels = {
@@ -332,6 +407,16 @@ def main() -> int:
     require(torch.equal(unfused["mask"], fast[1]["mask"]), "unfused masks != fused masks")
     launches["median"] = unfused_launches["median"]
 
+    # a canvas past the old one-CTA limit: phantoms at 1024 through process_batch
+    big = canvas_batch(1024)
+    big_fast = process_batch(big.pixels, big.dims, PipelineConfig(canvas=1024))
+    big_slow = process_batch(big.pixels, big.dims, PipelineConfig(canvas=1024, use_kernels=False))
+    torch.cuda.synchronize()
+    require(torch.equal(big_fast["mask"], big_slow["mask"]), "canvas 1024: kernel masks != plain")
+    require(torch.equal(big_fast["grow_converged"], big_slow["grow_converged"]),
+            "canvas 1024: kernel grow_converged != plain")
+    require(int(big_fast["mask"].sum()) > 0, "canvas 1024 segmented nothing")
+
     # throughput, host clock around whole cohort runs ending in a synchronize;
     # plain, kernels, kernels, plain in turns
     runs = {"plain": [], "kernels": []}
@@ -367,13 +452,14 @@ def main() -> int:
           "kernels_s": runs["kernels"], "plain_s": runs["plain"],
           "golden_slices": len(golden),
           "converged": int(conv.sum()), "mask_area": int(masks.sum()),
-          "launches": launches, "unfused_launches": unfused_launches})
+          "launches": launches, "unfused_launches": unfused_launches,
+          "canvas1024_mask_area": int(big_fast["mask"].sum())})
 
     # -- 4. kernels ----------------------------------------------------------
     meta = {
         "median": ("vector_median_filter", "csrc/median.cu",
                    "nm03_capstone_project_tpu/ops/pallas_median.py:101"),
-        "fused": ("fused_preprocess", "csrc/median.cu",
+        "fused": ("fused_preprocess", "csrc/fused.cu",
                   "nm03_capstone_project_tpu/ops/pallas_median.py:165"),
         "grow": ("region_grow", "csrc/grow.cu",
                  "nm03_capstone_project_tpu/ops/pallas_region_growing.py:30"),
@@ -385,7 +471,8 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"nm03_capstone_project_tpu_torch/{src}", "replaces": replaces,
             "launches": launches[key], "max_abs_err": r["max_abs_err"],
-            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "ms": r["ms"], "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None,
         })
     emit({"kernels": rows})

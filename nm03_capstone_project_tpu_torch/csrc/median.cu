@@ -1,11 +1,9 @@
-// Hopper kernels for the k x k clamp-to-edge median and for the fused
-// normalize -> clip -> median -> sharpen preprocessing stage.
+// Hopper kernel for the k x k clamp-to-edge median.
 //
-// Replaces the JAX package's two Pallas median kernels:
-//   * _median_band_kernel (ops/pallas_median.py:101, called at :146) with
-//     nm03_median_filter;
-//   * _fused_band_kernel (ops/pallas_median.py:165, called at :335) with
-//     nm03_fused_preprocess.
+// Replaces the JAX package's Pallas kernel _median_band_kernel
+// (ops/pallas_median.py:101, called at :146) with nm03_median_filter. The
+// fused preprocess stage (_fused_band_kernel) has its own kernel, in
+// fused.cu.
 //
 // Design. One CTA per (slice, 32-row band, 32-column band), 256 threads.
 // The CTA stages its input tile plus halo in shared memory with the row and
@@ -13,26 +11,14 @@
 // made), presorts each column of K vertical neighbours once (shared by the
 // K windows that read it), then runs median_merge_plan(K, share=False) from
 // the generated median_plans.cuh per pixel: 346 min/max at K=7 in
-// registers. The fused kernel normalizes and clips on load, computes the
-// median over its band +-rs rows and columns, and blurs and sharpens in
-// shared memory, so the image is read once and written once. The Pallas
-// kernel's canvas-boundary fixup (two candidate rows at the bottom band,
-// an edge concat for columns) is exactly "the sharpen edge-pads the median
-// output"; here it is a clamp of the median's row and column index to
-// [0, H) x [0, W), with no size limits.
+// registers.
 //
 // Exactness. Any exact rank selection gives the reference's bits: min/max
-// return one of their inputs, and the data is finite. The fused arithmetic
-// uses __fsub_rn/__fmul_rn/__fadd_rn in the plain PyTorch version's order
-// (normalize (x - min) * scale + low; taps vertical then horizontal,
-// acc = term then acc + term; c + gain * (c - blur)), so nvcc contracts
-// nothing into an FMA and the kernel matches the plain version bit for bit.
+// return one of their inputs, and the data is finite.
 //
 // Bound on the H100. Per pixel the median is ~300 min/max (presort plus
-// plan) against 8 bytes of traffic: the kernels are bound by operations,
-// not by memory. The design keeps every intermediate in shared memory or
-// registers; the per-CTA halo (40x40 medians for 32x32 outputs in the fused
-// kernel) is the recomputation it pays for that.
+// plan) against 8 bytes of traffic: the kernel is bound by operations, not
+// by memory.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -44,13 +30,6 @@ namespace {
 constexpr int TH = 32;        // output rows per CTA
 constexpr int TW = 32;        // output columns per CTA
 constexpr int NTHREADS = 256;
-constexpr int MAX_TAPS = 31;
-
-struct Pre {
-  float norm_min, norm_scale, norm_low, clip_low, clip_high, gain;
-  int ks;
-  float taps[MAX_TAPS];
-};
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
@@ -70,108 +49,59 @@ __device__ __forceinline__ void sort_column(float (&v)[K]) {
   }
 }
 
-__host__ __device__ inline size_t smem_floats(int K, int rs, bool fused) {
+__host__ __device__ inline size_t smem_floats(int K) {
   const int R = K / 2;
-  const size_t MH = TH + 2 * rs, MW = TW + 2 * rs;
-  const size_t IH = MH + 2 * R, IW = MW + 2 * R;
-  return IH * IW + K * MH * IW + MH * MW + (fused ? TH * MW : 0);
+  const size_t IH = TH + 2 * R, IW = TW + 2 * R;
+  return IH * IW + K * TH * IW;
 }
 
-// Shared memory: the input tile `in` (IH x IW), the K presorted planes `S`
-// (each MH x IW), the medians `M` (MH x MW) and, fused, the vertical blur
-// `V` (TH x MW). Region coordinate (i, j) is canvas (my0 + i, mx0 + j).
-template <int K, bool FUSED>
+// Shared memory: the input tile `in` (IH x IW) and the K presorted planes
+// `S` (each TH x IW). Tile coordinate (i, j) is canvas (y0 + i, x0 + j).
+template <int K>
 __global__ void __launch_bounds__(NTHREADS)
-band_kernel(const float* __restrict__ x, float* __restrict__ out, int H, int W,
-            int rs, Pre p) {
+band_kernel(const float* __restrict__ x, float* __restrict__ out, int H, int W) {
   constexpr int R = K / 2;
-  const int MH = TH + 2 * rs, MW = TW + 2 * rs;
-  const int IH = MH + 2 * R, IW = MW + 2 * R;
+  constexpr int IH = TH + 2 * R, IW = TW + 2 * R;
   const int b = blockIdx.z, y0 = blockIdx.y * TH, x0 = blockIdx.x * TW;
-  const int my0 = y0 - rs, mx0 = x0 - rs;
   extern __shared__ float smem[];
   float* in = smem;
   float* S = in + IH * IW;
-  float* M = S + K * MH * IW;
-  float* V = M + MH * MW;
   const float* xb = x + (size_t)b * H * W;
   float* ob = out + (size_t)b * H * W;
 
-  // 1. stage the tile with clamped indices; fused: normalize + clip on load
+  // 1. stage the tile with clamped indices
   for (int idx = threadIdx.x; idx < IH * IW; idx += NTHREADS) {
     const int i = idx / IW, j = idx - i * IW;
-    const int gy = clampi(my0 - R + i, 0, H - 1);
-    const int gx = clampi(mx0 - R + j, 0, W - 1);
-    float v = xb[(size_t)gy * W + gx];
-    if (FUSED) {
-      v = __fadd_rn(__fmul_rn(__fsub_rn(v, p.norm_min), p.norm_scale), p.norm_low);
-      v = fminf(fmaxf(v, p.clip_low), p.clip_high);
-    }
-    in[idx] = v;
+    const int gy = clampi(y0 - R + i, 0, H - 1);
+    const int gx = clampi(x0 - R + j, 0, W - 1);
+    in[idx] = xb[(size_t)gy * W + gx];
   }
   __syncthreads();
 
   // 2. presort: S[a][i][j] = a-th smallest of in[i .. i+K-1][j]
-  for (int idx = threadIdx.x; idx < MH * IW; idx += NTHREADS) {
+  for (int idx = threadIdx.x; idx < TH * IW; idx += NTHREADS) {
     const int i = idx / IW, j = idx - i * IW;
     float v[K];
 #pragma unroll
     for (int a = 0; a < K; ++a) v[a] = in[(i + a) * IW + j];
     sort_column<K>(v);
 #pragma unroll
-    for (int a = 0; a < K; ++a) S[a * MH * IW + idx] = v[a];
+    for (int a = 0; a < K; ++a) S[a * TH * IW + idx] = v[a];
   }
   __syncthreads();
 
-  // 3. the median at every region position inside the canvas
-  for (int idx = threadIdx.x; idx < MH * MW; idx += NTHREADS) {
-    const int i = idx / MW, j = idx - i * MW;
-    const int gy = my0 + i, gx = mx0 + j;
-    if (gy < 0 || gy >= H || gx < 0 || gx >= W) continue;
-    const float m = median_plan<K>(S + i * IW + j + R, MH * IW);
-    if (FUSED) {
-      M[idx] = m;
-    } else {
-      ob[(size_t)gy * W + gx] = m;
-    }
-  }
-  if (!FUSED) return;
-  __syncthreads();
-
-  // 4. vertical gaussian pass at every region column; rows and columns of
-  //    the median are read at their canvas-clamped index (the edge pad)
-  for (int idx = threadIdx.x; idx < TH * MW; idx += NTHREADS) {
-    const int y = idx / MW, j = idx - y * MW;
-    const int mj = clampi(mx0 + j, 0, W - 1) - mx0;
-    float acc = 0.f;
-    for (int t = 0; t < p.ks; ++t) {
-      const int mi = clampi(y0 + y - rs + t, 0, H - 1) - my0;
-      const float term = __fmul_rn(p.taps[t], M[mi * MW + mj]);
-      acc = t == 0 ? term : __fadd_rn(acc, term);
-    }
-    V[idx] = acc;
-  }
-  __syncthreads();
-
-  // 5. horizontal pass and the unsharp update c + gain * (c - blur)
+  // 3. the median at every tile position inside the canvas
   for (int idx = threadIdx.x; idx < TH * TW; idx += NTHREADS) {
-    const int y = idx / TW, xx = idx - y * TW;
-    const int gy = y0 + y, gx = x0 + xx;
+    const int i = idx / TW, j = idx - i * TW;
+    const int gy = y0 + i, gx = x0 + j;
     if (gy >= H || gx >= W) continue;
-    float blur = 0.f;
-    for (int t = 0; t < p.ks; ++t) {
-      const float term = __fmul_rn(p.taps[t], V[y * MW + xx + t]);
-      blur = t == 0 ? term : __fadd_rn(blur, term);
-    }
-    const float c = M[(y + rs) * MW + (xx + rs)];
-    ob[(size_t)gy * W + gx] = __fadd_rn(c, __fmul_rn(p.gain, __fsub_rn(c, blur)));
+    ob[(size_t)gy * W + gx] = median_plan<K>(S + i * IW + j + R, TH * IW);
   }
 }
 
-template <int K, bool FUSED>
-cudaError_t launch(const float* x, float* out, int B, int H, int W, int rs,
-                   const Pre& p, cudaStream_t stream) {
-  const size_t bytes = smem_floats(K, rs, FUSED) * sizeof(float);
+template <int K>
+cudaError_t launch(const float* x, float* out, int B, int H, int W, cudaStream_t stream) {
+  const size_t bytes = smem_floats(K) * sizeof(float);
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -179,56 +109,32 @@ cudaError_t launch(const float* x, float* out, int B, int H, int W, int rs,
   if (err != cudaSuccess) return err;
   if (bytes > (size_t)optin) return cudaErrorInvalidConfiguration;
   if (bytes > 48 * 1024) {
-    err = cudaFuncSetAttribute(band_kernel<K, FUSED>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    err = cudaFuncSetAttribute(band_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)bytes);
     if (err != cudaSuccess) return err;
   }
   const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);
-  band_kernel<K, FUSED><<<grid, NTHREADS, bytes, stream>>>(x, out, H, W, rs, p);
+  band_kernel<K><<<grid, NTHREADS, bytes, stream>>>(x, out, H, W);
   return cudaGetLastError();
-}
-
-template <bool FUSED>
-int dispatch(const float* x, float* out, int B, int H, int W, int k, int rs,
-             const Pre& p, void* stream) {
-  (void)cudaGetLastError();  // clear an error already reported by an earlier call
-  if (B <= 0 || H <= 0 || W <= 0 || B > 65535) return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (k) {
-    case 1: return launch<1, FUSED>(x, out, B, H, W, rs, p, s);
-    case 3: return launch<3, FUSED>(x, out, B, H, W, rs, p, s);
-    case 5: return launch<5, FUSED>(x, out, B, H, W, rs, p, s);
-    case 7: return launch<7, FUSED>(x, out, B, H, W, rs, p, s);
-    case 9: return launch<9, FUSED>(x, out, B, H, W, rs, p, s);
-    default: return cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace
 
-// k x k median of a (B, H, W) float32 batch, clamp-to-edge.
+// k x k median of a (B, H, W) float32 batch, clamp-to-edge; odd k <= 15.
 extern "C" int nm03_median_filter(const float* x, float* out, int B, int H, int W,
                                   int k, void* stream) {
-  Pre p = {};
-  return dispatch<false>(x, out, B, H, W, k, 0, p, stream);
-}
-
-// normalize -> clip -> k x k median -> unsharp sharpen of a (B, H, W)
-// float32 batch. `taps` is a host array of ks gaussian taps.
-extern "C" int nm03_fused_preprocess(const float* x, float* out, int B, int H, int W,
-                                     int k, float norm_min, float norm_scale,
-                                     float norm_low, float clip_low, float clip_high,
-                                     float gain, const float* taps, int ks,
-                                     void* stream) {
-  if (ks < 1 || ks > MAX_TAPS || ks % 2 == 0) return cudaErrorInvalidValue;
-  Pre p = {};
-  p.norm_min = norm_min;
-  p.norm_scale = norm_scale;
-  p.norm_low = norm_low;
-  p.clip_low = clip_low;
-  p.clip_high = clip_high;
-  p.gain = gain;
-  p.ks = ks;
-  for (int t = 0; t < ks; ++t) p.taps[t] = taps[t];
-  return dispatch<true>(x, out, B, H, W, k, ks / 2, p, stream);
+  (void)cudaGetLastError();  // clear an error already reported by an earlier call
+  if (B <= 0 || H <= 0 || W <= 0 || B > 65535) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (k) {
+    case 1: return launch<1>(x, out, B, H, W, s);
+    case 3: return launch<3>(x, out, B, H, W, s);
+    case 5: return launch<5>(x, out, B, H, W, s);
+    case 7: return launch<7>(x, out, B, H, W, s);
+    case 9: return launch<9>(x, out, B, H, W, s);
+    case 11: return launch<11>(x, out, B, H, W, s);
+    case 13: return launch<13>(x, out, B, H, W, s);
+    case 15: return launch<15>(x, out, B, H, W, s);
+    default: return cudaErrorInvalidValue;
+  }
 }

@@ -2,14 +2,20 @@
 
 Each ``csrc/<name>.cu`` becomes ``lib<name>.so``, compiled on first use
 with ``nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
--Xcompiler -fPIC`` (Hopper, plain C entry points, no PyTorch headers: a
-build takes seconds). All missing libraries are compiled together, one
-``nvcc`` process per source. The median kernels include a header generated
-here from :mod:`ops.selection_network`, so the straight-line min/max code
-is the same plan the plain PyTorch median runs.
+-Xcompiler -fPIC`` (Hopper, plain C entry points, no PyTorch headers). All
+missing libraries are compiled together, one ``nvcc`` process per source.
+The median kernels include headers generated here from
+:mod:`ops.selection_network`, so their straight-line min/max code is the
+plan the plain PyTorch median runs:
+
+* ``median_plans.cuh``: ``median_plan<K>``, the unshared plan per pixel, for
+  the standalone median (``median.cu``);
+* ``median_runs.cuh``: ``MedianRun<K, R>``, presort plus shared plan over a
+  run of R adjacent medians (:mod:`.median_runs`), for the fused
+  preprocess kernel (``fused.cu``).
 
 Libraries go into ``_build/<key>/`` beside this package, where ``key``
-hashes the sources, the generated header and the flags: an edited source
+hashes the sources, the generated headers and the flags: an edited source
 is rebuilt, an unchanged one is loaded. Sources come from the package only.
 
 Every C entry point takes its pointers and the CUDA stream as
@@ -29,17 +35,18 @@ import time
 from pathlib import Path
 from typing import Dict
 
+from nm03_capstone_project_tpu_torch.kernels import median_runs
 from nm03_capstone_project_tpu_torch.ops.selection_network import median_merge_plan
 
 PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 BUILD_ROOT = PKG / "_build"
-SOURCES = ("median", "grow")
+SOURCES = ("median", "fused", "grow")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
-MEDIAN_WINDOWS = (1, 3, 5, 7, 9)
+MEDIAN_WINDOWS = (1, 3, 5, 7, 9, 11, 13, 15)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -47,11 +54,14 @@ _F = ctypes.c_float
 ARGTYPES = {
     "median": {
         "nm03_median_filter": [_P, _P, _I, _I, _I, _I, _P],
+    },
+    "fused": {
         "nm03_fused_preprocess": [_P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F,
-                                  _P, _I, _P],
+                                  _P, _I, _I, _I, _I, _P],
     },
     "grow": {
-        "nm03_region_grow": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _I, _I, _P],
+        "nm03_region_grow": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _I, _I, _I,
+                             _P],
     },
 }
 
@@ -102,12 +112,36 @@ def median_plans_header() -> str:
     return "\n".join(lines) + "\n"
 
 
+def median_runs_header() -> str:
+    """CUDA source of ``MedianRun<K, R>`` and ``FusedRuns<K>::R`` for every K
+    in MEDIAN_WINDOWS, R = ``median_runs.FUSED_RUNS[K]``."""
+    lines = [
+        "// Generated by nm03_capstone_project_tpu_torch/kernels/build.py from",
+        "// kernels/median_runs.py: presort plus median_merge_plan(K, share=True)",
+        "// over a run of R adjacent medians.",
+        "#pragma once",
+        "template <int K, int R> struct MedianRun;",
+        "template <int K> struct FusedRuns;",
+    ]
+    for k in MEDIAN_WINDOWS:
+        runs = median_runs.FUSED_RUNS[k]
+        lines.append(f"template <> struct FusedRuns<{k}> {{ static constexpr int R = {runs}; }};")
+        lines.append(median_runs.cuda_source(median_runs.median_run_program(k, runs)))
+    return "\n".join(lines) + "\n"
+
+
+def headers() -> Dict[str, str]:
+    """The generated headers, by file name."""
+    return {"median_plans.cuh": median_plans_header(), "median_runs.cuh": median_runs_header()}
+
+
 def build_dir() -> Path:
-    """``_build/<key>``: the key hashes sources, generated header and flags."""
+    """``_build/<key>``: the key hashes sources, generated headers and flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name in SOURCES:
         h.update((CSRC / f"{name}.cu").read_bytes())
-    h.update(median_plans_header().encode())
+    for text in headers().values():
+        h.update(text.encode())
     return BUILD_ROOT / h.hexdigest()[:16]
 
 
@@ -132,7 +166,8 @@ def build_all() -> Dict[str, float]:
     if not missing:
         return {}
     out_dir.mkdir(parents=True, exist_ok=True)
-    (out_dir / "median_plans.cuh").write_text(median_plans_header())
+    for name, text in headers().items():
+        (out_dir / name).write_text(text)
     nvcc = _nvcc()
     t0 = time.perf_counter()
     procs = {}

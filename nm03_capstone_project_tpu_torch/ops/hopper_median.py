@@ -2,7 +2,7 @@
 
 The JAX package's Pallas kernels ``_median_band_kernel`` and
 ``_fused_band_kernel`` (ops/pallas_median.py:101 and :165) become the CUDA
-kernels of ``csrc/median.cu``, bound through ctypes
+kernels of ``csrc/median.cu`` and ``csrc/fused.cu``, bound through ctypes
 (:mod:`nm03_capstone_project_tpu_torch.kernels.build`). Beside each kernel
 is its plain PyTorch version, which the CPU tests and ``chip_smoke.py``
 hold it against:
@@ -12,7 +12,8 @@ hold it against:
 * :func:`fused_preprocess_kernel` — normalize -> clip -> median ->
   sharpen in one pass over the image, bit-identical to
   :func:`_fused_preprocess_plain` (the kernel rounds every step as the
-  plain ops do; see the source note in ``csrc/median.cu``).
+  plain ops do; see the source note in ``csrc/fused.cu``). Its persistent
+  grid walks tiles whose shape :func:`fused_launch_shape` picks.
 
 Dispatch (:func:`median_filter`, :func:`fused_preprocess`): with
 ``use_kernels`` a CUDA tensor launches the kernel or raises, and a CPU
@@ -23,17 +24,67 @@ kernel wrapper counts its launches in ``.launches``.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import Tuple
 
 import torch
 
 from nm03_capstone_project_tpu_torch.kernels import build
+from nm03_capstone_project_tpu_torch.kernels.median_runs import FUSED_RUNS
 from nm03_capstone_project_tpu_torch.ops.elementwise import clip_intensity, normalize
 from nm03_capstone_project_tpu_torch.ops.median import vector_median_filter
 from nm03_capstone_project_tpu_torch.ops.sharpen import gaussian_kernel_1d, sharpen
 
-MAX_WINDOW = 9  # odd median windows 1..9 are compiled
+MAX_WINDOW = 15  # odd median windows 1..15 are compiled
 MAX_TAPS = 31  # longest sharpen kernel the fused kernel takes
-MAX_BATCH = 65535  # the grid's z dimension
+MAX_BATCH = 65535  # the standalone median grid's z dimension
+MAX_TILE_W = 256  # widest tile of the fused kernel
+BLUR_ROWS = 4  # rows the fused kernel's blur accumulates together
+SMEM_PER_BLOCK = 232448  # the H100's opt-in shared memory per block (227 KB)
+
+
+@functools.lru_cache(maxsize=None)
+def fused_launch_shape(
+    b: int, h: int, w: int, k: int, ks: int, n_sm: int
+) -> Tuple[int, int, int, int]:
+    """``(tile_h, tile_w, grid, shared bytes)`` of the fused kernel.
+
+    Tiles span the width up to MAX_TILE_W columns. A persistent grid of one
+    CTA an SM walks them, so the time goes as the waves of tiles times a
+    tile's median rows (its outputs plus the sharpen's halo): the tile
+    height minimizes that product, which weighs halo rows against a ragged
+    last wave, among heights whose shared memory fits a block. The layout
+    mirrors ``Layout`` in ``csrc/fused.cu``.
+    """
+    r, rs, runs = k // 2, ks // 2, FUSED_RUNS[k]
+    n_c = -(-w // MAX_TILE_W)
+    tw = -(-w // n_c)
+    row_runs = -(-min(w, tw + 2 * rs) // runs) * runs
+
+    def smem(th: int) -> int:
+        staged = (min(h, th + 2 * rs) + 2 * r) * ((row_runs + 2 * r) | 1)
+        blurred = th * ((tw + 2 * rs) | 1)  # shares the staged tile's memory
+        medians = (th + 2 * rs + BLUR_ROWS - 1) * (row_runs | 1)
+        return 4 * (max(staged, blurred) + medians)
+
+    best = None
+    for n_r in range(1, h + 1):
+        th = -(-h // n_r)
+        if smem(th) > SMEM_PER_BLOCK:
+            continue
+        tiles = b * -(-h // th) * n_c
+        cost = -(-tiles // n_sm) * min(h, th + 2 * rs)
+        if best is None or cost < best[0]:
+            best = (cost, th, min(tiles, n_sm))
+    if best is None:
+        raise ValueError(f"fused kernel: no tile of a {h}x{w} slice fits shared memory")
+    _, th, grid = best
+    return th, tw, grid, smem(th)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _batched(x: torch.Tensor, what: str) -> torch.Tensor:
@@ -44,10 +95,7 @@ def _batched(x: torch.Tensor, what: str) -> torch.Tensor:
         raise TypeError(f"{what} takes float32, got {x.dtype}")
     if x.dim() < 2:
         raise ValueError(f"{what} takes (..., H, W), got shape {tuple(x.shape)}")
-    xb = x.reshape(-1, x.shape[-2], x.shape[-1]).contiguous()
-    if xb.shape[0] > MAX_BATCH:
-        raise ValueError(f"{what}: at most {MAX_BATCH} slices a call, got {xb.shape[0]}")
-    return xb
+    return x.reshape(-1, x.shape[-2], x.shape[-1]).contiguous()
 
 
 def _check_window(size: int) -> None:
@@ -59,6 +107,9 @@ def vector_median_filter_kernel(x: torch.Tensor, size: int = 7) -> torch.Tensor:
     """The k x k clamp-to-edge median of a (..., H, W) CUDA tensor."""
     _check_window(size)
     xb = _batched(x, "vector_median_filter_kernel")
+    if xb.shape[0] > MAX_BATCH:
+        raise ValueError(f"vector_median_filter_kernel: at most {MAX_BATCH} slices a call, "
+                         f"got {xb.shape[0]}")
     out = torch.empty_like(xb)
     if xb.numel() == 0:
         return out.reshape(x.shape)
@@ -103,15 +154,17 @@ def fused_preprocess_kernel(
     if xb.numel() == 0:
         return out.reshape(x.shape)
     b, h, w = xb.shape
+    th, tw, grid, _ = fused_launch_shape(
+        b, h, w, median_window, sharpen_kernel, _sm_count(xb.device.index or 0))
     taps = gaussian_kernel_1d(sharpen_sigma, sharpen_kernel)
     c_taps = (ctypes.c_float * len(taps))(*[float(t) for t in taps])
     scale = (norm_high - norm_low) / (norm_max - norm_min)
-    lib = build.load("median")
+    lib = build.load("fused")
     stream = torch.cuda.current_stream(xb.device).cuda_stream
     err = lib.nm03_fused_preprocess(
         xb.data_ptr(), out.data_ptr(), b, h, w, median_window,
         norm_min, scale, norm_low, clip_low, clip_high, sharpen_gain,
-        ctypes.cast(c_taps, ctypes.c_void_p), len(taps), stream,
+        ctypes.cast(c_taps, ctypes.c_void_p), len(taps), th, tw, grid, stream,
     )
     build.check(err, "nm03_fused_preprocess")
     fused_preprocess_kernel.launches += 1

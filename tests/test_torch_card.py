@@ -56,13 +56,21 @@ def _grow_case(hw=24):
 
 def test_median(cuda):
     x = (torch.rand(3, 251, 241) * 4000 + 0.68).to(cuda)
-    for k in (1, 3, 5, 7, 9):
+    for k in (1, 3, 5, 7, 9, 11, 13, 15):
         assert torch.equal(hm.vector_median_filter_kernel(x, k), vector_median_filter(x, k))
 
 
 def test_fused(cuda):
     x = (torch.rand(3, 251, 241) * 9000).to(cuda)
     assert torch.equal(hm.fused_preprocess_kernel(x, **PRE), hm._fused_preprocess_plain(x, **PRE))
+
+
+@pytest.mark.parametrize("k", [1, 3, 5, 9, 11, 13, 15])
+def test_fused_windows(cuda, k):
+    # duplicate-heavy data on a shape whose tiles are ragged in both directions
+    x = (torch.randint(0, 4, (2, 61, 300)).float() * 3000).to(cuda)
+    kw = dict(PRE, median_window=k)
+    assert torch.equal(hm.fused_preprocess_kernel(x, **kw), hm._fused_preprocess_plain(x, **kw))
 
 
 @pytest.mark.parametrize("connectivity", [4, 8])
@@ -95,11 +103,38 @@ def test_grow_refuses_what_it_cannot_take(cuda):
     img, seeds, valid = (torch.from_numpy(a).to(cuda) for a in _grow_case())
     with pytest.raises(ValueError, match="seeds is on cpu"):
         hg.region_grow_kernel(img, seeds.cpu())
+    # canvas 1024 grows, as a cluster of CTAs, equal to the plain op
     big = torch.full((1, 1024, 1024), 0.8, device=cuda)
+    big[0, 300:310, :] = 0.5
+    seeds = torch.zeros_like(big, dtype=torch.bool)
+    seeds[0, 5, 7] = True
+    kw = dict(block_iters=64, max_iters=2048, return_steps=True)
+    got = hg.region_grow_kernel(big, seeds, **kw)
+    want = region_grow(big, seeds, **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert int(got[0].sum()) == 300 * 1024
+    # past the cluster's capacity: refused before launch
+    huge = torch.full((1, 4096, 4096), 0.8, device=cuda)
     launches = hg.region_grow_kernel.launches
-    with pytest.raises(ValueError, match="shared memory"):
-        hg.region_grow_kernel(big, big > 0.9)
+    with pytest.raises(ValueError, match="4096x4096"):
+        hg.region_grow_kernel(huge, huge > 0.9)
     assert hg.region_grow_kernel.launches == launches
+
+
+@pytest.mark.parametrize("hw", [(2048, 2048), (97, 1000), (1000, 33)])
+def test_grow_large_and_odd_canvases(cuda, hw):
+    # random half-in-band fields: many short fixpoints, every cluster edge crossed
+    g = torch.Generator().manual_seed(hw[0])
+    img = (torch.rand((2, *hw), generator=g) * 0.3 + 0.68).to(cuda)
+    seeds = (torch.rand((2, *hw), generator=g) < 0.001).to(cuda)
+    valid = (torch.rand((2, *hw), generator=g) < 0.95).to(cuda)
+    for conn in (4, 8):
+        kw = dict(valid=valid, connectivity=conn, block_iters=4, return_steps=True)
+        got = hg.region_grow_kernel(img, seeds, **kw)
+        want = region_grow(img, seeds, **kw)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
 
 
 def test_pipeline_kernels_equal_plain(cuda):

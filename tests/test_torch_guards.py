@@ -49,7 +49,8 @@ def test_port_has_the_slice_modules():
         "data.synthetic", "ops.neighborhood", "ops.elementwise",
         "ops.selection_network", "ops.median", "ops.sharpen", "ops.seeds",
         "ops.morphology", "ops.region_growing", "ops.hopper_median",
-        "ops.hopper_region_growing", "kernels.build", "pipeline.slice_pipeline",
+        "ops.hopper_region_growing", "kernels.build", "kernels.median_runs",
+        "pipeline.slice_pipeline",
     ):
         assert f"nm03_capstone_project_tpu_torch.{mod}" in names
 
@@ -136,7 +137,9 @@ class TestLaunchCounters:
 
     def test_window_limits_checked_before_launch(self):
         with pytest.raises(ValueError, match="odd"):
-            hm.vector_median_filter_kernel(torch.rand(8, 8), 11)
+            hm.vector_median_filter_kernel(torch.rand(8, 8), 17)
+        with pytest.raises(ValueError, match="odd"):
+            hm.fused_preprocess_kernel(torch.rand(8, 8), median_window=17)
         with pytest.raises(ValueError, match="sharpen kernel"):
             hm.fused_preprocess_kernel(torch.rand(8, 8), sharpen_kernel=33)
 

@@ -177,11 +177,13 @@ class TestGrowPlain:
     @pytest.mark.parametrize("canvas", [256, 512])
     def test_canvas_256_and_512_fit_shared_memory(self, canvas):
         # the H100's opt-in limit per block is 227 KB (232,448 bytes)
-        assert hg.grow_smem_bytes(canvas, canvas) <= 232448
+        assert hg.grow_launch_shape(canvas, canvas)[2] <= 232448
 
     def test_canvas_1024_exceeds_shared_memory(self):
-        # the kernel refuses such a slice; it is not routed to the plain op
-        assert hg.grow_smem_bytes(1024, 1024) > 232448
+        # one CTA's shared memory cannot hold the slice: a cluster of 8 shares it
+        cluster, rows, smem = hg.grow_launch_shape(1024, 1024)
+        assert 3 * 1024 * 32 * 4 > 232448
+        assert (cluster, rows) == (8, 128) and smem <= 232448
 
     @pytest.mark.parametrize("block_iters,max_iters", [(8, 512), (4, 16)])
     def test_steps_are_each_slices_own_loop(self, block_iters, max_iters):

@@ -30,9 +30,27 @@ toolkit. Phases, each printing one JSON line:
    batch with ``fuse_preprocess=False`` drives the standalone median kernel,
    and a batch of phantoms at canvas 1024 goes through ``process_batch``
    with the kernels and with the plain ops, masks equal.
-4. ``kernels`` — one line, ``{"kernels": [...]}``, per kernel: launches in
-   the main path's run, the largest difference from the plain version, its
-   wrapper and device time, the plain time and the bound.
+4. ``driver`` — the batch drivers end to end: a synthetic DICOM cohort of
+   20 patients x 25 slices at 256 (``data/synthetic.py::
+   write_synthetic_cohort``) through ``CohortProcessor(mode="parallel")``:
+   decode (the host C++ batch decoder), the pinned copy to the card, the
+   fused and grow kernels, host render and JPEG export, manifest. Checks:
+   500/500 slices and 1000 JPEG files, a manifest all ``done``, the masks
+   equal to ``process_batch`` under the plain ops on the same decoded
+   pixels, the first 50 masks and their host renders equal to the golden
+   the JAX package made (``testdata/driver_golden.json``), and one patient
+   each through ``mode="sequential"``, ``render_stage="device"`` and
+   ``fuse_preprocess=False`` (the median kernel) equal to the parallel run
+   in masks and JPEG bytes. Then the parallel driver's CLI, ``main()``
+   with ``--results-json``, twice with the kernels and twice with
+   ``--no-kernels``: a ``driver_throughput`` line with slices/s end to end
+   (decode and JPEG export included), the JPEG encoder that ran, the
+   kernels' launches and the card's name and power limit.
+5. ``kernels`` — one line, ``{"kernels": [...]}``, per kernel: launches in
+   the driver's run (``launches``; the median kernel's from the unfused
+   patient) and in the ``slice`` phase's (``slice_launches``), the largest
+   difference from the plain version, its wrapper and device time, the
+   plain time and the bound.
 
 The card's ``nvidia-smi`` name and power limit print on a line of their own;
 the last line is ``{"ok": true, "device": {...}}``. Any failed check exits
@@ -47,8 +65,11 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 import traceback
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -62,6 +83,7 @@ PEAK_F32_FLOPS = 67e12
 OP_RATES = {"add_mul": PEAK_F32_FLOPS / 2, "minmax_bitwise": PEAK_F32_FLOPS / 4}
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 MAIN_SHAPE = (25, 256, 256)
+DRIVER_COHORT = (20, 25, 256)  # patients, slices each, slice size
 PRIME_SHAPE = (3, 251, 241)
 GROW_CANVASES = (512, 1024, 2048)
 WINDOWS = (3, 5, 7, 9, 11, 13, 15)
@@ -153,6 +175,182 @@ def bound(bytes_moved: float, ops: dict):
 
 def max_abs(a, b) -> float:
     return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+
+
+def files_of(root: Path) -> dict:
+    """``{relative path: bytes}`` of the JPEG files under ``root``."""
+    return {str(f.relative_to(root)): f.read_bytes() for f in sorted(root.rglob("*.jpg"))}
+
+
+def driver_phase(tmp: Path, smi: str, kernels: dict, reset) -> dict:
+    """The batch drivers end to end on the card (phase 4 of the docstring).
+
+    Returns the launches of the parallel run, the median kernel's from the
+    unfused patient.
+    """
+    from nm03_capstone_project_tpu_torch import native
+    from nm03_capstone_project_tpu_torch.cli import parallel as parallel_cli
+    from nm03_capstone_project_tpu_torch.cli.runner import CohortProcessor
+    from nm03_capstone_project_tpu_torch.config import BatchConfig, PipelineConfig
+    from nm03_capstone_project_tpu_torch.data.dicomlite import read_dicom
+    from nm03_capstone_project_tpu_torch.data.discovery import (
+        find_patient_dirs,
+        load_dicom_files_for_patient,
+    )
+    from nm03_capstone_project_tpu_torch.data.synthetic import write_synthetic_cohort
+    from nm03_capstone_project_tpu_torch.kernels import build
+    from nm03_capstone_project_tpu_torch.pipeline import process_batch
+    from nm03_capstone_project_tpu_torch.render.export import encode_jpeg_bytes, jpeg_encoder
+
+    n_pat, n_sl, size = DRIVER_COHORT
+    cfg = PipelineConfig(canvas=size)
+    t0 = time.perf_counter()
+    cohort = tmp / "cohort"
+    write_synthetic_cohort(cohort, n_patients=n_pat, n_slices=n_sl, height=size, width=size)
+    write_s = time.perf_counter() - t0
+    encoder = jpeg_encoder()
+    require(native.available(), "the host C++ layer did not load")
+
+    def collector():
+        masks, lock = {}, threading.Lock()
+
+        def sink(pid, stem, mask):
+            with lock:
+                masks[(pid, stem)] = np.array(mask, copy=True)
+        return masks, sink
+
+    # the main path: the parallel driver over the whole cohort
+    masks, sink = collector()
+    out_par = tmp / "parallel"
+    proc = CohortProcessor(cohort, out_par, cfg=cfg, batch_cfg=BatchConfig(),
+                           mode="parallel", mask_sink=sink)
+    reset()
+    t0 = time.perf_counter()
+    summary = proc.process_all_patients()
+    torch.cuda.synchronize()
+    par_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    n = n_pat * n_sl
+    require(summary.patients_ok == n_pat, f"patients ok {summary.patients_ok}/{n_pat}")
+    require(summary.succeeded_slices == n and summary.total_slices == n,
+            f"slices ok {summary.succeeded_slices}/{summary.total_slices}")
+    par_files = files_of(out_par)
+    require(len(par_files) == 2 * n, f"{len(par_files)} JPEG files, not {2 * n}")
+    manifest = json.loads((out_par / "manifest.json").read_text())
+    statuses = [s for pat in manifest.values() for s in pat.values()]
+    require(len(statuses) == n and set(statuses) == {"done"},
+            f"manifest: {len(statuses)} slices, statuses {sorted(set(statuses))}")
+    require(launches["fused"] > 0 and launches["grow"] > 0,
+            f"the driver did not launch every kernel of its path: {launches}")
+    require(len(masks) == n, f"the mask sink saw {len(masks)} slices")
+
+    # the same decoded pixels through process_batch with the plain ops
+    plain_cfg = PipelineConfig(canvas=size, use_kernels=False)
+    decoded = {}
+    for pid in find_patient_dirs(cohort):
+        files = load_dicom_files_for_patient(cohort, pid)
+        px = np.zeros((len(files), size, size), np.float32)
+        dims = np.zeros((len(files), 2), np.int32)
+        for i, f in enumerate(files):
+            a = read_dicom(f).pixels
+            px[i, : a.shape[0], : a.shape[1]] = a
+            dims[i] = a.shape
+        decoded[pid] = ([f.stem for f in files], px, dims)
+        want = process_batch(torch.from_numpy(px).cuda(), torch.from_numpy(dims).cuda(),
+                             plain_cfg)["mask"].cpu().numpy()
+        for i, f in enumerate(files):
+            require(np.array_equal(masks[(pid, f.stem)], want[i]),
+                    f"{pid}/{f.stem}: driver mask != plain process_batch")
+
+    # the first 50 masks and their host renders against the JAX-made golden;
+    # the renders are the ones the driver encoded (same renderer, same bytes)
+    golden = json.loads((build.PKG / "testdata" / "driver_golden.json").read_text())
+    for g in golden["slices"]:
+        pid, stem = g["patient"], g["stem"]
+        stems, px, dims = decoded[pid]
+        i = stems.index(stem)
+        m = masks[(pid, stem)]
+        gray, seg = native.render_pair_native(px[i], m, dims[i], cfg)
+        got = {"dims": [int(d) for d in dims[i]],
+               "mask_sha256": hashlib.sha256(m.tobytes()).hexdigest(),
+               "area": int(m.sum()),
+               "gray_sha256": hashlib.sha256(gray.tobytes()).hexdigest(),
+               "seg_sha256": hashlib.sha256(seg.tobytes()).hexdigest()}
+        require(got == {k: g[k] for k in got}, f"{pid}/{stem}: differs from the golden")
+        require(par_files[f"{pid}/{stem}_original.jpg"] == encode_jpeg_bytes(gray)
+                and par_files[f"{pid}/{stem}_processed.jpg"] == encode_jpeg_bytes(seg),
+                f"{pid}/{stem}: the driver's JPEG pair is not its render")
+
+    # one patient each: sequential, device render, the unfused (median) path
+    variants = {}
+    for key, pid, mode, vcfg, bcfg in (
+        ("sequential", "PGBM-0001", "sequential", cfg, BatchConfig()),
+        ("device_render", "PGBM-0002", "parallel", cfg, BatchConfig(render_stage="device")),
+        ("unfused", "PGBM-0003", "parallel",
+         PipelineConfig(canvas=size, fuse_preprocess=False), BatchConfig()),
+    ):
+        vmasks, vsink = collector()
+        out = tmp / key
+        vproc = CohortProcessor(cohort, out, cfg=vcfg, batch_cfg=bcfg, mode=mode,
+                                mask_sink=vsink)
+        reset()
+        res = vproc.process_patient(pid)
+        torch.cuda.synchronize()
+        vl = {k: fn.launches for k, fn in kernels.items()}
+        require(res.succeeded == n_sl, f"{key}: {res.succeeded}/{n_sl} slices")
+        need = ("median", "grow") if key == "unfused" else ("fused", "grow")
+        require(all(vl[k] > 0 for k in need), f"{key}: launches {vl}")
+        for (p_, stem), m in vmasks.items():
+            require(np.array_equal(m, masks[(p_, stem)]), f"{key}: {p_}/{stem} mask differs")
+        require(len(vmasks) == n_sl, f"{key}: the sink saw {len(vmasks)} slices")
+        vfiles = files_of(out)
+        require(vfiles == {k: v for k, v in par_files.items() if k.startswith(pid + "/")},
+                f"{key}: JPEG files differ from the parallel run's")
+        variants[key] = {"patient": pid, "launches": vl}
+    launches["median"] = variants["unfused"]["launches"]["median"]
+
+    # the parallel driver's CLI, end to end: plain, kernels, kernels, plain
+    runs = {"kernels": [], "plain": []}
+    timing = {}
+    for i, which in enumerate(("plain", "kernels", "kernels", "plain")):
+        rj = tmp / f"results_{i}.json"
+        argv = ["--base-path", str(cohort), "--output", str(tmp / f"cli_{i}"),
+                "--results-json", str(rj), "--canvas", str(size)]
+        if which == "plain":
+            argv.append("--no-kernels")
+        reset()
+        rc = parallel_cli.main(argv)
+        require(rc == 0, f"parallel CLI run {i} ({which}) exited {rc}")
+        rec = json.loads(rj.read_text())
+        require(rec["summary"]["slices_ok"] == n, f"CLI run {i}: {rec['summary']['slices_ok']}")
+        require(rec["backend"] == "cuda" and not rec["backend_degraded"], f"CLI run {i}: {rec}")
+        kl = rec["kernel_launches"]
+        require((kl["fused"] > 0 and kl["grow"] > 0) if which == "kernels"
+                else sum(kl.values()) == 0, f"CLI run {i} ({which}) launches {kl}")
+        runs[which].append(n / rec["wall_s"])
+        timing[f"{which}_{i}"] = {"wall_s": rec["wall_s"], "timing_s": rec["timing_s"]}
+
+    # where the device sits idle under the driver: device busy over one run
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        CohortProcessor(cohort, tmp / "profiled", cfg=cfg, mode="parallel").process_all_patients()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
+
+    emit({"phase": "driver", "patients": n_pat, "slices": n, "size": size,
+          "write_cohort_s": write_s, "parallel_s": par_s, "jpeg_files": len(par_files),
+          "launches": launches, "golden_slices": len(golden["slices"]),
+          "variants": variants, "timing": timing,
+          "profiled_wall_ms": wall_ms,
+          "device_busy_ms": busy_ms if busy_ms > 0 else "not measured",
+          "idle_share": 1 - busy_ms / wall_ms if busy_ms > 0 else "not measured"})
+    emit({"phase": "driver_throughput",
+          "kernels_slices_per_s": runs["kernels"], "plain_slices_per_s": runs["plain"],
+          "jpeg_encoder": encoder, "launches": launches, "nvidia_smi": smi})
+    return launches
 
 
 def main() -> int:
@@ -455,7 +653,11 @@ def main() -> int:
           "launches": launches, "unfused_launches": unfused_launches,
           "canvas1024_mask_area": int(big_fast["mask"].sum())})
 
-    # -- 4. kernels ----------------------------------------------------------
+    # -- 4. the batch drivers -------------------------------------------------
+    with tempfile.TemporaryDirectory(prefix="nm03_driver_") as tmp:
+        driver_launches = driver_phase(Path(tmp), smi, kernels, reset)
+
+    # -- 5. kernels ----------------------------------------------------------
     meta = {
         "median": ("vector_median_filter", "csrc/median.cu",
                    "nm03_capstone_project_tpu/ops/pallas_median.py:101"),
@@ -470,7 +672,8 @@ def main() -> int:
         rows.append({
             "name": name, "route": "cuda",
             "source": f"nm03_capstone_project_tpu_torch/{src}", "replaces": replaces,
-            "launches": launches[key], "max_abs_err": r["max_abs_err"],
+            "launches": driver_launches[key], "slice_launches": launches[key],
+            "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None,

@@ -2,7 +2,9 @@
 
 The port's own copy of the JAX package's ``config.py``: the same field
 names and defaults, so a configuration carries across unchanged
-(:func:`nm03_capstone_project_tpu_torch.convert.config_from_jax`). Three
+(:func:`nm03_capstone_project_tpu_torch.convert.config_from_jax` and
+:func:`~nm03_capstone_project_tpu_torch.convert.batch_config_from_jax`).
+:class:`BatchConfig` is copied as it is; :class:`PipelineConfig` has three
 differences:
 
 * ``use_pallas`` is ``use_kernels`` and defaults to True: on a CUDA tensor
@@ -151,4 +153,47 @@ class PipelineConfig:
         return (self.canvas, self.canvas)
 
 
+@dataclasses.dataclass(frozen=True)
+class BatchConfig:
+    """Batch-orchestration knobs of the drivers.
+
+    The reference fixes DEFAULT_BATCH_SIZE = 25 ("maximum number of slices
+    per patient", src/parallel/main_parallel.cpp:31-33) and 16 OpenMP
+    threads (main_parallel.cpp:401). Here the batch is the leading axis of
+    the tensors the kernels take.
+    """
+
+    batch_size: int = DEFAULT_BATCH_SIZE
+    prefetch_depth: int = 2  # staged (device-side) lookahead: double buffering
+    io_workers: int = 8  # DICOM decode thread pool
+    # streaming ingest (ingest/): ring capacity in host batches decoded
+    # ahead of the card — the backpressure bound (decode can never outrun
+    # the device by more than ingest_depth + in-flight decodes +
+    # prefetch_depth batches)
+    ingest_depth: int = 3
+    # decode pool size for the ingest pipeline; 0 = use io_workers
+    ingest_decode_workers: int = 0
+    use_native: bool = True  # C++ batch decoder (csrc/host/)
+    # 'host': the device returns only the mask (65 KB/slice) and the
+    # 512x512 export renders are computed host-side in the IO pool (the
+    # default). 'device': render on the card (render.render_pair).
+    render_stage: str = "host"
+
+    def __post_init__(self):
+        if self.render_stage not in ("host", "device"):
+            raise ValueError(
+                f"render_stage must be 'host' or 'device', got {self.render_stage!r}"
+            )
+        if self.ingest_depth < 1:
+            raise ValueError(
+                f"ingest_depth must be >= 1, got {self.ingest_depth}"
+            )
+        if self.ingest_decode_workers < 0:
+            raise ValueError(
+                f"ingest_decode_workers must be >= 0 (0 = io_workers), "
+                f"got {self.ingest_decode_workers}"
+            )
+
+
 DEFAULT_CONFIG = PipelineConfig()
+DEFAULT_BATCH = BatchConfig()

@@ -1,1 +1,1 @@
-"""Synthetic phantoms and cohorts."""
+"""Data layer: discovery, the DICOM reader and writer, synthetic cohorts."""

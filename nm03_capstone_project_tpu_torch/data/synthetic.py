@@ -117,3 +117,44 @@ def smoke_cohort(
         h, w = SMOKE_DIMS[p % len(SMOKE_DIMS)]
         out.extend(phantom_series(n_slices, h, w, seed=p))
     return out
+
+
+def write_synthetic_cohort(
+    root,
+    n_patients: int = 3,
+    n_slices: int = 8,
+    height: int = 256,
+    width: int = 256,
+    seed: int = 0,
+) -> list[str]:
+    """Materialize a phantom cohort with the reference's directory layout.
+
+    Creates ``<root>/PGBM-000i/<series>/1-<j>.dcm`` mirroring the TCIA
+    Brain-Tumor-Progression layout the discovery contract expects
+    (main_sequential.cpp:93-168); returns the patient IDs. The files are
+    byte-identical to the JAX package's ``write_synthetic_cohort`` (a test
+    pins it), so ``--synthetic N`` builds the same cohort in both packages,
+    and they round-trip through :mod:`.dicomlite`, so discovery, DICOM
+    decode, padding and the pipeline run as they would on real data.
+    """
+    from pathlib import Path
+
+    from nm03_capstone_project_tpu_torch.data.dicomlite import write_dicom
+
+    root = Path(root)
+    patient_ids = []
+    for p in range(n_patients):
+        pid = f"PGBM-{p + 1:04d}"
+        patient_ids.append(pid)
+        series_dir = root / pid / f"01-01-2000-MR-BRAIN-{p + 1:03d}"
+        series_dir.mkdir(parents=True, exist_ok=True)
+        series = phantom_series(n_slices, height, width, seed=seed * 100 + p)
+        for j, img in enumerate(series):
+            write_dicom(
+                series_dir / f"1-{j + 1:02d}.dcm",
+                np.clip(img, 0, 65535).astype(np.uint16),
+                patient_id=pid,
+                series_uid=f"1.2.826.0.1.3680043.9999.{p + 1}",
+                instance_number=j + 1,
+            )
+    return patient_ids

@@ -145,3 +145,40 @@ def test_pipeline_kernels_equal_plain(cuda):
         want = process_batch(b.pixels, b.dims, PipelineConfig(use_kernels=False))
         assert torch.equal(got["mask"], want["mask"])
         assert torch.equal(got["grow_converged"], want["grow_converged"])
+
+
+@pytest.mark.parametrize("mode", ["parallel", "sequential"])
+@pytest.mark.parametrize("stage", ["host", "device"])
+def test_driver_kernels_equal_plain(cuda, tmp_path, mode, stage):
+    # a 2 x 4 DICOM cohort through the driver with the kernels and with the
+    # plain ops: the kernels launch, and masks and JPEG pairs are equal
+    from nm03_capstone_project_tpu_torch.cli.runner import CohortProcessor
+    from nm03_capstone_project_tpu_torch.config import BatchConfig
+    from nm03_capstone_project_tpu_torch.data.synthetic import write_synthetic_cohort
+
+    write_synthetic_cohort(tmp_path / "cohort", n_patients=2, n_slices=4, height=128,
+                           width=120)
+    runs = {}
+    for name, cfg in (("kernels", PipelineConfig(canvas=128)),
+                      ("plain", PipelineConfig(canvas=128, use_kernels=False))):
+        masks = {}
+        before = (hm.fused_preprocess_kernel.launches, hg.region_grow_kernel.launches)
+        proc = CohortProcessor(
+            tmp_path / "cohort", tmp_path / name, cfg=cfg, mode=mode,
+            batch_cfg=BatchConfig(batch_size=3, render_stage=stage),
+            mask_sink=lambda pid, stem, m, masks=masks: masks.__setitem__((pid, stem),
+                                                                          m.copy()),
+        )
+        summary = proc.process_all_patients()
+        torch.cuda.synchronize()
+        after = (hm.fused_preprocess_kernel.launches, hg.region_grow_kernel.launches)
+        assert summary.succeeded_slices == 8
+        files = {str(p.relative_to(tmp_path / name)): p.read_bytes()
+                 for p in sorted((tmp_path / name).rglob("*.jpg"))}
+        runs[name] = (masks, files, [a - b for a, b in zip(after, before)])
+    (km, kf, kl), (pm, pf, pl) = runs["kernels"], runs["plain"]
+    assert all(n > 0 for n in kl) and pl == [0, 0]
+    assert len(km) == 8 and sorted(km) == sorted(pm)
+    for key in km:
+        assert np.array_equal(km[key], pm[key]), key
+    assert len(kf) == 16 and kf == pf

@@ -51,6 +51,12 @@ def test_port_has_the_slice_modules():
         "ops.morphology", "ops.region_growing", "ops.hopper_median",
         "ops.hopper_region_growing", "kernels.build", "kernels.median_runs",
         "pipeline.slice_pipeline",
+        "utils.reporter", "utils.atomicio", "utils.manifest", "utils.timing",
+        "resilience.journal", "data.discovery", "data.codecs", "data.dicomlite",
+        "data.gdcm_fallback", "native", "native.buildlib", "render.host_render",
+        "render.contact_sheet", "render.export", "render.render", "ingest.ring",
+        "ingest.pipeline", "ingest.staging", "cli.common", "cli.runner",
+        "cli.sequential", "cli.parallel", "cli.test_pipeline",
     ):
         assert f"nm03_capstone_project_tpu_torch.{mod}" in names
 
@@ -75,6 +81,7 @@ def test_importing_the_port_imports_no_jax():
 def test_sources_name_no_jax():
     files = [
         f for f in sorted(PORT_DIR.rglob("*.py")) + sorted(PORT_DIR.rglob("*.cu"))
+        + sorted(PORT_DIR.rglob("*.cpp"))
         if "_build" not in f.relative_to(PORT_DIR).parts  # build output, not source
     ]
     files.append(REPO / "chip_smoke.py")
@@ -102,6 +109,51 @@ class TestNoCpuDrift:
             process_slice(px[0], dims[0], PipelineConfig(canvas=32))
         with pytest.raises(RuntimeError):
             pad_to_canvas([px[0]], (32, 32))
+
+
+class TestDrivers:
+    DRIVERS = ("sequential", "parallel", "test_pipeline")
+
+    @pytest.mark.parametrize("name", DRIVERS)
+    def test_default_device_without_cuda_exits_nonzero(self, name, tmp_path, monkeypatch,
+                                                       capsys):
+        import importlib
+
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        driver = importlib.import_module(f"nm03_capstone_project_tpu_torch.cli.{name}")
+        out = tmp_path / "out"
+        argv = ["--output", str(out)]
+        if name != "test_pipeline":
+            argv += ["--synthetic", "1", "--synthetic-slices", "1", "--canvas", "128"]
+        for extra in ([], ["--device", "cuda"]):
+            assert driver.main(argv + extra) == 1
+            assert "CUDA is not available" in capsys.readouterr().err
+        assert not list(out.rglob("*.jpg"))  # nothing ran on the CPU instead
+
+    @pytest.mark.parametrize("name", DRIVERS)
+    @pytest.mark.parametrize("flag", [["--use-pallas"], ["--model", "m.ckpt"],
+                                      ["--distributed"], ["--device", "auto"],
+                                      ["--fault-plan", "{}"], ["--metrics-out", "m.json"],
+                                      ["--profile-dir", "p"]])
+    def test_flags_of_layers_not_ported_are_rejected(self, name, flag, capsys):
+        import importlib
+
+        driver = importlib.import_module(f"nm03_capstone_project_tpu_torch.cli.{name}")
+        with pytest.raises(SystemExit) as exc:
+            driver.build_parser().parse_args(flag)
+        assert exc.value.code == 2
+        capsys.readouterr()
+
+    def test_no_kernels_flag(self):
+        from nm03_capstone_project_tpu_torch.cli import common, parallel
+
+        args = parallel.build_parser().parse_args(["--no-kernels", "--no-preprocess-fuse"])
+        cfg = common.pipeline_config_from_args(args)
+        assert cfg.use_kernels is False and cfg.fuse_preprocess is False
+        assert common.pipeline_config_from_args(
+            parallel.build_parser().parse_args([])) == PipelineConfig()
+        assert common.batch_config_from_args(parallel.build_parser().parse_args(
+            ["--batch-size", "7", "--render-stage", "device"])).render_stage == "device"
 
 
 class TestLaunchCounters:

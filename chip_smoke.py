@@ -46,11 +46,33 @@ toolkit. Phases, each printing one JSON line:
    ``--no-kernels``: a ``driver_throughput`` line with slices/s end to end
    (decode and JPEG export included), the JPEG encoder that ran, the
    kernels' launches and the card's name and power limit.
-5. ``kernels`` — one line, ``{"kernels": [...]}``, per kernel: launches in
+5. ``serve`` — the single-slice server (``serving/server.py``) on the card,
+   in process on 127.0.0.1: warmup captures one CUDA graph per batch bucket
+   (1, 2, 4, 8, 16), then the driver phase's 500 DICOM files arrive as
+   ``POST /v1/segment`` bodies from 16 client threads (under the profiler:
+   the device's idle share), 50 of them again one at a time (bucket 1,
+   mask only), and 31 of the smoke cohort's non-square phantoms as raw
+   float32 bodies in bursts of 1, 2, 4, 8 and 16. Checks: every answer 200,
+   each mask equal to the driver's for the same slice and each JPEG pair
+   byte-equal to the driver's files, the phantoms' masks equal to
+   ``process_batch`` with the plain ops, every bucket replayed, no kernel
+   wrapper run outside a graph, ``If-None-Match`` repeats answered 304 and
+   plain repeats from the result tier, and a 503 after ``begin_drain``. A
+   second server with ``fuse_preprocess=False`` answers 8 requests, so the
+   median kernel launches inside its graphs. The line has the statuses,
+   the batch-size histogram (by bucket bound), replays and capture seconds
+   per bucket, p50/p99 latency and requests/s at concurrency 16 and 1, the
+   idle share, the server's own mean request time and queue wait, one
+   slice's DICOM decode and render + encode on the host (median of 20), one
+   graph replay against eager ``_process`` per bucket (CUDA events, median
+   of 20), the kernels' launches from replays and the card's name and power
+   limit.
+6. ``kernels`` — one line, ``{"kernels": [...]}``, per kernel: launches in
    the driver's run (``launches``; the median kernel's from the unfused
-   patient) and in the ``slice`` phase's (``slice_launches``), the largest
-   difference from the plain version, its wrapper and device time, the
-   plain time and the bound.
+   patient), in the ``slice`` phase's (``slice_launches``) and by the
+   ``serve`` phase's graph replays (``serve_launches``: replays times the
+   launches a graph holds), the largest difference from the plain version,
+   its wrapper and device time, the plain time and the bound.
 
 The card's ``nvidia-smi`` name and power limit print on a line of their own;
 the last line is ``{"ok": true, "device": {...}}``. Any failed check exits
@@ -59,6 +81,7 @@ non-zero without that line, as does a machine without CUDA.
 
 from __future__ import annotations
 
+import base64
 import hashlib
 import json
 import re
@@ -88,6 +111,11 @@ PRIME_SHAPE = (3, 251, 241)
 GROW_CANVASES = (512, 1024, 2048)
 WINDOWS = (3, 5, 7, 9, 11, 13, 15)
 REPEATS = 20
+SERVE_BUCKETS = (1, 2, 4, 8, 16)
+SERVE_CONCURRENCY = 16
+SERVE_SINGLES = 50  # requests one at a time (bucket 1)
+SERVE_BURSTS = (2, 4, 8, 16)  # phantom bursts, one batch each
+SERVE_REPEATS = 10  # If-None-Match repeats
 
 
 def emit(obj) -> None:
@@ -182,11 +210,13 @@ def files_of(root: Path) -> dict:
     return {str(f.relative_to(root)): f.read_bytes() for f in sorted(root.rglob("*.jpg"))}
 
 
-def driver_phase(tmp: Path, smi: str, kernels: dict, reset) -> dict:
+def driver_phase(tmp: Path, smi: str, kernels: dict, reset):
     """The batch drivers end to end on the card (phase 4 of the docstring).
 
-    Returns the launches of the parallel run, the median kernel's from the
-    unfused patient.
+    Returns the launches of the parallel run (the median kernel's from the
+    unfused patient) and what the ``serve`` phase holds its answers to: the
+    cohort's directory and, by (patient, stem), the parallel run's masks
+    and JPEG pairs.
     """
     from nm03_capstone_project_tpu_torch import native
     from nm03_capstone_project_tpu_torch.cli import parallel as parallel_cli
@@ -350,7 +380,276 @@ def driver_phase(tmp: Path, smi: str, kernels: dict, reset) -> dict:
     emit({"phase": "driver_throughput",
           "kernels_slices_per_s": runs["kernels"], "plain_slices_per_s": runs["plain"],
           "jpeg_encoder": encoder, "launches": launches, "nvidia_smi": smi})
-    return launches
+    return launches, {"cohort": cohort, "masks": masks, "files": par_files}
+
+
+def http_post(url: str, body: bytes, headers: dict):
+    """POST with urllib; (status, json payload or None, headers, seconds)."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=body, headers=headers, method="POST")
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            raw, status, hdrs = r.read(), r.status, dict(r.headers)
+    except urllib.error.HTTPError as e:
+        raw, status, hdrs = e.read(), e.code, dict(e.headers)
+    dt = time.perf_counter() - t0
+    return status, json.loads(raw) if raw else None, hdrs, dt
+
+
+def client_run(url: str, jobs: list, concurrency: int):
+    """Send ``jobs`` ((key, body, headers)) from ``concurrency`` threads;
+    ``({key: (status, payload, headers, seconds)}, wall seconds)``."""
+    results, lock, it = {}, threading.Lock(), iter(jobs)
+
+    def worker():
+        while True:
+            with lock:
+                job = next(it, None)
+            if job is None:
+                return
+            key, body, headers = job
+            out = http_post(url, body, headers)
+            with lock:
+                results[key] = out
+
+    threads = [threading.Thread(target=worker) for _ in range(concurrency)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    require(not any(t.is_alive() for t in threads), "a client thread hung")
+    require(len(results) == len(jobs), f"{len(results)} answers to {len(jobs)} requests")
+    return results, wall
+
+
+def latency_stats(results: dict, wall: float) -> dict:
+    lat = sorted(r[3] * 1e3 for r in results.values())
+    return {"requests": len(lat), "wall_s": wall, "requests_per_s": len(lat) / wall,
+            "p50_ms": float(np.percentile(lat, 50)), "p99_ms": float(np.percentile(lat, 99))}
+
+
+def serve_phase(driver_out: dict, smi: str, kernels: dict, reset) -> dict:
+    """Single-slice serving on the card (phase 5 of the docstring).
+
+    Returns each kernel's launches made by graph replays while the servers
+    answered requests (replays x the kernels a graph holds).
+    """
+    from torch.profiler import ProfilerActivity, profile
+
+    from nm03_capstone_project_tpu_torch.config import PipelineConfig
+    from nm03_capstone_project_tpu_torch.core import pad_to_canvas
+    from nm03_capstone_project_tpu_torch.data.discovery import (
+        find_patient_dirs,
+        load_dicom_files_for_patient,
+    )
+    from nm03_capstone_project_tpu_torch.data.synthetic import smoke_cohort
+    from nm03_capstone_project_tpu_torch.pipeline import process_batch
+    from nm03_capstone_project_tpu_torch.data.dicomlite import read_dicom_bytes
+    from nm03_capstone_project_tpu_torch.pipeline.slice_pipeline import _process
+    from nm03_capstone_project_tpu_torch.render.export import encode_jpeg_bytes
+    from nm03_capstone_project_tpu_torch.render.host_render import host_render_pair
+    from nm03_capstone_project_tpu_torch.serving.server import ServingApp, serve_in_thread
+
+    cohort, dmasks, dfiles = driver_out["cohort"], driver_out["masks"], driver_out["files"]
+    dicom = [(pid, f.stem, f.read_bytes()) for pid in find_patient_dirs(cohort)
+             for f in load_dicom_files_for_patient(cohort, pid)]
+    require(len(dicom) == len(dmasks), f"{len(dicom)} DICOM files, {len(dmasks)} driver masks")
+    cfg = PipelineConfig(canvas=DRIVER_COHORT[2])
+    statuses = {}
+
+    def tally(results: dict, want: int = 200):
+        for status, payload, _, _ in results.values():
+            statuses[status] = statuses.get(status, 0) + 1
+            require(status == want, f"HTTP {status} where {want} was due: {payload}")
+
+    def check_dicom(results: dict, jpeg: bool):
+        for (pid, stem), (_, payload, headers, _) in results.items():
+            m = dmasks[(pid, stem)]
+            h, w = payload["shape"]
+            require(payload["mask_sha256"] == hashlib.sha256(
+                np.ascontiguousarray(m[:h, :w]).tobytes()).hexdigest(),
+                f"served {pid}/{stem}: mask != the driver's")
+            if jpeg:
+                require(base64.b64decode(payload["original_jpeg_b64"])
+                        == dfiles[f"{pid}/{stem}_original.jpg"]
+                        and base64.b64decode(payload["processed_jpeg_b64"])
+                        == dfiles[f"{pid}/{stem}_processed.jpg"],
+                        f"served {pid}/{stem}: JPEG pair != the driver's files")
+
+    app = ServingApp(cfg=cfg, buckets=SERVE_BUCKETS, result_cache_bytes=1 << 30)
+    httpd, _, port = serve_in_thread(app)  # warmup: one CUDA graph a bucket
+    url = f"http://127.0.0.1:{port}/v1/segment"
+    try:
+        graphs = app.status()["cuda_graphs"]
+        require(graphs["enabled"] and sorted(map(int, graphs["lanes"]["0"])) == list(
+            SERVE_BUCKETS), f"cuda_graphs: {graphs}")
+        capture_s = {b: g["capture_s"] for b, g in graphs["lanes"]["0"].items()}
+        reset()
+        app.executor.reset_replays()  # the main path's run: replays from here count
+
+        # the cohort's 500 DICOM files from 16 clients, under the profiler
+        jobs = [((pid, stem), body, {"Content-Type": "application/dicom"})
+                for pid, stem, body in dicom]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            c16, c16_wall = client_run(url, jobs, SERVE_CONCURRENCY)
+            torch.cuda.synchronize()
+        busy_ms = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
+        tally(c16)
+        check_dicom(c16, jpeg=True)
+
+        # one at a time: bucket 1 (mask only: another result key, so no hit)
+        jobs = [((pid, stem), body, {"Content-Type": "application/dicom"})
+                for pid, stem, body in dicom[:SERVE_SINGLES]]
+        c1, c1_wall = client_run(url + "?output=mask", jobs, 1)
+        tally(c1)
+        check_dicom(c1, jpeg=False)
+
+        # the smoke cohort's non-square phantoms as raw float32 bodies, in
+        # bursts that each coalesce into one batch: a 0.25 s window, taken
+        # up by the batcher from its next batch on (the first phantom's)
+        phantoms = [a for a in smoke_cohort() if a.shape[0] != a.shape[1]][5::7]
+        phantoms = phantoms[: 1 + sum(SERVE_BURSTS)]
+        app.batcher.max_wait_s = 0.25
+        bursts, start = {}, 0
+        for b in (1,) + SERVE_BURSTS:
+            jobs = [(start + i, a.astype("<f4").tobytes(),
+                     {"Content-Type": "application/octet-stream",
+                      "X-Nm03-Height": str(a.shape[0]), "X-Nm03-Width": str(a.shape[1])})
+                    for i, a in enumerate(phantoms[start : start + b])]
+            res, _ = client_run(url, jobs, b)
+            bursts.update(res)
+            start += b
+        tally(bursts)
+        batch = pad_to_canvas(phantoms, cfg.canvas_hw, device="cuda")
+        want = process_batch(batch.pixels, batch.dims, PipelineConfig(
+            canvas=cfg.canvas, use_kernels=False))["mask"].cpu().numpy()
+        for i, a in enumerate(phantoms):
+            payload = bursts[i][1]
+            got_sha = payload["mask_sha256"]
+            h, w = a.shape
+            require(payload["shape"] == [h, w] and got_sha == hashlib.sha256(
+                np.ascontiguousarray(want[i, :h, :w]).tobytes()).hexdigest(),
+                f"phantom {i} ({h}x{w}): served mask != plain process_batch")
+        replays = {b: g["replays"] for b, g in app.status()["cuda_graphs"]["lanes"]["0"].items()}
+        launches = app.executor.replay_launches()
+        require(all(n > 0 for n in replays.values()), f"a bucket never replayed: {replays}")
+        require(launches.get("fused", 0) > 0 and launches.get("grow", 0) > 0,
+                f"the graphs did not launch every kernel of the path: {launches}")
+        wrapper_launches = {k: fn.launches for k, fn in kernels.items()}
+        require(sum(wrapper_launches.values()) == 0,
+                f"serving ran a kernel wrapper outside a graph: {wrapper_launches}")
+
+        # the result tier: repeats of answered bodies, with and without the ETag
+        cached = 0
+        for pid, stem, body in dicom[:SERVE_REPEATS]:
+            etag = c16[(pid, stem)][2]["ETag"]
+            status, payload, headers, _ = http_post(
+                url, body, {"Content-Type": "application/dicom", "If-None-Match": etag})
+            require(status == 304 and payload is None and headers["ETag"] == etag,
+                    f"{pid}/{stem}: If-None-Match gave {status}")
+            status, payload, headers, _ = http_post(
+                url, body, {"Content-Type": "application/dicom"})
+            require(status == 200 and headers["X-Nm03-Cache"] == "hit"
+                    and headers["ETag"] == etag and payload["mask_sha256"]
+                    == c16[(pid, stem)][1]["mask_sha256"], f"{pid}/{stem}: repeat missed")
+            statuses[304] = statuses.get(304, 0) + 1
+            statuses[200] += 1
+            cached += 1
+        require(app.executor.replay_launches() == launches, "a cached repeat replayed")
+
+        # where a concurrency-16 request's time goes on the host: the
+        # server's own wall and queue wait (its histograms), and one
+        # slice's decode and render + encode, alone (median of 20)
+        reg = app.registry
+        server_side = {
+            name: reg.get(name).sum / reg.get(name).count
+            for name in ("serving_request_seconds", "serving_queue_wait_seconds")}
+        body = dicom[0][2]
+        px = read_dicom_bytes(body).pixels
+        mask = dmasks[(dicom[0][0], dicom[0][1])]
+        dims = np.asarray(px.shape, np.int32)
+
+        def host_ms(fn):
+            times = []
+            for _ in range(REPEATS):
+                t0 = time.perf_counter()
+                fn()
+                times.append((time.perf_counter() - t0) * 1e3)
+            return statistics.median(times)
+
+        host_cost_ms = {
+            "decode": host_ms(lambda: read_dicom_bytes(body)),
+            "render_encode": host_ms(lambda: [encode_jpeg_bytes(im) for im in
+                                              host_render_pair(px, mask, dims, cfg)]),
+        }
+        hist = app.registry.get("serving_batch_size").cumulative()
+        batch_hist, prev = {}, 0
+        for le, n in hist:
+            if n > prev:
+                batch_hist[le] = n - prev
+            prev = n
+        drained = app.begin_drain(reason="chip_smoke")
+        # a body the result tier has not seen (a stored one is still served)
+        status, payload, _, _ = http_post(url + "?output=mask", dicom[-1][2],
+                                          {"Content-Type": "application/dicom"})
+        require(drained and status == 503 and payload["draining"] is True,
+                f"after begin_drain a request got {status}")
+        statuses[503] = statuses.get(503, 0) + 1
+    finally:
+        app.begin_drain(reason="chip_smoke")
+        httpd.shutdown()
+        httpd.server_close()
+
+    # one graph replay against eager _process, per bucket, on the same inputs
+    graph_vs_eager = {}
+    for b in SERVE_BUCKETS:
+        g = app.executor._runners[0][b]
+        px, dm = g.pixels, g.dims
+        graph_vs_eager[b] = {"graph_ms": cuda_ms(g.graph.replay),
+                             "eager_ms": cuda_ms(lambda: _process(px, dm, cfg))}
+    app.close()
+
+    # the unfused path: the standalone median kernel inside the graphs
+    uapp = ServingApp(cfg=PipelineConfig(canvas=cfg.canvas, fuse_preprocess=False),
+                      buckets=(1, 4), result_cache_bytes=1 << 26)
+    uhttpd, _, uport = serve_in_thread(uapp)
+    try:
+        uapp.executor.reset_replays()
+        jobs = [((pid, stem), body, {"Content-Type": "application/dicom"})
+                for pid, stem, body in dicom[100:108]]
+        unfused, _ = client_run(f"http://127.0.0.1:{uport}/v1/segment?output=mask", jobs, 4)
+        tally(unfused)
+        ulaunch = uapp.executor.replay_launches()
+    finally:
+        uapp.begin_drain(reason="chip_smoke")
+        uhttpd.shutdown()
+        uhttpd.server_close()
+        uapp.close()
+    for (pid, stem), (_, payload, _, _) in unfused.items():
+        m = dmasks[(pid, stem)]
+        require(payload["mask_sha256"] == hashlib.sha256(m.tobytes()).hexdigest(),
+                f"unfused served {pid}/{stem}: mask != the driver's")
+    require(ulaunch.get("median", 0) > 0 and "fused" not in ulaunch,
+            f"the unfused graphs' launches: {ulaunch}")
+
+    serve_launches = {k: launches.get(k, 0) + ulaunch.get(k, 0) for k in kernels}
+    emit({"phase": "serve", "buckets": list(SERVE_BUCKETS), "statuses": statuses,
+          "dicom_requests": len(dicom), "singles": SERVE_SINGLES,
+          "phantoms": len(phantoms), "cached_repeats": cached,
+          "batch_size_hist": batch_hist, "replays": replays, "capture_s": capture_s,
+          "concurrency16": latency_stats(c16, c16_wall), "concurrency1": latency_stats(
+              c1, c1_wall),
+          "server_mean_s": server_side, "host_cost_ms": host_cost_ms,
+          "c16_device_busy_ms": busy_ms if busy_ms > 0 else "not measured",
+          "c16_idle_share": 1 - busy_ms / (c16_wall * 1e3) if busy_ms > 0 else "not measured",
+          "graph_vs_eager_ms": graph_vs_eager, "serve_launches": serve_launches,
+          "unfused_launches": ulaunch, "nvidia_smi": smi})
+    return serve_launches
 
 
 def main() -> int:
@@ -655,9 +954,11 @@ def main() -> int:
 
     # -- 4. the batch drivers -------------------------------------------------
     with tempfile.TemporaryDirectory(prefix="nm03_driver_") as tmp:
-        driver_launches = driver_phase(Path(tmp), smi, kernels, reset)
+        driver_launches, driver_out = driver_phase(Path(tmp), smi, kernels, reset)
+        # -- 5. single-slice serving --------------------------------------
+        serve_launches = serve_phase(driver_out, smi, kernels, reset)
 
-    # -- 5. kernels ----------------------------------------------------------
+    # -- 6. kernels ----------------------------------------------------------
     meta = {
         "median": ("vector_median_filter", "csrc/median.cu",
                    "nm03_capstone_project_tpu/ops/pallas_median.py:101"),
@@ -673,6 +974,7 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"nm03_capstone_project_tpu_torch/{src}", "replaces": replaces,
             "launches": driver_launches[key], "slice_launches": launches[key],
+            "serve_launches": serve_launches[key],
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"],

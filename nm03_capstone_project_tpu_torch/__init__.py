@@ -9,3 +9,5 @@ version beside it.
 
 Entry point: :func:`nm03_capstone_project_tpu_torch.pipeline.process_batch`.
 """
+
+__version__ = "0.1.0"

@@ -49,6 +49,7 @@ from nm03_capstone_project_tpu_torch.data.discovery import (
 )
 from nm03_capstone_project_tpu_torch.ingest import IngestFailure, IngestPipeline
 from nm03_capstone_project_tpu_torch.ingest.staging import Stager, wait_staged
+from nm03_capstone_project_tpu_torch.obs.spans import SpanRecorder
 from nm03_capstone_project_tpu_torch.pipeline import process_batch, process_slice
 from nm03_capstone_project_tpu_torch.render.export import (
     clean_directory,
@@ -64,7 +65,6 @@ from nm03_capstone_project_tpu_torch.utils.manifest import (
     Manifest,
 )
 from nm03_capstone_project_tpu_torch.utils.reporter import get_logger
-from nm03_capstone_project_tpu_torch.utils.timing import SpanRecorder
 
 log = get_logger("runner")
 

@@ -182,3 +182,65 @@ def test_driver_kernels_equal_plain(cuda, tmp_path, mode, stage):
     for key in km:
         assert np.array_equal(km[key], pm[key]), key
     assert len(kf) == 16 and kf == pf
+
+
+SERVE_DIMS = [(256, 256), (251, 241), (256, 199), (227, 256), (197, 233)]
+
+
+def _serve_batch(b: int, seed: int):
+    dims = [SERVE_DIMS[(seed + i) % len(SERVE_DIMS)] for i in range(b)]
+    slices = [phantom_slice(h, w, seed=seed + i) for i, (h, w) in enumerate(dims)]
+    batch = pad_to_canvas(slices, (256, 256), device="cpu")
+    return batch.pixels.numpy(), batch.dims.numpy()
+
+
+@pytest.mark.parametrize("fuse", [True, False])
+def test_bucket_graphs_equal_eager_and_plain(cuda, fuse):
+    # one CUDA graph per serving bucket, sharing a pool: each replay bitwise
+    # equal to eager _process with the kernels and to the plain ops
+    from nm03_capstone_project_tpu_torch.pipeline.slice_pipeline import _process
+    from nm03_capstone_project_tpu_torch.serving.graphs import BucketGraph, kernel_launches
+
+    cfg = PipelineConfig(fuse_preprocess=fuse)
+    plain = PipelineConfig(fuse_preprocess=fuse, use_kernels=False)
+    pool, stream = torch.cuda.graph_pool_handle(), torch.cuda.Stream(cuda)
+    graphs = {b: BucketGraph(cfg, b, cuda, pool, stream) for b in (1, 2, 4, 8, 16)}
+    for g in graphs.values():
+        assert g.capture() > 0
+        assert g.kernels == ({"fused": 1, "grow": 1} if fuse else {"median": 1, "grow": 1})
+    for rnd in range(2):  # the static inputs take new data on every replay
+        for b, g in graphs.items():
+            px, dm = _serve_batch(b, seed=10 * rnd + b)
+            before = kernel_launches()
+            g.launch(px, dm)
+            mask, conv = g.fetch()
+            assert kernel_launches() == before  # replays do not run the wrappers
+            x, d = torch.from_numpy(px).to(cuda), torch.from_numpy(dm).to(cuda)
+            for want_cfg in (cfg, plain):
+                want = _process(x, d, want_cfg)
+                assert np.array_equal(mask, want["mask"].cpu().numpy()), (b, rnd, want_cfg)
+                assert np.array_equal(conv, want["grow_converged"].cpu().numpy())
+            assert int(mask.sum()) > 0
+    assert all(g.replays == 2 for g in graphs.values())
+
+
+def test_served_masks_equal_plain(cuda):
+    # the app on the card: warmup captures every bucket, requests replay them
+    from nm03_capstone_project_tpu_torch.serving.server import ServingApp
+
+    app = ServingApp(buckets=(1, 2, 4), max_wait_s=0.0, result_cache_bytes=1 << 24)
+    app.start()
+    try:
+        stats = app.status()["cuda_graphs"]
+        assert stats["enabled"] and sorted(stats["lanes"]["0"]) == ["1", "2", "4"]
+        px, dm = _serve_batch(3, seed=3)
+        want = process_batch(torch.from_numpy(px).to(cuda), torch.from_numpy(dm).to(cuda),
+                             PipelineConfig(use_kernels=False))["mask"].cpu().numpy()
+        for i, (h, w) in enumerate(dm.tolist()):
+            payload = app.segment(px[i, :h, :w].copy(), render=False)
+            assert payload["shape"] == [h, w]
+            assert payload["mask_pixels"] == int(want[i, :h, :w].sum())
+        assert app.executor.replay_launches()["grow"] == 3
+    finally:
+        app.begin_drain(reason="test")
+        app.close()

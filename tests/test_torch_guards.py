@@ -57,6 +57,10 @@ def test_port_has_the_slice_modules():
         "render.contact_sheet", "render.export", "render.render", "ingest.ring",
         "ingest.pipeline", "ingest.staging", "cli.common", "cli.runner",
         "cli.sequential", "cli.parallel", "cli.test_pipeline",
+        "obs.metrics", "obs.events", "obs.spans", "obs.flightrec", "obs.trace", "obs.run",
+        "cache.keys", "cache.store", "resilience.policy", "resilience.supervisor",
+        "serving.metrics", "serving.queue", "serving.lanes", "serving.graphs",
+        "serving.executor", "serving.batcher", "serving.server",
     ):
         assert f"nm03_capstone_project_tpu_torch.{mod}" in names
 
@@ -231,3 +235,56 @@ def test_smoke_cohort_shape():
     cohort = smoke_cohort(n_patients=3, n_slices=2)
     assert [a.shape for a in cohort] == [(256, 256)] * 2 + [(251, 241)] * 2 + [(256, 199)] * 2
     assert all(a.dtype == np.float32 for a in cohort)
+
+
+class TestServer:
+    """``python -m nm03_capstone_project_tpu_torch.serving.server``."""
+
+    def test_default_device_without_cuda_exits_nonzero(self, monkeypatch, capsys, tmp_path):
+        from nm03_capstone_project_tpu_torch.serving import server
+
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        port_file = tmp_path / "port"
+        for extra in ([], ["--device", "cuda"]):
+            argv = ["--port", "0", "--port-file", str(port_file), "--heartbeat-s", "0"] + extra
+            assert server.main(argv) == 1
+            assert "CUDA is not available" in capsys.readouterr().err
+        assert not port_file.exists()  # never listened
+        # nor armed the process-wide flight recorder (its dumps land in the cwd)
+        from nm03_capstone_project_tpu_torch.obs import flightrec
+
+        assert not flightrec.get_recorder().configured
+
+    @pytest.mark.parametrize("flag", [
+        ["--volume-serving"], ["--volume-depth-buckets", "8,16"], ["--distributed-init"],
+        ["--compile-cache-dir", "c"], ["--fault-plan", "{}"], ["--slo-availability", "99"],
+        ["--slo-p99-ms", "100"], ["--ledger-profile-interval-s", "1"],
+        ["--ledger-profile-ms", "100"], ["--no-fallback-cpu"], ["--sanitize"],
+        ["--device", "auto"],
+    ])
+    def test_flags_of_layers_not_ported_are_rejected(self, flag, capsys):
+        from nm03_capstone_project_tpu_torch.serving import server
+
+        with pytest.raises(SystemExit) as exc:
+            server.build_parser().parse_args(["--device", "cpu"] + flag)
+        assert exc.value.code == 2
+        err = capsys.readouterr().err
+        if flag[0] in server.NOT_PORTED:
+            assert server.NOT_PORTED[flag[0]] in err
+
+    def test_parser_matches_the_drivers_pipeline_flags(self):
+        from nm03_capstone_project_tpu_torch.cli import common
+        from nm03_capstone_project_tpu_torch.serving import server
+
+        args = server.build_parser().parse_args(["--no-preprocess-fuse", "--canvas", "128"])
+        cfg = common.pipeline_config_from_args(args)
+        assert cfg == PipelineConfig(canvas=128, fuse_preprocess=False)
+        assert args.device == "cuda" and args.buckets == "1,2,4,8,16"
+
+    def test_graphs_refuse_cpu(self):
+        from nm03_capstone_project_tpu_torch.serving.graphs import BucketGraph
+
+        with pytest.raises(ValueError, match="CUDA"):
+            BucketGraph(PipelineConfig(canvas=32), 1, "cpu", None, None)
+        with pytest.raises(ValueError, match="CUDA"):
+            BucketGraph(PipelineConfig(canvas=32), 1, torch.device("cpu"), None, None)

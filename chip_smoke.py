@@ -16,7 +16,9 @@ toolkit. Phases, each printing one JSON line:
    bitwise for every odd window 3..15 (the fused kernel rounds every step
    as the plain ops do), the grow kernel bitwise in mask, per-slice
    converged and steps, with a truncating ``max_iters`` too, and at
-   canvases 512, 1024 and 2048. Each prints the wrapper's and the plain
+   canvases 512, 1024 and 2048; the fused kernel also bitwise over one long
+   study of 160 planes at 512 x 512 in one launch (the volume path's
+   shape). Each prints the wrapper's and the plain
    version's median time over repeats (CUDA events), the kernel's own
    device time a launch (``device_ms``, torch.profiler's self device time
    by kernel name) and the least time the card could take.
@@ -67,12 +69,38 @@ toolkit. Phases, each printing one JSON line:
    graph replay against eager ``_process`` per bucket (CUDA events, median
    of 20), the kernels' launches from replays and the card's name and power
    limit.
-6. ``kernels`` — one line, ``{"kernels": [...]}``, per kernel: launches in
+6. ``volume`` — the 3D volume path: the volume driver's CLI
+   (``cli/volume.py``, ``main()`` with ``--export-mhd --results-json``)
+   over the driver phase's 20 x 25 DICOM cohort, one volume a patient, in
+   turns with the kernels and with ``--no-kernels`` (kernels, plain, plain,
+   kernels). Checks: 20/20 patients, 500 planes and 1000 JPEG files a run;
+   every mask read back from ``mask.mhd`` equal to the golden the JAX
+   package made (``testdata/volume_golden.json``: sha256, voxels,
+   ``grow_converged``); masks and JPEG bytes equal between the kernels and
+   the plain run; the fused kernel launched once a patient and the grow
+   kernel never (the growth is 3D torch ops). The cohort holds two
+   distinct masks, so four phantom volumes of other shapes go through
+   ``process_volume`` with the kernels, each equal to its entry in the
+   golden. One patient each with ``--render-stage device``,
+   ``--no-preprocess-fuse`` (the median kernel, once) and
+   ``--grow-algorithm jump`` (converged) equals the kernels run. Then a
+   long phantom study of 160 x 512 x 512 through ``process_volume`` with
+   the kernels (one fused launch) and with the plain ops, masks and
+   ``converged`` equal (the ``fused`` phase also holds the kernel bitwise at
+   that shape). The line has volumes/s and slices/s (the results JSON's
+   ``wall_s``, median over the turns), the ``timings_s`` shares of a
+   kernels run, the device's idle share under the profiler for one kernels
+   pass, the 3D growth's time, steps and blocks (one host sync a block)
+   for the cohort's median patient and for the long study, the launches
+   and the card's name and power limit.
+7. ``kernels`` — one line, ``{"kernels": [...]}``, per kernel: launches in
    the driver's run (``launches``; the median kernel's from the unfused
-   patient), in the ``slice`` phase's (``slice_launches``) and by the
+   patient), in the ``slice`` phase's (``slice_launches``), by the
    ``serve`` phase's graph replays (``serve_launches``: replays times the
-   launches a graph holds), the largest difference from the plain version,
-   its wrapper and device time, the plain time and the bound.
+   launches a graph holds) and in the volume driver's run
+   (``volume_launches``; the median kernel's from its unfused patient),
+   the largest difference from the plain version, its wrapper and device
+   time, the plain time and the bound.
 
 The card's ``nvidia-smi`` name and power limit print on a line of their own;
 the last line is ``{"ok": true, "device": {...}}``. Any failed check exits
@@ -85,6 +113,7 @@ import base64
 import hashlib
 import json
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -116,6 +145,8 @@ SERVE_CONCURRENCY = 16
 SERVE_SINGLES = 50  # requests one at a time (bucket 1)
 SERVE_BURSTS = (2, 4, 8, 16)  # phantom bursts, one batch each
 SERVE_REPEATS = 10  # If-None-Match repeats
+LONG_STUDY = (160, 512, 512)  # planes, canvas: one long study in one launch
+VOLUME_TURNS = ("kernels", "plain", "plain", "kernels")
 
 
 def emit(obj) -> None:
@@ -652,6 +683,234 @@ def serve_phase(driver_out: dict, smi: str, kernels: dict, reset) -> dict:
     return serve_launches
 
 
+def long_study():
+    """``(volume, dims)`` of one long phantom study: LONG_STUDY planes at the
+    full canvas, numpy float32 and int32."""
+    from nm03_capstone_project_tpu_torch.data.synthetic import phantom_volume
+
+    d, h, w = LONG_STUDY
+    return phantom_volume(d, h, w, seed=5), np.asarray([h, w], np.int32)
+
+
+def grow_stats(px, dm, cfg) -> dict:
+    """The 3D growth of ``process_volume`` alone on one volume on the card:
+    its milliseconds (host clock around it, synchronized; median of 3), the
+    dilation steps it ran and the blocks of ``grow_block_iters`` steps (one
+    host sync each)."""
+    from nm03_capstone_project_tpu_torch.pipeline.volume_pipeline import (
+        grow_volume,
+        volume_grow_inputs,
+    )
+
+    pre, seeds, valid = volume_grow_inputs(px, dm, cfg)
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, conv, steps = grow_volume(pre, seeds, valid, cfg, return_steps=True)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return {"grow_ms": statistics.median(times), "steps": steps,
+            "blocks": steps // cfg.grow_block_iters, "converged": bool(conv)}
+
+
+def volume_phase(tmp: Path, cohort: Path, study, smi: str, kernels: dict, reset) -> dict:
+    """The 3D volume path on the card (phase 6 of the docstring).
+
+    Returns each kernel's launches in the volume driver's main run (the
+    median kernel's from the unfused patient).
+    """
+    from torch.profiler import ProfilerActivity, profile
+
+    from nm03_capstone_project_tpu_torch.cli import volume as volume_cli
+    from nm03_capstone_project_tpu_torch.config import PipelineConfig
+    from nm03_capstone_project_tpu_torch.core import pad_to_canvas
+    from nm03_capstone_project_tpu_torch.data.imageio import read_metaimage
+    from nm03_capstone_project_tpu_torch.data.synthetic import phantom_volume
+    from nm03_capstone_project_tpu_torch.kernels import build
+    from nm03_capstone_project_tpu_torch.pipeline import process_volume
+
+    n_pat, n_sl, size = DRIVER_COHORT
+    n = n_pat * n_sl
+    cfg = PipelineConfig(canvas=size)
+    golden_file = json.loads((build.PKG / "testdata" / "volume_golden.json").read_text())
+    golden = {g["patient"]: g for g in golden_file["patients"]}
+    require(len(golden) == n_pat, f"the volume golden holds {len(golden)} patients")
+
+    def cli(base: Path, out: Path, *extra) -> dict:
+        rj = out.parent / (out.name + ".json")
+        rc = volume_cli.main(["--base-path", str(base), "--output", str(out),
+                              "--results-json", str(rj), "--canvas", str(size),
+                              "--export-mhd", *extra])
+        require(rc == 0, f"volume CLI {out.name} exited {rc}")
+        rec = json.loads(rj.read_text())
+        require(rec["backend_actual"] == "cuda" and rec["z_sharded"] is False,
+                f"volume CLI {out.name}: {rec['backend_actual']}")
+        return rec
+
+    def outputs(out: Path, rec: dict):
+        """The run's JPEG files and its masks read back from mask.mhd."""
+        masks = {pid: read_metaimage(out / pid / "mask.mhd")[0] for pid in rec["patients"]}
+        return files_of(out), masks
+
+    # the main path, the volume CLI over the cohort: kernels and plain in turns
+    runs, kept, launches = {"kernels": [], "plain": []}, {}, None
+    for i, which in enumerate(VOLUME_TURNS):
+        out = tmp / f"volume_{i}"
+        reset()
+        rec = cli(cohort, out, *(["--no-kernels"] if which == "plain" else []))
+        kl = rec["kernel_launches"]
+        if i == 0:
+            launches = {k: fn.launches for k, fn in kernels.items()}
+            require(launches == kl, f"launch counts {launches} != the CLI's {kl}")
+        pats = rec["patients"]
+        require(len(pats) == n_pat and sum(p["exported"] for p in pats.values()) == n
+                and sum(p["slices"] for p in pats.values()) == n,
+                f"volume run {i} ({which}): {len(pats)} patients")
+        require(kl == ({"fused": n_pat, "grow": 0, "median": 0} if which == "kernels"
+                       else {"fused": 0, "grow": 0, "median": 0}),
+                f"volume run {i} ({which}) launches {kl}")
+        files, masks = outputs(out, rec)
+        require(len(files) == 2 * n, f"volume run {i}: {len(files)} JPEG files, not {2 * n}")
+        for pid, g in golden.items():
+            m = masks[pid]
+            got = {"depth": int(m.shape[0]),
+                   "mask_sha256": hashlib.sha256(m.tobytes()).hexdigest(),
+                   "voxels": int(m.sum()),
+                   "grow_converged": pid not in rec["grow_truncated_patients"]}
+            require(got == {k: g[k] for k in got} and pats[pid]["mask_voxels"] == g["voxels"],
+                    f"volume run {i} ({which}) {pid}: differs from the golden")
+        if which not in kept:
+            kept[which] = (files, masks, out)
+        runs[which].append(rec)
+    kfiles, kmasks, kout = kept["kernels"]
+    pfiles, pmasks, _ = kept["plain"]
+    require(kfiles == pfiles, "volume: JPEG files with the kernels != plain")
+    require(all(np.array_equal(kmasks[p], pmasks[p]) for p in kmasks),
+            "volume: masks with the kernels != plain")
+
+    # the cohort holds two distinct masks; phantom volumes of four other
+    # shapes, each a mask of its own, through process_volume with the kernels
+    for ph in golden_file["phantoms"]:
+        d, h, w = ph["shape"]
+        batch = pad_to_canvas(list(phantom_volume(d, h, w, seed=ph["seed"])), (size, size),
+                              device="cuda")
+        out = process_volume(batch.pixels, batch.dims[0], cfg)
+        m = out["mask"].cpu().numpy()
+        got = {"mask_sha256": hashlib.sha256(m.tobytes()).hexdigest(),
+               "voxels": int(m.sum()), "grow_converged": bool(out["grow_converged"])}
+        require(got == {k: ph[k] for k in got}, f"phantom volume {ph['shape']}: "
+                "differs from the golden")
+
+    # one patient each through the variants, against the kernels run
+    variants = {}
+    for key, pid, extra, need in (
+        ("device_render", "PGBM-0004", ["--render-stage", "device"], {"fused": 1}),
+        ("unfused", "PGBM-0005", ["--no-preprocess-fuse"], {"median": 1}),
+        ("jump", "PGBM-0006", ["--grow-algorithm", "jump"], {"fused": 1}),
+    ):
+        base = tmp / f"vcohort_{key}"
+        shutil.copytree(cohort / pid, base / pid)
+        out = tmp / f"volume_{key}"
+        reset()
+        rec = cli(base, out, *extra)
+        vl = {k: fn.launches for k, fn in kernels.items()}
+        want = {"fused": 0, "grow": 0, "median": 0, **need}
+        require(vl == want == rec["kernel_launches"], f"volume {key}: launches {vl}")
+        vfiles, vmasks = outputs(out, rec)
+        conv = pid not in rec["grow_truncated_patients"]
+        # the jump schedule converges within its 1024 rounds here, and then
+        # gives the dilate schedule's masks
+        require(conv, f"volume {key}: {pid} truncated")
+        require(np.array_equal(vmasks[pid], kmasks[pid]), f"volume {key}: mask differs")
+        require(vfiles == {k: v for k, v in kfiles.items() if k.startswith(pid + "/")},
+                f"volume {key}: JPEG files differ from the kernels run's")
+        variants[key] = {"patient": pid, "launches": vl, "converged": conv}
+    launches["median"] = variants["unfused"]["launches"]["median"]
+
+    # where a kernels run's time goes, and the device's idle share under it
+    rec0 = runs["kernels"][0]
+    shares = {}
+    for key, sec in rec0["timings_s"].items():
+        stage = key.split("/", 1)[0]
+        shares[stage] = shares.get(stage, 0.0) + sec / rec0["wall_s"]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        cli(cohort, tmp / "volume_profiled")
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
+
+    # the 3D growth alone: every cohort patient, the median one reported
+    per_patient = {}
+    for pid in golden:
+        vol, dims, _, _ = volume_cli._load_volume(cohort, pid, cfg)
+        per_patient[pid] = grow_stats(torch.from_numpy(vol).cuda(),
+                                      torch.from_numpy(dims).cuda(), cfg)
+    by_ms = sorted(per_patient, key=lambda p: per_patient[p]["grow_ms"])
+    median_pid = by_ms[len(by_ms) // 2]
+
+    # one long study through process_volume, kernels and plain
+    svol, sdims = study
+    spx, sdm = torch.from_numpy(svol).cuda(), torch.from_numpy(sdims).cuda()
+    scfg = PipelineConfig(canvas=LONG_STUDY[1])
+    splain = PipelineConfig(canvas=LONG_STUDY[1], use_kernels=False)
+
+    def study_run(c):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = process_volume(spx, sdm, c)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    reset()
+    sfast, first_s = study_run(scfg)
+    study_launches = {k: fn.launches for k, fn in kernels.items()}
+    sslow, first_plain_s = study_run(splain)
+    require(study_launches == {"fused": 1, "grow": 0, "median": 0},
+            f"long study launches {study_launches}")
+    require(torch.equal(sfast["mask"], sslow["mask"]), "long study: kernel mask != plain")
+    require(bool(sfast["grow_converged"]) == bool(sslow["grow_converged"]),
+            "long study: converged differs")
+    require(int(sfast["mask"].sum()) > 0, "long study segmented nothing")
+    del sslow
+    # warm runs in turns (the first ones above also pay the allocator's
+    # first blocks at this shape)
+    study_s = {"kernels": [], "plain": []}
+    for which in VOLUME_TURNS:
+        study_s[which].append(study_run(scfg if which == "kernels" else splain)[1])
+    study_grow = grow_stats(spx, sdm, scfg)
+
+    def rate(recs):
+        walls = [r["wall_s"] for r in recs]
+        return {"volumes_per_s": statistics.median(n_pat / w for w in walls),
+                "slices_per_s": statistics.median(n / w for w in walls), "wall_s": walls}
+
+    emit({"phase": "volume", "patients": n_pat, "planes": n, "size": size,
+          "jpeg_files": len(kfiles), "golden_patients": len(golden),
+          "golden_phantoms": len(golden_file["phantoms"]),
+          "checks": ["20/20 patients ok, 500 planes, 1000 JPEG files a run",
+                     "every mask (mask.mhd) = volume_golden.json (sha256, voxels, converged)",
+                     "4 phantom volumes of other shapes (kernels) = volume_golden.json",
+                     "kernels = plain: masks and JPEG bytes",
+                     "device render, unfused (median kernel), jump = the kernels run",
+                     "fused kernel once a patient; long study kernels = plain"],
+          "kernels": rate(runs["kernels"]), "plain": rate(runs["plain"]),
+          "time_shares": shares, "profiled_wall_ms": wall_ms,
+          "device_busy_ms": busy_ms if busy_ms > 0 else "not measured",
+          "idle_share": 1 - busy_ms / wall_ms if busy_ms > 0 else "not measured",
+          "grow_median_patient": {"patient": median_pid, **per_patient[median_pid]},
+          "grow_ms_range": [per_patient[by_ms[0]]["grow_ms"], per_patient[by_ms[-1]]["grow_ms"]],
+          "long_study": {"shape": list(LONG_STUDY),
+                         "process_volume_s": statistics.median(study_s["kernels"]),
+                         "plain_s": statistics.median(study_s["plain"]), "turns_s": study_s,
+                         "first_s": {"kernels": first_s, "plain": first_plain_s},
+                         "voxels": int(sfast["mask"].sum()),
+                         "converged": bool(sfast["grow_converged"]), **study_grow},
+          "variants": variants, "launches": launches, "nvidia_smi": smi})
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing to drive", file=sys.stderr)
@@ -761,13 +1020,18 @@ def main() -> int:
           "launches": hm.vector_median_filter_kernel.launches})
 
     # -- 2b. fused preprocess ------------------------------------------------
+    # one long study as the volume path launches it: its planes as the batch
+    study = long_study()
+    study_x = extend_edges(torch.from_numpy(study[0]).to(dev),
+                           torch.from_numpy(study[1]).to(dev).expand(LONG_STUDY[0], 2))
     err, cases = 0.0, []
     for shape, x in (
         ("main", extend_edges(main_px, main_dims)),
         ("prime", extend_edges(prime_px, prime_dims)),
         ("prime_random", (torch.rand(PRIME_SHAPE, generator=gen) * 9000).to(dev)),
+        ("study%dx%d" % LONG_STUDY[:2], study_x),
     ):
-        for k in ((7,) if shape == "main" else WINDOWS):
+        for k in ((7,) if shape in ("main", "study%dx%d" % LONG_STUDY[:2]) else WINDOWS):
             kw = dict(pre_kw, median_window=k)
             got = hm.fused_preprocess_kernel(x, **kw)
             want = hm._fused_preprocess_plain(x, **kw)
@@ -782,14 +1046,22 @@ def main() -> int:
     plain_ms = cuda_ms(lambda: hm._fused_preprocess_plain(x, **pre_kw), repeats=5)
     n = x.numel()
     b_ms, b_by = bound(8 * n, {k: v * n for k, v in fused_ops.items()})
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     tile_h, tile_w, grid, smem = hm.fused_launch_shape(
-        *x.shape, cfg.median_window, cfg.sharpen_kernel,
-        torch.cuda.get_device_properties(0).multi_processor_count)
+        *x.shape, cfg.median_window, cfg.sharpen_kernel, n_sm)
+    # the long study in one launch: its wrapper time and bound
+    study_ms = cuda_ms(lambda: hm.fused_preprocess_kernel(study_x, **pre_kw), repeats=5)
+    study_bound = bound(8 * study_x.numel(), {k: v * study_x.numel() for k, v in fused_ops.items()})
+    study_shape = hm.fused_launch_shape(*study_x.shape, cfg.median_window, cfg.sharpen_kernel,
+                                        n_sm)
+    del study_x
     results["fused"] = dict(max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
                             bound_ms=b_ms, bound_by=b_by)
     emit({"phase": "fused", "bitwise": True, "cases": cases, "ms": ms, "device_ms": dev_ms,
           "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
           "tile": [tile_h, tile_w], "grid": grid, "smem_bytes": smem,
+          "study": {"shape": list(LONG_STUDY), "ms": study_ms, "bound_ms": study_bound[0],
+                    "bound_by": study_bound[1], "launch_shape": list(study_shape)},
           "launches": hm.fused_preprocess_kernel.launches})
 
     # -- 2c. region growing --------------------------------------------------
@@ -957,8 +1229,11 @@ def main() -> int:
         driver_launches, driver_out = driver_phase(Path(tmp), smi, kernels, reset)
         # -- 5. single-slice serving --------------------------------------
         serve_launches = serve_phase(driver_out, smi, kernels, reset)
+        # -- 6. the 3D volume path ----------------------------------------
+        volume_launches = volume_phase(Path(tmp), driver_out["cohort"], study, smi,
+                                       kernels, reset)
 
-    # -- 6. kernels ----------------------------------------------------------
+    # -- 7. kernels ----------------------------------------------------------
     meta = {
         "median": ("vector_median_filter", "csrc/median.cu",
                    "nm03_capstone_project_tpu/ops/pallas_median.py:101"),
@@ -975,6 +1250,7 @@ def main() -> int:
             "source": f"nm03_capstone_project_tpu_torch/{src}", "replaces": replaces,
             "launches": driver_launches[key], "slice_launches": launches[key],
             "serve_launches": serve_launches[key],
+            "volume_launches": volume_launches[key],
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"],

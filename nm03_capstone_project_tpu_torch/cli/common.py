@@ -123,8 +123,9 @@ def add_pipeline_args(parser: argparse.ArgumentParser) -> None:
         "--grow-algorithm",
         choices=["dilate", "jump"],
         default=d.grow_algorithm,
-        help="2D region-growing convergence schedule; only 'dilate' is "
-        "ported ('jump' raises)",
+        help="region-growing convergence schedule: 'dilate' (one ring a "
+        "step; the grow kernel on the card) or 'jump' (pointer-jumping "
+        "label merge, O(log) rounds; torch ops, no kernel)",
     )
     g.add_argument(
         "--grow-block-iters", type=int, default=d.grow_block_iters,

@@ -10,8 +10,17 @@ differences:
 * ``use_pallas`` is ``use_kernels`` and defaults to True: on a CUDA tensor
   the hot ops run the hand-written Hopper kernels (``csrc/``); on a CPU
   tensor they run their plain PyTorch versions.
-* ``grow_algorithm="jump"`` raises ``NotImplementedError`` (the
-  pointer-jumping fill is not ported yet).
+* ``grow_algorithm="jump"`` is accepted with ``use_kernels``. The JAX
+  package rejects ``jump`` with ``use_pallas`` because its Pallas grow
+  kernel runs only the dilate schedule and would silently win there; its
+  ``use_pallas`` is off by default, so the rule costs it nothing. Here
+  ``use_kernels`` is on by default, and the choice of schedule is kept
+  apart from it: with ``jump`` the preprocess kernels still run (fused, or
+  the median kernel unfused) and the growth is the plain pointer-jumping
+  op (``ops.region_growing.region_grow_jump``, 3D
+  ``ops.volume.region_grow_jump_3d``), since no kernel computes that
+  schedule in either package and the grow kernel is dilate-schedule only.
+  That is a choice of algorithm, not a fallback.
 * ``median_impl`` other than ``"pruned"`` raises ``NotImplementedError``
   (the merge and sort comparison medians are not ported yet).
 """
@@ -89,9 +98,10 @@ class PipelineConfig:
     # Region-growing fixpoint: dilations per convergence check and a hard cap.
     grow_block_iters: int = 16
     grow_max_iters: int = 1024
-    # Convergence schedule of the 2D fill: "dilate" = one ring per step
-    # (sequential depth = region diameter, truncated at grow_max_iters).
-    # "jump" (pointer-jumping label merge) is not ported yet.
+    # Convergence schedule of the fill: "dilate" = one ring per step
+    # (sequential depth = region diameter, truncated at grow_max_iters);
+    # "jump" = pointer-jumping label merge, O(log diameter) rounds, the
+    # same sets whenever both converge (plain torch ops: no kernel).
     grow_algorithm: str = "dilate"
     # Run the hot ops through the hand-written CUDA kernels on a CUDA
     # tensor (ops.hopper_median, ops.hopper_region_growing). A CPU tensor
@@ -133,10 +143,6 @@ class PipelineConfig:
             raise ValueError(
                 f"grow_algorithm must be 'dilate' or 'jump', got "
                 f"{self.grow_algorithm!r}"
-            )
-        if self.grow_algorithm == "jump":
-            raise NotImplementedError(
-                "grow_algorithm='jump' is not ported yet; use 'dilate'"
             )
         if self.median_impl not in ("pruned", "merge", "sort"):
             raise ValueError(

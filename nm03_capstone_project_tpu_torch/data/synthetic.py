@@ -103,6 +103,13 @@ def phantom_series(
     return out
 
 
+def phantom_volume(
+    n_slices: int = 16, height: int = 128, width: int = 128, seed: int = 0
+) -> np.ndarray:
+    """(D, H, W) float32 stack for the 3D volumetric pipeline."""
+    return np.stack(phantom_series(n_slices, height, width, seed))
+
+
 def smoke_cohort(
     n_patients: int = 20, n_slices: int = DEFAULT_BATCH_SIZE
 ) -> List[np.ndarray]:

@@ -18,13 +18,14 @@ there is no route to the plain op on the card.
 from __future__ import annotations
 
 import functools
+import math
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from nm03_capstone_project_tpu_torch.kernels import build
-from nm03_capstone_project_tpu_torch.ops.region_growing import region_grow
+from nm03_capstone_project_tpu_torch.ops.region_growing import region_grow, region_grow_jump
 
 CUDA_ERROR_INVALID_CONFIGURATION = 9  # cudaErrorInvalidConfiguration
 SMEM_PER_BLOCK = 232448  # the H100's opt-in shared memory per block (227 KB)
@@ -146,12 +147,22 @@ def grow_dispatch(
     use_kernels: bool = True,
     algorithm: str = "dilate",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The grow kernel for a CUDA tensor with ``use_kernels``; else plain.
+    """Route a 2D grow by schedule and device.
 
-    Only the "dilate" schedule is ported; "jump" raises NotImplementedError.
+    ``algorithm="dilate"``: the grow kernel for a CUDA tensor with
+    ``use_kernels``, else the plain :func:`.region_growing.region_grow`.
+    ``algorithm="jump"``: :func:`.region_growing.region_grow_jump` on any
+    device, torch ops (no kernel computes that schedule, in either
+    package). ``max_iters`` stays a growth radius in one-ring steps: the
+    jump schedule doubles its reach a round, so its round cap is
+    ``ceil(log2(max(max_iters, 2))) + 2``, the JAX package's budget.
     """
-    if algorithm != "dilate":
-        raise NotImplementedError(f"grow algorithm {algorithm!r} is not ported yet")
+    if algorithm not in ("dilate", "jump"):
+        raise ValueError(f"grow algorithm must be 'dilate' or 'jump', got {algorithm!r}")
+    if algorithm == "jump":
+        max_rounds = math.ceil(math.log2(max(max_iters, 2))) + 2
+        return region_grow_jump(image, seeds, low, high, valid=valid,
+                                connectivity=connectivity, max_rounds=max_rounds)
     kw = dict(valid=valid, connectivity=connectivity, block_iters=block_iters,
               max_iters=max_iters)
     if use_kernels and image.device.type != "cpu":

@@ -87,7 +87,14 @@ def _execute_plan(
         lo, hi = dom.get(i, (0, 0))
         arrs[i] = padded_rows[i][..., lo + r : hi + r + w_out]
         los[i] = lo
-    for kind, out, a, ash, b, bsh in plan.ops:
+    # the last op reading each value: its array is dropped after it, so a
+    # large input holds only the network's live values, not all of them
+    last = {}
+    for t, (kind, out, a, ash, b, bsh) in enumerate(plan.ops):
+        if out in dom:
+            last[a] = last[b] = t
+    last[plan.out[0]] = len(plan.ops)
+    for t, (kind, out, a, ash, b, bsh) in enumerate(plan.ops):
         if out not in dom:  # dead op of an unpruned plan
             continue
         lo, hi = dom[out]
@@ -98,6 +105,9 @@ def _execute_plan(
         bv = arrs[b][..., sb : sb + wn]
         arrs[out] = torch.minimum(av, bv) if kind == "min" else torch.maximum(av, bv)
         los[out] = lo
+        for v in (a, b):
+            if last[v] == t:
+                arrs.pop(v, None)
     oi, osh = plan.out
     s = osh - los[oi]
     return arrs[oi][..., s : s + w_out]

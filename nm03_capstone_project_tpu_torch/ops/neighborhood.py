@@ -75,6 +75,22 @@ def shifted_stack(
     return torch.stack(views, dim=0)
 
 
+def constant_shifted_views(x: torch.Tensor, offsets, fill=0):
+    """Yield ``x`` shifted by each offset, ``out[i] = x[i + offset]``.
+
+    An offset of k entries shifts the last k axes of ``x`` (2D or 3D);
+    entries with no source inside ``x`` take ``fill``. The views share one
+    padded copy.
+    """
+    k = len(offsets[0])
+    grid = x.shape[-k:]
+    radii = [max(abs(o[a]) for o in offsets) for a in range(k)]
+    xp = x.new_full((*x.shape[:-k], *(n + 2 * r for n, r in zip(grid, radii))), fill)
+    xp[(Ellipsis, *(slice(r, r + n) for n, r in zip(grid, radii)))] = x
+    for off in offsets:
+        yield xp[(Ellipsis, *(slice(r + d, r + d + n) for n, r, d in zip(grid, radii, off)))]
+
+
 def window_offsets(size: int) -> List[Tuple[int, int]]:
     """All (dr, dc) offsets of a size x size window centered at 0."""
     r = size // 2

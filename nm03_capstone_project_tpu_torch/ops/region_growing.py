@@ -10,16 +10,25 @@ blocks until the popcount stops changing or ``max_iters`` is reached. Each
 step is Jacobi: the whole region grows by one ring from the previous one.
 It is the plain version the CUDA grow kernel
 (``ops.hopper_region_growing``) is held against.
+
+:func:`region_grow_jump` is the other convergence schedule of the JAX
+package, pointer-jumping label merge: the same sets in O(log diameter)
+rounds. No kernel computes it, in either package.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import numpy as np
 import torch
 
 from nm03_capstone_project_tpu_torch.ops.morphology import dilate
+from nm03_capstone_project_tpu_torch.ops.neighborhood import (
+    constant_shifted_views,
+    footprint_offsets,
+)
 
 
 def grow_band(
@@ -83,3 +92,91 @@ def region_grow(
         iters += block_iters
     out = (region.to(torch.uint8), count == prev)
     return out + (steps,) if return_steps else out
+
+
+# label-chain compressions (gathers) after each neighbour-min, as in the JAX package
+_JUMPS_PER_ROUND = 2
+
+
+def jump_fill(band: torch.Tensor, seeds: torch.Tensor, offsets, max_rounds: int):
+    """Pointer-jumping label merge over a batch of 2D or 3D grids.
+
+    ``band`` and ``seeds`` are bool (B, *grid); ``offsets`` are the
+    neighbours over the grid axes (a footprint; its centre is harmless).
+    Returns ``(region, converged, rounds)``: the uint8 region (B, *grid),
+    one bool per grid, and the rounds run.
+
+    Labels are int32 cell ids per grid, ``n`` (the grid's size) the
+    sentinel of out-of-band cells. Each round takes the min label over the
+    in-band neighbours, then compresses label chains with ``label <-
+    label_of[label]`` (a gather) ``_JUMPS_PER_ROUND`` times; the loop reads
+    one "anything changed" flag per round back to the host and stops at the
+    first round that changes no grid, since a grid at its fixpoint stays
+    there. A cell joins the region iff its component's label is one a seed
+    carries.
+    """
+    b, grid = band.shape[0], band.shape[1:]
+    n = math.prod(grid)
+    dev = band.device
+    sentinel = torch.tensor(n, dtype=torch.int32, device=dev)
+    ids = torch.arange(n, dtype=torch.int32, device=dev).reshape(grid)
+    labels0 = torch.where(band, ids, sentinel)
+    tail = sentinel.expand(b, 1)
+
+    def gather(table, labels):
+        # torch gathers with int64 indices; the label values stay int32
+        return torch.gather(table, 1, labels.reshape(b, n).long()).reshape(band.shape)
+
+    def round_(labels):
+        m = labels
+        for view in constant_shifted_views(labels, offsets, n):
+            m = torch.minimum(m, view)
+        labels = torch.where(band, m, sentinel)
+        for _ in range(_JUMPS_PER_ROUND):
+            flat = torch.cat([labels.reshape(b, n), tail], dim=1)
+            labels = torch.where(band, gather(flat, labels), sentinel)
+        return labels
+
+    prev, labels, it = labels0, round_(labels0), 1
+    while bool((prev != labels).any()) and it < max_rounds:
+        prev, labels = labels, round_(labels)
+        it += 1
+    converged = (prev == labels).reshape(b, n).all(dim=1)
+
+    seed_labels = torch.where(seeds & band, labels, sentinel)
+    marked = torch.zeros((b, n + 1), dtype=torch.bool, device=dev)
+    # duplicate indices all write True: deterministic
+    marked.scatter_(1, seed_labels.reshape(b, n).long(), True)
+    marked[:, n] = False
+    return (band & gather(marked, labels)).to(torch.uint8), converged, it
+
+
+def region_grow_jump(
+    image: torch.Tensor,
+    seeds: torch.Tensor,
+    low: float = 0.74,
+    high: float = 0.91,
+    valid: Optional[torch.Tensor] = None,
+    connectivity: int = 4,
+    max_rounds: int = 256,
+):
+    """Flood fill in O(log diameter) rounds via pointer-jumping label merge.
+
+    Returns ``(mask, converged)`` like :func:`region_grow`, one ``converged``
+    per slice of the leading shape. The same sets as :func:`region_grow`
+    (4/8-connected band pixels reachable from a seed), so the masks are
+    bit-identical whenever both converge; ``converged`` is False only where
+    ``max_rounds`` cut the label fixpoint short. The JAX package's
+    ``region_grow_jump`` takes one (H, W) slice and is vmapped; this takes
+    (..., H, W) and runs :func:`jump_fill` over the slices as one batch,
+    which equals a loop per slice.
+    """
+    if connectivity not in (4, 8):
+        raise ValueError(f"connectivity must be 4 or 8, got {connectivity}")
+    offsets = footprint_offsets(3, "cross" if connectivity == 4 else "box")
+    hw = image.shape[-2:]
+    band = torch.broadcast_to(grow_band(image, low, high, valid), image.shape)
+    seeds = torch.broadcast_to(seeds.bool(), image.shape)
+    region, converged, _ = jump_fill(band.reshape(-1, *hw), seeds.reshape(-1, *hw),
+                                     offsets, max_rounds)
+    return region.reshape(image.shape), converged.reshape(image.shape[:-2])

@@ -1,4 +1,4 @@
-"""The 2D slice pipeline."""
+"""The 2D slice pipeline and the 3D volume pipeline."""
 
 from nm03_capstone_project_tpu_torch.pipeline.slice_pipeline import (  # noqa: F401
     check_min_dims,
@@ -7,4 +7,7 @@ from nm03_capstone_project_tpu_torch.pipeline.slice_pipeline import (  # noqa: F
     process_slice,
     process_slice_stages,
     segment,
+)
+from nm03_capstone_project_tpu_torch.pipeline.volume_pipeline import (  # noqa: F401
+    process_volume,
 )

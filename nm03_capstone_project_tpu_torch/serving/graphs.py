@@ -30,7 +30,8 @@ Capture rules the class keeps:
 * nothing in ``_process`` reads host memory at replay: the fused kernel's
   sharpen taps go by value in its parameter block, the wrappers launch on
   the current stream, and no plain op with a host sync is on the path
-  (the plain grow syncs every step; it runs only for CPU tensors);
+  (the plain grow syncs every step; it runs only for CPU tensors; the
+  jump schedule syncs every round, so a graph refuses it);
 * every graph of a lane shares one memory pool: the lane replays one graph
   at a time (the executor holds the lane's lock around launch and fetch),
   so a later graph may reuse an earlier one's intermediates, never its
@@ -80,6 +81,12 @@ class BucketGraph:
     """
 
     def __init__(self, cfg: PipelineConfig, bucket: int, device, pool, stream):
+        if cfg.grow_algorithm != "dilate":
+            # its loop reads a flag back to the host every round
+            raise ValueError(
+                f"grow_algorithm={cfg.grow_algorithm!r} syncs the host each round, "
+                "which a CUDA graph cannot capture; serve with 'dilate' (the grow kernel)"
+            )
         dev = torch.device(device)
         if dev.type != "cuda":
             raise ValueError(

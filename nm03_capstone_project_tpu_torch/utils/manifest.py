@@ -50,6 +50,18 @@ class Manifest:
     def is_done(self, patient_id: str, stem: str) -> bool:
         return self.data.get(patient_id, {}).get(stem) == STATUS_DONE
 
+    def patient_accounted(self, patient_id: str, stems) -> bool:
+        """Every stem has SOME recorded status (done or failed): a prior run
+        fully visited this patient, so permanently-bad slices do not force
+        a re-run under --resume forever. Truncated stems do NOT count as
+        accounted: their masks under-cover and a rerun (with a raised
+        --grow-max-iters) must recompute them."""
+        seen = self.data.get(patient_id, {})
+        return (
+            all(s in seen and seen[s] != STATUS_TRUNCATED for s in stems)
+            and bool(stems)
+        )
+
     def flush(self) -> None:
         """Atomic write (tmp + rename) so a crash never corrupts the manifest."""
         self.path.parent.mkdir(parents=True, exist_ok=True)

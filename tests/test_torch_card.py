@@ -244,3 +244,29 @@ def test_served_masks_equal_plain(cuda):
     finally:
         app.begin_drain(reason="test")
         app.close()
+
+
+@pytest.mark.parametrize("fuse,alg", [(True, "dilate"), (False, "dilate"), (True, "jump")])
+def test_process_volume_kernels_equal_plain(cuda, fuse, alg):
+    # one phantom study on the card: the preprocess kernel in ONE launch
+    # over its D planes (the fused kernel, or the median kernel unfused),
+    # masks and converged equal to the plain ops; the 2D grow kernel idle
+    from nm03_capstone_project_tpu_torch.data.synthetic import phantom_volume
+    from nm03_capstone_project_tpu_torch.pipeline import process_volume
+
+    vol = np.zeros((12, 256, 256), np.float32)
+    vol[:, :240, :200] = phantom_volume(12, 240, 200, seed=3)
+    dims = np.asarray([240, 200], np.int32)
+    cfg = PipelineConfig(fuse_preprocess=fuse, grow_algorithm=alg)
+    kernels = (hm.fused_preprocess_kernel, hm.vector_median_filter_kernel,
+               hg.region_grow_kernel)
+    for fn in kernels:
+        fn.launches = 0
+    got = process_volume(vol, dims, cfg)
+    launches = tuple(fn.launches for fn in kernels)
+    want = process_volume(vol, dims, PipelineConfig(fuse_preprocess=fuse, grow_algorithm=alg,
+                                                    use_kernels=False))
+    assert got["mask"].device.type == "cuda"
+    assert torch.equal(got["mask"], want["mask"]) and int(got["mask"].sum()) > 0
+    assert bool(got["grow_converged"]) is bool(want["grow_converged"]) is True
+    assert launches == ((1, 0, 0) if fuse else (0, 1, 0))

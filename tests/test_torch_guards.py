@@ -61,6 +61,7 @@ def test_port_has_the_slice_modules():
         "cache.keys", "cache.store", "resilience.policy", "resilience.supervisor",
         "serving.metrics", "serving.queue", "serving.lanes", "serving.graphs",
         "serving.executor", "serving.batcher", "serving.server",
+        "ops.volume", "pipeline.volume_pipeline", "data.imageio", "cli.volume",
     ):
         assert f"nm03_capstone_project_tpu_torch.{mod}" in names
 
@@ -116,7 +117,7 @@ class TestNoCpuDrift:
 
 
 class TestDrivers:
-    DRIVERS = ("sequential", "parallel", "test_pipeline")
+    DRIVERS = ("sequential", "parallel", "test_pipeline", "volume")
 
     @pytest.mark.parametrize("name", DRIVERS)
     def test_default_device_without_cuda_exits_nonzero(self, name, tmp_path, monkeypatch,
@@ -288,3 +289,59 @@ class TestServer:
             BucketGraph(PipelineConfig(canvas=32), 1, "cpu", None, None)
         with pytest.raises(ValueError, match="CUDA"):
             BucketGraph(PipelineConfig(canvas=32), 1, torch.device("cpu"), None, None)
+
+    def test_graphs_refuse_the_jump_schedule(self):
+        # the jump schedule is ported, but its rounds sync the host: the
+        # server says so before any capture instead of failing inside one
+        from nm03_capstone_project_tpu_torch.serving.graphs import BucketGraph
+
+        cfg = PipelineConfig(canvas=32, grow_algorithm="jump")
+        with pytest.raises(ValueError, match="cannot capture"):
+            BucketGraph(cfg, 1, "cuda", None, None)
+
+
+class TestVolumeDriver:
+    """``python -m nm03_capstone_project_tpu_torch.cli.volume``'s --z-shard."""
+
+    def _on_cards(self, monkeypatch, n):
+        from nm03_capstone_project_tpu_torch.core import backend
+
+        # n CUDA devices as the driver sees them; the refusal comes before
+        # any tensor reaches one
+        monkeypatch.setattr(backend, "resolve_device", lambda device=None: torch.device(
+            "cuda" if device is None else device))
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: n)
+
+    @pytest.mark.parametrize("n", [2, 4])
+    def test_z_shard_refused_on_several_devices(self, monkeypatch, capsys, tmp_path, n):
+        from nm03_capstone_project_tpu_torch.cli import volume
+
+        self._on_cards(monkeypatch, n)
+        out = tmp_path / "out"
+        argv = ["--output", str(out), "--synthetic", "1", "--synthetic-slices", "1",
+                "--canvas", "128", "--z-shard"]
+        assert volume.main(argv) == 2
+        err = capsys.readouterr().err
+        assert f"{n} devices visible" in err and volume.ZSHARD_REFUSAL in err
+        assert "z-sharding is not ported yet (ROADMAP A6)" in err
+        assert not out.exists()  # nothing ran on one device instead
+
+    def test_z_shard_ignored_on_one_device(self, monkeypatch, capsys, tmp_path):
+        from nm03_capstone_project_tpu_torch.cli import volume
+
+        argv = ["--output", str(tmp_path / "out"), "--synthetic", "1",
+                "--synthetic-slices", "2", "--canvas", "128", "--device", "cpu", "--z-shard"]
+        assert volume.main(argv) == 0
+        assert "--z-shard ignored: single device" in capsys.readouterr().err
+
+    def test_parser_takes_the_drivers_flags(self):
+        from nm03_capstone_project_tpu_torch.cli import common, volume
+
+        args = volume.build_parser().parse_args(
+            ["--no-kernels", "--no-preprocess-fuse", "--grow-algorithm", "jump",
+             "--render-stage", "device", "--export-mhd", "--mhd-compressed"])
+        cfg = common.pipeline_config_from_args(args)
+        assert cfg == PipelineConfig(use_kernels=False, fuse_preprocess=False,
+                                     grow_algorithm="jump")
+        assert args.device == "cuda" and args.output == "out-volume"
+        assert args.render_stage == "device" and args.export_mhd and args.mhd_compressed

@@ -169,10 +169,27 @@ class TestGrowPlain:
         assert hg.region_grow_kernel.launches == 0
 
     def test_jump_not_ported(self):
-        img, seeds, _ = self._case()
-        with pytest.raises(NotImplementedError):
-            hg.grow_dispatch(torch.from_numpy(img), torch.from_numpy(seeds), 0.74, 0.91,
-                             algorithm="jump")
+        # the jump schedule is ported as torch ops (no kernel in either
+        # package): the dispatch runs it on the CPU with the JAX package's
+        # log2 round budget and launches nothing; masks and converged equal
+        # the JAX dispatch's, exactly
+        from nm03_capstone_project_tpu.ops.pallas_region_growing import (
+            grow_dispatch as jax_grow_dispatch,
+        )
+
+        img, seeds, valid = self._case()
+        hg.region_grow_kernel.launches = 0
+        for max_iters in (16, 1024):
+            got_m, got_c = hg.grow_dispatch(
+                torch.from_numpy(img), torch.from_numpy(seeds), 0.74, 0.91,
+                valid=torch.from_numpy(valid), max_iters=max_iters, algorithm="jump")
+            for i in range(img.shape[0]):
+                want_m, want_c = jax_grow_dispatch(
+                    jnp.asarray(img[i]), jnp.asarray(seeds[i]), 0.74, 0.91,
+                    jnp.asarray(valid[i]), max_iters=max_iters, algorithm="jump")
+                np.testing.assert_array_equal(got_m[i].numpy(), np.asarray(want_m))
+                assert bool(got_c[i]) == bool(want_c)
+        assert hg.region_grow_kernel.launches == 0
 
     @pytest.mark.parametrize("canvas", [256, 512])
     def test_canvas_256_and_512_fit_shared_memory(self, canvas):

@@ -259,8 +259,9 @@ class TestConfig:
             config_from_jax({"no_such_field": 1})
 
     def test_unported_choices_raise(self):
-        with pytest.raises(NotImplementedError):
-            config.PipelineConfig(grow_algorithm="jump")
+        # grow_algorithm="jump" is ported (torch ops) and, unlike the JAX
+        # package's use_pallas, allowed with the kernels on
+        assert config.PipelineConfig(grow_algorithm="jump").use_kernels is True
         for impl in ("merge", "sort"):
             with pytest.raises(NotImplementedError):
                 config.PipelineConfig(median_impl=impl)

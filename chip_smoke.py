@@ -93,7 +93,38 @@ toolkit. Phases, each printing one JSON line:
    pass, the 3D growth's time, steps and blocks (one host sync a block)
    for the cohort's median patient and for the long study, the launches
    and the card's name and power limit.
-7. ``student`` — the U-Net students (``models/``, ``cli/train.py``) on
+7. ``serve_volume`` — whole-study serving: the server (``serving/server.py``
+   with ``--volume-serving``, depth buckets 8, 16 and 32; slice buckets 1,
+   2, 4, 8 and 16; canvas 256) in process on 127.0.0.1. The main path: the
+   driver phase's 20 x 25 DICOM cohort as 20 ``application/x-nm03-dicom-
+   parts`` studies (each patient's files as they are on disk) at
+   concurrency 1 and again at 4, timed without the profiler, each mask
+   (padded 25 -> 32 and cropped back) equal to its ``volume_golden.json``
+   entry, one fused launch a study and no grow launch. The same studies
+   go to the gang alone (decoded, submitted from 1 and from 4 threads:
+   its dispatch span with no HTTP work beside it). Then the golden's
+   phantoms of depth 13, 20 and 32 as raw float32 bodies, each equal to
+   its entry, and the depth-40 one refused with 413; one study with
+   ``?output=mhd``, its header and data equal to the volume CLI's
+   ``mask.mhd`` pair; a retry with the same ``X-Nm03-Idempotency-Key``
+   and another patient's study, answered from the store with the first's
+   ETag and pair and no launch; two identical studies at once (the gang
+   gate held until the second has joined the first), one fused launch;
+   100 slice requests during 6 studies, all 200 and equal to the driver's
+   masks. A second server answers the cohort runs again under the
+   profiler (the device's idle share, and the profiler's cost to the
+   wall); one study goes through a ``fuse_preprocess=False`` server, one
+   median launch. The fused and median kernels are held bitwise to their
+   plain versions at the shapes the gang gives them: a cohort study
+   padded to the 32-plane bucket and the 13-plane phantom padded to 16.
+   The plain merge and sort medians on the card are bitwise equal to the
+   pruned one (k = 3, 7, 15). The line has latency p50/p99 and volumes/s
+   at concurrency 1 and 4 (unprofiled and profiled), the server's own
+   split of a study (median span milliseconds: queue wait, gang wait,
+   dispatch, gather, payload encode), the gang-alone dispatch, one
+   study's host decode and base64 + JSON alone, the launches and the
+   card's name and power limit.
+8. ``student`` — the U-Net students (``models/``, ``cli/train.py``) on
    the driver phase's DICOM cohort at the JAX CLI's width (base 16, two
    levels, canvas 256): ``cli.train.main`` distils 256 slices through the
    teacher (the fused and grow kernels, counted) and trains the 2D student
@@ -122,12 +153,14 @@ toolkit. Phases, each printing one JSON line:
    events), in bf16 and in f32, beside the least time the convolutions'
    FLOPs need (3 forwards a step) at the card's dense bf16 and float32
    peaks, and one step of each under the profiler (its top kernels).
-8. ``kernels`` — one line, ``{"kernels": [...]}``, per kernel: launches in
+9. ``kernels`` — one line, ``{"kernels": [...]}``, per kernel: launches in
    the driver's run (``launches``; the median kernel's from the unfused
    patient), in the ``slice`` phase's (``slice_launches``), by the
    ``serve`` phase's graph replays (``serve_launches``: replays times the
    launches a graph holds), in the volume driver's run
-   (``volume_launches``; the median kernel's from its unfused patient) and
+   (``volume_launches``; the median kernel's from its unfused patient), in
+   the ``serve_volume`` phase's main run (``serve_volume_launches``; the
+   median kernel's from its unfused server) and
    by the teacher while the ``student`` phase's 2D and 3D training runs
    distil their labels (``student_launches``), the largest difference from
    the plain version, its wrapper and device time, the plain time and the
@@ -152,6 +185,7 @@ import tempfile
 import threading
 import time
 import traceback
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -179,6 +213,12 @@ SERVE_BURSTS = (2, 4, 8, 16)  # phantom bursts, one batch each
 SERVE_REPEATS = 10  # If-None-Match repeats
 LONG_STUDY = (160, 512, 512)  # planes, canvas: one long study in one launch
 VOLUME_TURNS = ("kernels", "plain", "plain", "kernels")
+SERVE_VOLUME_BUCKETS = (8, 16, 32)
+# the served cohort's runs: (concurrency, query); another query, another
+# result key, so the second run dispatches every study again
+SERVE_VOLUME_RUNS = ((1, "?output=mask"), (4, "?output=mask&compressed=1"))
+SERVE_VOLUME_MIXED = 6  # studies sent while slices arrive
+SERVE_VOLUME_MIXED_SLICES = 100
 STUDENT_STEPS = (300, 100)  # training steps of the 2D and the 3D student
 STUDENT_TIMED_STEPS = 20  # training steps timed a precision
 STUDENT_F32_RTOL = 1e-5  # f32 forward, card vs CPU: x max |logit|
@@ -267,6 +307,17 @@ def bound(bytes_moved: float, ops: dict):
     t_bytes = bytes_moved / PEAK_BYTES * 1e3
     t_ops = max(n / OP_RATES[kind] * 1e3 for kind, n in ops.items())
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def preprocess_kwargs(cfg) -> dict:
+    """The fused preprocess kernel's keyword arguments under ``cfg``."""
+    return dict(
+        norm_low=cfg.norm_low, norm_high=cfg.norm_high,
+        norm_min=cfg.norm_intensity_min, norm_max=cfg.norm_intensity_max,
+        clip_low=cfg.clip_low, clip_high=cfg.clip_high,
+        median_window=cfg.median_window, sharpen_gain=cfg.sharpen_gain,
+        sharpen_sigma=cfg.sharpen_sigma, sharpen_kernel=cfg.sharpen_kernel,
+    )
 
 
 def max_abs(a, b) -> float:
@@ -946,7 +997,411 @@ def volume_phase(tmp: Path, cohort: Path, study, smi: str, kernels: dict, reset)
                          "voxels": int(sfast["mask"].sum()),
                          "converged": bool(sfast["grow_converged"]), **study_grow},
           "variants": variants, "launches": launches, "nvidia_smi": smi})
-    return launches, {"masks": kmasks, "volumes_per_s": rate(runs["kernels"])["volumes_per_s"]}
+    return launches, {"masks": kmasks, "volumes_per_s": rate(runs["kernels"])["volumes_per_s"],
+                      "mhd_dir": kout}
+
+
+def serve_volume_phase(tmp: Path, driver_out: dict, volume_out: dict, smi: str,
+                       kernels: dict, reset) -> dict:
+    """Whole-study serving on the card (phase 7 of the docstring).
+
+    Returns each kernel's launches in the main run (the cohort's studies at
+    concurrency 1 and 4; the median kernel's from the unfused server).
+    """
+    from torch.profiler import ProfilerActivity, profile
+
+    from nm03_capstone_project_tpu_torch.config import PipelineConfig
+    from nm03_capstone_project_tpu_torch.data.dicomlite import read_dicom_bytes, write_dicom
+    from nm03_capstone_project_tpu_torch.data.discovery import (
+        find_patient_dirs,
+        load_dicom_files_for_patient,
+    )
+    from nm03_capstone_project_tpu_torch.data.synthetic import phantom_volume
+    from nm03_capstone_project_tpu_torch.kernels import build
+    from nm03_capstone_project_tpu_torch.obs import RunContext
+    from nm03_capstone_project_tpu_torch.ops import hopper_median as hm
+    from nm03_capstone_project_tpu_torch.ops.elementwise import clip_intensity, normalize
+    from nm03_capstone_project_tpu_torch.ops.median import (
+        vector_median_filter,
+        vector_median_filter_merge,
+        vector_median_filter_sort,
+    )
+    from nm03_capstone_project_tpu_torch.ops.neighborhood import extend_edges
+    from nm03_capstone_project_tpu_torch.serving.server import ServingApp, serve_in_thread
+
+    phase_t0 = time.perf_counter()
+    n_pat, n_sl, size = DRIVER_COHORT
+    cohort, dmasks = driver_out["cohort"], driver_out["masks"]
+    golden_file = json.loads((build.PKG / "testdata" / "volume_golden.json").read_text())
+    golden = {g["patient"]: g for g in golden_file["patients"]}
+    parts = "application/x-nm03-dicom-parts"
+
+    # each patient's 25 DICOM files, as they are on disk, one study a body
+    studies, slices = {}, []
+    for pid in find_patient_dirs(cohort):
+        files = load_dicom_files_for_patient(cohort, pid)
+        raws = [f.read_bytes() for f in files]
+        studies[pid] = b"".join(len(r).to_bytes(4, "little") + r for r in raws)
+        slices += [(pid, f.stem, r) for f, r in zip(files, raws)]
+    require(len(studies) == n_pat and set(studies) <= set(golden), f"{len(studies)} studies")
+    pids = sorted(studies)
+
+    def sha(m):
+        return hashlib.sha256(np.ascontiguousarray(m).tobytes()).hexdigest()
+
+    def served_mask(payload):
+        return np.frombuffer(base64.b64decode(payload["mask_b64"]), np.uint8).reshape(
+            payload["shape"])
+
+    def check_study(pid, payload, with_mask=True):
+        g = golden[pid]
+        require(payload["shape"] == [g["depth"], size, size] and payload["z_shards"] in (0, 1),
+                f"served {pid}: shape {payload['shape']}")
+        got = {"mask_sha256": payload["mask_sha256"], "voxels": payload["mask_voxels"],
+               "grow_converged": payload["grow_converged"]}
+        require(got == {k: g[k] for k in got}, f"served {pid}: differs from the golden")
+        if with_mask:
+            require(sha(served_mask(payload)) == g["mask_sha256"], f"served {pid}: mask_b64")
+
+    statuses = {}
+
+    def tally(results, want=200):
+        for status, payload, _, _ in results.values():
+            statuses[status] = statuses.get(status, 0) + 1
+            require(status == want, f"HTTP {status} where {want} was due: {payload}")
+
+    def cohort_jobs(conc):
+        return [(pid, body, {"Content-Type": parts, "X-Nm03-Request-Id": f"c{conc}-{pid}"})
+                for pid, body in studies.items()]
+
+    cfg = PipelineConfig(canvas=size)
+    log_json = tmp / "serve_volume_events.jsonl"
+    obs = RunContext.create("serve", log_json=str(log_json))
+    app = ServingApp(cfg=cfg, buckets=SERVE_BUCKETS, result_cache_bytes=1 << 30, obs=obs,
+                     volume_serving=True, volume_depth_buckets=SERVE_VOLUME_BUCKETS)
+    httpd, _, port = serve_in_thread(app)  # graphs first, then the gang's buckets
+    base = f"http://127.0.0.1:{port}"
+    vurl = base + "/v1/segment-volume"
+    try:
+        st = app.status()
+        require(st["volumes"]["enabled"] and st["volumes"]["z_shards"] == 1
+                and st["volumes"]["depth_buckets"] == list(SERVE_VOLUME_BUCKETS),
+                f"volumes block: {st['volumes']}")
+
+        # the main path: the cohort's 20 studies at concurrency 1, then at 4
+        # (another result key, compressed=1, so each is dispatched again),
+        # timed without the profiler (its idle share comes from a second
+        # server below)
+        runs = {}
+        reset()
+        for conc, query in SERVE_VOLUME_RUNS:
+            res, wall = client_run(vurl + query, cohort_jobs(conc), conc)
+            tally(res)
+            for pid, (_, payload, headers, _) in res.items():
+                require(headers.get("X-Nm03-Cache") == "fill", f"{pid}: not dispatched")
+                check_study(pid, payload)
+            runs[conc] = latency_stats(res, wall)
+            runs[conc]["volumes_per_s"] = runs[conc].pop("requests_per_s")
+        main_launches = {k: fn.launches for k, fn in kernels.items()}
+        dispatched = n_pat * len(SERVE_VOLUME_RUNS)
+        require(main_launches == {"fused": dispatched, "grow": 0, "median": 0},
+                f"the served studies' launches {main_launches}, not one fused a study")
+
+        # the gang alone, fed the decoded studies from 1 and from 4 threads:
+        # its dispatch span with no HTTP decode or encode running beside it
+        decoded = {pid: app.decode_volume_dicom(studies[pid], parts) for pid in pids}
+
+        def gang_direct(conc):
+            def one(pid):
+                vol = decoded[pid]
+                req = app.volumes.submit(vol, vol.shape[1:])
+                require(req.wait(120) and req.error is None, f"gang alone {pid}: {req.error}")
+                require(sha(req.mask) == golden[pid]["mask_sha256"], f"gang alone {pid}: mask")
+                return next(sp["dur_s"] for sp in req.trace.snapshot()
+                            if sp["name"] == "volume_dispatch") * 1e3
+
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(conc) as pool:
+                dispatch_ms = list(pool.map(one, pids))
+            wall = time.perf_counter() - t0
+            return {"volumes_per_s": len(pids) / wall,
+                    "dispatch_ms_p50": statistics.median(dispatch_ms),
+                    "dispatch_ms_max": max(dispatch_ms)}
+
+        gang_alone = {conc: gang_direct(conc) for conc, _ in SERVE_VOLUME_RUNS}
+
+        # the golden's phantoms as raw bodies: depths 13 and 20 pad to 16
+        # and 32, 32 fills its bucket; 40 is past the largest bucket (its raw
+        # body is past the body cap too, so it goes as DICOM parts, whose
+        # depth the server reads and refuses)
+        phantoms = []
+        for ph in golden_file["phantoms"]:
+            d, h, w = ph["shape"]
+            vol = phantom_volume(d, h, w, seed=ph["seed"]).astype("<f4")
+            if d > SERVE_VOLUME_BUCKETS[-1]:
+                body = b""
+                for i, plane in enumerate(vol):
+                    f = tmp / f"deep_{i}.dcm"
+                    write_dicom(f, np.clip(plane, 0, 65535).astype(np.uint16))
+                    body += len(f.read_bytes()).to_bytes(4, "little") + f.read_bytes()
+                status, payload, _, _ = http_post(vurl, body, {"Content-Type": parts})
+                statuses[status] = statuses.get(status, 0) + 1
+                require(status == 413 and "depth bucket" in payload["error"],
+                        f"a {d}-plane study got {status}: {payload}")
+                continue
+            status, payload, _, _ = http_post(vurl, vol.tobytes(), {
+                "Content-Type": "application/octet-stream", "X-Nm03-Depth": str(d),
+                "X-Nm03-Height": str(h), "X-Nm03-Width": str(w)})
+            statuses[status] = statuses.get(status, 0) + 1
+            require(status == 200, f"phantom {ph['shape']}: {status} {payload}")
+            full = np.zeros((d, size, size), np.uint8)
+            full[:, :h, :w] = served_mask(payload)
+            got = {"mask_sha256": sha(full), "voxels": payload["mask_voxels"],
+                   "grow_converged": payload["grow_converged"]}
+            require(got == {k: ph[k] for k in got}, f"phantom {ph['shape']}: != the golden")
+            phantoms.append(ph["shape"])
+
+        # ?output=mhd: the volume CLI's mask.mhd pair; then an idempotency-key
+        # repeat, answered from the store with the same ETag
+        pid = pids[2]
+        key = {"Content-Type": parts, "X-Nm03-Idempotency-Key": f"{pid}-mhd"}
+        status, payload, headers, _ = http_post(vurl + "?output=mhd", studies[pid], key)
+        require(status == 200, f"mhd: {status}")
+        cli_dir = volume_out["mhd_dir"] / pid
+        require(base64.b64decode(payload["mhd_header_b64"]) == (cli_dir / "mask.mhd").read_bytes()
+                and base64.b64decode(payload["mhd_data_b64"]) == (cli_dir / "mask.raw").read_bytes(),
+                "the served MetaImage pair != the volume CLI's")
+        etag, mhd_pair = headers["ETag"], (payload["mhd_header_b64"], payload["mhd_data_b64"])
+        # the retry carries the key and another patient's study: the key
+        # names the first result, which comes from the store
+        before = {k: fn.launches for k, fn in kernels.items()}
+        status, payload, headers, _ = http_post(vurl + "?output=mhd", studies[pids[3]], key)
+        require(status == 200 and headers["X-Nm03-Cache"] == "hit" and headers["ETag"] == etag
+                and (payload["mhd_header_b64"], payload["mhd_data_b64"]) == mhd_pair
+                and {k: fn.launches for k, fn in kernels.items()} == before,
+                f"idempotent retry: {status} {headers.get('X-Nm03-Cache')}")
+        statuses[200] += 2
+
+        # two identical studies at once: the gang gate is held until the
+        # second has joined the first, so they make one dispatch
+        pid = pids[-1]
+        reset()
+        out = {}
+
+        def send(i):
+            out[i] = http_post(vurl + "?output=summary", studies[pid], {"Content-Type": parts})
+
+        coalesced0 = app.volume_inflight.stats()["coalesced"]
+        with app.batcher.gang_parked():
+            threads = [threading.Thread(target=send, args=(0,))]
+            threads[0].start()
+            deadline = time.monotonic() + 60
+            while app.volume_inflight.stats()["in_flight"] < 1 and time.monotonic() < deadline:
+                time.sleep(0.001)
+            threads.append(threading.Thread(target=send, args=(1,)))
+            threads[1].start()
+            while (app.volume_inflight.stats()["coalesced"] == coalesced0
+                   and time.monotonic() < deadline):
+                time.sleep(0.001)
+        for t in threads:
+            t.join(timeout=120)
+        require(not any(t.is_alive() for t in threads), "a coalesced request hung")
+        for status, payload, _, _ in out.values():
+            statuses[status] = statuses.get(status, 0) + 1
+            require(status == 200, f"coalesced: {status}")
+            check_study(pid, payload, with_mask=False)
+        coalesce_launches = {k: fn.launches for k, fn in kernels.items()}
+        require(coalesce_launches == {"fused": 1, "grow": 0, "median": 0}
+                and sorted(r[2]["X-Nm03-Cache"] for r in out.values()) == ["fill", "hit"],
+                f"two identical studies: launches {coalesce_launches}")
+
+        # slices while studies run: every slice 200 and equal to the driver's
+        vjobs = [(pid, body, {"Content-Type": parts}) for pid, body in
+                 list(studies.items())[:SERVE_VOLUME_MIXED]]
+        sjobs = [((p_, stem), raw, {"Content-Type": "application/dicom"})
+                 for p_, stem, raw in slices[:: max(1, len(slices) // SERVE_VOLUME_MIXED_SLICES)]]
+        mixed = {}
+        vt = threading.Thread(target=lambda: mixed.update(
+            vol=client_run(vurl + "?output=summary&compressed=1", vjobs, 2)))
+        vt.start()
+        sres, _ = client_run(base + "/v1/segment?output=mask", sjobs, 4)
+        vt.join(timeout=600)
+        require("vol" in mixed, "the mixed run's volumes did not finish")
+        tally(sres)
+        tally(mixed["vol"][0])
+        for (p_, stem), (_, payload, _, _) in sres.items():
+            require(payload["mask_sha256"] == sha(dmasks[(p_, stem)]),
+                    f"slice {p_}/{stem} during volumes: mask != the driver's")
+        for pid, (_, payload, _, _) in mixed["vol"][0].items():
+            check_study(pid, payload, with_mask=False)
+        mixed_gang_wait = [p["gang_wait_s"] for _, p, _, _ in mixed["vol"][0].values()]
+    finally:
+        app.begin_drain(reason="chip_smoke")
+        httpd.shutdown()
+        httpd.server_close()
+        app.close()
+
+    # the same cohort jobs under the profiler, on a second server (a fresh
+    # result store, so every study is dispatched again): the device's idle
+    # share, and what the profiler costs the wall
+    papp = ServingApp(cfg=cfg, buckets=(1,), result_cache_bytes=1 << 30, volume_serving=True,
+                      volume_depth_buckets=SERVE_VOLUME_BUCKETS)
+    phttpd, _, pport = serve_in_thread(papp)
+    profiled = {}
+    try:
+        reset()
+        for conc, query in SERVE_VOLUME_RUNS:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                res, wall = client_run(f"http://127.0.0.1:{pport}/v1/segment-volume" + query,
+                                       cohort_jobs(conc), conc)
+                torch.cuda.synchronize()
+            busy_ms = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
+            tally(res)
+            for pid, (_, payload, _, _) in res.items():
+                check_study(pid, payload)
+            profiled[conc] = {**latency_stats(res, wall), "device_busy_ms":
+                              busy_ms if busy_ms > 0 else "not measured",
+                              "idle_share": 1 - busy_ms / (wall * 1e3) if busy_ms > 0
+                              else "not measured"}
+            profiled[conc]["volumes_per_s"] = profiled[conc].pop("requests_per_s")
+        plaunches = {k: fn.launches for k, fn in kernels.items()}
+        require(plaunches == main_launches, f"the profiled studies' launches {plaunches}")
+    finally:
+        papp.begin_drain(reason="chip_smoke")
+        phttpd.shutdown()
+        phttpd.server_close()
+        papp.close()
+
+    # the server's own split of a study's time, from its trace spans
+    split = {}
+    for line in log_json.read_text().splitlines():
+        ev = json.loads(line)
+        tid = ev.get("trace_id") or ""
+        if ev.get("event") != "serve_trace" or not ev.get("volume") or ev.get("cached"):
+            continue
+        conc = tid.split("-", 1)[0]
+        if conc not in ("c1", "c4"):
+            continue
+        for sp in ev["spans"]:
+            split.setdefault(conc, {}).setdefault(sp["name"], []).append(sp["dur_s"] * 1e3)
+    split_ms = {c: {n: statistics.median(v) for n, v in d.items()} for c, d in split.items()}
+    require(all(split_ms.get(f"c{c}", {}).keys() >= {
+        "queue_wait", "volume_gang_acquire", "volume_dispatch", "volume_gather", "encode"}
+        for c, _ in SERVE_VOLUME_RUNS), f"the server's spans: {split_ms}")
+
+    # host costs of one study alone: decoding its 25 parts, and base64 + JSON
+    # of its 1.6 MB mask (median of 20)
+    def host_ms(fn):
+        times = []
+        for _ in range(REPEATS):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    mask = dmasks[(slices[0][0], slices[0][1])]
+    one = np.stack([mask] * n_sl)
+    host_cost_ms = {
+        "decode_25_parts": host_ms(lambda: [read_dicom_bytes(r) for _, _, r in slices[:n_sl]]),
+        "b64_json_mask": host_ms(lambda: json.dumps(
+            {"mask_b64": base64.b64encode(one.tobytes()).decode("ascii")})),
+    }
+
+    # the unfused server: the standalone median kernel, once a study
+    ucfg = PipelineConfig(canvas=size, fuse_preprocess=False)
+    uapp = ServingApp(cfg=ucfg, buckets=(1,), volume_serving=True,
+                      volume_depth_buckets=(SERVE_VOLUME_BUCKETS[-1],))
+    uhttpd, _, uport = serve_in_thread(uapp)
+    try:
+        pid = pids[1]
+        reset()
+        status, payload, _, _ = http_post(f"http://127.0.0.1:{uport}/v1/segment-volume",
+                                          studies[pid], {"Content-Type": parts})
+        ulaunch = {k: fn.launches for k, fn in kernels.items()}
+        statuses[status] = statuses.get(status, 0) + 1
+        require(status == 200, f"unfused study: {status}")
+        check_study(pid, {**payload, "mask_sha256": sha(served_mask(payload))})
+        require(ulaunch == {"fused": 0, "grow": 0, "median": 1}, f"unfused launches {ulaunch}")
+    finally:
+        uapp.begin_drain(reason="chip_smoke")
+        uhttpd.shutdown()
+        uhttpd.server_close()
+        uapp.close()
+
+    # the kernels at the shapes the gang gives them (the fused kernel's tile
+    # plan is chosen by the depth): a cohort study padded to the 32-plane
+    # bucket and the 13-plane phantom padded to 16, each bitwise against
+    # its plain version
+    kw = preprocess_kwargs(cfg)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    ph13 = next(ph for ph in golden_file["phantoms"] if ph["shape"][0] == 13)
+    bucket_inputs = {
+        "cohort_study": decoded[pids[0]],
+        "phantom13": phantom_volume(*ph13["shape"], seed=ph13["seed"]).astype(np.float32),
+    }
+    bucket_checks = {}
+    for name, vol in bucket_inputs.items():
+        d, h, w = vol.shape
+        bucket = next(b for b in SERVE_VOLUME_BUCKETS if d <= b)
+        stack = np.zeros((bucket, size, size), np.float32)
+        stack[:d, :h, :w] = vol
+        dm = torch.tensor([h, w], dtype=torch.int32, device="cuda").expand(bucket, 2)
+        x = extend_edges(torch.from_numpy(stack).cuda(), dm)
+        got, want = hm.fused_preprocess_kernel(x, **kw), hm._fused_preprocess_plain(x, **kw)
+        torch.cuda.synchronize()
+        require(torch.equal(got, want), f"fused kernel != plain ({name} at {bucket} planes)")
+        m = clip_intensity(normalize(x, cfg.norm_low, cfg.norm_high, cfg.norm_intensity_min,
+                                     cfg.norm_intensity_max), cfg.clip_low, cfg.clip_high)
+        mgot = hm.vector_median_filter_kernel(m, cfg.median_window)
+        mwant = vector_median_filter(m, cfg.median_window)
+        torch.cuda.synchronize()
+        require(torch.equal(mgot, mwant), f"median kernel != plain ({name} at {bucket} planes)")
+        bucket_checks[name] = {
+            "shape": [bucket, size, size], "planes": d,
+            "fused_launch_shape": list(hm.fused_launch_shape(
+                bucket, size, size, cfg.median_window, cfg.sharpen_kernel, n_sm)),
+            "fused_max_abs_err": max_abs(got, want), "median_max_abs_err": max_abs(mgot, mwant)}
+    del x, m, got, want, mgot, mwant
+
+    # the plain merge and sort medians on the card: the pruned plan's bits
+    x = (torch.rand(MAIN_SHAPE, generator=torch.Generator().manual_seed(11)) * 4000
+         + 0.68).cuda()
+    impls = {}
+    for k in (3, 7, 15):
+        pruned = vector_median_filter(x, k)
+        for name, fn in (("merge", vector_median_filter_merge),
+                         ("sort", vector_median_filter_sort)):
+            require(torch.equal(fn(x, k), pruned), f"{name} median k={k} != pruned on the card")
+            impls.setdefault(name, []).append(k)
+    del x, pruned
+
+    launches = {**main_launches, "median": ulaunch["median"]}
+    emit({"phase": "serve_volume", "studies": n_pat, "planes": n_pat * n_sl, "size": size,
+          "depth_buckets": list(SERVE_VOLUME_BUCKETS), "statuses": statuses,
+          "checks": [f"{dispatched} cohort studies (x-nm03-dicom-parts) = "
+                     "volume_golden.json, concurrency 1 and 4",
+                     "phantoms of depth 13, 20, 32 (raw) = volume_golden.json; 40 -> 413",
+                     "?output=mhd = the volume CLI's mask.mhd pair",
+                     "idempotency-key retry with another study: hit, same ETag and "
+                     "MHD pair, no launch",
+                     "two identical studies: one fused launch",
+                     "slices during studies: 200 and = the driver's masks",
+                     "unfused server: one median launch",
+                     "fused and median kernels = plain at the 32- and 16-plane buckets",
+                     "merge and sort medians on the card = pruned"],
+          "concurrency1": runs[1], "concurrency4": runs[4],
+          "profiled": {f"concurrency{c}": v for c, v in profiled.items()},
+          "gang_alone": {f"concurrency{c}": v for c, v in gang_alone.items()},
+          "bucket_kernels": bucket_checks,
+          "server_split_ms": split_ms, "host_cost_ms": host_cost_ms,
+          "fused_launches_per_study": main_launches["fused"] / dispatched,
+          "phantoms": phantoms, "coalesce_launches": coalesce_launches,
+          "mixed": {"slices": len(sres), "studies": len(vjobs),
+                    "gang_wait_s_max": max(mixed_gang_wait)},
+          "unfused_launches": ulaunch, "medians_on_card": impls,
+          "serve_volume_launches": launches, "phase_s": time.perf_counter() - phase_t0,
+          "nvidia_smi": smi})
+    return launches
 
 
 def conv_flops(model, shape) -> float:
@@ -992,7 +1447,7 @@ def step_kernels(fn) -> dict:
 
 def student_phase(tmp: Path, driver_out: dict, volume_out: dict, smi: str, kernels: dict,
                   reset) -> dict:
-    """The U-Net students on the card (phase 7 of the docstring).
+    """The U-Net students on the card (phase 8 of the docstring).
 
     Returns the teacher's kernel launches while the two training runs
     distilled their labels (2D and 3D summed).
@@ -1336,13 +1791,7 @@ def main() -> int:
     # per pixel: the median and the clip's min and max; normalize (3), two
     # ks-tap passes (ks products, ks - 1 sums each) and the unsharp update (3)
     fused_ops = {"minmax_bitwise": median_ops + 2, "add_mul": 3 + 2 * (2 * ks - 1) + 3}
-    pre_kw = dict(
-        norm_low=cfg.norm_low, norm_high=cfg.norm_high,
-        norm_min=cfg.norm_intensity_min, norm_max=cfg.norm_intensity_max,
-        clip_low=cfg.clip_low, clip_high=cfg.clip_high,
-        median_window=cfg.median_window, sharpen_gain=cfg.sharpen_gain,
-        sharpen_sigma=cfg.sharpen_sigma, sharpen_kernel=cfg.sharpen_kernel,
-    )
+    pre_kw = preprocess_kwargs(cfg)
 
     cohort = smoke_cohort()
     batches = [
@@ -1601,11 +2050,14 @@ def main() -> int:
         # -- 6. the 3D volume path ----------------------------------------
         volume_launches, volume_out = volume_phase(Path(tmp), driver_out["cohort"], study,
                                                    smi, kernels, reset)
-        # -- 7. the U-Net students ----------------------------------------
+        # -- 7. whole-study serving ---------------------------------------
+        serve_volume_launches = serve_volume_phase(Path(tmp), driver_out, volume_out, smi,
+                                                   kernels, reset)
+        # -- 8. the U-Net students ----------------------------------------
         student_launches = student_phase(Path(tmp), driver_out, volume_out, smi, kernels,
                                          reset)
 
-    # -- 8. kernels ----------------------------------------------------------
+    # -- 9. kernels ----------------------------------------------------------
     meta = {
         "median": ("vector_median_filter", "csrc/median.cu",
                    "nm03_capstone_project_tpu/ops/pallas_median.py:101"),
@@ -1623,6 +2075,7 @@ def main() -> int:
             "launches": driver_launches[key], "slice_launches": launches[key],
             "serve_launches": serve_launches[key],
             "volume_launches": volume_launches[key],
+            "serve_volume_launches": serve_volume_launches[key],
             "student_launches": student_launches[key],
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],

@@ -5,10 +5,12 @@ a segmentation result keyed on the sha256 of the input bytes, the
 algorithm, its parameters and the program version
 (:mod:`~nm03_capstone_project_tpu_torch.cache.keys`), held in a bounded,
 verify-on-read store (:mod:`~nm03_capstone_project_tpu_torch.cache.store`).
-The in-flight index that coalesces volume retries comes with volume
-serving, in a later slice. Stdlib only.
+The in-flight index (:mod:`~nm03_capstone_project_tpu_torch.cache.inflight`)
+coalesces identical volume requests and idempotency-key retries onto one
+gang dispatch. Stdlib only.
 """
 
+from nm03_capstone_project_tpu_torch.cache.inflight import InflightIndex
 from nm03_capstone_project_tpu_torch.cache.keys import (
     ResultKey,
     digest_bytes,
@@ -25,6 +27,7 @@ from nm03_capstone_project_tpu_torch.cache.store import (
 )
 
 __all__ = [
+    "InflightIndex",
     "ResultEntry",
     "ResultKey",
     "ResultStore",

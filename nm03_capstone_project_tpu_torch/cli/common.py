@@ -150,8 +150,9 @@ def add_pipeline_args(parser: argparse.ArgumentParser) -> None:
         "--median-impl",
         choices=["pruned", "merge", "sort"],
         default=d.median_impl,
-        help="median implementation; only the pruned selection network is "
-        "ported (the others raise)",
+        help="plain median implementation (all give the same bits): the pruned "
+        "selection network, the full odd-even merge or a sort; the kernels run "
+        "their own pruned plan whatever this says",
     )
     g.add_argument(
         "--no-preprocess-fuse",

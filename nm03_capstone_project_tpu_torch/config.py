@@ -21,8 +21,10 @@ differences:
   ``ops.volume.region_grow_jump_3d``), since no kernel computes that
   schedule in either package and the grow kernel is dilate-schedule only.
   That is a choice of algorithm, not a fallback.
-* ``median_impl`` other than ``"pruned"`` raises ``NotImplementedError``
-  (the merge and sort comparison medians are not ported yet).
+* ``median_impl`` (``"pruned"``, ``"merge"`` or ``"sort"``, all the same
+  bits) selects the plain median; with the kernels on a CUDA tensor the
+  kernel runs its own pruned plan and ignores it, as the JAX package's
+  Pallas median does.
 """
 
 from __future__ import annotations
@@ -149,10 +151,6 @@ class PipelineConfig:
             raise ValueError(
                 f"median_impl must be 'pruned', 'merge' or 'sort', got "
                 f"{self.median_impl!r}"
-            )
-        if self.median_impl != "pruned":
-            raise NotImplementedError(
-                f"median_impl={self.median_impl!r} is not ported yet; use 'pruned'"
             )
 
     @property

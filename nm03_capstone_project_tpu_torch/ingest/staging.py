@@ -19,6 +19,9 @@ The host arrays stay in the batch as ``<key>_host`` (the host renderer
 reads them). On the CPU, staging is a plain copy into a tensor. The JAX
 package's ``host_only`` mode (its degraded, CPU-fallback run) is not
 ported: the port has no such fallback.
+
+:func:`stage_volume` is the volume gang's upload: one study's stack and
+dims onto one lane's device, on the stream the gang computes on.
 """
 
 from __future__ import annotations
@@ -102,3 +105,26 @@ def wait_staged(item: dict) -> None:
     event = item.get(READY_KEY)
     if event is not None:
         torch.cuda.current_stream().wait_event(event)
+
+
+def stage_volume(volume: np.ndarray, dims: np.ndarray, device: torch.device,
+                 stream: Optional[torch.cuda.Stream] = None):
+    """Stage one (D, H, W) float32 study and its (2,) int32 dims; ``(vol, dims)``.
+
+    The JAX package's ``stage_volume`` places the stack on a z-sharded
+    mesh; here the gang runs on one lane's device, so the stack lands there
+    whole. On a CUDA device the copies are pinned and non-blocking, issued
+    on ``stream`` (required there): the gang's own stream, which its
+    program then runs on, so no event is needed between copy and compute.
+    On the CPU the arrays become tensors.
+    """
+    device = torch.device(device)
+    host_vol = torch.from_numpy(np.ascontiguousarray(volume, np.float32))
+    host_dims = torch.from_numpy(np.ascontiguousarray(dims, np.int32))
+    if device.type != "cuda":
+        return host_vol.clone(), host_dims.clone()
+    if stream is None:
+        raise ValueError("staging a volume onto the card needs the gang's stream")
+    with torch.cuda.stream(stream):
+        return (host_vol.pin_memory().to(device, non_blocking=True),
+                host_dims.pin_memory().to(device, non_blocking=True))

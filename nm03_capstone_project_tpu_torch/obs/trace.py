@@ -43,6 +43,11 @@ SERVE_SPAN_NAMES = (
     "requeue",          # chunk re-dispatched off a quarantined lane
     "probe",            # probation canary on a quarantined lane (off-path)
     "encode",           # host render + JPEG encode on the handler thread
+    # whole-volume serving: the gang lane's span chain
+    "volume_gang_acquire",  # waiting for the slice batcher to park
+    "volume_dispatch",      # one supervised run of a study on one lane
+    "volume_gather",        # device -> host mask-volume fetch
+    "volume_requeue",       # the study re-dispatched off a dead lane
 )
 
 # client-supplied trace ids: bounded charset/length so a hostile header

@@ -6,3 +6,9 @@ names. The hand-written Hopper kernels and their dispatchers live in
 :mod:`.hopper_region_growing` (the grow kernel); every other module is
 plain PyTorch and doubles as those kernels' plain versions.
 """
+
+from nm03_capstone_project_tpu_torch.ops.regionprops import (  # noqa: F401
+    bounding_box,
+    connected_components,
+    region_properties,
+)

@@ -41,3 +41,12 @@ def clip_intensity(x: torch.Tensor, low: float = 0.68, high: float = 4000.0) -> 
 def cast_uint8(x: torch.Tensor) -> torch.Tensor:
     """Cast to uint8 (FAST ``ImageCaster::create(TYPE_UINT8)``)."""
     return x.to(torch.uint8)
+
+
+def binary_threshold(x: torch.Tensor, low: float, high: float) -> torch.Tensor:
+    """1 where low <= x <= high else 0 (uint8).
+
+    FAST ``BinaryThresholding`` (declared in the reference's API surface,
+    FAST_directives.hpp:13, never instantiated).
+    """
+    return ((x >= low) & (x <= high)).to(torch.uint8)

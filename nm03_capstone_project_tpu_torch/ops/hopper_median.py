@@ -32,7 +32,11 @@ import torch
 from nm03_capstone_project_tpu_torch.kernels import build
 from nm03_capstone_project_tpu_torch.kernels.median_runs import FUSED_RUNS
 from nm03_capstone_project_tpu_torch.ops.elementwise import clip_intensity, normalize
-from nm03_capstone_project_tpu_torch.ops.median import vector_median_filter
+from nm03_capstone_project_tpu_torch.ops.median import (
+    vector_median_filter,
+    vector_median_filter_merge,
+    vector_median_filter_sort,
+)
 from nm03_capstone_project_tpu_torch.ops.sharpen import gaussian_kernel_1d, sharpen
 
 MAX_WINDOW = 15  # odd median windows 1..15 are compiled
@@ -174,6 +178,14 @@ def fused_preprocess_kernel(
 fused_preprocess_kernel.launches = 0
 
 
+# the plain medians by ``PipelineConfig.median_impl``: the same bits each
+PLAIN_MEDIANS = {
+    "pruned": vector_median_filter,
+    "merge": vector_median_filter_merge,
+    "sort": vector_median_filter_sort,
+}
+
+
 def _fused_preprocess_plain(
     x: torch.Tensor,
     *,
@@ -187,27 +199,32 @@ def _fused_preprocess_plain(
     sharpen_gain: float = 2.0,
     sharpen_sigma: float = 0.5,
     sharpen_kernel: int = 9,
+    median_impl: str = "pruned",
 ) -> torch.Tensor:
     """The plain composition of the four stages (the JAX package's
-    ``_fused_preprocess_xla``)."""
+    ``_fused_preprocess_xla``), with the plain median ``median_impl``."""
     out = normalize(x, norm_low, norm_high, norm_min, norm_max)
     out = clip_intensity(out, clip_low, clip_high)
-    out = vector_median_filter(out, median_window)
+    out = PLAIN_MEDIANS[median_impl](out, median_window)
     return sharpen(out, sharpen_gain, sharpen_sigma, sharpen_kernel)
 
 
-def median_filter(x: torch.Tensor, size: int = 7, use_kernels: bool = True) -> torch.Tensor:
-    """The median kernel for a CUDA tensor with ``use_kernels``; else plain."""
+def median_filter(x: torch.Tensor, size: int = 7, use_kernels: bool = True,
+                  impl: str = "pruned") -> torch.Tensor:
+    """The median kernel for a CUDA tensor with ``use_kernels`` (its own
+    pruned plan, whatever ``impl`` says); else the plain ``impl``."""
     if use_kernels and x.device.type != "cpu":
         return vector_median_filter_kernel(x, size)
-    return vector_median_filter(x, size)
+    return PLAIN_MEDIANS[impl](x, size)
 
 
-def fused_preprocess(x: torch.Tensor, *, use_kernels: bool = True, **params) -> torch.Tensor:
-    """The fused kernel for a CUDA tensor with ``use_kernels``; else plain.
+def fused_preprocess(x: torch.Tensor, *, use_kernels: bool = True,
+                     median_impl: str = "pruned", **params) -> torch.Tensor:
+    """The fused kernel for a CUDA tensor with ``use_kernels`` (its own
+    pruned plan, whatever ``median_impl`` says); else plain.
 
     ``params`` are :func:`fused_preprocess_kernel`'s keyword arguments.
     """
     if use_kernels and x.device.type != "cpu":
         return fused_preprocess_kernel(x, **params)
-    return _fused_preprocess_plain(x, **params)
+    return _fused_preprocess_plain(x, median_impl=median_impl, **params)

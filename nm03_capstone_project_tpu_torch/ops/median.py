@@ -12,7 +12,17 @@ columns and selects rank k²//2 (346 min/max per pixel at k=7). It is the
 plain version the two CUDA median kernels (``ops.hopper_median``) are held
 against. Any exact rank selection gives the same bits: min/max return one
 of their inputs, and the pipeline's median sees clipped finite data, where
-neither NaN nor a signed zero occurs.
+neither NaN nor a signed zero occurs. So do the JAX package's two
+comparison medians, ported here for ``median_impl``:
+
+* :func:`vector_median_filter_merge` — the full Batcher odd-even merge of
+  the presorted runs, rank k²//2 read at the end (``median_impl='merge'``);
+* :func:`vector_median_filter_sort` — sort the materialized window, the
+  readable oracle (``median_impl='sort'``).
+
+:func:`vector_median_filter_multichannel` is the true vector median of
+multi-channel data: the window sample vector with the least summed L1
+distance to the others.
 
 Boundary handling is clamp-to-edge, matching the OpenCL sampler addressing
 the reference inherits.
@@ -24,11 +34,12 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from nm03_capstone_project_tpu_torch.ops.neighborhood import pad, shifted_stack
+from nm03_capstone_project_tpu_torch.ops.neighborhood import pad, shifted_stack, window_offsets
 from nm03_capstone_project_tpu_torch.ops.selection_network import (
     MedianPlan,
     median_merge_plan,
     next_pow2,
+    oddeven_merge_pairs,
     oddeven_sort_pairs,
 )
 
@@ -134,3 +145,80 @@ def vector_median_filter(x: torch.Tensor, size: int = 7) -> torch.Tensor:
     r = k // 2
     padded = [pad(a, 0, r, "edge") for a in _presorted_rows(x, k)]
     return _execute_plan(median_merge_plan(k, share=False), padded, x.shape[-1])
+
+
+def _merge_runs_take_median(sorted_rows: List[torch.Tensor], k: int, colslice) -> torch.Tensor:
+    """Rank k²//2 of the k*k window from k vertically sorted row tensors,
+    by the FULL odd-even merge (``median_impl='merge'``).
+
+    ``colslice(a, j)`` extracts the j-th (0-based) horizontal window column
+    of a sorted row tensor. Runs are +inf-padded to powers of two (folded in
+    Python by :func:`_apply_pairs`) and merged with a Batcher odd-even merge
+    tree.
+    """
+    p_run = next_pow2(k)  # slots per run, +inf padded
+    n_runs = next_pow2(k)  # number of runs, all-+inf runs appended
+    vals: List[Optional[torch.Tensor]] = []
+    for j in range(k):
+        vals.extend(colslice(a, j) for a in sorted_rows)
+        vals.extend([_PAD] * (p_run - k))
+    vals.extend([_PAD] * ((n_runs - k) * p_run))
+    width = p_run
+    total = p_run * n_runs
+    while width < total:
+        pairs: List[Tuple[int, int]] = []
+        for lo in range(0, total, 2 * width):
+            oddeven_merge_pairs(lo, 2 * width, 1, pairs)
+        _apply_pairs(vals, pairs)
+        width *= 2
+    med = vals[(k * k) // 2]
+    if med is _PAD:
+        raise AssertionError("the merge network left the median slot empty")
+    return med
+
+
+def vector_median_filter_merge(x: torch.Tensor, size: int = 7) -> torch.Tensor:
+    """Median via the full odd-even merge network; the same bits as
+    :func:`vector_median_filter` (``median_impl='merge'``)."""
+    if size % 2 != 1:
+        raise ValueError(f"median window must be odd, got {size}")
+    if size == 1:
+        return x
+    k = size
+    r = k // 2
+    w = x.shape[-1]
+    # the rows edge-padded once; window column j is a width-w slice of each
+    padded = [pad(a, 0, r, "edge") for a in _presorted_rows(x, k)]
+    return _merge_runs_take_median(padded, k, lambda a, j: a[..., j : j + w])
+
+
+def vector_median_filter_sort(x: torch.Tensor, size: int = 7) -> torch.Tensor:
+    """Median by sorting each materialized window (``median_impl='sort'``)."""
+    if size % 2 != 1:
+        raise ValueError(f"median window must be odd, got {size}")
+    stack = shifted_stack(x, window_offsets(size), pad_mode="edge")
+    return torch.sort(stack, dim=0).values[stack.shape[0] // 2]
+
+
+def vector_median_filter_multichannel(x: torch.Tensor, size: int = 7) -> torch.Tensor:
+    """True vector median for multi-channel data (..., C, H, W).
+
+    Picks, per pixel, the window sample vector minimizing the sum of L1
+    distances to the other samples (the first such sample on a tie, as
+    ``jnp.argmin`` picks).
+    """
+    if size % 2 != 1:
+        raise ValueError(f"median window must be odd, got {size}")
+    stack = shifted_stack(x, window_offsets(size), pad_mode="edge")  # (K, ..., C, H, W)
+    # pairwise L1 distances between window samples, summed over channels
+    diff = (stack[:, None] - stack[None, :]).abs().sum(dim=-3)  # (K, K, ..., H, W)
+    cost = diff.sum(dim=1)  # (K, ..., H, W)
+    return _select_sample(stack, torch.argmin(cost, dim=0))
+
+
+def _select_sample(stack: torch.Tensor, best: torch.Tensor) -> torch.Tensor:
+    """stack[best[..., h, w], ..., :, h, w] -> (..., C, H, W), as the JAX
+    package's one-hot product summed over the window axis."""
+    k = stack.shape[0]
+    onehot = torch.nn.functional.one_hot(best, k).movedim(-1, 0).to(stack.dtype)
+    return (stack * onehot[:, ..., None, :, :]).sum(dim=0)

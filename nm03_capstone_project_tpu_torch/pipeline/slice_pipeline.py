@@ -61,6 +61,7 @@ def _preprocess(px: torch.Tensor, dm: torch.Tensor, cfg: PipelineConfig) -> torc
         return fused_preprocess(
             x,
             use_kernels=cfg.use_kernels,
+            median_impl=cfg.median_impl,
             norm_low=cfg.norm_low,
             norm_high=cfg.norm_high,
             norm_min=cfg.norm_intensity_min,
@@ -76,7 +77,7 @@ def _preprocess(px: torch.Tensor, dm: torch.Tensor, cfg: PipelineConfig) -> torc
         x, cfg.norm_low, cfg.norm_high, cfg.norm_intensity_min, cfg.norm_intensity_max
     )
     x = clip_intensity(x, cfg.clip_low, cfg.clip_high)
-    x = median_filter(x, cfg.median_window, use_kernels=cfg.use_kernels)
+    x = median_filter(x, cfg.median_window, use_kernels=cfg.use_kernels, impl=cfg.median_impl)
     return sharpen(x, cfg.sharpen_gain, cfg.sharpen_sigma, cfg.sharpen_kernel)
 
 

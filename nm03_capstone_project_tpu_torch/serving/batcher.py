@@ -22,13 +22,18 @@ fails every rider of the chunk with the same error.
 
 Identical content-addressed requests (one result-key digest) in one
 window ride a single dispatch: the first is the leader, the rest copy its
-result. The JAX package's gang gate (volume serving parks the lanes) comes
-with volume serving.
+result.
+
+The gang gate (:meth:`DynamicBatcher.gang_parked`) is one lock the batcher
+holds around each window's dispatch, fetch included; the volume gang
+holds it for a whole study, so a volume waits out the in-flight window
+and new windows wait for the volume while admissions keep queueing.
 """
 
 from __future__ import annotations
 
 import concurrent.futures as cf
+import contextlib
 import itertools
 import math
 import threading
@@ -95,6 +100,9 @@ class DynamicBatcher:
             "max_coalesced": 0,
             "lane_batches": {},
         }
+        # the gang gate: held around every window's dispatch and, by the
+        # volume gang, around a whole study's program
+        self._gang_lock = threading.Lock()
         self._started = False
 
     # -- lifecycle ---------------------------------------------------------
@@ -134,6 +142,19 @@ class DynamicBatcher:
             return True
         self._thread.join(timeout=timeout_s)
         return not self._thread.is_alive()
+
+    @contextlib.contextmanager
+    def gang_parked(self):
+        """Park the slice lanes for one volume program.
+
+        Acquiring waits for the in-flight window's slowest chunk (the
+        batcher holds the same lock around every window's dispatch and
+        fetch) and holds new windows back until release. Admissions keep
+        flowing into the bounded queue throughout, so slice traffic sheds
+        only on the queue's own capacity, never because a volume ran.
+        """
+        with self._gang_lock:
+            yield
 
     def lanes(self) -> int:
         """The lane count dispatch fans out over (1 until lanes resolve)."""
@@ -175,7 +196,10 @@ class DynamicBatcher:
             if not batch:  # closed and empty: drain complete
                 return
             try:
-                self.execute(batch)
+                # the gang gate: while a volume holds it, popped riders wait
+                # here inside their request deadline
+                with self._gang_lock:
+                    self.execute(batch)
             except BaseException as e:  # noqa: BLE001 — the loop must survive
                 # execute() already failed the requests; a raise escaping it
                 # is a batcher bug — log, answer anything still waiting, and

@@ -160,7 +160,13 @@ class WarmExecutor:
         self._degraded = False
         self._degraded_cause: Optional[str] = None
 
-    def _new_supervisor(self) -> DispatchSupervisor:
+    def new_supervisor(self) -> DispatchSupervisor:
+        """A fresh supervisor with this executor's policy.
+
+        Public for the volume gang: a supervisor's retry budget is spent
+        by its failures, so every caller that can outlive one (probation
+        probes, gang dispatches) takes a fresh one.
+        """
         retry = self.res.make_retry_policy()
         retry.obs = self.obs
         return DispatchSupervisor(self.res, retry=retry, obs=self.obs)
@@ -183,7 +189,7 @@ class WarmExecutor:
             self._lane_warm = [self._warm] * len(devs)
             self._lane_inflight = [0] * len(devs)
             self._lane_batches = [0] * len(devs)
-            self._lane_supervisors = [self._new_supervisor() for _ in devs]
+            self._lane_supervisors = [self.new_supervisor() for _ in devs]
             self._lane_locks = [threading.Lock() for _ in devs]
             self._runners = [{} for _ in devs]
             self.fleet = LaneFaultDomains(len(devs), obs=self.obs)
@@ -218,8 +224,16 @@ class WarmExecutor:
             return None
         return fleet.healthy_lanes()
 
+    def healthy_lane_devices(self) -> List[Tuple[int, torch.device]]:
+        """``[(lane, device)]`` of the lanes currently taking traffic: the
+        volume gang's pool (a quarantined lane is out of it as it is out of
+        the slice fan-out). Resolves the lanes on first use."""
+        devs = self._resolve_lanes()
+        return [(i, devs[i]) for i in self.healthy_lanes()]
+
     def quarantine_lane(self, lane: int, cause: str) -> None:
-        """Quarantine one lane from outside the dispatch path."""
+        """Quarantine one lane from outside the dispatch path (the volume
+        gang books a lane death it can attribute here)."""
         self._resolve_lanes()
         self._quarantine_lane(lane, cause, NULL_TRACE)
 
@@ -477,7 +491,7 @@ class WarmExecutor:
                         continue
                     if self._probe_lane(lane) and not self.degraded:
                         with self._lock:
-                            self._lane_supervisors[lane] = self._new_supervisor()
+                            self._lane_supervisors[lane] = self.new_supervisor()
                         if fleet.reinstate(lane):
                             self._set_lanes_ready_gauge()
                     elif not self.degraded:
@@ -511,7 +525,7 @@ class WarmExecutor:
                     return runner.fetch()
 
             with ctx.span("probe", lane=lane):
-                self._new_supervisor().run(primary, label="serve_probe")
+                self.new_supervisor().run(primary, label="serve_probe")
             return True
         except BaseException as e:  # noqa: BLE001 — a failed canary is data
             log.warning("lane %d probation probe failed: %s", lane, e)

@@ -3,8 +3,8 @@
 The port's copy of the JAX package's ``serving/metrics.py``: the same
 series names (docs/OBSERVABILITY.md), so one dashboard reads both
 packages' servers. Only the series the ported layers register are here;
-the saturation, ledger, SLO, compile-cache and volume series come with
-their layers. ``serving_warmup_seconds`` holds the CUDA graph capture
+the saturation, ledger, SLO and compile-cache series come with their
+layers. ``serving_warmup_seconds`` holds the CUDA graph capture
 seconds a bucket took (the JAX package's compile + first execute).
 """
 
@@ -36,6 +36,10 @@ SERVING_RESULT_CACHE_HIT_TOTAL = "serving_result_cache_hit_total"
 SERVING_RESULT_CACHE_MISS_TOTAL = "serving_result_cache_miss_total"
 SERVING_RESULT_CACHE_FILL_TOTAL = "serving_result_cache_fill_total"
 SERVING_RESULT_CACHE_EVICT_TOTAL = "serving_result_cache_evict_total"
+# whole-volume serving: terminal POST /v1/segment-volume outcomes by status
+# (ok | error | shed | invalid | timeout), apart from the per-slice series
+# because one volume request is a whole-gang dispatch, not one slice
+SERVING_VOLUME_REQUESTS_TOTAL = "serving_volume_requests_total"
 
 # -- gauges -----------------------------------------------------------------
 SERVING_RESULT_CACHE_BYTES = "serving_result_cache_bytes"
@@ -49,6 +53,11 @@ SERVING_LANE_STATE = "serving_lane_state"
 LANE_STATE_VALUES = {"healthy": 0, "probation": 1, "quarantined": 2}
 # warmup per lane and bucket: CUDA graph capture seconds (set by warmup)
 SERVING_WARMUP_SECONDS = "serving_warmup_seconds"
+# whole-volume serving: the z-shards the last served volume spanned (1 on
+# the port until the z-sharded gang is ported) and its gang wait, how long
+# it waited for the slice batcher to park
+SERVING_VOLUME_ZSHARDS = "serving_volume_zshards"
+SERVING_VOLUME_GANG_WAIT_SECONDS = "serving_volume_gang_wait_seconds"
 
 # -- histograms -------------------------------------------------------------
 SERVING_QUEUE_WAIT_SECONDS = "serving_queue_wait_seconds"

@@ -10,19 +10,28 @@ The port's counterpart of the JAX package's ``nm03-serve``::
   ``mask_pixels``, ``mask_sha256`` with the result tier on, and the JPEG
   pair unless ``?output=mask``), with the result tier's ``ETag`` and
   ``If-None-Match`` 304s;
+* ``POST /v1/segment-volume`` (with ``--volume-serving``) — one whole
+  study in (a raw float32 (depth, height, width) stack described by
+  ``X-Nm03-Depth/Height/Width``, a multi-frame ``application/dicom`` file,
+  or ``application/x-nm03-dicom-parts``), the full uint8 mask volume out
+  (``?output=mask|summary|mhd``), through the volume gang
+  (:mod:`~.volumes`): its own queue, the batcher's gang gate, one lane's
+  device. Identical in-flight studies and ``X-Nm03-Idempotency-Key``
+  retries ride one dispatch (:mod:`~..cache.inflight`);
 * ``GET /healthz`` — liveness;
 * ``GET /readyz`` — readiness: 200 while warm, admitting and at least one
   lane healthy; 503 before warmup, while draining, and once every lane is
   quarantined (``degraded: true``). The body has the JAX package's key set;
   the blocks of layers not ported yet (``saturation``, ``ledger``,
-  ``slo``, ``compile_hub``) are null, and ``cuda_graphs`` holds each
-  bucket's capture seconds and replays;
+  ``slo``, ``compile_hub``) are null, ``cuda_graphs`` holds each
+  bucket's capture seconds and replays, and ``volumes`` the gang's shape;
 * ``GET /metrics`` (Prometheus text) and ``GET /metrics.json`` (the
   ``nm03.metrics.v1`` snapshot).
 
 On the card, warmup captures one CUDA graph per batch bucket
 (:mod:`~.graphs`) before the listener starts, and every device batch is a
-graph replay. The server runs on ``cuda`` unless ``--device cpu`` asks for
+graph replay; then the volume gang runs each depth bucket once, eagerly
+(its 3D growth syncs the host once a block, which a graph cannot hold). The server runs on ``cuda`` unless ``--device cpu`` asks for
 the plain ops on the CPU; without a GPU and without that flag it exits
 non-zero. There is no CPU fallback.
 
@@ -52,6 +61,7 @@ from urllib.parse import parse_qs, urlsplit
 import numpy as np
 
 from nm03_capstone_project_tpu_torch.cache import (
+    InflightIndex,
     ResultStore,
     etag_matches,
     parse_bytes,
@@ -84,12 +94,20 @@ from nm03_capstone_project_tpu_torch.serving.metrics import (
     SERVING_RESULT_CACHE_HIT_TOTAL,
     SERVING_RESULT_CACHE_MISS_TOTAL,
     SERVING_SHED_TOTAL,
+    SERVING_VOLUME_GANG_WAIT_SECONDS,
+    SERVING_VOLUME_REQUESTS_TOTAL,
+    SERVING_VOLUME_ZSHARDS,
 )
 from nm03_capstone_project_tpu_torch.serving.queue import (
     AdmissionQueue,
     QueueClosed,
     QueueFull,
     ServeRequest,
+)
+from nm03_capstone_project_tpu_torch.serving.volumes import (
+    DEFAULT_VOLUME_DEPTH_BUCKETS,
+    GangUnavailable,
+    VolumeGang,
 )
 from nm03_capstone_project_tpu_torch.utils.reporter import get_logger
 
@@ -108,6 +126,16 @@ _CACHEABLE_SEGMENT_FIELDS = (
     "mask_sha256",
     "original_jpeg_b64",
     "processed_jpeg_b64",
+)
+_CACHEABLE_VOLUME_FIELDS = (
+    "shape",
+    "grow_converged",
+    "mask_voxels",
+    "mask_sha256",
+    "mask_b64",
+    "mhd_header_b64",
+    "mhd_data_b64",
+    "mhd_data_file",
 )
 
 
@@ -136,6 +164,10 @@ class ServingApp:
         lane_probe_interval_s: Optional[float] = None,
         result_cache_bytes: int = 0,
         device=None,
+        volume_serving: bool = False,
+        volume_depth_buckets=None,
+        volume_queue_capacity: int = 4,
+        volume_timeout_s: float = 300.0,
     ):
         from nm03_capstone_project_tpu_torch.obs import RunContext
 
@@ -168,13 +200,33 @@ class ServingApp:
             max_wait_s=max_wait_s,
             obs=self.obs,
         )
+        # whole-volume serving (opt-in): the gang lane behind
+        # POST /v1/segment-volume, warmed after the executor's graphs
+        self.volumes = None
+        self.volume_timeout_s = float(volume_timeout_s)
+        if volume_serving:
+            self.volumes = VolumeGang(
+                self.cfg,
+                self.executor,
+                self.batcher,
+                queue_capacity=volume_queue_capacity,
+                depth_buckets=(
+                    tuple(volume_depth_buckets)
+                    if volume_depth_buckets
+                    else DEFAULT_VOLUME_DEPTH_BUCKETS
+                ),
+            )
         # the content-addressed result tier: a replica-side store in front
-        # of the batcher, bounded by bytes (0 = disabled)
+        # of the batcher, bounded by bytes (0 = disabled). The in-flight
+        # index exists whenever the tier does: it lets an identical volume
+        # or an idempotent retry ride a running gang dispatch
         self.result_store = None
+        self.volume_inflight = None
         if result_cache_bytes and int(result_cache_bytes) > 0:
             self.result_store = ResultStore(
                 int(result_cache_bytes), on_evict=self._on_result_evict
             )
+            self.volume_inflight = InflightIndex()
             self._publish_result_bytes()
         # the program-identity half of every result key (the port's
         # toolchain and this config), fixed for the process's lifetime
@@ -190,8 +242,17 @@ class ServingApp:
     # -- lifecycle ---------------------------------------------------------
 
     def start(self) -> dict:
-        """Capture every bucket's graph, start the batcher; the timings."""
+        """Capture every bucket's graph, warm the volume gang, start the
+        batcher; the timings (the gang's under ``"volume"``)."""
         timings = self.executor.warmup()
+        if self.volumes is not None:
+            # after every graph is captured: no gang work during a capture
+            timings["volume"] = self.volumes.warmup()
+            self.volumes.start()
+            self.registry.gauge(
+                SERVING_VOLUME_ZSHARDS,
+                help="z-shards the last served volume spanned (1: one lane's device)",
+            ).set(self.volumes.z_shards)
         self.batcher.start()
         self.registry.gauge(SERVING_READY, help="1 = warmed and admitting, 0 otherwise").set(1)
         self.obs.events.emit(
@@ -231,13 +292,15 @@ class ServingApp:
             },
             "capacity": self.executor.capacity,
             "mesh_shape": [lane_count] if lane_count else None,
-            "volumes": {"enabled": False},
+            "volumes": (
+                self.volumes.status() if self.volumes is not None else {"enabled": False}
+            ),
             # program_version is published even with the tier off: it is
             # the replica's result-key identity
             "result_cache": {
                 "program_version": self._rv_value if self.executor.warm else None,
                 **(
-                    self.result_store.stats()
+                    {**self.result_store.stats(), "inflight": self.volume_inflight.stats()}
                     if self.result_store is not None
                     else {"enabled": False}
                 ),
@@ -271,12 +334,22 @@ class ServingApp:
             "serving_drain", level="WARNING", reason=reason, queue_depth=len(self.queue),
         )
         self.queue.close()
+        if self.volumes is not None:
+            # the same contract for the gang: admitted studies finish
+            self.volumes.queue.close()
         drained = self.batcher.join(timeout_s=timeout_s)
         if not drained:
             # a wedged drain still must answer whoever is parked on wait()
             for r in self.queue.drain_pending():
                 r.fail(RuntimeError("server drain timed out"))
             log.warning("drain: batcher did not finish inside %.0fs", timeout_s)
+        if self.volumes is not None:
+            gang_drained = self.volumes.join(timeout_s=timeout_s)
+            if not gang_drained:
+                for r in self.volumes.queue.drain_pending():
+                    r.fail(RuntimeError("server drain timed out"))
+                log.warning("drain: volume gang did not finish inside %.0fs", timeout_s)
+            drained = drained and gang_drained
         try:
             self.obs.write_metrics()
         except Exception as e:  # noqa: BLE001 — telemetry never blocks a drain
@@ -359,10 +432,10 @@ class ServingApp:
             self._publish_result_bytes()
         return "fill", entry.etag
 
-    def _payload_from_entry(self, entry, trace_id):
+    def _payload_from_entry(self, entry, trace_id, volume: bool = False):
         """A served-from-store response: stored fields + fresh identity;
-        batch 0, lane None and 0.0 device seconds for work the card never
-        saw."""
+        batch 0, lane None, z_shards 0 and 0.0 device seconds for work the
+        card never saw."""
         payload = dict(json.loads(entry.payload.decode()))
         payload.update(
             request_id=uuid.uuid4().hex[:12],
@@ -371,13 +444,15 @@ class ServingApp:
             requeues=0,
             device_seconds=0.0,
             cached=True,
-            batch_size=0,
-            lane=None,
-            degraded=self.executor.degraded,
         )
+        if volume:
+            payload.update(z_shards=0, gang_wait_s=0.0)
+        else:
+            payload.update(batch_size=0, lane=None, degraded=self.executor.degraded)
         return payload
 
-    def _account_cached_hit(self, trace_id, request_id, t_start: float) -> None:
+    def _account_cached_hit(self, trace_id, request_id, t_start: float,
+                            volume: bool = False) -> None:
         """A hit is a served request: counted and traced."""
         self.obs.events.emit(
             SERVE_TRACE_EVENT,
@@ -389,9 +464,13 @@ class ServingApp:
             probe=False,
             cached=True,
             spans=[],
+            **({"volume": True, "z_shards": 0} if volume else {}),
         )
-        self._observe_latency(t_start)
-        self._count_request("ok")
+        if volume:
+            self._count_volume_request("ok")
+        else:
+            self._observe_latency(t_start)
+            self._count_request("ok")
 
     def segment_cached(
         self,
@@ -428,6 +507,104 @@ class ServingApp:
         )
         state, etag = self.result_fill(digest, payload, "segment", _CACHEABLE_SEGMENT_FIELDS)
         return payload, state, etag
+
+    def segment_volume_cached(
+        self,
+        body: bytes,
+        volume: np.ndarray,
+        trace_id: Optional[str] = None,
+        mhd: bool = False,
+        mhd_compressed: bool = False,
+        include_mask: bool = True,
+        if_none_match: Optional[str] = None,
+        idempotency_key: Optional[str] = None,
+    ):
+        """:meth:`segment_volume` behind the tier; (payload, state, etag).
+
+        The idempotency contract (``X-Nm03-Idempotency-Key``): the key is an
+        alias for the first content digest it arrived with, kept in a map
+        that outlives the in-flight window, so a retry either coalesces onto
+        the still-running gang or finds the stored result ('hit' both ways);
+        a study is never dispatched twice for a retry.
+        """
+        output = "mhd" if mhd else ("mask" if include_mask else "summary")
+        params = {"output": output, "compressed": bool(mhd_compressed)}
+        digest = self.result_digest(body, "segment-volume", params)
+        if digest is None:
+            return (
+                self.segment_volume(
+                    volume, trace_id=trace_id, mhd=mhd,
+                    mhd_compressed=mhd_compressed, include_mask=include_mask,
+                ),
+                None,
+                None,
+            )
+        alias = f"idem:{idempotency_key}" if idempotency_key else None
+        lookup_digest = digest
+        if alias is not None:
+            aliased = self.volume_inflight.resolve(alias)
+            if aliased is not None:
+                lookup_digest = aliased
+        t_start = time.monotonic()
+        entry = self.result_lookup(lookup_digest)
+        if entry is not None:
+            if etag_matches(if_none_match, entry.etag):
+                self._account_cached_hit(trace_id, uuid.uuid4().hex[:12], t_start, volume=True)
+                return None, "hit", entry.etag
+            payload = self._payload_from_entry(entry, trace_id, volume=True)
+            self._account_cached_hit(trace_id, payload["request_id"], t_start, volume=True)
+            return payload, "hit", entry.etag
+        payload = self.segment_volume(
+            volume, trace_id=trace_id, mhd=mhd, mhd_compressed=mhd_compressed,
+            include_mask=include_mask, digest=digest, idem_alias=alias,
+        )
+        if payload.pop("_coalesced", False):
+            # rode an in-flight gang: the leader's own fill stores the result
+            return payload, "hit", None
+        state, etag = self.result_fill(
+            digest, payload, "segment-volume", _CACHEABLE_VOLUME_FIELDS
+        )
+        return payload, state, etag
+
+    def _join_volume_leader(self, leader, trace_id, include_mask, mhd, mhd_compressed) -> dict:
+        """Ride an identical in-flight volume: wait on its gang dispatch and
+        answer from its mask, so both responses are built from one array.
+        A rider shares the leader's error."""
+        self.registry.counter(
+            SERVING_RESULT_CACHE_HIT_TOTAL,
+            help="result-tier lookups served from cache, by tier",
+            tier="inflight",
+        ).inc()
+        inflight = self.registry.gauge(SERVING_INFLIGHT, help="admitted requests not yet responded")
+        inflight.inc()
+        try:
+            if not leader.wait(self.volume_timeout_s):
+                self._count_volume_request("timeout")
+                raise TimeoutError(
+                    f"coalesced volume request (leader {leader.request_id}) "
+                    f"timed out after {self.volume_timeout_s:.0f}s"
+                )
+            if leader.error is not None:
+                self._count_volume_request(
+                    "shed" if isinstance(leader.error, GangUnavailable) else "error"
+                )
+                raise leader.error
+        finally:
+            inflight.dec()
+        payload = {
+            "request_id": uuid.uuid4().hex[:12],
+            "trace_id": trace_id,
+            "z_shards": leader.z_shards,
+            "gang_wait_s": 0.0,
+            "queue_wait_s": 0.0,
+            "requeues": leader.requeues,
+            "grow_converged": leader.converged,
+            "cached": True,
+            "_coalesced": True,
+        }
+        payload.update(self._volume_payload(leader.mask, include_mask, mhd, mhd_compressed))
+        self._count_volume_request("ok")
+        return payload
 
     def decode_request(self, body: bytes, content_type: str) -> np.ndarray:
         """Body -> float32 (h, w) raw-intensity slice, or RequestRejected.
@@ -589,6 +766,245 @@ class ServingApp:
         ).set(1 if self.executor.degraded else 0)
         return payload
 
+    # -- whole-volume request plumbing (HTTP-free) --------------------------
+
+    def _count_volume_request(self, status: str) -> None:
+        self.registry.counter(
+            SERVING_VOLUME_REQUESTS_TOTAL,
+            help="terminal whole-volume request outcomes by status "
+            "(POST /v1/segment-volume)",
+            status=status,
+        ).inc()
+
+    def decode_volume_raw(self, body: bytes, depth: int, height: int, width: int) -> np.ndarray:
+        """Raw stacked study: little-endian float32 (depth, height, width)."""
+        if depth < 1:
+            raise RequestRejected(400, f"depth must be >= 1, got {depth}")
+        expected = depth * height * width * 4
+        if len(body) != expected:
+            raise RequestRejected(
+                400,
+                f"raw volume body is {len(body)} bytes; "
+                f"{depth}x{height}x{width} float32 needs {expected}",
+            )
+        return np.frombuffer(body, dtype="<f4").reshape(depth, height, width).astype(np.float32)
+
+    def decode_volume_dicom(self, body: bytes, content_type: str) -> np.ndarray:
+        """DICOM study body -> (depth, h, w) float32 stack.
+
+        ``application/dicom`` is ONE Part-10 file whose frames are the
+        planes (``data/dicomlite.py::read_dicom_frames``, strict);
+        ``application/x-nm03-dicom-parts`` is the concatenated form, each
+        part a 4-byte little-endian length and one Part-10 file. Every
+        plane must decode and share one in-plane size: a partial volume is
+        never served.
+        """
+        import tempfile
+
+        from nm03_capstone_project_tpu_torch.data.dicomlite import (
+            read_dicom_bytes,
+            read_dicom_frames,
+        )
+
+        ct = (content_type or "").split(";")[0].strip().lower()
+        planes: list = []
+        try:
+            if ct == "application/x-nm03-dicom-parts":
+                off = 0
+                while off < len(body):
+                    if off + 4 > len(body):
+                        raise ValueError("truncated part length prefix")
+                    n = int.from_bytes(body[off:off + 4], "little")
+                    off += 4
+                    if n <= 0 or off + n > len(body):
+                        raise ValueError(f"part length {n} overruns the body")
+                    planes.append(
+                        np.asarray(read_dicom_bytes(body[off:off + n]).pixels, np.float32)
+                    )
+                    off += n
+                if not planes:
+                    raise ValueError("no DICOM parts in body")
+            else:  # application/dicom: one (possibly multi-frame) file
+                with tempfile.NamedTemporaryFile(suffix=".dcm") as f:
+                    f.write(body)
+                    f.flush()
+                    slices = read_dicom_frames(f.name, strict=True)
+                planes = [np.asarray(s.pixels, np.float32) for s in slices]
+        except Exception as e:  # noqa: BLE001 — parser rejection -> 400
+            raise RequestRejected(400, f"DICOM study parse failed: {e}") from e
+        if not planes:
+            raise RequestRejected(400, "DICOM study contains no image planes")
+        hw = planes[0].shape
+        if any(p.shape != hw for p in planes):
+            raise RequestRejected(
+                400,
+                "study planes disagree on in-plane size "
+                f"({sorted({p.shape for p in planes})})",
+            )
+        return np.stack(planes)
+
+    def guard_volume(self, volume: np.ndarray) -> Tuple[int, int, int]:
+        """Admission guards for one decoded study; (depth, h, w)."""
+        if self.volumes is None:
+            raise RequestRejected(
+                404,
+                "volume serving is not enabled on this replica "
+                "(start nm03-serve with --volume-serving)",
+            )
+        d = int(volume.shape[0])
+        h, w = self.guard_pixels(volume[0])
+        if d > self.volumes.max_depth:
+            raise RequestRejected(
+                413,
+                f"study of {d} planes exceeds the largest volume depth "
+                f"bucket {self.volumes.max_depth} (start the server with "
+                "deeper --volume-depth-buckets)",
+            )
+        return d, h, w
+
+    def segment_volume(
+        self,
+        volume: np.ndarray,
+        trace_id: Optional[str] = None,
+        mhd: bool = False,
+        mhd_compressed: bool = False,
+        include_mask: bool = True,
+        digest: Optional[str] = None,
+        idem_alias: Optional[str] = None,
+    ) -> dict:
+        """The whole-volume request path minus HTTP.
+
+        Admit to the gang's own queue, wait for its dispatch, build the
+        payload carrying the full mask volume (base64 raw uint8, C order)
+        and, with ``mhd``, the MetaImage pair the volume driver's
+        ``--export-mhd`` writes. Raises RequestRejected (guards),
+        QueueFull/QueueClosed (the volume queue's shed), GangUnavailable (no
+        healthy lane), TimeoutError, or the dispatch's own error. Counts
+        every outcome under ``serving_volume_requests_total``.
+        """
+        try:
+            _, h, w = self.guard_volume(volume)
+        except RequestRejected:
+            self._count_volume_request("invalid")
+            raise
+        if digest is not None and self.volume_inflight is not None:
+            # an identical volume already riding the gang answers this one
+            leader = self.volume_inflight.claim(digest)
+            if leader is not None:
+                return self._join_volume_leader(leader, trace_id, include_mask, mhd,
+                                                mhd_compressed)
+        try:
+            req = self.volumes.submit(volume, (h, w), trace_id=trace_id)
+        except (QueueFull, QueueClosed):
+            self.registry.counter(
+                SERVING_SHED_TOTAL,
+                help="admissions refused by backpressure (full or draining)",
+            ).inc()
+            self._count_volume_request("shed")
+            raise
+        except ValueError as e:  # the gang's own depth guard
+            self._count_volume_request("invalid")
+            raise RequestRejected(413, str(e)) from e
+        registered = False
+        if digest is not None and self.volume_inflight is not None:
+            # first wins: a duplicate that registered between our claim and
+            # here keeps the slot, and ours computes (the fill is idempotent)
+            registered = self.volume_inflight.register(digest, req, alias=idem_alias) is req
+        inflight = self.registry.gauge(SERVING_INFLIGHT, help="admitted requests not yet responded")
+        inflight.inc()
+        try:
+            if not req.wait(self.volume_timeout_s):
+                self._count_volume_request("timeout")
+                raise TimeoutError(
+                    f"volume request {req.request_id} timed out after "
+                    f"{self.volume_timeout_s:.0f}s"
+                )
+            if req.error is not None:
+                self._count_volume_request(
+                    "shed" if isinstance(req.error, GangUnavailable) else "error"
+                )
+                raise req.error
+        finally:
+            if registered:
+                # release only after done is set: a rider that claimed us
+                # meanwhile finds the event fired
+                self.volume_inflight.release(digest)
+            inflight.dec()
+        payload = {
+            "request_id": req.request_id,
+            "trace_id": req.trace_id,
+            "z_shards": req.z_shards,
+            "gang_wait_s": round(req.gang_wait_s, 6),
+            "queue_wait_s": round(req.queue_wait_s, 6),
+            # >0: the study was re-dispatched off a dead lane
+            "requeues": req.requeues,
+            "grow_converged": req.converged,
+        }
+        if self.result_store is not None:
+            payload["cached"] = False
+        with req.trace.span("encode"):
+            payload.update(self._volume_payload(req.mask, include_mask, mhd, mhd_compressed))
+        self.obs.events.emit(
+            SERVE_TRACE_EVENT,
+            trace_id=req.trace_id,
+            request_id=req.request_id,
+            lane=req.lane,
+            batch_size=1,
+            queue_wait_s=round(req.queue_wait_s, 6),
+            probe=False,
+            volume=True,
+            z_shards=req.z_shards,
+            spans=req.trace.snapshot(),
+        )
+        self.registry.gauge(
+            SERVING_VOLUME_GANG_WAIT_SECONDS,
+            help="gang wait of the last served volume: how long it waited for "
+            "the slice batcher to park",
+        ).set(round(req.gang_wait_s, 6))
+        self.registry.gauge(
+            SERVING_VOLUME_ZSHARDS,
+            help="z-shards the last served volume spanned (1: one lane's device)",
+        ).set(req.z_shards)
+        self._count_volume_request("ok")
+        return payload
+
+    def _volume_payload(self, mask: np.ndarray, include_mask: bool, mhd: bool,
+                        mhd_compressed: bool) -> dict:
+        """The fields a volume response derives from its (d, h, w) mask:
+        ``shape``, ``mask_voxels``, ``mask_sha256`` with the result tier on,
+        ``mask_b64`` (raw uint8, C order) and, with ``mhd``, the MetaImage
+        pair."""
+        mask = np.ascontiguousarray(mask)
+        out = {
+            "shape": [int(s) for s in mask.shape],
+            "mask_voxels": int(np.count_nonzero(mask)),
+        }
+        if self.result_store is not None:
+            out["mask_sha256"] = hashlib.sha256(mask.tobytes()).hexdigest()
+        if include_mask:
+            out["mask_b64"] = base64.b64encode(mask.tobytes()).decode("ascii")
+        if mhd:
+            out.update(self._mhd_payload(mask, mhd_compressed))
+        return out
+
+    def _mhd_payload(self, mask: np.ndarray, compressed: bool) -> dict:
+        """The volume driver's ``--export-mhd`` pair, base64 over the wire."""
+        import tempfile
+        from pathlib import Path
+
+        from nm03_capstone_project_tpu_torch.data.imageio import write_metaimage
+
+        with tempfile.TemporaryDirectory() as td:
+            write_metaimage(mask, Path(td) / "mask.mhd", compressed=compressed)
+            header = (Path(td) / "mask.mhd").read_bytes()
+            data_name = "mask.zraw" if compressed else "mask.raw"
+            data = (Path(td) / data_name).read_bytes()
+        return {
+            "mhd_header_b64": base64.b64encode(header).decode("ascii"),
+            "mhd_data_b64": base64.b64encode(data).decode("ascii"),
+            "mhd_data_file": data_name,
+        }
+
 
 # -- the HTTP layer ---------------------------------------------------------
 
@@ -651,6 +1067,9 @@ def make_handler(app: ServingApp):
 
         def do_POST(self):  # noqa: N802
             split = urlsplit(self.path)
+            if split.path == "/v1/segment-volume":
+                self._post_volume(split)
+                return
             if split.path != "/v1/segment":
                 self._reply(404, {"error": f"unknown path {split.path}"})
                 return
@@ -727,6 +1146,87 @@ def make_handler(app: ServingApp):
                     ],
                 )
 
+        def _post_volume(self, split):
+            """``POST /v1/segment-volume``: one whole study in, the full mask
+            volume out, through the volume gang."""
+            query = parse_qs(split.query)
+            output = query.get("output", ["mask"])[0]
+            trace_id = sanitize_trace_id(self.headers.get("X-Nm03-Request-Id")) or new_trace_id()
+            echo = [("X-Nm03-Request-Id", trace_id)]
+            try:
+                length = int(self.headers.get("Content-Length", 0))
+                max_depth = app.volumes.max_depth if app.volumes is not None else 1
+                cap = max_depth * app.cfg.canvas * app.cfg.canvas * 4 + 65536
+                if length <= 0:
+                    raise RequestRejected(400, "empty body")
+                if length > cap:
+                    raise RequestRejected(
+                        413, f"body of {length} bytes exceeds the {cap} volume cap"
+                    )
+                body = self.rfile.read(length)
+                d_hdr = self.headers.get("X-Nm03-Depth")
+                h_hdr = self.headers.get("X-Nm03-Height")
+                w_hdr = self.headers.get("X-Nm03-Width")
+                if d_hdr is not None and h_hdr is not None and w_hdr is not None:
+                    volume = app.decode_volume_raw(body, int(d_hdr), int(h_hdr), int(w_hdr))
+                else:
+                    volume = app.decode_volume_dicom(body, self.headers.get("Content-Type", ""))
+            except RequestRejected as e:
+                app._count_volume_request("invalid")
+                self._reply(e.http_status, {"error": str(e)}, headers=echo)
+                return
+            except (ValueError, OverflowError) as e:  # bad int headers etc.
+                app._count_volume_request("invalid")
+                self._reply(400, {"error": str(e)}, headers=echo)
+                return
+            try:
+                payload, cache_state, etag = app.segment_volume_cached(
+                    body,
+                    volume,
+                    trace_id=trace_id,
+                    mhd=output == "mhd",
+                    mhd_compressed=query.get("compressed", ["0"])[0] == "1",
+                    include_mask=output != "summary",
+                    if_none_match=self.headers.get("If-None-Match"),
+                    idempotency_key=self.headers.get("X-Nm03-Idempotency-Key"),
+                )
+            except RequestRejected as e:  # guards (counted inside)
+                self._reply(e.http_status, {"error": str(e)}, headers=echo)
+            except (QueueFull, QueueClosed, GangUnavailable) as e:
+                # the volume queue's backpressure, and no healthy lane: the
+                # client retries; a mask is never guessed
+                self._reply(
+                    503,
+                    {"error": str(e), "draining": app.draining},
+                    headers=[("Retry-After", str(RETRY_AFTER_S)), *echo],
+                )
+            except TimeoutError as e:
+                self._reply(504, {"error": str(e)}, headers=echo)
+            except Exception as e:  # noqa: BLE001 — per-request containment
+                log.warning("volume request failed: %s", e)
+                self._reply(
+                    500, {"error": str(e), "error_class": type(e).__name__}, headers=echo,
+                )
+            else:
+                cache_headers = []
+                if cache_state is not None:
+                    cache_headers.append(("X-Nm03-Cache", cache_state))
+                if etag is not None:
+                    cache_headers.append(("ETag", etag))
+                if payload is None:  # If-None-Match matched: 304, no body
+                    self._reply_not_modified(headers=[*cache_headers, *echo])
+                    return
+                self._reply(
+                    200,
+                    payload,
+                    headers=[
+                        ("X-Nm03-Request-Id", payload["trace_id"]),
+                        ("X-Nm03-Z-Shards", str(payload["z_shards"])),
+                        ("X-Nm03-Gang-Wait-Ms", f"{payload['gang_wait_s'] * 1e3:.3f}"),
+                        *cache_headers,
+                    ],
+                )
+
     return Handler
 
 
@@ -753,10 +1253,6 @@ def serve_in_thread(app: ServingApp, host: str = "127.0.0.1", port: int = 0):
 # flags of the JAX package's nm03-serve whose layers the port does not have
 # (yet), each with the reason it is refused
 NOT_PORTED = {
-    "--volume-serving": "volume serving is not ported yet (ROADMAP A4-V/A6)",
-    "--volume-depth-buckets": "volume serving is not ported yet (ROADMAP A4-V/A6)",
-    "--volume-queue-capacity": "volume serving is not ported yet (ROADMAP A4-V/A6)",
-    "--volume-timeout-s": "volume serving is not ported yet (ROADMAP A4-V/A6)",
     "--distributed-init": "multi-process serving is not ported yet (ROADMAP A6)",
     "--compile-cache-dir": "an XLA executable cache has no counterpart in eager "
                            "PyTorch (warmup captures CUDA graphs instead)",
@@ -825,6 +1321,25 @@ def build_parser() -> argparse.ArgumentParser:
     )
     g.add_argument("--jpeg-quality", type=int, default=90, help="JPEG encoder quality")
     g.add_argument(
+        "--volume-serving", action="store_true",
+        help="serve POST /v1/segment-volume: whole studies in one request through "
+        "the volume gang, on one lane's device; warmup runs each depth bucket once",
+    )
+    g.add_argument(
+        "--volume-depth-buckets", default=None, metavar="D1,D2,...",
+        help="comma list of warm volume depth buckets (a study pads to the smallest "
+        "that fits; default 8,16,32); the largest is the served depth cap",
+    )
+    g.add_argument(
+        "--volume-queue-capacity", type=int, default=4,
+        help="bounded volume admission queue, apart from the slice queue, so bulk "
+        "volumes shed on their own capacity",
+    )
+    g.add_argument(
+        "--volume-timeout-s", type=float, default=300.0,
+        help="per-volume wall budget from admission to response",
+    )
+    g.add_argument(
         "--flight-dir", default=None, metavar="DIR",
         help="flight-recorder dump directory (default: $NM03_FLIGHTREC_DIR or the cwd)",
     )
@@ -859,6 +1374,11 @@ def app_from_args(args: argparse.Namespace, obs=None) -> ServingApp:
     from nm03_capstone_project_tpu_torch.resilience import ResilienceConfig
 
     buckets = tuple(int(b) for b in str(args.buckets).split(",") if b.strip())
+    volume_buckets = None
+    if args.volume_depth_buckets:
+        volume_buckets = tuple(
+            int(b) for b in str(args.volume_depth_buckets).split(",") if b.strip()
+        )
     return ServingApp(
         cfg=common.pipeline_config_from_args(args),
         queue_capacity=args.queue_capacity,
@@ -876,6 +1396,10 @@ def app_from_args(args: argparse.Namespace, obs=None) -> ServingApp:
         lane_probe_interval_s=args.lane_probe_interval_s,
         result_cache_bytes=parse_bytes(args.result_cache_bytes or "0"),
         device=args.device,
+        volume_serving=args.volume_serving,
+        volume_depth_buckets=volume_buckets,
+        volume_queue_capacity=args.volume_queue_capacity,
+        volume_timeout_s=args.volume_timeout_s,
     )
 
 

@@ -8,6 +8,8 @@ it runs on a machine with the card but without JAX, skipping the JAX-bound
     python -m pytest --noconftest tests/test_torch_card.py -m cuda -q
 """
 
+import base64
+
 import numpy as np
 import pytest
 import torch
@@ -270,6 +272,51 @@ def test_process_volume_kernels_equal_plain(cuda, fuse, alg):
     assert torch.equal(got["mask"], want["mask"]) and int(got["mask"].sum()) > 0
     assert bool(got["grow_converged"]) is bool(want["grow_converged"]) is True
     assert launches == ((1, 0, 0) if fuse else (0, 1, 0))
+
+
+@pytest.mark.parametrize("fuse", [True, False])
+def test_served_volume_equals_plain_process_volume(cuda, fuse):
+    # the volume gang on the card: its own stream on a thread of its own,
+    # the study padded from 11 planes to the 16-plane bucket, cropped back
+    # to the plain ops' mask; one preprocess launch, no grow launch
+    from nm03_capstone_project_tpu_torch.data.synthetic import phantom_volume
+    from nm03_capstone_project_tpu_torch.pipeline import process_volume
+    from nm03_capstone_project_tpu_torch.serving.server import ServingApp
+
+    cfg = PipelineConfig(fuse_preprocess=fuse)
+    app = ServingApp(cfg=cfg, buckets=(1,), volume_serving=True, volume_depth_buckets=(8, 16))
+    app.start()
+    kernels = (hm.fused_preprocess_kernel, hm.vector_median_filter_kernel,
+               hg.region_grow_kernel)
+    try:
+        study = phantom_volume(11, 240, 200, seed=3)
+        for fn in kernels:
+            fn.launches = 0
+        payload = app.segment_volume(study.copy())
+        launches = tuple(fn.launches for fn in kernels)
+    finally:
+        app.begin_drain(reason="test")
+        app.close()
+    vol = np.zeros((11, 256, 256), np.float32)
+    vol[:, :240, :200] = study
+    want = process_volume(vol, np.asarray([240, 200], np.int32),
+                          PipelineConfig(fuse_preprocess=fuse, use_kernels=False))
+    got = np.frombuffer(base64.b64decode(payload["mask_b64"]), np.uint8)
+    assert payload["shape"] == [11, 240, 200] and payload["z_shards"] == 1
+    assert np.array_equal(got.reshape(11, 240, 200), want["mask"].cpu().numpy()[:, :240, :200])
+    assert payload["grow_converged"] is bool(want["grow_converged"])
+    assert launches == ((1, 0, 0) if fuse else (0, 1, 0))
+
+
+@pytest.mark.parametrize("impl", ["merge", "sort"])
+def test_plain_medians_agree_on_the_card(cuda, impl):
+    from nm03_capstone_project_tpu_torch.ops import median
+
+    x = (torch.rand((3, 61, 67), generator=torch.Generator().manual_seed(4)) * 4000).to(cuda)
+    for k in (3, 7, 15):
+        got = getattr(median, f"vector_median_filter_{impl}")(x, k)
+        assert torch.equal(got, vector_median_filter(x, k))
+        assert torch.equal(got, hm.vector_median_filter_kernel(x, k))
 
 
 @pytest.mark.parametrize("ndim", [2, 3])

@@ -63,7 +63,7 @@ def test_port_has_the_slice_modules():
         "serving.executor", "serving.batcher", "serving.server",
         "ops.volume", "pipeline.volume_pipeline", "data.imageio", "cli.volume",
         "models", "models.unet", "models.unet3d", "models.train", "models.checkpoint",
-        "cli.train",
+        "cli.train", "cache.inflight", "serving.volumes", "ops.regionprops",
     ):
         assert f"nm03_capstone_project_tpu_torch.{mod}" in names
 
@@ -294,13 +294,14 @@ class TestServer:
 
         assert not flightrec.get_recorder().configured
 
-    @pytest.mark.parametrize("flag", [
-        ["--volume-serving"], ["--volume-depth-buckets", "8,16"], ["--distributed-init"],
-        ["--compile-cache-dir", "c"], ["--fault-plan", "{}"], ["--slo-availability", "99"],
-        ["--slo-p99-ms", "100"], ["--ledger-profile-interval-s", "1"],
-        ["--ledger-profile-ms", "100"], ["--no-fallback-cpu"], ["--sanitize"],
-        ["--device", "auto"],
-    ])
+    # the ids stay those of the cases before volume serving was ported
+    # (flag0 and flag1 were its two flags, now accepted: see the test below)
+    @pytest.mark.parametrize("flag", [pytest.param(f, id=f"flag{i}") for i, f in enumerate([
+        ["--distributed-init"], ["--compile-cache-dir", "c"], ["--fault-plan", "{}"],
+        ["--slo-availability", "99"], ["--slo-p99-ms", "100"],
+        ["--ledger-profile-interval-s", "1"], ["--ledger-profile-ms", "100"],
+        ["--no-fallback-cpu"], ["--sanitize"], ["--device", "auto"],
+    ], start=2)])
     def test_flags_of_layers_not_ported_are_rejected(self, flag, capsys):
         from nm03_capstone_project_tpu_torch.serving import server
 
@@ -310,6 +311,32 @@ class TestServer:
         err = capsys.readouterr().err
         if flag[0] in server.NOT_PORTED:
             assert server.NOT_PORTED[flag[0]] in err
+
+    @pytest.mark.parametrize("flag,attr,value", [
+        (["--volume-serving"], "volume_serving", True),
+        (["--volume-depth-buckets", "4,8,12"], "volume_depth_buckets", (4, 8, 12)),
+        (["--volume-queue-capacity", "3"], "volume_queue_capacity", 3),
+        (["--volume-timeout-s", "12.5"], "volume_timeout_s", 12.5),
+    ])
+    def test_volume_flags_parse_and_reach_the_app(self, flag, attr, value, monkeypatch):
+        from nm03_capstone_project_tpu_torch.serving import server
+
+        seen = {}
+
+        class FakeApp:
+            def __init__(self, **kw):
+                seen.update(kw)
+
+        monkeypatch.setattr(server, "ServingApp", FakeApp)
+        args = server.build_parser().parse_args(["--device", "cpu", "--volume-serving"] + flag)
+        server.app_from_args(args)
+        assert seen["volume_serving"] is True and seen[attr] == value
+        # without the flag, no gang and the JAX package's defaults
+        seen.clear()
+        server.app_from_args(server.build_parser().parse_args(["--device", "cpu"]))
+        assert (seen["volume_serving"], seen["volume_depth_buckets"],
+                seen["volume_queue_capacity"], seen["volume_timeout_s"]) == (
+            False, None, 4, 300.0)
 
     def test_parser_matches_the_drivers_pipeline_flags(self):
         from nm03_capstone_project_tpu_torch.cli import common

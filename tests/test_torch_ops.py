@@ -135,6 +135,15 @@ class TestElementwise:
         assert got.dtype == torch.uint8
         np.testing.assert_array_equal(got.numpy(), np.asarray(jax_elementwise.cast_uint8(x)))
 
+    @pytest.mark.parametrize("low,high", [(0.74, 0.91), (0.5, 0.5), (2.0, 1.0)])
+    def test_binary_threshold(self, low, high):
+        x = np.random.default_rng(9).random((3, 17, 19)).astype(np.float32) * 2.5
+        x[0, 0, :4] = [0.74, 0.91, 0.5, np.float32(0.74)]  # the band's edges
+        got = elementwise.binary_threshold(torch.from_numpy(x), low, high)
+        assert got.dtype == torch.uint8
+        want = np.asarray(jax_elementwise.binary_threshold(jnp.asarray(x), low, high))
+        np.testing.assert_array_equal(got.numpy(), want)
+
 
 class TestMorphology:
     @pytest.mark.parametrize("op", ["dilate", "erode"])
@@ -154,9 +163,18 @@ class TestMorphology:
         assert got.dtype == torch.bool
         np.testing.assert_array_equal(got.numpy(), want)
 
-    def test_disk_not_ported(self):
-        with pytest.raises(NotImplementedError):
-            morphology.dilate(torch.zeros((4, 4), dtype=torch.uint8), 5, "disk")
+    @pytest.mark.parametrize("dtype", ["bool", "uint8"])
+    @pytest.mark.parametrize("op", ["dilate", "erode"])
+    @pytest.mark.parametrize("size", [3, 5, 7])
+    def test_disk_bitwise(self, size, op, dtype):
+        # JAX folds disk 3 and 7 and decomposes disk 5 as box 3 then cross
+        # 3; the port folds every disk: the same bits
+        x = np.random.default_rng(10 + size).random((2, 21, 18)) > 0.55
+        x = x if dtype == "bool" else (x * np.uint8(3)).astype(np.uint8)
+        want = np.asarray(getattr(jax_morphology, op)(jnp.asarray(x), size, "disk"))
+        got = getattr(morphology, op)(torch.from_numpy(x), size, "disk")
+        assert str(got.dtype) == f"torch.{dtype}"
+        np.testing.assert_array_equal(got.numpy(), want)
 
 
 class TestSelectionNetwork:
@@ -186,6 +204,61 @@ class TestMedian:
     def test_even_window_raises(self):
         with pytest.raises(ValueError):
             median.vector_median_filter(torch.zeros((8, 8)), 4)
+
+    @pytest.mark.parametrize("impl", ["merge", "sort"])
+    @pytest.mark.parametrize("size", [3, 5, 7, 9, 11, 13, 15])
+    def test_merge_and_sort_bitwise(self, impl, size):
+        x = np.random.default_rng(20 + size).random((2, 19, 23)).astype(np.float32)
+        x[0, 3:9, 4:10] = 0.5  # a run of ties
+        fn = f"vector_median_filter_{impl}"
+        want = np.asarray(getattr(jax_median, fn)(jnp.asarray(x), size))
+        got = getattr(median, fn)(torch.from_numpy(x), size).numpy()
+        np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+        # and the same bits as the pruned plan the kernels are held against
+        pruned = median.vector_median_filter(torch.from_numpy(x), size).numpy()
+        np.testing.assert_array_equal(got.view(np.uint32), pruned.view(np.uint32))
+
+    @pytest.mark.parametrize("size", [3, 5])
+    def test_multichannel_exact_on_integer_values(self, size):
+        # integer-valued samples: every L1 sum is exact, so the argmin and
+        # its ties are the same in both packages
+        x = np.random.default_rng(size).integers(0, 40, (2, 3, 15, 13)).astype(np.float32)
+        want = np.asarray(jax_median.vector_median_filter_multichannel(jnp.asarray(x), size))
+        got = median.vector_median_filter_multichannel(torch.from_numpy(x), size)
+        np.testing.assert_array_equal(got.numpy(), want)
+
+    def test_multichannel_random_floats_differ_only_at_near_ties(self):
+        size = 3
+        x = np.random.default_rng(31).random((3, 24, 21)).astype(np.float32)
+        want = np.asarray(jax_median.vector_median_filter_multichannel(jnp.asarray(x), size))
+        got = median.vector_median_filter_multichannel(torch.from_numpy(x), size).numpy()
+        # the window costs in float64: where the two packages pick different
+        # samples, their two best costs lie within 1e-5 relative
+        stack = neighborhood.shifted_stack(torch.from_numpy(x).double(),
+                                           neighborhood.window_offsets(size)).numpy()
+        cost = np.abs(stack[:, None] - stack[None, :]).sum(axis=-3).sum(axis=1)
+        best2 = np.sort(cost, axis=0)[:2]
+        differ = (got != want).any(axis=0)
+        assert np.all(best2[1][differ] - best2[0][differ] <= 1e-5 * best2[0][differ])
+        assert differ.mean() < 0.01
+
+    @pytest.mark.parametrize("impl", ["merge", "sort"])
+    @pytest.mark.parametrize("fuse", [True, False])
+    def test_pipeline_selects_the_plain_median_by_impl(self, impl, fuse, monkeypatch):
+        from nm03_capstone_project_tpu_torch.ops import hopper_median
+        from nm03_capstone_project_tpu_torch.pipeline import process_batch
+
+        calls = []
+        real = hopper_median.PLAIN_MEDIANS[impl]
+        monkeypatch.setitem(hopper_median.PLAIN_MEDIANS, impl,
+                            lambda *a: calls.append(impl) or real(*a))
+        px = np.random.default_rng(7).random((2, 40, 40)).astype(np.float32) * 3000
+        dims = np.asarray([[40, 40], [33, 37]], np.int32)
+        base = config.PipelineConfig(canvas=40, min_dim=8, fuse_preprocess=fuse)
+        want = process_batch(px, dims, base, device="cpu")
+        got = process_batch(px, dims, dataclasses.replace(base, median_impl=impl), device="cpu")
+        assert calls == [impl]
+        assert torch.equal(got["mask"], want["mask"])
 
 
 class TestSharpen:
@@ -262,9 +335,9 @@ class TestConfig:
         # grow_algorithm="jump" is ported (torch ops) and, unlike the JAX
         # package's use_pallas, allowed with the kernels on
         assert config.PipelineConfig(grow_algorithm="jump").use_kernels is True
+        # merge and sort are ported (the plain medians; the kernels ignore them)
         for impl in ("merge", "sort"):
-            with pytest.raises(NotImplementedError):
-                config.PipelineConfig(median_impl=impl)
+            assert config.PipelineConfig(median_impl=impl).median_impl == impl
         with pytest.raises(ValueError):
             config.PipelineConfig(median_impl="bogus")
         with pytest.raises(ValueError):

@@ -153,18 +153,52 @@ toolkit. Phases, each printing one JSON line:
    events), in bf16 and in f32, beside the least time the convolutions'
    FLOPs need (3 forwards a step) at the card's dense bf16 and float32
    peaks, and one step of each under the profiler (its top kernels).
-9. ``kernels`` — one line, ``{"kernels": [...]}``, per kernel: launches in
+9. ``operate`` — the service on the card under load and under faults, on
+   the driver phase's 500 DICOM files. A server (buckets 1-16, the result
+   tier on) with a fault plan (``OPERATE_PLAN``: two ``dispatch``/
+   ``transient`` fires, one ``dispatch``/``hang`` past a 2 s
+   ``dispatch_timeout_s``, one ``cache``/``corrupt_entry``), an SLO
+   (availability 99 %, p99 1000 ms) and the device-time ledger's sampler
+   (a 200 ms capture every 2 s). A drill of four phantoms one at a time:
+   the first retried twice and answered 200, the fourth hung past its
+   deadline (504), ``/readyz`` 503 ``degraded`` until the probation probe
+   reinstates the one lane, two flight-recorder dumps (the lane's
+   quarantine, the degradation); a repeated body read corrupt once
+   (recomputed, then a hit). Then the port's loadgen (``serving/loadgen``
+   as a library): the cohort as DICOM bodies at concurrency 16, and an open
+   loop of 200 at half that rate during which ``GET /debug/profile?ms=100``
+   (a 409 while the sampler holds the profiler is retried) must hold the
+   fused and grow kernels' names. Checks: every 200's mask equals the
+   driver's (the golden's); the ledger's accounts equal the executor's busy
+   seconds; the stage shares sum to 1 with ``median7`` and ``grow`` above 0
+   (graph replays reach the pie); the busy fraction in (0, 1], MFU against
+   the H100's 67 TFLOP/s, the padding rows equal to the bucket arithmetic
+   of the batch sizes the loadgen saw; the ``slo_*`` gauges present, the
+   budget <= 1; every fault, quarantine and reinstatement counted exactly
+   once; ``/debug/flightrec`` and ``/debug/result-cache`` 200. The same
+   closed loop on a fresh server with the sampler off gives the sampler's
+   cost. Last the driver drill: the parallel CLI over the cohort with
+   ``DRIVER_DRILL_PLAN`` (decode error and corrupt, two transient
+   dispatches, an export I/O error, an ingest decode error) must give
+   ``DRIVER_DRILL_COUNTS`` (the CPU's numbers) and export only pairs equal to
+   the clean run's; an ``export``/``sigterm`` drill in a subprocess, then
+   ``--resume``, ends with JPEG pairs and manifest byte-identical to the
+   clean run's. The line has the drill, both loadgen summaries, the stage
+   pie, saturation, ledger, HBM table, SLO block, the driver drill's counts,
+   the launches and the card's name and power limit.
+10. ``kernels`` — one line, ``{"kernels": [...]}``, per kernel: launches in
    the driver's run (``launches``; the median kernel's from the unfused
    patient), in the ``slice`` phase's (``slice_launches``), by the
    ``serve`` phase's graph replays (``serve_launches``: replays times the
    launches a graph holds), in the volume driver's run
    (``volume_launches``; the median kernel's from its unfused patient), in
    the ``serve_volume`` phase's main run (``serve_volume_launches``; the
-   median kernel's from its unfused server) and
-   by the teacher while the ``student`` phase's 2D and 3D training runs
-   distil their labels (``student_launches``), the largest difference from
-   the plain version, its wrapper and device time, the plain time and the
-   bound.
+   median kernel's from its unfused server), by the teacher while the
+   ``student`` phase's 2D and 3D training runs distil their labels
+   (``student_launches``) and in the ``operate`` phase (``operate_launches``:
+   both servers' replays and the driver drill), the largest difference
+   from the plain version, its wrapper and device time, the plain time and
+   the bound.
 
 The card's ``nvidia-smi`` name and power limit print on a line of their own;
 the last line is ``{"ok": true, "device": {...}}``. Any failed check exits
@@ -224,6 +258,39 @@ STUDENT_TIMED_STEPS = 20  # training steps timed a precision
 STUDENT_F32_RTOL = 1e-5  # f32 forward, card vs CPU: x max |logit|
 STUDENT_DELTA = 2.0  # bf16 masks may differ from f32 only where |f32 logit| < this
 DEPLOY_TURNS = ("student", "classical")  # the parallel CLI, --model and without
+# the operate phase's server: two transient dispatch errors (retried), a hang
+# at dispatch OPERATE_HANG_INDEX past a shorter deadline (the one lane
+# quarantines, the probe reinstates it) and one corrupt result-tier entry
+OPERATE_HANG_INDEX = 3
+OPERATE_DEADLINE_S = 2.0
+OPERATE_PROBE_S = 0.5
+OPERATE_PLAN = {"seed": 8, "faults": [
+    {"site": "dispatch", "kind": "transient", "count": 2},
+    {"site": "dispatch", "kind": "hang", "index": OPERATE_HANG_INDEX, "hang_s": 30.0},
+    {"site": "cache", "kind": "corrupt_entry", "count": 1},
+]}
+OPERATE_SLO = (99.0, 1000.0)  # availability %, p99 target ms
+OPERATE_SAMPLER = (2.0, 200)  # ledger profile interval s, capture ms
+OPERATE_OPEN_REQUESTS = 200
+OPERATE_OPEN_SHARE = 0.5  # the open loop's rate, a share of the closed loop's
+# the driver drill over the DRIVER_COHORT: one of each of the drivers'
+# fault kinds, and the counts the same plan gives on the CPU
+# (tests/test_torch_driver_faults.py runs it on a cohort of the same
+# patients, stems and batches and holds the port to these numbers)
+DRIVER_DRILL_PLAN = {"seed": 5, "faults": [
+    {"site": "decode", "kind": "error", "patient": "PGBM-0003", "stem": "1-07"},
+    {"site": "decode", "kind": "corrupt", "patient": "PGBM-0004", "stem": "1-12"},
+    {"site": "dispatch", "kind": "transient", "count": 2},
+    {"site": "export", "kind": "io_error", "stem": "1-03", "count": 5},
+    {"site": "ingest", "kind": "decode_error", "patient": "PGBM-0006", "index": 0},
+]}
+DRIVER_DRILL_COUNTS = {
+    "slices_ok": 472,  # 500 less 1 decode error, 1 corrupt, 1 export, 25 (one batch)
+    "retries": {"dispatch": 2, "export": 4},
+    "faults": {"decode/error": 1, "decode/corrupt": 1, "dispatch/transient": 2,
+               "export/io_error": 5, "ingest/decode_error": 1},
+}
+DRIVER_SIGTERM_AFTER = 60  # export checks before the SIGTERM
 
 
 def emit(obj) -> None:
@@ -1735,6 +1802,338 @@ def student_phase(tmp: Path, driver_out: dict, volume_out: dict, smi: str, kerne
     return launches
 
 
+def operate_phase(tmp: Path, driver_out: dict, smi: str, kernels: dict, reset) -> dict:
+    """The service on the card under load and under faults (phase 9 of the
+    docstring). Returns the kernels' launches of its main path: the graph
+    replays of both servers plus the driver drill's wrapper launches."""
+    import urllib.error
+    import urllib.request
+
+    from nm03_capstone_project_tpu_torch.cli import parallel as parallel_cli
+    from nm03_capstone_project_tpu_torch.config import PipelineConfig
+    from nm03_capstone_project_tpu_torch.data.discovery import (
+        find_patient_dirs,
+        load_dicom_files_for_patient,
+    )
+    from nm03_capstone_project_tpu_torch.data.synthetic import phantom_slice
+    from nm03_capstone_project_tpu_torch.obs import flightrec
+    from nm03_capstone_project_tpu_torch.obs.ledger import trace_events_from_capture
+    from nm03_capstone_project_tpu_torch.obs.slo import SLOObjective
+    from nm03_capstone_project_tpu_torch.resilience import FaultPlan, ResilienceConfig
+    from nm03_capstone_project_tpu_torch.serving import loadgen
+    from nm03_capstone_project_tpu_torch.serving.server import ServingApp, serve_in_thread
+
+    phase_t0 = time.perf_counter()
+    cohort, dmasks, dfiles = driver_out["cohort"], driver_out["masks"], driver_out["files"]
+    dicom = [(pid, f.stem, f.read_bytes()) for pid in find_patient_dirs(cohort)
+             for f in load_dicom_files_for_patient(cohort, pid)]
+    cfg = PipelineConfig(canvas=DRIVER_COHORT[2])
+    buckets = {b: next(x for x in SERVE_BUCKETS if x >= b) for b in range(1, SERVE_BUCKETS[-1] + 1)}
+
+    def get(url: str):
+        try:
+            with urllib.request.urlopen(url, timeout=60) as r:
+                return r.status, r.read(), dict(r.headers)
+        except urllib.error.HTTPError as e:
+            return e.code, e.read(), dict(e.headers)
+
+    def counter(app, name, **labels):
+        m = app.registry.get(name, **labels)
+        return 0 if m is None else m.value
+
+    def capture_masks(app) -> dict:
+        """Record each computed or cached 200's mask digest by trace id."""
+        seen, real = {}, app.segment_cached
+
+        def segment_cached(*args, **kw):
+            out = real(*args, **kw)
+            if out[0] is not None:
+                seen[out[0]["trace_id"]] = (out[0]["shape"], out[0]["mask_sha256"])
+            return out
+
+        app.segment_cached = segment_cached
+        return seen
+
+    def check_masks(seen: dict, result, n_sent: int):
+        """Every 200 of a loadgen run against the driver's (= golden) mask."""
+        checked = 0
+        for rec in result.requests:
+            if rec["status"] != "ok":
+                continue
+            i = int(rec["id"].rsplit("-", 1)[1]) % len(dicom)
+            pid, stem, _ = dicom[i]
+            shape, sha = seen[rec["id"]]
+            m = dmasks[(pid, stem)]
+            require(sha == hashlib.sha256(np.ascontiguousarray(
+                m[: shape[0], : shape[1]]).tobytes()).hexdigest(),
+                f"served {pid}/{stem}: mask != the driver's")
+            checked += 1
+        require(checked == result.statuses["ok"] <= n_sent, "unchecked 200s")
+        return checked
+
+    def load(url: str, n: int, concurrency: int, rate: float, output: str):
+        result = loadgen.LoadResult()
+        payloads = [(body, {"Content-Type": "application/dicom"}) for _, _, body in dicom]
+        summary = loadgen.run_load([f"{url}/v1/segment?output={output}"], payloads, n,
+                                   concurrency, rate, 120.0, result)
+        keep = ("mode", "requests_total", "requests_ok", "statuses", "throughput_rps",
+                "latency_ms", "batch_sizes", "queue_wait_ms")
+        return {k: summary[k] for k in keep}, result
+
+    def rows_of(batch_sizes: dict):
+        """Real and dead rows the loadgen's observed batch sizes imply."""
+        real = padded = 0
+        for b, n in batch_sizes.items():
+            b = int(b)
+            require(n % b == 0, f"{n} riders of batch size {b}")
+            real += n
+            padded += n // b * (buckets[b] - b)
+        return real, padded
+
+    # -- the server under its fault plan, the SLO and the ledger sampler ----
+    flight_dir = tmp / "flight"
+    flight_dir.mkdir()
+    flightrec.configure(str(flight_dir))
+    app = ServingApp(
+        cfg=cfg, buckets=SERVE_BUCKETS, result_cache_bytes=1 << 30,
+        fault_plan=FaultPlan.from_spec(OPERATE_PLAN),
+        resilience=ResilienceConfig(dispatch_timeout_s=OPERATE_DEADLINE_S),
+        lane_probe_interval_s=OPERATE_PROBE_S,
+        slo=SLOObjective(availability_pct=OPERATE_SLO[0], latency_target_s=OPERATE_SLO[1] / 1e3),
+        ledger_profile_interval_s=OPERATE_SAMPLER[0], ledger_profile_ms=OPERATE_SAMPLER[1],
+    )
+    httpd, _, port = serve_in_thread(app)
+    base = f"http://127.0.0.1:{port}"
+    try:
+        reset()
+        app.executor.reset_replays()  # the main path's run: replays from here count
+        seen = capture_masks(app)
+
+        # the drill: phantoms one at a time; dispatch 0 meets the two
+        # transient fires, dispatch OPERATE_HANG_INDEX the hang
+        c = cfg.canvas
+        hdrs = {"Content-Type": "application/octet-stream", "X-Nm03-Height": str(c),
+                "X-Nm03-Width": str(c - 16)}
+        drill = []
+        for i in range(OPERATE_HANG_INDEX + 1):
+            img = phantom_slice(c, c - 16, seed=100 + i).astype("<f4").tobytes()
+            status, payload, headers, dt = http_post(base + "/v1/segment?output=mask", img,
+                                                     hdrs)
+            drill.append({"status": status, "ms": dt * 1e3})
+        want = [200] * OPERATE_HANG_INDEX + [504]
+        require([d["status"] for d in drill] == want, f"drill statuses {drill}")
+        t_fault = time.perf_counter()
+        status, body, _ = get(base + "/readyz")
+        st = json.loads(body)
+        require(status == 503 and st["degraded"] and st["degraded_cause"] == "deadline",
+                f"/readyz after the hang: {status} {st.get('degraded')}")
+        while get(base + "/readyz")[0] != 200:
+            require(time.perf_counter() - t_fault < 30, "the probe never reinstated the lane")
+            time.sleep(0.05)
+        reinstate_s = time.perf_counter() - t_fault
+        # the repeated body: its stored entry reads corrupt once, is evicted
+        # and recomputed, then served from the store
+        img = phantom_slice(c, c - 16, seed=101).astype("<f4").tobytes()
+        repeats = [http_post(base + "/v1/segment?output=mask", img, hdrs) for _ in range(2)]
+        require([r[0] for r in repeats] == [200, 200]
+                and [r[2].get("X-Nm03-Cache") for r in repeats] == ["fill", "hit"]
+                and repeats[0][1]["mask_sha256"] == repeats[1][1]["mask_sha256"],
+                f"corrupt entry: {[(r[0], r[2].get('X-Nm03-Cache')) for r in repeats]}")
+        dumps = sorted(p.name for p in flight_dir.glob("*.json"))
+        require(len(dumps) == 2 and any("lane0_quarantine_deadline" in d for d in dumps)
+                and any("degraded_deadline" in d for d in dumps), f"flight dumps {dumps}")
+
+        # traffic: the cohort from 16 clients, then an open loop below it
+        rows0 = (counter(app, "serving_batch_rows_total", kind="real"),
+                 counter(app, "serving_batch_rows_total", kind="padded"))
+        closed, closed_res = load(base, len(dicom), SERVE_CONCURRENCY, 0.0, "jpeg")
+        require(closed["statuses"] == {"ok": len(dicom)}, f"closed loop {closed['statuses']}")
+        checked = check_masks(seen, closed_res, len(dicom))
+        real, padded = rows_of(closed["batch_sizes"])
+        rows = (counter(app, "serving_batch_rows_total", kind="real") - rows0[0],
+                counter(app, "serving_batch_rows_total", kind="padded") - rows0[1])
+        require(rows == (real, padded), f"rows {rows} != the batch arithmetic {(real, padded)}")
+        rate = round(OPERATE_OPEN_SHARE * closed["throughput_rps"], 1)
+        box = {}
+        opener = threading.Thread(target=lambda: box.update(
+            zip(("summary", "result"), load(base, OPERATE_OPEN_REQUESTS, 0, rate, "mask"))))
+        opener.start()
+        time.sleep(1.0)
+        profile_tries = []
+        while True:  # a 409 while the sampler holds the profiler: try again
+            status, body, headers = get(base + "/debug/profile?ms=100")
+            profile_tries.append(status)
+            if status != 409 or len(profile_tries) >= 20:
+                break
+            time.sleep(0.25)
+        opener.join(timeout=300)
+        require(not opener.is_alive(), "the open loop hung")
+        require(status == 200, f"/debug/profile: {profile_tries}")
+        names = {e.get("name", "") for e in trace_events_from_capture(json.loads(body))
+                 if e.get("cat") == "kernel"}
+        require(any("fused_kernel" in n for n in names)
+                and any("grow_kernel" in n for n in names),
+                f"/debug/profile trace kernels: {sorted(names)[:12]}")
+        opened = box["summary"]
+        require(opened["statuses"] == {"ok": OPERATE_OPEN_REQUESTS},
+                f"open loop {opened['statuses']}")
+        checked += check_masks(seen, box["result"], OPERATE_OPEN_REQUESTS)
+        for path in ("/debug/flightrec", "/debug/result-cache"):
+            require(get(base + path)[0] == 200, f"{path} did not answer 200")
+
+        # the planes: ledger, saturation, SLO, and what the plan did
+        time.sleep(OPERATE_SAMPLER[0] + 0.5)  # one more sample after the traffic
+        st = json.loads(get(base + "/readyz")[1])
+        metrics_text = get(base + "/metrics")[1].decode()
+        led, sat, slo = st["ledger"], st["saturation"], st["slo"]
+        busy = app.executor.busy_seconds
+        require(abs(led["device_seconds_total"] - busy) <= 1e-6 * max(busy, 1.0),
+                f"ledger {led['device_seconds_total']} != executor busy {busy}")
+        shares = led["stage_shares"]
+        require(abs(sum(shares.values()) - 1.0) <= 5e-4 * len(shares),
+                f"stage shares sum {sum(shares.values())}")
+        require(shares.get("median7", 0) > 0 and shares.get("grow", 0) > 0,
+                f"the pie misses the graph replays' kernels: {shares}")
+        require(0 < sat["busy_fraction"] <= 1, f"busy fraction {sat['busy_fraction']}")
+        lane0 = sat["lanes"][0]
+        require(lane0["peak_flops"] == 67e12 and lane0["mfu"] is not None,
+                f"saturation lane {lane0}")
+        total = sat["rows"]["real"] + sat["rows"]["padded"]
+        require(total > 0 and abs(sat["padding_waste_ratio"]
+                                  - sat["rows"]["padded"] / total) < 1e-4,
+                f"padding waste {sat['padding_waste_ratio']} vs rows {sat['rows']}")
+        for gauge in ("slo_burn_rate_fast", "slo_burn_rate_slow", "slo_error_budget_remaining",
+                      "slo_objective_info"):
+            require(gauge in metrics_text, f"{gauge} missing from /metrics")
+        require(slo["error_budget_remaining"] <= 1.0, f"slo {slo}")
+        fired = {f"{s}/{k}": counter(app, "resilience_faults_injected_total", site=s, kind=k)
+                 for s, k in (("dispatch", "transient"), ("dispatch", "hang"),
+                              ("cache", "corrupt_entry"))}
+        lane_counts = {
+            "quarantines": counter(app, "serving_lane_quarantines_total", lane="0",
+                                   cause="deadline"),
+            "reinstated": counter(app, "serving_lane_reinstated_total", lane="0"),
+            "retries": counter(app, "resilience_retries_total", cause="serve_dispatch"),
+        }
+        require(fired == {"dispatch/transient": 2, "dispatch/hang": 1,
+                          "cache/corrupt_entry": 1}, f"faults fired {fired}")
+        require(lane_counts == {"quarantines": 1, "reinstated": 1, "retries": 2},
+                f"lane counters {lane_counts}")
+        replay_a = app.executor.replay_launches()
+        require(replay_a.get("fused", 0) > 0 and replay_a.get("grow", 0) > 0,
+                f"server replays {replay_a}")
+        require(sum(fn.launches for fn in kernels.values()) == 0,
+                "serving ran a kernel wrapper outside a graph")
+    finally:
+        app.begin_drain(reason="chip_smoke")
+        httpd.shutdown()
+        httpd.server_close()
+        app.close()
+        flightrec.configure(None)
+
+    # -- the same closed loop on a fresh server, the sampler off ------------
+    # (the same supervision: only the sampler and the plan differ)
+    bapp = ServingApp(cfg=cfg, buckets=SERVE_BUCKETS, result_cache_bytes=1 << 30,
+                      resilience=ResilienceConfig(dispatch_timeout_s=OPERATE_DEADLINE_S),
+                      lane_probe_interval_s=OPERATE_PROBE_S)
+    bhttpd, _, bport = serve_in_thread(bapp)
+    try:
+        bapp.executor.reset_replays()
+        seen = capture_masks(bapp)
+        closed_off, res_off = load(f"http://127.0.0.1:{bport}", len(dicom), SERVE_CONCURRENCY,
+                                   0.0, "jpeg")
+        require(closed_off["statuses"] == {"ok": len(dicom)},
+                f"closed loop, sampler off: {closed_off['statuses']}")
+        checked += check_masks(seen, res_off, len(dicom))
+        replay_b = bapp.executor.replay_launches()
+        st_off = bapp.status()
+        require(st_off["ledger"]["profile_samples"]["taken"] == 0,
+                f"the sampler ran while off: {st_off['ledger']['profile_samples']}")
+        off_planes = {"busy_fraction": st_off["saturation"]["busy_fraction"],
+                      "device_seconds_mean": st_off["ledger"]["requests"]["device_seconds_mean"],
+                      "executor_busy_s": bapp.executor.busy_seconds}
+    finally:
+        bapp.begin_drain(reason="chip_smoke")
+        bhttpd.shutdown()
+        bhttpd.server_close()
+        bapp.close()
+
+    # -- the driver drill: one plan over the cohort, counts pinned on the CPU
+    out = tmp / "drill"
+    rj = tmp / "drill.json"
+    reset()
+    rc = parallel_cli.main(["--base-path", str(cohort), "--output", str(out), "--results-json",
+                            str(rj), "--canvas", str(cfg.canvas),
+                            "--fault-plan", json.dumps(DRIVER_DRILL_PLAN)])
+    drill_launches = {k: fn.launches for k, fn in kernels.items()}
+    require(rc == 0, f"the drill's parallel CLI exited {rc}")
+    rec = json.loads(rj.read_text())
+    counts = {"slices_ok": rec["summary"]["slices_ok"], "retries": {}, "faults": {}}
+    for m in rec["metrics"]["metrics"]:
+        if m["name"] == "resilience_retries_total":
+            counts["retries"][m["labels"]["cause"]] = m["value"]
+        elif m["name"] == "resilience_faults_injected_total":
+            counts["faults"][f"{m['labels']['site']}/{m['labels']['kind']}"] = m["value"]
+    require(counts == DRIVER_DRILL_COUNTS, f"drill counts {counts} != {DRIVER_DRILL_COUNTS}")
+    drill_files = files_of(out)
+    require(drill_files and all(dfiles.get(k) == v for k, v in drill_files.items()),
+            "an exported pair of the drill differs from the clean run's")
+    require(len(drill_files) == 2 * counts["slices_ok"], f"{len(drill_files)} drill files")
+    require(drill_launches["fused"] > 0 and drill_launches["grow"] > 0,
+            f"drill launches {drill_launches}")
+
+    # SIGTERM from the export path after a few pairs, then --resume
+    kill_out = tmp / "sigterm"
+    plan = {"faults": [{"site": "export", "kind": "sigterm", "after": DRIVER_SIGTERM_AFTER}]}
+    t0 = time.perf_counter()
+    killed = subprocess.run(
+        [sys.executable, "-m", "nm03_capstone_project_tpu_torch.cli.parallel", "--base-path",
+         str(cohort), "--output", str(kill_out), "--canvas", str(cfg.canvas),
+         "--fault-plan", json.dumps(plan)],
+        capture_output=True, text=True, timeout=600,
+    )
+    killed_s = time.perf_counter() - t0
+    require(killed.returncode == -15, f"the SIGTERM drill exited {killed.returncode}: "
+            f"{killed.stderr[-2000:]}")
+    partial = len(files_of(kill_out))
+    require(0 < partial < len(dfiles), f"{partial} files before the SIGTERM")
+    rc = parallel_cli.main(["--base-path", str(cohort), "--output", str(kill_out),
+                            "--canvas", str(cfg.canvas), "--resume"])
+    require(rc == 0, f"--resume exited {rc}")
+    require(files_of(kill_out) == dfiles, "after --resume the JPEG pairs differ from the clean run")
+    require((kill_out / "manifest.json").read_bytes()
+            == (tmp / "parallel" / "manifest.json").read_bytes(),
+            "after --resume the manifest differs from the clean run's")
+
+    launches = {k: replay_a.get(k, 0) + replay_b.get(k, 0) + drill_launches[k]
+                for k in kernels}
+    emit({"phase": "operate",
+          "drill": {"statuses": [d["status"] for d in drill], "hang_ms": drill[-1]["ms"],
+                    "deadline_s": OPERATE_DEADLINE_S, "reinstate_s": reinstate_s,
+                    "faults": fired, "lane": lane_counts, "flight_dumps": dumps},
+          "sampler_on": {"closed": closed, "open": opened, "open_rate_rps": rate},
+          "sampler_off": {"closed": closed_off, **off_planes},
+          "masks_checked": checked,
+          "stage_pie": {"shares": shares, "seconds": led["stage_seconds"],
+                        "samples": led["profile_samples"]},
+          "saturation": {"busy_fraction": sat["busy_fraction"], "mfu": sat["mfu"],
+                         "peak_flops": lane0["peak_flops"],
+                         "padding_waste_ratio": sat["padding_waste_ratio"],
+                         "window_occupancy_ratio": sat["window_occupancy_ratio"],
+                         "rows": sat["rows"], "closed_loop_rows": {"real": real,
+                                                                    "padded": padded}},
+          "ledger": {"accounts": led["accounts"], "executor_busy_s": busy,
+                     "requests": led["requests"]},
+          "hbm_bytes": led["hbm_bytes"], "slo": slo,
+          "debug_profile_tries": profile_tries,
+          "driver_drill": {"counts": counts, "files": len(drill_files),
+                           "sigterm_after": DRIVER_SIGTERM_AFTER, "files_before_kill": partial,
+                           "killed_run_s": killed_s},
+          "phase_s": time.perf_counter() - phase_t0,
+          "launches": launches, "nvidia_smi": smi})
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing to drive", file=sys.stderr)
@@ -2056,8 +2455,10 @@ def main() -> int:
         # -- 8. the U-Net students ----------------------------------------
         student_launches = student_phase(Path(tmp), driver_out, volume_out, smi, kernels,
                                          reset)
+        # -- 9. the service under load and under faults -------------------
+        operate_launches = operate_phase(Path(tmp), driver_out, smi, kernels, reset)
 
-    # -- 9. kernels ----------------------------------------------------------
+    # -- 10. kernels ---------------------------------------------------------
     meta = {
         "median": ("vector_median_filter", "csrc/median.cu",
                    "nm03_capstone_project_tpu/ops/pallas_median.py:101"),
@@ -2077,6 +2478,7 @@ def main() -> int:
             "volume_launches": volume_launches[key],
             "serve_volume_launches": serve_volume_launches[key],
             "student_launches": student_launches[key],
+            "operate_launches": operate_launches[key],
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"],

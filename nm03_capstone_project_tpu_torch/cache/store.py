@@ -28,7 +28,7 @@ import threading
 import time
 from collections import OrderedDict
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 __all__ = [
     "ResultEntry",
@@ -223,6 +223,43 @@ class ResultStore:
             self._bytes += size
             self._fills += 1
             return entry, True
+
+    def evict(self, digest: Optional[str] = None) -> int:
+        """Drop one entry (or all when ``digest`` is None); returns count."""
+        with self._lock:
+            if digest is not None:
+                entry = self._entries.pop(digest, None)
+                if entry is None:
+                    return 0
+                self._bytes -= len(entry.payload)
+                dropped = 1
+            else:
+                dropped = len(self._entries)
+                self._entries.clear()
+                self._bytes = 0
+            if dropped:
+                self._evictions += dropped
+                if self._on_evict is not None:
+                    self._on_evict(dropped)
+            return dropped
+
+    def ls(self) -> List[Dict[str, Any]]:
+        """Entries hot-to-cold, as plain dicts (the admin-surface rows)."""
+        with self._lock:
+            rows = [
+                {
+                    "digest": e.digest,
+                    "algo": e.algo,
+                    "bytes": len(e.payload),
+                    "etag": e.etag,
+                    "hits": e.hits,
+                    "age_s": round(time.time() - e.created, 3),
+                    "meta": dict(e.meta),
+                }
+                for e in self._entries.values()
+            ]
+        rows.reverse()  # OrderedDict is cold-to-hot; present hot first
+        return rows
 
     def stats(self) -> Dict[str, Any]:
         with self._lock:

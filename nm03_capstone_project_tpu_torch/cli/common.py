@@ -10,6 +10,13 @@ flag names and meanings, and the same cohort resolution. Two flags differ:
   port's kernels are on by default) runs the plain PyTorch ops, for a
   comparison run.
 
+The resilience group (:func:`add_resilience_args`) gives the batch drivers
+the JAX drivers' ``--retry-max``, ``--retry-backoff-s``,
+``--dispatch-timeout-s`` and ``--fault-plan`` with the semantics the JAX
+drivers have under ``--no-fallback-cpu``: a dispatch whose retries are
+exhausted or whose deadline expires fails its slices, which are counted;
+nothing is recomputed on the CPU.
+
 ``--model`` deploys a student checkpoint written by the port's
 ``cli.train`` (:func:`load_model_checkpoint`, with the JAX package's three
 refusals). Flags of the JAX drivers whose layers are not ported are
@@ -46,13 +53,8 @@ NOT_PORTED = {
         "--profile-dir": "the drivers' profiler capture is not ported yet (ROADMAP A4.8)",
     },
     "resilience": {
-        "--retry-max": "supervised dispatch is not ported to the drivers yet (ROADMAP A4.6)",
-        "--retry-backoff-s": "supervised dispatch is not ported to the drivers yet (ROADMAP A4.6)",
-        "--dispatch-timeout-s":
-            "supervised dispatch is not ported to the drivers yet (ROADMAP A4.6)",
         "--fallback-cpu": "the port has no CPU fallback",
         "--no-fallback-cpu": "the port has no CPU fallback; it always fails fast",
-        "--fault-plan": "fault plans are not ported yet (ROADMAP A4.6)",
     },
     "distributed": {
         "--distributed": "multi-process jobs are not ported yet (ROADMAP A6)",
@@ -75,6 +77,49 @@ def add_not_ported_args(parser: argparse.ArgumentParser, *groups: str) -> None:
     for group in groups:
         for flag in NOT_PORTED[group]:
             parser.add_argument(flag, nargs="?", action=_NotPorted, help=argparse.SUPPRESS)
+
+
+def add_resilience_args(parser: argparse.ArgumentParser) -> None:
+    """--retry-max / --retry-backoff-s / --dispatch-timeout-s / --fault-plan,
+    as the JAX batch drivers take them (the sequential and parallel ones)."""
+    from nm03_capstone_project_tpu_torch.resilience import ResilienceConfig
+
+    d = ResilienceConfig()
+    g = parser.add_argument_group("resilience", "supervised execution + chaos testing")
+    g.add_argument(
+        "--retry-max", type=int, default=d.retry_max,
+        help="retries per transient device/export error (0 disables; a per-cause "
+        "run budget caps the total)",
+    )
+    g.add_argument(
+        "--retry-backoff-s", type=float, default=d.retry_backoff_s,
+        help="initial retry backoff; doubles per attempt with deterministic jitter",
+    )
+    g.add_argument(
+        "--dispatch-timeout-s", type=float, default=d.dispatch_timeout_s, metavar="SEC",
+        help="wall-clock deadline per device dispatch (0 disables supervision). On "
+        "expiry the dispatch is abandoned and its slices fail (counted); the "
+        "result fetch moves inside the deadline, trading the fetch/compute "
+        "overlap for wedge immunity",
+    )
+    g.add_argument(
+        "--fault-plan", default=None, metavar="SPEC",
+        help="seeded deterministic fault plan: a JSON file path or inline JSON "
+        "(resilience.faultinject), also honoured from $NM03_FAULT_PLAN when the "
+        "flag is unset; chaos testing only (decode, dispatch, export and ingest sites)",
+    )
+
+
+def resilience_config_from_args(args: argparse.Namespace):
+    from nm03_capstone_project_tpu_torch.resilience import FaultPlan, ResilienceConfig
+
+    d = ResilienceConfig()
+    return ResilienceConfig(
+        retry_max=getattr(args, "retry_max", d.retry_max),
+        retry_backoff_s=getattr(args, "retry_backoff_s", d.retry_backoff_s),
+        dispatch_timeout_s=getattr(args, "dispatch_timeout_s", d.dispatch_timeout_s),
+        fault_plan=FaultPlan.from_spec(getattr(args, "fault_plan", None)),
+    )
 
 
 def add_device_arg(parser: argparse.ArgumentParser) -> None:

@@ -33,6 +33,7 @@ def build_parser() -> argparse.ArgumentParser:
     common.add_ingest_args(p)
     common.add_render_stage_arg(p)
     common.add_model_arg(p)
+    common.add_resilience_args(p)
     common.add_not_ported_args(p, "observability", "profile", "resilience", "distributed")
     return p
 

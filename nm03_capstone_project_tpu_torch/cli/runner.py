@@ -24,10 +24,19 @@ With ``model`` (``--model``), a trained 2D student replaces the
 pipeline's compute in both strategies (:func:`_student_batch_mask`); its
 masks go through the same render, export and accounting.
 
-A failure on the card is a failed slice or batch, counted and reported;
-nothing is recomputed elsewhere. The JAX package's CPU degradation
-(``_fallback_call``, the dispatch supervisor), its fault plans and retries
-and its device mesh are not ported.
+Every dispatch runs under a :class:`..resilience.DispatchSupervisor`:
+transient device errors retry under the :class:`..resilience.RetryPolicy`
+and, with ``dispatch_timeout_s``, a wall-clock deadline abandons a wedged
+dispatch (the result fetch moves inside it). A dispatch whose retries are
+exhausted or whose deadline expires fails its slice (sequential) or its
+batch's slices (parallel), counted and reported; nothing is recomputed
+elsewhere — the JAX package's CPU degradation (``_fallback_call``) and its
+device mesh are not ported. A :class:`..resilience.FaultPlan` (the
+``fault_plan`` of the :class:`..resilience.ResilienceConfig`, or
+``NM03_FAULT_PLAN``) fires at the JAX drivers' sites with their selectors:
+``decode`` (patient, stem, slice index), ``dispatch`` (patient, slice or
+batch index), ``export`` (patient, stem) and ``ingest`` (the work-item
+index); the same plan fails the same slices in both packages.
 
 The pipeline runs on ``device`` (``cuda`` unless the caller asks for the
 CPU). Neither strategy synchronizes the host between enqueue and fetch:
@@ -53,6 +62,8 @@ from nm03_capstone_project_tpu_torch.data.discovery import (
 )
 from nm03_capstone_project_tpu_torch.ingest import IngestFailure, IngestPipeline
 from nm03_capstone_project_tpu_torch.ingest.staging import Stager, wait_staged
+from nm03_capstone_project_tpu_torch.obs.metrics import RESILIENCE_RETRIES_TOTAL
+from nm03_capstone_project_tpu_torch.obs.run import RunContext
 from nm03_capstone_project_tpu_torch.obs.spans import SpanRecorder
 from nm03_capstone_project_tpu_torch.pipeline import process_batch, process_slice
 from nm03_capstone_project_tpu_torch.render.export import (
@@ -61,6 +72,16 @@ from nm03_capstone_project_tpu_torch.render.export import (
     render_export_pairs,
 )
 from nm03_capstone_project_tpu_torch.render.render import render_pair
+from nm03_capstone_project_tpu_torch.resilience import (
+    DispatchSupervisor,
+    FaultPlan,
+    InjectedExportError,
+    InjectedTransientError,
+    ResilienceConfig,
+    corrupt_bytes,
+    deliver_sigterm,
+    execute_hang,
+)
 from nm03_capstone_project_tpu_torch.resilience.journal import PatientJournal
 from nm03_capstone_project_tpu_torch.utils.manifest import (
     STATUS_DONE,
@@ -189,6 +210,9 @@ class CohortProcessor:
     mask reaches the host, in both render stages; in parallel mode it fires
     on IO-pool threads, so it must be thread-safe. ``model``, a 2D student
     (:func:`..cli.common.load_model_checkpoint`), replaces the pipeline.
+    ``obs`` (a :class:`..obs.RunContext`; a sink-less one by default)
+    receives the retry and fault-injection records, ``resilience`` the
+    retry, deadline and fault-plan knobs.
     """
 
     def __init__(
@@ -202,6 +226,8 @@ class CohortProcessor:
         mask_sink=None,
         device=None,
         model=None,
+        obs: Optional[RunContext] = None,
+        resilience: Optional[ResilienceConfig] = None,
     ):
         if mode not in ("sequential", "parallel"):
             raise ValueError(f"unknown mode: {mode}")
@@ -218,6 +244,20 @@ class CohortProcessor:
         # one drained stats snapshot per patient pipeline, for the run's
         # ``ingest`` aggregate
         self._ingest_reports: List[dict] = []
+        # resilience: the retry policy, the dispatch deadline and the fault
+        # plan (defaults: no deadline, no plan unless NM03_FAULT_PLAN names
+        # one, transient device errors retried)
+        self.obs = obs if obs is not None else RunContext.create(driver=mode)
+        self.res = resilience if resilience is not None else ResilienceConfig()
+        plan = self.res.fault_plan
+        self.fault_plan = (
+            FaultPlan.from_spec(plan) if plan is not None else FaultPlan.from_env()
+        )
+        self.retry = self.res.make_retry_policy(
+            seed=self.fault_plan.seed if self.fault_plan is not None else 0
+        )
+        self.retry.obs = self.obs
+        self.dispatch = DispatchSupervisor(self.res, retry=self.retry, obs=self.obs)
         self.out_root.mkdir(parents=True, exist_ok=True)
         self.manifest = (
             Manifest.load_or_create(self.out_root) if resume else Manifest(self.out_root)
@@ -282,11 +322,95 @@ class CohortProcessor:
         self.manifest.record(patient_id, stem, status)
         journal.record(stem, status)
 
+    # -- data loading and the fault plan's hooks ----------------------------
+
+    def _read_slice(
+        self, path: Path, patient: Optional[str] = None, index: Optional[int] = None
+    ) -> Optional[np.ndarray]:
+        """Decode + guard one slice; None signals failure (null-ptr analog).
+
+        The decode-site chaos hook lives here: an ``error`` rule fails the
+        slice before decode; a ``corrupt`` rule feeds the REAL parser
+        deterministically corrupted file bytes, exercising the actual
+        rejection path rather than a mock.
+        """
+        plan = self.fault_plan
+        if plan is not None and plan.has_site("decode"):
+            rule = plan.fire("decode", obs=self.obs, patient=patient, stem=path.stem,
+                             index=index)
+            if rule is not None:
+                if rule.kind == "error":
+                    log.warning("failed to read %s: injected decode fault", path.name)
+                    return None
+                from nm03_capstone_project_tpu_torch.data.dicomlite import read_dicom_bytes
+
+                try:  # kind == "corrupt"
+                    s = read_dicom_bytes(corrupt_bytes(path.read_bytes(), plan.seed, path.stem))
+                except Exception as e:  # noqa: BLE001 - per-slice containment
+                    log.warning("failed to read %s: %s", path.name, e)
+                    return None
+                return guard_pixels(s.pixels, path.name, self.cfg)
+        return decode_and_guard(path, self.cfg)
+
+    def _dispatch_pre(self, patient_id: str, index: int):
+        """Dispatch-site fault hook for the supervisor (None when off)."""
+        plan = self.fault_plan
+        if plan is None or not plan.has_site("dispatch"):
+            return None
+
+        def pre(cancel):
+            rule = plan.fire("dispatch", obs=self.obs, patient=patient_id, index=index)
+            if rule is None:
+                return
+            if rule.kind == "hang":
+                execute_hang(rule, cancel)
+            else:  # transient
+                raise InjectedTransientError(
+                    f"injected transient device error (patient {patient_id}, dispatch {index})"
+                )
+
+        return pre
+
+    def _export_fault_hook(self, patient_id: str):
+        """Export-site fault hook threaded into the export layer."""
+        plan = self.fault_plan
+        if plan is None or not plan.has_site("export"):
+            return None
+
+        def hook(stem):
+            rule = plan.fire("export", obs=self.obs, patient=patient_id, stem=stem)
+            if rule is None:
+                return
+            if rule.kind == "sigterm":
+                deliver_sigterm()
+            raise InjectedExportError(f"injected export fault for {stem}")
+
+        return hook
+
+    def _supervised(self, enqueue, patient_id: str, index: int):
+        """Run one device dispatch under the supervisor.
+
+        ``enqueue()`` returns the step's device tensors. Unsupervised it
+        only enqueues (the fetch stays on the export path, overlapped with
+        the next dispatch); with a dispatch deadline the fetch moves inside
+        it, since a wedged fetch is the same wedge as a wedged dispatch.
+        """
+        if self.dispatch.supervised:
+            def primary():
+                out = enqueue()
+                return {k: (v.cpu() if isinstance(v, torch.Tensor) else
+                            tuple(t.cpu() for t in v) if isinstance(v, tuple) else v)
+                        for k, v in out.items()}
+        else:
+            primary = enqueue
+        return self.dispatch.run(primary, pre=self._dispatch_pre(patient_id, index))
+
     def _run_sequential(
         self, patient_id: str, out_dir: Path, files: List[Path], journal
     ) -> Tuple[int, List[str], List[str]]:
         host_render = self.batch_cfg.render_stage == "host"
         ok, failed, truncated = 0, [], []
+        export_fault = self._export_fault_hook(patient_id)
 
         # One slice at a time with ONE in flight: slice N+1 is enqueued on
         # the card before slice N's result is fetched and exported.
@@ -309,10 +433,12 @@ class CohortProcessor:
                         written = render_export_pairs(
                             [(stem, p["padded"], mask, p["dims"])],
                             out_dir, self.cfg, max_workers=1,
+                            fault_hook=export_fault, retry=self.retry,
                         )
                     else:
                         gray, seg = (t.cpu().numpy() for t in p["render_dev"])
-                        written = export_pairs([(stem, gray, seg)], out_dir, max_workers=1)
+                        written = export_pairs([(stem, gray, seg)], out_dir, max_workers=1,
+                                               fault_hook=export_fault, retry=self.retry)
                 if stem not in written:
                     raise IOError("JPEG export failed")
                 # after the export check: truncated means "the pair exists
@@ -331,22 +457,23 @@ class CohortProcessor:
                 failed.append(stem)
 
         def decode_one(job):
-            _, f = job
-            pixels = decode_and_guard(f, self.cfg)
+            di, f = job
+            pixels = self._read_slice(f, patient=patient_id, index=di)
             if pixels is None:
                 raise ValueError("decode/guard failed")
             padded, dims = self._pad_one(pixels)
-            return {"stem": f.stem, "pixels": padded, "dims": dims}
+            return {"stem": f.stem, "index": di, "pixels": padded, "dims": dims}
 
         pending = None
-        with self._ingest_pipeline(list(enumerate(files)), decode_one) as pipe:
+        pipe = self._ingest_pipeline(list(enumerate(files)), decode_one, patient_id)
+        with pipe:
             for rec in pipe:
                 if isinstance(rec, IngestFailure):
                     # resolved after the previous slice: failure handling
                     # stays in slice order
                     cur = {"stem": rec.item[1].stem, "error": rec.error}
                 else:
-                    cur = self._dispatch_slice(rec, host_render)
+                    cur = self._dispatch_slice(rec, host_render, patient_id)
                 if pending is not None:
                     resolve(pending)
                 pending = cur
@@ -355,27 +482,32 @@ class CohortProcessor:
         self._note_ingest(pipe)
         return ok, failed, truncated
 
-    def _dispatch_slice(self, rec: dict, host_render: bool) -> dict:
-        """Enqueue one staged slice on the card; its results stay there."""
+    def _dispatch_slice(self, rec: dict, host_render: bool, patient_id: str) -> dict:
+        """Enqueue one staged slice on the card, under the supervisor; its
+        results stay there unless a dispatch deadline fetched them."""
         stem = rec["stem"]
+
+        def enqueue():
+            if self.model is not None:
+                out = _student_process(self.model, rec["pixels"][None], rec["dims"][None],
+                                       self.cfg)
+                out = {k: v[0] for k, v in out.items()}
+            else:
+                out = process_slice(rec["pixels"], rec["dims"], self.cfg, device=self.device)
+            if not host_render:
+                out["render"] = render_pair(rec["pixels"], out["mask"], rec["dims"], self.cfg)
+            return out
+
         try:
             with self.timer.section("compute"):
                 wait_staged(rec)
-                if self.model is not None:
-                    out = _student_process(self.model, rec["pixels"][None], rec["dims"][None],
-                                           self.cfg)
-                    out = {k: v[0] for k, v in out.items()}
-                else:
-                    out = process_slice(rec["pixels"], rec["dims"], self.cfg, device=self.device)
-                cur = {
-                    "stem": stem, "mask_dev": out["mask"],
-                    "conv": out["grow_converged"],
-                    "padded": rec["pixels_host"], "dims": rec["dims_host"],
-                }
-                if not host_render:
-                    cur["render_dev"] = render_pair(
-                        rec["pixels"], out["mask"], rec["dims"], self.cfg
-                    )
+                out = self._supervised(enqueue, patient_id, rec["index"])
+            cur = {
+                "stem": stem, "mask_dev": out["mask"], "conv": out["grow_converged"],
+                "padded": rec["pixels_host"], "dims": rec["dims_host"],
+            }
+            if not host_render:
+                cur["render_dev"] = out["render"]
             return cur
         except Exception as e:  # noqa: BLE001 - reference: don't throw
             return {"stem": stem, "error": e}
@@ -393,6 +525,7 @@ class CohortProcessor:
         batches = [files[i : i + bs] for i in range(0, len(files), bs)]
         export_futures = []
         expected_stems: List[str] = []
+        export_fault = self._export_fault_hook(patient_id)
         from nm03_capstone_project_tpu_torch import native
 
         use_native = self.batch_cfg.use_native and native.available()
@@ -403,16 +536,20 @@ class CohortProcessor:
 
         def decode_batch(job):
             """(batch index, files) -> decoded host batch of the good slices."""
-            _, batch_files = job
+            bi, batch_files = job
+            idx0 = bi * bs
             if use_native:
-                return self._decode_batch_native(batch_files, threads=inner_threads)
+                return self._decode_batch_native(batch_files, patient_id, idx0,
+                                                 threads=inner_threads)
             if inner_threads > 1 and len(batch_files) > 1:
                 with cf.ThreadPoolExecutor(inner_threads) as slice_pool:
-                    decoded = list(
-                        slice_pool.map(lambda f: decode_and_guard(f, self.cfg), batch_files)
-                    )
+                    decoded = list(slice_pool.map(
+                        lambda jf: self._read_slice(jf[1], patient_id, idx0 + jf[0]),
+                        enumerate(batch_files),
+                    ))
             else:
-                decoded = [decode_and_guard(f, self.cfg) for f in batch_files]
+                decoded = [self._read_slice(f, patient_id, idx0 + j)
+                           for j, f in enumerate(batch_files)]
             stems = [f.stem for f in batch_files]
             good = [(s, p) for s, p in zip(stems, decoded) if p is not None]
             bad = [s for s, p in zip(stems, decoded) if p is None]
@@ -443,17 +580,20 @@ class CohortProcessor:
                     for i, s in enumerate(batch["stems"])
                 ]
                 return render_export_pairs(
-                    items, out_dir, self.cfg, 4, success_hook=journal_slice
+                    items, out_dir, self.cfg, 4, fault_hook=export_fault, retry=self.retry,
+                    success_hook=journal_slice,
                 )
             gray_b, seg_b = (t.cpu().numpy() for t in render_dev)
             items = [(s, gray_b[i], seg_b[i]) for i, s in enumerate(batch["stems"])]
-            return export_pairs(items, out_dir, 4, success_hook=journal_slice)
+            return export_pairs(items, out_dir, 4, fault_hook=export_fault, retry=self.retry,
+                                success_hook=journal_slice)
 
         # the decode pool runs batches ahead into the bounded staging ring;
         # the stager copies batch N+1 to the card while batch N computes;
         # result fetch + export stream back on the same pool
-        with self._ingest_pipeline(list(enumerate(batches)), decode_batch) as pipe:
-            for batch in pipe:
+        pipe = self._ingest_pipeline(list(enumerate(batches)), decode_batch, patient_id)
+        with pipe:
+            for bi, batch in enumerate(pipe):
                 if isinstance(batch, IngestFailure):
                     # a whole-batch decode failure: every slice of the batch
                     # is counted failed, never propagated
@@ -470,24 +610,28 @@ class CohortProcessor:
                     self._record(patient_id, journal, s, STATUS_FAILED)
                 if not batch["stems"]:
                     continue
+
+                def enqueue(batch=batch):
+                    if self.model is not None:
+                        out = _student_process(
+                            self.model, batch["pixels"], batch["dims"], self.cfg
+                        )
+                    else:
+                        out = process_batch(
+                            batch["pixels"], batch["dims"], self.cfg, device=self.device
+                        )
+                    if not host_render:
+                        out["render"] = render_pair(
+                            batch["pixels"], out["mask"], batch["dims"], self.cfg
+                        )
+                    return out
+
                 try:
-                    # enqueue only: the fetch on the IO pool is the batch's
-                    # sync, overlapped with the next batch's compute
+                    # unsupervised: enqueue only, the fetch on the IO pool is
+                    # the batch's sync, overlapped with the next batch's compute
                     with self.timer.section("dispatch"):
                         wait_staged(batch)
-                        if self.model is not None:
-                            out = _student_process(
-                                self.model, batch["pixels"], batch["dims"], self.cfg
-                            )
-                        else:
-                            out = process_batch(
-                                batch["pixels"], batch["dims"], self.cfg, device=self.device
-                            )
-                        render_dev = None
-                        if not host_render:
-                            render_dev = render_pair(
-                                batch["pixels"], out["mask"], batch["dims"], self.cfg
-                            )
+                        out = self._supervised(enqueue, patient_id, bi)
                 except Exception as e:  # noqa: BLE001 - a failed batch, counted
                     log.warning("batch of %s failed on the device: %s",
                                 ", ".join(batch["stems"]), e)
@@ -497,7 +641,8 @@ class CohortProcessor:
                     continue
                 export_futures.append(
                     (batch["stems"], pipe.submit(
-                        fetch_export, batch, out["mask"], out["grow_converged"], render_dev
+                        fetch_export, batch, out["mask"], out["grow_converged"],
+                        out.get("render"),
                     ))
                 )
                 expected_stems.extend(batch["stems"])
@@ -526,7 +671,11 @@ class CohortProcessor:
         return ok, failed, truncated
 
     def _decode_batch_native(
-        self, batch_files: List[Path], threads: Optional[int] = None
+        self,
+        batch_files: List[Path],
+        patient_id: Optional[str] = None,
+        base_index: int = 0,
+        threads: Optional[int] = None,
     ) -> dict:
         """Decode one batch with the C++ thread-pool loader.
 
@@ -534,7 +683,11 @@ class CohortProcessor:
         good slices stacked in order, failed stems in ``bad``. Files the C++
         parser cannot read (baseline JPEG, for one) are decoded again by the
         Python reader, whose envelope is a superset of the C++ parser's: a
-        per-file alternate decoder, not a retry of a failure.
+        per-file alternate decoder, not a retry of a failure (counted as the
+        JAX package counts it, ``resilience_retries_total{cause=
+        "native_parse"}``, outside any retry budget). Files a decode-site
+        fault rule selects are decoded again through :meth:`_read_slice`,
+        where the injection happens (the selector probe has no side effect).
         """
         from nm03_capstone_project_tpu_torch import native
 
@@ -548,6 +701,11 @@ class CohortProcessor:
             if not o and int(e) == 2  # "DICOM parse failed"
         ]
         if retry_idx:
+            self.obs.registry.counter(
+                RESILIENCE_RETRIES_TOTAL,
+                help="supervised retries by cause (resilience.RetryPolicy)",
+                cause="native_parse",
+            ).inc(len(retry_idx))
             with cf.ThreadPoolExecutor(min(threads, len(retry_idx))) as pool:
                 retried = pool.map(
                     lambda i: decode_and_guard(batch_files[i], self.cfg), retry_idx
@@ -559,10 +717,25 @@ class CohortProcessor:
                     pixels[i, :h, :w] = px
                     dims[i] = (h, w)
                     okf[i] = True
+        injected_bad: set = set()
+        plan = self.fault_plan
+        if plan is not None and plan.has_site("decode"):
+            for i, f in enumerate(batch_files):
+                if plan.routes_decode(patient=patient_id, stem=f.stem, index=base_index + i):
+                    px = self._read_slice(f, patient=patient_id, index=base_index + i)
+                    if px is None:
+                        okf[i] = False
+                        injected_bad.add(f.stem)
+                    else:
+                        h, w = px.shape
+                        pixels[i] = 0.0
+                        pixels[i, :h, :w] = px
+                        dims[i] = (h, w)
+                        okf[i] = True
         stems = [f.stem for f in batch_files]
         bad = [s for s, o in zip(stems, okf) if not o]
         for f, o, e in zip(batch_files, okf, errs):
-            if not o:
+            if not o and f.stem not in injected_bad:  # _read_slice logged those
                 log.warning(
                     "failed to decode %s: %s",
                     f.name, native.BATCH_ERRORS.get(int(e), f"error {e}"),
@@ -614,9 +787,10 @@ class CohortProcessor:
         concurrent = max(1, min(workers, max(n_batches, 1)))
         return max(1, self.batch_cfg.io_workers // concurrent)
 
-    def _ingest_pipeline(self, source, decode) -> IngestPipeline:
+    def _ingest_pipeline(self, source, decode, patient_id: str) -> IngestPipeline:
         """One host→device pipeline per patient run: ring depth and decode
-        pool from BatchConfig, the stager on this thread's stream."""
+        pool from BatchConfig, the stager on this thread's stream, the fault
+        plan's ``ingest`` site keyed by the patient."""
         workers = self.batch_cfg.ingest_decode_workers or self.batch_cfg.io_workers
         stager = Stager(self.device)
 
@@ -631,6 +805,9 @@ class CohortProcessor:
             decode_workers=max(workers, 1),
             staged_depth=max(self.batch_cfg.prefetch_depth, 1),
             spans=self.timer,
+            obs=self.obs,
+            fault_plan=self.fault_plan,
+            fault_patient=patient_id,
         )
 
     def _note_ingest(self, pipe: IngestPipeline) -> None:

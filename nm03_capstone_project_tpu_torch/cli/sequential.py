@@ -5,7 +5,9 @@ reference's ``img_processing_sequential`` (src/sequential/main_sequential.cpp:
 346-363): all patients, one slice at a time, per-slice JPEG pair export,
 catch-and-continue fault tolerance, success accounting — plus ``--device``,
 flags for every constant, ``--resume``, ``--synthetic`` cohorts and a
-results JSON, and ``--model`` to deploy a trained student. Run it as
+results JSON, ``--model`` to deploy a trained student, and the supervised
+dispatch and fault-plan flags (``--retry-max``, ``--dispatch-timeout-s``,
+``--fault-plan``). Run it as
 
     python -m nm03_capstone_project_tpu_torch.cli.sequential --synthetic 2
 
@@ -30,6 +32,7 @@ def build_parser() -> argparse.ArgumentParser:
     common.add_ingest_args(p)
     common.add_render_stage_arg(p)
     common.add_model_arg(p)
+    common.add_resilience_args(p)
     common.add_not_ported_args(p, "observability", "profile", "resilience", "distributed")
     return p
 
@@ -46,6 +49,7 @@ def run(args: argparse.Namespace, mode: str) -> int:
 
     from nm03_capstone_project_tpu_torch.cli.runner import CohortProcessor, device_label
     from nm03_capstone_project_tpu_torch.core.backend import resolve_device
+    from nm03_capstone_project_tpu_torch.obs import RunContext
     from nm03_capstone_project_tpu_torch.ops import hopper_median as hm
     from nm03_capstone_project_tpu_torch.ops import hopper_region_growing as hg
     from nm03_capstone_project_tpu_torch.render.export import jpeg_encoder
@@ -69,6 +73,8 @@ def run(args: argparse.Namespace, mode: str) -> int:
         proc = CohortProcessor(
             base, args.output, cfg=cfg, batch_cfg=batch_cfg, mode=mode,
             resume=args.resume, device=device, model=model,
+            obs=RunContext.create(driver=mode),
+            resilience=common.resilience_config_from_args(args),
         )
         before = {k: fn.launches for k, fn in kernels.items()}
         t0 = time.perf_counter()
@@ -91,6 +97,9 @@ def run(args: argparse.Namespace, mode: str) -> int:
                 "ingest": proc.ingest_report(),
                 "jpeg_encoder": encoder,
                 "kernel_launches": {k: fn.launches - before[k] for k, fn in kernels.items()},
+                # the run's metrics snapshot, as the JAX drivers embed it:
+                # resilience_retries_total and resilience_faults_injected_total
+                "metrics": proc.obs.metrics_snapshot(),
             })
         return 0
     except Exception as e:  # noqa: BLE001 - reference: fatal-error catch in main

@@ -19,8 +19,12 @@ for getting decoded slices onto the card:
 
 :meth:`stats` reports ring occupancy, decode queue depth, and the
 upload↔compute overlap ratio; the drivers put the run's aggregate into the
-results JSON as ``ingest``. Not ported: the metrics gauges, the feed-stall
-accounting and the ``ingest`` fault site, whose layers wait.
+results JSON as ``ingest``. The fault plan's ``ingest`` site fires here, as
+in the JAX package: ``decode_error`` fails one work item on the decode pool
+(an :class:`IngestFailure` the driver counts), ``stall`` wedges the stager
+``hang_s`` seconds (decode blocks on the full ring; the run completes late,
+never wrong). Not ported: the metrics gauges and the feed-stall accounting,
+whose layers wait.
 
 torch-free at import: torch enters only through the caller-supplied
 ``stage`` callable. Thread-shared state is lock-guarded.
@@ -127,6 +131,9 @@ class IngestPipeline:
         decode_workers: int = 4,
         staged_depth: int = DEFAULT_STAGED_DEPTH,
         spans=None,
+        obs=None,
+        fault_plan=None,
+        fault_patient: Optional[str] = None,
         clock: Callable[[], float] = time.monotonic,
     ):
         if depth < 1:
@@ -143,6 +150,9 @@ class IngestPipeline:
         self.depth = int(depth)
         self.decode_workers = int(decode_workers)
         self._spans = spans
+        self._obs = obs
+        self._fault_plan = fault_plan
+        self._fault_patient = fault_patient
         self._clock = clock
         self._ring = StagingRing(depth, clock=clock)
         self._staged = StagingRing(staged_depth, clock=clock)
@@ -226,12 +236,34 @@ class IngestPipeline:
 
         return contextlib.nullcontext()
 
+    def _fire_fault(self, index: int, item):
+        """Consult the ingest fault site for this work item (None when
+        off). Returns the fired rule; the caller maps kind→action
+        (``decode_error`` raises here, ``stall`` rides the record to the
+        stager)."""
+        plan = self._fault_plan
+        if plan is None or not plan.has_site("ingest"):
+            return None
+        return plan.fire(
+            "ingest",
+            obs=self._obs,
+            patient=self._fault_patient,
+            stem=getattr(item, "stem", None),
+            index=index,
+        )
+
     def _decode_one(self, index: int, item):
         """Pool-side decode of one work item; containment built in."""
+        stall_s = 0.0
         try:
+            rule = self._fire_fault(index, item)
+            if rule is not None:
+                if rule.kind == "decode_error":
+                    raise RuntimeError(f"injected ingest decode fault (item {index})")
+                stall_s = rule.hang_s  # applied by the stager
             with self._span("decode"):
                 payload = self._decode(item)
-            return (index, payload)
+            return (index, payload, stall_s)
         except Exception as e:  # noqa: BLE001 - per-item containment
             return IngestFailure(index, item, e)
 
@@ -280,7 +312,11 @@ class IngestPipeline:
                 if isinstance(rec, IngestFailure):
                     self._staged.put(rec)
                     continue
-                index, payload = rec
+                index, payload, stall_s = rec
+                if stall_s > 0:
+                    # injected stager wedge: cancel-aware, so close() is
+                    # never held hostage by a drill
+                    self._cancel.wait(timeout=stall_s)
                 if self._stage is not None:
                     t0 = self._clock()
                     with self._span("stage"):

@@ -27,13 +27,45 @@ from typing import Dict, Iterable, List, Optional, Tuple
 SCHEMA_METRICS = "nm03.metrics.v1"
 
 # -- metric names -------------------------------------------------------------
-# The series the ported layers register, under the JAX package's names.
-# Serving series live in serving/metrics.py.
+# The series the ported layers register, under the JAX package's names and
+# labels. Serving series live in serving/metrics.py, apart from the
+# saturation, ledger and SLO series below, whose layers live in obs/.
 STAGE_LATENCY_METRIC = "nm03_stage_latency_seconds"
 RESILIENCE_RETRIES_TOTAL = "resilience_retries_total"
+# faults fired by a seeded fault plan ({site, kind}; resilience.faultinject)
+RESILIENCE_FAULTS_INJECTED_TOTAL = "resilience_faults_injected_total"
 PIPELINE_DEGRADED_TOTAL = "pipeline_degraded_total"
 TRAIN_FINAL_LOSS = "nm03_train_final_loss"
 TRAIN_IOU_VS_TEACHER = "nm03_train_iou_vs_teacher"
+
+# saturation / goodput (obs.saturation): lane busy fractions, MFU and the
+# peak it divides by, padding waste, window occupancy, bucket fill
+SERVING_LANE_BUSY_FRACTION = "serving_lane_busy_fraction"
+SERVING_BUSY_FRACTION = "serving_busy_fraction"
+SERVING_LANE_IDLE_GAP_SECONDS = "serving_lane_idle_gap_seconds"
+SERVING_LANE_MFU = "serving_lane_mfu"
+SERVING_MFU = "serving_mfu"
+SERVING_LANE_PEAK_FLOPS = "serving_lane_peak_flops"
+SERVING_PADDING_WASTE_RATIO = "serving_padding_waste_ratio"
+SERVING_WINDOW_OCCUPANCY_RATIO = "serving_window_occupancy_ratio"
+SERVING_BATCH_ROWS_TOTAL = "serving_batch_rows_total"
+SERVING_BUCKET_FILL_RATIO = "serving_bucket_fill_ratio"
+# device-time ledger (obs.ledger): busy seconds by cost account, the
+# per-request histogram and its mean, the sampled stage pie, and each
+# bucket's CUDA graph bytes ({bucket, kind}; kind is argument, output,
+# temp or peak — the JAX package's `code` and `alias` kinds have no
+# counterpart in a captured graph and are not published)
+SERVING_DEVICE_SECONDS_TOTAL = "serving_device_seconds_total"
+SERVING_DEVICE_SECONDS_PER_REQUEST = "serving_device_seconds_per_request"
+SERVING_DEVICE_SECONDS_PER_REQUEST_MEAN = "serving_device_seconds_per_request_mean"
+SERVING_DEVICE_TIME_SHARE = "serving_device_time_share"
+SERVING_EXECUTABLE_HBM_BYTES = "serving_executable_hbm_bytes"
+LEDGER_PROFILE_SKIPPED_TOTAL = "ledger_profile_skipped_total"
+# the SLO plane (obs.slo): burn rates, the error budget, the objective
+SLO_ERROR_BUDGET_REMAINING = "slo_error_budget_remaining"
+SLO_BURN_RATE_FAST = "slo_burn_rate_fast"
+SLO_BURN_RATE_SLOW = "slo_burn_rate_slow"
+SLO_OBJECTIVE_INFO = "slo_objective_info"
 
 _NAME_RE = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*$")
 _LABEL_RE = re.compile(r"^[a-zA-Z_][a-zA-Z0-9_]*$")

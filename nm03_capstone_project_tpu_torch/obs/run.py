@@ -3,7 +3,8 @@
 The port's copy of the JAX package's ``obs/run.py`` for the server: the
 metrics registry, the span recorder and the structured event log of one
 run, the ``run_started`` / ``run_finished`` envelope, an optional
-periodic heartbeat, and the resilience records (``retry``, ``degraded``).
+periodic heartbeat, and the resilience records (``retry``,
+``fault_injected``, ``degraded``).
 The drivers' per-patient outcome records come with their observability
 flags, in a later slice.
 
@@ -20,6 +21,7 @@ from typing import Optional
 from nm03_capstone_project_tpu_torch.obs.events import EventLog, Heartbeat, LogBridge
 from nm03_capstone_project_tpu_torch.obs.metrics import (
     PIPELINE_DEGRADED_TOTAL,
+    RESILIENCE_FAULTS_INJECTED_TOTAL,
     RESILIENCE_RETRIES_TOTAL,
     MetricsRegistry,
 )
@@ -108,6 +110,19 @@ class RunContext:
         ).inc()
         return self.events.emit(
             "retry", cause=str(cause), attempt=int(attempt), **fields
+        )
+
+    def fault_injected(self, site: str, kind: str, **fields) -> dict:
+        """One fired fault-plan rule: counter (site/kind labels) + event."""
+        self.registry.counter(
+            RESILIENCE_FAULTS_INJECTED_TOTAL,
+            help="faults fired by the seeded fault plan "
+            "(resilience.FaultPlan; zero outside chaos runs)",
+            site=str(site),
+            kind=str(kind),
+        ).inc()
+        return self.events.emit(
+            "fault_injected", site=str(site), kind=str(kind), **fields
         )
 
     def degraded(self, cause: str, **fields) -> dict:

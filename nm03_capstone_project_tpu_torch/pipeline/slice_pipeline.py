@@ -22,10 +22,18 @@ Two variants mirror the reference's drivers:
 
 The entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no GPU and no explicit CPU request they raise.
+
+Under :func:`stage_ranges` each stage of ``_process`` runs inside a
+``record_function`` range named after it (``normalize``, ``median7``,
+``sharpen``, ``grow``, ``morph``): the serving executor records one eager
+run so at warmup, the device-time ledger's map from a kernel's position to
+its stage. Outside it the ranges cost nothing.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Dict, Tuple
 
 import numpy as np
@@ -47,6 +55,26 @@ from nm03_capstone_project_tpu_torch.ops.seeds import seed_mask
 from nm03_capstone_project_tpu_torch.ops.sharpen import sharpen
 
 
+_ranges = threading.local()
+
+
+@contextlib.contextmanager
+def stage_ranges():
+    """Name each pipeline stage on the profiler timeline (this thread)."""
+    prev = getattr(_ranges, "on", False)
+    _ranges.on = True
+    try:
+        yield
+    finally:
+        _ranges.on = prev
+
+
+def _stage(name: str):
+    if getattr(_ranges, "on", False):
+        return torch.profiler.record_function(name)
+    return contextlib.nullcontext()
+
+
 def _inputs(pixels, dims, device) -> Tuple[torch.Tensor, torch.Tensor]:
     """Pixels (float32) and dims (int32) as tensors on the resolved device."""
     dev = resolve_device(device)
@@ -56,46 +84,57 @@ def _inputs(pixels, dims, device) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def _preprocess(px: torch.Tensor, dm: torch.Tensor, cfg: PipelineConfig) -> torch.Tensor:
-    x = extend_edges(px, dm)
+    with _stage("normalize"):
+        x = extend_edges(px, dm)
     if cfg.fuse_preprocess:
-        return fused_preprocess(
-            x,
-            use_kernels=cfg.use_kernels,
-            median_impl=cfg.median_impl,
-            norm_low=cfg.norm_low,
-            norm_high=cfg.norm_high,
-            norm_min=cfg.norm_intensity_min,
-            norm_max=cfg.norm_intensity_max,
-            clip_low=cfg.clip_low,
-            clip_high=cfg.clip_high,
-            median_window=cfg.median_window,
-            sharpen_gain=cfg.sharpen_gain,
-            sharpen_sigma=cfg.sharpen_sigma,
-            sharpen_kernel=cfg.sharpen_kernel,
+        with _stage("median7"):
+            return _fused(x, cfg)
+    with _stage("normalize"):
+        x = normalize(
+            x, cfg.norm_low, cfg.norm_high, cfg.norm_intensity_min, cfg.norm_intensity_max
         )
-    x = normalize(
-        x, cfg.norm_low, cfg.norm_high, cfg.norm_intensity_min, cfg.norm_intensity_max
+        x = clip_intensity(x, cfg.clip_low, cfg.clip_high)
+    with _stage("median7"):
+        x = median_filter(x, cfg.median_window, use_kernels=cfg.use_kernels,
+                          impl=cfg.median_impl)
+    with _stage("sharpen"):
+        return sharpen(x, cfg.sharpen_gain, cfg.sharpen_sigma, cfg.sharpen_kernel)
+
+
+def _fused(x: torch.Tensor, cfg: PipelineConfig) -> torch.Tensor:
+    return fused_preprocess(
+        x,
+        use_kernels=cfg.use_kernels,
+        median_impl=cfg.median_impl,
+        norm_low=cfg.norm_low,
+        norm_high=cfg.norm_high,
+        norm_min=cfg.norm_intensity_min,
+        norm_max=cfg.norm_intensity_max,
+        clip_low=cfg.clip_low,
+        clip_high=cfg.clip_high,
+        median_window=cfg.median_window,
+        sharpen_gain=cfg.sharpen_gain,
+        sharpen_sigma=cfg.sharpen_sigma,
+        sharpen_kernel=cfg.sharpen_kernel,
     )
-    x = clip_intensity(x, cfg.clip_low, cfg.clip_high)
-    x = median_filter(x, cfg.median_window, use_kernels=cfg.use_kernels, impl=cfg.median_impl)
-    return sharpen(x, cfg.sharpen_gain, cfg.sharpen_sigma, cfg.sharpen_kernel)
 
 
 def _segment(
     pre: torch.Tensor, dm: torch.Tensor, cfg: PipelineConfig
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     canvas_hw = tuple(pre.shape[-2:])
-    return grow_dispatch(
-        pre,
-        seed_mask(dm, canvas_hw),
-        cfg.grow_low,
-        cfg.grow_high,
-        valid=valid_mask(dm, canvas_hw),
-        block_iters=cfg.grow_block_iters,
-        max_iters=cfg.grow_max_iters,
-        use_kernels=cfg.use_kernels,
-        algorithm=cfg.grow_algorithm,
-    )
+    with _stage("grow"):
+        return grow_dispatch(
+            pre,
+            seed_mask(dm, canvas_hw),
+            cfg.grow_low,
+            cfg.grow_high,
+            valid=valid_mask(dm, canvas_hw),
+            block_iters=cfg.grow_block_iters,
+            max_iters=cfg.grow_max_iters,
+            use_kernels=cfg.use_kernels,
+            algorithm=cfg.grow_algorithm,
+        )
 
 
 def preprocess(pixels, dims, cfg: PipelineConfig = DEFAULT_CONFIG, device=None) -> torch.Tensor:
@@ -123,10 +162,11 @@ def segment(
 
 def _process(px: torch.Tensor, dm: torch.Tensor, cfg: PipelineConfig) -> Dict[str, torch.Tensor]:
     seg, converged = _segment(_preprocess(px, dm, cfg), dm, cfg)
-    mask = dilate(cast_uint8(seg), cfg.morph_size)
-    # dilation must not spill into the canvas padding — the reference's
-    # Dilation runs on the exact-size image and can never write there
-    mask = mask * valid_mask(dm, tuple(px.shape[-2:])).to(mask.dtype)
+    with _stage("morph"):
+        mask = dilate(cast_uint8(seg), cfg.morph_size)
+        # dilation must not spill into the canvas padding — the reference's
+        # Dilation runs on the exact-size image and can never write there
+        mask = mask * valid_mask(dm, tuple(px.shape[-2:])).to(mask.dtype)
     return {"original": px, "mask": mask, "grow_converged": converged}
 
 

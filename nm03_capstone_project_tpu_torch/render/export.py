@@ -4,7 +4,8 @@ The port's copy of the JAX package's ``render/export.py``, the equivalent of
 FAST ``ImageFileExporter`` (reference main_sequential.cpp:61-73: two JPEGs
 per slice, ``<stem>_original.jpg`` and ``<stem>_processed.jpg``). Encoding
 runs on a small host thread pool that overlaps the next batch's device
-compute. The resilience layer's fault hook and retry policy are not ported.
+compute. The resilience layer's export fault hook and retry policy ride
+every export call, as in the JAX package.
 
 Encoder preference, as in the JAX package: PIL first (libjpeg-turbo), the
 host C++ encoder (:mod:`..native`) where PIL is not installed. The two give
@@ -97,21 +98,45 @@ def _write_pair(out: Path, stem: str, orig: np.ndarray, proc: np.ndarray) -> str
 
 
 def _export_many(
-    write_one, items: Sequence, out_dir, max_workers: int, success_hook=None
+    write_one,
+    items: Sequence,
+    out_dir,
+    max_workers: int,
+    fault_hook=None,
+    retry=None,
+    success_hook=None,
 ) -> List[str]:
     """Concurrent per-slice export with containment; the shared scaffold.
 
     ``write_one(item) -> stem`` runs per slice on a thread pool; failures are
     contained and logged per slice (the reference's catch-and-continue at the
     export stage, main_sequential.cpp:267-271). Returns sorted stems written.
+
+    ``fault_hook(stem)`` is the chaos-injection point (resilience.FaultPlan):
+    called before each slice writes, it may raise to simulate an export I/O
+    failure. ``retry`` (a resilience.RetryPolicy) retries OSError-class
+    write failures — the transient-disk case — before declaring the slice
+    failed; injected faults are OSErrors too, so persistent fault rules
+    exercise the retry path on their way to a contained failure.
     ``success_hook(stem)`` fires the moment a slice's pair is on disk (the
     journal's per-slice hook); its own failures are contained (a journaling
     error must not un-succeed a written slice).
     """
     Path(out_dir).mkdir(parents=True, exist_ok=True)
 
+    def attempt(item):
+        # the hook fires per ATTEMPT, inside the retry: a count-limited
+        # fault rule models a transient disk error (healed by retry), an
+        # unlimited rule a persistent one (retries exhaust, slice fails)
+        if fault_hook is not None:
+            fault_hook(item[0])
+        return write_one(item)
+
     def one(item):
-        stem = write_one(item)
+        if retry is not None:
+            stem = retry.call(attempt, item, cause="export", retryable=(OSError,))
+        else:
+            stem = attempt(item)
         if success_hook is not None:
             try:
                 success_hook(stem)
@@ -134,13 +159,16 @@ def export_pairs(
     items: Sequence[Tuple[str, np.ndarray, np.ndarray]],
     out_dir: str | os.PathLike,
     max_workers: int = 8,
+    fault_hook=None,
+    retry=None,
     success_hook=None,
 ) -> List[str]:
     """Write (stem, original, processed) triples as JPEG pairs concurrently."""
     out = Path(out_dir)
     return _export_many(
         lambda it: _write_pair(out, it[0], it[1], it[2]),
-        items, out, max_workers, success_hook=success_hook,
+        items, out, max_workers, fault_hook=fault_hook, retry=retry,
+        success_hook=success_hook,
     )
 
 
@@ -149,6 +177,8 @@ def render_export_pairs(
     out_dir: str | os.PathLike,
     cfg,
     max_workers: int = 8,
+    fault_hook=None,
+    retry=None,
     success_hook=None,
 ) -> List[str]:
     """Render host-side, then write the JPEG pair, per (stem, pixels, mask, dims).
@@ -174,7 +204,8 @@ def render_export_pairs(
             gray, seg = host_render_pair(pixels, mask, dims, cfg)
         return _write_pair(out, stem, gray, seg)
 
-    return _export_many(write_one, items, out, max_workers, success_hook=success_hook)
+    return _export_many(write_one, items, out, max_workers, fault_hook=fault_hook,
+                        retry=retry, success_hook=success_hook)
 
 
 def clean_directory(path: str | os.PathLike) -> None:

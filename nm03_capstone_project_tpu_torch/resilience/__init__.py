@@ -5,12 +5,26 @@
 * :mod:`.policy` — :class:`RetryPolicy`, :class:`Deadline` and
   :class:`ResilienceConfig`;
 * :mod:`.supervisor` — :class:`DispatchSupervisor`, the deadline-guarded
-  dispatch each serving lane runs under.
+  dispatch each serving lane and the batch drivers run under;
+* :mod:`.faultinject` — :class:`FaultPlan`, the seeded chaos plans the
+  drivers and the server consult at their injection points.
 
-The JAX package's fault plans are not ported yet, and its CPU degradation
-is not ported at all.
+The JAX package's CPU degradation is not ported: a dispatch whose retries
+are exhausted or whose deadline expires fails, it is never recomputed on
+the CPU.
 """
 
+from nm03_capstone_project_tpu_torch.resilience.faultinject import (  # noqa: F401
+    FaultAbandoned,
+    FaultPlan,
+    FaultRule,
+    InjectedDecodeError,
+    InjectedExportError,
+    InjectedTransientError,
+    corrupt_bytes,
+    deliver_sigterm,
+    execute_hang,
+)
 from nm03_capstone_project_tpu_torch.resilience.journal import PatientJournal  # noqa: F401
 from nm03_capstone_project_tpu_torch.resilience.policy import (  # noqa: F401
     Deadline,

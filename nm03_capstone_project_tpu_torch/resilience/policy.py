@@ -212,17 +212,18 @@ class RetryPolicy:
 
 @dataclasses.dataclass(frozen=True)
 class ResilienceConfig:
-    """The serving executor's resilience knobs, in one object.
+    """The drivers' and the serving executor's resilience knobs, in one object.
 
-    The JAX package's ``fallback_cpu`` and ``fault_plan`` are not here: the
-    port has no CPU fallback (a dispatch that outlives its deadline
-    quarantines its lane, and with every lane quarantined requests fail
-    fast), and fault plans are not ported yet.
+    The JAX package's ``fallback_cpu`` is not here: the port has no CPU
+    fallback. A driver dispatch that outlives its deadline or its retries
+    fails its slices; a serving dispatch quarantines its lane, and with
+    every lane quarantined requests fail fast.
     """
 
     retry_max: int = 2
     retry_backoff_s: float = 0.05
     dispatch_timeout_s: float = 0.0  # 0 = unsupervised (inline) dispatch
+    fault_plan: object = None  # Optional[FaultPlan] or its spec
 
     def make_retry_policy(self, seed: int = 0) -> RetryPolicy:
         return RetryPolicy(

@@ -1,7 +1,7 @@
 """Deadline-guarded dispatch with transient-error retries.
 
-The port's copy of the JAX package's ``resilience/supervisor.py``, without
-its CPU degradation. A device dispatch that never returns cannot be
+The port's copy of the JAX package's ``resilience/supervisor.py``, with
+its fault-injection pre-hook and without its CPU degradation. A device dispatch that never returns cannot be
 handled by containment (there is no exception to catch) or by retry (the
 call never comes back). The :class:`DispatchSupervisor` runs it on an
 expendable worker thread with a wall-clock
@@ -18,8 +18,9 @@ The ladder, in order:
    ``DeadlineExceeded`` is raised.
 
 The caller owns what follows: the serving executor quarantines the lane
-(``serving/lanes.py``). There is no ``fallback=`` route: nothing here
-recomputes on the CPU.
+(``serving/lanes.py``); the batch drivers fail the slice or the batch and
+count it. There is no ``fallback=`` route: nothing here recomputes on the
+CPU.
 
 With ``dispatch_timeout_s == 0`` (the default) no worker threads exist and
 dispatches run inline on the caller's thread, with retries only.
@@ -41,7 +42,7 @@ from nm03_capstone_project_tpu_torch.resilience.policy import (
 
 
 class DispatchSupervisor:
-    """Supervises the device dispatches of one serving lane."""
+    """Supervises the device dispatches of one serving lane or driver run."""
 
     def __init__(
         self,
@@ -57,20 +58,34 @@ class DispatchSupervisor:
     def supervised(self) -> bool:
         return self.cfg.dispatch_timeout_s > 0
 
-    def run(self, primary: Callable[[], object], label: str = "dispatch"):
+    def run(
+        self,
+        primary: Callable[[], object],
+        label: str = "dispatch",
+        pre: Optional[Callable[[Optional[threading.Event]], None]] = None,
+    ):
         """Run ``primary()`` under supervision and return its result.
 
         ``primary`` must perform the dispatch AND the device fetch, returning
         host-side results — the fetch is as wedgeable as the dispatch, so it
-        must live inside the deadline.
+        must live inside the deadline. ``pre`` is the fault-injection seam
+        (a ``dispatch`` rule of a :class:`~.faultinject.FaultPlan`): called
+        before every attempt, inside the deadline and the retries, with the
+        attempt's cancel event (None inline), so an injected hang blocks
+        before any launch and dies with the abandoned thread.
         """
         if not self.supervised:
-            return self.retry.call(primary, cause=label, obs=self.obs)
+            def attempt():
+                if pre is not None:
+                    pre(None)
+                return primary()
+
+            return self.retry.call(attempt, cause=label, obs=self.obs)
 
         deadline = Deadline.start(self.cfg.dispatch_timeout_s)
         attempt = 0
         while True:
-            status, value = self._attempt(primary, deadline)
+            status, value = self._attempt(primary, pre, deadline)
             if status == "ok":
                 return value
             if status == "timeout":
@@ -98,11 +113,14 @@ class DispatchSupervisor:
             time.sleep(delay)
 
     @staticmethod
-    def _attempt(primary, deadline: Deadline):
+    def _attempt(primary, pre, deadline: Deadline):
         box: dict = {}
+        cancel = threading.Event()
 
         def work():
             try:
+                if pre is not None:
+                    pre(cancel)
                 box["out"] = primary()
             except BaseException as e:  # noqa: BLE001 — crosses the thread
                 box["err"] = e
@@ -111,7 +129,9 @@ class DispatchSupervisor:
         t.start()
         t.join(timeout=max(deadline.remaining(), 0.0))
         if t.is_alive():
-            # abandon, never kill: the daemon thread dies with the process
+            # abandon, never kill: the daemon thread dies with the process;
+            # an injected hang honours `cancel` and returns before launching
+            cancel.set()
             return ("timeout", None)
         if "err" in box:
             return ("err", box["err"])

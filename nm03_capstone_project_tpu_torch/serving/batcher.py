@@ -28,6 +28,17 @@ The gang gate (:meth:`DynamicBatcher.gang_parked`) is one lock the batcher
 holds around each window's dispatch, fetch included; the volume gang
 holds it for a whole study, so a volume waits out the in-flight window
 and new windows wait for the volume while admissions keep queueing.
+
+Accounting, as the JAX batcher does it: each padded chunk's real and dead
+rows go to the saturation monitor (``record_chunk``), each window's riders
+against the healthy fleet's capacity (``record_window``), and each chunk's
+device-busy seconds (every attempt, requeues included) to the device-time
+ledger (``charge_chunk``): real rows to ``request``, probation canaries to
+``probe``, dead rows to ``padding``; every served non-probe rider lands in
+the per-request histogram (``observe_request``), a deduplicated rider at
+zero. One difference: a chunk that fails is charged too (the JAX ledger
+drops it), so the three accounts sum to the executor's recorded busy
+seconds through a fault drill as well.
 """
 
 from __future__ import annotations
@@ -248,6 +259,10 @@ class DynamicBatcher:
         trace = ChunkTrace([r.trace for r in reqs], lane=lane)
         with trace.span("pad_stack"):
             pixels, dims = self.pad_batch(reqs)
+        sat = getattr(self.executor, "saturation", None)
+        if sat is not None:
+            # goodput: real riders vs the bucket rows they were padded into
+            sat.record_chunk(len(reqs), int(pixels.shape[0]))
         # flight-recorder marker BEFORE the dispatch that may wedge
         trace.mark("chunk_dispatch", batch=len(reqs), bucket=pixels.shape[0])
         # requeue budget: one hop per lane the fleet started with, plus one
@@ -271,6 +286,7 @@ class DynamicBatcher:
                         "flapping (see serving_lane_quarantines_total)"
                     )
                     err.__cause__ = q
+                    self._charge(reqs, pixels, trace)
                     for r in reqs:
                         r.fail(err)
                     return
@@ -298,14 +314,17 @@ class DynamicBatcher:
                     "serve dispatch failed for %d request(s) on lane %d: %s",
                     len(reqs), lane, e,
                 )
+                self._charge(reqs, pixels, trace)
                 for r in reqs:
                     r.fail(e)
                 return
         with self._lock:
             key = str(lane)
             self._stats["lane_batches"][key] = self._stats["lane_batches"].get(key, 0) + 1
-        # each row's share of the chunk's device-busy seconds (every attempt)
-        share = getattr(trace, "device_busy_s", 0.0) / int(pixels.shape[0])
+        # the rider's prorated device cost: its row share of the chunk's
+        # device-busy seconds (every attempt)
+        share = self._charge(reqs, pixels, trace)
+        ledger = getattr(self.executor, "ledger", None)
         for i, r in enumerate(reqs):
             h, w = r.dims
             r.mask = np.asarray(mask_b[i][:h, :w])
@@ -313,7 +332,20 @@ class DynamicBatcher:
             r.batch_size = len(reqs)
             r.lane = lane
             r.device_seconds = share
+            if ledger is not None and not getattr(r, "probe", False):
+                ledger.observe_request(share)
             r.done.set()
+
+    def _charge(self, reqs, pixels, trace) -> float:
+        """Prorate the chunk's device-busy seconds into the ledger; the
+        per-row share (without a ledger, the plain share)."""
+        busy = getattr(trace, "device_busy_s", 0.0)
+        rows = int(pixels.shape[0])
+        ledger = getattr(self.executor, "ledger", None)
+        if ledger is None:
+            return busy / rows
+        probes = sum(1 for r in reqs if getattr(r, "probe", False))
+        return ledger.charge_chunk(busy, rows, len(reqs) - probes, probe_rows=probes)
 
     def execute(self, reqs: List[ServeRequest]) -> None:
         """Run one coalesced window — fanned across lanes — and answer it."""
@@ -344,6 +376,12 @@ class DynamicBatcher:
                 leaders.append(r)
         targets = self.healthy_lanes()
         chunks = self._chunk(leaders, len(targets))
+        sat = getattr(self.executor, "saturation", None)
+        if sat is not None:
+            # occupancy: the rows this window dispatched (deduplicated
+            # riders are capacity headroom) against what the HEALTHY fleet
+            # could carry
+            sat.record_window(len(leaders), self.executor.max_batch * len(targets))
         if reg is not None:
             wait_h = reg.histogram(
                 SERVING_QUEUE_WAIT_SECONDS,
@@ -401,6 +439,7 @@ class DynamicBatcher:
                 help="result-tier lookups served from cache, by tier",
                 tier="inflight",
             )
+        ledger = getattr(self.executor, "ledger", None)
         for d, riders in dup_riders.items():
             leader = leader_by_digest[d]
             for r in riders:
@@ -413,6 +452,8 @@ class DynamicBatcher:
                 r.lane = leader.lane
                 r.requeues = leader.requeues
                 r.device_seconds = 0.0
+                if ledger is not None and not getattr(r, "probe", False):
+                    ledger.observe_request(0.0)  # the dedup win, charged nothing
                 if hit is not None:
                     hit.inc()
                 r.done.set()

@@ -21,11 +21,27 @@ exhausted retry budget *quarantines that lane*
 (:mod:`~nm03_capstone_project_tpu_torch.serving.lanes`) and the batcher
 re-dispatches the chunk. A probation probe replays the lane's bucket-1
 graph on a canary batch, supervised, off the request path, and reinstates
-the lane when it passes. When EVERY lane is quarantined the replica is
+the lane when it passes. While EVERY lane is quarantined the replica is
 ``degraded``: ``/readyz`` answers 503 and every dispatch raises
-:class:`~..resilience.DeadlineExceeded` at once. The JAX package's one-way
-CPU fallback is not ported: nothing here serves from the CPU in place of
-the card.
+:class:`~..resilience.DeadlineExceeded` at once, until the probe
+reinstates a lane. The JAX package's one-way CPU fallback is not ported:
+nothing here serves from the CPU in place of the card, so the degradation
+is not one-way (a one-card replica degrades at every quarantine and comes
+back with its lane).
+
+**Chaos**: with a :class:`~..resilience.FaultPlan`, every supervised
+dispatch (and every probation canary, for rules that select its lane)
+consults the plan's ``dispatch`` site before it launches: a ``transient``
+rule raises a retryable error, a ``hang`` blocks until the deadline
+abandons it.
+
+**Telemetry**: each dispatch's busy interval (host wall around launch,
+fetch and sync, failed attempts included) goes to the saturation monitor
+(:mod:`..obs.saturation`) and onto the chunk's trace for the device-time
+ledger (:mod:`..obs.ledger`); at warmup each (lane, bucket) pins its
+operation count (:func:`..obs.saturation.bucket_flops`) for MFU, and lane
+0's buckets give the ledger their graph bytes and the kernel sequence of
+one recorded eager run (:func:`.graphs.record_kernel_sequence`).
 """
 
 from __future__ import annotations
@@ -43,13 +59,16 @@ from nm03_capstone_project_tpu_torch.core.backend import resolve_device
 from nm03_capstone_project_tpu_torch.obs import flightrec
 from nm03_capstone_project_tpu_torch.obs.trace import NULL_TRACE, TraceContext
 from nm03_capstone_project_tpu_torch.pipeline.slice_pipeline import _process
+from nm03_capstone_project_tpu_torch.obs.saturation import bucket_flops
 from nm03_capstone_project_tpu_torch.resilience import (
     DeadlineExceeded,
     DispatchSupervisor,
+    InjectedTransientError,
     ResilienceConfig,
+    execute_hang,
     is_retryable,
 )
-from nm03_capstone_project_tpu_torch.serving.graphs import BucketGraph
+from nm03_capstone_project_tpu_torch.serving.graphs import BucketGraph, record_kernel_sequence
 from nm03_capstone_project_tpu_torch.serving.lanes import (
     PROBATION,
     QUARANTINED,
@@ -88,6 +107,10 @@ class EagerBucket:
         self.capture_s = None
         self.replays = 0
         self.kernels: Dict[str, int] = {}
+        c = cfg.canvas
+        # the host buffers a batch occupies (no graph, no pool to measure)
+        self.memory = {"argument_bytes": self.bucket * (c * c * 4 + 2 * 4),
+                       "output_bytes": self.bucket * (c * c + 1)}
         self._out = None
 
     def capture(self) -> float:
@@ -125,6 +148,9 @@ class WarmExecutor:
         lanes: Optional[int] = None,
         lane_probe_interval_s: float = DEFAULT_LANE_PROBE_INTERVAL_S,
         device=None,
+        fault_plan=None,
+        saturation=None,
+        ledger=None,
     ):
         if not buckets or list(buckets) != sorted(set(int(b) for b in buckets)):
             raise ValueError(f"buckets must be strictly increasing, got {buckets}")
@@ -142,8 +168,15 @@ class WarmExecutor:
         self.obs = obs
         self.res = resilience if resilience is not None else ResilienceConfig()
         self.lane_probe_interval_s = float(lane_probe_interval_s)
+        self.fault_plan = fault_plan
+        # efficiency accounting (obs.saturation.SaturationMonitor) and the
+        # device-time ledger (obs.ledger.DeviceTimeLedger); None = off
+        self.saturation = saturation
+        self.ledger = ledger
         self._lock = threading.Lock()
         self._probe_seq = itertools.count()
+        self._dispatch_seq = itertools.count()
+        self._busy_s = 0.0  # request-path dispatch busy seconds, failures included
         self._warm = False
         self._requested_lanes = lanes
         self._lane_devices: Optional[List[torch.device]] = None
@@ -157,6 +190,7 @@ class WarmExecutor:
         self._runners: List[Dict[int, object]] = []
         self.fleet: Optional[LaneFaultDomains] = None
         self._prober: Optional[threading.Thread] = None
+        self._closed = threading.Event()  # set by close(): no more probes
         self._degraded = False
         self._degraded_cause: Optional[str] = None
 
@@ -193,6 +227,13 @@ class WarmExecutor:
             self._lane_locks = [threading.Lock() for _ in devs]
             self._runners = [{} for _ in devs]
             self.fleet = LaneFaultDomains(len(devs), obs=self.obs)
+        if self.saturation is not None:
+            # outside the lock: set_lanes publishes gauges
+            self.saturation.set_lanes([
+                (d.type, torch.cuda.get_device_name(d) if d.type == "cuda" else "")
+                for d in devs
+            ])
+        with self._lock:
             return self._lane_devices
 
     @property
@@ -338,7 +379,7 @@ class WarmExecutor:
 
     @property
     def degraded(self) -> bool:
-        """True once the LAST healthy lane quarantined: requests fail fast."""
+        """True while every lane is quarantined: requests fail fast."""
         with self._lock:
             return self._degraded
 
@@ -346,6 +387,14 @@ class WarmExecutor:
     def degraded_cause(self) -> Optional[str]:
         with self._lock:
             return self._degraded_cause
+
+    @property
+    def busy_seconds(self) -> float:
+        """Host wall of every request-path dispatch so far (launch, fetch
+        and sync, failed and retried attempts included): what the
+        device-time ledger's accounts sum to."""
+        with self._lock:
+            return self._busy_s
 
     @property
     def max_batch(self) -> int:
@@ -391,6 +440,15 @@ class WarmExecutor:
                 runner.replays = 0
                 with self._lock:
                     self._runners[lane][b] = runner
+                if self.saturation is not None:
+                    # pin the bucket's operation count once: every
+                    # successful dispatch credits it to the MFU window
+                    self.saturation.set_lane_bucket_flops(lane, b, bucket_flops(self.cfg, b))
+                if self.ledger is not None and lane == 0:
+                    # lane 0 only: every lane runs the same program per bucket
+                    self.ledger.set_bucket_hbm(b, runner.memory)
+            if self.ledger is not None and lane == 0:
+                self._record_sequences(dev, stream)
             timings[f"lane{lane}"] = lane_t
             with self._lock:
                 self._lane_warm[lane] = True
@@ -407,6 +465,49 @@ class WarmExecutor:
         self.warm = True
         self._set_lanes_ready_gauge()
         return timings
+
+    def _record_sequences(self, dev, stream) -> None:
+        """Feed the ledger each bucket's kernel sequence from one recorded
+        eager run (after every graph of the lane is captured). Best-effort,
+        as the JAX package's HLO parse: a profiler that is busy or absent
+        leaves the stage map empty (the pie then reads ``other``), never
+        fails warmup."""
+        for b in self.buckets:
+            try:
+                self.ledger.ingest_kernel_sequence(
+                    b, record_kernel_sequence(self.cfg, b, dev, stream))
+            except Exception as e:  # noqa: BLE001 — attribution is evidence
+                log.warning("ledger: no kernel sequence for bucket %d: %s", b, e)
+
+    # -- chaos hook --------------------------------------------------------
+
+    def _pre(self, index: Optional[int], lane: Optional[int] = None, lane_only: bool = False):
+        """Dispatch-site fault hook (resilience.FaultPlan); None when off.
+
+        ``lane`` reaches the plan's selectors, so ``{"site": "dispatch",
+        "kind": "hang", "lane": 0}`` wedges one chosen lane. Probation
+        probes pass ``lane_only=True``: only rules that select their lane
+        are consulted (a still-sick lane keeps failing its canary), and
+        generic rules keep their ``after``/``count`` budgets for the
+        request traffic they were written against.
+        """
+        plan = self.fault_plan
+        if plan is None or not plan.has_site("dispatch"):
+            return None
+
+        def pre(cancel):
+            rule = plan.fire("dispatch", obs=self.obs, index=index, lane=lane,
+                             lane_only=lane_only)
+            if rule is None:
+                return
+            if rule.kind == "hang":
+                execute_hang(rule, cancel)
+            else:  # transient
+                raise InjectedTransientError(
+                    f"injected transient device error (serve dispatch {index} lane {lane})"
+                )
+
+        return pre
 
     # -- quarantine / probation -------------------------------------------
 
@@ -433,13 +534,15 @@ class WarmExecutor:
         self._set_lanes_ready_gauge()
         if healthy_left == 0:
             self._process_degrade(cause)
-        else:
-            self._ensure_prober()
+        self._ensure_prober()
 
     def _process_degrade(self, cause: str) -> None:
-        """Every lane is quarantined: the replica is degraded, one way."""
+        """Every lane is quarantined: the replica is degraded until the
+        probe reinstates one (the state is re-read under the lock, so a
+        reinstatement racing this quarantine wins)."""
+        fleet = self.fleet
         with self._lock:
-            if self._degraded:
+            if self._degraded or fleet is None or fleet.healthy_count() > 0:
                 return
             self._degraded = True
             self._degraded_cause = str(cause)
@@ -459,11 +562,26 @@ class WarmExecutor:
                 pass
         flightrec.auto_dump(reason=f"degraded_{cause}")
 
+    def _recover(self) -> None:
+        """A lane is healthy again: the degraded replica serves again."""
+        fleet = self.fleet
+        with self._lock:
+            if not self._degraded or fleet is None or fleet.healthy_count() == 0:
+                return
+            self._degraded = False
+            self._degraded_cause = None
+        log.warning("a lane was reinstated: the replica is ready again")
+        if self.obs is not None:
+            try:
+                self.obs.events.emit("serving_recovered", lanes=self.lane_count)
+            except Exception:  # noqa: BLE001 — telemetry never costs the run
+                pass
+
     def _ensure_prober(self) -> None:
         # start() INSIDE the lock: a created-but-unstarted Thread reports
         # is_alive() False, so a racing quarantine could spawn a duplicate
         with self._lock:
-            if self._prober is not None and self._prober.is_alive():
+            if self._closed.is_set() or (self._prober is not None and self._prober.is_alive()):
                 return
             self._prober = threading.Thread(
                 target=self._probe_loop, name="nm03-lane-probe", daemon=True
@@ -472,12 +590,9 @@ class WarmExecutor:
 
     def _probe_loop(self) -> None:
         """Canary every quarantined lane, reinstate on success. Exits when
-        nothing is quarantined or the replica is degraded."""
+        nothing is quarantined (the next quarantine spawns it again)."""
         try:
-            while True:
-                time.sleep(self.lane_probe_interval_s)
-                if self.degraded:
-                    return
+            while not self._closed.wait(self.lane_probe_interval_s):
                 fleet = self.fleet
                 if fleet is None:
                     return
@@ -485,16 +600,15 @@ class WarmExecutor:
                 if not quarantined and not fleet.lanes_in(PROBATION):
                     return
                 for lane in quarantined:
-                    if self.degraded:
-                        return
                     if not fleet.begin_probation(lane):
                         continue
-                    if self._probe_lane(lane) and not self.degraded:
+                    if self._probe_lane(lane):
                         with self._lock:
                             self._lane_supervisors[lane] = self.new_supervisor()
                         if fleet.reinstate(lane):
                             self._set_lanes_ready_gauge()
-                    elif not self.degraded:
+                            self._recover()
+                    else:
                         fleet.fail_probation(lane)
         finally:
             # unregister before the liveness gap closes, then re-check: a
@@ -503,8 +617,16 @@ class WarmExecutor:
             with self._lock:
                 self._prober = None
             fleet = self.fleet
-            if fleet is not None and fleet.lanes_in(QUARANTINED) and not self.degraded:
+            if fleet is not None and fleet.lanes_in(QUARANTINED) and not self._closed.is_set():
                 self._ensure_prober()
+
+    def close(self, timeout_s: float = 10.0) -> None:
+        """Stop the probation prober (the server's close); idempotent."""
+        self._closed.set()
+        with self._lock:
+            prober = self._prober
+        if prober is not None:
+            prober.join(timeout_s)
 
     def _probe_lane(self, lane: int) -> bool:
         """One supervised canary: the lane's smallest bucket replayed on
@@ -525,7 +647,8 @@ class WarmExecutor:
                     return runner.fetch()
 
             with ctx.span("probe", lane=lane):
-                self.new_supervisor().run(primary, label="serve_probe")
+                self.new_supervisor().run(primary, label="serve_probe",
+                                          pre=self._pre(None, lane, lane_only=True))
             return True
         except BaseException as e:  # noqa: BLE001 — a failed canary is data
             log.warning("lane %d probation probe failed: %s", lane, e)
@@ -569,6 +692,7 @@ class WarmExecutor:
             lane_lock = self._lane_locks[lane]
         if runner is None:
             raise RuntimeError(f"lane {lane} has no warm bucket {bucket} (warmup not run)")
+        index = next(self._dispatch_seq)
         reg = self.obs.registry if self.obs is not None else None
         if reg is not None:
             inflight_g = reg.gauge(
@@ -593,8 +717,10 @@ class WarmExecutor:
                     return runner.fetch()
 
         t_busy0 = time.monotonic()
+        dispatched_ok = False
         try:
-            out = sup.run(primary, label="serve_dispatch")
+            out = sup.run(primary, label="serve_dispatch", pre=self._pre(index, lane))
+            dispatched_ok = True
         except BaseException as e:  # noqa: BLE001 — classified below
             cause = self._quarantine_cause(e)
             if cause is None:
@@ -602,8 +728,19 @@ class WarmExecutor:
             self._quarantine_lane(lane, cause, trace)
             raise LaneQuarantined(lane, cause) from e
         finally:
+            t_busy1 = time.monotonic()
+            with self._lock:
+                self._busy_s += t_busy1 - t_busy0
+            if self.saturation is not None:
+                # busy is busy either way (a dispatch that hung to its
+                # deadline held the lane); only a success credits the
+                # bucket's operations to MFU
+                self.saturation.record_dispatch(lane, t_busy0, t_busy1, bucket=bucket,
+                                                counted=dispatched_ok)
             if hasattr(trace, "device_busy_s"):
-                trace.device_busy_s += time.monotonic() - t_busy0
+                # onto the chunk's own trace (requeued attempts add up): the
+                # batcher prorates the total into the device-time ledger
+                trace.device_busy_s += t_busy1 - t_busy0
             if reg is not None:
                 inflight_g.dec()
             with self._lock:

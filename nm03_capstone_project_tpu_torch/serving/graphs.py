@@ -41,6 +41,14 @@ A capture that fails raises; nothing runs eagerly in its place. The
 kernel wrappers' ``.launches`` counters tick at capture only; the graph
 records how many launches of each kernel it holds (:attr:`kernels`) and
 counts its replays, so launches under serving are replays × kernels.
+
+At capture the graph also records its device bytes (:attr:`memory`, the
+device-time ledger's HBM table, in place of the JAX package's
+``executable_cost``): ``argument_bytes`` (the static inputs),
+``output_bytes`` (the static outputs), ``temp_bytes`` (the most the
+capture held allocated at once beyond the outputs: the intermediates, in
+the lane's graph pool) and ``peak_hbm_bytes`` (the inputs plus that most,
+outputs included).
 """
 
 from __future__ import annotations
@@ -112,6 +120,7 @@ class BucketGraph:
         self.converged = None
         self.kernels: Dict[str, int] = {}
         self.capture_s = None
+        self.memory: Dict[str, int] = {}
         self.replays = 0
         self._done = torch.cuda.Event()
 
@@ -125,12 +134,19 @@ class BucketGraph:
                     _process(self.pixels, self.dims, self.cfg)
             self.stream.synchronize()
             before = kernel_launches()
+            torch.cuda.reset_peak_memory_stats(self.device)
+            held0 = torch.cuda.memory_allocated(self.device)
             with torch.cuda.graph(self.graph, pool=self.pool, stream=self.stream):
                 out = _process(self.pixels, self.dims, self.cfg)
             after = kernel_launches()
             torch.cuda.synchronize()
+            peak = max(torch.cuda.max_memory_allocated(self.device) - held0, 0)
         self.mask, self.converged = out["mask"], out["grow_converged"]
         self.kernels = {k: after[k] - before[k] for k in KERNELS if after[k] > before[k]}
+        args = self.pixels.nbytes + self.dims.nbytes
+        outs = self.mask.nbytes + self.converged.nbytes
+        self.memory = {"argument_bytes": args, "output_bytes": outs,
+                       "temp_bytes": max(peak - outs, 0), "peak_hbm_bytes": args + peak}
         self.capture_s = time.perf_counter() - t0
         return self.capture_s
 
@@ -166,3 +182,44 @@ class BucketGraph:
     def stats(self) -> dict:
         return {"capture_s": self.capture_s, "replays": self.replays,
                 "kernels": dict(self.kernels)}
+
+
+def record_kernel_sequence(cfg: PipelineConfig, bucket: int, device, stream=None):
+    """``[(op name, stage)]`` of one eager ``_process`` run at the bucket's
+    shape, on zeros with ``min_dim`` dims, recorded under the profiler with
+    the pipeline's stage ranges on (:func:`..obs.ledger.kernel_sequence`).
+
+    On a card it runs on ``stream`` and the ops are its kernels, in the
+    order a replay of the bucket's graph launches them; on the CPU they
+    are the ATen ops. Takes the process's one profiler lock (raises
+    ``ProfileBusy`` when another capture holds it).
+    """
+    import contextlib
+    import json
+    import os
+    import tempfile
+
+    from nm03_capstone_project_tpu_torch.obs.ledger import kernel_sequence
+    from nm03_capstone_project_tpu_torch.pipeline.slice_pipeline import stage_ranges
+    from nm03_capstone_project_tpu_torch.utils.profiling import exclusive_profiler
+
+    dev = torch.device(device)
+    c = cfg.canvas
+    px = torch.zeros((bucket, c, c), dtype=torch.float32, device=dev)
+    dm = torch.full((bucket, 2), cfg.min_dim, dtype=torch.int32, device=dev)
+    on_stream = (torch.cuda.stream(stream) if stream is not None
+                 else contextlib.nullcontext())
+    with exclusive_profiler() as prof:
+        with on_stream, stage_ranges():
+            _process(px, dm, cfg)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    fd, path = tempfile.mkstemp(prefix="nm03_seq_", suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents") or []
+    finally:
+        os.unlink(path)
+    return kernel_sequence(events)

@@ -14,10 +14,12 @@ lane (one CUDA device) is its own fault domain:
   the request path; success reinstates the lane to HEALTHY, failure
   returns it to QUARANTINED.
 
-When **every** lane is quarantined the fleet is ``retired``: the replica
-is degraded (``/readyz`` 503 with ``degraded: true``) and requests fail
-fast. The JAX package's last resort, a one-way CPU fallback, is not
-ported: the port never serves from the CPU in place of the card.
+When **every** lane is quarantined the replica is degraded (``/readyz``
+503 with ``degraded: true``) and requests fail fast until the probe
+reinstates a lane. The JAX package's last resort, a one-way CPU fallback,
+is not ported: the port never serves from the CPU in place of the card,
+so its degradation is not one-way either — on a one-card replica every
+quarantine degrades it, and the probe is what brings it back.
 
 Every transition is observable: ``serving_lane_state{lane}`` (0 healthy,
 1 probation, 2 quarantined), ``serving_lane_quarantines_total{lane,cause}``,
@@ -84,18 +86,10 @@ class LaneFaultDomains:
     ``begin_probation(lane)`` — QUARANTINED → PROBATION; the probe
     thread's claim, so two probers can never canary one lane at once.
 
-    ``reinstate(lane)`` — PROBATION → HEALTHY (the probe passed);
-    refused once the fleet is ``retired``.
+    ``reinstate(lane)`` — PROBATION → HEALTHY (the probe passed).
 
     ``fail_probation(lane)`` — PROBATION → QUARANTINED (the probe
     failed; cause ``probe_failed``, counted as a fresh quarantine).
-
-    ``retired`` flips one-way, in the same critical section, when the
-    quarantine that drains the LAST healthy lane lands: the caller marks
-    the replica degraded on that outcome, and a probe whose canary was
-    already in flight must not resurrect a lane into the dead replica —
-    ``reinstate`` checks the flag under the same lock, so there is no
-    check-then-act window.
     """
 
     def __init__(self, n_lanes: int, obs=None):
@@ -105,7 +99,6 @@ class LaneFaultDomains:
         self._states: List[str] = [HEALTHY] * int(n_lanes)
         self._causes: List[Optional[str]] = [None] * int(n_lanes)
         self._quarantines: List[int] = [0] * int(n_lanes)
-        self._retired = False
         self.obs = obs
         # the gauge series exist from lane 0 of warmup on, so a topology
         # assertion (--expect-gauge serving_lane_state{lane=N}=0) can
@@ -148,14 +141,6 @@ class LaneFaultDomains:
         with self._lock:
             return sum(1 for s in self._states if s != HEALTHY)
 
-    @property
-    def retired(self) -> bool:
-        """One-way True once a quarantine drained the last healthy lane
-        (the caller's replica degradation tripped on the same outcome); a
-        retired fleet refuses reinstatement."""
-        with self._lock:
-            return self._retired
-
     def snapshot(self) -> List[dict]:
         with self._lock:
             return [
@@ -193,12 +178,6 @@ class LaneFaultDomains:
                 self._transition_to_quarantined(lane, cause)
                 changed = True
             healthy_left = sum(1 for s in self._states if s == HEALTHY)
-            if changed and healthy_left == 0:
-                # retire in the SAME critical section that drains the last
-                # healthy lane: reinstate() checks the flag under this
-                # lock, so a probe whose canary raced this quarantine can
-                # never resurrect a lane into the degraded replica
-                self._retired = True
         if not changed:
             return False, healthy_left
         self._emit_quarantined(lane, cause, healthy_left, list(trace_ids))
@@ -225,17 +204,10 @@ class LaneFaultDomains:
         return True
 
     def reinstate(self, lane: int) -> bool:
-        """PROBATION → HEALTHY: the canary passed; the lane takes traffic.
-
-        Refused once the fleet is retired — the check shares the lock
-        with the quarantine that retires, so a canary that passed just
-        as the last healthy lane drained cannot reinstate its lane into
-        a replica whose degradation already tripped (the lane stays in
-        PROBATION; gauges never claim capacity the degraded executor will
-        not use).
-        """
+        """PROBATION → HEALTHY: the canary passed; the lane takes traffic
+        (and a degraded replica is ready again)."""
         with self._lock:
-            if self._retired or self._states[lane] != PROBATION:
+            if self._states[lane] != PROBATION:
                 return False
             self._states[lane] = HEALTHY
             self._causes[lane] = None

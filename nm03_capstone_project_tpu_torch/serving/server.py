@@ -20,13 +20,31 @@ The port's counterpart of the JAX package's ``nm03-serve``::
   retries ride one dispatch (:mod:`~..cache.inflight`);
 * ``GET /healthz`` — liveness;
 * ``GET /readyz`` — readiness: 200 while warm, admitting and at least one
-  lane healthy; 503 before warmup, while draining, and once every lane is
-  quarantined (``degraded: true``). The body has the JAX package's key set;
-  the blocks of layers not ported yet (``saturation``, ``ledger``,
-  ``slo``, ``compile_hub``) are null, ``cuda_graphs`` holds each
-  bucket's capture seconds and replays, and ``volumes`` the gang's shape;
+  lane healthy; 503 before warmup, while draining, and while every lane is
+  quarantined (``degraded: true``, until the probe reinstates one). The
+  body has the JAX package's key set: ``saturation`` (lane busy
+  fractions, MFU and its peak, padding waste, window occupancy),
+  ``ledger`` (device seconds by account, the sampled stage pie, each
+  bucket's graph bytes) and ``slo`` (burn rates and budget, null without
+  an objective) are refreshed on every probe; ``compile_hub`` is null
+  (there is nothing to compile), ``cuda_graphs`` holds each bucket's
+  capture seconds and replays, and ``volumes`` the gang's shape;
 * ``GET /metrics`` (Prometheus text) and ``GET /metrics.json`` (the
-  ``nm03.metrics.v1`` snapshot).
+  ``nm03.metrics.v1`` snapshot), the saturation, ledger and SLO gauges
+  refreshed on every scrape and once more at drain;
+* ``GET /debug/flightrec`` (the flight recorder's rings), ``GET
+  /debug/profile?ms=N`` (a zipped ``torch.profiler`` Chrome trace; 409
+  while another capture, such as the ledger's sampler, holds the
+  profiler), ``GET /debug/result-cache`` (the result tier's entries) and
+  ``POST /debug/result-cache/evict[?digest=D]``.
+
+``--fault-plan`` (or ``NM03_FAULT_PLAN``) arms the seeded chaos plan of
+:mod:`..resilience.faultinject` at the ``dispatch`` site (every lane's
+supervised dispatch), the ``volume`` site (the gang) and the result
+tier's ``cache``/``corrupt_entry`` site. ``--slo-availability`` /
+``--slo-p99-ms`` declare an objective (:mod:`..obs.slo`), and
+``--ledger-profile-interval-s`` turns on the ledger's profiler sampler
+(off by default: the profiler slows eager launches).
 
 On the card, warmup captures one CUDA graph per batch bucket
 (:mod:`~.graphs`) before the listener starts, and every device batch is a
@@ -69,6 +87,9 @@ from nm03_capstone_project_tpu_torch.cache import (
     result_version,
 )
 from nm03_capstone_project_tpu_torch.config import PipelineConfig
+from nm03_capstone_project_tpu_torch.obs.ledger import DeviceTimeLedger, ProfileSampler
+from nm03_capstone_project_tpu_torch.obs.saturation import SaturationMonitor
+from nm03_capstone_project_tpu_torch.obs.slo import add_slo_args, objective_from_args
 from nm03_capstone_project_tpu_torch.obs.trace import (
     SERVE_TRACE_EVENT,
     TraceContext,
@@ -139,6 +160,25 @@ _CACHEABLE_VOLUME_FIELDS = (
 )
 
 
+def _result_corrupt_hook(fault_plan, obs):
+    """The result store's chaos hook (site ``cache``/``corrupt_entry``).
+
+    Consulted by ``ResultStore.lookup`` with the result-key digest; a
+    firing rule hands the verifier a payload with one flipped byte: the
+    drill that proves verify-on-read evicts and recomputes, so a corrupt
+    entry is a miss, never a wrong mask.
+    """
+    if fault_plan is None or not fault_plan.has_site("cache"):
+        return None
+
+    def hook(digest: str) -> bool:
+        return fault_plan.fire(
+            "cache", obs=obs, stem=digest, kinds=("corrupt_entry",)
+        ) is not None
+
+    return hook
+
+
 class RequestRejected(ValueError):
     """A request refused before admission; carries the HTTP status."""
 
@@ -168,11 +208,38 @@ class ServingApp:
         volume_depth_buckets=None,
         volume_queue_capacity: int = 4,
         volume_timeout_s: float = 300.0,
+        fault_plan=None,
+        slo=None,
+        ledger_profile_interval_s: float = 0.0,
+        ledger_profile_ms: int = 200,
     ):
         from nm03_capstone_project_tpu_torch.obs import RunContext
 
         self.cfg = cfg if cfg is not None else PipelineConfig()
         self.obs = obs if obs is not None else RunContext.create(driver="serve")
+        # efficiency telemetry (obs.saturation): lane busy/idle, padding
+        # waste, occupancy and MFU over a sliding window, fed by the
+        # executor and the batcher, pull-refreshed on every scrape
+        self.saturation = SaturationMonitor(registry=self.obs.registry)
+        # the device-time ledger (obs.ledger): per-request cost, the
+        # sampled stage pie, each bucket's graph bytes. The sampler takes
+        # short profiler captures on a cadence (0 = off) and never queues
+        # behind a GET /debug/profile pull: it skips and counts
+        self.ledger = DeviceTimeLedger(registry=self.obs.registry)
+        self._ledger_sampler = ProfileSampler(
+            self.ledger,
+            interval_s=float(ledger_profile_interval_s),
+            duration_ms=int(ledger_profile_ms),
+        )
+        # the SLO plane (obs.slo): only with a declared objective
+        self.slo = None
+        if slo is not None:
+            from nm03_capstone_project_tpu_torch.obs.slo import SLOMonitor
+
+            self.slo = SLOMonitor(
+                self.obs.registry, slo, SERVING_REQUESTS_TOTAL, SERVING_REQUEST_SECONDS,
+            )
+        self.fault_plan = fault_plan
         # resolves the device: no GPU and no device="cpu" raises here
         self.executor = WarmExecutor(
             self.cfg,
@@ -186,6 +253,9 @@ class ServingApp:
                 else DEFAULT_LANE_PROBE_INTERVAL_S
             ),
             device=device,
+            fault_plan=fault_plan,
+            saturation=self.saturation,
+            ledger=self.ledger,
         )
         # the replica identity block: id is per-incarnation
         self.replica_identity = {
@@ -215,6 +285,8 @@ class ServingApp:
                     if volume_depth_buckets
                     else DEFAULT_VOLUME_DEPTH_BUCKETS
                 ),
+                fault_plan=fault_plan,
+                obs=self.obs,
             )
         # the content-addressed result tier: a replica-side store in front
         # of the batcher, bounded by bytes (0 = disabled). The in-flight
@@ -224,7 +296,9 @@ class ServingApp:
         self.volume_inflight = None
         if result_cache_bytes and int(result_cache_bytes) > 0:
             self.result_store = ResultStore(
-                int(result_cache_bytes), on_evict=self._on_result_evict
+                int(result_cache_bytes),
+                corrupt_hook=_result_corrupt_hook(fault_plan, self.obs),
+                on_evict=self._on_result_evict,
             )
             self.volume_inflight = InflightIndex()
             self._publish_result_bytes()
@@ -255,6 +329,10 @@ class ServingApp:
             ).set(self.volumes.z_shards)
         self.batcher.start()
         self.registry.gauge(SERVING_READY, help="1 = warmed and admitting, 0 otherwise").set(1)
+        # warmup filled the ledger's HBM table and kernel sequences: publish
+        # the per-bucket gauges now, then start the sampler (no-op at 0)
+        self.ledger.publish()
+        self._ledger_sampler.start()
         self.obs.events.emit(
             "serving_ready",
             buckets=list(self.executor.buckets),
@@ -307,11 +385,13 @@ class ServingApp:
             },
             # each bucket's CUDA graph: capture seconds, replays, kernels
             "cuda_graphs": self.executor.graph_stats(),
-            # blocks of layers not ported yet
+            # the JAX package's compile hub: nothing to compile here
             "compile_hub": None,
-            "saturation": None,
-            "ledger": None,
-            "slo": None,
+            # publish() also refreshes the gauges, so a probe and a scrape
+            # can never disagree
+            "saturation": self.saturation.publish(),
+            "ledger": self.ledger.publish(),
+            "slo": self.slo.publish() if self.slo is not None else None,
             "clock": {
                 "mono_s": round(time.monotonic(), 6),
                 "ts_unix": round(time.time(), 6),
@@ -350,6 +430,22 @@ class ServingApp:
                     r.fail(RuntimeError("server drain timed out"))
                 log.warning("drain: volume gang did not finish inside %.0fs", timeout_s)
             drained = drained and gang_drained
+        # final gauge refresh BEFORE the snapshot flush: the --metrics-out
+        # artifact carries the run's last window, accounts, pie and verdict
+        try:
+            self.saturation.publish()
+        except Exception as e:  # noqa: BLE001 — telemetry never blocks a drain
+            log.warning("drain: saturation publish failed: %s", e)
+        try:
+            self._ledger_sampler.stop()  # a capture mid-drain would race teardown
+            self.ledger.publish()
+        except Exception as e:  # noqa: BLE001 — telemetry never blocks a drain
+            log.warning("drain: ledger publish failed: %s", e)
+        if self.slo is not None:
+            try:
+                self.slo.publish()
+            except Exception as e:  # noqa: BLE001 — telemetry never blocks a drain
+                log.warning("drain: SLO publish failed: %s", e)
         try:
             self.obs.write_metrics()
         except Exception as e:  # noqa: BLE001 — telemetry never blocks a drain
@@ -358,7 +454,16 @@ class ServingApp:
         return drained
 
     def close(self, status: str = "ok") -> None:
+        self.executor.close()
         self.obs.close(status=status)
+
+    def refresh_gauges(self) -> None:
+        """Pull-refresh the sliding-window, ledger and SLO gauges (every
+        scrape: the window slides whether or not traffic arrives)."""
+        self.saturation.publish()
+        self.ledger.publish()
+        if self.slo is not None:
+            self.slo.publish()
 
     # -- request plumbing (HTTP-free, directly testable) -------------------
 
@@ -1055,20 +1160,80 @@ def make_handler(app: ServingApp):
                 st = app.status()
                 self._reply(200 if st["ready"] else 503, st)
             elif path == "/metrics":
+                app.refresh_gauges()
                 self._reply_text(
                     200, app.registry.to_prometheus(), "text/plain; version=0.0.4"
                 )
             elif path == "/metrics.json":
+                app.refresh_gauges()
                 self._reply_text(
                     200, json.dumps(app.obs.metrics_snapshot(), indent=1), "application/json"
                 )
+            elif path == "/debug/flightrec":
+                # the flight recorder's rings over HTTP: a post-mortem
+                # without shell access
+                from nm03_capstone_project_tpu_torch.obs import flightrec
+
+                snap = flightrec.get_recorder().snapshot(reason="debug_pull")
+                self._reply_text(200, json.dumps(snap, default=str), "application/json")
+            elif path == "/debug/profile":
+                self._debug_profile()
+            elif path == "/debug/result-cache":
+                # the result tier's admin surface; {"enabled": false} when off
+                if app.result_store is None:
+                    self._reply(200, {"enabled": False})
+                else:
+                    self._reply(200, {
+                        **app.result_store.stats(),
+                        "program_version": app._rv_value if app.executor.warm else None,
+                        "inflight": app.volume_inflight.stats(),
+                        "ls": app.result_store.ls(),
+                    })
             else:
                 self._reply(404, {"error": f"unknown path {path}"})
+
+        def _debug_profile(self):
+            """``GET /debug/profile?ms=N``: an on-demand ``torch.profiler``
+            capture (400 outside [10, 10000] ms) as a zipped Chrome trace,
+            through the one profiler lock the ledger's sampler takes too
+            (409 + ``Retry-After`` while it is held)."""
+            from nm03_capstone_project_tpu_torch.utils.profiling import (
+                ProfileBusy,
+                capture_profile,
+            )
+
+            query = parse_qs(urlsplit(self.path).query)
+            try:
+                ms = int(query.get("ms", ["500"])[0])
+            except ValueError:
+                self._reply(400, {"error": "ms must be an integer"})
+                return
+            try:
+                result = capture_profile(ms)
+            except ProfileBusy as e:
+                self._reply(409, {"error": str(e)}, headers=[("Retry-After", "1")])
+            except ValueError as e:
+                self._reply(400, {"error": str(e)})
+            except Exception as e:  # noqa: BLE001 — profiler unavailable
+                log.warning("debug profile capture failed: %s", e)
+                self._reply(500, {"error": str(e), "error_class": type(e).__name__})
+            else:
+                self._reply(200, result)
 
         def do_POST(self):  # noqa: N802
             split = urlsplit(self.path)
             if split.path == "/v1/segment-volume":
                 self._post_volume(split)
+                return
+            if split.path == "/debug/result-cache/evict":
+                # admin evict (?digest=D for one entry, none for all)
+                if app.result_store is None:
+                    self._reply(404, {"error": "result tier not enabled"})
+                    return
+                digest = parse_qs(split.query).get("digest", [None])[0]
+                dropped = app.result_store.evict(digest)
+                app._publish_result_bytes()
+                self._reply(200, {"evicted": dropped})
                 return
             if split.path != "/v1/segment":
                 self._reply(404, {"error": f"unknown path {split.path}"})
@@ -1256,13 +1421,6 @@ NOT_PORTED = {
     "--distributed-init": "multi-process serving is not ported yet (ROADMAP A6)",
     "--compile-cache-dir": "an XLA executable cache has no counterpart in eager "
                            "PyTorch (warmup captures CUDA graphs instead)",
-    "--fault-plan": "fault plans are not ported yet (ROADMAP A4)",
-    "--slo-availability": "the SLO plane is not ported yet (ROADMAP A4)",
-    "--slo-p99-ms": "the SLO plane is not ported yet (ROADMAP A4)",
-    "--slo-fast-window-s": "the SLO plane is not ported yet (ROADMAP A4)",
-    "--slo-slow-window-s": "the SLO plane is not ported yet (ROADMAP A4)",
-    "--ledger-profile-interval-s": "the device-time ledger is not ported yet (ROADMAP A4)",
-    "--ledger-profile-ms": "the device-time ledger is not ported yet (ROADMAP A4)",
     "--fallback-cpu": "the port has no CPU fallback",
     "--no-fallback-cpu": "the port has no CPU fallback; it always fails fast",
     "--sanitize": "the JAX transfer guard has no counterpart in the port",
@@ -1357,7 +1515,26 @@ def build_parser() -> argparse.ArgumentParser:
         help="wall-clock deadline per device batch (0 disables supervision); on "
         "expiry the lane is quarantined",
     )
+    r.add_argument(
+        "--fault-plan", default=None, metavar="SPEC",
+        help="seeded deterministic fault plan: a JSON file path or inline JSON "
+        "(resilience.faultinject), also honoured from $NM03_FAULT_PLAN; chaos "
+        "drills only (dispatch, volume and cache/corrupt_entry sites)",
+    )
     o = p.add_argument_group("observability", "structured run telemetry")
+    add_slo_args(o)
+    o.add_argument(
+        "--ledger-profile-interval-s", type=float, default=0.0, metavar="S",
+        help="device-time ledger sampling cadence: every S seconds a short "
+        "profiler capture is reduced into the serving_device_time_share{stage} "
+        "pie; 0 (the default: the profiler slows eager launches) disables the "
+        "sampler, per-request device-seconds attribution still runs",
+    )
+    o.add_argument(
+        "--ledger-profile-ms", type=int, default=200, metavar="MS",
+        help="duration of each ledger profile capture (short: the sampler shares "
+        "the one-capture-at-a-time profiler lock with GET /debug/profile)",
+    )
     o.add_argument("--metrics-out", default=None, metavar="JSON",
                    help="write the metrics snapshot here at drain (nm03.metrics.v1)")
     o.add_argument("--log-json", default=None, metavar="JSONL",
@@ -1371,8 +1548,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 def app_from_args(args: argparse.Namespace, obs=None) -> ServingApp:
     from nm03_capstone_project_tpu_torch.cli import common
-    from nm03_capstone_project_tpu_torch.resilience import ResilienceConfig
+    from nm03_capstone_project_tpu_torch.resilience import FaultPlan, ResilienceConfig
 
+    plan = FaultPlan.from_spec(args.fault_plan) or FaultPlan.from_env()
     buckets = tuple(int(b) for b in str(args.buckets).split(",") if b.strip())
     volume_buckets = None
     if args.volume_depth_buckets:
@@ -1400,6 +1578,10 @@ def app_from_args(args: argparse.Namespace, obs=None) -> ServingApp:
         volume_depth_buckets=volume_buckets,
         volume_queue_capacity=args.volume_queue_capacity,
         volume_timeout_s=args.volume_timeout_s,
+        fault_plan=plan,
+        slo=objective_from_args(args),
+        ledger_profile_interval_s=args.ledger_profile_interval_s,
+        ledger_profile_ms=args.ledger_profile_ms,
     )
 
 
@@ -1410,7 +1592,12 @@ def _write_port_file(path: str, port: int) -> None:
 
 
 def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    try:
+        objective_from_args(args)  # a bad --slo-* is a usage error, not a traceback
+    except ValueError as e:
+        parser.error(str(e))
     from nm03_capstone_project_tpu_torch.obs import RunContext, flightrec
     from nm03_capstone_project_tpu_torch.utils.reporter import configure_reporting
 

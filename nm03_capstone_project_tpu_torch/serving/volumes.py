@@ -26,7 +26,12 @@ first healthy lane, moving to the next one on a lane death.
   ``volume_requeue``); with no healthy lane left the request sheds with
   :class:`GangUnavailable` (503 + ``Retry-After``). A deterministic error
   goes back to the requester. Never a CPU or plain-op answer in place of
-  the card's.
+  the card's;
+* the fault plan's **``volume`` site** (``dispatch_error``), checked once a
+  dispatch attempt with the JAX gang's rules: a rule that selects the
+  dispatching lane books that lane's death through the same quarantine
+  and re-runs the study on the next healthy lane; a rule without a lane
+  selector sheds the request (:class:`GangUnavailable`).
 
 Depth buckets mirror the batch buckets: a study pads with zero planes
 (which segment empty) up to the smallest bucket that fits, and the mask is
@@ -40,6 +45,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import threading
 import time
 import uuid
@@ -128,6 +134,7 @@ class VolumeGang:
         queue_capacity: int = 4,
         depth_buckets: Tuple[int, ...] = DEFAULT_VOLUME_DEPTH_BUCKETS,
         fault_plan=None,
+        obs=None,
     ):
         buckets = tuple(int(b) for b in depth_buckets)
         if not buckets or list(buckets) != sorted(set(buckets)):
@@ -136,9 +143,9 @@ class VolumeGang:
             )
         if any(b < 1 for b in buckets):
             raise ValueError(f"volume depth buckets must be >= 1, got {buckets}")
-        if fault_plan is not None:
-            # the seam stays: resilience/faultinject.py is ROADMAP A4
-            raise NotImplementedError("fault plans are not ported yet (ROADMAP A4)")
+        self.fault_plan = fault_plan
+        self.obs = obs
+        self._seq = itertools.count()  # volume-request ordinals (the `index` selector)
         self.cfg = cfg
         self.executor = executor
         self.batcher = batcher
@@ -288,11 +295,24 @@ class VolumeGang:
                 if not req.done.is_set():
                     req.fail(e)
 
+    def _fire_fault(self, seq: int, lane: int):
+        """Consult the ``volume`` fault site for the dispatching lane; the
+        fired rule or None. A ``lane``-selected rule fires exactly when its
+        lane dispatches (the deterministic "the lane dies mid-volume"
+        drill); one without a lane selector blames no lane (an
+        unattributable failure: the gang sheds rather than guess). The JAX
+        gang checks every lane of its mesh; the port's is one lane wide."""
+        plan = self.fault_plan
+        if plan is None or not plan.has_site("volume"):
+            return None
+        return plan.fire("volume", obs=self.obs, index=seq, lane=lane)
+
     def _execute(self, req: VolumeRequest) -> None:
         now = time.monotonic()
         req.queue_wait_s = max(now - req.t_admitted, 0.0)
         if req.trace is not None:
             req.trace.add_span("queue_wait", req.t_admitted, req.t_popped or now)
+        seq = next(self._seq)
         t_gang0 = time.monotonic()
         with self.batcher.gang_parked():
             t_acquired = time.monotonic()
@@ -300,15 +320,16 @@ class VolumeGang:
             if req.trace is not None:
                 req.trace.add_span("volume_gang_acquire", t_gang0, t_acquired)
             try:
-                self._dispatch_volume(req)
+                self._dispatch_volume(req, seq)
             except BaseException as e:  # noqa: BLE001 — per-request containment
                 req.fail(e)
                 return
         req.done.set()
 
-    def _dispatch_volume(self, req: VolumeRequest) -> None:
-        """Run the study on the first healthy lane; on a lane fault,
-        quarantine that lane and re-run on the next one."""
+    def _dispatch_volume(self, req: VolumeRequest, seq: int) -> None:
+        """Run the study on the first healthy lane; on a lane fault (or an
+        injected one that names the lane), quarantine that lane and re-run
+        on the next one."""
         c = self.cfg.canvas
         h, w = req.dims
         # zero filler planes segment empty, so cropping [:depth] gives the
@@ -331,6 +352,20 @@ class VolumeGang:
             if not pool:
                 raise GangUnavailable("no healthy lane left to run the volume on")
             lane, device = pool[0]
+            rule = self._fire_fault(seq, lane)
+            if rule is not None:
+                if rule.lane is None:
+                    raise GangUnavailable(
+                        "injected unattributable volume failure (volume dispatch_error)"
+                    )
+                # the drill's deterministic lane death: book it through the
+                # real quarantine machine and re-run on the next lane
+                log.warning("volume %s: injected death of lane %d mid-volume; "
+                            "re-dispatching", req.request_id, lane)
+                self.executor.quarantine_lane(lane, "device_lost")
+                excluded.add(lane)
+                self._note_requeue(req, lane, "injected_device_lost")
+                continue
             sup = self.executor.new_supervisor()
             trace = req.trace
             try:

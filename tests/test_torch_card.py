@@ -248,6 +248,103 @@ def test_served_masks_equal_plain(cuda):
         app.close()
 
 
+@pytest.mark.parametrize("fuse", [True, False])
+def test_graph_replay_under_the_profiler_names_the_kernels(cuda, fuse, tmp_path):
+    # a replay is one cudaGraphLaunch: CUPTI must still report each kernel
+    # node by name, or the ledger's stage pie cannot see median7 and grow
+    import json
+
+    from nm03_capstone_project_tpu_torch.obs import ledger
+    from nm03_capstone_project_tpu_torch.serving.graphs import (
+        BucketGraph,
+        record_kernel_sequence,
+    )
+    from nm03_capstone_project_tpu_torch.utils import profiling
+
+    cfg = PipelineConfig(fuse_preprocess=fuse)
+    pool, stream = torch.cuda.graph_pool_handle(), torch.cuda.Stream(cuda)
+    g = BucketGraph(cfg, 4, cuda, pool, stream)
+    g.capture()
+    seq = record_kernel_sequence(cfg, 4, cuda, stream)
+    px, dm = _serve_batch(4, seed=1)
+    with profiling.exclusive_profiler() as prof:
+        for _ in range(3):
+            g.launch(px, dm)
+            g.fetch()
+    trace = tmp_path / "replays.json"
+    prof.export_chrome_trace(str(trace))
+    events = json.loads(trace.read_text())["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    want = ("fused_kernel", "grow_kernel") if fuse else ("band_kernel", "grow_kernel")
+    for name in want:
+        assert sum(name in k for k in kernels) == 3, name
+        assert any(name in n for n, _ in seq)
+    labeled, stage_of, unmatched = ledger.label_trace_events(events, [seq])
+    pie = ledger.reduce_trace_events(labeled, stage_of)
+    assert pie.get("median7", 0) > 0 and pie.get("grow", 0) > 0
+    assert unmatched == 0, unmatched
+
+
+def test_ledger_conserves_over_a_served_run(cuda):
+    import math
+    import threading
+
+    from nm03_capstone_project_tpu_torch.serving.server import ServingApp
+
+    app = ServingApp(buckets=(1, 2, 4), max_wait_s=0.002)
+    app.start()
+    try:
+        px, dm = _serve_batch(7, seed=5)
+        threads = [threading.Thread(target=app.segment, args=(px[i, :h, :w].copy(),),
+                                    kwargs={"render": False})
+                   for i, (h, w) in enumerate(dm.tolist())]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        st = app.status()
+        snap, sat = st["ledger"], st["saturation"]
+        busy = app.executor.busy_seconds
+        assert busy > 0 and snap["requests"]["count"] == 7
+        assert math.isclose(snap["device_seconds_total"], busy, rel_tol=1e-8, abs_tol=1e-8)
+        assert set(snap["hbm_bytes"]) == {1, 2, 4}
+        assert all(k["peak"] >= k["argument"] + k["output"] for k in snap["hbm_bytes"].values())
+        assert 0 < sat["busy_fraction"] <= 1 and sat["lanes"][0]["peak_flops"] == 67e12
+    finally:
+        app.begin_drain(reason="test")
+        app.close()
+
+
+def test_dispatch_hang_quarantines_and_the_probe_reinstates_the_lane(cuda):
+    import time
+
+    from nm03_capstone_project_tpu_torch.resilience import FaultPlan, ResilienceConfig
+    from nm03_capstone_project_tpu_torch.serving.server import ServingApp
+
+    plan = FaultPlan.from_spec({"faults": [
+        {"site": "dispatch", "kind": "hang", "index": 1, "hang_s": 20.0}]})
+    app = ServingApp(buckets=(1,), max_wait_s=0.0, fault_plan=plan,
+                     resilience=ResilienceConfig(dispatch_timeout_s=1.0),
+                     lane_probe_interval_s=0.2)
+    app.start()
+    try:
+        img = phantom_slice(256, 240, seed=2)
+        assert app.segment(img, render=False)["mask_pixels"] > 0
+        with pytest.raises(TimeoutError):  # DeadlineExceeded, after the quarantine
+            app.segment(img, render=False)
+        deadline = time.monotonic() + 15
+        while not app.ready and time.monotonic() < deadline:
+            time.sleep(0.05)
+        assert app.ready and app.status()["capacity"] == 1.0
+        assert app.segment(img, render=False)["mask_pixels"] > 0
+        reg = app.registry
+        assert reg.get("serving_lane_quarantines_total", lane="0", cause="deadline").value == 1
+        assert reg.get("serving_lane_reinstated_total", lane="0").value == 1
+    finally:
+        app.begin_drain(reason="test")
+        app.close()
+
+
 @pytest.mark.parametrize("fuse,alg", [(True, "dilate"), (False, "dilate"), (True, "jump")])
 def test_process_volume_kernels_equal_plain(cuda, fuse, alg):
     # one phantom study on the card: the preprocess kernel in ONE launch

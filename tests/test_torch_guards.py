@@ -64,6 +64,8 @@ def test_port_has_the_slice_modules():
         "ops.volume", "pipeline.volume_pipeline", "data.imageio", "cli.volume",
         "models", "models.unet", "models.unet3d", "models.train", "models.checkpoint",
         "cli.train", "cache.inflight", "serving.volumes", "ops.regionprops",
+        "resilience.faultinject", "obs.saturation", "obs.ledger", "obs.slo",
+        "utils.profiling", "serving.loadgen",
     ):
         assert f"nm03_capstone_project_tpu_torch.{mod}" in names
 
@@ -120,6 +122,7 @@ class TestNoCpuDrift:
 
 DRIVERS = ("sequential", "parallel", "test_pipeline", "volume", "train")
 DEPLOY_MODEL = ("sequential", "parallel", "volume")  # the drivers that take --model
+RESILIENT = ("sequential", "parallel")  # the drivers that take the resilience flags
 UNPORTED_FLAGS = [["--use-pallas"], ["--model", "m.ckpt"], ["--distributed"],
                   ["--device", "auto"], ["--fault-plan", "{}"], ["--metrics-out", "m.json"],
                   ["--profile-dir", "p"]]
@@ -145,11 +148,12 @@ class TestDrivers:
         assert not list(out.rglob("*.jpg"))  # nothing ran on the CPU instead
         assert not (out / "checkpoint").exists()  # nor was anything trained
 
-    # ids as they were when every driver refused --model
+    # ids as they were when every driver refused --model and --fault-plan
     @pytest.mark.parametrize("name,flag", [
         pytest.param(name, flag, id=f"flag{i}-{name}")
         for i, flag in enumerate(UNPORTED_FLAGS) for name in DRIVERS
         if not (flag[0] == "--model" and name in DEPLOY_MODEL)
+        and not (flag[0] == "--fault-plan" and name in RESILIENT)
     ])
     def test_flags_of_layers_not_ported_are_rejected(self, name, flag, capsys):
         import importlib
@@ -173,6 +177,47 @@ class TestDrivers:
             assert f"{flag[0]}: {reasons[flag[0]]}" in err
         else:
             assert "unrecognized arguments" in err or "invalid choice" in err
+
+    @pytest.mark.parametrize("name", RESILIENT)
+    @pytest.mark.parametrize("argv,field,value", [
+        (["--retry-max", "5"], "retry_max", 5),
+        (["--retry-backoff-s", "0.25"], "retry_backoff_s", 0.25),
+        (["--dispatch-timeout-s", "7.5"], "dispatch_timeout_s", 7.5),
+    ])
+    def test_resilience_flags_reach_the_config(self, name, argv, field, value):
+        import importlib
+
+        from nm03_capstone_project_tpu_torch.cli import common
+
+        driver = importlib.import_module(f"nm03_capstone_project_tpu_torch.cli.{name}")
+        res = common.resilience_config_from_args(driver.build_parser().parse_args(argv))
+        assert getattr(res, field) == value and res.fault_plan is None
+
+    @pytest.mark.parametrize("name", RESILIENT)
+    def test_fault_plan_is_accepted_and_a_bad_one_exits_1(self, name, tmp_path, capsys):
+        import importlib
+
+        from nm03_capstone_project_tpu_torch.cli import common
+
+        driver = importlib.import_module(f"nm03_capstone_project_tpu_torch.cli.{name}")
+        spec = '{"seed": 4, "faults": [{"site": "decode", "kind": "error", "stem": "1-01"}]}'
+        plan = common.resilience_config_from_args(
+            driver.build_parser().parse_args(["--fault-plan", spec])).fault_plan
+        assert plan.seed == 4 and [(r.site, r.kind, r.stem) for r in plan.rules] == [
+            ("decode", "error", "1-01")]
+        out = tmp_path / "out"
+        # the compile cache's kind has no target in the port: refused, not ignored
+        bad = '{"faults": [{"site": "cache", "kind": "io_error"}]}'
+        argv = ["--output", str(out), "--device", "cpu", "--synthetic", "1",
+                "--synthetic-slices", "1", "--canvas", "128", "--fault-plan", bad]
+        assert driver.main(argv) == 1
+        assert "compile cache" in capsys.readouterr().err
+        assert not list(out.rglob("*.jpg"))
+        for flag in (["--fallback-cpu"], ["--no-fallback-cpu"]):
+            with pytest.raises(SystemExit) as exc:
+                driver.build_parser().parse_args(flag)
+            assert exc.value.code == 2
+            assert common.NOT_PORTED["resilience"][flag[0]] in capsys.readouterr().err
 
     @pytest.mark.parametrize("name", DEPLOY_MODEL)
     def test_model_is_accepted_and_a_missing_checkpoint_exits_1(self, name, tmp_path, capsys):
@@ -294,14 +339,13 @@ class TestServer:
 
         assert not flightrec.get_recorder().configured
 
-    # the ids stay those of the cases before volume serving was ported
-    # (flag0 and flag1 were its two flags, now accepted: see the test below)
-    @pytest.mark.parametrize("flag", [pytest.param(f, id=f"flag{i}") for i, f in enumerate([
-        ["--distributed-init"], ["--compile-cache-dir", "c"], ["--fault-plan", "{}"],
-        ["--slo-availability", "99"], ["--slo-p99-ms", "100"],
-        ["--ledger-profile-interval-s", "1"], ["--ledger-profile-ms", "100"],
-        ["--no-fallback-cpu"], ["--sanitize"], ["--device", "auto"],
-    ], start=2)])
+    # the ids stay those of the cases before volume serving, fault plans,
+    # the SLO plane and the ledger were ported (flag0, flag1 and flag4-flag8
+    # were their flags, now accepted: see the tests below)
+    @pytest.mark.parametrize("flag", [pytest.param(f, id=f"flag{i}") for i, f in [
+        (2, ["--distributed-init"]), (3, ["--compile-cache-dir", "c"]),
+        (9, ["--no-fallback-cpu"]), (10, ["--sanitize"]), (11, ["--device", "auto"]),
+    ]])
     def test_flags_of_layers_not_ported_are_rejected(self, flag, capsys):
         from nm03_capstone_project_tpu_torch.serving import server
 
@@ -337,6 +381,66 @@ class TestServer:
         assert (seen["volume_serving"], seen["volume_depth_buckets"],
                 seen["volume_queue_capacity"], seen["volume_timeout_s"]) == (
             False, None, 4, 300.0)
+
+    @pytest.mark.parametrize("flag,attr,value", [
+        (["--slo-availability", "99.5"], "slo", {"availability_pct": 99.5}),
+        (["--slo-p99-ms", "250"], "slo", {"availability_pct": 99.0,
+                                          "latency_target_ms": 250.0}),
+        (["--slo-p99-ms", "250", "--slo-fast-window-s", "60", "--slo-slow-window-s", "600"],
+         "slo", {"window_fast_s": 60.0, "window_slow_s": 600.0}),
+        (["--ledger-profile-interval-s", "2"], "ledger_profile_interval_s", 2.0),
+        (["--ledger-profile-ms", "150"], "ledger_profile_ms", 150),
+        (["--fault-plan", '{"seed": 2, "faults": [{"site": "dispatch", "kind": "transient"}]}'],
+         "fault_plan", {"seed": 2}),
+    ])
+    def test_operations_flags_parse_and_reach_the_app(self, flag, attr, value, monkeypatch):
+        from nm03_capstone_project_tpu_torch.serving import server
+
+        seen = {}
+
+        class FakeApp:
+            def __init__(self, **kw):
+                seen.update(kw)
+
+        monkeypatch.setattr(server, "ServingApp", FakeApp)
+        monkeypatch.delenv("NM03_FAULT_PLAN", raising=False)
+        server.app_from_args(server.build_parser().parse_args(["--device", "cpu"] + flag))
+        got = seen[attr]
+        if attr == "slo":
+            assert {k: got.describe()[k] for k in value} == value
+        elif attr == "fault_plan":
+            assert got.seed == value["seed"] and got.has_site("dispatch")
+        else:
+            assert got == value
+        # without the flags: no objective, no plan, the sampler off
+        seen.clear()
+        server.app_from_args(server.build_parser().parse_args(["--device", "cpu"]))
+        assert (seen["slo"], seen["fault_plan"], seen["ledger_profile_interval_s"],
+                seen["ledger_profile_ms"]) == (None, None, 0.0, 200)
+
+    @pytest.mark.parametrize("flag,rc,reason", [
+        (["--slo-availability", "100"], 2, "availability_pct"),
+        (["--slo-p99-ms", "-5"], 2, "latency_target_s"),
+        (["--fault-plan", '{"faults": [{"site": "cache", "kind": "io_error"}]}'], 1,
+         "compile cache"),
+        (["--fault-plan", '{"faults": [{"site": "nowhere", "kind": "x"}]}'], 1,
+         "unknown fault site"),
+    ])
+    def test_a_bad_objective_or_plan_is_refused_before_binding(self, flag, rc, reason,
+                                                               tmp_path, capsys):
+        from nm03_capstone_project_tpu_torch.serving import server
+
+        port_file = tmp_path / "port"
+        argv = ["--device", "cpu", "--port", "0", "--port-file", str(port_file),
+                "--heartbeat-s", "0"] + flag
+        if rc == 2:  # a usage error, as the JAX server makes it
+            with pytest.raises(SystemExit) as exc:
+                server.main(argv)
+            assert exc.value.code == 2
+        else:
+            assert server.main(argv) == 1
+        assert reason in capsys.readouterr().err
+        assert not port_file.exists()
 
     def test_parser_matches_the_drivers_pipeline_flags(self):
         from nm03_capstone_project_tpu_torch.cli import common

@@ -83,7 +83,7 @@ BUCKETS = (1, 2, 4)
 CACHE_BYTES = 1 << 24
 PAYLOAD_FIELDS = ("shape", "grow_converged", "mask_pixels", "mask_sha256",
                   "original_jpeg_b64", "processed_jpeg_b64")
-NOT_PORTED_BLOCKS = ("compile_hub", "saturation", "ledger", "slo")
+NOT_PORTED_BLOCKS = ("compile_hub",)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -262,6 +262,10 @@ class TestCopiesPinned:
         assert set(pst) - {"cuda_graphs"} == set(jst)
         for block in NOT_PORTED_BLOCKS:
             assert pst[block] is None, block
+        # the saturation and ledger planes: the JAX key sets (no SLO declared)
+        for block in ("saturation", "ledger"):
+            assert set(pst[block]) == set(jst[block]), block
+        assert pst["slo"] is None and jst["slo"] is None
         assert pst["volumes"] == {"enabled": False}
         assert set(pst["lanes"]) == set(jst["lanes"])
         assert set(pst["lanes"]["per_lane"][0]) == set(jst["lanes"]["per_lane"][0])

@@ -557,8 +557,12 @@ class TestGang:
         # a pool of three lanes: every bucket warms on the first one alone
         assert set(gang.warmup()) == {8, 16, 32}
         assert ran == [(8, 2), (16, 2), (32, 2)] and gang.z_shards == 1
-        with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-            VolumeGang(pcfg, None, None, fault_plan=object())
+        # the fault-plan seam is ported: the gang keeps the plan for its
+        # `volume` site (tests/test_torch_serving_ops.py drives it)
+        from nm03_capstone_project_tpu_torch.resilience import FaultPlan
+
+        plan = FaultPlan.from_spec({"faults": [{"site": "volume", "kind": "dispatch_error"}]})
+        assert VolumeGang(pcfg, None, None, fault_plan=plan).fault_plan is plan
 
     def test_gang_warms_up_after_the_executor(self, monkeypatch):
         app = _one_lane_app()

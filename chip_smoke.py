@@ -47,7 +47,12 @@ toolkit. Phases, each printing one JSON line:
    with ``--results-json``, twice with the kernels and twice with
    ``--no-kernels``: a ``driver_throughput`` line with slices/s end to end
    (decode and JPEG export included), the JPEG encoder that ran, the
-   kernels' launches and the card's name and power limit.
+   kernels' launches and the card's name and power limit. One more CLI run,
+   apart from those turns, takes ``--metrics-out --log-json --heartbeat-s 1
+   --profile-dir``: its events and snapshot pass ``scripts/
+   check_telemetry.py --expect-patients 20``, its results JSON carries
+   ``feed_stall`` with a ratio in [0, 1], and its profile names the fused
+   and grow kernels (the ``driver`` line's ``telemetry``).
 5. ``serve`` — the single-slice server (``serving/server.py``) on the card,
    in process on 127.0.0.1: warmup captures one CUDA graph per batch bucket
    (1, 2, 4, 8, 16), then the driver phase's 500 DICOM files arrive as
@@ -92,7 +97,10 @@ toolkit. Phases, each printing one JSON line:
    kernels run, the device's idle share under the profiler for one kernels
    pass, the 3D growth's time, steps and blocks (one host sync a block)
    for the cohort's median patient and for the long study, the launches
-   and the card's name and power limit.
+   and the card's name and power limit. One more volume CLI run with the
+   telemetry flags passes ``check_telemetry.py --expect-patients 20`` and
+   its profile names the fused kernel (the volume driver launches no grow
+   kernel); the line's ``telemetry``.
 7. ``serve_volume`` — whole-study serving: the server (``serving/server.py``
    with ``--volume-serving``, depth buckets 8, 16 and 32; slice buckets 1,
    2, 4, 8 and 16; canvas 256) in process on 127.0.0.1. The main path: the
@@ -186,7 +194,34 @@ toolkit. Phases, each printing one JSON line:
    clean run's. The line has the drill, both loadgen summaries, the stage
    pie, saturation, ledger, HBM table, SLO block, the driver drill's counts,
    the launches and the card's name and power limit.
-10. ``kernels`` — one line, ``{"kernels": [...]}``, per kernel: launches in
+10. ``fleet`` — three port servers as subprocesses on the one card
+   (``python -m nm03_capstone_project_tpu_torch.serving.server``, buckets
+   1-16, each with its own CUDA context, graphs and ``--log-json``) behind
+   the fleet router (``fleet/router.py``) in this process, with its own
+   event log. The driver phase's 500 DICOM files go once straight to one
+   replica (the baseline: what the router costs) and once through the
+   router at concurrency 16 (the port's loadgen as a library); then the
+   SIGKILL drill: once a third of the cohort is answered, one replica is
+   frozen (SIGSTOP) for half a second, so requests park on it, and killed.
+   Every request answers 200 with the driver's JPEG pair for its slice, the
+   router fails requests over and ejects the replica, ``/readyz`` stays 200
+   at 2/3 capacity, and every replica answered. The router's stream and
+   the three replicas' merge into one Perfetto trace (``obs/trace.py``) with
+   a track per replica and the failed-over request's hops; the killed
+   replica relaunches and is reinstated through one probation canary. The
+   fault plan's ``fleet`` rules (``replica_unreachable`` on one replica,
+   ``proxy_io_error``) each fire and are counted once, each ejection
+   followed by a reinstatement. ``nm03-top --fleet`` (``serving/top.py``)
+   shows three rows. Last, ``fleet.manager.rolling_restart`` relaunches
+   every replica from its own ``/readyz`` recipe while loadgen rounds run:
+   every replica under a new pid, no request failed, routed capacity never
+   below 2/3. The replicas' fused, grow and median launches on the main
+   path (the fleet run and the drill) come from their own ``/readyz`` and
+   ``/metrics`` (graph replays times the launches a graph holds). The line
+   has requests/s and p50/p99 direct and through the router, the drill's
+   counts, each replica's drain, warm and graph capture seconds, the
+   capacity floor, the launches and the card's name and power limit.
+11. ``kernels`` — one line, ``{"kernels": [...]}``, per kernel: launches in
    the driver's run (``launches``; the median kernel's from the unfused
    patient), in the ``slice`` phase's (``slice_launches``), by the
    ``serve`` phase's graph replays (``serve_launches``: replays times the
@@ -195,8 +230,9 @@ toolkit. Phases, each printing one JSON line:
    the ``serve_volume`` phase's main run (``serve_volume_launches``; the
    median kernel's from its unfused server), by the teacher while the
    ``student`` phase's 2D and 3D training runs distil their labels
-   (``student_launches``) and in the ``operate`` phase (``operate_launches``:
-   both servers' replays and the driver drill), the largest difference
+   (``student_launches``), in the ``operate`` phase (``operate_launches``:
+   both servers' replays and the driver drill) and by the ``fleet`` phase's
+   replicas (``fleet_launches``), the largest difference
    from the plain version, its wrapper and device time, the plain time and
    the bound.
 
@@ -291,6 +327,15 @@ DRIVER_DRILL_COUNTS = {
                "export/io_error": 5, "ingest/decode_error": 1},
 }
 DRIVER_SIGTERM_AFTER = 60  # export checks before the SIGTERM
+# the fleet: replicas on the one card, the share of the drill's requests
+# answered before one replica is frozen (SIGSTOP) and then killed, how long
+# it stays frozen (requests park on it meanwhile), and the loadgen rounds
+# (requests, concurrency) that run through the rolling restart
+FLEET_REPLICAS = 3
+FLEET_KILL_SHARE = 1 / 3
+FLEET_STOP_S = 0.5
+FLEET_RESTART_LOAD = (64, 4)
+FLEET_START_TIMEOUT_S = 240
 
 
 def emit(obj) -> None:
@@ -556,10 +601,16 @@ def driver_phase(tmp: Path, smi: str, kernels: dict, reset):
         wall_ms = (time.perf_counter() - t0) * 1e3
     busy_ms = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
 
+    # the drivers' telemetry, apart from the throughput turns
+    telemetry = telemetry_run(parallel_cli.main, ["--base-path", str(cohort), "--canvas",
+                                                  str(size)],
+                              tmp / "cli_telemetry", kernels, reset, ("fused", "grow"),
+                              feed_stall=True)
+
     emit({"phase": "driver", "patients": n_pat, "slices": n, "size": size,
           "write_cohort_s": write_s, "parallel_s": par_s, "jpeg_files": len(par_files),
           "launches": launches, "golden_slices": len(golden["slices"]),
-          "variants": variants, "timing": timing,
+          "variants": variants, "timing": timing, "telemetry": telemetry,
           "profiled_wall_ms": wall_ms,
           "device_busy_ms": busy_ms if busy_ms > 0 else "not measured",
           "idle_share": 1 - busy_ms / wall_ms if busy_ms > 0 else "not measured"})
@@ -997,6 +1048,13 @@ def volume_phase(tmp: Path, cohort: Path, study, smi: str, kernels: dict, reset)
         wall_ms = (time.perf_counter() - t0) * 1e3
     busy_ms = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
 
+    # the volume driver's telemetry, apart from the turns (it launches no
+    # grow kernel: the 3D growth is torch ops)
+    telemetry = telemetry_run(volume_cli.main, ["--base-path", str(cohort), "--canvas",
+                                                str(size), "--export-mhd"],
+                              tmp / "volume_telemetry", kernels, reset, ("fused",),
+                              feed_stall=False)
+
     # the 3D growth alone: every cohort patient, the median one reported
     per_patient = {}
     for pid in golden:
@@ -1063,7 +1121,8 @@ def volume_phase(tmp: Path, cohort: Path, study, smi: str, kernels: dict, reset)
                          "first_s": {"kernels": first_s, "plain": first_plain_s},
                          "voxels": int(sfast["mask"].sum()),
                          "converged": bool(sfast["grow_converged"]), **study_grow},
-          "variants": variants, "launches": launches, "nvidia_smi": smi})
+          "variants": variants, "telemetry": telemetry, "launches": launches,
+          "nvidia_smi": smi})
     return launches, {"masks": kmasks, "volumes_per_s": rate(runs["kernels"])["volumes_per_s"],
                       "mhd_dir": kout}
 
@@ -2134,6 +2193,455 @@ def operate_phase(tmp: Path, driver_out: dict, smi: str, kernels: dict, reset) -
     return launches
 
 
+def telemetry_run(main_fn, argv: list, out: Path, kernels: dict, reset, launched: tuple,
+                  feed_stall: bool) -> dict:
+    """One driver CLI run with the telemetry flags, apart from the
+    throughput turns: ``--metrics-out --log-json --heartbeat-s 1
+    --profile-dir``. Its events and snapshot must pass
+    ``scripts/check_telemetry.py --expect-patients`` (every cohort patient),
+    the batch drivers' results JSON must carry ``feed_stall`` with a ratio
+    in [0, 1], and the profile must name the kernels the run launched."""
+    paths = {k: out.parent / f"{out.name}.{k}" for k in ("results", "metrics", "events")}
+    prof = out.parent / f"{out.name}.profile"
+    reset()
+    t0 = time.perf_counter()
+    rc = main_fn([*argv, "--output", str(out), "--results-json", str(paths["results"]),
+                  "--metrics-out", str(paths["metrics"]), "--log-json", str(paths["events"]),
+                  "--heartbeat-s", "1", "--profile-dir", str(prof)])
+    wall = time.perf_counter() - t0
+    require(rc == 0, f"telemetry run {out.name} exited {rc}")
+    checker = Path(__file__).resolve().parent / "scripts" / "check_telemetry.py"
+    res = subprocess.run(
+        [sys.executable, str(checker), "--events", str(paths["events"]),
+         "--metrics", str(paths["metrics"]), "--expect-patients", str(DRIVER_COHORT[0])],
+        capture_output=True, text=True, timeout=120)
+    require(res.returncode == 0, f"check_telemetry on {out.name}: {res.stdout}{res.stderr}")
+    rec = json.loads(paths["results"].read_text())
+    events = [json.loads(line)["event"] for line in paths["events"].read_text().splitlines()]
+    out_rec = {"wall_s": wall, "check_telemetry": res.stdout.strip(),
+               "events": {e: events.count(e) for e in sorted(set(events))},
+               "launches": {k: fn.launches for k, fn in kernels.items()}}
+    if feed_stall:
+        fs = rec.get("feed_stall") or {}
+        ratio = fs.get("feed_stall_ratio")
+        require(ratio is not None and 0.0 <= ratio <= 1.0, f"{out.name}: feed_stall {fs}")
+        out_rec["feed_stall"] = fs
+    trace = (prof / "nm03.pt.trace.json").read_text()
+    names = {k: f"{k}_kernel" in trace for k in ("fused", "grow")}
+    require(all(names[k] for k in launched), f"{out.name}: profile kernel names {names}")
+    out_rec["profile_names"] = names
+    out_rec["profile_bytes"] = len(trace)
+    return out_rec
+
+
+def fleet_phase(tmp: Path, driver_out: dict, smi: str) -> dict:
+    """Three port replicas on the card behind the fleet router (phase 10 of
+    the docstring). Returns the fused, grow and median launches the
+    replicas' graph replays made on the main path (the clean fleet run and
+    the SIGKILL drill), read from each replica's own /readyz and /metrics."""
+    import contextlib
+    import io
+    import os
+    import signal
+    import urllib.error
+    import urllib.request
+
+    from nm03_capstone_project_tpu_torch.data.discovery import (
+        find_patient_dirs,
+        load_dicom_files_for_patient,
+    )
+    from nm03_capstone_project_tpu_torch.fleet.manager import rolling_restart
+    from nm03_capstone_project_tpu_torch.fleet.router import FleetApp
+    from nm03_capstone_project_tpu_torch.fleet.router import serve_in_thread as fleet_serve
+    from nm03_capstone_project_tpu_torch.obs import RunContext
+    from nm03_capstone_project_tpu_torch.obs.trace import export_chrome_trace
+    from nm03_capstone_project_tpu_torch.resilience import FaultPlan
+    from nm03_capstone_project_tpu_torch.serving import loadgen, top
+
+    phase_t0 = time.perf_counter()
+    root = tmp / "fleet"
+    root.mkdir()
+    repo = Path(__file__).resolve().parent
+    size = DRIVER_COHORT[2]
+    cohort, dfiles = driver_out["cohort"], driver_out["files"]
+    dicom = [(pid, f.stem, f.read_bytes()) for pid in find_patient_dirs(cohort)
+             for f in load_dicom_files_for_patient(cohort, pid)]
+    n = len(dicom)
+
+    def sha(b: bytes) -> str:
+        return hashlib.sha256(b).hexdigest()
+
+    # the driver's JPEG pair of each slice: what every answer must carry
+    want = [(sha(dfiles[f"{p}/{s}_original.jpg"]), sha(dfiles[f"{p}/{s}_processed.jpg"]))
+            for p, s, _ in dicom]
+    payloads = [(body, {"Content-Type": "application/dicom"}) for _, _, body in dicom]
+    env = dict(os.environ)
+    env.pop("NM03_FAULT_PLAN", None)
+    procs = []  # every process this phase starts, stopped in the finally
+
+    def get_json(url: str):
+        try:
+            with urllib.request.urlopen(url, timeout=10) as r:
+                return r.status, json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read() or b"{}")
+
+    def spawn_replica(tag: str, port: int = 0):
+        """A port server on the card (no --device: the default), its port
+        written once its graphs are captured."""
+        port_file = root / f"{tag}.port"
+        log = root / f"{tag}.jsonl"
+        argv = [sys.executable, "-m", "nm03_capstone_project_tpu_torch.serving.server",
+                "--port", str(port), "--port-file", str(port_file), "--log-json", str(log),
+                "--canvas", str(size), "--buckets", ",".join(map(str, SERVE_BUCKETS)),
+                "--heartbeat-s", "0", "--flight-dir", str(root), "--request-timeout-s", "300"]
+        with open(root / f"{tag}.out", "w") as out:
+            proc = subprocess.Popen(argv, cwd=repo, env=env, stdout=out,
+                                    stderr=subprocess.STDOUT)
+        procs.append(proc)
+        return proc, port_file, log
+
+    def wait_port(proc, port_file: Path, tag: str) -> int:
+        deadline = time.monotonic() + FLEET_START_TIMEOUT_S
+        while not port_file.exists():
+            require(proc.poll() is None, f"replica {tag} exited {proc.returncode}: "
+                    f"{(root / f'{tag}.out').read_text()[-2000:]}")
+            require(time.monotonic() < deadline, f"replica {tag} never became ready")
+            time.sleep(0.1)
+        return int(port_file.read_text())
+
+    def replica_launches(url: str) -> dict:
+        """Graph replays x the launches each graph holds, from the
+        replica's own /metrics.json and /readyz."""
+        _, st = get_json(url + "/readyz")
+        _, snap = get_json(url + "/metrics.json")
+        graphs = st["cuda_graphs"]["lanes"]
+        out = {"fused": 0, "grow": 0, "median": 0}
+        for m in snap["metrics"]:
+            if m["name"] == "serving_graph_replays_total":
+                g = graphs.get(m["labels"]["lane"], {}).get(m["labels"]["bucket"], {})
+                for k, c in g.get("kernels", {}).items():
+                    out[k] += int(m["value"]) * c
+        return out
+
+    class ReadyzPoller:
+        """Samples the fleet's /readyz every 0.1 s: statuses and capacity."""
+
+        def __init__(self, url: str):
+            self.url, self.samples, self._stop = url, [], threading.Event()
+            self._t = threading.Thread(target=self._run, daemon=True)
+            self._t.start()
+
+        def _run(self):
+            while not self._stop.wait(0.1):
+                with contextlib.suppress(Exception):
+                    status, st = get_json(self.url + "/readyz")
+                    self.samples.append((status, st.get("capacity"),
+                                         (st.get("replicas") or {}).get("ejected")))
+
+        def stop(self):
+            self._stop.set()
+            self._t.join(timeout=10)
+            return self.samples
+
+    httpd = app = None
+    try:
+        # -- setup: three replicas, each its own process on the card -------
+        t0 = time.perf_counter()
+        started = [spawn_replica(f"r{i}") for i in range(FLEET_REPLICAS)]
+        ports = [wait_port(p, pf, f"r{i}") for i, (p, pf, _) in enumerate(started)]
+        start_s = time.perf_counter() - t0
+        urls = [f"http://127.0.0.1:{p}" for p in ports]
+        labels = [f"127.0.0.1:{p}" for p in ports]
+        for i, url in enumerate(urls):
+            status, st = get_json(url + "/readyz")
+            rep = st["replica"]
+            require(status == 200 and st["cuda_graphs"]["enabled"]
+                    and "device cuda" in (root / f"r{i}.out").read_text(),
+                    f"replica {i} is not on the card: {status} {st.get('cuda_graphs')}")
+            require(rep["relaunch_argv"][3:5] == ["--port", str(ports[i])]
+                    and rep["cwd"] == str(repo), f"replica {i} identity {rep}")
+
+        router_log, router_metrics = root / "router.jsonl", root / "router_metrics.json"
+        app = FleetApp(labels, obs=RunContext.create("fleet", metrics_out=str(router_metrics),
+                                                      log_json=str(router_log)),
+                       health_interval_s=0.25, probe_interval_s=0.5, health_timeout_s=2.0,
+                       proxy_timeout_s=120.0)
+        # every answer the router returns, by trace id: the JPEG pair's digests
+        answers, real_proxy = {}, app.proxy_segment
+
+        def proxy_segment(body, headers, query="", trace_id=None, **kw):
+            status, data, hdrs = real_proxy(body, headers, query, trace_id=trace_id, **kw)
+            if status == 200:
+                p = json.loads(data)
+                answers[trace_id] = (sha(base64.b64decode(p["original_jpeg_b64"])),
+                                     sha(base64.b64decode(p["processed_jpeg_b64"])))
+            return status, data, hdrs
+
+        app.proxy_segment = proxy_segment
+        httpd, _, fport = fleet_serve(app)
+        fleet_url = f"http://127.0.0.1:{fport}"
+
+        def total(name: str, **labels_) -> float:
+            return sum(m["value"] for m in app.obs.metrics_snapshot()["metrics"]
+                       if m["name"] == name
+                       and all(m["labels"].get(k) == v for k, v in labels_.items()))
+
+        def load(url: str, n_req: int, concurrency: int, result=None):
+            result = result if result is not None else loadgen.LoadResult()
+            s = loadgen.run_load([f"{url}/v1/segment"], payloads, n_req, concurrency, 0.0,
+                                 120.0, result)
+            return s, result
+
+        def check_answers(result, n_sent: int, where: str) -> int:
+            checked = 0
+            for rec in result.requests:
+                if rec["status"] != "ok":
+                    continue
+                i = int(rec["id"].rsplit("-", 1)[1]) % n
+                got = answers.pop(rec["id"], None)
+                require(got == want[i], f"{where}: {dicom[i][0]}/{dicom[i][1]} answered "
+                        "a JPEG pair other than the driver's")
+                checked += 1
+            require(checked == n_sent, f"{where}: {checked} answers checked of {n_sent}")
+            return checked
+
+        def rates(s: dict) -> dict:
+            return {"requests_per_s": s["throughput_rps"], "p50_ms": s["latency_ms"]["p50"],
+                    "p99_ms": s["latency_ms"]["p99"], "statuses": s["statuses"],
+                    "replicas_observed": s["replicas_observed"]}
+
+        def wait_healthy(target: str, what: str, timeout: float = 120.0):
+            deadline = time.monotonic() + timeout
+            while app.replicas.state(target) != "healthy":
+                require(time.monotonic() < deadline, f"{what}: never reinstated")
+                time.sleep(0.05)
+
+        # -- the baseline: the cohort straight to one replica --------------
+        direct, _ = load(urls[0], n, SERVE_CONCURRENCY)
+        require(direct["statuses"] == {"ok": n}, f"direct run {direct['statuses']}")
+
+        # -- the main path: the cohort through the router, then the drill --
+        before = [replica_launches(u) for u in urls]
+        clean, clean_res = load(fleet_url, n, SERVE_CONCURRENCY)
+        require(clean["statuses"] == {"ok": n}, f"fleet run {clean['statuses']}")
+        check_answers(clean_res, n, "fleet run")
+        require(set(clean["replicas_observed"]) == set(labels),
+                f"fleet run spread {clean['replicas_observed']}")
+
+        victim = FLEET_REPLICAS - 1
+        vproc, vtarget = started[victim][0], app.replicas.targets[victim]
+        poller = ReadyzPoller(fleet_url)
+        drill_res, box = loadgen.LoadResult(), {}
+        loader = threading.Thread(
+            target=lambda: box.update(summary=load(fleet_url, n, SERVE_CONCURRENCY,
+                                                   drill_res)[0]), daemon=True)
+        loader.start()
+        deadline = time.monotonic() + 120
+        while len(drill_res.latencies_s) < n * FLEET_KILL_SHARE:
+            require(loader.is_alive() and time.monotonic() < deadline,
+                    "the drill's loadgen ended before a third was answered")
+            time.sleep(0.005)
+        killed_at = len(drill_res.latencies_s)
+        victim_launches = replica_launches(urls[victim])  # its last read before it dies
+        # frozen mid-batch first, so requests park on it, then killed
+        os.kill(vproc.pid, signal.SIGSTOP)
+        time.sleep(FLEET_STOP_S)
+        os.kill(vproc.pid, signal.SIGKILL)
+        vproc.wait(timeout=30)
+        loader.join(timeout=300)
+        require(not loader.is_alive(), "the drill's loadgen hung")
+        samples = poller.stop()
+        drill = box["summary"]
+        require(drill["statuses"] == {"ok": n}, f"SIGKILL drill statuses {drill['statuses']}")
+        check_answers(drill_res, n, "SIGKILL drill")
+        survivors = [replica_launches(u) for u in urls[:victim]]
+        fleet_launches = {k: sum(r[k] for r in survivors) + victim_launches[k]
+                          - sum(b[k] for b in before) for k in ("fused", "grow", "median")}
+        require(fleet_launches["fused"] > 0 and fleet_launches["grow"] > 0,
+                f"the replicas launched {fleet_launches}")
+        failovers = total("fleet_failovers_total")
+        require(failovers >= 1 and total("fleet_failovers_total", replica=labels[victim]) >= 1,
+                f"no failover off the killed replica ({failovers})")
+        require(app.replicas.state(vtarget) == "ejected", "the killed replica is not ejected")
+        require(set(drill["replicas_observed"]) == set(labels),
+                f"drill replicas observed {drill['replicas_observed']}")
+        require({s for s, _, _ in samples} == {200}, "the fleet's /readyz left 200")
+        dip = min(c for _, c, _ in samples if c is not None)
+        require(abs(dip - 2 / 3) < 1e-3, f"the fleet's capacity dipped to {dip}, not 2/3")
+
+        # -- one timeline: the router's stream and the three replicas' -----
+        merged = root / "fleet.trace.json"
+        n_traces = export_chrome_trace([str(router_log)] + [str(lg) for _, _, lg in started],
+                                       str(merged))
+        events = json.loads(merged.read_text())["traceEvents"]
+        procs_named = {e["args"]["name"] for e in events
+                       if e["ph"] == "M" and e["name"] == "process_name"}
+        require(procs_named == {"nm03-fleet"} | {f"replica {lb}" for lb in labels},
+                f"merged trace processes {sorted(procs_named)}")
+        b_events = [e for e in events if e["ph"] == "B"]
+        died = [e for e in b_events if e["name"] == "proxy_hop"
+                and e["args"].get("replica") == labels[victim]
+                and e["args"].get("outcome") == "io_error"]
+        require(died and any(e["name"] == "failover" for e in b_events),
+                "no failover hop in the merged trace")
+        failed_over = set(died[0]["args"]["trace_ids"])
+        require(any(e["pid"] != died[0]["pid"] and failed_over & set(e["args"]["trace_ids"])
+                    for e in b_events), "the failed-over request has no replica span tree")
+        checker = repo / "scripts" / "check_telemetry.py"
+        res = subprocess.run([sys.executable, str(checker), "--expect-fleet-trace", str(merged)],
+                             capture_output=True, text=True, timeout=120)
+        require(res.returncode == 0, f"--expect-fleet-trace: {res.stderr}")
+
+        # -- the killed replica comes back: probation, then reinstatement --
+        t0 = time.perf_counter()
+        revived = spawn_replica("r%d_revived" % victim, port=ports[victim])
+        wait_port(revived[0], revived[1], "r%d_revived" % victim)
+        wait_healthy(vtarget, "the revived replica")
+        revive_s = time.perf_counter() - t0
+        vl = labels[victim]
+        drill_counts = {
+            "ejections": total("fleet_replica_ejections_total", replica=vl),
+            "probes": total("fleet_probes_total", replica=vl),
+            "reinstated": total("fleet_replica_reinstated_total", replica=vl),
+        }
+        require(drill_counts == {"ejections": 1, "probes": 1, "reinstated": 1},
+                f"the killed replica's ejection/probation/reinstatement {drill_counts}")
+
+        # -- the fault plan's fleet rules, each once -----------------------
+        ej0, re0 = total("fleet_replica_ejections_total"), total("fleet_replica_reinstated_total")
+        app.fault_plan = FaultPlan.from_spec({"faults": [
+            {"site": "fleet", "kind": "replica_unreachable", "stem": labels[0], "count": 1}]})
+        deadline = time.monotonic() + 30
+        while total("fleet_replica_ejections_total") < ej0 + 1:
+            require(time.monotonic() < deadline, "replica_unreachable never ejected")
+            time.sleep(0.02)
+        wait_healthy(app.replicas.targets[0], "replica_unreachable")
+        app.fault_plan = FaultPlan.from_spec({"faults": [
+            {"site": "fleet", "kind": "proxy_io_error", "count": 1}]})
+        plan_res = loadgen.LoadResult()
+        plan_run, _ = load(fleet_url, 8, 1, plan_res)
+        require(plan_run["statuses"] == {"ok": 8} and plan_run["failovers_observed"] == 1,
+                f"proxy_io_error run {plan_run['statuses']} {plan_run['failovers_observed']}")
+        check_answers(plan_res, 8, "proxy_io_error run")
+        for t in app.replicas.targets:
+            wait_healthy(t, "proxy_io_error")
+        app.fault_plan = None
+        fault_counts = {
+            "replica_unreachable": total("resilience_faults_injected_total", site="fleet",
+                                         kind="replica_unreachable"),
+            "proxy_io_error": total("resilience_faults_injected_total", site="fleet",
+                                    kind="proxy_io_error"),
+            "ejections": total("fleet_replica_ejections_total") - ej0,
+            "reinstated": total("fleet_replica_reinstated_total") - re0,
+        }
+        require(fault_counts == {"replica_unreachable": 1, "proxy_io_error": 1,
+                                 "ejections": 2, "reinstated": 2},
+                f"the fault plan's drill {fault_counts}")
+
+        # -- nm03-top over the fleet ----------------------------------------
+        fsample, per = top.fetch_fleet_sample(fleet_url, 10.0)
+        view = top.build_fleet_view(fsample, per)
+        require(len(view["replicas"]) == 3
+                and all(r["state"] == "healthy" for r in view["replicas"]),
+                f"top fleet view {view['replicas']}")
+        screen = io.StringIO()
+        with contextlib.redirect_stdout(screen):
+            top_rc = top.main(["--url", fleet_url, "--fleet", "--once"])
+        require(top_rc == 0 and all(lb in screen.getvalue() for lb in labels),
+                f"nm03-top --fleet exited {top_rc}")
+
+        # -- the rolling restart under load ---------------------------------
+        old_pids = [get_json(u + "/readyz")[1]["replica"]["pid"] for u in urls]
+        poller = ReadyzPoller(fleet_url)
+        stop, rounds = threading.Event(), []
+
+        def traffic():
+            while not stop.is_set():
+                s, r = load(fleet_url, FLEET_RESTART_LOAD[0], FLEET_RESTART_LOAD[1])
+                rounds.append((s, r))
+
+        loader = threading.Thread(target=traffic, daemon=True)
+        loader.start()
+        time.sleep(0.5)
+
+        def spawn(argv, **kw):
+            with open(root / f"restart{len(procs)}.out", "w") as out:
+                proc = subprocess.Popen(argv, cwd=kw.get("cwd"), env=env, stdout=out,
+                                        stderr=subprocess.STDOUT, start_new_session=True)
+            procs.append(proc)
+            return proc
+
+        t0 = time.perf_counter()
+        report = rolling_restart(labels, drain_timeout_s=120, warm_timeout_s=300, poll_s=0.1,
+                                 fleet_url=fleet_url, spawn=spawn, emit=lambda m: None)
+        restart_s = time.perf_counter() - t0
+        stop.set()
+        loader.join(timeout=300)
+        samples = poller.stop()
+        require(report["ok"] and all(e["ok"] for e in report["replicas"]), f"restart {report}")
+        new_pids = [e["new_pid"] for e in report["replicas"]]
+        require(all(a != b for a, b in zip(old_pids, new_pids)), f"pids {old_pids} {new_pids}")
+        sent = 0
+        for s, r in rounds:
+            require(s["statuses"] == {"ok": s["requests_total"]},
+                    f"a request failed during the rolling restart: {s['statuses']}")
+            sent += check_answers(r, s["requests_total"], "rolling restart")
+        require(sent > 0, "no traffic during the rolling restart")
+        floor = min(c for _, c, _ in samples if c is not None)
+        require({s for s, _, _ in samples} == {200} and floor >= 2 / 3 - 1e-6,
+                f"routed capacity fell to {floor} during the rolling restart")
+
+        httpd.shutdown()
+        httpd.server_close()
+        app.begin_drain()
+        app.close()
+        httpd = app = None
+        res = subprocess.run(
+            [sys.executable, str(checker), "--events", str(router_log), "--metrics",
+             str(router_metrics), "--expect-gauge", "fleet_replicas_ready=3",
+             "--expect-counter", "fleet_shed_total==0",
+             "--expect-counter", f"fleet_replica_reinstated_total{{replica={vl}}}=1"],
+            capture_output=True, text=True, timeout=120)
+        require(res.returncode == 0, f"check_telemetry on the router: {res.stderr}")
+
+        emit({"phase": "fleet", "replicas": FLEET_REPLICAS, "slices": n,
+              "concurrency": SERVE_CONCURRENCY, "start_s": start_s,
+              "direct": rates(direct), "fleet": rates(clean),
+              "sigkill": {"killed_after": killed_at, "stopped_s": FLEET_STOP_S,
+                          **rates(drill), "failovers": failovers,
+                          "failovers_observed": drill["failovers_observed"],
+                          "capacity_dip": dip, "revive_s": revive_s, **drill_counts},
+              "fault_plan": fault_counts,
+              "restart": {"seconds": restart_s, "capacity_floor": floor,
+                          "requests": sent,
+                          "replicas": [{k: e.get(k) for k in ("replica", "old_pid", "new_pid",
+                                                              "drain_s", "warm_s", "capture_s")}
+                                       for e in report["replicas"]]},
+              "top_rows": len(view["replicas"]),
+              "trace": {"requests": n_traces, "processes": sorted(procs_named),
+                        "failover_trace_ids": len(failed_over)},
+              "fleet_launches": fleet_launches,
+              "seconds": time.perf_counter() - phase_t0, "nvidia_smi": smi})
+        return fleet_launches
+    finally:
+        if httpd is not None:
+            httpd.shutdown()
+            httpd.server_close()
+        if app is not None:
+            app.begin_drain()
+            app.close(status="error")
+        for proc in procs:  # SIGTERM drains a replica; what stays up is killed
+            if proc.poll() is None:
+                proc.send_signal(signal.SIGTERM)
+        for proc in procs:
+            try:
+                proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=30)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing to drive", file=sys.stderr)
@@ -2457,8 +2965,10 @@ def main() -> int:
                                          reset)
         # -- 9. the service under load and under faults -------------------
         operate_launches = operate_phase(Path(tmp), driver_out, smi, kernels, reset)
+        # -- 10. a fleet of replicas on the card --------------------------
+        fleet_launches = fleet_phase(Path(tmp), driver_out, smi)
 
-    # -- 10. kernels ---------------------------------------------------------
+    # -- 11. kernels ---------------------------------------------------------
     meta = {
         "median": ("vector_median_filter", "csrc/median.cu",
                    "nm03_capstone_project_tpu/ops/pallas_median.py:101"),
@@ -2479,6 +2989,7 @@ def main() -> int:
             "serve_volume_launches": serve_volume_launches[key],
             "student_launches": student_launches[key],
             "operate_launches": operate_launches[key],
+            "fleet_launches": fleet_launches[key],
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"],

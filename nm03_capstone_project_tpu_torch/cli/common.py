@@ -17,6 +17,12 @@ drivers have under ``--no-fallback-cpu``: a dispatch whose retries are
 exhausted or whose deadline expires fails its slices, which are counted;
 nothing is recomputed on the CPU.
 
+The observability group (:func:`add_observability_args`) gives every
+driver the JAX drivers' ``--metrics-out``, ``--log-json`` and
+``--heartbeat-s`` (:func:`make_run_context` builds the run's
+:class:`..obs.RunContext` from them), and ``--profile-dir`` captures a
+``torch.profiler`` trace of the run (:func:`..utils.profiling.profile_trace`).
+
 ``--model`` deploys a student checkpoint written by the port's
 ``cli.train`` (:func:`load_model_checkpoint`, with the JAX package's three
 refusals). Flags of the JAX drivers whose layers are not ported are
@@ -44,13 +50,7 @@ DEFAULT_COHORT_SUBPATH = "Brain-Tumor-Progression/T1-Post-Combined-P001-P020"
 # with the reason it is refused, grouped as the JAX drivers take them
 NOT_PORTED = {
     "observability": {
-        "--metrics-out": "the drivers' metrics snapshot is not ported yet (ROADMAP A4.8)",
-        "--log-json": "the drivers' event log is not ported yet (ROADMAP A4.8)",
-        "--heartbeat-s": "the drivers' heartbeat is not ported yet (ROADMAP A4.8)",
         "--sanitize": "the JAX transfer guard has no counterpart in the port",
-    },
-    "profile": {
-        "--profile-dir": "the drivers' profiler capture is not ported yet (ROADMAP A4.8)",
     },
     "resilience": {
         "--fallback-cpu": "the port has no CPU fallback",
@@ -77,6 +77,61 @@ def add_not_ported_args(parser: argparse.ArgumentParser, *groups: str) -> None:
     for group in groups:
         for flag in NOT_PORTED[group]:
             parser.add_argument(flag, nargs="?", action=_NotPorted, help=argparse.SUPPRESS)
+
+
+def add_observability_args(parser: argparse.ArgumentParser) -> None:
+    """--metrics-out / --log-json / --heartbeat-s / --profile-dir, as every
+    JAX driver takes them (``--sanitize`` stays refused:
+    :func:`add_not_ported_args` with ``"observability"``)."""
+    g = parser.add_argument_group("observability", "structured run telemetry")
+    g.add_argument(
+        "--metrics-out", default=None, metavar="JSON",
+        help="write the run's metrics snapshot here (counters, gauges, "
+        "per-stage latency histograms; schema nm03.metrics.v1)",
+    )
+    g.add_argument(
+        "--log-json", default=None, metavar="JSONL",
+        help="write structured JSON-lines events here (run id + git SHA on "
+        "every record, one terminal outcome event per patient; schema "
+        "nm03.events.v1; one run per file, truncated at start)",
+    )
+    g.add_argument(
+        "--heartbeat-s", type=float, default=30.0, metavar="SEC",
+        help="heartbeat event period for --log-json streams (uptime + live "
+        "counter totals; 0 disables)",
+    )
+    g.add_argument(
+        "--profile-dir", default=None, metavar="DIR",
+        help="capture a torch.profiler trace of the run here (a Chrome/"
+        "Perfetto JSON with the card's kernels by name)",
+    )
+
+
+def make_run_context(args: argparse.Namespace, driver: str, argv=None):
+    """The driver's :class:`..obs.RunContext` from its parsed flags, with
+    the info gauge of the median and render paths the run takes."""
+    from nm03_capstone_project_tpu_torch.obs import RunContext
+
+    ctx = RunContext.create(
+        driver,
+        metrics_out=getattr(args, "metrics_out", None),
+        log_json=getattr(args, "log_json", None),
+        heartbeat_s=getattr(args, "heartbeat_s", 0.0) or 0.0,
+        argv=argv,
+    )
+    if hasattr(args, "median_impl"):
+        from nm03_capstone_project_tpu_torch.ops.selection_network import comparator_counts
+
+        # the kernels run only on the card: a CPU run takes the plain ops
+        # whatever --no-kernels says, and the label must say so
+        ctx.record_pipeline_paths(
+            median_impl=args.median_impl,
+            render_fused=not getattr(args, "no_render_fuse", False),
+            fuse_preprocess=not getattr(args, "no_preprocess_fuse", False),
+            use_kernels=args.device == "cuda" and not getattr(args, "no_kernels", False),
+            comparators=comparator_counts(args.median_window),
+        )
+    return ctx
 
 
 def add_resilience_args(parser: argparse.ArgumentParser) -> None:
@@ -164,6 +219,7 @@ def add_common_args(parser: argparse.ArgumentParser) -> None:
         help="write a timing/success results JSON (in-tree replacement for the "
         "reference's out-of-tree hyperfine artifacts)",
     )
+    add_observability_args(parser)
 
 
 def add_pipeline_args(parser: argparse.ArgumentParser) -> None:

@@ -34,7 +34,7 @@ def build_parser() -> argparse.ArgumentParser:
     common.add_render_stage_arg(p)
     common.add_model_arg(p)
     common.add_resilience_args(p)
-    common.add_not_ported_args(p, "observability", "profile", "resilience", "distributed")
+    common.add_not_ported_args(p, "observability", "resilience", "distributed")
     return p
 
 

@@ -41,11 +41,19 @@ index); the same plan fails the same slices in both packages.
 The pipeline runs on ``device`` (``cuda`` unless the caller asks for the
 CPU). Neither strategy synchronizes the host between enqueue and fetch:
 the kernel wrappers never do, so the card runs ahead of the host.
+
+Observability follows the JAX drivers: the span recorder is the run
+context's, so every section feeds the stage latency histograms; a
+:class:`..obs.saturation.PhaseAccountant` records the decode, stage,
+dispatch, fetch and export busy intervals for the results JSON's
+``feed_stall``; each patient ends in one ``patient_outcome`` record, and
+a capped region growing in a ``grow_truncated`` one.
 """
 
 from __future__ import annotations
 
 import concurrent.futures as cf
+import time
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Dict, List, Optional, Tuple
@@ -64,7 +72,7 @@ from nm03_capstone_project_tpu_torch.ingest import IngestFailure, IngestPipeline
 from nm03_capstone_project_tpu_torch.ingest.staging import Stager, wait_staged
 from nm03_capstone_project_tpu_torch.obs.metrics import RESILIENCE_RETRIES_TOTAL
 from nm03_capstone_project_tpu_torch.obs.run import RunContext
-from nm03_capstone_project_tpu_torch.obs.spans import SpanRecorder
+from nm03_capstone_project_tpu_torch.obs.saturation import PhaseAccountant
 from nm03_capstone_project_tpu_torch.pipeline import process_batch, process_slice
 from nm03_capstone_project_tpu_torch.render.export import (
     clean_directory,
@@ -92,6 +100,11 @@ from nm03_capstone_project_tpu_torch.utils.manifest import (
 from nm03_capstone_project_tpu_torch.utils.reporter import get_logger
 
 log = get_logger("runner")
+
+# concurrent JPEG renders + encodes of one patient: the batches of a
+# patient share one export pool, so a slow batch's export never doubles the
+# host threads encoding at once
+EXPORT_WORKERS = 4
 
 
 def guard_pixels(
@@ -240,14 +253,22 @@ class CohortProcessor:
         self.mode = mode
         self.resume = resume
         self.mask_sink = mask_sink
-        self.timer = SpanRecorder()
         # one drained stats snapshot per patient pipeline, for the run's
         # ``ingest`` aggregate
         self._ingest_reports: List[dict] = []
+        # observability: the driver's flag-configured context, or a
+        # sink-less one. ``timer`` is its span recorder, so every section
+        # also feeds the per-stage latency histograms
+        self.obs = obs if obs is not None else RunContext.create(driver=mode)
+        self.timer = self.obs.spans
+        # feed-phase accounting: both strategies record decode, stage,
+        # dispatch, fetch and export busy intervals. The "dispatch" interval
+        # spans enqueue -> fetch complete (an upper bound on device busy,
+        # so the reported stall is a lower bound)
+        self.feed = PhaseAccountant()
         # resilience: the retry policy, the dispatch deadline and the fault
         # plan (defaults: no deadline, no plan unless NM03_FAULT_PLAN names
         # one, transient device errors retried)
-        self.obs = obs if obs is not None else RunContext.create(driver=mode)
         self.res = resilience if resilience is not None else ResilienceConfig()
         plan = self.res.fault_plan
         self.fault_plan = (
@@ -311,6 +332,12 @@ class CohortProcessor:
                 "cap; masks under-cover (raise --grow-max-iters): %s",
                 patient_id, len(truncated), ", ".join(truncated[:8]),
             )
+            try:
+                self.obs.grow_truncated(
+                    patient_id, count=len(truncated), slices=truncated[:16]
+                )
+            except Exception as e:  # noqa: BLE001 — telemetry never costs a run
+                log.warning("patient %s: truncation telemetry failed: %s", patient_id, e)
         self.manifest.flush()
         print(
             f"\nPatient {patient_id} completed. Successfully processed "
@@ -426,19 +453,24 @@ class CohortProcessor:
                 if "error" in p:
                     raise p["error"]
                 with self.timer.section("export"):
-                    mask = p["mask_dev"].cpu().numpy()  # waits for the card
+                    with self.feed.busy("fetch"):
+                        mask = p["mask_dev"].cpu().numpy()  # waits for the card
+                        if not host_render:
+                            gray, seg = (t.cpu().numpy() for t in p["render_dev"])
+                    self.feed.record("dispatch", p["t_disp0"], time.monotonic())
                     if self.mask_sink is not None:
                         self.mask_sink(patient_id, stem, mask)
-                    if host_render:
-                        written = render_export_pairs(
-                            [(stem, p["padded"], mask, p["dims"])],
-                            out_dir, self.cfg, max_workers=1,
-                            fault_hook=export_fault, retry=self.retry,
-                        )
-                    else:
-                        gray, seg = (t.cpu().numpy() for t in p["render_dev"])
-                        written = export_pairs([(stem, gray, seg)], out_dir, max_workers=1,
-                                               fault_hook=export_fault, retry=self.retry)
+                    with self.feed.busy("export"):
+                        if host_render:
+                            written = render_export_pairs(
+                                [(stem, p["padded"], mask, p["dims"])],
+                                out_dir, self.cfg, max_workers=1,
+                                fault_hook=export_fault, retry=self.retry,
+                            )
+                        else:
+                            written = export_pairs([(stem, gray, seg)], out_dir,
+                                                   max_workers=1, fault_hook=export_fault,
+                                                   retry=self.retry)
                 if stem not in written:
                     raise IOError("JPEG export failed")
                 # after the export check: truncated means "the pair exists
@@ -501,10 +533,12 @@ class CohortProcessor:
         try:
             with self.timer.section("compute"):
                 wait_staged(rec)
+                t_disp0 = time.monotonic()
                 out = self._supervised(enqueue, patient_id, rec["index"])
             cur = {
                 "stem": stem, "mask_dev": out["mask"], "conv": out["grow_converged"],
                 "padded": rec["pixels_host"], "dims": rec["dims_host"],
+                "t_disp0": t_disp0,
             }
             if not host_render:
                 cur["render_dev"] = out["render"]
@@ -565,34 +599,39 @@ class CohortProcessor:
                 stem, STATUS_DONE if conv_by_stem.get(stem, True) else STATUS_TRUNCATED
             )
 
-        def fetch_export(batch, mask_dev, conv_dev, render_dev):
+        def fetch_export(batch, mask_dev, conv_dev, render_dev, t_disp0):
             """On the ingest pool: fetch, render (host stage) and write."""
-            mask_b = mask_dev.cpu().numpy()
-            conv_b = conv_dev.cpu().numpy()
+            with self.feed.busy("fetch"):
+                mask_b = mask_dev.cpu().numpy()
+                conv_b = conv_dev.cpu().numpy()
+                if render_dev is not None:
+                    gray_b, seg_b = (t.cpu().numpy() for t in render_dev)
+            self.feed.record("dispatch", t_disp0, time.monotonic())
             for i, s in enumerate(batch["stems"]):
                 conv_by_stem[s] = bool(conv_b[i])
             if self.mask_sink is not None:
                 for i, s in enumerate(batch["stems"]):
                     self.mask_sink(patient_id, s, mask_b[i])
-            if render_dev is None:
-                items = [
-                    (s, batch["pixels_host"][i], mask_b[i], batch["dims_host"][i])
-                    for i, s in enumerate(batch["stems"])
-                ]
-                return render_export_pairs(
-                    items, out_dir, self.cfg, 4, fault_hook=export_fault, retry=self.retry,
-                    success_hook=journal_slice,
-                )
-            gray_b, seg_b = (t.cpu().numpy() for t in render_dev)
-            items = [(s, gray_b[i], seg_b[i]) for i, s in enumerate(batch["stems"])]
-            return export_pairs(items, out_dir, 4, fault_hook=export_fault, retry=self.retry,
-                                success_hook=journal_slice)
+            with self.feed.busy("export"):
+                if render_dev is None:
+                    items = [
+                        (s, batch["pixels_host"][i], mask_b[i], batch["dims_host"][i])
+                        for i, s in enumerate(batch["stems"])
+                    ]
+                    return render_export_pairs(
+                        items, out_dir, self.cfg, fault_hook=export_fault, retry=self.retry,
+                        success_hook=journal_slice, pool=export_pool,
+                    )
+                items = [(s, gray_b[i], seg_b[i]) for i, s in enumerate(batch["stems"])]
+                return export_pairs(items, out_dir, fault_hook=export_fault, retry=self.retry,
+                                    success_hook=journal_slice, pool=export_pool)
 
         # the decode pool runs batches ahead into the bounded staging ring;
         # the stager copies batch N+1 to the card while batch N computes;
         # result fetch + export stream back on the same pool
         pipe = self._ingest_pipeline(list(enumerate(batches)), decode_batch, patient_id)
-        with pipe:
+        export_pool = cf.ThreadPoolExecutor(EXPORT_WORKERS, thread_name_prefix="nm03-export")
+        with pipe, export_pool:
             for bi, batch in enumerate(pipe):
                 if isinstance(batch, IngestFailure):
                     # a whole-batch decode failure: every slice of the batch
@@ -631,6 +670,7 @@ class CohortProcessor:
                     # the batch's sync, overlapped with the next batch's compute
                     with self.timer.section("dispatch"):
                         wait_staged(batch)
+                        t_disp0 = time.monotonic()
                         out = self._supervised(enqueue, patient_id, bi)
                 except Exception as e:  # noqa: BLE001 - a failed batch, counted
                     log.warning("batch of %s failed on the device: %s",
@@ -642,7 +682,7 @@ class CohortProcessor:
                 export_futures.append(
                     (batch["stems"], pipe.submit(
                         fetch_export, batch, out["mask"], out["grow_converged"],
-                        out.get("render"),
+                        out.get("render"), t_disp0,
                     ))
                 )
                 expected_stems.extend(batch["stems"])
@@ -804,6 +844,7 @@ class CohortProcessor:
             depth=max(self.batch_cfg.ingest_depth, 1),
             decode_workers=max(workers, 1),
             staged_depth=max(self.batch_cfg.prefetch_depth, 1),
+            feed=self.feed,
             spans=self.timer,
             obs=self.obs,
             fault_plan=self.fault_plan,
@@ -811,7 +852,12 @@ class CohortProcessor:
         )
 
     def _note_ingest(self, pipe: IngestPipeline) -> None:
-        self._ingest_reports.append(pipe.stats())
+        """Keep one pipeline's drained snapshot and refresh the live
+        ``ingest_*`` gauges. Telemetry never costs a run."""
+        try:
+            self._ingest_reports.append(pipe.publish(self.obs.registry))
+        except Exception as e:  # noqa: BLE001 — telemetry never costs a run
+            log.warning("ingest telemetry failed: %s", e)
 
     def ingest_report(self) -> Optional[dict]:
         """Run-level aggregate of the per-patient pipeline snapshots (the
@@ -845,7 +891,33 @@ class CohortProcessor:
             "counts": counts,
         }
 
+    def publish_ingest(self) -> Optional[dict]:
+        """The drained-at-exit gauge refresh (the drivers call it before the
+        final metrics snapshot): occupancy = mean over patient pipelines,
+        queue depth = the run's decode-lookahead high-water mark, overlap =
+        upload-weighted mean."""
+        rep = self.ingest_report()
+        if rep is None:
+            return None
+        from nm03_capstone_project_tpu_torch.ingest.pipeline import publish_gauges
+
+        publish_gauges(
+            self.obs.registry,
+            occupancy=rep["ring_occupancy_ratio"],
+            queue_depth=rep["decode_queue_peak"],
+            overlap=rep["upload_overlap_ratio"],
+        )
+        return rep
+
     # -- cohort loop -------------------------------------------------------
+
+    def _emit_outcome(self, pid: str, status: str, **fields) -> None:
+        """Terminal patient telemetry; never raises into the cohort loop."""
+        try:
+            if not self.obs.has_outcome(pid):
+                self.obs.patient_outcome(pid, status, **fields)
+        except Exception as e:  # noqa: BLE001 — telemetry never costs a run
+            log.warning("patient %s: outcome telemetry failed: %s", pid, e)
 
     def process_all_patients(self) -> RunSummary:
         mode_name = self.mode.capitalize()
@@ -862,9 +934,20 @@ class CohortProcessor:
             except Exception as e:  # noqa: BLE001 - reference: move to next patient
                 log.warning("failed to process patient %s: %s", pid, e)
                 summary.patients.append(PatientResult(pid, 0, 0))
+                self._emit_outcome(pid, "failed", error_class=type(e).__name__)
                 continue
             summary.patients.append(result)
             summary.patients_ok += 1
+            # outside the containment try: a telemetry failure must never
+            # double-count the patient in the summary
+            self._emit_outcome(
+                pid,
+                "ok",
+                slices_total=result.total,
+                slices_ok=result.succeeded,
+                slices_failed=len(result.failed_slices),
+                slices_truncated=len(result.truncated_slices),
+            )
         print("\n=== All Processing Completed ===\n")
         print(f"Successfully processed {summary.patients_ok}/{len(patients)} patients.")
         return summary

@@ -5,9 +5,10 @@ reference's ``img_processing_sequential`` (src/sequential/main_sequential.cpp:
 346-363): all patients, one slice at a time, per-slice JPEG pair export,
 catch-and-continue fault tolerance, success accounting — plus ``--device``,
 flags for every constant, ``--resume``, ``--synthetic`` cohorts and a
-results JSON, ``--model`` to deploy a trained student, and the supervised
+results JSON, ``--model`` to deploy a trained student, the supervised
 dispatch and fault-plan flags (``--retry-max``, ``--dispatch-timeout-s``,
-``--fault-plan``). Run it as
+``--fault-plan``), and the JAX drivers' telemetry (``--metrics-out``,
+``--log-json``, ``--heartbeat-s``, ``--profile-dir``). Run it as
 
     python -m nm03_capstone_project_tpu_torch.cli.sequential --synthetic 2
 
@@ -33,7 +34,7 @@ def build_parser() -> argparse.ArgumentParser:
     common.add_render_stage_arg(p)
     common.add_model_arg(p)
     common.add_resilience_args(p)
-    common.add_not_ported_args(p, "observability", "profile", "resilience", "distributed")
+    common.add_not_ported_args(p, "observability", "resilience", "distributed")
     return p
 
 
@@ -49,10 +50,14 @@ def run(args: argparse.Namespace, mode: str) -> int:
 
     from nm03_capstone_project_tpu_torch.cli.runner import CohortProcessor, device_label
     from nm03_capstone_project_tpu_torch.core.backend import resolve_device
-    from nm03_capstone_project_tpu_torch.obs import RunContext
+    from nm03_capstone_project_tpu_torch.obs.metrics import (
+        PIPELINE_FEED_STALL_RATIO,
+        RUN_WALL_SECONDS,
+    )
     from nm03_capstone_project_tpu_torch.ops import hopper_median as hm
     from nm03_capstone_project_tpu_torch.ops import hopper_region_growing as hg
     from nm03_capstone_project_tpu_torch.render.export import jpeg_encoder
+    from nm03_capstone_project_tpu_torch.utils.profiling import profile_trace
     from nm03_capstone_project_tpu_torch.utils.reporter import configure_reporting
     from nm03_capstone_project_tpu_torch.utils.timing import write_results_json
 
@@ -63,7 +68,9 @@ def run(args: argparse.Namespace, mode: str) -> int:
         "grow": hg.region_grow_kernel,
         "median": hm.vector_median_filter_kernel,
     }
+    run_ctx = None
     try:
+        run_ctx = common.make_run_context(args, mode)
         device = resolve_device(args.device)
         cfg = common.pipeline_config_from_args(args)
         batch_cfg = common.batch_config_from_args(args)
@@ -73,13 +80,29 @@ def run(args: argparse.Namespace, mode: str) -> int:
         proc = CohortProcessor(
             base, args.output, cfg=cfg, batch_cfg=batch_cfg, mode=mode,
             resume=args.resume, device=device, model=model,
-            obs=RunContext.create(driver=mode),
+            obs=run_ctx,
             resilience=common.resilience_config_from_args(args),
         )
         before = {k: fn.launches for k, fn in kernels.items()}
         t0 = time.perf_counter()
-        summary = proc.process_all_patients()
+        with profile_trace(args.profile_dir):
+            summary = proc.process_all_patients()
         wall_s = time.perf_counter() - t0
+        run_ctx.registry.gauge(RUN_WALL_SECONDS, help="end-to-end driver wall clock").set(wall_s)
+        # the fraction of wall no device dispatch was in flight: how long
+        # the card waited on the host feed
+        feed_stall = proc.feed.report()
+        if feed_stall["feed_stall_ratio"] is not None:
+            run_ctx.registry.gauge(
+                PIPELINE_FEED_STALL_RATIO,
+                help="fraction of wall time no device dispatch was in "
+                "flight (obs.saturation; a lower bound: the dispatch "
+                "interval is enqueue->fetch complete)",
+            ).set(feed_stall["feed_stall_ratio"])
+        run_ctx.events.emit("feed_stall", mode=mode, **feed_stall)
+        ingest_rep = proc.publish_ingest()
+        if ingest_rep is not None:
+            run_ctx.events.emit("ingest_drained", mode=mode, **ingest_rep)
         if args.results_json:
             write_results_json(args.results_json, {
                 "mode": mode,
@@ -94,16 +117,20 @@ def run(args: argparse.Namespace, mode: str) -> int:
                 # wait, so the per-section times don't partition it
                 "wall_s": round(wall_s, 3),
                 "timing_s": proc.timer.report(),
-                "ingest": proc.ingest_report(),
+                # per-phase busy unions and the device-starvation headline
+                "feed_stall": feed_stall,
+                "ingest": ingest_rep,
                 "jpeg_encoder": encoder,
                 "kernel_launches": {k: fn.launches - before[k] for k, fn in kernels.items()},
-                # the run's metrics snapshot, as the JAX drivers embed it:
-                # resilience_retries_total and resilience_faults_injected_total
-                "metrics": proc.obs.metrics_snapshot(),
+                # the run's metrics snapshot, as the JAX drivers embed it
+                "metrics": run_ctx.metrics_snapshot(),
             })
+        run_ctx.close(status="ok", wall_s=round(wall_s, 3))
         return 0
     except Exception as e:  # noqa: BLE001 - reference: fatal-error catch in main
         print(f"Fatal error: {e}", file=sys.stderr)
+        if run_ctx is not None:
+            run_ctx.close(status="error", error_class=type(e).__name__)
         return 1
 
 

@@ -53,6 +53,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--results-json", default=None, help="write a training-results JSON"
     )
+    # --profile-dir captures the training loop alone, as in the JAX driver
+    common.add_observability_args(p)
     common.add_pipeline_args(p)
     t = p.add_argument_group("training")
     t.add_argument("--steps", type=int, default=300)
@@ -83,7 +85,7 @@ def build_parser() -> argparse.ArgumentParser:
         "--bf16", action="store_true",
         help="bfloat16 compute (the tensor cores' precision; parameters stay float32)",
     )
-    common.add_not_ported_args(p, "observability", "profile", "distributed")
+    common.add_not_ported_args(p, "observability", "distributed")
     return p
 
 
@@ -164,11 +166,10 @@ def _load_cohort_volumes(args, cfg):
 
 
 def run(args: argparse.Namespace) -> int:
-    from nm03_capstone_project_tpu_torch.obs.run import RunContext
     from nm03_capstone_project_tpu_torch.utils.reporter import configure_reporting
 
     configure_reporting(verbose=args.verbose)
-    run_ctx = RunContext.create("train")
+    run_ctx = common.make_run_context(args, "train")
     try:
         rc = _train(args, run_ctx)
         run_ctx.close(status="ok" if rc == 0 else "error")
@@ -198,6 +199,7 @@ def _train(args: argparse.Namespace, run_ctx) -> int:
         TRAIN_FINAL_LOSS,
         TRAIN_IOU_VS_TEACHER,
     )
+    from nm03_capstone_project_tpu_torch.utils.profiling import profile_trace
     from nm03_capstone_project_tpu_torch.utils.timing import write_results_json
 
     spans = run_ctx.spans
@@ -260,7 +262,7 @@ def _train(args: argparse.Namespace, run_ctx) -> int:
 
     losses = []
     if not args.eval_only:
-        with spans.span("train"):
+        with profile_trace(args.profile_dir), spans.span("train"):
             print(f"training {args.steps} steps at lr={args.lr}...")
             model, losses = fit(model, x, labels, dm, steps=args.steps, lr=args.lr,
                                 compute_dtype=dtype)

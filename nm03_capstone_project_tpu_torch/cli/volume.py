@@ -19,6 +19,11 @@ for a capped fixpoint, ``--resume``, catch-and-continue per patient) plus
 volume's depth is padded to the student's pooling multiple, the student
 replaces everything after normalize+clip, and the mask is cropped back.
 
+The telemetry flags are the JAX driver's: ``--metrics-out``,
+``--log-json`` (one ``patient_outcome`` a patient, a ``grow_truncated``
+record a capped volume), ``--heartbeat-s`` and ``--profile-dir``; the
+results JSON carries the run's ``metrics`` snapshot.
+
 ``--z-shard`` on one device is ignored with the JAX driver's message; with
 more than one visible device it is refused (the z-sharded decomposition
 is not ported yet), and with ``--model`` it is refused as the JAX driver
@@ -67,7 +72,7 @@ def build_parser() -> argparse.ArgumentParser:
     )
     common.add_render_stage_arg(p)
     common.add_model_arg(p)
-    common.add_not_ported_args(p, "observability", "profile", "distributed")
+    common.add_not_ported_args(p, "observability", "distributed")
     return p
 
 
@@ -177,6 +182,17 @@ def _make_student_volume_fn(model, cfg):
 
 def run(args: argparse.Namespace) -> int:
     """The volume cohort loop; 0 when every patient is ok, else 1."""
+    run_ctx = common.make_run_context(args, "volume")
+    try:
+        rc = _run_inner(args, run_ctx)
+    except BaseException as e:
+        run_ctx.close(status="error", error_class=type(e).__name__)
+        raise
+    run_ctx.close(status="error")  # a no-op unless a refusal returned early
+    return rc
+
+
+def _run_inner(args: argparse.Namespace, run_ctx) -> int:
     import torch
 
     from nm03_capstone_project_tpu_torch.cli.runner import device_label
@@ -186,7 +202,6 @@ def run(args: argparse.Namespace) -> int:
         load_dicom_files_for_patient,
     )
     from nm03_capstone_project_tpu_torch.data.imageio import write_metaimage
-    from nm03_capstone_project_tpu_torch.obs.spans import SpanRecorder
     from nm03_capstone_project_tpu_torch.ops import hopper_median as hm
     from nm03_capstone_project_tpu_torch.ops import hopper_region_growing as hg
     from nm03_capstone_project_tpu_torch.pipeline.volume_pipeline import process_volume
@@ -202,6 +217,7 @@ def run(args: argparse.Namespace) -> int:
         STATUS_TRUNCATED,
         Manifest,
     )
+    from nm03_capstone_project_tpu_torch.utils.profiling import profile_trace
     from nm03_capstone_project_tpu_torch.utils.reporter import configure_reporting
     from nm03_capstone_project_tpu_torch.utils.timing import write_results_json
 
@@ -232,93 +248,122 @@ def run(args: argparse.Namespace) -> int:
     base = common.resolve_base_path(args, tmp_root=out_root)
     manifest = Manifest.load_or_create(out_root) if args.resume else Manifest(out_root)
     host_render = args.render_stage == "host"
-    timer = SpanRecorder()
+    # the context's span recorder: the results JSON's timings and the
+    # stage latency histograms
+    timer = run_ctx.spans
+
+    def emit_outcome(pid, status, **fields):
+        """Guarded terminal telemetry: a telemetry failure must never
+        reclassify or fail a patient."""
+        try:
+            if not run_ctx.has_outcome(pid):
+                run_ctx.patient_outcome(pid, status, **fields)
+        except Exception as e:  # noqa: BLE001 — telemetry never costs a run
+            print(f"warning: patient {pid}: outcome telemetry failed: {e}", file=sys.stderr)
+
     patients = find_patient_dirs(base)
     print(f"=== Volumetric processing: {len(patients)} patients ===")
 
     t0 = time.perf_counter()
     ok_patients, results = 0, {}
     truncated_patients: list = []
-    for pid in patients:
-        try:
-            if args.resume:
-                # the listing alone decides that a patient was fully visited
-                listed = [f.stem for f in load_dicom_files_for_patient(base, pid)]
-                if listed and manifest.patient_accounted(pid, listed):
-                    print(f"Patient {pid}: already complete, skipping")
+    with profile_trace(args.profile_dir):
+        for pid in patients:
+            try:
+                if args.resume:
+                    # the listing alone decides that a patient was fully visited
+                    listed = [f.stem for f in load_dicom_files_for_patient(base, pid)]
+                    if listed and manifest.patient_accounted(pid, listed):
+                        print(f"Patient {pid}: already complete, skipping")
+                        ok_patients += 1
+                        emit_outcome(pid, "ok", skipped=True)
+                        continue
+                with timer.section(f"load/{pid}"):
+                    vol, dims, stems, skipped = _load_volume(base, pid, cfg)
+                for stem in skipped:
+                    # load-time rejects, recorded so --resume can account for them
+                    manifest.record(pid, stem, STATUS_FAILED)
+                depth = vol.shape[0]
+                with timer.section(f"compute/{pid}"):
+                    px = torch.from_numpy(vol).to(device)
+                    dm = torch.from_numpy(dims).to(device)
+                    if student_fn is not None:
+                        mask_t, conv = student_fn(px, dm), True  # no growing fixpoint
+                    else:
+                        out = process_volume(px, dm, cfg, device=device)
+                        mask_t, conv = out["mask"], bool(out["grow_converged"])
+                    mask = mask_t.cpu().numpy()  # waits for the card
+                    gray = seg = None
+                    if not host_render:
+                        g, s = render_pair(px, mask_t, dm.expand(depth, 2), cfg)
+                        gray, seg = g.cpu().numpy(), s.cpu().numpy()
+                if not conv:
+                    truncated_patients.append(pid)
+                    print(
+                        f"WARNING: patient {pid}: region growing hit its "
+                        "iteration cap; the 3D mask under-covers "
+                        "(raise --grow-max-iters)",
+                        file=sys.stderr,
+                    )
+                    try:  # count=1: the whole volume's fixpoint truncated
+                        run_ctx.grow_truncated(pid, count=1, scope="volume")
+                    except Exception as e:  # noqa: BLE001 — telemetry never costs a run
+                        print(f"warning: patient {pid}: truncation telemetry failed: {e}",
+                              file=sys.stderr)
+                with timer.section(f"export/{pid}"):
+                    if not args.resume:
+                        clean_directory(out_root / pid)
+                    if host_render:
+                        done = render_export_pairs(
+                            [(stems[i], vol[i], mask[i], dims) for i in range(depth)],
+                            out_root / pid,
+                            cfg,
+                        )
+                    else:
+                        done = export_pairs(
+                            [(stems[i], gray[i], seg[i]) for i in range(depth)],
+                            out_root / pid,
+                        )
+                    # a cap-truncated volume's pairs exist but the mask
+                    # under-covers: TRUNCATED makes --resume with a raised cap
+                    # recompute this patient
+                    status = STATUS_TRUNCATED if pid in truncated_patients else STATUS_DONE
+                    for stem in done:
+                        manifest.record(pid, stem, status)
+                    manifest.flush()
+                    if args.export_mhd:
+                        write_metaimage(
+                            mask, out_root / pid / "mask.mhd", compressed=args.mhd_compressed
+                        )
+                missing = sorted(set(stems) - set(done))
+                for stem in missing:
+                    manifest.record(pid, stem, STATUS_FAILED)
+                if missing:
+                    manifest.flush()
+                    # success is "the JPEG pair exists" (the drivers' contract)
+                    print(f"Patient {pid}: {len(missing)} slices failed to export",
+                          file=sys.stderr)
+                else:
                     ok_patients += 1
-                    continue
-            with timer.section(f"load/{pid}"):
-                vol, dims, stems, skipped = _load_volume(base, pid, cfg)
-            for stem in skipped:
-                # load-time rejects, recorded so --resume can account for them
-                manifest.record(pid, stem, STATUS_FAILED)
-            depth = vol.shape[0]
-            with timer.section(f"compute/{pid}"):
-                px = torch.from_numpy(vol).to(device)
-                dm = torch.from_numpy(dims).to(device)
-                if student_fn is not None:
-                    mask_t, conv = student_fn(px, dm), True  # no growing fixpoint
-                else:
-                    out = process_volume(px, dm, cfg, device=device)
-                    mask_t, conv = out["mask"], bool(out["grow_converged"])
-                mask = mask_t.cpu().numpy()  # waits for the card
-                gray = seg = None
-                if not host_render:
-                    g, s = render_pair(px, mask_t, dm.expand(depth, 2), cfg)
-                    gray, seg = g.cpu().numpy(), s.cpu().numpy()
-            if not conv:
-                truncated_patients.append(pid)
-                print(
-                    f"WARNING: patient {pid}: region growing hit its "
-                    "iteration cap; the 3D mask under-covers "
-                    "(raise --grow-max-iters)",
-                    file=sys.stderr,
+                results[pid] = {
+                    "slices": depth,
+                    "exported": len(done),
+                    "mask_voxels": int(mask.sum()),
+                    "grow_truncated": pid in truncated_patients,
+                }
+                emit_outcome(
+                    pid,
+                    "ok" if not missing else "failed",
+                    slices_total=depth + len(skipped),
+                    slices_ok=len(done),
+                    slices_failed=len(missing) + len(skipped),
+                    slices_truncated=len(done) if pid in truncated_patients else 0,
+                    grow_truncated=pid in truncated_patients,
                 )
-            with timer.section(f"export/{pid}"):
-                if not args.resume:
-                    clean_directory(out_root / pid)
-                if host_render:
-                    done = render_export_pairs(
-                        [(stems[i], vol[i], mask[i], dims) for i in range(depth)],
-                        out_root / pid,
-                        cfg,
-                    )
-                else:
-                    done = export_pairs(
-                        [(stems[i], gray[i], seg[i]) for i in range(depth)],
-                        out_root / pid,
-                    )
-                # a cap-truncated volume's pairs exist but the mask
-                # under-covers: TRUNCATED makes --resume with a raised cap
-                # recompute this patient
-                status = STATUS_TRUNCATED if pid in truncated_patients else STATUS_DONE
-                for stem in done:
-                    manifest.record(pid, stem, status)
-                manifest.flush()
-                if args.export_mhd:
-                    write_metaimage(
-                        mask, out_root / pid / "mask.mhd", compressed=args.mhd_compressed
-                    )
-            missing = sorted(set(stems) - set(done))
-            for stem in missing:
-                manifest.record(pid, stem, STATUS_FAILED)
-            if missing:
-                manifest.flush()
-                # success is "the JPEG pair exists" (the drivers' contract)
-                print(f"Patient {pid}: {len(missing)} slices failed to export",
-                      file=sys.stderr)
-            else:
-                ok_patients += 1
-            results[pid] = {
-                "slices": depth,
-                "exported": len(done),
-                "mask_voxels": int(mask.sum()),
-                "grow_truncated": pid in truncated_patients,
-            }
-            print(f"Patient {pid}: {depth} slices, mask {int(mask.sum())} voxels")
-        except Exception as e:  # noqa: BLE001 - per-patient containment
-            print(f"Patient {pid} failed: {e}", file=sys.stderr)
+                print(f"Patient {pid}: {depth} slices, mask {int(mask.sum())} voxels")
+            except Exception as e:  # noqa: BLE001 - per-patient containment
+                print(f"Patient {pid} failed: {e}", file=sys.stderr)
+                emit_outcome(pid, "failed", error_class=type(e).__name__)
     wall_s = time.perf_counter() - t0
     print("\n=== All Processing Completed ===\n")
     print(f"Successfully processed {ok_patients}/{len(patients)} patients.")
@@ -336,8 +381,11 @@ def run(args: argparse.Namespace) -> int:
             # the patients' loop end to end: load, compute, render, export
             "wall_s": round(wall_s, 3),
             "kernel_launches": {k: fn.launches - before[k] for k, fn in kernels.items()},
+            "metrics": run_ctx.metrics_snapshot(),
         })
-    return 0 if ok_patients == len(patients) else 1
+    all_ok = ok_patients == len(patients)
+    run_ctx.close(status="ok" if all_ok else "error")
+    return 0 if all_ok else 1
 
 
 if __name__ == "__main__":

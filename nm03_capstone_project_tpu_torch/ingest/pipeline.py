@@ -18,13 +18,15 @@ for getting decoded slices onto the card:
   overlapped with the next batch's compute.
 
 :meth:`stats` reports ring occupancy, decode queue depth, and the
-upload↔compute overlap ratio; the drivers put the run's aggregate into the
-results JSON as ``ingest``. The fault plan's ``ingest`` site fires here, as
-in the JAX package: ``decode_error`` fails one work item on the decode pool
-(an :class:`IngestFailure` the driver counts), ``stall`` wedges the stager
-``hang_s`` seconds (decode blocks on the full ring; the run completes late,
-never wrong). Not ported: the metrics gauges and the feed-stall accounting,
-whose layers wait.
+upload↔compute overlap ratio; :meth:`publish` puts them on the ``ingest_*``
+gauges, and the drivers put the run's aggregate into the results JSON as
+``ingest``. The caller's :class:`~..obs.saturation.PhaseAccountant`
+(``feed``) receives the decode and stage busy intervals from the worker
+threads, for the drivers' ``feed_stall``. The fault plan's ``ingest`` site
+fires here, as in the JAX package: ``decode_error`` fails one work item on
+the decode pool (an :class:`IngestFailure` the driver counts), ``stall``
+wedges the stager ``hang_s`` seconds (decode blocks on the full ring; the
+run completes late, never wrong).
 
 torch-free at import: torch enters only through the caller-supplied
 ``stage`` callable. Thread-shared state is lock-guarded.
@@ -55,6 +57,38 @@ DEFAULT_STAGED_DEPTH = 2
 # oldest intervals age out of the *detail* (the ratio then reflects the
 # most recent window — bounded memory for arbitrarily long cohorts)
 MAX_INTERVALS = 4096
+
+
+def publish_gauges(registry, occupancy, queue_depth, overlap=None) -> None:
+    """The one home of the ``ingest_*`` gauge registrations: the
+    per-pipeline :meth:`IngestPipeline.publish` and the drivers' run-level
+    aggregate both set them here."""
+    from nm03_capstone_project_tpu_torch.obs.metrics import (
+        INGEST_DECODE_QUEUE_DEPTH,
+        INGEST_RING_OCCUPANCY_RATIO,
+        INGEST_UPLOAD_OVERLAP_RATIO,
+    )
+
+    registry.gauge(
+        INGEST_RING_OCCUPANCY_RATIO,
+        help="time-weighted mean fill fraction of the ingest staging "
+        "ring (~1 = device-bound with backpressure holding decode; ~0 = "
+        "decode-bound, the device waits)",
+    ).set(occupancy)
+    registry.gauge(
+        INGEST_DECODE_QUEUE_DEPTH,
+        help="decode work items in flight on the ingest pool (the final "
+        "--metrics-out snapshot carries the run's high-water mark)",
+    ).set(queue_depth)
+    if overlap is not None:
+        registry.gauge(
+            INGEST_UPLOAD_OVERLAP_RATIO,
+            help="fraction of the stager's staging-call wall that "
+            "overlapped the consumer's compute window (~1 = staging never "
+            "blocked compute); on the card the call is the enqueue of a "
+            "non-blocking copy, so read it as 'staging off the critical "
+            "path', not a DMA measurement",
+        ).set(overlap)
 
 
 class IngestFailure:
@@ -130,6 +164,7 @@ class IngestPipeline:
         depth: int = DEFAULT_DEPTH,
         decode_workers: int = 4,
         staged_depth: int = DEFAULT_STAGED_DEPTH,
+        feed=None,
         spans=None,
         obs=None,
         fault_plan=None,
@@ -149,6 +184,7 @@ class IngestPipeline:
         self._stage = stage
         self.depth = int(depth)
         self.decode_workers = int(decode_workers)
+        self._feed = feed
         self._spans = spans
         self._obs = obs
         self._fault_plan = fault_plan
@@ -236,6 +272,13 @@ class IngestPipeline:
 
         return contextlib.nullcontext()
 
+    def _busy(self, phase: str):
+        if self._feed is not None:
+            return self._feed.busy(phase)
+        import contextlib
+
+        return contextlib.nullcontext()
+
     def _fire_fault(self, index: int, item):
         """Consult the ingest fault site for this work item (None when
         off). Returns the fired rule; the caller maps kind→action
@@ -261,7 +304,7 @@ class IngestPipeline:
                 if rule.kind == "decode_error":
                     raise RuntimeError(f"injected ingest decode fault (item {index})")
                 stall_s = rule.hang_s  # applied by the stager
-            with self._span("decode"):
+            with self._span("decode"), self._busy("decode"):
                 payload = self._decode(item)
             return (index, payload, stall_s)
         except Exception as e:  # noqa: BLE001 - per-item containment
@@ -319,7 +362,7 @@ class IngestPipeline:
                     self._cancel.wait(timeout=stall_s)
                 if self._stage is not None:
                     t0 = self._clock()
-                    with self._span("stage"):
+                    with self._span("stage"), self._busy("stage"):
                         payload = self._stage(payload)
                     with self._lock:
                         self._upload_intervals.append((t0, self._clock()))
@@ -413,3 +456,16 @@ class IngestPipeline:
             if self._drained is not None:
                 return dict(self._drained)
             return self._stats_locked()
+
+    def publish(self, registry) -> dict:
+        """Refresh the ``ingest_*`` gauges from :meth:`stats`; returns the
+        snapshot."""
+        snap = self.stats()
+        if registry is not None:
+            publish_gauges(
+                registry,
+                occupancy=snap["ring"]["occupancy_ratio"],
+                queue_depth=snap["decode_queue_depth"],
+                overlap=snap["upload_overlap_ratio"],
+            )
+        return snap

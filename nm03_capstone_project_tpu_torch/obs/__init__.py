@@ -12,12 +12,16 @@ runs on:
   event log (``nm03.events.v1``), heartbeat and log bridge;
 * :mod:`~nm03_capstone_project_tpu_torch.obs.run` — :class:`RunContext`;
 * :mod:`~nm03_capstone_project_tpu_torch.obs.trace` — request-scoped
-  serving traces;
+  serving traces and the ``nm03-trace`` Perfetto exporter;
 * :mod:`~nm03_capstone_project_tpu_torch.obs.flightrec` — the crash
-  flight recorder.
+  flight recorder;
+* :mod:`~nm03_capstone_project_tpu_torch.obs.saturation`,
+  :mod:`~nm03_capstone_project_tpu_torch.obs.ledger` and
+  :mod:`~nm03_capstone_project_tpu_torch.obs.slo` — the saturation
+  monitor (and the drivers' feed accounting), the device-time ledger and
+  the SLO plane.
 
-The saturation monitor, the device-time ledger and the SLO plane are not
-ported yet. Stdlib only, apart from the spans' ``torch.profiler`` marks.
+Stdlib only at import, apart from the spans' ``torch.profiler`` marks.
 """
 
 from nm03_capstone_project_tpu_torch.obs import flightrec  # noqa: F401

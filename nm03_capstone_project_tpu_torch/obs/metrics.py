@@ -31,12 +31,46 @@ SCHEMA_METRICS = "nm03.metrics.v1"
 # labels. Serving series live in serving/metrics.py, apart from the
 # saturation, ledger and SLO series below, whose layers live in obs/.
 STAGE_LATENCY_METRIC = "nm03_stage_latency_seconds"
+# the drivers' per-patient accounting (obs.run.RunContext)
+PATIENT_OUTCOMES_TOTAL = "nm03_patient_outcomes_total"
+SLICES_TOTAL = "nm03_slices_total"
+GROW_TRUNCATED_TOTAL = "pipeline_grow_truncated_total"
+RUN_WALL_SECONDS = "nm03_run_wall_seconds"
+PIPELINE_PATH_INFO = "nm03_pipeline_path_info"
+MEDIAN_COMPARATOR_OPS = "nm03_median_comparator_minmax_ops"
 RESILIENCE_RETRIES_TOTAL = "resilience_retries_total"
 # faults fired by a seeded fault plan ({site, kind}; resilience.faultinject)
 RESILIENCE_FAULTS_INJECTED_TOTAL = "resilience_faults_injected_total"
 PIPELINE_DEGRADED_TOTAL = "pipeline_degraded_total"
 TRAIN_FINAL_LOSS = "nm03_train_final_loss"
 TRAIN_IOU_VS_TEACHER = "nm03_train_iou_vs_teacher"
+# the batch drivers' feed accounting (obs.saturation.PhaseAccountant): the
+# fraction of wall no device dispatch was in flight
+PIPELINE_FEED_STALL_RATIO = "pipeline_feed_stall_ratio"
+# streaming ingest (ingest.pipeline.publish_gauges): ring fill, decode
+# lookahead, upload/compute overlap
+INGEST_RING_OCCUPANCY_RATIO = "ingest_ring_occupancy_ratio"
+INGEST_DECODE_QUEUE_DEPTH = "ingest_decode_queue_depth"
+INGEST_UPLOAD_OVERLAP_RATIO = "ingest_upload_overlap_ratio"
+
+# the replica fleet's front end (fleet/): replica states, routed, failover
+# and shed accounting, the routed-capacity fraction, and the router's own
+# request outcomes and latency (the fleet SLO's inputs). Defined here, not
+# in fleet/, because this module is where every series name lives and the
+# fleet package must stay free of torch and numpy
+FLEET_REPLICAS_READY = "fleet_replicas_ready"
+FLEET_REPLICAS_EJECTED = "fleet_replicas_ejected"
+FLEET_ROUTED_CAPACITY = "fleet_routed_capacity"
+FLEET_REPLICA_STATE = "fleet_replica_state"
+FLEET_REPLICA_CAPACITY = "fleet_replica_capacity"
+FLEET_REQUESTS_ROUTED_TOTAL = "fleet_requests_routed_total"
+FLEET_FAILOVERS_TOTAL = "fleet_failovers_total"
+FLEET_SHED_TOTAL = "fleet_shed_total"
+FLEET_REPLICA_EJECTIONS_TOTAL = "fleet_replica_ejections_total"
+FLEET_REPLICA_REINSTATED_TOTAL = "fleet_replica_reinstated_total"
+FLEET_PROBES_TOTAL = "fleet_probes_total"
+FLEET_REQUESTS_TOTAL = "fleet_requests_total"
+FLEET_REQUEST_SECONDS = "fleet_request_seconds"
 
 # saturation / goodput (obs.saturation): lane busy fractions, MFU and the
 # peak it divides by, padding waste, window occupancy, bucket fill

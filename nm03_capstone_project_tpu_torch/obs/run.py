@@ -1,12 +1,20 @@
 """RunContext: the one object a process wires observability through.
 
-The port's copy of the JAX package's ``obs/run.py`` for the server: the
-metrics registry, the span recorder and the structured event log of one
-run, the ``run_started`` / ``run_finished`` envelope, an optional
-periodic heartbeat, and the resilience records (``retry``,
-``fault_injected``, ``degraded``).
-The drivers' per-patient outcome records come with their observability
-flags, in a later slice.
+The port's copy of the JAX package's ``obs/run.py``: the metrics
+registry, the span recorder and the structured event log of one run, the
+``run_started`` / ``run_finished`` envelope, an optional periodic
+heartbeat, the resilience records (``retry``, ``fault_injected``,
+``degraded``) and the drivers' per-patient protocol:
+
+* exactly ONE terminal ``patient_outcome`` event per patient (a second
+  emission for the same patient raises);
+* ``grow_truncated`` WARNING events + the ``pipeline_grow_truncated_total``
+  counter for patients whose region growing hit its iteration cap;
+* :meth:`RunContext.record_pipeline_paths`, the info gauge that says which
+  median and render paths the run took.
+
+The drivers build one from ``--metrics-out``, ``--log-json`` and
+``--heartbeat-s`` (:func:`..cli.common.make_run_context`).
 
 Library callers get a sink-less context by default: metrics still
 accumulate in memory, events are kept in the in-memory tail, nothing
@@ -16,16 +24,23 @@ touches disk.
 from __future__ import annotations
 
 import threading
-from typing import Optional
+from typing import Dict, Optional
 
 from nm03_capstone_project_tpu_torch.obs.events import EventLog, Heartbeat, LogBridge
 from nm03_capstone_project_tpu_torch.obs.metrics import (
+    GROW_TRUNCATED_TOTAL,
+    MEDIAN_COMPARATOR_OPS,
+    PATIENT_OUTCOMES_TOTAL,
     PIPELINE_DEGRADED_TOTAL,
+    PIPELINE_PATH_INFO,
     RESILIENCE_FAULTS_INJECTED_TOTAL,
     RESILIENCE_RETRIES_TOTAL,
+    SLICES_TOTAL,
     MetricsRegistry,
 )
 from nm03_capstone_project_tpu_torch.obs.spans import SpanRecorder
+
+PATIENT_STATUSES = ("ok", "failed")
 
 
 class RunContext:
@@ -49,6 +64,7 @@ class RunContext:
         self._heartbeat = heartbeat
         self._log_bridge = log_bridge
         self._lock = threading.RLock()  # signal-handler reentrancy
+        self._outcomes: Dict[str, str] = {}
         self._closed = False
 
     @classmethod
@@ -98,6 +114,150 @@ class RunContext:
             started["argv"] = list(argv)
         events.emit("run_started", **started)
         return ctx
+
+    # -- per-patient telemetry ---------------------------------------------
+
+    def patient_outcome(
+        self,
+        patient_id: str,
+        status: str,
+        *,
+        slices_total: int = 0,
+        slices_ok: int = 0,
+        slices_failed: int = 0,
+        slices_truncated: int = 0,
+        grow_truncated: Optional[bool] = None,
+        error_class: Optional[str] = None,
+        retries: int = 0,
+        **fields,
+    ) -> dict:
+        """The ONE terminal record of a patient's run.
+
+        Increments the outcome counters and emits the ``patient_outcome``
+        event (WARNING when the patient failed or its mask was truncated,
+        INFO otherwise). Raises on a second emission for the same patient:
+        the schema's exactly-once contract is enforced at the source.
+        """
+        if status not in PATIENT_STATUSES:
+            raise ValueError(f"status {status!r} not in {PATIENT_STATUSES}")
+        pid = str(patient_id)
+        with self._lock:
+            if pid in self._outcomes:
+                raise RuntimeError(
+                    f"duplicate patient_outcome for {pid!r} "
+                    f"(already {self._outcomes[pid]!r})"
+                )
+            self._outcomes[pid] = status
+        if grow_truncated is None:
+            grow_truncated = slices_truncated > 0
+        self.registry.counter(
+            PATIENT_OUTCOMES_TOTAL,
+            help="terminal patient outcomes by status",
+            status=status,
+        ).inc()
+        for n, slice_status in (
+            (slices_ok, "done"),
+            (slices_failed, "failed"),
+            (slices_truncated, "truncated"),
+        ):
+            if n:
+                self.registry.counter(
+                    SLICES_TOTAL,
+                    help="slices by terminal status (truncated slices are "
+                    "also counted done: the pair exists)",
+                    status=slice_status,
+                ).inc(n)
+        level = "WARNING" if (status != "ok" or grow_truncated) else "INFO"
+        return self.events.emit(
+            "patient_outcome",
+            level=level,
+            patient_id=pid,
+            status=status,
+            slices_total=int(slices_total),
+            slices_ok=int(slices_ok),
+            slices_failed=int(slices_failed),
+            slices_truncated=int(slices_truncated),
+            grow_truncated=bool(grow_truncated),
+            error_class=error_class,
+            retries=int(retries),
+            **fields,
+        )
+
+    def has_outcome(self, patient_id: str) -> bool:
+        """True when a terminal outcome was already recorded: a failure
+        after the ok outcome must not trip the exactly-once guard from
+        inside the containment path."""
+        with self._lock:
+            return str(patient_id) in self._outcomes
+
+    def grow_truncated(self, patient_id: str, count: int = 1, **fields) -> dict:
+        """A capped region-growing fixpoint: WARNING event + counter.
+
+        ``count`` is the number of truncated work items: slices in the 2D
+        drivers, 1 (the whole volume) in the volume driver.
+        """
+        self.registry.counter(
+            GROW_TRUNCATED_TOTAL,
+            help="region-growing fixpoints that hit the iteration cap "
+            "(masks under-cover; raise --grow-max-iters)",
+        ).inc(count)
+        return self.events.emit(
+            "grow_truncated",
+            level="WARNING",
+            patient_id=str(patient_id),
+            count=int(count),
+            **fields,
+        )
+
+    # the comparator_counts() keys that are op counts ("window" is the
+    # kernel size and must not be published under an ops-gauge name)
+    _COMPARATOR_COUNT_KEYS = (
+        "merge_minmax_full",
+        "merge_minmax_pruned",
+        "merge_minmax_pruned_shared",
+        "presort_minmax",
+    )
+
+    def record_pipeline_paths(
+        self,
+        median_impl: str,
+        render_fused: bool,
+        fuse_preprocess: bool,
+        use_kernels: bool,
+        comparators: Optional[dict] = None,
+        **extra_labels: str,
+    ) -> None:
+        """The info gauge naming the median, preprocess and render paths
+        the run took, plus the median's comparator counts.
+
+        ``use_kernels`` must already be resolved against the device (the
+        CPU runs the plain ops whatever the flag says). When the kernels
+        run, the median is their shared pruned plan, whatever
+        ``median_impl`` says, so the label names that plan. The labels
+        keep the JAX package's names: ``preprocess="fused_kernel"`` where
+        it says ``fused_pallas``, ``use_kernels`` where it says
+        ``use_pallas``.
+        """
+        if use_kernels:
+            median_impl = "kernel_shared_pruned"
+        self.registry.gauge(
+            PIPELINE_PATH_INFO,
+            help="pipeline implementation choices for this run (value is "
+            "always 1; the labels carry the information)",
+            median_impl=str(median_impl),
+            render="fused" if render_fused else "unfused",
+            preprocess="fused_kernel" if (use_kernels and fuse_preprocess) else "ops",
+            use_kernels=str(bool(use_kernels)).lower(),
+            **{k: str(v) for k, v in extra_labels.items()},
+        ).set(1)
+        for key in self._COMPARATOR_COUNT_KEYS:
+            if key in (comparators or {}):
+                self.registry.gauge(
+                    MEDIAN_COMPARATOR_OPS,
+                    help="min/max ops per pixel of the median merge phase by "
+                    "network variant (ops.selection_network)",
+                    variant=key,
+                ).set(float(comparators[key]))
 
     # -- resilience telemetry ----------------------------------------------
 

@@ -105,6 +105,7 @@ def _export_many(
     fault_hook=None,
     retry=None,
     success_hook=None,
+    pool=None,
 ) -> List[str]:
     """Concurrent per-slice export with containment; the shared scaffold.
 
@@ -120,7 +121,10 @@ def _export_many(
     exercise the retry path on their way to a contained failure.
     ``success_hook(stem)`` fires the moment a slice's pair is on disk (the
     journal's per-slice hook); its own failures are contained (a journaling
-    error must not un-succeed a written slice).
+    error must not un-succeed a written slice). ``pool``, an executor the
+    caller owns, runs the slices in place of a pool of ``max_workers``
+    made for this call: calls that share it share its bound on concurrent
+    exports.
     """
     Path(out_dir).mkdir(parents=True, exist_ok=True)
 
@@ -144,15 +148,20 @@ def _export_many(
                 _log.warning("export success hook failed for %s: %s", stem, e)
         return stem
 
-    done: List[str] = []
-    with cf.ThreadPoolExecutor(max_workers=max_workers) as pool:
-        futures = {pool.submit(one, item): item[0] for item in items}
+    def collect(ex) -> List[str]:
+        done: List[str] = []
+        futures = {ex.submit(one, item): item[0] for item in items}
         for fut in cf.as_completed(futures):
             try:
                 done.append(fut.result())
             except Exception as e:  # noqa: BLE001 - per-slice containment
                 _log.warning("export failed for %s: %s", futures[fut], e)
-    return sorted(done)
+        return sorted(done)
+
+    if pool is not None:
+        return collect(pool)
+    with cf.ThreadPoolExecutor(max_workers=max_workers) as own:
+        return collect(own)
 
 
 def export_pairs(
@@ -162,13 +171,14 @@ def export_pairs(
     fault_hook=None,
     retry=None,
     success_hook=None,
+    pool=None,
 ) -> List[str]:
     """Write (stem, original, processed) triples as JPEG pairs concurrently."""
     out = Path(out_dir)
     return _export_many(
         lambda it: _write_pair(out, it[0], it[1], it[2]),
         items, out, max_workers, fault_hook=fault_hook, retry=retry,
-        success_hook=success_hook,
+        success_hook=success_hook, pool=pool,
     )
 
 
@@ -180,6 +190,7 @@ def render_export_pairs(
     fault_hook=None,
     retry=None,
     success_hook=None,
+    pool=None,
 ) -> List[str]:
     """Render host-side, then write the JPEG pair, per (stem, pixels, mask, dims).
 
@@ -205,7 +216,7 @@ def render_export_pairs(
         return _write_pair(out, stem, gray, seg)
 
     return _export_many(write_one, items, out, max_workers, fault_hook=fault_hook,
-                        retry=retry, success_hook=success_hook)
+                        retry=retry, success_hook=success_hook, pool=pool)
 
 
 def clean_directory(path: str | os.PathLike) -> None:

@@ -1,4 +1,4 @@
-"""Online serving: the always-warm single-slice request path.
+"""Online serving: the always-warm request path.
 
 The port's counterpart of the JAX package's ``serving/``:
 
@@ -9,15 +9,22 @@ The port's counterpart of the JAX package's ``serving/``:
 * :mod:`~.lanes` — the per-lane fault domains;
 * :mod:`~.volumes` — the volume gang behind ``POST /v1/segment-volume``;
 * :mod:`~.server` — the stdlib HTTP front end:
-  ``python -m nm03_capstone_project_tpu_torch.serving.server``.
+  ``python -m nm03_capstone_project_tpu_torch.serving.server``;
+* :mod:`~.loadgen` — the load generator;
+* :mod:`~.top` — ``nm03-top``, the live console view of a server or of a
+  fleet (``python -m nm03_capstone_project_tpu_torch.serving.top``).
 
-The load generator, ``nm03-top`` and the fleet front end are not ported
-yet.
+The package imports nothing at import time: ``serving.top`` and
+``serving.metrics`` stay free of torch and numpy, and the volume gang's
+names below load on first use.
 """
 
-from nm03_capstone_project_tpu_torch.serving.volumes import (  # noqa: F401
-    DEFAULT_VOLUME_DEPTH_BUCKETS,
-    GangUnavailable,
-    VolumeGang,
-    VolumeRequest,
-)
+_VOLUME_NAMES = ("DEFAULT_VOLUME_DEPTH_BUCKETS", "GangUnavailable", "VolumeGang", "VolumeRequest")
+
+
+def __getattr__(name):
+    if name in _VOLUME_NAMES:
+        from nm03_capstone_project_tpu_torch.serving import volumes
+
+        return getattr(volumes, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1591,6 +1591,36 @@ def _write_port_file(path: str, port: int) -> None:
     atomic_write_text(path, f"{port}\n")
 
 
+def _relaunch_recipe(effective_argv, port: int):
+    """The ``-m``-form argv a fleet orchestrator relaunches this server with.
+
+    The BOUND port replaces whatever ``--port`` said (an ephemeral
+    ``--port 0`` republished verbatim would relaunch the replica on another
+    random port, where the orchestrator's warm-wait could never find it),
+    and is added when the flag was defaulted.
+    """
+    argv = list(effective_argv)
+    out = []
+    i = 0
+    saw_port = False
+    while i < len(argv):
+        arg = argv[i]
+        if arg == "--port":
+            out += ["--port", str(port)]
+            saw_port = True
+            i += 2
+        elif arg.startswith("--port="):
+            out.append(f"--port={port}")
+            saw_port = True
+            i += 1
+        else:
+            out.append(arg)
+            i += 1
+    if not saw_port:
+        out += ["--port", str(port)]
+    return [sys.executable, "-m", "nm03_capstone_project_tpu_torch.serving.server", *out]
+
+
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
@@ -1617,6 +1647,12 @@ def main(argv=None) -> int:
         run_ctx.close(status="error")
         return 1
     port = httpd.server_address[1]
+    # the relaunch recipe for the fleet's rolling restart: the flags this
+    # process was started with (the bound port substituted) and the cwd
+    # they resolve against, published on /readyz
+    effective_argv = list(argv) if argv is not None else list(sys.argv[1:])
+    app.replica_identity["relaunch_argv"] = _relaunch_recipe(effective_argv, port)
+    app.replica_identity["cwd"] = os.getcwd()
     # arm the flight recorder (SIGUSR2, quarantine and crash dumps) once the
     # server exists, before warmup: a process that could not even build
     # its app leaves no dump behind

@@ -3,6 +3,7 @@ not drift onto the CPU, and its kernels count only real launches.
 """
 
 import ctypes
+import json
 import pathlib
 import pkgutil
 import re
@@ -66,6 +67,8 @@ def test_port_has_the_slice_modules():
         "cli.train", "cache.inflight", "serving.volumes", "ops.regionprops",
         "resilience.faultinject", "obs.saturation", "obs.ledger", "obs.slo",
         "utils.profiling", "serving.loadgen",
+        "fleet", "fleet.replicas", "fleet.router", "fleet.manager", "fleet.cli",
+        "serving.top",
     ):
         assert f"nm03_capstone_project_tpu_torch.{mod}" in names
 
@@ -85,6 +88,44 @@ def test_importing_the_port_imports_no_jax():
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120
     )
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+# the front-end modules: stdlib orchestration that must never load a backend
+# (nor claim the card) in the process that imports them
+BACKEND_FREE = ("fleet", "fleet.replicas", "fleet.router", "fleet.manager", "fleet.cli",
+                "serving.top", "obs.trace", "serving.metrics", "obs.metrics")
+
+
+@pytest.mark.parametrize("mod", BACKEND_FREE)
+def test_front_end_modules_import_no_torch_numpy_or_jax(mod):
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module('nm03_capstone_project_tpu_torch.{mod}')\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('torch', 'numpy', 'jax', 'nm03_capstone_project_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120
+    )
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_the_fleet_never_starts_a_cpu_replica():
+    """The fleet's entry point takes no --device, names no device in its
+    sources, and relaunches a replica only from the argv that replica
+    published (tests/test_torch_fleet.py checks the relaunch verbatim): a
+    replica started on the card comes back on the card."""
+    from nm03_capstone_project_tpu_torch.fleet import cli
+
+    for sub in ("serve", "restart", "flightrec", "profile"):
+        with pytest.raises(SystemExit) as exc:
+            cli.build_parser().parse_args([sub, "--replicas", "h:1", "--device", "cpu"])
+        assert exc.value.code == 2
+    for f in sorted((PORT_DIR / "fleet").glob("*.py")):
+        src = f.read_text()
+        assert "--device" not in src and '"cpu"' not in src, f.name
 
 
 def test_sources_name_no_jax():
@@ -123,6 +164,8 @@ class TestNoCpuDrift:
 DRIVERS = ("sequential", "parallel", "test_pipeline", "volume", "train")
 DEPLOY_MODEL = ("sequential", "parallel", "volume")  # the drivers that take --model
 RESILIENT = ("sequential", "parallel")  # the drivers that take the resilience flags
+# the drivers that take the observability flags (all but test_pipeline, as in JAX)
+OBSERVED = ("sequential", "parallel", "volume", "train")
 UNPORTED_FLAGS = [["--use-pallas"], ["--model", "m.ckpt"], ["--distributed"],
                   ["--device", "auto"], ["--fault-plan", "{}"], ["--metrics-out", "m.json"],
                   ["--profile-dir", "p"]]
@@ -148,12 +191,14 @@ class TestDrivers:
         assert not list(out.rglob("*.jpg"))  # nothing ran on the CPU instead
         assert not (out / "checkpoint").exists()  # nor was anything trained
 
-    # ids as they were when every driver refused --model and --fault-plan
+    # ids as they were when every driver refused --model, --fault-plan,
+    # --metrics-out and --profile-dir
     @pytest.mark.parametrize("name,flag", [
         pytest.param(name, flag, id=f"flag{i}-{name}")
         for i, flag in enumerate(UNPORTED_FLAGS) for name in DRIVERS
         if not (flag[0] == "--model" and name in DEPLOY_MODEL)
         and not (flag[0] == "--fault-plan" and name in RESILIENT)
+        and not (flag[0] in ("--metrics-out", "--profile-dir") and name in OBSERVED)
     ])
     def test_flags_of_layers_not_ported_are_rejected(self, name, flag, capsys):
         import importlib
@@ -166,10 +211,10 @@ class TestDrivers:
         assert exc.value.code == 2
         err = capsys.readouterr().err
         # the JAX driver's flag groups that the port refuses by name
-        groups = {"sequential": ("observability", "profile", "resilience", "distributed"),
-                  "parallel": ("observability", "profile", "resilience", "distributed"),
-                  "volume": ("observability", "profile", "distributed"),
-                  "train": ("observability", "profile", "distributed"),
+        groups = {"sequential": ("observability", "resilience", "distributed"),
+                  "parallel": ("observability", "resilience", "distributed"),
+                  "volume": ("observability", "distributed"),
+                  "train": ("observability", "distributed"),
                   "test_pipeline": ()}[name]
         reasons = {f: r for g in groups for f, r in common.NOT_PORTED[g].items()}
         if flag[0] in reasons:
@@ -177,6 +222,29 @@ class TestDrivers:
             assert f"{flag[0]}: {reasons[flag[0]]}" in err
         else:
             assert "unrecognized arguments" in err or "invalid choice" in err
+
+    @pytest.mark.parametrize("name", OBSERVED)
+    @pytest.mark.parametrize("flag", ["--metrics-out", "--log-json", "--profile-dir"])
+    def test_telemetry_flags_are_accepted_and_write_their_files(self, name, flag, tmp_path):
+        import importlib
+
+        driver = importlib.import_module(f"nm03_capstone_project_tpu_torch.cli.{name}")
+        target = tmp_path / "telemetry"
+        argv = ["--device", "cpu", "--synthetic", "1", "--synthetic-slices", "4",
+                "--canvas", "64", "--min-dim", "32", "--output", str(tmp_path / "out"),
+                "--heartbeat-s", "0", flag, str(target)]
+        if name == "train":
+            argv += ["--steps", "2", "--base-channels", "8"]
+        assert driver.main(argv) == 0
+        if flag == "--profile-dir":
+            assert (target / "nm03.pt.trace.json").stat().st_size > 0
+        elif flag == "--metrics-out":
+            assert json.loads(target.read_text())["schema"] == "nm03.metrics.v1"
+        else:
+            events = [json.loads(line)["event"] for line in target.read_text().splitlines()]
+            assert events[0] == "run_started" and events[-1] == "run_finished"
+            if name != "train":
+                assert events.count("patient_outcome") == 1
 
     @pytest.mark.parametrize("name", RESILIENT)
     @pytest.mark.parametrize("argv,field,value", [

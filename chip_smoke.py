@@ -21,7 +21,9 @@ toolkit. Phases, each printing one JSON line:
    shape). Each prints the wrapper's and the plain
    version's median time over repeats (CUDA events), the kernel's own
    device time a launch (``device_ms``, torch.profiler's self device time
-   by kernel name) and the least time the card could take.
+   by kernel name; ``device_ms_by`` says ``cuda_events`` where three
+   profiler windows in turn missed the kernel's records) and the least
+   time the card could take.
 3. ``slice`` — a cohort of 20 patients x 25 slices (the size of the TCIA
    Brain-Tumor-Progression cohort the reference targets) through
    ``process_batch`` in batches of 25, with the kernels and again with the
@@ -101,7 +103,37 @@ toolkit. Phases, each printing one JSON line:
    telemetry flags passes ``check_telemetry.py --expect-patients 20`` and
    its profile names the fused kernel (the volume driver launches no grow
    kernel); the line's ``telemetry``.
-7. ``serve_volume`` — whole-study serving: the server (``serving/server.py``
+7. ``shard`` — multi-device inference (``parallel/``) on the one card,
+   whose meshes name ``cuda:0`` several times (NCCL refuses two ranks on
+   one GPU). (a) ``process_volume_zsharded`` over ``[cuda:0] x 4``: the
+   cohort's 20 volumes (25 planes padded to 28) and the 160 x 512 x 512
+   long study, each equal to ``process_volume`` and the cohort to
+   ``volume_golden.json``, also over ``[cuda:0] x 2`` and at ``morph_size``
+   5 (two halo planes a boundary), the fused kernel once a slab (and the
+   median kernel once a slab under ``fuse_preprocess=False``); the study's
+   wall time sharded and unsharded in turns. (b) ``process_batch_sharded``
+   over a ``("data",)`` mesh of ``[cuda:0] x 4`` on the 500-slice smoke
+   cohort in batches of 100: masks equal to the ``slice`` phase's and to
+   ``smoke_masks.json``, one fused and one grow launch a chunk. (c)
+   world-of-1 ``--distributed`` runs under NCCL (``--coordinator-address
+   127.0.0.1:<free port> --num-processes 1 --process-id 0``): the parallel
+   driver's JPEG pairs byte-equal to the ``driver`` phase's, the volume
+   driver's (also with ``--z-shard``) JPEG pairs and ``mask.raw`` to the
+   ``volume`` phase's, the process group gone between runs; the same
+   two drivers through their entry points over four local devices (the
+   card named four times): ``nm03-volume --z-shard`` says it z-shards over
+   4 local devices and launches the fused kernel four times a volume, the
+   parallel driver splits each batch over a 4-entry data mesh (four fused
+   and four grow launches a batch), both byte-equal to the ``volume`` and
+   ``driver`` phases' files; and the process-group transport of ``zshard`` in that world of 1 (its
+   ``all_reduce`` and ``all_gather`` on the card). (d) the volume gang over
+   four lanes on the card (the executor's explicit ``lane_devices``): the
+   20 cohort studies as ``POST /v1/segment-volume`` bodies, each answered
+   with ``z_shards`` 4 and the golden mask, then a fault plan's death of
+   lane 2 mid-volume: the next study answers ``z_shards`` 3, the golden
+   mask, the lane quarantined. The line has the times, the launches and
+   the card's name and power limit.
+8. ``serve_volume`` — whole-study serving: the server (``serving/server.py``
    with ``--volume-serving``, depth buckets 8, 16 and 32; slice buckets 1,
    2, 4, 8 and 16; canvas 256) in process on 127.0.0.1. The main path: the
    driver phase's 20 x 25 DICOM cohort as 20 ``application/x-nm03-dicom-
@@ -132,7 +164,7 @@ toolkit. Phases, each printing one JSON line:
    dispatch, gather, payload encode), the gang-alone dispatch, one
    study's host decode and base64 + JSON alone, the launches and the
    card's name and power limit.
-8. ``student`` — the U-Net students (``models/``, ``cli/train.py``) on
+9. ``student`` — the U-Net students (``models/``, ``cli/train.py``) on
    the driver phase's DICOM cohort at the JAX CLI's width (base 16, two
    levels, canvas 256): ``cli.train.main`` distils 256 slices through the
    teacher (the fused and grow kernels, counted) and trains the 2D student
@@ -161,7 +193,7 @@ toolkit. Phases, each printing one JSON line:
    events), in bf16 and in f32, beside the least time the convolutions'
    FLOPs need (3 forwards a step) at the card's dense bf16 and float32
    peaks, and one step of each under the profiler (its top kernels).
-9. ``operate`` — the service on the card under load and under faults, on
+10. ``operate`` — the service on the card under load and under faults, on
    the driver phase's 500 DICOM files. A server (buckets 1-16, the result
    tier on) with a fault plan (``OPERATE_PLAN``: two ``dispatch``/
    ``transient`` fires, one ``dispatch``/``hang`` past a 2 s
@@ -194,7 +226,7 @@ toolkit. Phases, each printing one JSON line:
    clean run's. The line has the drill, both loadgen summaries, the stage
    pie, saturation, ledger, HBM table, SLO block, the driver drill's counts,
    the launches and the card's name and power limit.
-10. ``fleet`` — three port servers as subprocesses on the one card
+11. ``fleet`` — three port servers as subprocesses on the one card
    (``python -m nm03_capstone_project_tpu_torch.serving.server``, buckets
    1-16, each with its own CUDA context, graphs and ``--log-json``) behind
    the fleet router (``fleet/router.py``) in this process, with its own
@@ -221,7 +253,7 @@ toolkit. Phases, each printing one JSON line:
    has requests/s and p50/p99 direct and through the router, the drill's
    counts, each replica's drain, warm and graph capture seconds, the
    capacity floor, the launches and the card's name and power limit.
-11. ``kernels`` — one line, ``{"kernels": [...]}``, per kernel: launches in
+12. ``kernels`` — one line, ``{"kernels": [...]}``, per kernel: launches in
    the driver's run (``launches``; the median kernel's from the unfused
    patient), in the ``slice`` phase's (``slice_launches``), by the
    ``serve`` phase's graph replays (``serve_launches``: replays times the
@@ -231,8 +263,10 @@ toolkit. Phases, each printing one JSON line:
    median kernel's from its unfused server), by the teacher while the
    ``student`` phase's 2D and 3D training runs distil their labels
    (``student_launches``), in the ``operate`` phase (``operate_launches``:
-   both servers' replays and the driver drill) and by the ``fleet`` phase's
-   replicas (``fleet_launches``), the largest difference
+   both servers' replays and the driver drill), by the ``fleet`` phase's
+   replicas (``fleet_launches``) and on the ``shard`` phase's main path
+   (``shard_launches``: the z-sharded cohort, the data-parallel smoke
+   cohort and the volume and parallel drivers over four local devices; the median kernel's from their unfused runs), the largest difference
    from the plain version, its wrapper and device time, the plain time and
    the bound.
 
@@ -276,6 +310,8 @@ PRIME_SHAPE = (3, 251, 241)
 GROW_CANVASES = (512, 1024, 2048)
 WINDOWS = (3, 5, 7, 9, 11, 13, 15)
 REPEATS = 20
+PROFILE_TRIES = 3  # profiler windows for one device time before CUDA events
+PROFILE_MARGIN_S = 0.05  # a device-time window open this long around its calls
 SERVE_BUCKETS = (1, 2, 4, 8, 16)
 SERVE_CONCURRENCY = 16
 SERVE_SINGLES = 50  # requests one at a time (bucket 1)
@@ -371,21 +407,52 @@ def cuda_ms(fn, repeats: int = REPEATS) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, kernel: str, repeats: int = REPEATS) -> float:
-    """The kernel's own device time a launch: torch.profiler's self device
-    time of the kernels whose name holds ``kernel``, over ``repeats`` calls."""
+def device_ms(fn, kernel: str, wrapper, repeats: int = REPEATS):
+    """The kernel's own device time a launch, and how it was taken.
+
+    torch.profiler's self device time of the kernels whose name holds
+    ``kernel``, over a window of ``repeats`` calls, in which ``wrapper``'s
+    launch counter must rise by ``repeats``. Each window is held open
+    ``PROFILE_MARGIN_S`` on both sides of the calls, so that records whose
+    device timestamps land just outside the calls' few milliseconds still
+    fall in it. A window whose kernel records are not ``repeats`` (the
+    profiler on an H100 has returned one with none of 20 grow launches;
+    ``scripts/torch_profiler_windows.py`` counts how often) is opened
+    again, up to ``PROFILE_TRIES`` windows; after that the time is
+    ``repeats`` back-to-back calls between CUDA events, which holds the
+    wrapper's host time where that is the longer. Returns ``(ms,
+    "profiler" | "cuda_events", the record counts of the missed windows)``.
+    """
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(repeats):
-            fn()
-        torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages() if kernel in e.key]
-    calls = sum(e.count for e in hits)
-    require(calls == repeats, f"profiler saw {calls} launches of {kernel}, not {repeats}")
-    return sum(e.self_device_time_total for e in hits) / calls / 1e3
+    missed = []
+    for _ in range(PROFILE_TRIES):
+        before = wrapper.launches
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_MARGIN_S)
+            for _ in range(repeats):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_MARGIN_S)
+        require(wrapper.launches - before == repeats,
+                f"{kernel}: the wrapper launched {wrapper.launches - before}, not {repeats}")
+        hits = [e for e in prof.key_averages() if kernel in e.key]
+        calls = sum(e.count for e in hits)
+        if calls == repeats:
+            return sum(e.self_device_time_total for e in hits) / calls / 1e3, "profiler", missed
+        missed.append(calls)
+    before = wrapper.launches
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(repeats):
+        fn()
+    end.record()
+    end.synchronize()
+    require(wrapper.launches - before == repeats,
+            f"{kernel}: the wrapper launched {wrapper.launches - before}, not {repeats}")
+    return start.elapsed_time(end) / repeats, "cuda_events", missed
 
 
 def ptxas_report(log: str) -> dict:
@@ -1127,9 +1194,362 @@ def volume_phase(tmp: Path, cohort: Path, study, smi: str, kernels: dict, reset)
                       "mhd_dir": kout}
 
 
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def shard_phase(tmp: Path, driver_out: dict, volume_out: dict, study, smoke, smi: str,
+                kernels: dict, reset) -> dict:
+    """Multi-device inference on the one card (phase 7 of the docstring).
+
+    ``smoke`` is ``(cohort, masks, converged)`` of the ``slice`` phase.
+    Returns each kernel's launches on the phase's main path: the cohort's
+    volumes z-sharded four ways (fused), the smoke cohort over the 4-entry
+    ``data`` mesh (fused and grow), and, for the median kernel, one
+    volume and one batch under ``fuse_preprocess=False``.
+    """
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from nm03_capstone_project_tpu_torch.cli import parallel as parallel_cli
+    from nm03_capstone_project_tpu_torch.cli import volume as volume_cli
+    from nm03_capstone_project_tpu_torch.config import PipelineConfig
+    from nm03_capstone_project_tpu_torch.data.discovery import (
+        find_patient_dirs,
+        load_dicom_files_for_patient,
+    )
+    from nm03_capstone_project_tpu_torch.data.imageio import read_metaimage
+    from nm03_capstone_project_tpu_torch.kernels import build
+    from nm03_capstone_project_tpu_torch.parallel import (
+        Mesh,
+        distributed,
+        make_mesh,
+        process_batch_sharded,
+        process_volume_zsharded,
+    )
+    from nm03_capstone_project_tpu_torch.pipeline import process_volume
+    from nm03_capstone_project_tpu_torch.resilience import FaultPlan
+    from nm03_capstone_project_tpu_torch.serving.server import ServingApp, serve_in_thread
+
+    phase_t0 = time.perf_counter()
+    n_pat, n_sl, size = DRIVER_COHORT
+    cohort = driver_out["cohort"]
+    dev = torch.device("cuda", 0)
+    golden_file = json.loads((build.PKG / "testdata" / "volume_golden.json").read_text())
+    golden = {g["patient"]: g for g in golden_file["patients"]}
+    cfg = PipelineConfig(canvas=size)
+
+    def zmesh(n):
+        return make_mesh(devices=[dev] * n, axis_names=("z",))
+
+    def sha(m):
+        return hashlib.sha256(np.ascontiguousarray(m).tobytes()).hexdigest()
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    launches = {}
+
+    # (a) the cohort's 25-plane volumes padded to 28, z-sharded over
+    # [cuda:0] x 4: the phase's main path for the fused kernel
+    vols = {}
+    for pid in find_patient_dirs(cohort):
+        vol, dims, _, _ = volume_cli._load_volume(cohort, pid, cfg)
+        vols[pid] = (vol, dims)
+    require(len(vols) == n_pat, f"{len(vols)} cohort volumes")
+
+    def padded(vol, n):
+        pad = (-vol.shape[0]) % n
+        return np.concatenate([vol, np.zeros((pad,) + vol.shape[1:], vol.dtype)]) if pad else vol
+
+    def cohort_run(n, c, pids):
+        out = {}
+        for pid in pids:
+            vol, dims = vols[pid]
+            r = process_volume_zsharded(padded(vol, n), dims, c, zmesh(n))
+            out[pid] = (r["mask"][: vol.shape[0]].cpu().numpy(), bool(r["grow_converged"]))
+        return out
+
+    pids = sorted(vols)
+    reset()
+    four, cohort4_s = timed(lambda: cohort_run(4, cfg, pids))
+    launches["zshard"] = {k: fn.launches for k, fn in kernels.items()}
+    require(launches["zshard"] == {"fused": 4 * n_pat, "grow": 0, "median": 0},
+            f"z-sharded cohort launches {launches['zshard']}, not 4 fused a volume")
+    two = cohort_run(2, cfg, pids)
+    for pid in pids:
+        g = golden[pid]
+        for tag, (m, conv) in (("x4", four[pid]), ("x2", two[pid])):
+            require(m.shape[0] == g["depth"] == n_sl and sha(m) == g["mask_sha256"]
+                    and int(m.sum()) == g["voxels"] and conv == g["grow_converged"],
+                    f"z-sharded {tag} {pid}: differs from the golden")
+            require(np.array_equal(m, volume_out["masks"][pid]),
+                    f"z-sharded {tag} {pid}: differs from process_volume")
+    # morph_size 5: two halo planes cross each boundary (28 / 4 = 7 planes a slab)
+    cfg5 = dataclasses.replace(cfg, morph_size=5)
+    for pid in pids[:2]:
+        vol, dims = vols[pid]
+        want = process_volume(torch.from_numpy(vol).to(dev), torch.from_numpy(dims).to(dev),
+                              cfg5)
+        got = cohort_run(4, cfg5, [pid])[pid]
+        require(np.array_equal(got[0], want["mask"].cpu().numpy())
+                and got[1] == bool(want["grow_converged"]), f"morph 5 x4 {pid}: differs")
+    # the unfused path: one volume, the median kernel once a slab
+    reset()
+    cohort_run(4, dataclasses.replace(cfg, fuse_preprocess=False), pids[:1])
+    launches["zshard_unfused"] = {k: fn.launches for k, fn in kernels.items()}
+    require(launches["zshard_unfused"] == {"fused": 0, "grow": 0, "median": 4},
+            f"unfused z-sharded launches {launches['zshard_unfused']}")
+
+    # the long study, 160 x 512 x 512: sharded four and two ways, and at
+    # morph_size 5, each against process_volume; wall times on the card
+    svol, sdims = study
+    spx, sdm = torch.from_numpy(svol).to(dev), torch.from_numpy(sdims).to(dev)
+    scfg = PipelineConfig(canvas=LONG_STUDY[1])
+    study_times = {"unsharded": [], "x4": []}
+    want = None
+    for which in ("unsharded", "x4", "x4", "unsharded"):
+        if which == "unsharded":
+            out, s = timed(lambda: process_volume(spx, sdm, scfg))
+            want = out
+        else:
+            reset()
+            out, s = timed(lambda: process_volume_zsharded(spx, sdm, scfg, zmesh(4)))
+            sl = {k: fn.launches for k, fn in kernels.items()}
+            require(sl == {"fused": 4, "grow": 0, "median": 0}, f"long study x4 launches {sl}")
+            require(torch.equal(out["mask"], want["mask"])
+                    and bool(out["grow_converged"]) == bool(want["grow_converged"]),
+                    "long study x4: differs from process_volume")
+        study_times[which].append(s)
+    out2 = process_volume_zsharded(spx, sdm, scfg, zmesh(2))
+    require(torch.equal(out2["mask"], want["mask"]), "long study x2: differs")
+    scfg5 = dataclasses.replace(scfg, morph_size=5)
+    want5 = process_volume(spx, sdm, scfg5)
+    out5 = process_volume_zsharded(spx, sdm, scfg5, zmesh(4))
+    require(torch.equal(out5["mask"], want5["mask"]), "long study morph 5 x4: differs")
+    require(int(want["mask"].sum()) > 0, "the long study segmented nothing")
+    del out, out2, out5, want5
+
+    # (b) the smoke cohort over a ("data",) mesh of [cuda:0] x 4, in
+    # batches of 100 (25 a chunk)
+    smoke_cohort_px, smoke_masks, smoke_conv = smoke
+    from nm03_capstone_project_tpu_torch.core import pad_to_canvas
+
+    dmesh = make_mesh(devices=[dev] * 4, axis_names=("data",))
+    dp_batches = [pad_to_canvas(smoke_cohort_px[i:i + 100], (256, 256), device=dev)
+                  for i in range(0, len(smoke_cohort_px), 100)]
+    reset()
+    dp_out, dp_s = timed(lambda: [process_batch_sharded(b.pixels, b.dims, cfg, dmesh,
+                                                        mask_only=True) for b in dp_batches])
+    launches["dp"] = {k: fn.launches for k, fn in kernels.items()}
+    require(launches["dp"] == {"fused": 4 * len(dp_batches), "grow": 4 * len(dp_batches),
+                               "median": 0}, f"data-parallel launches {launches['dp']}")
+    dp_masks = torch.cat([o["mask"] for o in dp_out]).cpu().numpy()
+    dp_conv = torch.cat([o["grow_converged"] for o in dp_out]).cpu().numpy()
+    require(np.array_equal(dp_masks, smoke_masks) and np.array_equal(dp_conv, smoke_conv),
+            "data-parallel masks != process_batch's")
+    smoke_golden = json.loads((build.PKG / "testdata" / "smoke_masks.json").read_text())
+    for g in smoke_golden["slices"]:
+        i = g["index"]
+        require(sha(dp_masks[i]) == g["sha256"] and int(dp_masks[i].sum()) == g["area"],
+                f"data-parallel slice {i}: differs from the golden")
+    reset()
+    unf = process_batch_sharded(dp_batches[0].pixels, dp_batches[0].dims,
+                                dataclasses.replace(cfg, fuse_preprocess=False), dmesh)
+    torch.cuda.synchronize()
+    launches["dp_unfused"] = {k: fn.launches for k, fn in kernels.items()}
+    require(launches["dp_unfused"] == {"fused": 0, "grow": 4, "median": 4}
+            and np.array_equal(unf["mask"].cpu().numpy(), smoke_masks[:100]),
+            f"unfused data-parallel: launches {launches['dp_unfused']}")
+
+    # (c) world-of-1 driver runs under NCCL, byte-identical to the earlier phases
+    def dist_flags():
+        return ["--distributed", "--coordinator-address", f"127.0.0.1:{free_port()}",
+                "--num-processes", "1", "--process-id", "0"]
+
+    def after_run(tag):
+        # the drivers leave the job themselves; the group is gone between runs
+        if dist.is_initialized():
+            dist.destroy_process_group()
+            require(False, f"{tag}: the driver left its process group behind")
+
+    world1 = {}
+    out = tmp / "shard_parallel"
+    rj = tmp / "shard_parallel.json"
+    t0 = time.perf_counter()
+    rc = parallel_cli.main(["--base-path", str(cohort), "--output", str(out), "--canvas",
+                            str(size), "--results-json", str(rj), *dist_flags()])
+    world1["parallel_s"] = time.perf_counter() - t0
+    after_run("parallel")
+    require(rc == 0, f"world-of-1 parallel driver exited {rc}")
+    require(files_of(out) == driver_out["files"], "world-of-1 parallel: JPEG pairs differ")
+    rec = json.loads(rj.read_text())
+    require(rec["summary"]["slices_ok"] == n_pat * n_sl and "cluster" not in rec,
+            f"world-of-1 parallel results {rec['summary']}")
+    kout = volume_out["mhd_dir"]
+    want_files = files_of(kout)
+    want_mhd = {pid: (kout / pid / "mask.raw").read_bytes() for pid in pids}
+    for tag, extra in (("volume", []), ("volume_zshard", ["--z-shard"])):
+        out = tmp / f"shard_{tag}"
+        t0 = time.perf_counter()
+        rc = volume_cli.main(["--base-path", str(cohort), "--output", str(out), "--canvas",
+                              str(size), "--export-mhd", *extra, *dist_flags()])
+        world1[f"{tag}_s"] = time.perf_counter() - t0
+        after_run(tag)
+        require(rc == 0, f"world-of-1 {tag} exited {rc}")
+        require(files_of(out) == want_files, f"world-of-1 {tag}: JPEG pairs differ")
+        require(all((out / pid / "mask.raw").read_bytes() == want_mhd[pid] for pid in pids)
+                and all(np.array_equal(read_metaimage(out / pid / "mask.mhd")[0],
+                                       volume_out["masks"][pid]) for pid in pids),
+                f"world-of-1 {tag}: mask.mhd differs")
+    # the drivers' own multi-device paths through their entry points: with
+    # four local devices (the one card named four times, as the CPU tests
+    # name the CPU four times) the volume driver z-shards each study and
+    # the parallel driver splits each batch over a data mesh
+    import contextlib
+    import io
+
+    from nm03_capstone_project_tpu_torch.config import BatchConfig
+    from nm03_capstone_project_tpu_torch.parallel import mesh as mesh_mod
+
+    real_local_devices = mesh_mod.local_devices
+    mesh_mod.local_devices = lambda device=None: [dev] * 4
+    try:
+        out = tmp / "shard_volume_local"
+        said = io.StringIO()
+        reset()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(said):
+            rc = volume_cli.main(["--base-path", str(cohort), "--output", str(out), "--canvas",
+                                  str(size), "--export-mhd", "--z-shard"])
+        world1["volume_zshard_local_s"] = time.perf_counter() - t0
+        launches["volume_local"] = {k: fn.launches for k, fn in kernels.items()}
+        print(said.getvalue(), end="")
+        require(rc == 0, f"volume --z-shard over 4 local devices exited {rc}")
+        require("z-sharding volumes over 4 local devices" in said.getvalue(),
+                "volume --z-shard did not z-shard over the 4 local devices")
+        require(launches["volume_local"] == {"fused": 4 * n_pat, "grow": 0, "median": 0},
+                f"volume --z-shard launches {launches['volume_local']}, not 4 fused a volume")
+        require(files_of(out) == want_files, "volume --z-shard (4 local): JPEG pairs differ")
+        require(all((out / pid / "mask.raw").read_bytes() == want_mhd[pid] for pid in pids),
+                "volume --z-shard (4 local): mask.raw differs")
+        # mesh-aligned batches of 24, the short one padded to the mesh
+        bs = max(4, BatchConfig().batch_size // 4 * 4)
+        n_batches = n_pat * -(-n_sl // bs)
+        out = tmp / "shard_parallel_local"
+        reset()
+        t0 = time.perf_counter()
+        rc = parallel_cli.main(["--base-path", str(cohort), "--output", str(out), "--canvas",
+                                str(size)])
+        world1["parallel_local_s"] = time.perf_counter() - t0
+        launches["parallel_local"] = {k: fn.launches for k, fn in kernels.items()}
+        require(rc == 0, f"parallel driver over 4 local devices exited {rc}")
+        require(launches["parallel_local"] == {"fused": 4 * n_batches, "grow": 4 * n_batches,
+                                               "median": 0},
+                f"parallel driver's data mesh launches {launches['parallel_local']}, "
+                f"not 4 fused and 4 grow for each of {n_batches} batches")
+        require(files_of(out) == driver_out["files"],
+                "parallel driver over 4 local devices: JPEG pairs differ")
+    finally:
+        mesh_mod.local_devices = real_local_devices
+
+    # the process-group transport under NCCL in a world of 1: the count's
+    # all_reduce and the mask's all_gather on the card (no halo peers)
+    require(distributed.initialize(f"127.0.0.1:{free_port()}", 1, 0, device="cuda"),
+            "world of 1: no process group")
+    try:
+        gmesh = distributed.global_mesh(("z",))
+        pg_mesh = Mesh(gmesh.devices, ("z",), process_group=True)
+        vol, dims = vols[pids[0]]
+        r = process_volume_zsharded(vol, dims, cfg, pg_mesh)
+        require(dist.get_backend() == "nccl" and r["mask"].is_cuda
+                and np.array_equal(r["mask"].cpu().numpy(), volume_out["masks"][pids[0]]),
+                "world of 1 over NCCL: the mask differs")
+    finally:
+        distributed.shutdown()
+
+    # (d) the volume gang over four lanes on the one card: 20 studies at
+    # z_shards 4, then a lane's death mid-volume and the next at 3
+    studies = {}
+    for pid in pids:
+        raws = [f.read_bytes() for f in load_dicom_files_for_patient(cohort, pid)]
+        studies[pid] = b"".join(len(r).to_bytes(4, "little") + r for r in raws)
+    plan = FaultPlan.from_spec({"faults": [{"site": "volume", "kind": "dispatch_error",
+                                            "lane": 2, "index": n_pat}]})
+    app = ServingApp(cfg=cfg, buckets=(1, 2), lane_devices=[dev] * 4, fault_plan=plan,
+                     volume_serving=True, volume_depth_buckets=SERVE_VOLUME_BUCKETS,
+                     lane_probe_interval_s=600.0)
+    httpd, _, port = serve_in_thread(app)
+    vurl = f"http://127.0.0.1:{port}/v1/segment-volume"
+    parts = {"Content-Type": "application/x-nm03-dicom-parts"}
+    gang = {}
+    try:
+        st = app.status()["volumes"]
+        require(st["z_shards"] == 4, f"four-lane gang warmed at {st['z_shards']}")
+        reset()
+        res, wall = client_run(vurl, [(pid, studies[pid], parts) for pid in pids], 1)
+        launches["gang"] = {k: fn.launches for k, fn in kernels.items()}
+        for pid, (status, payload, headers, _) in res.items():
+            require(status == 200 and payload["z_shards"] == 4
+                    and headers.get("X-Nm03-Z-Shards") == "4", f"gang {pid}: {status}")
+            m = np.frombuffer(base64.b64decode(payload["mask_b64"]), np.uint8).reshape(
+                payload["shape"])
+            require(sha(m) == golden[pid]["mask_sha256"], f"gang {pid}: differs from golden")
+        require(launches["gang"] == {"fused": 4 * n_pat, "grow": 0, "median": 0},
+                f"four-lane gang launches {launches['gang']}")
+        gang["x4"] = latency_stats(res, wall)
+        status, payload, headers, secs = http_post(vurl, studies[pids[0]], parts)
+        require(status == 200 and payload["z_shards"] == 3 and payload["requeues"] == 1,
+                f"after the lane death: {status} {payload.get('z_shards')}")
+        m = np.frombuffer(base64.b64decode(payload["mask_b64"]), np.uint8).reshape(
+            payload["shape"])
+        require(sha(m) == golden[pids[0]]["mask_sha256"], "gang x3: differs from the golden")
+        require(app.executor.healthy_lanes() == [0, 1, 3], "lane 2 not quarantined")
+        require(app.registry.get("serving_lane_quarantines_total", lane="2",
+                                 cause="device_lost").value == 1, "quarantine not booked")
+        gang["x3_ms"] = secs * 1e3
+    finally:
+        app.begin_drain(reason="smoke")
+        httpd.shutdown()
+        httpd.server_close()
+        app.close()
+
+    main = {k: sum(launches[p][k] for p in ("zshard", "dp", "volume_local", "parallel_local"))
+            for k in kernels}
+    main["median"] = launches["zshard_unfused"]["median"] + launches["dp_unfused"]["median"]
+    emit({"phase": "shard", "checks": [
+              "cohort 20 x 25 (padded 28) z-sharded x4 and x2 = volume_golden.json = process_volume",
+              "morph_size 5 x4 (two halo planes) = process_volume; fused 4 a volume",
+              "long study 160 x 512^2 x4, x2, morph 5 = process_volume",
+              "smoke cohort over a 4-entry data mesh = process_batch = smoke_masks.json",
+              "world-of-1 --distributed (nccl) parallel, volume, volume --z-shard: "
+              "byte-identical to the driver and volume phases",
+              "4 local devices: volume --z-shard (4 fused a volume) and the parallel "
+              "driver's data mesh (4 fused + 4 grow a batch) byte-identical to the "
+              "volume and driver phases",
+              "four-lane gang: 20 studies at z_shards 4 = golden; lane death -> z_shards 3"],
+          "long_study": {"shape": list(LONG_STUDY),
+                         "unsharded_s": study_times["unsharded"], "x4_s": study_times["x4"],
+                         "unsharded_median_s": statistics.median(study_times["unsharded"]),
+                         "x4_median_s": statistics.median(study_times["x4"])},
+          "cohort_x4_s": cohort4_s, "data_parallel_s": dp_s, "world1": world1,
+          "gang": gang, "launches": launches,
+          "phase_s": time.perf_counter() - phase_t0, "nvidia_smi": smi})
+    return main
+
+
 def serve_volume_phase(tmp: Path, driver_out: dict, volume_out: dict, smi: str,
                        kernels: dict, reset) -> dict:
-    """Whole-study serving on the card (phase 7 of the docstring).
+    """Whole-study serving on the card (phase 8 of the docstring).
 
     Returns each kernel's launches in the main run (the cohort's studies at
     concurrency 1 and 4; the median kernel's from the unfused server).
@@ -1573,7 +1993,7 @@ def step_kernels(fn) -> dict:
 
 def student_phase(tmp: Path, driver_out: dict, volume_out: dict, smi: str, kernels: dict,
                   reset) -> dict:
-    """The U-Net students on the card (phase 8 of the docstring).
+    """The U-Net students on the card (phase 9 of the docstring).
 
     Returns the teacher's kernel launches while the two training runs
     distilled their labels (2D and 3D summed).
@@ -1862,7 +2282,7 @@ def student_phase(tmp: Path, driver_out: dict, volume_out: dict, smi: str, kerne
 
 
 def operate_phase(tmp: Path, driver_out: dict, smi: str, kernels: dict, reset) -> dict:
-    """The service on the card under load and under faults (phase 9 of the
+    """The service on the card under load and under faults (phase 10 of the
     docstring). Returns the kernels' launches of its main path: the graph
     replays of both servers plus the driver drill's wrapper launches."""
     import urllib.error
@@ -2235,7 +2655,7 @@ def telemetry_run(main_fn, argv: list, out: Path, kernels: dict, reset, launched
 
 
 def fleet_phase(tmp: Path, driver_out: dict, smi: str) -> dict:
-    """Three port replicas on the card behind the fleet router (phase 10 of
+    """Three port replicas on the card behind the fleet router (phase 11 of
     the docstring). Returns the fused, grow and median launches the
     replicas' graph replays made on the main path (the clean fleet run and
     the SIGKILL drill), read from each replica's own /readyz and /metrics."""
@@ -2734,13 +3154,15 @@ def main() -> int:
             cases.append(f"{shape}:k{k}")
     x = median_input(main_px, main_dims)
     ms = cuda_ms(lambda: hm.vector_median_filter_kernel(x, 7))
-    dev_ms = device_ms(lambda: hm.vector_median_filter_kernel(x, 7), "band_kernel")
+    dev_ms, dev_by, dev_missed = device_ms(lambda: hm.vector_median_filter_kernel(x, 7),
+                                           "band_kernel", hm.vector_median_filter_kernel)
     plain_ms = cuda_ms(lambda: vector_median_filter(x, 7), repeats=5)
     n = x.numel()
     b_ms, b_by = bound(8 * n, {"minmax_bitwise": median_ops * n})
-    results["median"] = dict(max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
-                             bound_ms=b_ms, bound_by=b_by)
+    results["median"] = dict(max_abs_err=err, ms=ms, device_ms=dev_ms, device_ms_by=dev_by,
+                             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
     emit({"phase": "median", "bitwise": True, "cases": cases, "ms": ms, "device_ms": dev_ms,
+          "device_ms_by": dev_by, "profiler_missed": dev_missed,
           "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
           "launches": hm.vector_median_filter_kernel.launches})
 
@@ -2767,7 +3189,8 @@ def main() -> int:
             cases.append(f"{shape}:k{k}")
     x = extend_edges(main_px, main_dims)
     ms = cuda_ms(lambda: hm.fused_preprocess_kernel(x, **pre_kw))
-    dev_ms = device_ms(lambda: hm.fused_preprocess_kernel(x, **pre_kw), "fused_kernel")
+    dev_ms, dev_by, dev_missed = device_ms(lambda: hm.fused_preprocess_kernel(x, **pre_kw),
+                                           "fused_kernel", hm.fused_preprocess_kernel)
     plain_ms = cuda_ms(lambda: hm._fused_preprocess_plain(x, **pre_kw), repeats=5)
     n = x.numel()
     b_ms, b_by = bound(8 * n, {k: v * n for k, v in fused_ops.items()})
@@ -2780,9 +3203,10 @@ def main() -> int:
     study_shape = hm.fused_launch_shape(*study_x.shape, cfg.median_window, cfg.sharpen_kernel,
                                         n_sm)
     del study_x
-    results["fused"] = dict(max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
-                            bound_ms=b_ms, bound_by=b_by)
+    results["fused"] = dict(max_abs_err=err, ms=ms, device_ms=dev_ms, device_ms_by=dev_by,
+                            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
     emit({"phase": "fused", "bitwise": True, "cases": cases, "ms": ms, "device_ms": dev_ms,
+          "device_ms_by": dev_by, "profiler_missed": dev_missed,
           "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
           "tile": [tile_h, tile_w], "grid": grid, "smem_bytes": smem,
           "study": {"shape": list(LONG_STUDY), "ms": study_ms, "bound_ms": study_bound[0],
@@ -2828,8 +3252,8 @@ def main() -> int:
     gkw = dict(valid=valid, block_iters=cfg.grow_block_iters, max_iters=cfg.grow_max_iters)
     ms = cuda_ms(lambda: hg.region_grow_kernel(
         img, seeds, cfg.grow_low, cfg.grow_high, **gkw))
-    dev_ms = device_ms(lambda: hg.region_grow_kernel(
-        img, seeds, cfg.grow_low, cfg.grow_high, **gkw), "grow_kernel")
+    dev_ms, dev_by, dev_missed = device_ms(lambda: hg.region_grow_kernel(
+        img, seeds, cfg.grow_low, cfg.grow_high, **gkw), "grow_kernel", hg.region_grow_kernel)
     plain_ms = cuda_ms(lambda: region_grow(
         img, seeds, cfg.grow_low, cfg.grow_high, **gkw), repeats=5)
     # the depth of each slice's fixpoint on this data, as the kernel ran it
@@ -2840,11 +3264,12 @@ def main() -> int:
     # per step and 32-pixel word: 4 neighbour shifts/ORs, 2 carries, up/down, band AND
     grow_ops = float(steps.sum()) * words * 9
     b_ms, b_by = bound(b * h * w * (4 + 1 + 1 + 1) + 4 * b, {"minmax_bitwise": grow_ops})
-    results["grow"] = dict(max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
-                           bound_ms=b_ms, bound_by=b_by)
+    results["grow"] = dict(max_abs_err=err, ms=ms, device_ms=dev_ms, device_ms_by=dev_by,
+                           plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
     emit({"phase": "grow", "bitwise": True, "cases": cases,
           "truncated_slices": truncated, "steps_per_slice": steps.tolist(),
-          "launch_shapes": shapes, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+          "launch_shapes": shapes, "ms": ms, "device_ms": dev_ms,
+          "device_ms_by": dev_by, "profiler_missed": dev_missed, "plain_ms": plain_ms,
           "bound_ms": b_ms, "bound_by": b_by, "launches": hg.region_grow_kernel.launches})
 
     # -- 3. the cohort through process_batch ---------------------------------
@@ -2957,18 +3382,21 @@ def main() -> int:
         # -- 6. the 3D volume path ----------------------------------------
         volume_launches, volume_out = volume_phase(Path(tmp), driver_out["cohort"], study,
                                                    smi, kernels, reset)
-        # -- 7. whole-study serving ---------------------------------------
+        # -- 7. multi-device inference on the one card --------------------
+        shard_launches = shard_phase(Path(tmp), driver_out, volume_out, study,
+                                     (cohort, masks, conv), smi, kernels, reset)
+        # -- 8. whole-study serving ---------------------------------------
         serve_volume_launches = serve_volume_phase(Path(tmp), driver_out, volume_out, smi,
                                                    kernels, reset)
-        # -- 8. the U-Net students ----------------------------------------
+        # -- 9. the U-Net students ----------------------------------------
         student_launches = student_phase(Path(tmp), driver_out, volume_out, smi, kernels,
                                          reset)
-        # -- 9. the service under load and under faults -------------------
+        # -- 10. the service under load and under faults -------------------
         operate_launches = operate_phase(Path(tmp), driver_out, smi, kernels, reset)
-        # -- 10. a fleet of replicas on the card --------------------------
+        # -- 11. a fleet of replicas on the card --------------------------
         fleet_launches = fleet_phase(Path(tmp), driver_out, smi)
 
-    # -- 11. kernels ---------------------------------------------------------
+    # -- 12. kernels ---------------------------------------------------------
     meta = {
         "median": ("vector_median_filter", "csrc/median.cu",
                    "nm03_capstone_project_tpu/ops/pallas_median.py:101"),
@@ -2990,8 +3418,10 @@ def main() -> int:
             "student_launches": student_launches[key],
             "operate_launches": operate_launches[key],
             "fleet_launches": fleet_launches[key],
+            "shard_launches": shard_launches[key],
             "max_abs_err": r["max_abs_err"],
-            "ms": r["ms"], "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
+            "ms": r["ms"], "device_ms": r["device_ms"], "device_ms_by": r["device_ms_by"],
+            "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None,
         })

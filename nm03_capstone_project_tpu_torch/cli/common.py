@@ -25,9 +25,18 @@ driver the JAX drivers' ``--metrics-out``, ``--log-json`` and
 
 ``--model`` deploys a student checkpoint written by the port's
 ``cli.train`` (:func:`load_model_checkpoint`, with the JAX package's three
-refusals). Flags of the JAX drivers whose layers are not ported are
-refused by name, with the reason and the ROADMAP item
-(:data:`NOT_PORTED`), and exit 2 as argparse does.
+refusals).
+
+The distributed group (:func:`add_distributed_args`) gives the inference
+drivers ``--distributed`` and its three flags over ``torch.distributed``
+(:mod:`..parallel.distributed`): :func:`init_distributed` joins the job,
+:func:`resolve_base_path_sync` writes a synthetic cohort on rank 0 behind
+a barrier, :func:`shard_patients` deals the patients round-robin and
+:func:`allgather_cluster_counts` sums the counters at the end.
+
+Flags of the JAX drivers whose layers are not ported are refused by name,
+with the reason and the ROADMAP item (:data:`NOT_PORTED`), and exit 2 as
+argparse does.
 """
 
 from __future__ import annotations
@@ -56,11 +65,13 @@ NOT_PORTED = {
         "--fallback-cpu": "the port has no CPU fallback",
         "--no-fallback-cpu": "the port has no CPU fallback; it always fails fast",
     },
+    # the inference drivers take these (add_distributed_args); training
+    # refuses them
     "distributed": {
-        "--distributed": "multi-process jobs are not ported yet (ROADMAP A6)",
-        "--coordinator-address": "multi-process jobs are not ported yet (ROADMAP A6)",
-        "--num-processes": "multi-process jobs are not ported yet (ROADMAP A6)",
-        "--process-id": "multi-process jobs are not ported yet (ROADMAP A6)",
+        "--distributed": "distributed training is not ported yet (ROADMAP A6)",
+        "--coordinator-address": "distributed training is not ported yet (ROADMAP A6)",
+        "--num-processes": "distributed training is not ported yet (ROADMAP A6)",
+        "--process-id": "distributed training is not ported yet (ROADMAP A6)",
     },
 }
 
@@ -107,15 +118,20 @@ def add_observability_args(parser: argparse.ArgumentParser) -> None:
     )
 
 
-def make_run_context(args: argparse.Namespace, driver: str, argv=None):
+def make_run_context(args: argparse.Namespace, driver: str, argv=None, rank: int = 0):
     """The driver's :class:`..obs.RunContext` from its parsed flags, with
-    the info gauge of the median and render paths the run takes."""
+    the info gauge of the median and render paths the run takes.
+
+    Only rank 0 of a multi-process job gets the file sinks: every rank
+    would otherwise write the same ``--metrics-out`` and ``--log-json``
+    paths. The other ranks keep their metrics in memory."""
     from nm03_capstone_project_tpu_torch.obs import RunContext
 
+    sink = rank == 0
     ctx = RunContext.create(
         driver,
-        metrics_out=getattr(args, "metrics_out", None),
-        log_json=getattr(args, "log_json", None),
+        metrics_out=getattr(args, "metrics_out", None) if sink else None,
+        log_json=getattr(args, "log_json", None) if sink else None,
         heartbeat_s=getattr(args, "heartbeat_s", 0.0) or 0.0,
         argv=argv,
     )
@@ -462,3 +478,137 @@ def resolve_base_path(args: argparse.Namespace, tmp_root: Path | None = None) ->
     raise SystemExit(
         "no data: pass --base-path, set $NM03_DATA_PATH, or use --synthetic N"
     )
+
+
+def add_distributed_args(parser: argparse.ArgumentParser, extra_help: str = "") -> None:
+    """The multi-process job flags (the drivers that take --distributed)."""
+    d = parser.add_argument_group(
+        "distributed",
+        "multi-process cohort processing over torch.distributed: one process "
+        "a device (nccl on the card, gloo with --device cpu). " + extra_help,
+    )
+    d.add_argument(
+        "--distributed",
+        action="store_true",
+        help="join a torch.distributed job (reads torchrun's MASTER_ADDR/"
+        "MASTER_PORT/WORLD_SIZE/RANK; pass the explicit flags elsewhere)",
+    )
+    d.add_argument("--coordinator-address", default=None, metavar="HOST:PORT")
+    d.add_argument("--num-processes", type=int, default=None)
+    d.add_argument("--process-id", type=int, default=None)
+
+
+def init_distributed(args: argparse.Namespace) -> tuple[int, int]:
+    """Join the job per the --distributed flags; (rank, world).
+
+    An explicitly requested multi-process job that joined nothing is a hard
+    error: every worker silently processing the whole cohort into the same
+    tree is the worst failure a launcher can hand back.
+    """
+    if not getattr(args, "distributed", False):
+        return 0, 1
+    import sys
+
+    from nm03_capstone_project_tpu_torch.parallel import distributed
+
+    distributed.initialize(
+        coordinator_address=getattr(args, "coordinator_address", None),
+        num_processes=getattr(args, "num_processes", None),
+        process_id=getattr(args, "process_id", None),
+        device=getattr(args, "device", None),
+    )
+    info = distributed.process_info()
+    rank, world = info["process_index"], info["process_count"]
+    want = getattr(args, "num_processes", None)
+    if want and want > 1 and world == 1:
+        raise RuntimeError(
+            f"--distributed --num-processes {want} requested but this process "
+            "joined no job (world=1); check the coordinator address / "
+            "process ids"
+        )
+    if world == 1 and not distributed.is_initialized():
+        print(
+            "--distributed: no cluster detected; running single-process",
+            file=sys.stderr,
+        )
+    return rank, world
+
+
+def finish_distributed(args: argparse.Namespace) -> None:
+    """Leave the job that :func:`init_distributed` joined (no-op otherwise)."""
+    if getattr(args, "distributed", False):
+        from nm03_capstone_project_tpu_torch.parallel import distributed
+
+        distributed.shutdown()
+
+
+def resolve_base_path_sync(
+    args: argparse.Namespace, rank: int, world: int, tmp_root: Path | None = None
+) -> Path:
+    """resolve_base_path, with rank 0 generating any synthetic cohort behind
+    a barrier so other ranks never list a half-written tree."""
+    if world > 1 and args.synthetic > 0:
+        from nm03_capstone_project_tpu_torch.parallel import distributed
+
+        base = None
+        if rank == 0:
+            base = resolve_base_path(args, tmp_root=tmp_root)
+        distributed.barrier()
+        if rank != 0:
+            base = resolve_base_path(args, tmp_root=tmp_root)
+        return base
+    return resolve_base_path(args, tmp_root=tmp_root)
+
+
+def shard_patients(patients: list, rank: int, world: int) -> list:
+    """Deterministic round-robin patient shard (discovery sorts the list, so
+    every rank computes the same split with no communication)."""
+    if world <= 1:
+        return patients
+    mine = patients[rank::world]
+    print(f"process {rank}/{world}: {len(mine)} patients assigned")
+    return mine
+
+
+def allgather_cluster_counts(counts: "dict[str, int]", world: int) -> dict:
+    """Allgather each rank's counters; cluster totals + per-process rows.
+
+    The one collective of a patient-sharded run (the reference's
+    end-of-run accounting, main_parallel.cpp:349). Every rank must call it.
+    The counters travel as int64 (voxel-level sums pass 2^31).
+    """
+    from nm03_capstone_project_tpu_torch.parallel import distributed
+
+    keys = sorted(counts)
+    vals = [int(counts[k]) for k in keys]
+    if any(v < 0 for v in vals):
+        raise ValueError(f"counters must be non-negative, got {counts}")
+    per_rank = distributed.allgather(vals).reshape(world, len(keys))
+    out = {k: int(per_rank[:, i].sum()) for i, k in enumerate(keys)}
+    out["per_process"] = {
+        str(r): {k: int(per_rank[r, i]) for i, k in enumerate(keys)}
+        for r in range(world)
+    }
+    return out
+
+
+def warn_resume_topology(out_root: Path, process_count: int, warn) -> None:
+    """Warn when --resume runs under a different process count than the
+    manifests on disk: the round-robin shard reassigns patients to ranks
+    whose manifests never saw them, so done work is redone (correctness is
+    unaffected)."""
+    prior_ranks = len(list(Path(out_root).glob("manifest.rank*.json")))
+    prior_single = (Path(out_root) / "manifest.json").exists()
+    if process_count > 1 and (prior_single or prior_ranks not in (0, process_count)):
+        warn(
+            "resuming with %d processes but prior manifests suggest a "
+            "different topology (%s) — patients may be reprocessed",
+            process_count,
+            f"{prior_ranks} rank manifests" if prior_ranks else "single-process run",
+        )
+    elif process_count == 1 and prior_ranks:
+        warn(
+            "resuming single-process over a %d-rank output tree — prior rank "
+            "manifests are ignored and patients will be reprocessed",
+            prior_ranks,
+        )

@@ -6,7 +6,10 @@ reference parallelizes with 16 OpenMP threads over a <=25-slice batch and
 serializes exports through one shared Qt render target; here a batch of up
 to 25 slices is the leading axis of the tensors the CUDA kernels take, the
 DICOM decode runs on an IO thread pool, and render + JPEG encode overlap
-the next batch's device compute. Same contract, and the same output as the
+the next batch's device compute. With more than one local GPU each batch
+splits over a ``data`` mesh of them (:func:`..parallel.process_batch_sharded`),
+and ``--distributed`` deals the patients to the ranks of a multi-process
+job, as in the sequential driver. Same contract, and the same output as the
 sequential driver. Run it as
 
     python -m nm03_capstone_project_tpu_torch.cli.parallel --synthetic 20 --synthetic-slices 25
@@ -34,7 +37,8 @@ def build_parser() -> argparse.ArgumentParser:
     common.add_render_stage_arg(p)
     common.add_model_arg(p)
     common.add_resilience_args(p)
-    common.add_not_ported_args(p, "observability", "resilience", "distributed")
+    common.add_distributed_args(p)
+    common.add_not_ported_args(p, "observability", "resilience")
     return p
 
 

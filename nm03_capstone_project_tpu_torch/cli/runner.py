@@ -30,8 +30,8 @@ and, with ``dispatch_timeout_s``, a wall-clock deadline abandons a wedged
 dispatch (the result fetch moves inside it). A dispatch whose retries are
 exhausted or whose deadline expires fails its slice (sequential) or its
 batch's slices (parallel), counted and reported; nothing is recomputed
-elsewhere — the JAX package's CPU degradation (``_fallback_call``) and its
-device mesh are not ported. A :class:`..resilience.FaultPlan` (the
+elsewhere — the JAX package's CPU degradation (``_fallback_call``) is not
+ported. A :class:`..resilience.FaultPlan` (the
 ``fault_plan`` of the :class:`..resilience.ResilienceConfig`, or
 ``NM03_FAULT_PLAN``) fires at the JAX drivers' sites with their selectors:
 ``decode`` (patient, stem, slice index), ``dispatch`` (patient, slice or
@@ -39,8 +39,15 @@ batch index), ``export`` (patient, stem) and ``ingest`` (the work-item
 index); the same plan fails the same slices in both packages.
 
 The pipeline runs on ``device`` (``cuda`` unless the caller asks for the
-CPU). Neither strategy synchronizes the host between enqueue and fetch:
-the kernel wrappers never do, so the card runs ahead of the host.
+CPU). With more than one local device (:func:`..parallel.mesh.local_devices`)
+the parallel strategy splits each batch over a ``data`` mesh of them
+(:func:`..parallel.process_batch_sharded`), as the JAX runner does; one
+device keeps the plain batch path. In a multi-process job
+(``process_count`` > 1) this process owns ``patients[rank::count]`` and
+its own ``manifest.rank{rank}.json``, and runs on its one device (one
+process a device, torchrun's idiom). Neither strategy synchronizes the
+host between enqueue and fetch: the kernel wrappers never do, so the card
+runs ahead of the host.
 
 Observability follows the JAX drivers: the span recorder is the run
 context's, so every section feeds the stage latency histograms; a
@@ -53,6 +60,7 @@ a capped region growing in a ``grow_truncated`` one.
 from __future__ import annotations
 
 import concurrent.futures as cf
+import sys
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
@@ -241,10 +249,19 @@ class CohortProcessor:
         model=None,
         obs: Optional[RunContext] = None,
         resilience: Optional[ResilienceConfig] = None,
+        process_rank: int = 0,
+        process_count: int = 1,
     ):
         if mode not in ("sequential", "parallel"):
             raise ValueError(f"unknown mode: {mode}")
+        if not 0 <= process_rank < process_count:
+            raise ValueError(f"process_rank {process_rank} outside [0, {process_count})")
+        # multi-process job: this process owns patients[rank::count] and its
+        # own manifest file (the output root is a shared file system)
+        self.process_rank = process_rank
+        self.process_count = process_count
         self.device = resolve_device(device)
+        self._mesh_skip_said = False
         self.model = None if model is None else model.to(self.device)
         self.base_path = Path(base_path)
         self.out_root = Path(out_root)
@@ -280,8 +297,16 @@ class CohortProcessor:
         self.retry.obs = self.obs
         self.dispatch = DispatchSupervisor(self.res, retry=self.retry, obs=self.obs)
         self.out_root.mkdir(parents=True, exist_ok=True)
+        manifest_name = (
+            "manifest.json" if process_count == 1 else f"manifest.rank{process_rank}.json"
+        )
+        if resume:
+            from nm03_capstone_project_tpu_torch.cli.common import warn_resume_topology
+
+            warn_resume_topology(self.out_root, process_count, log.warning)
         self.manifest = (
-            Manifest.load_or_create(self.out_root) if resume else Manifest(self.out_root)
+            Manifest.load_or_create(self.out_root, manifest_name)
+            if resume else Manifest(self.out_root, manifest_name)
         )
 
     # -- patient processing ------------------------------------------------
@@ -546,11 +571,50 @@ class CohortProcessor:
         except Exception as e:  # noqa: BLE001 - reference: don't throw
             return {"stem": stem, "error": e}
 
+    def _data_mesh(self):
+        """A ``data`` mesh of the local devices, or None on one device.
+
+        Local, not global: in a multi-process job each rank owns disjoint
+        patients and runs on its own device, so nothing crosses processes
+        but the final counters."""
+        from nm03_capstone_project_tpu_torch.parallel.mesh import local_devices, make_mesh
+
+        if self.process_count > 1:
+            return None
+        devs = local_devices(self.device)
+        if len(devs) <= 1:
+            return None
+        if self.model is not None:
+            # never a mesh quietly dropped to one device: say so, once a run
+            if not self._mesh_skip_said:
+                self._mesh_skip_said = True
+                print(f"--model: the student runs on {self.device}, not over the "
+                      f"{len(devs)}-device data mesh (ROADMAP A6)", file=sys.stderr)
+            return None
+        # the mesh starts at this run's device: the outputs gather on its
+        # first entry, where the device render and the fetch expect them
+        here = self.device
+        if here.type == "cuda" and here.index is None:
+            here = torch.device("cuda", torch.cuda.current_device())
+        k = next((i for i, d in enumerate(devs) if d == here), 0)
+        return make_mesh(axis_names=("data",), devices=devs[k:] + devs[:k])
+
     def _run_parallel(
         self, patient_id: str, out_dir: Path, files: List[Path], journal
     ) -> Tuple[int, List[str], List[str]]:
         host_render = self.batch_cfg.render_stage == "host"
         bs = self.batch_cfg.batch_size
+        mesh = self._data_mesh()
+        if mesh is not None:
+            from nm03_capstone_project_tpu_torch.parallel import (
+                pad_to_multiple,
+                process_batch_sharded,
+            )
+
+            # mesh-aligned batches: a full batch splits evenly, and a short
+            # one is padded with filler slices (pad_to_multiple) at staging
+            n_dev = mesh.shape["data"]
+            bs = max(n_dev, (bs // n_dev) * n_dev)
         ok, failed = 0, []
         # written from IO-pool threads (dict ops are atomic under the GIL);
         # resolved against `written` at the end so a slice whose export
@@ -592,6 +656,13 @@ class CohortProcessor:
             pixels, dims = self._stack([p for _, p in good])
             return {"stems": [s for s, _ in good], "bad": bad, "pixels": pixels, "dims": dims}
 
+        def decode_mesh_batch(job):
+            batch = decode_batch(job)
+            if batch["pixels"] is not None:
+                batch["pixels"], batch["dims"], _ = pad_to_multiple(
+                    batch["pixels"], batch["dims"], n_dev)
+            return batch
+
         def journal_slice(stem):
             # slice-grain crash record the moment the pair is on disk (from
             # the export pool threads; the journal is thread-safe)
@@ -629,7 +700,11 @@ class CohortProcessor:
         # the decode pool runs batches ahead into the bounded staging ring;
         # the stager copies batch N+1 to the card while batch N computes;
         # result fetch + export stream back on the same pool
-        pipe = self._ingest_pipeline(list(enumerate(batches)), decode_batch, patient_id)
+        pipe = self._ingest_pipeline(
+            list(enumerate(batches)),
+            decode_batch if mesh is None else decode_mesh_batch,
+            patient_id,
+        )
         export_pool = cf.ThreadPoolExecutor(EXPORT_WORKERS, thread_name_prefix="nm03-export")
         with pipe, export_pool:
             for bi, batch in enumerate(pipe):
@@ -654,6 +729,12 @@ class CohortProcessor:
                     if self.model is not None:
                         out = _student_process(
                             self.model, batch["pixels"], batch["dims"], self.cfg
+                        )
+                    elif mesh is not None:
+                        # the canvas mask over the mesh; a device render
+                        # runs on this process's device from it
+                        out = process_batch_sharded(
+                            batch["pixels"], batch["dims"], self.cfg, mesh, mask_only=True
                         )
                     else:
                         out = process_batch(
@@ -924,6 +1005,9 @@ class CohortProcessor:
         print(f"\n=== Starting {mode_name} Processing for All Patients ===\n")
         patients = find_patient_dirs(self.base_path)
         print(f"Found {len(patients)} patient directories.")
+        from nm03_capstone_project_tpu_torch.cli.common import shard_patients
+
+        patients = shard_patients(patients, self.process_rank, self.process_count)
         summary = RunSummary()
         if not patients:
             print("No patient directories found. Exiting.")

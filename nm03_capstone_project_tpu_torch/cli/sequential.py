@@ -8,7 +8,11 @@ flags for every constant, ``--resume``, ``--synthetic`` cohorts and a
 results JSON, ``--model`` to deploy a trained student, the supervised
 dispatch and fault-plan flags (``--retry-max``, ``--dispatch-timeout-s``,
 ``--fault-plan``), and the JAX drivers' telemetry (``--metrics-out``,
-``--log-json``, ``--heartbeat-s``, ``--profile-dir``). Run it as
+``--log-json``, ``--heartbeat-s``, ``--profile-dir``), and
+``--distributed`` (a multi-process job over ``torch.distributed``: the
+patients are dealt round-robin to the ranks, each rank writes
+``manifest.rank{r}.json``, and rank 0's results JSON carries the
+``cluster`` totals). Run it as
 
     python -m nm03_capstone_project_tpu_torch.cli.sequential --synthetic 2
 
@@ -34,7 +38,8 @@ def build_parser() -> argparse.ArgumentParser:
     common.add_render_stage_arg(p)
     common.add_model_arg(p)
     common.add_resilience_args(p)
-    common.add_not_ported_args(p, "observability", "resilience", "distributed")
+    common.add_distributed_args(p)
+    common.add_not_ported_args(p, "observability", "resilience")
     return p
 
 
@@ -70,24 +75,46 @@ def run(args: argparse.Namespace, mode: str) -> int:
     }
     run_ctx = None
     try:
-        run_ctx = common.make_run_context(args, mode)
+        rank, world = common.init_distributed(args)
+        run_ctx = common.make_run_context(args, mode, rank=rank)
         device = resolve_device(args.device)
         cfg = common.pipeline_config_from_args(args)
         batch_cfg = common.batch_config_from_args(args)
         encoder = jpeg_encoder()
-        base = common.resolve_base_path(args, tmp_root=Path(args.output))
+        base = common.resolve_base_path_sync(args, rank, world, tmp_root=Path(args.output))
         model = common.load_model_checkpoint(args, cfg, device=device)
         proc = CohortProcessor(
             base, args.output, cfg=cfg, batch_cfg=batch_cfg, mode=mode,
             resume=args.resume, device=device, model=model,
             obs=run_ctx,
             resilience=common.resilience_config_from_args(args),
+            process_rank=rank, process_count=world,
         )
         before = {k: fn.launches for k, fn in kernels.items()}
         t0 = time.perf_counter()
         with profile_trace(args.profile_dir):
             summary = proc.process_all_patients()
         wall_s = time.perf_counter() - t0
+        cluster = None
+        if world > 1:
+            # the one collective of the whole run: a rank that died earlier
+            # fails the others here (gloo) or at the group's timeout (nccl)
+            cluster = common.allgather_cluster_counts(
+                {
+                    "patients_ok": summary.patients_ok,
+                    "patients_total": len(summary.patients),
+                    "slices_ok": summary.succeeded_slices,
+                    "slices_total": summary.total_slices,
+                },
+                world,
+            )
+            if rank == 0:
+                print(
+                    f"\nCluster totals: {cluster['patients_ok']}/"
+                    f"{cluster['patients_total']} patients, "
+                    f"{cluster['slices_ok']}/{cluster['slices_total']} slices "
+                    f"across {world} processes."
+                )
         run_ctx.registry.gauge(RUN_WALL_SECONDS, help="end-to-end driver wall clock").set(wall_s)
         # the fraction of wall no device dispatch was in flight: how long
         # the card waited on the host feed
@@ -103,8 +130,8 @@ def run(args: argparse.Namespace, mode: str) -> int:
         ingest_rep = proc.publish_ingest()
         if ingest_rep is not None:
             run_ctx.events.emit("ingest_drained", mode=mode, **ingest_rep)
-        if args.results_json:
-            write_results_json(args.results_json, {
+        if args.results_json and rank == 0:
+            record = {
                 "mode": mode,
                 "backend": device.type,
                 "device_name": device_label(device),
@@ -124,7 +151,11 @@ def run(args: argparse.Namespace, mode: str) -> int:
                 "kernel_launches": {k: fn.launches - before[k] for k, fn in kernels.items()},
                 # the run's metrics snapshot, as the JAX drivers embed it
                 "metrics": run_ctx.metrics_snapshot(),
-            })
+            }
+            if cluster is not None:
+                record["cluster"] = cluster  # rank 0's summary and timing above
+                record["process_count"] = world
+            write_results_json(args.results_json, record)
         run_ctx.close(status="ok", wall_s=round(wall_s, 3))
         return 0
     except Exception as e:  # noqa: BLE001 - reference: fatal-error catch in main
@@ -132,6 +163,8 @@ def run(args: argparse.Namespace, mode: str) -> int:
         if run_ctx is not None:
             run_ctx.close(status="error", error_class=type(e).__name__)
         return 1
+    finally:
+        common.finish_distributed(args)
 
 
 if __name__ == "__main__":

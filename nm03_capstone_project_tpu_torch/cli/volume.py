@@ -24,10 +24,21 @@ The telemetry flags are the JAX driver's: ``--metrics-out``,
 record a capped volume), ``--heartbeat-s`` and ``--profile-dir``; the
 results JSON carries the run's ``metrics`` snapshot.
 
-``--z-shard`` on one device is ignored with the JAX driver's message; with
-more than one visible device it is refused (the z-sharded decomposition
-is not ported yet), and with ``--model`` it is refused as the JAX driver
-refuses it. ``--distributed`` is refused with its reason.
+``--z-shard`` splits each volume along z over the local devices
+(:func:`..parallel.process_volume_zsharded`, halo exchange between
+neighbours), or with ``--distributed`` over one device of every rank of
+the job; the depth is padded with zero filler planes (which segment
+empty) to a multiple of the shard count and cut back afterwards. The
+z-sharded path always grows by dilation, and says so to a ``--grow-algorithm
+jump`` run. On one device ``--z-shard`` is ignored with the JAX driver's
+message; with ``--model`` it is refused as the JAX driver refuses it.
+
+``--distributed`` without ``--z-shard`` deals the patients round-robin to
+the ranks, each on its own device with its own ``manifest.rank{r}.json``;
+with ``--z-shard`` every rank computes its slab of every volume and rank 0
+exports and keeps the manifest. Every rank then reaches the export-outcome
+collective of every patient, even when rank 0's export fails, so no rank
+waits on a collective its peers skipped.
 """
 
 from __future__ import annotations
@@ -39,10 +50,9 @@ from pathlib import Path
 
 from nm03_capstone_project_tpu_torch.cli import common
 
-ZSHARD_REFUSAL = "z-sharding is not ported yet (ROADMAP A6)"
 MODEL_ZSHARD_REFUSAL = (
     "--model with --z-shard is unsupported: the 3D student runs whole volumes "
-    "(drop --z-shard)"
+    "(drop --z-shard; --distributed patient sharding still applies)"
 )
 
 
@@ -56,8 +66,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--z-shard",
         action="store_true",
-        help="shard each volume along z across devices; ignored on one device, "
-        f"refused on several ({ZSHARD_REFUSAL})",
+        help="shard each volume along z across the local devices (with "
+        "--distributed: one device of every rank); ignored on one device",
     )
     p.add_argument(
         "--export-mhd",
@@ -72,7 +82,13 @@ def build_parser() -> argparse.ArgumentParser:
     )
     common.add_render_stage_arg(p)
     common.add_model_arg(p)
-    common.add_not_ported_args(p, "observability", "distributed")
+    common.add_distributed_args(
+        p,
+        "Without --z-shard, patients are round-robin sharded across "
+        "processes, each on its own device. WITH --z-shard, every process "
+        "computes its z-slab of every volume and rank 0 exports.",
+    )
+    common.add_not_ported_args(p, "observability")
     return p
 
 
@@ -182,17 +198,22 @@ def _make_student_volume_fn(model, cfg):
 
 def run(args: argparse.Namespace) -> int:
     """The volume cohort loop; 0 when every patient is ok, else 1."""
-    run_ctx = common.make_run_context(args, "volume")
     try:
-        rc = _run_inner(args, run_ctx)
-    except BaseException as e:
-        run_ctx.close(status="error", error_class=type(e).__name__)
-        raise
-    run_ctx.close(status="error")  # a no-op unless a refusal returned early
-    return rc
+        rank, world = common.init_distributed(args)
+        run_ctx = common.make_run_context(args, "volume", rank=rank)
+        try:
+            rc = _run_inner(args, run_ctx, rank, world)
+        except BaseException as e:
+            run_ctx.close(status="error", error_class=type(e).__name__)
+            raise
+        run_ctx.close(status="error")  # a no-op unless a refusal returned early
+        return rc
+    finally:
+        common.finish_distributed(args)
 
 
-def _run_inner(args: argparse.Namespace, run_ctx) -> int:
+def _run_inner(args: argparse.Namespace, run_ctx, rank: int = 0, world: int = 1) -> int:
+    import numpy as np
     import torch
 
     from nm03_capstone_project_tpu_torch.cli.runner import device_label
@@ -204,6 +225,7 @@ def _run_inner(args: argparse.Namespace, run_ctx) -> int:
     from nm03_capstone_project_tpu_torch.data.imageio import write_metaimage
     from nm03_capstone_project_tpu_torch.ops import hopper_median as hm
     from nm03_capstone_project_tpu_torch.ops import hopper_region_growing as hg
+    from nm03_capstone_project_tpu_torch.parallel import distributed
     from nm03_capstone_project_tpu_torch.pipeline.volume_pipeline import process_volume
     from nm03_capstone_project_tpu_torch.render.export import (
         clean_directory,
@@ -229,14 +251,39 @@ def _run_inner(args: argparse.Namespace, run_ctx) -> int:
     if model is not None and args.z_shard:
         raise SystemExit(MODEL_ZSHARD_REFUSAL)
     student_fn = None if model is None else _make_student_volume_fn(model, cfg)
+
+    # two multi-process layouts: with --z-shard the whole job cooperates
+    # volume by volume over one device of every rank (rank 0 exports and
+    # keeps the manifest); without it, patients shard across ranks, each
+    # on its own device, like the batch drivers
+    global_zshard = bool(args.z_shard) and world > 1
+    patient_sharded = world > 1 and not global_zshard
+    i_export = rank == 0 or patient_sharded
+    mesh = None
     if args.z_shard:
-        n_dev = torch.cuda.device_count() if device.type == "cuda" else 1
-        if n_dev > 1:
-            # never one device quietly where the user asked for a mesh
-            print(f"--z-shard refused: {n_dev} devices visible; {ZSHARD_REFUSAL}",
-                  file=sys.stderr)
-            return 2
-        print("--z-shard ignored: single device", file=sys.stderr)
+        from nm03_capstone_project_tpu_torch.parallel import make_mesh
+        from nm03_capstone_project_tpu_torch.parallel.mesh import local_devices
+
+        # one device of every rank with a global z-shard, else the local ones
+        mesh = (distributed.global_mesh(("z",)) if global_zshard
+                else make_mesh(axis_names=("z",), devices=local_devices(device)))
+        if mesh.shape["z"] == 1:
+            # never a mesh quietly dropped to one device: say so
+            print("--z-shard ignored: single device", file=sys.stderr)
+            mesh = None
+        else:
+            if cfg.grow_algorithm != "dilate":
+                # the z-sharded decomposition implements only the
+                # halo-exchange dilation fixpoint: no "jump" timing that
+                # was secretly dilate
+                print(
+                    "warning: --grow-algorithm jump applies to single-device "
+                    "volumes; the z-sharded path always runs the halo-exchange "
+                    "dilation fixpoint",
+                    file=sys.stderr,
+                )
+            print(f"z-sharding volumes over {mesh.shape['z']} "
+                  f"{'global' if global_zshard else 'local'} devices")
     kernels = {
         "fused": hm.fused_preprocess_kernel,
         "grow": hg.region_grow_kernel,
@@ -245,8 +292,16 @@ def _run_inner(args: argparse.Namespace, run_ctx) -> int:
     before = {k: fn.launches for k, fn in kernels.items()}
 
     out_root = Path(args.output)
-    base = common.resolve_base_path(args, tmp_root=out_root)
-    manifest = Manifest.load_or_create(out_root) if args.resume else Manifest(out_root)
+    base = common.resolve_base_path_sync(args, rank, world, tmp_root=out_root)
+    manifest_name = f"manifest.rank{rank}.json" if patient_sharded else "manifest.json"
+    if args.resume and rank == 0:
+        # rank 0 only: the ranks share out_root, one warning is enough
+        common.warn_resume_topology(
+            out_root, world if patient_sharded else 1,
+            lambda m, *a: print("warning: " + (m % a), file=sys.stderr),
+        )
+    manifest = (Manifest.load_or_create(out_root, manifest_name) if args.resume
+                else Manifest(out_root, manifest_name))
     host_render = args.render_stage == "host"
     # the context's span recorder: the results JSON's timings and the
     # stage latency histograms
@@ -261,7 +316,13 @@ def _run_inner(args: argparse.Namespace, run_ctx) -> int:
         except Exception as e:  # noqa: BLE001 — telemetry never costs a run
             print(f"warning: patient {pid}: outcome telemetry failed: {e}", file=sys.stderr)
 
+    def all_ranks_ok(ok: bool) -> bool:
+        """Collective: True iff every rank reports ok."""
+        return bool(distributed.allgather([int(ok)]).all())
+
     patients = find_patient_dirs(base)
+    if patient_sharded:
+        patients = common.shard_patients(patients, rank, world)
     print(f"=== Volumetric processing: {len(patients)} patients ===")
 
     t0 = time.perf_counter()
@@ -270,33 +331,71 @@ def _run_inner(args: argparse.Namespace, run_ctx) -> int:
     with profile_trace(args.profile_dir):
         for pid in patients:
             try:
+                # with a global z-shard every branch below is taken the same
+                # way on every rank: a rank that skips a patient while
+                # another enters its collectives would hang the job. So the
+                # resume decision is rank 0's, broadcast, and a load failure
+                # on any rank fails the patient on all of them
+                skip = False
                 if args.resume:
-                    # the listing alone decides that a patient was fully visited
-                    listed = [f.stem for f in load_dicom_files_for_patient(base, pid)]
-                    if listed and manifest.patient_accounted(pid, listed):
-                        print(f"Patient {pid}: already complete, skipping")
-                        ok_patients += 1
-                        emit_outcome(pid, "ok", skipped=True)
-                        continue
-                with timer.section(f"load/{pid}"):
-                    vol, dims, stems, skipped = _load_volume(base, pid, cfg)
+                    if i_export:
+                        try:
+                            # the listing alone decides that a patient was fully visited
+                            listed = [f.stem for f in load_dicom_files_for_patient(base, pid)]
+                            skip = bool(listed and manifest.patient_accounted(pid, listed))
+                        except Exception:  # noqa: BLE001
+                            if not global_zshard:
+                                raise
+                            # skip stays False: the load below fails on every rank
+                    if global_zshard:
+                        skip = bool(distributed.broadcast_one_to_all([int(skip)])[0])
+                if skip:
+                    print(f"Patient {pid}: already complete, skipping")
+                    ok_patients += 1
+                    emit_outcome(pid, "ok", skipped=True)
+                    continue
+                load_error = None
+                try:
+                    with timer.section(f"load/{pid}"):
+                        vol, dims, stems, skipped = _load_volume(base, pid, cfg)
+                except Exception as e:  # noqa: BLE001 — judged collectively
+                    load_error = e
+                if global_zshard and not all_ranks_ok(load_error is None):
+                    raise load_error or RuntimeError(f"{pid}: load failed on another rank")
+                if load_error is not None:
+                    raise load_error
                 for stem in skipped:
                     # load-time rejects, recorded so --resume can account for them
                     manifest.record(pid, stem, STATUS_FAILED)
                 depth = vol.shape[0]
                 with timer.section(f"compute/{pid}"):
-                    px = torch.from_numpy(vol).to(device)
+                    # only work every rank takes the same way: the exporting
+                    # rank's device render waits for the guarded export below
                     dm = torch.from_numpy(dims).to(device)
                     if student_fn is not None:
+                        px = torch.from_numpy(vol).to(device)
                         mask_t, conv = student_fn(px, dm), True  # no growing fixpoint
+                    elif mesh is not None:
+                        from nm03_capstone_project_tpu_torch.parallel import (
+                            process_volume_zsharded,
+                        )
+
+                        n = mesh.shape["z"]
+                        pad = (-depth) % n
+                        # zero filler planes: normalize(0) lands outside the
+                        # grow band, so they segment empty and are cut off
+                        padded = np.concatenate(
+                            [vol, np.zeros((pad,) + vol.shape[1:], vol.dtype)]) if pad else vol
+                        out = process_volume_zsharded(padded, dims, cfg, mesh)
+                        mask_t = out["mask"][:depth]
+                        px = out["original"][:depth]
+                        dm = dm.to(mask_t.device)
+                        conv = bool(out["grow_converged"])
                     else:
+                        px = torch.from_numpy(vol).to(device)
                         out = process_volume(px, dm, cfg, device=device)
                         mask_t, conv = out["mask"], bool(out["grow_converged"])
                     mask = mask_t.cpu().numpy()  # waits for the card
-                    gray = seg = None
-                    if not host_render:
-                        g, s = render_pair(px, mask_t, dm.expand(depth, 2), cfg)
-                        gray, seg = g.cpu().numpy(), s.cpu().numpy()
                 if not conv:
                     truncated_patients.append(pid)
                     print(
@@ -310,36 +409,68 @@ def _run_inner(args: argparse.Namespace, run_ctx) -> int:
                     except Exception as e:  # noqa: BLE001 — telemetry never costs a run
                         print(f"warning: patient {pid}: truncation telemetry failed: {e}",
                               file=sys.stderr)
-                with timer.section(f"export/{pid}"):
-                    if not args.resume:
-                        clean_directory(out_root / pid)
-                    if host_render:
-                        done = render_export_pairs(
-                            [(stems[i], vol[i], mask[i], dims) for i in range(depth)],
-                            out_root / pid,
-                            cfg,
-                        )
+                if not i_export:
+                    # global z-shard, rank != 0: rank 0 exports. Learn its
+                    # outcome (the collective below pairs with rank 0's) so
+                    # that every rank counts alike and exits alike
+                    export_ok = all_ranks_ok(True)
+                    results[pid] = {"slices": depth, "mask_voxels": int(mask.sum())}
+                    if export_ok:
+                        ok_patients += 1
                     else:
-                        done = export_pairs(
-                            [(stems[i], gray[i], seg[i]) for i in range(depth)],
-                            out_root / pid,
-                        )
-                    # a cap-truncated volume's pairs exist but the mask
-                    # under-covers: TRUNCATED makes --resume with a raised cap
-                    # recompute this patient
-                    status = STATUS_TRUNCATED if pid in truncated_patients else STATUS_DONE
-                    for stem in done:
-                        manifest.record(pid, stem, status)
-                    manifest.flush()
-                    if args.export_mhd:
-                        write_metaimage(
-                            mask, out_root / pid / "mask.mhd", compressed=args.mhd_compressed
-                        )
-                missing = sorted(set(stems) - set(done))
-                for stem in missing:
-                    manifest.record(pid, stem, STATUS_FAILED)
+                        print(f"Patient {pid}: export failed on the exporting rank",
+                              file=sys.stderr)
+                    emit_outcome(
+                        pid, "ok" if export_ok else "failed", slices_total=depth,
+                        grow_truncated=pid in truncated_patients,
+                        error_class=None if export_ok else "RemoteExportError",
+                    )
+                    continue
+                export_error, missing, done = None, [], []
+                try:
+                    with timer.section(f"export/{pid}"):
+                        gray = seg = None
+                        if not host_render:
+                            g, sg = render_pair(px, mask_t, dm.expand(depth, 2), cfg)
+                            gray, seg = g.cpu().numpy(), sg.cpu().numpy()
+                        if not args.resume:
+                            clean_directory(out_root / pid)
+                        if host_render:
+                            done = render_export_pairs(
+                                [(stems[i], vol[i], mask[i], dims) for i in range(depth)],
+                                out_root / pid,
+                                cfg,
+                            )
+                        else:
+                            done = export_pairs(
+                                [(stems[i], gray[i], seg[i]) for i in range(depth)],
+                                out_root / pid,
+                            )
+                        # a cap-truncated volume's pairs exist but the mask
+                        # under-covers: TRUNCATED makes --resume with a raised
+                        # cap recompute this patient
+                        status = STATUS_TRUNCATED if pid in truncated_patients else STATUS_DONE
+                        for stem in done:
+                            manifest.record(pid, stem, status)
+                        manifest.flush()
+                        if args.export_mhd:
+                            write_metaimage(
+                                mask, out_root / pid / "mask.mhd", compressed=args.mhd_compressed
+                            )
+                    missing = sorted(set(stems) - set(done))
+                    for stem in missing:
+                        manifest.record(pid, stem, STATUS_FAILED)
+                    if missing:
+                        manifest.flush()
+                except Exception as e:  # noqa: BLE001 — judged collectively
+                    # an export failure must still reach the outcome
+                    # collective, or the waiting ranks would hang
+                    export_error = e
+                if global_zshard:
+                    all_ranks_ok(export_error is None and not missing)
+                if export_error is not None:
+                    raise export_error
                 if missing:
-                    manifest.flush()
                     # success is "the JPEG pair exists" (the drivers' contract)
                     print(f"Patient {pid}: {len(missing)} slices failed to export",
                           file=sys.stderr)
@@ -367,22 +498,39 @@ def _run_inner(args: argparse.Namespace, run_ctx) -> int:
     wall_s = time.perf_counter() - t0
     print("\n=== All Processing Completed ===\n")
     print(f"Successfully processed {ok_patients}/{len(patients)} patients.")
-    if args.results_json:
-        write_results_json(args.results_json, {
+    cluster = None
+    if patient_sharded:
+        # the batch drivers' one collective: cohort-wide totals
+        cluster = common.allgather_cluster_counts(
+            {"patients_ok": ok_patients, "patients_total": len(patients)}, world
+        )
+        if rank == 0:
+            print(
+                f"Cluster totals: {cluster['patients_ok']}/"
+                f"{cluster['patients_total']} patients across {world} processes."
+            )
+    if args.results_json and rank == 0:
+        record = {
             "mode": "volume",
             "grow_truncated_patients": truncated_patients,
             "backend": device.type,
             "backend_requested": args.device,
             "backend_actual": device.type,
             "device_name": device_label(device),
-            "z_sharded": False,
+            "z_sharded": mesh is not None,
+            "z_global": global_zshard,
+            "z_shards": mesh.shape["z"] if mesh is not None else 1,
             "patients": results,
             "timings_s": timer.report(),
             # the patients' loop end to end: load, compute, render, export
             "wall_s": round(wall_s, 3),
             "kernel_launches": {k: fn.launches - before[k] for k, fn in kernels.items()},
             "metrics": run_ctx.metrics_snapshot(),
-        })
+        }
+        if cluster is not None:
+            record["cluster"] = cluster
+            record["process_count"] = world
+        write_results_json(args.results_json, record)
     all_ok = ok_patients == len(patients)
     run_ctx.close(status="ok" if all_ok else "error")
     return 0 if all_ok else 1

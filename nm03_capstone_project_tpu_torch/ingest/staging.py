@@ -20,8 +20,8 @@ reads them). On the CPU, staging is a plain copy into a tensor. The JAX
 package's ``host_only`` mode (its degraded, CPU-fallback run) is not
 ported: the port has no such fallback.
 
-:func:`stage_volume` is the volume gang's upload: one study's stack and
-dims onto one lane's device, on the stream the gang computes on.
+:func:`stage_volume` is the volume gang's upload: one z-slab of a study
+and its dims onto one lane's device, on the stream the gang computes on.
 """
 
 from __future__ import annotations
@@ -109,11 +109,11 @@ def wait_staged(item: dict) -> None:
 
 def stage_volume(volume: np.ndarray, dims: np.ndarray, device: torch.device,
                  stream: Optional[torch.cuda.Stream] = None):
-    """Stage one (D, H, W) float32 study and its (2,) int32 dims; ``(vol, dims)``.
+    """Stage one (D, H, W) float32 stack and its (2,) int32 dims; ``(vol, dims)``.
 
-    The JAX package's ``stage_volume`` places the stack on a z-sharded
-    mesh; here the gang runs on one lane's device, so the stack lands there
-    whole. On a CUDA device the copies are pinned and non-blocking, issued
+    The JAX package's ``stage_volume`` places the study on a z-sharded
+    mesh; here the gang stages each lane's z-slab with one call. On a CUDA
+    device the copies are pinned and non-blocking, issued
     on ``stream`` (required there): the gang's own stream, which its
     program then runs on, so no event is needed between copy and compute.
     On the CPU the arrays become tensors.

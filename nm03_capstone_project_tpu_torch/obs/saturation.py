@@ -192,6 +192,9 @@ class SaturationMonitor:
         self._last_end: Dict[int, float] = {}
         # lane -> (platform, device_kind, peak_flops-or-None)
         self._lanes: List[Tuple[str, str, Optional[float]]] = []
+        # lane -> the physical device it runs on: lanes that share a card
+        # share its peak (the fleet MFU counts each card once)
+        self._lane_device: List[object] = []
         # (lane, bucket) -> flops per dispatch (from bucket_flops)
         self._flops: Dict[Tuple[int, int], float] = {}
         # goodput rings: (t, real_rows, bucket_rows) / (t, riders, capacity)
@@ -204,8 +207,10 @@ class SaturationMonitor:
 
     # -- feeding (executor / batcher side) ---------------------------------
 
-    def set_lanes(self, lanes: Sequence[Tuple[str, str]]) -> None:
-        """Declare the fleet: one (platform, device_kind) per lane.
+    def set_lanes(self, lanes: Sequence[Tuple]) -> None:
+        """Declare the fleet: one (platform, device_kind) per lane, or
+        (platform, device_kind, device) where lanes may share a device:
+        such lanes share one card's peak in the fleet MFU.
 
         Publishes every lane's gauges at zero immediately, so "lane 3 was
         never busy" is a reported 0.0, distinguishable from "lane 3 was
@@ -213,11 +218,13 @@ class SaturationMonitor:
         ``serving_lane_state``).
         """
         rows = [
-            (str(p), str(k), peak_flops_for(str(p), str(k)))
-            for p, k in lanes
+            (str(lane[0]), str(lane[1]), peak_flops_for(str(lane[0]), str(lane[1])))
+            for lane in lanes
         ]
         with self._lock:
             self._lanes = rows
+            self._lane_device = [lane[2] if len(lane) > 2 else ("lane", i)
+                                 for i, lane in enumerate(lanes)]
             for lane in range(len(rows)):
                 self._dispatches.setdefault(
                     lane, collections.deque(maxlen=self.max_entries)
@@ -338,7 +345,8 @@ class SaturationMonitor:
         achieved flops rate by the lane's peak (None where no peak is
         known or no flops were pinned). The process-wide ``mfu`` divides
         total achieved flops by the whole fleet's peak — the number that
-        says what fraction of the machine the serving process used.
+        says what fraction of the machine the serving process used; lanes
+        that share a card count its peak once.
         """
         now = self._clock() if now is None else float(now)
         with self._lock:
@@ -349,6 +357,7 @@ class SaturationMonitor:
             total_flops = 0.0
             total_peak = 0.0
             busy_sum = 0.0
+            peaked = set()
             for lane, (platform, kind, peak) in enumerate(self._lanes):
                 ring = self._dispatches.get(lane, ())
                 clipped = [
@@ -364,7 +373,10 @@ class SaturationMonitor:
                 if peak is not None and peak > 0:
                     mfu = (flops / span) / peak
                     total_flops += flops
-                    total_peak += peak
+                    card = self._lane_device[lane]
+                    if card not in peaked:
+                        peaked.add(card)
+                        total_peak += peak
                 lanes.append(
                     {
                         "lane": lane,

@@ -10,9 +10,15 @@ the HTTP listener starts.
 
 **Replica lanes**: every visible CUDA device is a lane (``lanes`` caps the
 count), each with its own stream, graph memory pool and graphs; the
-batcher fans coalesced batches out across healthy lanes. On the CPU, which
-runs only when the caller asks for it (``device="cpu"``, as the tests do),
-there is one lane and each bucket runs the plain ops eagerly
+batcher fans coalesced batches out across healthy lanes. An explicit
+``lane_devices`` list replaces that choice (a constructor argument, not a
+CLI flag): it may name one device several times, so the CPU tests build
+four CPU lanes and ``chip_smoke.py`` four lanes on one card, the
+counterpart of the JAX tests' virtual devices. Lanes that share a device
+stay separate lanes: each keeps its own stream, graphs, fault domain and
+busy accounting. On the CPU, which runs only when the caller asks for it
+(``device="cpu"``, as the tests do), there is one lane unless
+``lane_devices`` names more, and each bucket runs the plain ops eagerly
 (:class:`EagerBucket`).
 
 **Fault domains**: each lane runs its dispatches under its own
@@ -49,7 +55,7 @@ from __future__ import annotations
 import itertools
 import threading
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -151,6 +157,7 @@ class WarmExecutor:
         fault_plan=None,
         saturation=None,
         ledger=None,
+        lane_devices: Optional[Sequence] = None,
     ):
         if not buckets or list(buckets) != sorted(set(int(b) for b in buckets)):
             raise ValueError(f"buckets must be strictly increasing, got {buckets}")
@@ -165,6 +172,18 @@ class WarmExecutor:
         self.cfg = cfg
         self.buckets: Tuple[int, ...] = tuple(int(b) for b in buckets)
         self.device = resolve_device(device)
+        self._explicit_lanes = None
+        if lane_devices is not None:
+            devs = [torch.device(d) for d in lane_devices]
+            if not devs or lanes is not None:
+                raise ValueError("lane_devices takes a non-empty list and no lanes cap")
+            if any(d.type != self.device.type for d in devs):
+                raise ValueError(
+                    f"lane_devices {[str(d) for d in devs]} are not all {self.device.type}"
+                )
+            for d in devs:
+                resolve_device(d)
+            self._explicit_lanes = devs
         self.obs = obs
         self.res = resilience if resilience is not None else ResilienceConfig()
         self.lane_probe_interval_s = float(lane_probe_interval_s)
@@ -178,7 +197,8 @@ class WarmExecutor:
         self._dispatch_seq = itertools.count()
         self._busy_s = 0.0  # request-path dispatch busy seconds, failures included
         self._warm = False
-        self._requested_lanes = lanes
+        self._requested_lanes = (
+            lanes if self._explicit_lanes is None else len(self._explicit_lanes))
         self._lane_devices: Optional[List[torch.device]] = None
         self._lane_warm: List[bool] = []
         self._lane_inflight: List[int] = []
@@ -208,12 +228,14 @@ class WarmExecutor:
     # -- lanes -------------------------------------------------------------
 
     def _resolve_lanes(self) -> List[torch.device]:
-        """The lane devices: every visible CUDA device up to ``lanes``, or
-        the one CPU lane."""
+        """The lane devices: the explicit ``lane_devices``, else every
+        visible CUDA device up to ``lanes``, or the one CPU lane."""
         with self._lock:
             if self._lane_devices is not None:
                 return self._lane_devices
-            if self.device.type == "cpu":
+            if self._explicit_lanes is not None:
+                devs = list(self._explicit_lanes)
+            elif self.device.type == "cpu":
                 devs = [self.device]
             else:
                 n = torch.cuda.device_count()
@@ -229,8 +251,10 @@ class WarmExecutor:
             self.fleet = LaneFaultDomains(len(devs), obs=self.obs)
         if self.saturation is not None:
             # outside the lock: set_lanes publishes gauges
+            # the device itself as the third field: lanes that share a card
+            # share its peak in the fleet MFU
             self.saturation.set_lanes([
-                (d.type, torch.cuda.get_device_name(d) if d.type == "cuda" else "")
+                (d.type, torch.cuda.get_device_name(d) if d.type == "cuda" else "", str(d))
                 for d in devs
             ])
         with self._lock:

@@ -15,8 +15,8 @@ The port's counterpart of the JAX package's ``nm03-serve``::
   ``X-Nm03-Depth/Height/Width``, a multi-frame ``application/dicom`` file,
   or ``application/x-nm03-dicom-parts``), the full uint8 mask volume out
   (``?output=mask|summary|mhd``), through the volume gang
-  (:mod:`~.volumes`): its own queue, the batcher's gang gate, one lane's
-  device. Identical in-flight studies and ``X-Nm03-Idempotency-Key``
+  (:mod:`~.volumes`): its own queue, the batcher's gang gate, a z-mesh of
+  the healthy lanes' devices. Identical in-flight studies and ``X-Nm03-Idempotency-Key``
   retries ride one dispatch (:mod:`~..cache.inflight`);
 * ``GET /healthz`` — liveness;
 * ``GET /readyz`` — readiness: 200 while warm, admitting and at least one
@@ -188,7 +188,13 @@ class RequestRejected(ValueError):
 
 
 class ServingApp:
-    """Everything behind the HTTP handler: queue, batcher, executor, state."""
+    """Everything behind the HTTP handler: queue, batcher, executor, state.
+
+    ``lane_devices`` (no CLI flag) hands the executor an explicit lane
+    list, which may repeat a device: four CPU lanes in the tests, four
+    lanes on one card in ``chip_smoke.py``; the volume gang's z-mesh spans
+    them.
+    """
 
     def __init__(
         self,
@@ -202,6 +208,7 @@ class ServingApp:
         obs=None,
         lanes: Optional[int] = None,
         lane_probe_interval_s: Optional[float] = None,
+        lane_devices=None,
         result_cache_bytes: int = 0,
         device=None,
         volume_serving: bool = False,
@@ -256,6 +263,7 @@ class ServingApp:
             fault_plan=fault_plan,
             saturation=self.saturation,
             ledger=self.ledger,
+            lane_devices=lane_devices,
         )
         # the replica identity block: id is per-incarnation
         self.replica_identity = {
@@ -325,7 +333,7 @@ class ServingApp:
             self.volumes.start()
             self.registry.gauge(
                 SERVING_VOLUME_ZSHARDS,
-                help="z-shards the last served volume spanned (1: one lane's device)",
+                help="z-shards the last served volume spanned (the gang's z-mesh width)",
             ).set(self.volumes.z_shards)
         self.batcher.start()
         self.registry.gauge(SERVING_READY, help="1 = warmed and admitting, 0 otherwise").set(1)
@@ -1068,7 +1076,7 @@ class ServingApp:
         ).set(round(req.gang_wait_s, 6))
         self.registry.gauge(
             SERVING_VOLUME_ZSHARDS,
-            help="z-shards the last served volume spanned (1: one lane's device)",
+            help="z-shards the last served volume spanned (the gang's z-mesh width)",
         ).set(req.z_shards)
         self._count_volume_request("ok")
         return payload
@@ -1481,7 +1489,8 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument(
         "--volume-serving", action="store_true",
         help="serve POST /v1/segment-volume: whole studies in one request through "
-        "the volume gang, on one lane's device; warmup runs each depth bucket once",
+        "the volume gang, z-sharded over the healthy lanes; warmup runs each depth "
+        "bucket once",
     )
     g.add_argument(
         "--volume-depth-buckets", default=None, metavar="D1,D2,...",

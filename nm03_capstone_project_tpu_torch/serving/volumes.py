@@ -1,17 +1,17 @@
 """Whole-volume serving: one study, one request, one gang dispatch.
 
-The port's counterpart of the JAX package's ``serving/volumes.py``, behind
-``POST /v1/segment-volume``. The JAX gang runs the z-sharded program
-(``parallel/zshard.py::zshard_volume_callable``) over a mesh built from the
-healthy lanes; on a one-lane replica that mesh is one device wide and the
-program equals ``process_volume`` on the **dilate** schedule (zshard never
-reads ``cfg.grow_algorithm``). The port's gang runs exactly that on one
-lane's device: the batched 2D preprocess (one fused kernel launch, or the
-median kernel under ``fuse_preprocess=False``), the 3D dilate fixpoint at
-``grow_block_iters``/``grow_max_iters``, ``cast_uint8``, ``dilate3d`` at
-``morph_size`` and the valid re-mask. The z-sharded multi-card gang is
-ROADMAP A6; until then a gang is one lane wide (``z_shards`` 1), on the
-first healthy lane, moving to the next one on a lane death.
+The port of the JAX package's ``serving/volumes.py``, behind
+``POST /v1/segment-volume``. The gang runs the z-sharded volume program
+(:func:`..parallel.zshard.zshard_volume_callable`, the one the
+``nm03-volume --z-shard`` driver runs, so the served mask equals the
+driver's by construction) over a z-mesh of the healthy lanes' devices: the
+study splits into one slab a lane, each slab preprocesses on its lane's
+device (one fused kernel launch a slab, or the median kernel under
+``fuse_preprocess=False``), and the 3D dilate fixpoint and the final
+dilation exchange halo planes between neighbouring slabs. The program
+grows by dilation whatever ``cfg.grow_algorithm`` says, as the JAX
+program does. On a one-lane replica the mesh is one device wide and the
+program is ``process_volume`` on the dilate schedule.
 
 :class:`VolumeGang` owns
 
@@ -20,25 +20,31 @@ first healthy lane, moving to the next one on a lane death.
 * the batcher's **gang gate**
   (:meth:`~.batcher.DynamicBatcher.gang_parked`): a study waits out the
   in-flight slice window and holds new windows back while it runs;
-* **fault-domain integration**: a failure the executor's classifier calls
-  a lane fault (deadline, lost card) quarantines the gang's lane through
-  the executor and re-runs the study on the next healthy lane (span
-  ``volume_requeue``); with no healthy lane left the request sheds with
-  :class:`GangUnavailable` (503 + ``Retry-After``). A deterministic error
-  goes back to the requester. Never a CPU or plain-op answer in place of
-  the card's;
+* **fault-domain integration**: the mesh is built from the executor's
+  healthy lanes at dispatch time. A lane fault (deadline, lost card) on a
+  one-lane mesh quarantines that lane and re-runs the study on the next
+  one; on a wider mesh the study re-meshes onto the survivors when the
+  fleet has booked a death meanwhile, and sheds (:class:`GangUnavailable`,
+  503 + ``Retry-After``) when no lane can be blamed. Every re-run is a
+  ``volume_requeue`` span. A deterministic error goes back to the
+  requester. Never a CPU or plain-op answer in place of the card's;
 * the fault plan's **``volume`` site** (``dispatch_error``), checked once a
-  dispatch attempt with the JAX gang's rules: a rule that selects the
-  dispatching lane books that lane's death through the same quarantine
-  and re-runs the study on the next healthy lane; a rule without a lane
-  selector sheds the request (:class:`GangUnavailable`).
+  dispatch attempt for every lane of the mesh, with the JAX gang's rules:
+  a rule that selects a lane of the mesh books that lane's death through
+  the same quarantine and re-meshes onto the survivors; a rule without a
+  lane selector sheds the request.
 
 Depth buckets mirror the batch buckets: a study pads with zero planes
-(which segment empty) up to the smallest bucket that fits, and the mask is
-cropped back to ``[:depth, :h, :w]``. The 3D growth reads one popcount a
-block back to the host, which a CUDA graph cannot capture, so a bucket runs
-eagerly on the gang's own stream; warmup runs each bucket once, after the
-executor has captured its graphs (no gang work may run during a capture).
+(which segment empty) up to the smallest bucket that fits, rounded up to a
+multiple of the mesh width (:meth:`VolumeGang.padded_depth`), and the mask
+is cropped back to ``[:depth, :h, :w]``. The mesh is as wide as the halo
+allows (:meth:`VolumeGang._usable_shards`). The 3D growth reads one
+popcount a block back to the host, which a CUDA graph cannot capture, so a
+study runs eagerly on the gang's own stream of each card; warmup runs each
+bucket once at the width dispatch will use, after the executor has
+captured its graphs (no gang work may run during a capture). Eager
+PyTorch compiles nothing per shape or width, so a re-mesh onto survivors
+never needs a warmup while it holds the gang.
 """
 
 from __future__ import annotations
@@ -57,7 +63,8 @@ import torch
 
 from nm03_capstone_project_tpu_torch.config import PipelineConfig
 from nm03_capstone_project_tpu_torch.ingest.staging import stage_volume
-from nm03_capstone_project_tpu_torch.pipeline.volume_pipeline import _process_volume
+from nm03_capstone_project_tpu_torch.parallel.mesh import make_mesh
+from nm03_capstone_project_tpu_torch.parallel.zshard import zshard_volume_callable
 from nm03_capstone_project_tpu_torch.serving.queue import AdmissionQueue
 from nm03_capstone_project_tpu_torch.utils.reporter import get_logger
 
@@ -95,8 +102,9 @@ class VolumeRequest:
     z_shards: int = 0
     gang_wait_s: float = 0.0
     queue_wait_s: float = 0.0
-    requeues: int = 0  # re-runs on another lane after a lane death
-    lane: Optional[int] = None
+    requeues: int = 0  # re-runs on the survivors after a lane death
+    lane: Optional[int] = None  # the mesh's first lane
+    lanes: List[int] = field(default_factory=list)  # every lane of the mesh
     error: Optional[BaseException] = None
     done: threading.Event = field(default_factory=threading.Event)
 
@@ -112,15 +120,20 @@ class VolumeRequest:
         return self.done.wait(timeout_s)
 
 
-def gang_program(px: torch.Tensor, dm: torch.Tensor, cfg: PipelineConfig) -> Dict[str, torch.Tensor]:
-    """The JAX gang's one-device program: ``process_volume`` on the dilate
-    schedule, whatever ``cfg.grow_algorithm`` says (JAX
-    ``parallel/zshard.py`` grows by dilation only)."""
-    return _process_volume(px, dm, dataclasses.replace(cfg, grow_algorithm="dilate"))
+def gang_program(shards: List[torch.Tensor], dm: torch.Tensor,
+                 cfg: PipelineConfig) -> Dict[str, object]:
+    """The gang's program: the z-sharded volume program over the devices
+    the slabs lie on (one slab a lane, in z order), on the dilate schedule
+    whatever ``cfg.grow_algorithm`` says (JAX ``parallel/zshard.py``
+    grows by dilation only)."""
+    mesh = make_mesh(axis_names=("z",), devices=[s.device for s in shards])
+    return zshard_volume_callable(mesh, dataclasses.replace(cfg, grow_algorithm="dilate"))(
+        shards, dm)
 
 
 class VolumeGang:
-    """The gang lane: one thread serving whole-volume requests, one at a time.
+    """The gang lane: one thread serving whole-volume requests, one at a
+    time, each over a z-mesh of the healthy lanes.
 
     Construction touches no device; the lanes resolve at :meth:`warmup`
     (call it after the executor's own warmup).
@@ -151,7 +164,7 @@ class VolumeGang:
         self.batcher = batcher
         self.depth_buckets = buckets
         self.queue = AdmissionQueue(queue_capacity)
-        self._warm_width = 0  # the gang's z width, pinned at warmup
+        self._warm_width = 0  # the full-mesh z width, pinned at warmup
         self._streams: Dict[int, torch.cuda.Stream] = {}
         self._streams_lock = threading.Lock()
         self._thread = threading.Thread(target=self._run, name="nm03-serve-gang", daemon=True)
@@ -166,7 +179,8 @@ class VolumeGang:
 
     @property
     def z_shards(self) -> int:
-        """The gang's z width (0 before warmup)."""
+        """The full-mesh z width (0 before warmup): the largest width any
+        bucket dispatches at over the lanes warmup saw."""
         return self._warm_width
 
     @property
@@ -176,18 +190,30 @@ class VolumeGang:
         return self.depth_buckets[0]
 
     def _device_pool(self) -> List[Tuple[int, torch.device]]:
-        """``[(lane, device)]`` the gang may run on: the healthy lanes."""
+        """``[(lane, device)]`` the next mesh is built from: the healthy lanes."""
         return self.executor.healthy_lane_devices()
 
-    def padded_depth(self, depth: int) -> int:
-        """The dispatch depth of a ``depth``-plane study: the smallest
-        bucket that fits. Raises ValueError past the largest bucket."""
+    def padded_depth(self, depth: int, n_shards: int = 1) -> int:
+        """The dispatch depth of a ``depth``-plane study on ``n_shards``:
+        the smallest bucket that fits, rounded up to a multiple of
+        ``n_shards`` (the extra planes are zero filler, which segments
+        empty, as the driver's divisibility pad). Raises ValueError past
+        the largest bucket."""
         for b in self.depth_buckets:
             if depth <= b:
-                return b
+                return -(-b // n_shards) * n_shards
         raise ValueError(
             f"study of {depth} planes exceeds the largest volume depth bucket {self.max_depth}"
         )
+
+    def _usable_shards(self, pool_size: int, depth: int) -> int:
+        """The widest mesh <= ``pool_size`` whose slabs are at least as
+        deep as the final dilation's halo (``morph_size // 2``)."""
+        halo = self.cfg.morph_size // 2
+        n = max(pool_size, 1)
+        while n > 1 and self.padded_depth(depth, n) // n < max(halo, 1):
+            n -= 1
+        return n
 
     def _stream(self, lane: int, device: torch.device):
         """The gang's own stream on a lane's device (None on the CPU)."""
@@ -198,52 +224,66 @@ class VolumeGang:
                 self._streams[lane] = torch.cuda.Stream(device)
             return self._streams[lane]
 
-    @staticmethod
-    def _on(device: torch.device, stream):
-        """Make ``device`` and the gang's ``stream`` current on this thread
-        (a new thread starts on device 0 and its default stream)."""
-        if stream is None:
-            return contextlib.nullcontext()
-        stack = contextlib.ExitStack()
-        stack.enter_context(torch.cuda.device(device))
-        stack.enter_context(torch.cuda.stream(stream))
-        return stack
+    def _mesh_streams(self, pool) -> List[Optional[torch.cuda.Stream]]:
+        """One stream a slab: the gang's stream of the FIRST lane on each
+        device, so the slabs of lanes that share a card (a repeated-device
+        mesh) are staged and computed in one order on one stream."""
+        first: Dict[str, Optional[torch.cuda.Stream]] = {}
+        out = []
+        for lane, dev in pool:
+            key = str(dev)
+            if key not in first:
+                first[key] = self._stream(lane, dev)
+            out.append(first[key])
+        return out
 
-    def _run_program(self, stack: np.ndarray, dims: np.ndarray, lane: int,
-                     device: torch.device, trace=None):
-        """Stage, run and gather one padded study on one lane; host
-        ``(mask, converged)``. The gather is the one sync the gang adds."""
-        stream = self._stream(lane, device)
-        dispatch = trace.span("volume_dispatch", lane=lane, z_shards=1) if trace else \
-            contextlib.nullcontext()
-        gather = trace.span("volume_gather", lane=lane) if trace else contextlib.nullcontext()
-        with self._on(device, stream):
+    def _run_program(self, stack: np.ndarray, dims: np.ndarray, lanes: List[int],
+                     devices: List[torch.device], trace=None):
+        """Stage, run and gather one padded study over the lanes' z-mesh;
+        host ``(mask, converged)``. The gather is the one sync the gang
+        adds."""
+        pool = list(zip(lanes, devices))
+        streams = self._mesh_streams(pool)
+        n = len(pool)
+        d = stack.shape[0] // n
+        dispatch = (trace.span("volume_dispatch", lane=lanes[0], z_shards=n) if trace
+                    else contextlib.nullcontext())
+        gather = (trace.span("volume_gather", lane=lanes[0]) if trace
+                  else contextlib.nullcontext())
+        with contextlib.ExitStack() as current:
+            # the gang's stream is current on every card of the mesh (a new
+            # thread starts on device 0 and its default stream)
+            for st in {id(st): st for st in streams if st is not None}.values():
+                current.enter_context(torch.cuda.stream(st))
             with dispatch:
-                vol, dm = stage_volume(stack, dims, device, stream)
-                out = gang_program(vol, dm, self.cfg)
+                staged = [stage_volume(stack[i * d:(i + 1) * d], dims, dev, st)
+                          for i, (dev, st) in enumerate(zip(devices, streams))]
+                out = gang_program([v for v, _ in staged], staged[0][1], self.cfg)
             with gather:
-                mask = out["mask"].cpu().numpy()
+                mask = np.concatenate([m.cpu().numpy() for m in out["mask"]])
                 conv = bool(out["grow_converged"])
         return mask, conv
 
     def warmup(self) -> Dict[int, float]:
-        """Run every depth bucket once on zeros with ``min_dim`` dims, on
-        the first healthy lane; ``{bucket: seconds}``. Call after the
-        executor's warmup. A bucket that fails raises."""
+        """Run every depth bucket once on zeros with ``min_dim`` dims, at
+        the mesh width dispatch will use for it (``_usable_shards`` depends
+        on the bucket when the halo limits shallow ones); ``{bucket:
+        seconds}``. Call after the executor's warmup. A bucket that fails
+        raises."""
         pool = self._device_pool()
         if not pool:
             raise GangUnavailable("no healthy lane to warm the volume gang on")
-        lane, device = pool[0]
         c = self.cfg.canvas
-        timings = {}
+        timings, width = {}, 0
         for b in self.depth_buckets:
+            n = self._usable_shards(len(pool), b)
+            width = max(width, n)
             t0 = time.perf_counter()
-            self._run_program(np.zeros((b, c, c), np.float32),
+            self._run_program(np.zeros((self.padded_depth(b, n), c, c), np.float32),
                               np.asarray([self.cfg.min_dim, self.cfg.min_dim], np.int32),
-                              lane, device)
+                              [ln for ln, _ in pool[:n]], [d for _, d in pool[:n]])
             timings[b] = round(time.perf_counter() - t0, 3)
-        # one lane wide until the z-sharded mesh is ported (ROADMAP A6)
-        self._warm_width = 1
+        self._warm_width = width
         return timings
 
     def start(self) -> "VolumeGang":
@@ -295,17 +335,21 @@ class VolumeGang:
                 if not req.done.is_set():
                     req.fail(e)
 
-    def _fire_fault(self, seq: int, lane: int):
-        """Consult the ``volume`` fault site for the dispatching lane; the
-        fired rule or None. A ``lane``-selected rule fires exactly when its
-        lane dispatches (the deterministic "the lane dies mid-volume"
-        drill); one without a lane selector blames no lane (an
-        unattributable failure: the gang sheds rather than guess). The JAX
-        gang checks every lane of its mesh; the port's is one lane wide."""
+    def _fire_fault(self, seq: int, lanes: List[int]):
+        """Consult the ``volume`` fault site once for every lane of the
+        mesh; the fired rule or None. A ``lane``-selected rule fires
+        exactly when its lane is in the dispatching mesh (the
+        deterministic "lane k dies mid-volume" drill); one without a lane
+        selector fires on the first check and blames no lane (an
+        unattributable failure: the gang sheds rather than guess)."""
         plan = self.fault_plan
         if plan is None or not plan.has_site("volume"):
             return None
-        return plan.fire("volume", obs=self.obs, index=seq, lane=lane)
+        for ln in lanes:
+            rule = plan.fire("volume", obs=self.obs, index=seq, lane=ln)
+            if rule is not None:
+                return rule
+        return None
 
     def _execute(self, req: VolumeRequest) -> None:
         now = time.monotonic()
@@ -327,15 +371,10 @@ class VolumeGang:
         req.done.set()
 
     def _dispatch_volume(self, req: VolumeRequest, seq: int) -> None:
-        """Run the study on the first healthy lane; on a lane fault (or an
-        injected one that names the lane), quarantine that lane and re-run
-        on the next one."""
+        """Run the study over a z-mesh of the healthy lanes, re-meshing
+        onto the survivors after a lane death."""
         c = self.cfg.canvas
         h, w = req.dims
-        # zero filler planes segment empty, so cropping [:depth] gives the
-        # unpadded study's mask
-        stack = np.zeros((self.padded_depth(req.depth), c, c), np.float32)
-        stack[: req.depth, :h, :w] = req.volume
         dims = np.asarray([h, w], np.int32)
         excluded: set = set()
         # one hop a lane the pool started with, plus one: bounded even
@@ -348,46 +387,67 @@ class VolumeGang:
                     "volume request exhausted its re-dispatch budget (lanes are "
                     "flapping; see serving_lane_quarantines_total)"
                 )
-            pool = [(ln, d) for ln, d in self._device_pool() if ln not in excluded]
-            if not pool:
+            full_pool = [(ln, d) for ln, d in self._device_pool() if ln not in excluded]
+            if not full_pool:
                 raise GangUnavailable("no healthy lane left to run the volume on")
-            lane, device = pool[0]
-            rule = self._fire_fault(seq, lane)
+            pool = full_pool[:self._usable_shards(len(full_pool), req.depth)]
+            lanes = [ln for ln, _ in pool]
+            rule = self._fire_fault(seq, lanes)
             if rule is not None:
-                if rule.lane is None:
+                if rule.lane is None or rule.lane not in lanes:
                     raise GangUnavailable(
                         "injected unattributable volume failure (volume dispatch_error)"
                     )
                 # the drill's deterministic lane death: book it through the
-                # real quarantine machine and re-run on the next lane
+                # real quarantine machine and re-mesh onto the survivors
                 log.warning("volume %s: injected death of lane %d mid-volume; "
-                            "re-dispatching", req.request_id, lane)
-                self.executor.quarantine_lane(lane, "device_lost")
-                excluded.add(lane)
-                self._note_requeue(req, lane, "injected_device_lost")
+                            "re-meshing onto the survivors", req.request_id, rule.lane)
+                self.executor.quarantine_lane(rule.lane, "device_lost")
+                excluded.add(rule.lane)
+                self._note_requeue(req, rule.lane, "injected_device_lost")
                 continue
+            # zero filler planes segment empty, so cropping [:depth] gives
+            # the unpadded study's mask
+            stack = np.zeros((self.padded_depth(req.depth, len(pool)), c, c), np.float32)
+            stack[: req.depth, :h, :w] = req.volume
             sup = self.executor.new_supervisor()
             trace = req.trace
             try:
                 mask, conv = sup.run(
-                    lambda: self._run_program(stack, dims, lane, device, trace),
+                    lambda: self._run_program(stack, dims, lanes, [d for _, d in pool], trace),
                     label="volume_dispatch",
                 )
             except BaseException as e:  # noqa: BLE001 — classified below
                 cause = self.executor._quarantine_cause(e)
                 if cause is None:
                     raise  # deterministic failure: the requester's
-                # one lane ran the whole study: the fault is that lane's
-                log.warning("volume %s: lane %d failed (%s); re-dispatching",
-                            req.request_id, lane, cause)
-                self.executor.quarantine_lane(lane, cause)
-                excluded.add(lane)
-                self._note_requeue(req, lane, cause)
-                continue
+                if len(lanes) == 1:
+                    # one lane ran the whole study: the fault is that lane's
+                    log.warning("volume %s: lane %d failed (%s); re-dispatching",
+                                req.request_id, lanes[0], cause)
+                    self.executor.quarantine_lane(lanes[0], cause)
+                    excluded.add(lanes[0])
+                    self._note_requeue(req, lanes[0], cause)
+                    continue
+                survivors = [ln for ln, _ in self._device_pool() if ln not in excluded]
+                if survivors != [ln for ln, _ in full_pool]:
+                    # the fleet booked a lane death meanwhile (slice traffic
+                    # or the prober saw it): re-mesh onto the survivors
+                    log.warning("volume %s: mesh dispatch failed (%s); re-meshing onto "
+                                "the surviving lanes", req.request_id, cause)
+                    self._note_requeue(req, None, cause)
+                    continue
+                # unattributable with an unchanged fleet: shedding beats
+                # guessing which card to blame; the client retries
+                raise GangUnavailable(
+                    f"mesh-wide volume dispatch failed ({cause}) with no "
+                    "attributable lane; retry after the fleet settles"
+                ) from e
             req.mask = np.ascontiguousarray(mask[: req.depth, :h, :w])
             req.converged = conv
-            req.z_shards = 1
-            req.lane = lane
+            req.z_shards = len(lanes)
+            req.lane = lanes[0]
+            req.lanes = lanes
             return
 
     def _note_requeue(self, req: VolumeRequest, lane, cause: str) -> None:

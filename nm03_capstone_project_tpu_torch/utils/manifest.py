@@ -30,13 +30,16 @@ STATUS_TRUNCATED = "truncated"
 class Manifest:
     """Per-run record: {patient_id: {slice_stem: status}}."""
 
-    def __init__(self, out_root: str | os.PathLike):
-        self.path = Path(out_root) / MANIFEST_NAME
+    def __init__(self, out_root: str | os.PathLike, name: str = MANIFEST_NAME):
+        # a rank of a multi-process job keeps its own file
+        # (``manifest.rank{r}.json``) in the shared output root
+        self.path = Path(out_root) / name
         self.data: Dict[str, Dict[str, str]] = {}
 
     @classmethod
-    def load_or_create(cls, out_root: str | os.PathLike) -> "Manifest":
-        m = cls(out_root)
+    def load_or_create(cls, out_root: str | os.PathLike,
+                       name: str = MANIFEST_NAME) -> "Manifest":
+        m = cls(out_root, name)
         if m.path.exists():
             try:
                 m.data = json.loads(m.path.read_text())

@@ -68,7 +68,8 @@ def test_port_has_the_slice_modules():
         "resilience.faultinject", "obs.saturation", "obs.ledger", "obs.slo",
         "utils.profiling", "serving.loadgen",
         "fleet", "fleet.replicas", "fleet.router", "fleet.manager", "fleet.cli",
-        "serving.top",
+        "serving.top", "parallel", "parallel.mesh", "parallel.dp", "parallel.zshard",
+        "parallel.distributed",
     ):
         assert f"nm03_capstone_project_tpu_torch.{mod}" in names
 
@@ -128,6 +129,24 @@ def test_the_fleet_never_starts_a_cpu_replica():
         assert "--device" not in src and '"cpu"' not in src, f.name
 
 
+def test_parallel_imports_no_jax():
+    code = (
+        "import sys\n"
+        "import nm03_capstone_project_tpu_torch.parallel\n"
+        "import nm03_capstone_project_tpu_torch.parallel.distributed\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('jax', 'nm03_capstone_project_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120
+    )
+    assert out.returncode == 0, out.stdout + out.stderr
+    for f in sorted((PORT_DIR / "parallel").glob("*.py")):
+        assert not FORBIDDEN.search(f.read_text()), f.name
+
+
 def test_sources_name_no_jax():
     files = [
         f for f in sorted(PORT_DIR.rglob("*.py")) + sorted(PORT_DIR.rglob("*.cu"))
@@ -164,6 +183,7 @@ class TestNoCpuDrift:
 DRIVERS = ("sequential", "parallel", "test_pipeline", "volume", "train")
 DEPLOY_MODEL = ("sequential", "parallel", "volume")  # the drivers that take --model
 RESILIENT = ("sequential", "parallel")  # the drivers that take the resilience flags
+DISTRIBUTED = ("sequential", "parallel", "volume")  # the drivers that take --distributed
 # the drivers that take the observability flags (all but test_pipeline, as in JAX)
 OBSERVED = ("sequential", "parallel", "volume", "train")
 UNPORTED_FLAGS = [["--use-pallas"], ["--model", "m.ckpt"], ["--distributed"],
@@ -192,13 +212,14 @@ class TestDrivers:
         assert not (out / "checkpoint").exists()  # nor was anything trained
 
     # ids as they were when every driver refused --model, --fault-plan,
-    # --metrics-out and --profile-dir
+    # --metrics-out, --profile-dir and --distributed
     @pytest.mark.parametrize("name,flag", [
         pytest.param(name, flag, id=f"flag{i}-{name}")
         for i, flag in enumerate(UNPORTED_FLAGS) for name in DRIVERS
         if not (flag[0] == "--model" and name in DEPLOY_MODEL)
         and not (flag[0] == "--fault-plan" and name in RESILIENT)
         and not (flag[0] in ("--metrics-out", "--profile-dir") and name in OBSERVED)
+        and not (flag[0] == "--distributed" and name in DISTRIBUTED)
     ])
     def test_flags_of_layers_not_ported_are_rejected(self, name, flag, capsys):
         import importlib
@@ -211,9 +232,9 @@ class TestDrivers:
         assert exc.value.code == 2
         err = capsys.readouterr().err
         # the JAX driver's flag groups that the port refuses by name
-        groups = {"sequential": ("observability", "resilience", "distributed"),
-                  "parallel": ("observability", "resilience", "distributed"),
-                  "volume": ("observability", "distributed"),
+        groups = {"sequential": ("observability", "resilience"),
+                  "parallel": ("observability", "resilience"),
+                  "volume": ("observability",),
                   "train": ("observability", "distributed"),
                   "test_pipeline": ()}[name]
         reasons = {f: r for g in groups for f, r in common.NOT_PORTED[g].items()}
@@ -222,6 +243,45 @@ class TestDrivers:
             assert f"{flag[0]}: {reasons[flag[0]]}" in err
         else:
             assert "unrecognized arguments" in err or "invalid choice" in err
+
+    @pytest.mark.parametrize("name", DISTRIBUTED)
+    def test_distributed_flags_are_accepted(self, name):
+        import importlib
+
+        driver = importlib.import_module(f"nm03_capstone_project_tpu_torch.cli.{name}")
+        args = driver.build_parser().parse_args(
+            ["--distributed", "--coordinator-address", "127.0.0.1:1234",
+             "--num-processes", "2", "--process-id", "1"])
+        assert (args.distributed, args.coordinator_address, args.num_processes,
+                args.process_id) == (True, "127.0.0.1:1234", 2, 1)
+        assert driver.build_parser().parse_args([]).distributed is False
+
+    @pytest.mark.parametrize("name", DISTRIBUTED)
+    def test_distributed_without_a_cluster_runs_single_process(self, name, tmp_path,
+                                                               monkeypatch, capsys):
+        import importlib
+
+        for var in ("MASTER_ADDR", "SLURM_STEP_NODELIST", "OMPI_COMM_WORLD_SIZE"):
+            monkeypatch.delenv(var, raising=False)
+        driver = importlib.import_module(f"nm03_capstone_project_tpu_torch.cli.{name}")
+        out = tmp_path / "out"
+        argv = ["--output", str(out), "--device", "cpu", "--synthetic", "1",
+                "--synthetic-slices", "2", "--canvas", "64", "--min-dim", "32",
+                "--distributed"]
+        assert driver.main(argv) == 0
+        assert "no cluster detected; running single-process" in capsys.readouterr().err
+        assert (out / "manifest.json").exists() and len(list(out.rglob("*.jpg"))) == 4
+
+    def test_train_keeps_refusing_distributed(self, capsys):
+        from nm03_capstone_project_tpu_torch.cli import common, train
+
+        for flag in common.NOT_PORTED["distributed"]:
+            with pytest.raises(SystemExit) as exc:
+                train.build_parser().parse_args([flag] if flag == "--distributed"
+                                                else [flag, "1"])
+            assert exc.value.code == 2
+            err = capsys.readouterr().err
+            assert "ROADMAP A6" in err and common.NOT_PORTED["distributed"][flag] in err
 
     @pytest.mark.parametrize("name", OBSERVED)
     @pytest.mark.parametrize("flag", ["--metrics-out", "--log-json", "--profile-dir"])
@@ -540,28 +600,32 @@ class TestServer:
 class TestVolumeDriver:
     """``python -m nm03_capstone_project_tpu_torch.cli.volume``'s --z-shard."""
 
-    def _on_cards(self, monkeypatch, n):
-        from nm03_capstone_project_tpu_torch.core import backend
-
-        # n CUDA devices as the driver sees them; the refusal comes before
-        # any tensor reaches one
-        monkeypatch.setattr(backend, "resolve_device", lambda device=None: torch.device(
-            "cuda" if device is None else device))
-        monkeypatch.setattr(torch.cuda, "device_count", lambda: n)
-
     @pytest.mark.parametrize("n", [2, 4])
-    def test_z_shard_refused_on_several_devices(self, monkeypatch, capsys, tmp_path, n):
+    def test_z_shard_runs_on_several_devices(self, monkeypatch, capsys, tmp_path, n):
+        """On n local devices (n CPU entries here, the counterpart of n
+        cards) --z-shard runs the z-sharded path, and its files equal a
+        one-device run's byte for byte."""
         from nm03_capstone_project_tpu_torch.cli import volume
+        from nm03_capstone_project_tpu_torch.parallel import mesh
 
-        self._on_cards(monkeypatch, n)
-        out = tmp_path / "out"
-        argv = ["--output", str(out), "--synthetic", "1", "--synthetic-slices", "1",
-                "--canvas", "128", "--z-shard"]
-        assert volume.main(argv) == 2
-        err = capsys.readouterr().err
-        assert f"{n} devices visible" in err and volume.ZSHARD_REFUSAL in err
-        assert "z-sharding is not ported yet (ROADMAP A6)" in err
-        assert not out.exists()  # nothing ran on one device instead
+        argv = ["--synthetic", "2", "--synthetic-slices", "5", "--canvas", "64",
+                "--min-dim", "32", "--device", "cpu", "--export-mhd", "--z-shard"]
+        assert volume.main(argv + ["--output", str(tmp_path / "one")]) == 0
+        assert "--z-shard ignored: single device" in capsys.readouterr().err
+        monkeypatch.setattr(mesh, "local_devices", lambda device=None: [torch.device("cpu")] * n)
+        results = tmp_path / "r.json"
+        assert volume.main(argv + ["--output", str(tmp_path / "many"),
+                                   "--results-json", str(results)]) == 0
+        assert f"z-sharding volumes over {n} local devices" in capsys.readouterr().out
+        rec = json.loads(results.read_text())
+        assert rec["z_sharded"] is True and rec["z_shards"] == n
+
+        def files(root):
+            return {str(p.relative_to(root)): p.read_bytes() for p in sorted(root.rglob("*"))
+                    if p.is_file() and "synthetic" not in str(p)}
+
+        one, many = files(tmp_path / "one"), files(tmp_path / "many")
+        assert len(one) == 2 * (2 * 5 + 2) + 1 and one == many
 
     def test_z_shard_ignored_on_one_device(self, monkeypatch, capsys, tmp_path):
         from nm03_capstone_project_tpu_torch.cli import volume
@@ -582,3 +646,63 @@ class TestVolumeDriver:
                                      grow_algorithm="jump")
         assert args.device == "cuda" and args.output == "out-volume"
         assert args.render_stage == "device" and args.export_mhd and args.mhd_compressed
+
+
+class TestParallelDriverMesh:
+    """``cli.parallel`` over a ``data`` mesh of the local devices."""
+
+    @pytest.mark.parametrize("n,stage", [(2, "host"), (3, "device")])
+    def test_batches_split_over_several_devices(self, monkeypatch, tmp_path, n, stage):
+        """On n local devices (n CPU entries here) each batch runs through
+        process_batch_sharded, padded to the mesh, and the files equal a
+        one-device run's byte for byte."""
+        from nm03_capstone_project_tpu_torch import parallel as par
+        from nm03_capstone_project_tpu_torch.cli import parallel
+        from nm03_capstone_project_tpu_torch.parallel import mesh
+
+        argv = ["--synthetic", "2", "--synthetic-slices", "5", "--canvas", "64",
+                "--min-dim", "32", "--device", "cpu", "--batch-size", "4",
+                "--render-stage", stage]
+        assert parallel.main(argv + ["--output", str(tmp_path / "one")]) == 0
+        real, chunks = par.process_batch_sharded, []
+
+        def counted(px, dm, cfg, m, **kw):
+            chunks.append((len(px), m.shape["data"]))
+            return real(px, dm, cfg, m, **kw)
+
+        monkeypatch.setattr(par, "process_batch_sharded", counted)
+        monkeypatch.setattr(mesh, "local_devices", lambda device=None: [torch.device("cpu")] * n)
+        assert parallel.main(argv + ["--output", str(tmp_path / "many")]) == 0
+        # batches of 4 (n=2) or 3 (n=3): 5 slices a patient, the short batch padded
+        want = [(4, 2), (2, 2)] if n == 2 else [(3, 3), (3, 3)]
+        assert chunks == want * 2
+
+        def files(root):
+            return {str(p.relative_to(root)): p.read_bytes() for p in sorted(root.rglob("*"))
+                    if p.is_file() and "synthetic" not in str(p) and p.suffix == ".jpg"}
+
+        one, many = files(tmp_path / "one"), files(tmp_path / "many")
+        assert len(one) == 2 * 2 * 5 and one == many
+
+    def test_the_mesh_starts_at_the_runs_device(self, monkeypatch):
+        from nm03_capstone_project_tpu_torch.cli.runner import CohortProcessor
+        from nm03_capstone_project_tpu_torch.parallel import mesh
+
+        cards = [torch.device("cuda", i) for i in range(3)]
+        monkeypatch.setattr(mesh, "local_devices", lambda device=None: list(cards))
+        proc = object.__new__(CohortProcessor)
+        proc.process_count, proc.model, proc._mesh_skip_said = 1, None, False
+        proc.device = torch.device("cuda", 1)
+        assert proc._data_mesh().axis_devices("data") == [cards[1], cards[2], cards[0]]
+
+    def test_a_student_run_says_it_skips_the_mesh(self, monkeypatch, capsys):
+        from nm03_capstone_project_tpu_torch.cli.runner import CohortProcessor
+        from nm03_capstone_project_tpu_torch.parallel import mesh
+
+        monkeypatch.setattr(mesh, "local_devices", lambda device=None: [torch.device("cpu")] * 2)
+        proc = object.__new__(CohortProcessor)
+        proc.process_count, proc.model, proc._mesh_skip_said = 1, object(), False
+        proc.device = torch.device("cpu")
+        assert proc._data_mesh() is None and proc._data_mesh() is None
+        err = capsys.readouterr().err
+        assert err.count("not over the 2-device data mesh") == 1

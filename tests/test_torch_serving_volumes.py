@@ -15,7 +15,11 @@ schedule on its one lane.
 Port-only: coalescing of identical in-flight studies (a slow stub
 program), the shed when the only lane dies, a deterministic error's 500,
 mixed slice and volume traffic, the gang's bucket math and its warmup
-after the executor's graphs.
+after the executor's graphs, and the gang as a z-mesh over four CPU lanes
+given through the executor's explicit lane list (the counterpart of the
+JAX tests' virtual devices): ``z_shards`` 4, the mask of a direct
+``process_volume_zsharded`` and of ``nm03-volume --z-shard``, and a lane
+death mid-volume re-meshing onto three lanes.
 """
 
 import base64
@@ -340,7 +344,8 @@ class TestPortOnly:
         entered, calls = threading.Event(), []
 
         def slow(px, dm, cfg):
-            calls.append(tuple(px.shape))
+            # px: the study's z-slabs, one a lane of the gang's mesh
+            calls.append((sum(s.shape[0] for s in px),) + tuple(px[0].shape[1:]))
             entered.set()
             time.sleep(0.5)
             return gang_program(px, dm, cfg)
@@ -472,17 +477,19 @@ class TestGangFailures:
             app.close()
 
     def test_lane_fault_requeues_onto_the_next_lane(self, monkeypatch):
-        """Two lanes (both the CPU here): a fault on the first re-runs the
-        study on the second, with a volume_requeue span and the same mask."""
+        """Two lanes (both the CPU here): the study runs over a mesh of both;
+        a fault while the fleet books lane 0's death re-meshes the study
+        onto lane 1, with a volume_requeue span and the same mask."""
         app = _one_lane_app()
         app.start()
         try:
             dev = app.executor.healthy_lane_devices()[0][1]
+            # the fleet's own view of dead lanes, apart from what the gang books
+            fleet_dead, booked = [], []
             monkeypatch.setattr(app.executor, "healthy_lane_devices", lambda: [
-                (ln, dev) for ln in (0, 1) if ln not in quarantined])
-            quarantined = []
+                (ln, dev) for ln in (0, 1) if ln not in fleet_dead])
             monkeypatch.setattr(app.executor, "quarantine_lane",
-                                lambda lane, cause: quarantined.append(lane))
+                                lambda lane, cause: booked.append(lane))
             vol = _study(3, 64, 64, 4)
             want = app.segment_volume(vol.copy())
             real, fired = volumes.gang_program, []
@@ -490,13 +497,16 @@ class TestGangFailures:
             def once(px, dm, cfg):
                 if not fired:
                     fired.append(1)
+                    fleet_dead.append(0)  # the fleet sees lane 0 die
                     raise TransientDeviceError("lost")
                 return real(px, dm, cfg)
 
             monkeypatch.setattr(volumes, "gang_program", once)
             req = app.volumes.submit(vol.copy(), (64, 64))
             assert req.wait(60) and req.error is None
-            assert quarantined == [0] and req.lane == 1 and req.requeues == 1
+            assert want["z_shards"] == 2 and req.z_shards == 1
+            # the fleet booked the death; the gang only re-meshed, blaming no lane
+            assert booked == [] and req.lane == 1 and req.requeues == 1
             assert "volume_requeue" in [s["name"] for s in req.trace.snapshot()]
             assert base64.b64encode(req.mask.tobytes()).decode() == want["mask_b64"]
         finally:
@@ -547,16 +557,18 @@ class TestGang:
                     cls(cfg, None, None, depth_buckets=bad)
 
     def test_one_lane_wide_until_the_mesh_is_ported(self, monkeypatch):
+        """The mesh is ported: a pool of three lanes warms every bucket over
+        all three, at the bucket rounded up to a multiple of the width."""
         pcfg, _ = _cfgs()
         pool = [(2, torch.device("cpu")), (5, torch.device("cpu")), (7, torch.device("cpu"))]
         gang = VolumeGang(pcfg, SimpleNamespace(healthy_lane_devices=lambda: pool), None)
         assert gang.z_shards == 0 and gang.default_cost == 8 and gang.max_depth == 32
         ran = []
-        monkeypatch.setattr(gang, "_run_program", lambda stack, dims, lane, device, trace=None:
-                            ran.append((stack.shape[0], lane)))
-        # a pool of three lanes: every bucket warms on the first one alone
+        monkeypatch.setattr(gang, "_run_program", lambda stack, dims, lanes, devices, trace=None:
+                            ran.append((stack.shape[0], tuple(lanes))))
         assert set(gang.warmup()) == {8, 16, 32}
-        assert ran == [(8, 2), (16, 2), (32, 2)] and gang.z_shards == 1
+        assert ran == [(9, (2, 5, 7)), (18, (2, 5, 7)), (33, (2, 5, 7))]
+        assert gang.z_shards == 3
         # the fault-plan seam is ported: the gang keeps the plan for its
         # `volume` site (tests/test_torch_serving_ops.py drives it)
         from nm03_capstone_project_tpu_torch.resilience import FaultPlan
@@ -583,3 +595,158 @@ class TestGang:
         finally:
             app.begin_drain(reason="test")
             app.close()
+
+
+def _four_lane_app(**kw):
+    pcfg, _ = _cfgs()
+    return ServingApp(cfg=pcfg, buckets=(1,), device="cpu", lane_devices=["cpu"] * 4,
+                      volume_serving=True, volume_depth_buckets=(4, 8, 16),
+                      resilience=ResilienceConfig(retry_max=0), **kw)
+
+
+class TestFourLaneGang:
+    def test_z_shards_four_and_the_masks_of_the_driver(self, tmp_path, monkeypatch):
+        from nm03_capstone_project_tpu_torch.cli import volume as volume_cli
+        from nm03_capstone_project_tpu_torch.data.imageio import read_metaimage
+        from nm03_capstone_project_tpu_torch.parallel import make_mesh, mesh
+        from nm03_capstone_project_tpu_torch.parallel import process_volume_zsharded
+
+        root = tmp_path / "cohort"
+        write_synthetic_cohort(root, n_patients=1, n_slices=10, height=CANVAS, width=CANVAS)
+        out = tmp_path / "out"
+        monkeypatch.setattr(mesh, "local_devices",
+                            lambda device=None: [torch.device("cpu")] * 4)
+        argv = ["--base-path", str(root), "--output", str(out), "--canvas", str(CANVAS),
+                "--min-dim", str(MIN_DIM), "--device", "cpu", "--export-mhd", "--z-shard"]
+        assert volume_cli.main(argv) == 0
+        driver_mask = read_metaimage(out / "PGBM-0001" / "mask.mhd")[0]
+        vol = np.stack([read_dicom(f).pixels for f in sorted(root.rglob("*.dcm"))])
+        app = _four_lane_app()
+        try:
+            httpd, _, port = serve_in_thread(app)  # warms the gang at width 4
+            assert app.volumes.z_shards == 4 and app.status()["volumes"]["z_shards"] == 4
+            try:
+                status, payload, hdrs = _post(f"http://127.0.0.1:{port}/v1/segment-volume",
+                                              *_raw(vol))
+            finally:
+                httpd.shutdown()
+                httpd.server_close()
+            assert status == 200 and payload["z_shards"] == 4
+            assert hdrs["X-Nm03-Z-Shards"] == "4"
+            assert app.registry.get("serving_volume_zshards").value == 4
+        finally:
+            app.begin_drain(reason="test")
+            app.close()
+        served = _mask_of(payload)
+        assert served.shape == (10, CANVAS, CANVAS) and served.sum() > 0
+        np.testing.assert_array_equal(served, driver_mask)
+        stack = np.zeros((16, CANVAS, CANVAS), np.float32)
+        stack[:10] = vol
+        direct = process_volume_zsharded(stack, np.asarray([CANVAS, CANVAS], np.int32),
+                                         _cfgs()[0], make_mesh(devices=["cpu"] * 4,
+                                                               axis_names=("z",)))
+        np.testing.assert_array_equal(served, direct["mask"][:10].numpy())
+        assert payload["grow_converged"] == bool(direct["grow_converged"])
+
+    @pytest.mark.parametrize("depth,n,want", [
+        (1, 4, 4), (4, 4, 4), (5, 3, 9), (8, 3, 9), (9, 4, 16), (16, 3, 18), (3, 2, 4)])
+    def test_padded_depth_rounds_to_the_mesh_as_the_jax_gang(self, depth, n, want):
+        pcfg, jcfg = _cfgs()
+        buckets = (4, 8, 16)
+        port = VolumeGang(pcfg, None, None, depth_buckets=buckets)
+        ref = JaxGang(jcfg, None, None, depth_buckets=buckets)
+        assert port.padded_depth(depth, n) == ref.padded_depth(depth, n) == want
+
+    @pytest.mark.parametrize("morph,pool,depth,want", [
+        (3, 4, 4, 4), (5, 4, 4, 3), (5, 4, 8, 4), (7, 4, 4, 1), (7, 3, 16, 3), (1, 4, 4, 4)])
+    def test_usable_shards_respects_the_halo_as_the_jax_gang(self, morph, pool, depth, want):
+        pcfg, jcfg = _cfgs(morph_size=morph)
+        buckets = (4, 8, 16)
+        port = VolumeGang(pcfg, None, None, depth_buckets=buckets)
+        ref = JaxGang(jcfg, None, None, depth_buckets=buckets)
+        assert port._usable_shards(pool, depth) == ref._usable_shards(pool, depth) == want
+
+    def test_warmup_runs_each_bucket_at_its_dispatch_width(self, monkeypatch):
+        pcfg, _ = _cfgs(morph_size=5)
+        pool = [(i, torch.device("cpu")) for i in range(4)]
+        gang = VolumeGang(pcfg, SimpleNamespace(healthy_lane_devices=lambda: pool), None,
+                          depth_buckets=(4, 8, 16))
+        ran = []
+        monkeypatch.setattr(gang, "_run_program", lambda stack, dims, lanes, devices,
+                            trace=None: ran.append((stack.shape[0], len(lanes))))
+        gang.warmup()
+        # halo 2: the 4-plane bucket pads to 6 over three lanes, the deeper
+        # ones split four ways
+        assert ran == [(6, 3), (8, 4), (16, 4)] and gang.z_shards == 4
+
+    def test_lane_death_mid_volume_remeshes_onto_three_lanes(self):
+        from nm03_capstone_project_tpu_torch.resilience import FaultPlan
+
+        plan = FaultPlan.from_spec({"faults": [
+            {"site": "volume", "kind": "dispatch_error", "lane": 2, "index": 1}]})
+        app = _four_lane_app(fault_plan=plan, lane_probe_interval_s=60.0)
+        vol = _study(7, 64, 60, 9)
+        try:
+            app.start()
+            first = app.segment_volume(vol.copy())
+            req = app.volumes.submit(vol.copy(), (64, 60))
+            assert req.wait(60) and req.error is None
+        finally:
+            app.begin_drain(reason="test")
+            app.close()
+        assert first["z_shards"] == 4 and first["requeues"] == 0
+        assert req.z_shards == 3 and req.lanes == [0, 1, 3] and req.requeues == 1
+        assert base64.b64encode(req.mask.tobytes()).decode() == first["mask_b64"]
+        assert "volume_requeue" in [s["name"] for s in req.trace.snapshot()]
+        reg = app.registry
+        assert reg.get("serving_lane_quarantines_total", lane="2",
+                       cause="device_lost").value == 1
+        assert reg.get("resilience_faults_injected_total", site="volume",
+                       kind="dispatch_error").value == 1
+        assert app.executor.healthy_lanes() == [0, 1, 3]
+
+    def test_a_mesh_fault_with_the_fleet_unchanged_is_shed(self, monkeypatch):
+        """A lane fault over the four-lane mesh that the fleet does not
+        attribute to a lane: 503 + Retry-After, and no lane is blamed."""
+        app = _four_lane_app()
+        httpd, _, port = serve_in_thread(app)
+        fired = []
+
+        def lost(px, dm, cfg):
+            fired.append(len(px))
+            raise TransientDeviceError("an NCCL peer went away")
+
+        monkeypatch.setattr(volumes, "gang_program", lost)
+        try:
+            status, payload, hdrs = _post(f"http://127.0.0.1:{port}/v1/segment-volume",
+                                          *_raw(_study(5, 64, 64, 8)))
+            assert status == 503 and hdrs["Retry-After"] == "1"
+            assert "no attributable lane" in payload["error"]
+            assert fired == [4]
+            assert app.executor.healthy_lanes() == [0, 1, 2, 3]
+            assert app.registry.get("serving_volume_requests_total", status="shed").value == 1
+        finally:
+            app.begin_drain(reason="test")
+            httpd.shutdown()
+            httpd.server_close()
+            app.close()
+
+    def test_lanes_that_share_a_device_share_its_peak(self):
+        from nm03_capstone_project_tpu_torch.obs.saturation import SaturationMonitor
+
+        clock = [0.0]
+        mon = SaturationMonitor(clock=lambda: clock[0])
+        clock[0] = 100.0  # a full window after the monitor started
+        kind = "NVIDIA H100 80GB HBM3"
+        mon.set_lanes([("cuda", kind, "cuda:0")] * 4)
+        for lane in range(4):
+            mon.set_lane_bucket_flops(lane, 1, 1e12)
+            mon.record_dispatch(lane, 99.0, 100.0, bucket=1)
+        snap = mon.snapshot()
+        peak = snap["lanes"][0]["peak_flops"]
+        # four lanes of one card: their flops over ONE card's peak
+        assert snap["mfu"] == round((4e12 / snap["window_s"]) / peak, 6)
+        assert all(row["mfu"] == round((1e12 / snap["window_s"]) / peak, 6)
+                   for row in snap["lanes"])
+        mon.set_lanes([("cuda", kind, f"cuda:{i}") for i in range(4)])
+        assert mon.snapshot()["mfu"] == round((4e12 / snap["window_s"]) / (4 * peak), 6)

@@ -27,8 +27,8 @@ driver the JAX drivers' ``--metrics-out``, ``--log-json`` and
 ``cli.train`` (:func:`load_model_checkpoint`, with the JAX package's three
 refusals).
 
-The distributed group (:func:`add_distributed_args`) gives the inference
-drivers ``--distributed`` and its three flags over ``torch.distributed``
+The distributed group (:func:`add_distributed_args`) gives the drivers
+and ``cli.train`` ``--distributed`` and its three flags over ``torch.distributed``
 (:mod:`..parallel.distributed`): :func:`init_distributed` joins the job,
 :func:`resolve_base_path_sync` writes a synthetic cohort on rank 0 behind
 a barrier, :func:`shard_patients` deals the patients round-robin and
@@ -64,14 +64,6 @@ NOT_PORTED = {
     "resilience": {
         "--fallback-cpu": "the port has no CPU fallback",
         "--no-fallback-cpu": "the port has no CPU fallback; it always fails fast",
-    },
-    # the inference drivers take these (add_distributed_args); training
-    # refuses them
-    "distributed": {
-        "--distributed": "distributed training is not ported yet (ROADMAP A6)",
-        "--coordinator-address": "distributed training is not ported yet (ROADMAP A6)",
-        "--num-processes": "distributed training is not ported yet (ROADMAP A6)",
-        "--process-id": "distributed training is not ported yet (ROADMAP A6)",
     },
 }
 

@@ -22,7 +22,9 @@ plus a manifest and a per-patient journal for ``--resume``.
 
 With ``model`` (``--model``), a trained 2D student replaces the
 pipeline's compute in both strategies (:func:`_student_batch_mask`); its
-masks go through the same render, export and accounting.
+masks go through the same render, export and accounting. Over a ``data``
+mesh each distinct device holds one copy of the student (a device the
+mesh repeats shares it), and the masks gather on the run's device.
 
 Every dispatch runs under a :class:`..resilience.DispatchSupervisor`:
 transient device errors retry under the :class:`..resilience.RetryPolicy`
@@ -60,7 +62,7 @@ a capped region growing in a ``grow_truncated`` one.
 from __future__ import annotations
 
 import concurrent.futures as cf
-import sys
+import copy
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
@@ -261,8 +263,8 @@ class CohortProcessor:
         self.process_rank = process_rank
         self.process_count = process_count
         self.device = resolve_device(device)
-        self._mesh_skip_said = False
         self.model = None if model is None else model.to(self.device)
+        self._replicas: Dict[str, object] = {}  # the student's copy a mesh device
         self.base_path = Path(base_path)
         self.out_root = Path(out_root)
         self.cfg = cfg
@@ -577,27 +579,35 @@ class CohortProcessor:
         Local, not global: in a multi-process job each rank owns disjoint
         patients and runs on its own device, so nothing crosses processes
         but the final counters."""
-        from nm03_capstone_project_tpu_torch.parallel.mesh import local_devices, make_mesh
+        from nm03_capstone_project_tpu_torch.parallel.mesh import local_devices_from, make_mesh
 
         if self.process_count > 1:
             return None
-        devs = local_devices(self.device)
-        if len(devs) <= 1:
-            return None
-        if self.model is not None:
-            # never a mesh quietly dropped to one device: say so, once a run
-            if not self._mesh_skip_said:
-                self._mesh_skip_said = True
-                print(f"--model: the student runs on {self.device}, not over the "
-                      f"{len(devs)}-device data mesh (ROADMAP A6)", file=sys.stderr)
-            return None
         # the mesh starts at this run's device: the outputs gather on its
         # first entry, where the device render and the fetch expect them
-        here = self.device
-        if here.type == "cuda" and here.index is None:
-            here = torch.device("cuda", torch.cuda.current_device())
-        k = next((i for i, d in enumerate(devs) if d == here), 0)
-        return make_mesh(axis_names=("data",), devices=devs[k:] + devs[:k])
+        devs = local_devices_from(self.device)
+        if len(devs) <= 1:
+            return None
+        return make_mesh(axis_names=("data",), devices=devs)
+
+    def _student_replica(self, device: torch.device):
+        """The student on ``device``: the run's own copy there, else one
+        copy a distinct device, made once."""
+        key = str(device)
+        if key not in self._replicas:
+            here = next(self.model.parameters()).device
+            self._replicas[key] = (self.model if device == here
+                                   else copy.deepcopy(self.model).to(device))
+        return self._replicas[key]
+
+    def _student_sharded(self, pixels, dims, mesh) -> Dict[str, torch.Tensor]:
+        """The student over the ``data`` mesh, the chunks gathered on its
+        first device (the run's)."""
+        from nm03_capstone_project_tpu_torch.parallel import map_batch_sharded
+
+        return map_batch_sharded(
+            lambda dev, px, dm: _student_process(self._student_replica(dev), px, dm, self.cfg),
+            pixels, dims, mesh)
 
     def _run_parallel(
         self, patient_id: str, out_dir: Path, files: List[Path], journal
@@ -726,7 +736,9 @@ class CohortProcessor:
                     continue
 
                 def enqueue(batch=batch):
-                    if self.model is not None:
+                    if self.model is not None and mesh is not None:
+                        out = self._student_sharded(batch["pixels"], batch["dims"], mesh)
+                    elif self.model is not None:
                         out = _student_process(
                             self.model, batch["pixels"], batch["dims"], self.cfg
                         )

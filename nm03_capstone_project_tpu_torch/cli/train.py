@@ -11,12 +11,24 @@ deploys. Run it as
 
     python -m nm03_capstone_project_tpu_torch.cli.train --synthetic 4
 
-It trains on the GPU unless ``--device cpu`` is given, on ``cuda:0``: the
-JAX driver's data x tensor parallel training over several devices is
-ROADMAP A6. The flags, their defaults and order of checks, the results
-JSON's keys and the checkpoint's ``meta.json`` keys are the JAX driver's.
-``--seed`` seeds a CPU ``torch.Generator``, which gives the same weights
-on the card and on the CPU but not JAX's weights.
+It trains on the GPU unless ``--device cpu`` is given, in one of three
+ways, as the JAX driver does:
+
+* in a ``--distributed`` job of several processes, pure data parallelism
+  (:func:`..models.fit_distributed`; the 2D student only): every rank
+  loads the same cohort, labels its ``rank::world`` share of the slices,
+  pads it to the size every rank agreed on and trains on it; the IoU is
+  summed over the ranks, and rank 0 alone writes the checkpoint and the
+  results;
+* on several local devices, the 2D student data x tensor parallel over
+  all of them (:func:`..models.fit_sharded`; tensor parallel 2 ways when
+  their count is even), the mesh starting at ``--device``;
+* otherwise on the one device (:func:`..models.fit`).
+
+The flags, their defaults and order of checks, the results JSON's keys
+and the checkpoint's ``meta.json`` keys are the JAX driver's. ``--seed``
+seeds a CPU ``torch.Generator``, which gives the same weights on the card
+and on the CPU but not JAX's weights.
 """
 
 from __future__ import annotations
@@ -85,7 +97,10 @@ def build_parser() -> argparse.ArgumentParser:
         "--bf16", action="store_true",
         help="bfloat16 compute (the tensor cores' precision; parameters stay float32)",
     )
-    common.add_not_ported_args(p, "observability", "distributed")
+    common.add_not_ported_args(p, "observability")
+    common.add_distributed_args(
+        p, "Pure data parallelism across processes (the 2D student): each rank "
+        "labels and trains on its share of the slices.")
     return p
 
 
@@ -98,8 +113,10 @@ def main(argv=None) -> int:
         return 1
 
 
-def _load_cohort(args, cfg):
-    """(pixels, dims) float32/int32 host arrays, padded to the canvas."""
+def _load_cohort(args, cfg, rank: int = 0, world: int = 1):
+    """(pixels, dims) float32/int32 host arrays, padded to the canvas; in a
+    job every rank loads the whole cohort (rank 0 writes a synthetic one
+    first)."""
     import numpy as np
 
     from nm03_capstone_project_tpu_torch.cli.runner import decode_and_guard
@@ -108,7 +125,7 @@ def _load_cohort(args, cfg):
         load_dicom_files_for_patient,
     )
 
-    base = common.resolve_base_path(args, tmp_root=Path(args.output))
+    base = common.resolve_base_path_sync(args, rank, world, tmp_root=Path(args.output))
     pixels, dims = [], []
     for patient_id in find_patient_dirs(base):
         for f in load_dicom_files_for_patient(base, patient_id):
@@ -169,17 +186,35 @@ def run(args: argparse.Namespace) -> int:
     from nm03_capstone_project_tpu_torch.utils.reporter import configure_reporting
 
     configure_reporting(verbose=args.verbose)
-    run_ctx = common.make_run_context(args, "train")
+    rank, world = common.init_distributed(args)
+    run_ctx = common.make_run_context(args, "train", rank=rank)
     try:
-        rc = _train(args, run_ctx)
+        rc = _train(args, rank, world, run_ctx)
         run_ctx.close(status="ok" if rc == 0 else "error")
         return rc
     except BaseException as e:  # SystemExit validation paths included
         run_ctx.close(status="error", error_class=type(e).__name__)
         raise
+    finally:
+        common.finish_distributed(args)
 
 
-def _train(args: argparse.Namespace, run_ctx) -> int:
+def _local_mesh(device):
+    """A ``('data', 'model')`` mesh of every local device, starting at
+    ``device`` (tensor parallel 2 ways when their count is even), or None
+    on one device."""
+    from nm03_capstone_project_tpu_torch.parallel.mesh import local_devices_from, make_mesh
+
+    devs = local_devices_from(device)
+    n = len(devs)
+    if n <= 1:
+        return None
+    tp = 2 if n % 2 == 0 else 1
+    return make_mesh(n, ("data", "model"), (n // tp, tp), devices=devs)
+
+
+def _train(args: argparse.Namespace, rank: int, world: int, run_ctx) -> int:
+    import numpy as np
     import torch
 
     from nm03_capstone_project_tpu_torch.core.backend import resolve_device
@@ -188,8 +223,11 @@ def _train(args: argparse.Namespace, run_ctx) -> int:
         distill_batch,
         distill_volume,
         fit,
+        fit_distributed,
+        fit_sharded,
         init_unet,
         init_unet3d,
+        pad_local_shard,
         predict_mask,
         predict_mask3d,
         prepare_student_inputs,
@@ -199,12 +237,19 @@ def _train(args: argparse.Namespace, run_ctx) -> int:
         TRAIN_FINAL_LOSS,
         TRAIN_IOU_VS_TEACHER,
     )
+    from nm03_capstone_project_tpu_torch.parallel import distributed
     from nm03_capstone_project_tpu_torch.utils.profiling import profile_trace
     from nm03_capstone_project_tpu_torch.utils.timing import write_results_json
 
     spans = run_ctx.spans
-    device = resolve_device(args.device)
     cfg = common.pipeline_config_from_args(args)
+    if world > 1 and args.model_3d:
+        raise SystemExit("--distributed training supports the 2D student only")
+    # a job trains the 2D student data parallel across its ranks, a world
+    # of 1 too (its collectives then run on the one card), each rank on its
+    # own device: its card under NCCL, the CPU under gloo
+    across_ranks = distributed.is_initialized() and not args.model_3d
+    device = distributed.local_device(args.device) if across_ranks else resolve_device(args.device)
     if cfg.canvas % 4:
         raise SystemExit("--canvas must be divisible by 4 (two U-Net poolings)")
     if args.eval_only and not args.restore:
@@ -214,9 +259,6 @@ def _train(args: argparse.Namespace, run_ctx) -> int:
             "--volume-depth must be positive and divisible by 4 (two 3D poolings)"
         )
     dtype = torch.bfloat16 if args.bf16 else torch.float32
-    if device.type == "cuda" and torch.cuda.device_count() > 1:
-        print(f"training on {device} alone: {torch.cuda.device_count()} devices are "
-              "visible, and data x tensor parallel training is not ported yet (ROADMAP A6)")
 
     # restore (and model-dimension sanity) BEFORE the expensive cohort load +
     # teacher distillation: a mismatched checkpoint must fail in milliseconds
@@ -251,10 +293,22 @@ def _train(args: argparse.Namespace, run_ctx) -> int:
                                   for v, d in zip(px, dm)])
     else:
         with spans.span("load_cohort"):
-            pixels, dims = _load_cohort(args, cfg)
+            pixels, dims = _load_cohort(args, cfg, rank, world)
         print(f"cohort: {pixels.shape[0]} slices at {cfg.canvas}x{cfg.canvas}")
-        px = torch.from_numpy(pixels).to(device)
-        dm = torch.from_numpy(dims).to(device)
+        if across_ranks:
+            # every rank loaded the same cohort, so every rank raises alike:
+            # a rank that raised alone would strand the others at the next
+            # collective
+            if pixels.shape[0] < world:
+                raise SystemExit(
+                    f"cohort has {pixels.shape[0]} usable slices < {world} processes "
+                    "— shrink the job or grow the cohort"
+                )
+            # shard before distillation: the teacher is the expensive part
+            pixels, dims = pixels[rank::world], dims[rank::world]
+            print(f"process {rank}/{world}: {pixels.shape[0]} slices assigned")
+        px = torch.from_numpy(np.ascontiguousarray(pixels)).to(device)
+        dm = torch.from_numpy(np.ascontiguousarray(dims)).to(device)
         print("distilling teacher labels (classical pipeline)...")
         with spans.span("distill"):
             labels = distill_batch(px, dm, cfg, device=device)
@@ -262,10 +316,29 @@ def _train(args: argparse.Namespace, run_ctx) -> int:
 
     losses = []
     if not args.eval_only:
+        mesh = None if across_ranks or args.model_3d else _local_mesh(device)
         with profile_trace(args.profile_dir), spans.span("train"):
-            print(f"training {args.steps} steps at lr={args.lr}...")
-            model, losses = fit(model, x, labels, dm, steps=args.steps, lr=args.lr,
-                                compute_dtype=dtype)
+            if across_ranks:
+                # pure data parallelism across the ranks: each pads its
+                # shard to the size every rank agreed on (one device a rank)
+                counts = distributed.allgather([x.shape[0]])
+                per_rank = int(counts.max())
+                x_l, lb_l, dm_l = pad_local_shard(x, labels, dm, per_rank)
+                print(f"training {args.steps} steps at lr={args.lr} over {world} "
+                      f"processes x 1 device (global batch {world * per_rank})...")
+                model, losses = fit_distributed(model, x_l, lb_l, dm_l, steps=args.steps,
+                                                lr=args.lr, compute_dtype=dtype)
+            elif mesh is not None:
+                dp, tp = mesh.shape["data"], mesh.shape["model"]
+                print(f"training {args.steps} steps at lr={args.lr} on {dp * tp} "
+                      f"devices (dp={dp} x tp={tp})...")
+                model, losses = fit_sharded(model, x, labels, dm, mesh, steps=args.steps,
+                                            lr=args.lr, compute_dtype=dtype)
+                model = model.to(device)
+            else:
+                print(f"training {args.steps} steps at lr={args.lr}...")
+                model, losses = fit(model, x, labels, dm, steps=args.steps, lr=args.lr,
+                                    compute_dtype=dtype)
         if losses:
             print(f"loss {losses[0]:.4f} -> {losses[-1]:.4f}")
 
@@ -281,9 +354,16 @@ def _train(args: argparse.Namespace, run_ctx) -> int:
     inter = int((pred & truth).sum())
     union = int((pred | truth).sum())
     n_scored = int(pred.shape[0])
+    if across_ranks:
+        # each rank scored its own unpadded shard; one allgather gives the
+        # cohort's IoU, which every rank agrees on
+        agg = common.allgather_cluster_counts(
+            {"inter": inter, "union": union, "n": n_scored}, world)
+        inter, union, n_scored = agg["inter"], agg["union"], agg["n"]
     iou = inter / union if union else 1.0
     unit = "volumes" if args.model_3d else "slices"
-    print(f"student-vs-teacher IoU over {n_scored} {unit}: {iou:.3f}")
+    if rank == 0:
+        print(f"student-vs-teacher IoU over {n_scored} {unit}: {iou:.3f}")
     run_ctx.registry.gauge(
         TRAIN_IOU_VS_TEACHER, help="student-vs-teacher IoU"
     ).set(iou)
@@ -295,6 +375,8 @@ def _train(args: argparse.Namespace, run_ctx) -> int:
         "train_scored", iou_vs_teacher=iou, n_scored=n_scored, unit=unit
     )
 
+    if rank != 0:
+        return 0  # the ranks' models are equal: rank 0 writes for the job
     ckpt = Path(args.output) / "checkpoint"
     if not args.eval_only:
         save_params(

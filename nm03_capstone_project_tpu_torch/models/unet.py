@@ -28,7 +28,7 @@ from __future__ import annotations
 
 import contextlib
 import math
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -186,6 +186,20 @@ def apply_unet(model: UNet, pixels: torch.Tensor, compute_dtype=torch.bfloat16) 
 def predict_mask(model: UNet, pixels: torch.Tensor, compute_dtype=torch.bfloat16) -> torch.Tensor:
     """uint8 mask, the classical pipeline's output contract."""
     return (model(pixels, compute_dtype) > 0).to(torch.uint8)
+
+
+def param_shardings(model: UNet, mesh) -> Dict[str, Optional[int]]:
+    """For each parameter of ``model`` (its ``state_dict`` name), the dim it
+    splits on over the mesh's ``model`` axis, or None where it is replicated.
+
+    The JAX package's rule: a leaf splits on its out-channels when their
+    count divides by the axis size ``tp > 1``. Out-channels are dim 0 of the
+    port's OIHW weights and of the biases (the JAX package's HWIO kernels
+    keep them last), so a split leaf splits on dim 0.
+    """
+    tp = mesh.shape.get("model", 1)
+    return {name: 0 if tp > 1 and p.shape[0] % tp == 0 else None
+            for name, p in model.named_parameters()}
 
 
 def unet_from_state(state: Dict[str, np.ndarray], device=None) -> UNet:

@@ -12,7 +12,10 @@ The port of the JAX package's ``parallel/``:
 """
 
 from nm03_capstone_project_tpu_torch.parallel import distributed  # noqa: F401
-from nm03_capstone_project_tpu_torch.parallel.dp import process_batch_sharded  # noqa: F401
+from nm03_capstone_project_tpu_torch.parallel.dp import (  # noqa: F401
+    map_batch_sharded,
+    process_batch_sharded,
+)
 from nm03_capstone_project_tpu_torch.parallel.mesh import (  # noqa: F401
     Mesh,
     batch_shards,

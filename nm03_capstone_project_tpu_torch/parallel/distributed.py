@@ -25,9 +25,17 @@ explicit arguments, or else from the launcher's environment
 ``WORLD_SIZE``/``RANK``, SLURM's and Open MPI's task variables).
 
 The collectives the drivers need are plain functions here:
-:func:`barrier`, :func:`broadcast_one_to_all` and :func:`allgather`. Each
-carries a tensor on the backend's device: the card's under NCCL, the
-host's under gloo.
+:func:`barrier`, :func:`broadcast_one_to_all`, :func:`allgather`, and for
+training :func:`all_reduce_sum` (the gradients). The serving volume gang
+across processes sends each dispatch with :func:`broadcast_study`: a
+fixed-size header (:data:`OP_STUDY`, :data:`OP_KEEPALIVE` or
+:data:`OP_STOP`), then the study. The header travels on the host over a
+gloo group (:func:`control_group`; the job's own group under gloo, a
+side group beside NCCL): gloo raises as soon as a peer's socket closes,
+whereas an NCCL collective with a dead peer blocks until the process
+group's timeout. So a rank lost between dispatches fails the next header
+in rank 0's Python before any NCCL op is queued. The study follows on the
+backend's device: the card's under NCCL, the host's under gloo.
 """
 
 from __future__ import annotations
@@ -55,6 +63,16 @@ _CLUSTER_ENV_SIGNALS = (
 )
 
 DEFAULT_TIMEOUT_S = 300.0
+
+# the ops of a gang dispatch header (:func:`broadcast_study`): a study to
+# run, a keepalive (an idle gang sends one well inside DEFAULT_TIMEOUT_S,
+# so a follower's wait for the next study never times out), and the stop
+# that ends the followers' loop
+OP_STOP, OP_STUDY, OP_KEEPALIVE = 0, 1, 2
+_HEADER_LEN = 6  # op, depth, height, width, true height, true width
+
+# the gloo side group of an NCCL job (:func:`control_group`)
+_CONTROL = None
 
 
 def _cluster_env() -> Optional[Dict[str, object]]:
@@ -159,13 +177,25 @@ def initialize(
     if got != world:  # pragma: no cover - the rendezvous enforces it
         shutdown()
         raise ValueError(f"joined a world of {got}, not --num-processes {world}")
+    global _CONTROL
+    if backend == "nccl":  # every rank creates it, in the same place
+        _CONTROL = _dist().new_group(
+            backend="gloo", timeout=datetime.timedelta(seconds=float(timeout_s)))
     return True
 
 
 def shutdown() -> None:
     """Leave the job (destroy the process group); a no-op outside one."""
+    global _CONTROL
     if is_initialized():
-        _dist().destroy_process_group()
+        _dist().destroy_process_group()  # the side group with it
+    _CONTROL = None
+
+
+def control_group():
+    """The gloo group the gang's dispatch headers travel on: the side
+    group of an NCCL job, else None (the job's own gloo group)."""
+    return _CONTROL
 
 
 def _local_cuda_index(rank: int) -> int:
@@ -267,3 +297,46 @@ def allgather(values) -> np.ndarray:
     out = [torch.empty_like(t) for _ in range(dist.get_world_size())]
     dist.all_gather(out, t)
     return torch.stack(out).cpu().numpy()
+
+
+def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
+    """``t`` summed over every rank, in place, and returned (``t`` itself
+    outside a job; in a world of 1 the reduction still runs, on the card
+    under NCCL). ``t`` lies on :func:`local_device`."""
+    if is_initialized():
+        _dist().all_reduce(t)
+    return t
+
+
+def broadcast_study(op: int = OP_STUDY, stack=None, dims=None):
+    """Rank 0's gang dispatch, on every rank: ``(op, stack, dims)``.
+
+    Rank 0 passes ``op`` and, for :data:`OP_STUDY`, the padded (D, H, W)
+    float32 study and its (2,) true in-plane size; every other rank passes
+    nothing and receives them. The header goes first, on the host over
+    :func:`control_group`, then the study, so a follower learns the shape
+    before it allocates. ``stack`` comes back as a float32 tensor on this
+    rank's device (None for the other ops) and ``dims`` as a (2,) int32
+    array. In a job every op is a broadcast, also in a world of 1; outside
+    a job it only hands the inputs back.
+    """
+    dev = local_device()
+    head = [0] * _HEADER_LEN
+    if process_index() == 0:
+        head[0] = int(op)
+        if op == OP_STUDY:
+            head[1:4] = [int(n) for n in stack.shape]
+            head[4:6] = [int(n) for n in np.asarray(dims).reshape(2)]
+    header = torch.tensor(head, dtype=torch.int64)
+    if is_initialized():
+        _dist().broadcast(header, src=0, group=control_group())
+    op, d, h, w, dh, dw = (int(v) for v in header.tolist())
+    if op != OP_STUDY:
+        return op, None, None
+    if process_index() == 0:
+        t = torch.as_tensor(stack).to(dev, torch.float32)
+    else:
+        t = torch.empty((d, h, w), dtype=torch.float32, device=dev)
+    if is_initialized():
+        _dist().broadcast(t, src=0)
+    return op, t, np.asarray([dh, dw], np.int32)

@@ -14,7 +14,7 @@ and the masks are the single-device ones bit for bit.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -75,15 +75,24 @@ def process_batch_sharded(
         raise ValueError("mask_only and with_render are mutually exclusive")
     if mesh is None:
         mesh = make_mesh(axis_names=("data",), device=device)
+    return map_batch_sharded(
+        lambda dev, px, dm: _chunk(px, dm, cfg, with_render, mask_only), pixels, dims, mesh)
+
+
+def map_batch_sharded(fn: Callable[[torch.device, torch.Tensor, torch.Tensor], Dict],
+                      pixels, dims, mesh: Mesh) -> Dict[str, torch.Tensor]:
+    """``fn(device, pixels, dims)`` on each ``data`` chunk of a (B, H, W)
+    batch, on the chunk's device; the dicts it returns gathered in order on
+    the first ``data`` device. The axis size must divide B. Every chunk is
+    enqueued before any is read: chunks on different cards run at once,
+    chunks on one card queue on its stream."""
     devs = mesh.axis_devices("data")
     px_shards = batch_shards(pixels, mesh, "data", torch.float32)
     dm_shards = batch_shards(dims, mesh, "data", torch.int32)
     outs = []
-    # every chunk is enqueued before any is read: chunks on different
-    # cards run at once, chunks on one card queue on its stream
     for dev, px, dm in zip(devs, px_shards, dm_shards):
         with on_device(dev):
-            outs.append(_chunk(px, dm, cfg, with_render, mask_only))
+            outs.append(fn(dev, px, dm))
     if len(outs) == 1:
         return outs[0]
     return {k: gather_shards([o[k] for o in outs], devs[0]) for k in outs[0]}

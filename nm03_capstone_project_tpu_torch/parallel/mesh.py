@@ -71,6 +71,18 @@ def local_devices(device=None) -> List[torch.device]:
     return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
 
+def local_devices_from(device: torch.device) -> List[torch.device]:
+    """:func:`local_devices` of the resolved ``device`` in turn, starting at
+    ``device`` itself (``cuda`` meaning the current card), so that a mesh
+    built on them gathers its outputs on the caller's device."""
+    devs = local_devices(device)
+    here = torch.device(device)
+    if here.type == "cuda" and here.index is None:
+        here = torch.device("cuda", torch.cuda.current_device())
+    k = next((i for i, d in enumerate(devs) if d == here), 0)
+    return devs[k:] + devs[:k]
+
+
 def _device_array(devices: Sequence[torch.device], shape) -> np.ndarray:
     arr = np.empty(len(devices), dtype=object)
     for i, d in enumerate(devices):

@@ -42,13 +42,15 @@ in place, so no view is ever corrupted.
 (through :func:`process_volume_zsharded`) and the serving volume gang both
 run, so a served mask equals the driver's by construction.
 :func:`process_volume_batch_zsharded` runs a cohort over a ('data', 'z')
-mesh on the in-process transport.
+mesh on either transport; over a process group each ``data`` row is a
+ring of ranks, and the rows agree once a check on whether any still grows.
 """
 
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from nm03_capstone_project_tpu_torch.config import DEFAULT_CONFIG, PipelineConfig
@@ -98,38 +100,50 @@ class _InProcessRing:
             total = total + v.to(dev0)
         return total
 
+    def any_growing(self, growing: bool, device) -> bool:
+        return growing
+
     def gather(self, blocks: List[torch.Tensor]) -> torch.Tensor:
         return gather_shards(blocks, self.devices[0], dim=Z)
 
 
 class _ProcessGroupRing:
-    """The z ring of a process group: this rank holds shard ``rank``."""
+    """The z ring of a process group that holds this rank's shard.
 
-    def __init__(self):
+    ``peers`` are the ranks of the ring in z order (every rank of the job
+    on a ``('z',)`` mesh; this rank's ``data`` row on a ``('data', 'z')``
+    one), and ``row``/``n_rows`` place the ring among the job's rows. A
+    ring's count is summed over the whole job in one ``all_reduce`` with a
+    slot a row, so no subgroup has to be formed.
+    """
+
+    def __init__(self, peers: Optional[Sequence[int]] = None, row: int = 0, n_rows: int = 1):
         import torch.distributed as dist
 
         self.dist = dist
-        self.rank = dist.get_rank()
         self.world = dist.get_world_size()
+        self.peers = list(range(self.world)) if peers is None else list(peers)
+        self.pos = self.peers.index(dist.get_rank())
+        self.row, self.n_rows = row, n_rows
         self.alone = False  # the exchange always runs, so every rank pairs off
 
     def halo_pad(self, blocks: List[torch.Tensor], halo: int) -> List[torch.Tensor]:
-        dist, r, n = self.dist, self.rank, self.world
+        dist, i, peers = self.dist, self.pos, self.peers
         (blk,) = blocks
         d = blk.shape[Z]
         # bool goes as uint8: neither backend need carry bool
         wire = blk.to(torch.uint8) if blk.dtype == torch.bool else blk
-        send_down = wire.narrow(Z, 0, halo).contiguous()  # to rank r - 1
-        send_up = wire.narrow(Z, d - halo, halo).contiguous()  # to rank r + 1
+        send_down = wire.narrow(Z, 0, halo).contiguous()  # to the shard below
+        send_up = wire.narrow(Z, d - halo, halo).contiguous()  # to the shard above
         from_prev = torch.zeros_like(send_down)
         from_next = torch.zeros_like(send_up)
         ops = []
-        if r > 0:
-            ops += [dist.P2POp(dist.isend, send_down, r - 1),
-                    dist.P2POp(dist.irecv, from_prev, r - 1)]
-        if r < n - 1:
-            ops += [dist.P2POp(dist.isend, send_up, r + 1),
-                    dist.P2POp(dist.irecv, from_next, r + 1)]
+        if i > 0:
+            ops += [dist.P2POp(dist.isend, send_down, peers[i - 1]),
+                    dist.P2POp(dist.irecv, from_prev, peers[i - 1])]
+        if i < len(peers) - 1:
+            ops += [dist.P2POp(dist.isend, send_up, peers[i + 1]),
+                    dist.P2POp(dist.irecv, from_next, peers[i + 1])]
         if ops:
             for req in dist.batch_isend_irecv(ops):
                 req.wait()
@@ -138,15 +152,29 @@ class _ProcessGroupRing:
 
     def z_sum(self, values: List[torch.Tensor]) -> torch.Tensor:
         (v,) = values
-        total = v.clone()
-        self.dist.all_reduce(total)
-        return total
+        slots = torch.zeros((self.n_rows,) + tuple(v.shape), dtype=v.dtype, device=v.device)
+        slots[self.row] = v
+        self.dist.all_reduce(slots)
+        return slots[self.row]
+
+    def any_growing(self, growing: bool, device) -> bool:
+        """Whether any row of the job still grows: every rank must run the
+        same number of blocks, since each block holds collectives."""
+        if self.n_rows == 1:  # one ring: every rank saw the same counts
+            return growing
+        flag = torch.tensor([int(growing)], dtype=torch.int32, device=device)
+        self.dist.all_reduce(flag, op=self.dist.ReduceOp.MAX)
+        return bool(flag.item())
 
     def gather(self, blocks: List[torch.Tensor]) -> torch.Tensor:
+        """The whole job's blocks in rank order, joined along z (one ring)."""
+        return torch.cat(self.gather_all(blocks), dim=Z)
+
+    def gather_all(self, blocks: List[torch.Tensor]) -> List[torch.Tensor]:
         (blk,) = blocks
         parts = [torch.empty_like(blk) for _ in range(self.world)]
         self.dist.all_gather(parts, blk.contiguous())
-        return torch.cat(parts, dim=Z)
+        return parts
 
 
 def _ring(mesh: Mesh, devices: Sequence[torch.device]):
@@ -219,7 +247,8 @@ def _region_grow_local(
 
     def growing(prev, cur) -> bool:
         # the loop's one read back to the host a check
-        return any(bool((c != p).any()) for p, c in zip(prev, cur))
+        here = any(bool((c != p).any()) for p, c in zip(prev, cur))
+        return rings[0].any_growing(here, cur[0].device)
 
     region0 = [[s & b for s, b in zip(srow, brow)] for srow, brow in zip(seeds, band)]
     region = grow_block(region0)
@@ -400,18 +429,16 @@ def process_volume_batch_zsharded(
     planes split over ``z`` (halo exchange and per-volume counts). The
     ``data`` size must divide B and the ``z`` size D. One growing loop
     carries every volume while any still grows (see
-    :func:`_region_grow_local`). In-process meshes only; the
-    process-group form is not ported.
+    :func:`_region_grow_local`). On a process-group mesh from
+    :func:`.distributed.global_mesh` every rank passes the whole cohort and
+    runs its own block.
 
     Returns {'original', 'mask', 'grow_converged'}, gathered on the mesh's
-    first device; ``grow_converged`` is (B,), one flag a volume.
+    first device (on every rank's own, over a process group);
+    ``grow_converged`` is (B,), one flag a volume.
     """
     if mesh is None:
         mesh = make_mesh(axis_names=("data", AXIS), device=device)
-    if mesh.process_group:
-        raise NotImplementedError(
-            "process_volume_batch_zsharded runs on in-process meshes only"
-        )
     if volumes.ndim != 4:
         raise ValueError(f"expected (B, D, H, W) volumes, got {tuple(volumes.shape)}")
     n_data, n_z = mesh.shape["data"], mesh.shape[AXIS]
@@ -424,10 +451,12 @@ def process_volume_batch_zsharded(
     k = mesh.axis_names.index("data")
     grid = mesh.devices if k == 0 else mesh.devices.T
     b, d = volumes.shape[0] // n_data, volumes.shape[1] // n_z
+    dm = torch.as_tensor(dims, dtype=torch.int32)
+    if mesh.process_group:
+        return _batch_over_process_group(volumes, dm, cfg, mesh, k, b, d)
     dev_grid = [list(row) for row in grid]
     vol_grid = [[to_device(volumes[i * b:(i + 1) * b, j * d:(j + 1) * d], dev, torch.float32)
                  for j, dev in enumerate(row)] for i, row in enumerate(dev_grid)]
-    dm = torch.as_tensor(dims, dtype=torch.int32)
     dims_rows = [dm[i * b:(i + 1) * b] for i in range(n_data)]
     rings = [_InProcessRing(row) for row in dev_grid]
     masks, conv = _run_grid(vol_grid, dims_rows, dev_grid, rings, cfg)
@@ -437,3 +466,35 @@ def process_volume_batch_zsharded(
         "mask": gather_shards([gather_shards(r, dev0, dim=1) for r in masks], dev0),
         "grow_converged": gather_shards(conv, dev0),
     }
+
+
+def _batch_over_process_group(volumes, dm: torch.Tensor, cfg: PipelineConfig, mesh: Mesh,
+                              data_axis: int, b: int, d: int) -> Dict[str, torch.Tensor]:
+    """:func:`process_volume_batch_zsharded` on a process-group mesh: this
+    rank runs the block at its place in the ('data', 'z') grid, its ring
+    the ranks of its ``data`` row. Every rank reaches every halo exchange
+    and every count until the last volume of any row stops growing, and
+    the blocks are gathered on every rank."""
+    from nm03_capstone_project_tpu_torch.parallel.distributed import (
+        local_device,
+        process_count,
+        process_index,
+    )
+
+    world, rank = process_count(), process_index()
+    ranks = np.arange(world).reshape(mesh.devices.shape)
+    ranks = ranks if data_axis == 0 else ranks.T  # rows over data, columns over z
+    n_data = ranks.shape[0]
+    i, j = (int(v[0]) for v in np.nonzero(ranks == rank))
+    dev = local_device()
+    block = to_device(volumes[i * b:(i + 1) * b, j * d:(j + 1) * d], dev, torch.float32)
+    ring = _ProcessGroupRing(peers=[int(r) for r in ranks[i]], row=i, n_rows=n_data)
+    masks, conv = _run_grid([[block]], [dm[i * b:(i + 1) * b]], [[dev]], [ring], cfg)
+    parts = ring.gather_all(masks[0])
+    # bool goes as uint8: neither backend need carry bool
+    conv_rows = ring.gather_all([conv[0].to(dev, torch.uint8)])
+    mask = torch.cat([torch.cat([parts[int(r)] for r in ranks[row]], dim=1)
+                      for row in range(n_data)])
+    converged = torch.cat([conv_rows[int(ranks[row][0])] for row in range(n_data)]).bool()
+    return {"original": to_device(volumes, dev, torch.float32), "mask": mask,
+            "grow_converged": converged}

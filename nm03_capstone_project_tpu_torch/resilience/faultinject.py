@@ -49,9 +49,10 @@ Kinds by site (:data:`KINDS_BY_SITE`, as the JAX package has them):
   not have: a plan holding such a rule is refused when it is parsed;
 * ``ingest``:   ``decode_error`` (fail one work item on the ingest decode
   pool), ``stall`` (wedge the stager ``hang_s`` seconds);
-* ``fleet``:    ``replica_unreachable``, ``proxy_io_error``: parsed, and
-  fired by nothing until the replica fleet is ported (as in the JAX
-  server, which does not fire them either);
+* ``fleet``:    ``replica_unreachable`` (the router's health poll sees
+  the replica refuse), ``proxy_io_error`` (a forwarded request fails on
+  the socket, and the router fails it over): both fired by the fleet
+  router (:mod:`..fleet.router`);
 * ``volume``:   ``dispatch_error`` (fail one volume-gang dispatch; with a
   ``lane`` selector the gang blames that lane, quarantines it and re-runs
   the study on the next healthy lane; without one it sheds).
@@ -94,8 +95,8 @@ KINDS_BY_SITE = {
     # the batch index in the parallel driver, the slice index in the
     # sequential one
     "ingest": ("decode_error", "stall"),
-    # the replica fleet's front end (not ported): `replica_unreachable`
-    # and `proxy_io_error`
+    # the replica fleet's front end (fleet/router.py fires both):
+    # `replica_unreachable` and `proxy_io_error`
     "fleet": ("replica_unreachable", "proxy_io_error"),
     # the volume gang (serving/volumes.py): `dispatch_error` fails one
     # study's dispatch as a retryable device error. With a `lane`

@@ -219,6 +219,7 @@ class ServingApp:
         slo=None,
         ledger_profile_interval_s: float = 0.0,
         ledger_profile_ms: int = 200,
+        distributed_init: bool = False,
     ):
         from nm03_capstone_project_tpu_torch.obs import RunContext
 
@@ -295,6 +296,7 @@ class ServingApp:
                 ),
                 fault_plan=fault_plan,
                 obs=self.obs,
+                distributed=distributed_init,
             )
         # the content-addressed result tier: a replica-side store in front
         # of the batcher, bounded by bytes (0 = disabled). The in-flight
@@ -462,6 +464,8 @@ class ServingApp:
         return drained
 
     def close(self, status: str = "ok") -> None:
+        if self.volumes is not None:
+            self.volumes.close()  # a cross-process gang's followers stop
         self.executor.close()
         self.obs.close(status=status)
 
@@ -1426,7 +1430,6 @@ def serve_in_thread(app: ServingApp, host: str = "127.0.0.1", port: int = 0):
 # flags of the JAX package's nm03-serve whose layers the port does not have
 # (yet), each with the reason it is refused
 NOT_PORTED = {
-    "--distributed-init": "multi-process serving is not ported yet (ROADMAP A6)",
     "--compile-cache-dir": "an XLA executable cache has no counterpart in eager "
                            "PyTorch (warmup captures CUDA graphs instead)",
     "--fallback-cpu": "the port has no CPU fallback",
@@ -1505,6 +1508,15 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument(
         "--volume-timeout-s", type=float, default=300.0,
         help="per-volume wall budget from admission to response",
+    )
+    g.add_argument(
+        "--distributed-init", action="store_true",
+        help="join a torch.distributed job before any backend work (torchrun's "
+        "MASTER_ADDR/MASTER_PORT/WORLD_SIZE/RANK; nccl on the card, gloo with "
+        "--device cpu), so the volume gang's z-mesh spans the job's ranks, one "
+        "device a rank: rank 0 serves HTTP and the gang, the other ranks follow "
+        "its dispatches (needs --volume-serving in a job of several processes); "
+        "outside a job a no-op",
     )
     g.add_argument(
         "--flight-dir", default=None, metavar="DIR",
@@ -1591,7 +1603,38 @@ def app_from_args(args: argparse.Namespace, obs=None) -> ServingApp:
         slo=objective_from_args(args),
         ledger_profile_interval_s=args.ledger_profile_interval_s,
         ledger_profile_ms=args.ledger_profile_ms,
+        distributed_init=args.distributed_init,
     )
+
+
+def _join_job(args: argparse.Namespace):
+    """``--distributed-init``: join the job before any backend work; None
+    on rank 0 and outside a job, else a follower rank's exit code (it ran
+    :func:`.follower.follow` in place of the server)."""
+    from nm03_capstone_project_tpu_torch.cli import common
+    from nm03_capstone_project_tpu_torch.parallel import distributed
+
+    if not distributed.initialize(device=args.device):
+        print("nm03-serve: --distributed-init: no job detected; serving alone",
+              file=sys.stderr)
+        return None
+    world, rank = distributed.process_count(), distributed.process_index()
+    if world > 1 and not args.volume_serving:
+        distributed.shutdown()
+        raise ValueError(f"--distributed-init in a job of {world} processes needs "
+                         "--volume-serving: the other ranks serve only the volume gang")
+    if rank == 0:
+        return None
+    from nm03_capstone_project_tpu_torch.serving.follower import follow
+
+    print(f"nm03-serve: rank {rank} of {world} follows the volume gang", file=sys.stderr,
+          flush=True)
+    try:
+        rc = follow(common.pipeline_config_from_args(args))
+    finally:
+        distributed.shutdown()
+    print(f"nm03-serve: rank {rank} stopped with the gang", file=sys.stderr, flush=True)
+    return rc
 
 
 def _write_port_file(path: str, port: int) -> None:
@@ -1637,10 +1680,27 @@ def main(argv=None) -> int:
         objective_from_args(args)  # a bad --slo-* is a usage error, not a traceback
     except ValueError as e:
         parser.error(str(e))
-    from nm03_capstone_project_tpu_torch.obs import RunContext, flightrec
+    from nm03_capstone_project_tpu_torch.parallel import distributed
     from nm03_capstone_project_tpu_torch.utils.reporter import configure_reporting
 
     configure_reporting(verbose=args.verbose)
+    if args.distributed_init:
+        try:
+            rc = _join_job(args)
+        except (RuntimeError, ValueError) as e:
+            print(f"nm03-serve: {e}", file=sys.stderr)
+            return 1
+        if rc is not None:  # a follower rank: it served the gang, not HTTP
+            return rc
+    try:
+        return _serve(args, argv)
+    finally:
+        distributed.shutdown()  # a no-op outside a job
+
+
+def _serve(args: argparse.Namespace, argv) -> int:
+    from nm03_capstone_project_tpu_torch.obs import RunContext, flightrec
+
     run_ctx = RunContext.create(
         "serve",
         metrics_out=args.metrics_out,

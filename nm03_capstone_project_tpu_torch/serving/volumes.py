@@ -34,6 +34,23 @@ program is ``process_volume`` on the dilate schedule.
   the same quarantine and re-meshes onto the survivors; a rule without a
   lane selector sheds the request.
 
+**Across processes** (``--distributed-init`` in a ``torch.distributed``
+job, :func:`distributed_gang_program`): the z-mesh is the job's
+process-group mesh, one device a rank
+(:func:`..parallel.distributed.global_mesh`). Rank 0 runs HTTP and this
+gang; every other rank runs :func:`.follower.follow`. For each dispatch
+rank 0 broadcasts a fixed-size header, on the host over gloo, and the
+study (:func:`..parallel.distributed.broadcast_study`), then every rank
+runs the z-sharded program over the process group. An idle gang
+broadcasts a keepalive header well inside the process group's timeout.
+Global devices carry no lane id, so the gang blames no lane: a failed
+cross-process dispatch (a follower's death) marks the gang down, that
+request and every later one shed with 503 + ``Retry-After``, and
+``status()`` says why; slices keep serving on rank 0's lanes. A follower
+lost between dispatches fails the next header (gloo raises when a peer's
+socket closes). One lost during a dispatch's NCCL collectives is not
+seen: NCCL blocks until the process group's timeout.
+
 Depth buckets mirror the batch buckets: a study pads with zero planes
 (which segment empty) up to the smallest bucket that fits, rounded up to a
 multiple of the mesh width (:meth:`VolumeGang.padded_depth`), and the mask
@@ -63,8 +80,13 @@ import torch
 
 from nm03_capstone_project_tpu_torch.config import PipelineConfig
 from nm03_capstone_project_tpu_torch.ingest.staging import stage_volume
-from nm03_capstone_project_tpu_torch.parallel.mesh import make_mesh
-from nm03_capstone_project_tpu_torch.parallel.zshard import zshard_volume_callable
+from nm03_capstone_project_tpu_torch.parallel import distributed
+from nm03_capstone_project_tpu_torch.parallel.mesh import Mesh, make_mesh
+from nm03_capstone_project_tpu_torch.parallel.zshard import (
+    _check_depth,
+    process_volume_zsharded,
+    zshard_volume_callable,
+)
 from nm03_capstone_project_tpu_torch.serving.queue import AdmissionQueue
 from nm03_capstone_project_tpu_torch.utils.reporter import get_logger
 
@@ -131,6 +153,43 @@ def gang_program(shards: List[torch.Tensor], dm: torch.Tensor,
         shards, dm)
 
 
+def distributed_gang_program(stack: torch.Tensor, dims, cfg: PipelineConfig):
+    """One cross-process gang dispatch, run by every rank of the job after
+    :func:`..parallel.distributed.broadcast_study`: the z-sharded program
+    over the job's process-group mesh (one slab a rank, the process-group
+    transport also in a world of 1), on the dilate schedule. Returns the
+    whole (D, H, W) mask, gathered on every rank, and the 0-d converged
+    flag."""
+    g = distributed.global_mesh(("z",))
+    mesh = Mesh(g.devices, ("z",), process_group=True)
+    out = process_volume_zsharded(stack, dims, dataclasses.replace(cfg, grow_algorithm="dilate"),
+                                  mesh)
+    return out["mask"], out["grow_converged"]
+
+
+@contextlib.contextmanager
+def _dispatch_span(trace, lane, z_shards: int):
+    """The ``volume_dispatch`` span of one study, which also carries the
+    host's split of it: ``stage_s`` (the study to the devices: the slabs'
+    copies, or across a job the study's broadcast) up to the time the
+    block appends to the yielded list, and ``program_s`` (the z-sharded
+    program) after it. Recorded when the block fails, too."""
+    t0, marks = time.monotonic(), []
+    try:
+        yield marks
+    finally:
+        if trace is not None:
+            t1 = time.monotonic()
+            split = ({"stage_s": round(marks[0] - t0, 6), "program_s": round(t1 - marks[0], 6)}
+                     if marks else {})
+            trace.add_span("volume_dispatch", t0, t1, lane=lane, z_shards=z_shards, **split)
+
+
+# an idle cross-process gang's keepalive period: a tenth of the process
+# group's timeout, so a follower's wait for the next dispatch never ends it
+KEEPALIVE_S = distributed.DEFAULT_TIMEOUT_S / 10
+
+
 class VolumeGang:
     """The gang lane: one thread serving whole-volume requests, one at a
     time, each over a z-mesh of the healthy lanes.
@@ -148,6 +207,7 @@ class VolumeGang:
         depth_buckets: Tuple[int, ...] = DEFAULT_VOLUME_DEPTH_BUCKETS,
         fault_plan=None,
         obs=None,
+        distributed: bool = False,
     ):
         buckets = tuple(int(b) for b in depth_buckets)
         if not buckets or list(buckets) != sorted(set(buckets)):
@@ -169,6 +229,14 @@ class VolumeGang:
         self._streams_lock = threading.Lock()
         self._thread = threading.Thread(target=self._run, name="nm03-serve-gang", daemon=True)
         self._started = False
+        # --distributed-init: in a job, the mesh spans the job's ranks
+        self.distributed = bool(distributed)
+        # one broadcast sequence at a time: a dispatch, a keepalive, the stop
+        self._collective = threading.Lock()
+        self._down: Optional[str] = None  # why the cross-process gang stopped
+        self._stopped = threading.Event()
+        self._keepalive = threading.Thread(target=self._keepalive_loop,
+                                           name="nm03-serve-gang-keepalive", daemon=True)
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -189,8 +257,14 @@ class VolumeGang:
         request by (the smallest depth bucket)."""
         return self.depth_buckets[0]
 
+    @property
+    def in_job(self) -> bool:
+        """Whether the mesh spans the ranks of a ``torch.distributed`` job."""
+        return self.distributed and distributed.is_initialized()
+
     def _device_pool(self) -> List[Tuple[int, torch.device]]:
-        """``[(lane, device)]`` the next mesh is built from: the healthy lanes."""
+        """``[(lane, device)]`` the next mesh is built from: the healthy
+        lanes."""
         return self.executor.healthy_lane_devices()
 
     def padded_depth(self, depth: int, n_shards: int = 1) -> int:
@@ -246,8 +320,6 @@ class VolumeGang:
         streams = self._mesh_streams(pool)
         n = len(pool)
         d = stack.shape[0] // n
-        dispatch = (trace.span("volume_dispatch", lane=lanes[0], z_shards=n) if trace
-                    else contextlib.nullcontext())
         gather = (trace.span("volume_gather", lane=lanes[0]) if trace
                   else contextlib.nullcontext())
         with contextlib.ExitStack() as current:
@@ -255,40 +327,124 @@ class VolumeGang:
             # thread starts on device 0 and its default stream)
             for st in {id(st): st for st in streams if st is not None}.values():
                 current.enter_context(torch.cuda.stream(st))
-            with dispatch:
+            with _dispatch_span(trace, lanes[0], n) as marks:
                 staged = [stage_volume(stack[i * d:(i + 1) * d], dims, dev, st)
                           for i, (dev, st) in enumerate(zip(devices, streams))]
+                marks.append(time.monotonic())
                 out = gang_program([v for v, _ in staged], staged[0][1], self.cfg)
             with gather:
                 mask = np.concatenate([m.cpu().numpy() for m in out["mask"]])
                 conv = bool(out["grow_converged"])
         return mask, conv
 
+    def _run_distributed(self, stack: np.ndarray, dims: np.ndarray, trace=None):
+        """:meth:`_run_program` across the job: broadcast the study, run
+        :func:`distributed_gang_program` with the followers, fetch the mask.
+        Any failure marks the gang down and sheds (:class:`GangUnavailable`):
+        after a collective failed, the ranks' places in the op sequence can
+        no longer be trusted."""
+        # refused here, before any collective, so that no follower meets it
+        _check_depth(stack.shape[0], distributed.process_count(), self.cfg)
+        dev = distributed.local_device()
+        st = self._stream(None, dev)
+        gather = trace.span("volume_gather", lane=None) if trace else contextlib.nullcontext()
+        with self._collective:
+            if self._down is not None:
+                raise GangUnavailable(f"the cross-process volume gang is down ({self._down})")
+            try:
+                with (torch.cuda.stream(st) if st is not None else contextlib.nullcontext()):
+                    with _dispatch_span(trace, None, distributed.process_count()) as marks:
+                        _, vol, dm = distributed.broadcast_study(
+                            distributed.OP_STUDY, stack, dims)
+                        marks.append(time.monotonic())
+                        mask, conv = distributed_gang_program(vol, dm, self.cfg)
+                    with gather:
+                        return mask.cpu().numpy(), bool(conv)
+            except BaseException as e:  # noqa: BLE001 — the job is broken either way
+                self._mark_down(f"{type(e).__name__}: {e}")
+                raise GangUnavailable(
+                    f"cross-process volume dispatch failed ({type(e).__name__}); the gang "
+                    "is down until the job restarts") from e
+
+    def _mark_down(self, cause: str) -> None:
+        if self._down is None:
+            self._down = cause
+            log.error("volume gang: the cross-process gang is down: %s", cause)
+
+    def _keepalive_loop(self) -> None:
+        """Keep the followers' wait for the next dispatch alive while idle,
+        and notice a follower's death before the next study does."""
+        while not self._stopped.wait(KEEPALIVE_S):
+            with self._collective:
+                if self._down is not None or self._stopped.is_set():
+                    return
+                try:
+                    distributed.broadcast_study(distributed.OP_KEEPALIVE)
+                except BaseException as e:  # noqa: BLE001 — recorded, then shed
+                    self._mark_down(f"keepalive: {type(e).__name__}: {e}")
+                    return
+
+    def close(self, timeout_s: float = 10.0) -> None:
+        """End the followers' loop with the stop op (rank 0 of a job,
+        unless the gang is down); a no-op outside a job. Call after
+        :meth:`join`: a dispatch still holding the collectives past
+        ``timeout_s`` leaves the followers to their own timeout."""
+        self._stopped.set()
+        if not self.in_job or distributed.process_index() != 0:
+            return
+        if not self._collective.acquire(timeout=timeout_s):
+            log.warning("volume gang: a dispatch still holds the collectives; "
+                        "the followers get no stop")
+            return
+        try:
+            if self._down is None:
+                distributed.broadcast_study(distributed.OP_STOP)
+                self._down = "stopped"
+        except BaseException as e:  # noqa: BLE001 — closing either way
+            self._mark_down(f"stop: {type(e).__name__}: {e}")
+        finally:
+            self._collective.release()
+
     def warmup(self) -> Dict[int, float]:
         """Run every depth bucket once on zeros with ``min_dim`` dims, at
         the mesh width dispatch will use for it (``_usable_shards`` depends
-        on the bucket when the halo limits shallow ones); ``{bucket:
-        seconds}``. Call after the executor's warmup. A bucket that fails
-        raises."""
-        pool = self._device_pool()
-        if not pool:
+        on the bucket when the halo limits shallow ones; in a job it is
+        every rank); ``{bucket: seconds}``. Call after the executor's
+        warmup. A bucket that fails raises."""
+        pool = [] if self.in_job else self._device_pool()
+        if not pool and not self.in_job:
             raise GangUnavailable("no healthy lane to warm the volume gang on")
         c = self.cfg.canvas
+        dims = np.asarray([self.cfg.min_dim, self.cfg.min_dim], np.int32)
         timings, width = {}, 0
         for b in self.depth_buckets:
-            n = self._usable_shards(len(pool), b)
+            n = distributed.process_count() if self.in_job else self._usable_shards(len(pool), b)
             width = max(width, n)
+            stack = np.zeros((self.padded_depth(b, n), c, c), np.float32)
             t0 = time.perf_counter()
-            self._run_program(np.zeros((self.padded_depth(b, n), c, c), np.float32),
-                              np.asarray([self.cfg.min_dim, self.cfg.min_dim], np.int32),
-                              [ln for ln, _ in pool[:n]], [d for _, d in pool[:n]])
+            if self.in_job:
+                self._run_distributed(stack, dims)
+            else:
+                self._run_program(stack, dims, [ln for ln, _ in pool[:n]],
+                                  [d for _, d in pool[:n]])
             timings[b] = round(time.perf_counter() - t0, 3)
         self._warm_width = width
         return timings
 
+    def _padded_stack(self, volume: np.ndarray, depth: int, n_shards: int) -> np.ndarray:
+        """``volume`` in the corner of a zero (padded depth, canvas, canvas)
+        stack: zero filler planes segment empty, so cropping the mask back
+        to ``[:depth, :h, :w]`` gives the unpadded study's."""
+        c = self.cfg.canvas
+        stack = np.zeros((self.padded_depth(depth, n_shards), c, c), np.float32)
+        stack[:depth, :volume.shape[1], :volume.shape[2]] = volume
+        return stack
+
     def start(self) -> "VolumeGang":
         self._started = True
         self._thread.start()
+        if self.in_job:
+            self._keepalive.start()
         return self
 
     def join(self, timeout_s: Optional[float] = None) -> bool:
@@ -373,9 +529,11 @@ class VolumeGang:
     def _dispatch_volume(self, req: VolumeRequest, seq: int) -> None:
         """Run the study over a z-mesh of the healthy lanes, re-meshing
         onto the survivors after a lane death."""
-        c = self.cfg.canvas
         h, w = req.dims
         dims = np.asarray([h, w], np.int32)
+        if self.in_job:
+            self._dispatch_across_job(req, seq, dims)
+            return
         excluded: set = set()
         # one hop a lane the pool started with, plus one: bounded even
         # against flapping lanes
@@ -406,10 +564,7 @@ class VolumeGang:
                 excluded.add(rule.lane)
                 self._note_requeue(req, rule.lane, "injected_device_lost")
                 continue
-            # zero filler planes segment empty, so cropping [:depth] gives
-            # the unpadded study's mask
-            stack = np.zeros((self.padded_depth(req.depth, len(pool)), c, c), np.float32)
-            stack[: req.depth, :h, :w] = req.volume
+            stack = self._padded_stack(req.volume, req.depth, len(pool))
             sup = self.executor.new_supervisor()
             trace = req.trace
             try:
@@ -450,6 +605,22 @@ class VolumeGang:
             req.lanes = lanes
             return
 
+    def _dispatch_across_job(self, req: VolumeRequest, seq: int, dims: np.ndarray) -> None:
+        """The study over the job's ranks: no lane to blame, so an injected
+        or real failure sheds (and a real one marks the gang down)."""
+        if self._down is not None:
+            raise GangUnavailable(f"the cross-process volume gang is down ({self._down})")
+        n = distributed.process_count()
+        if self._fire_fault(seq, [None]) is not None:
+            raise GangUnavailable("injected unattributable volume failure (volume dispatch_error)")
+        h, w = req.dims
+        mask, conv = self._run_distributed(self._padded_stack(req.volume, req.depth, n), dims,
+                                           req.trace)
+        req.mask = np.ascontiguousarray(mask[: req.depth, :h, :w])
+        req.converged = conv
+        req.z_shards = n
+        req.lane, req.lanes = None, []
+
     def _note_requeue(self, req: VolumeRequest, lane, cause: str) -> None:
         req.requeues += 1
         if req.trace is not None:
@@ -467,6 +638,10 @@ class VolumeGang:
             "z_shards": self.z_shards,
             "queue_depth": len(self.queue),
             "queue_capacity": self.queue.capacity,
-            "distributed": False,
+            "distributed": self.in_job,
+            "processes": distributed.process_count() if self.in_job else 1,
+            # a cross-process gang that lost a rank sheds every study
+            "ready": self._down is None or not self.in_job,
+            "down_cause": self._down if self.in_job else None,
             "default_cost": self.default_cost,
         }

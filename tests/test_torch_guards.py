@@ -69,7 +69,7 @@ def test_port_has_the_slice_modules():
         "utils.profiling", "serving.loadgen",
         "fleet", "fleet.replicas", "fleet.router", "fleet.manager", "fleet.cli",
         "serving.top", "parallel", "parallel.mesh", "parallel.dp", "parallel.zshard",
-        "parallel.distributed",
+        "parallel.distributed", "serving.follower",
     ):
         assert f"nm03_capstone_project_tpu_torch.{mod}" in names
 
@@ -219,7 +219,7 @@ class TestDrivers:
         if not (flag[0] == "--model" and name in DEPLOY_MODEL)
         and not (flag[0] == "--fault-plan" and name in RESILIENT)
         and not (flag[0] in ("--metrics-out", "--profile-dir") and name in OBSERVED)
-        and not (flag[0] == "--distributed" and name in DISTRIBUTED)
+        and not (flag[0] == "--distributed" and name in DISTRIBUTED + ("train",))
     ])
     def test_flags_of_layers_not_ported_are_rejected(self, name, flag, capsys):
         import importlib
@@ -235,7 +235,7 @@ class TestDrivers:
         groups = {"sequential": ("observability", "resilience"),
                   "parallel": ("observability", "resilience"),
                   "volume": ("observability",),
-                  "train": ("observability", "distributed"),
+                  "train": ("observability",),
                   "test_pipeline": ()}[name]
         reasons = {f: r for g in groups for f, r in common.NOT_PORTED[g].items()}
         if flag[0] in reasons:
@@ -272,16 +272,39 @@ class TestDrivers:
         assert "no cluster detected; running single-process" in capsys.readouterr().err
         assert (out / "manifest.json").exists() and len(list(out.rglob("*.jpg"))) == 4
 
-    def test_train_keeps_refusing_distributed(self, capsys):
+    def test_train_takes_distributed_and_trains_alone_without_a_cluster(
+            self, tmp_path, monkeypatch, capsys):
+        """The train driver takes --distributed and its three flags (it
+        refused them until data parallel training was ported); with no
+        cluster it trains in the one process."""
+        from nm03_capstone_project_tpu_torch.cli import train
+
+        args = train.build_parser().parse_args(
+            ["--distributed", "--coordinator-address", "127.0.0.1:1234",
+             "--num-processes", "2", "--process-id", "1"])
+        assert (args.distributed, args.coordinator_address, args.num_processes,
+                args.process_id) == (True, "127.0.0.1:1234", 2, 1)
+        for var in ("MASTER_ADDR", "SLURM_STEP_NODELIST", "OMPI_COMM_WORLD_SIZE"):
+            monkeypatch.delenv(var, raising=False)
+        out = tmp_path / "out"
+        assert train.main(["--output", str(out), "--device", "cpu", "--synthetic", "1",
+                           "--synthetic-slices", "3", "--canvas", "64", "--min-dim", "32",
+                           "--base-channels", "8", "--steps", "2", "--distributed"]) == 0
+        captured = capsys.readouterr()
+        assert "no cluster detected; running single-process" in captured.err
+        assert "training 2 steps at lr=0.003..." in captured.out
+        assert (out / "checkpoint").is_dir()
+
+    def test_train_distributed_refuses_the_3d_student(self, monkeypatch, tmp_path):
+        """As the JAX driver: a job of several processes trains the 2D
+        student only, and says so before it loads anything."""
         from nm03_capstone_project_tpu_torch.cli import common, train
 
-        for flag in common.NOT_PORTED["distributed"]:
-            with pytest.raises(SystemExit) as exc:
-                train.build_parser().parse_args([flag] if flag == "--distributed"
-                                                else [flag, "1"])
-            assert exc.value.code == 2
-            err = capsys.readouterr().err
-            assert "ROADMAP A6" in err and common.NOT_PORTED["distributed"][flag] in err
+        monkeypatch.setattr(common, "init_distributed", lambda args: (0, 2))
+        with pytest.raises(SystemExit, match="--distributed training supports the 2D student"):
+            train.main(["--output", str(tmp_path / "out"), "--device", "cpu", "--synthetic",
+                        "1", "--model-3d", "--distributed"])
+        assert not (tmp_path / "out").exists()
 
     @pytest.mark.parametrize("name", OBSERVED)
     @pytest.mark.parametrize("flag", ["--metrics-out", "--log-json", "--profile-dir"])
@@ -468,10 +491,11 @@ class TestServer:
         assert not flightrec.get_recorder().configured
 
     # the ids stay those of the cases before volume serving, fault plans,
-    # the SLO plane and the ledger were ported (flag0, flag1 and flag4-flag8
-    # were their flags, now accepted: see the tests below)
+    # the SLO plane, the ledger and --distributed-init were ported (flag0-
+    # flag2 and flag4-flag8 were their flags, now accepted: see the tests
+    # below)
     @pytest.mark.parametrize("flag", [pytest.param(f, id=f"flag{i}") for i, f in [
-        (2, ["--distributed-init"]), (3, ["--compile-cache-dir", "c"]),
+        (3, ["--compile-cache-dir", "c"]),
         (9, ["--no-fallback-cpu"]), (10, ["--sanitize"]), (11, ["--device", "auto"]),
     ]])
     def test_flags_of_layers_not_ported_are_rejected(self, flag, capsys):
@@ -545,6 +569,38 @@ class TestServer:
         server.app_from_args(server.build_parser().parse_args(["--device", "cpu"]))
         assert (seen["slo"], seen["fault_plan"], seen["ledger_profile_interval_s"],
                 seen["ledger_profile_ms"]) == (None, None, 0.0, 200)
+
+    def test_distributed_init_reaches_the_app_and_alone_serves_alone(self, monkeypatch,
+                                                                      capsys):
+        """``--distributed-init`` (refused until multi-process serving was
+        ported) reaches the app and its gang; outside a job joining is a
+        no-op that says so, and a job of several processes without
+        --volume-serving is refused (its other ranks would have nothing
+        to follow)."""
+        from nm03_capstone_project_tpu_torch.parallel import distributed
+        from nm03_capstone_project_tpu_torch.serving import server
+
+        seen = {}
+
+        class FakeApp:
+            def __init__(self, **kw):
+                seen.update(kw)
+
+        monkeypatch.setattr(server, "ServingApp", FakeApp)
+        args = server.build_parser().parse_args(["--device", "cpu", "--distributed-init"])
+        server.app_from_args(args)
+        assert seen["distributed_init"] is True
+        server.app_from_args(server.build_parser().parse_args(["--device", "cpu"]))
+        assert seen["distributed_init"] is False
+        for var in ("MASTER_ADDR", "SLURM_STEP_NODELIST", "OMPI_COMM_WORLD_SIZE"):
+            monkeypatch.delenv(var, raising=False)
+        assert server._join_job(args) is None and not distributed.is_initialized()
+        assert "no job detected; serving alone" in capsys.readouterr().err
+        monkeypatch.setattr(distributed, "initialize", lambda device=None: True)
+        monkeypatch.setattr(distributed, "process_count", lambda: 2)
+        monkeypatch.setattr(distributed, "shutdown", lambda: None)
+        with pytest.raises(ValueError, match="needs --volume-serving"):
+            server._join_job(args)
 
     @pytest.mark.parametrize("flag,rc,reason", [
         (["--slo-availability", "100"], 2, "availability_pct"),
@@ -691,18 +747,45 @@ class TestParallelDriverMesh:
         cards = [torch.device("cuda", i) for i in range(3)]
         monkeypatch.setattr(mesh, "local_devices", lambda device=None: list(cards))
         proc = object.__new__(CohortProcessor)
-        proc.process_count, proc.model, proc._mesh_skip_said = 1, None, False
+        proc.process_count, proc.model = 1, None
         proc.device = torch.device("cuda", 1)
         assert proc._data_mesh().axis_devices("data") == [cards[1], cards[2], cards[0]]
 
-    def test_a_student_run_says_it_skips_the_mesh(self, monkeypatch, capsys):
-        from nm03_capstone_project_tpu_torch.cli.runner import CohortProcessor
+    @pytest.mark.parametrize("n,stage", [(2, "host"), (3, "device")])
+    def test_a_student_run_splits_over_the_mesh(self, monkeypatch, tmp_path, n, stage):
+        """With --model on n local devices (it ran on one device before the
+        student was ported over the mesh) every batch splits over the data
+        mesh, one student copy a distinct device, and the files equal a
+        one-device --model run's byte for byte."""
+        from nm03_capstone_project_tpu_torch import models as pm
+        from nm03_capstone_project_tpu_torch.cli import parallel, runner
         from nm03_capstone_project_tpu_torch.parallel import mesh
 
-        monkeypatch.setattr(mesh, "local_devices", lambda device=None: [torch.device("cpu")] * 2)
-        proc = object.__new__(CohortProcessor)
-        proc.process_count, proc.model, proc._mesh_skip_said = 1, object(), False
-        proc.device = torch.device("cpu")
-        assert proc._data_mesh() is None and proc._data_mesh() is None
-        err = capsys.readouterr().err
-        assert err.count("not over the 2-device data mesh") == 1
+        ckpt = tmp_path / "ckpt"
+        pm.save_params(ckpt, pm.init_unet(torch.Generator().manual_seed(5), base=8,
+                                          device="cpu"), meta={"model_3d": False})
+        argv = ["--synthetic", "2", "--synthetic-slices", "5", "--canvas", "64",
+                "--min-dim", "32", "--device", "cpu", "--batch-size", "4",
+                "--render-stage", stage, "--model", str(ckpt)]
+        assert parallel.main(argv + ["--output", str(tmp_path / "one")]) == 0
+        real, chunks = runner.CohortProcessor._student_sharded, []
+
+        def counted(self, px, dm, m):
+            chunks.append((len(px), m.shape["data"]))
+            out = real(self, px, dm, m)
+            # a repeated device shares the run's own copy of the student
+            assert set(map(id, self._replicas.values())) == {id(self.model)}
+            return out
+
+        monkeypatch.setattr(runner.CohortProcessor, "_student_sharded", counted)
+        monkeypatch.setattr(mesh, "local_devices", lambda device=None: [torch.device("cpu")] * n)
+        assert parallel.main(argv + ["--output", str(tmp_path / "many")]) == 0
+        want = [(4, 2), (2, 2)] if n == 2 else [(3, 3), (3, 3)]
+        assert chunks == want * 2
+
+        def files(root):
+            return {str(p.relative_to(root)): p.read_bytes() for p in sorted(root.rglob("*"))
+                    if p.is_file() and "synthetic" not in str(p) and p.suffix == ".jpg"}
+
+        one, many = files(tmp_path / "one"), files(tmp_path / "many")
+        assert len(one) == 2 * 2 * 5 and one == many

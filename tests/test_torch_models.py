@@ -308,11 +308,29 @@ class TestCheckpoint:
         with pytest.raises(FileNotFoundError, match="no checkpoint at"):
             pm.load_params(tmp_path / "nope", device="cpu")
 
-    def test_weights_to_jax_give_the_ports_logits(self, tmp_path):
+    def test_weights_to_jax_give_the_ports_logits(self, tmp_path, phantoms):
+        """A checkpoint's weights, carried to the JAX package's tree, give
+        its logits: a fresh student's, and one trained data x tensor
+        parallel (fit_sharded over a (2, 2) mesh), whose checkpoint has the
+        one-device layout."""
+        from nm03_capstone_project_tpu_torch.parallel import make_mesh
+
         model = pm.init_unet(torch.Generator().manual_seed(3), base=8, device="cpu")
-        pm.save_params(tmp_path / "ck", model, meta={"model_3d": False})
-        back, _ = pm.load_params(tmp_path / "ck", device="cpu")
+        px, dims = phantoms
+        xs = pm.prepare_student_inputs(torch.from_numpy(px), CFG)
+        labels = pm.distill_batch(px, dims, CFG, device="cpu")
+        mesh = make_mesh(4, ("data", "model"), (2, 2), devices=[torch.device("cpu")] * 4)
+        sharded, _ = pm.fit_sharded(pm.init_unet(torch.Generator().manual_seed(3), base=8,
+                                                 device="cpu"),
+                                    xs, labels, torch.from_numpy(dims), mesh, steps=3, lr=3e-3)
+        moved = max(float((a - b).abs().max()) for a, b in
+                    zip(sharded.state_dict().values(), model.state_dict().values()))
+        assert moved > 1e-4  # it did train
         x = _inputs(2, seed=4)
-        got = back(torch.from_numpy(x), torch.float32).detach().numpy()
-        want = np.asarray(jm.apply_unet(unet_params_to_jax(back), jnp.asarray(x), jnp.float32))
-        assert np.abs(got - want).max() <= FWD_RTOL * np.abs(want).max()
+        for name, net in (("ck", model), ("sharded", sharded)):
+            pm.save_params(tmp_path / name, net, meta={"model_3d": False})
+            back, _ = pm.load_params(tmp_path / name, device="cpu")
+            got = back(torch.from_numpy(x), torch.float32).detach().numpy()
+            want = np.asarray(jm.apply_unet(unet_params_to_jax(back), jnp.asarray(x),
+                                            jnp.float32))
+            assert np.abs(got - want).max() <= FWD_RTOL * np.abs(want).max(), name

@@ -173,6 +173,26 @@ def jax_zmesh():
     return jax_make_mesh(4, axis_names=("z",))
 
 
+class TestStudentOverTheMesh:
+    @pytest.mark.parametrize("n", [2, 3])
+    def test_equals_one_device_bitwise(self, n):
+        """The parallel driver's student over an n-way data mesh
+        (:func:`map_batch_sharded` with the runner's student step): the
+        masks of the one-device student, bit for bit."""
+        from nm03_capstone_project_tpu_torch import models as pm
+        from nm03_capstone_project_tpu_torch.cli.runner import _student_process
+        from nm03_capstone_project_tpu_torch.parallel import map_batch_sharded
+
+        pcfg, _ = _cfgs()
+        model = pm.init_unet(torch.Generator().manual_seed(1), base=8, device="cpu")
+        px, dims = _batch(6, seed=4)
+        want = _student_process(model, torch.from_numpy(px), torch.from_numpy(dims), pcfg)
+        got = map_batch_sharded(lambda dev, p, d: _student_process(model, p, d, pcfg),
+                                px, dims, _cpu_mesh(n))
+        assert torch.equal(got["mask"], want["mask"]) and int(want["mask"].sum()) > 0
+        assert got["grow_converged"].all() and len(got["grow_converged"]) == 6
+
+
 class TestZShard:
     @pytest.mark.parametrize("morph", [1, 3, 5])
     def test_equals_process_volume_and_the_jax_function(self, morph, jax_zmesh):
@@ -261,6 +281,41 @@ class TestBatchZShard:
             single = process_volume(vols[i], dims[i], pcfg, device="cpu")
             assert torch.equal(got["mask"][i], single["mask"])
             assert bool(got["grow_converged"][i]) == bool(single["grow_converged"])
+
+    @pytest.mark.parametrize("names", [("data", "z"), ("z", "data")])
+    def test_a_process_group_mesh_of_one_equals_the_jax_function(self, names, monkeypatch):
+        """The process-group form (one block a rank, slotted count
+        reductions, the rows' agreement) in a world of 1 under gloo."""
+        import socket
+
+        from nm03_capstone_project_tpu_torch.parallel import Mesh, distributed
+
+        for var in ("MASTER_ADDR", "WORLD_SIZE", "RANK", "SLURM_STEP_NODELIST",
+                    "OMPI_COMM_WORLD_SIZE"):
+            monkeypatch.delenv(var, raising=False)
+        pcfg, jcfg = _cfgs(grow_block_iters=2, grow_max_iters=24)
+        vols = np.stack([phantom_volume(8, HW, HW, seed=s) for s in (5, 6)])
+        dims = np.asarray([[HW, HW], [56, 60]], np.int32)
+        for i, (h, w) in enumerate(dims):
+            vols[i, :, h:, :] = 0
+            vols[i, :, :, w:] = 0
+        want = jax_process_volume_batch_zsharded(
+            jnp.asarray(vols), jnp.asarray(dims), jcfg,
+            jax_make_mesh(1, axis_names=("data", "z"), axis_sizes=(1, 1)))
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        assert distributed.initialize(f"127.0.0.1:{port}", 1, 0, device="cpu")
+        try:
+            g = distributed.global_mesh(names, (1, 1))
+            got = process_volume_batch_zsharded(vols, dims, pcfg,
+                                                Mesh(g.devices, names, process_group=True))
+        finally:
+            distributed.shutdown()
+        np.testing.assert_array_equal(got["mask"].numpy(), np.asarray(want["mask"]))
+        np.testing.assert_array_equal(got["grow_converged"].numpy(),
+                                      np.asarray(want["grow_converged"]))
+        assert torch.equal(got["original"], torch.from_numpy(vols))
 
     def test_indivisible_batch_raises(self):
         pcfg, _ = _cfgs()

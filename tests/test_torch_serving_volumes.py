@@ -750,3 +750,131 @@ class TestFourLaneGang:
                    for row in snap["lanes"])
         mon.set_lanes([("cuda", kind, f"cuda:{i}") for i in range(4)])
         assert mon.snapshot()["mfu"] == round((4e12 / snap["window_s"]) / (4 * peak), 6)
+
+
+class TestGangAcrossAJob:
+    """``--distributed-init``: the gang's z-mesh is the job's process group.
+    A world of 1 (gloo) runs every broadcast and collective of the
+    cross-process dispatch in this process; ``tests/test_torch_distributed.py``
+    runs two ranks."""
+
+    LAUNCHER_ENV = ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK",
+                    "SLURM_STEP_NODELIST", "OMPI_COMM_WORLD_SIZE")
+
+    @pytest.fixture
+    def world_of_one(self, monkeypatch):
+        import socket
+
+        from nm03_capstone_project_tpu_torch.parallel import distributed
+
+        for var in self.LAUNCHER_ENV:
+            monkeypatch.delenv(var, raising=False)
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        assert distributed.initialize(f"127.0.0.1:{port}", 1, 0, device="cpu")
+        try:
+            yield distributed
+        finally:
+            distributed.shutdown()
+
+    def test_a_world_of_one_serves_the_jax_gangs_mask(self, pair, world_of_one, monkeypatch):
+        broadcasts = []
+        real = world_of_one.broadcast_study
+
+        def counted(op=world_of_one.OP_STUDY, stack=None, dims=None):
+            broadcasts.append(op)
+            return real(op, stack, dims)
+
+        monkeypatch.setattr(world_of_one, "broadcast_study", counted)
+        app = _one_lane_app(distributed_init=True)
+        httpd, _, port = serve_in_thread(app)
+        try:
+            vols = app.status()["volumes"]
+            assert (vols["distributed"], vols["processes"], vols["z_shards"], vols["ready"],
+                    vols["down_cause"]) == (True, 1, 1, True, None)
+            assert broadcasts == [world_of_one.OP_STUDY]  # the warmup of bucket 4
+            body, headers = _raw(_study(3, 64, 60, 5))
+            got = _post(f"http://127.0.0.1:{port}/v1/segment-volume", body, headers)
+            want = _post(pair.jax + "/v1/segment-volume", body, headers)
+            assert got[0] == want[0] == 200 and got[1]["z_shards"] == 1
+            assert got[1]["mask_b64"] == want[1]["mask_b64"]
+            assert got[1]["grow_converged"] == want[1]["grow_converged"]
+        finally:
+            app.begin_drain(reason="test")
+            httpd.shutdown()
+            httpd.server_close()
+            app.close()
+        # the drain's close sent the followers' stop, once
+        assert broadcasts == [world_of_one.OP_STUDY] * 2 + [world_of_one.OP_STOP]
+
+    def test_a_failed_cross_process_dispatch_marks_the_gang_down(self, world_of_one,
+                                                                 monkeypatch):
+        app = _one_lane_app(distributed_init=True)
+        httpd, _, port = serve_in_thread(app)
+        base = f"http://127.0.0.1:{port}"
+        try:
+            def lost(stack, dims, cfg):
+                raise RuntimeError("Connection closed by peer")
+
+            monkeypatch.setattr(volumes, "distributed_gang_program", lost)
+            body, headers = _raw(_study(2, 64, 64, 3))
+            for _ in range(2):  # the failure, then every later study at once
+                status, payload, hdrs = _post(base + "/v1/segment-volume", body, headers)
+                assert status == 503 and hdrs["Retry-After"] == "1", payload
+            vols = app.status()["volumes"]
+            assert vols["ready"] is False and "Connection closed by peer" in vols["down_cause"]
+            assert app.registry.get("serving_volume_requests_total", status="shed").value == 2
+            # no lane is blamed, and slices keep serving
+            assert app.executor.healthy_lanes() == [0]
+            status, sl, _ = _post(base + "/v1/segment", body[: 64 * 64 * 4],
+                                  {"Content-Type": "application/octet-stream",
+                                   "X-Nm03-Height": "64", "X-Nm03-Width": "64"})
+            assert status == 200 and "mask_pixels" in sl
+        finally:
+            app.begin_drain(reason="test")
+            httpd.shutdown()
+            httpd.server_close()
+            app.close()
+
+    def test_an_idle_gang_keeps_its_followers_waiting(self, world_of_one, monkeypatch):
+        """An idle cross-process gang broadcasts keepalives (well inside
+        the process group's timeout in service; shortened here), and a
+        keepalive that fails marks the gang down as a dispatch does."""
+        sent, fail = [], []
+        real = world_of_one.broadcast_study
+
+        def counted(op=world_of_one.OP_STUDY, stack=None, dims=None):
+            if fail and op == world_of_one.OP_KEEPALIVE:
+                raise RuntimeError("Connection closed by peer")
+            sent.append(op)
+            return real(op, stack, dims)
+
+        monkeypatch.setattr(world_of_one, "broadcast_study", counted)
+        monkeypatch.setattr(volumes, "KEEPALIVE_S", 0.05)
+        app = _one_lane_app(distributed_init=True)
+        try:
+            app.start()
+            deadline = time.monotonic() + 30
+            while sent.count(world_of_one.OP_KEEPALIVE) < 3 and time.monotonic() < deadline:
+                time.sleep(0.01)
+            assert sent.count(world_of_one.OP_KEEPALIVE) >= 3
+            fail.append(True)
+            while app.status()["volumes"]["ready"] and time.monotonic() < deadline:
+                time.sleep(0.01)
+            vols = app.status()["volumes"]
+            assert vols["ready"] is False and vols["down_cause"].startswith("keepalive")
+        finally:
+            app.begin_drain(reason="test")
+            app.close()
+        assert world_of_one.OP_STOP not in sent  # a gang that is down sends no stop
+
+    def test_outside_a_job_the_gang_is_the_lanes(self):
+        app = _one_lane_app(distributed_init=True)
+        try:
+            app.start()
+            vols = app.status()["volumes"]
+            assert (vols["distributed"], vols["processes"], vols["z_shards"]) == (False, 1, 1)
+        finally:
+            app.begin_drain(reason="test")
+            app.close()

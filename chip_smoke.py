@@ -284,7 +284,37 @@ toolkit. Phases, each printing one JSON line:
    has requests/s and p50/p99 direct and through the router, the drill's
    counts, each replica's drain, warm and graph capture seconds, the
    capacity floor, the launches and the card's name and power limit.
-12. ``kernels`` — one line, ``{"kernels": [...]}``, per kernel: launches in
+12. ``lockdep`` — the lock-order witness (``utils/lockdep.py``) on the card:
+   under ``lockdep.install()`` a server with four lanes on ``cuda:0``
+   (buckets 1 and 4, each lane's own graphs) and the volume gang (depth
+   bucket 32) answers 48 of the cohort's DICOM slices at concurrency 8
+   while 4 of its studies arrive as ``application/x-nm03-dicom-parts``
+   bodies at concurrency 2: every answer 200, each slice mask the driver's,
+   each study ``z_shards`` 4 and its ``volume_golden.json`` mask. After the
+   drain the witness (``lockdep_witness.json``) gates clean against the
+   port's static may-hold graph (``analysis/lockorder.py``), in process and
+   through ``python -m nm03_capstone_project_tpu_torch.analysis.gate
+   --lockdep-witness`` (which also runs the port's lint): 0 inversions, 0
+   cycles, every observed edge explained. The same witness with one edge
+   also taken the other way round (ABBA) must fail the gate. The line has
+   the edge and site counts, the gate's and the lint's verdicts, the
+   launches and the card's name and power limit.
+13. ``sanitize`` — ``--sanitize`` (``utils/sanitize.py``) on the card: the
+   parallel driver's CLI with ``--sanitize --metrics-out`` over the
+   cohort writes JPEG pairs byte-equal to the ``driver`` phase's and a
+   manifest byte-equal to its clean CLI run's, with
+   ``pipeline_recompiles_total`` 0 after the warm-up and no guard tripped;
+   the unfused patient (the median kernel) under a session of its own
+   gives the clean run's files. Then the planted hazards: a NaN in the
+   pixels of a batch through ``process_batch`` raises naming the stage
+   ``extend_edges``; a bucket graph captured after the warm-up counts one
+   recompile, replays a clean slice to the driver's mask, and a replay of
+   a NaN slice raises at its fetch naming the stage; a CPU tensor handed
+   to the sequential runner's guarded dispatch raises naming the site
+   ``cli/runner.py::_dispatch_slice``, inline and on a supervised worker
+   thread. The line has the sanitized and the clean run's walls, the
+   raised errors, the launches and the card's name and power limit.
+14. ``kernels`` — one line, ``{"kernels": [...]}``, per kernel: launches in
    the driver's run (``launches``; the median kernel's from the unfused
    patient), in the ``slice`` phase's (``slice_launches``), by the
    ``serve`` phase's graph replays (``serve_launches``: replays times the
@@ -301,7 +331,10 @@ toolkit. Phases, each printing one JSON line:
    (``shard_launches``: the z-sharded cohort, the data-parallel smoke
    cohort, the volume and parallel drivers over four local devices and
    the process-group batch; the median kernel's from their unfused runs),
-   the largest difference
+   by the ``lockdep`` phase's instrumented server (``lockdep_launches``:
+   replays and the gang's launches) and in the ``sanitize`` phase's
+   sanitized driver run (``sanitize_launches``; the median kernel's from
+   its unfused patient), the largest difference
    from the plain version, its wrapper and device time, the plain time and
    the bound.
 
@@ -1872,11 +1905,13 @@ def serve_volume_phase(tmp: Path, driver_out: dict, volume_out: dict, smi: str,
             threads[0].start()
             deadline = time.monotonic() + 60
             while app.volume_inflight.stats()["in_flight"] < 1 and time.monotonic() < deadline:
+                # nm03-lint: disable=NM422 the drill holds the gang gate on purpose: the lanes stay parked until the first study is in flight
                 time.sleep(0.001)
             threads.append(threading.Thread(target=send, args=(1,)))
             threads[1].start()
             while (app.volume_inflight.stats()["coalesced"] == coalesced0
                    and time.monotonic() < deadline):
+                # nm03-lint: disable=NM422 same deliberate drill hold: the second study must coalesce onto the first before the gate opens
                 time.sleep(0.001)
         for t in threads:
             t.join(timeout=120)
@@ -3098,6 +3133,7 @@ def fleet_phase(tmp: Path, driver_out: dict, smi: str) -> dict:
                 "--port", str(port), "--port-file", str(port_file), "--log-json", str(log),
                 "--canvas", str(size), "--buckets", ",".join(map(str, SERVE_BUCKETS)),
                 "--heartbeat-s", "0", "--flight-dir", str(root), "--request-timeout-s", "300"]
+        # nm03-lint: disable=NM351 a replica's stdout log stream, not an artifact: read only after the process ends
         with open(root / f"{tag}.out", "w") as out:
             proc = subprocess.Popen(argv, cwd=repo, env=env, stdout=out,
                                     stderr=subprocess.STDOUT)
@@ -3372,6 +3408,7 @@ def fleet_phase(tmp: Path, driver_out: dict, smi: str) -> dict:
         time.sleep(0.5)
 
         def spawn(argv, **kw):
+            # nm03-lint: disable=NM351 a relaunched replica's stdout log stream, not an artifact
             with open(root / f"restart{len(procs)}.out", "w") as out:
                 proc = subprocess.Popen(argv, cwd=kw.get("cwd"), env=env, stdout=out,
                                         stderr=subprocess.STDOUT, start_new_session=True)
@@ -3446,6 +3483,266 @@ def fleet_phase(tmp: Path, driver_out: dict, smi: str) -> dict:
             except subprocess.TimeoutExpired:
                 proc.kill()
                 proc.wait(timeout=30)
+
+
+LOCKDEP_BUCKETS = (1, 4)
+LOCKDEP_LANES = 4
+LOCKDEP_SLICES = 48  # slice requests during the studies
+LOCKDEP_STUDIES = 4
+
+
+def lockdep_phase(tmp: Path, driver_out: dict, smi: str, kernels: dict, reset) -> dict:
+    """The lock-order witness on the card (phase 12 of the docstring).
+
+    Returns each kernel's launches while the instrumented server answered
+    (slice graph replays x the kernels a graph holds, plus the gang's
+    eager launches)."""
+    import os
+
+    from nm03_capstone_project_tpu_torch.analysis import gate
+    from nm03_capstone_project_tpu_torch.config import PipelineConfig
+    from nm03_capstone_project_tpu_torch.data.discovery import (
+        find_patient_dirs,
+        load_dicom_files_for_patient,
+    )
+    from nm03_capstone_project_tpu_torch.kernels import build
+    from nm03_capstone_project_tpu_torch.utils import lockdep
+    from nm03_capstone_project_tpu_torch.utils.atomicio import atomic_write_text
+
+    phase_t0 = time.perf_counter()
+    size = DRIVER_COHORT[2]
+    cohort, dmasks = driver_out["cohort"], driver_out["masks"]
+    golden = {g["patient"]: g for g in json.loads(
+        (build.PKG / "testdata" / "volume_golden.json").read_text())["patients"]}
+    parts = "application/x-nm03-dicom-parts"
+    slices, studies = [], {}
+    for pid in find_patient_dirs(cohort):
+        raws = [(f.stem, f.read_bytes()) for f in load_dicom_files_for_patient(cohort, pid)]
+        slices += [(pid, stem, r) for stem, r in raws]
+        studies[pid] = b"".join(len(r).to_bytes(4, "little") + r for _, r in raws)
+    slices = slices[:LOCKDEP_SLICES]
+    study_pids = sorted(studies)[:LOCKDEP_STUDIES]
+    witness_path = tmp / "lockdep_witness.json"
+    statuses = {}
+
+    st = lockdep.install()  # before the app: only locks created after install count
+    try:
+        from nm03_capstone_project_tpu_torch.serving.server import ServingApp, serve_in_thread
+
+        app = ServingApp(cfg=PipelineConfig(canvas=size), buckets=LOCKDEP_BUCKETS,
+                         lane_devices=["cuda:0"] * LOCKDEP_LANES, volume_serving=True,
+                         volume_depth_buckets=(32,), result_cache_bytes=1 << 30)
+        httpd, _, port = serve_in_thread(app)
+        base = f"http://127.0.0.1:{port}"
+        try:
+            require(app.status()["volumes"]["z_shards"] == LOCKDEP_LANES,
+                    f"volumes block: {app.status()['volumes']}")
+            reset()
+            app.executor.reset_replays()  # the main path's run: from here on
+            out = {}
+
+            def slice_load():
+                out["slices"] = client_run(
+                    base + "/v1/segment?output=mask",
+                    [((pid, stem), body, {"Content-Type": "application/dicom"})
+                     for pid, stem, body in slices], 8)
+
+            def study_load():
+                out["studies"] = client_run(
+                    base + "/v1/segment-volume?output=mask",
+                    [(pid, studies[pid], {"Content-Type": parts}) for pid in study_pids], 2)
+
+            threads = [threading.Thread(target=slice_load), threading.Thread(target=study_load)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            require(not any(t.is_alive() for t in threads), "the mixed traffic hung")
+            for key in ("slices", "studies"):
+                for status, payload, _, _ in out[key][0].values():
+                    statuses[status] = statuses.get(status, 0) + 1
+                    require(status == 200, f"HTTP {status}: {payload}")
+            for (pid, stem), (_, payload, _, _) in out["slices"][0].items():
+                h, w = payload["shape"]
+                require(payload["mask_sha256"] == hashlib.sha256(np.ascontiguousarray(
+                    dmasks[(pid, stem)][:h, :w]).tobytes()).hexdigest(),
+                    f"served {pid}/{stem}: mask != the driver's")
+            for pid, (_, payload, _, _) in out["studies"][0].items():
+                require(payload["z_shards"] == LOCKDEP_LANES
+                        and payload["mask_sha256"] == golden[pid]["mask_sha256"],
+                        f"served study {pid}: z_shards {payload['z_shards']}, not the golden")
+            launches = app.executor.replay_launches()
+            for k, fn in kernels.items():
+                launches[k] = launches.get(k, 0) + fn.launches
+            require(launches.get("fused", 0) > 0 and launches.get("grow", 0) > 0,
+                    f"the instrumented server did not launch every kernel: {launches}")
+        finally:
+            app.begin_drain(reason="lockdep")
+            httpd.shutdown()
+            httpd.server_close()
+            app.close()
+        lockdep.dump_witness(witness_path, st)
+    finally:
+        lockdep.uninstall()
+
+    witness = json.loads(witness_path.read_text())
+    problems = gate.check_witness(witness)
+    require(problems == [], f"the witness does not gate clean: {problems}")
+    require(witness["edges"] and witness["inversions"] == [], "no nesting observed")
+    env = dict(os.environ, PYTHONPATH=str(Path.cwd()))
+
+    def run_gate(path: Path):
+        return subprocess.run(
+            [sys.executable, "-m", "nm03_capstone_project_tpu_torch.analysis.gate",
+             "--skip-ruff", "--lockdep-witness", str(path)],
+            capture_output=True, text=True, timeout=300, env=env)
+
+    clean = run_gate(witness_path)
+    require(clean.returncode == 0 and "lockdep: witness OK" in clean.stdout,
+            f"the gate refused the card's witness: {clean.stdout[-2000:]}{clean.stderr[-2000:]}")
+    # ABBA: the witness with one observed edge also taken the other way round
+    e = witness["edges"][0]
+    abba = dict(witness, edges=witness["edges"] + [
+        {"src": e["dst"], "dst": e["src"], "count": 1, "stack": ["inverted:1 in abba"]}])
+    abba_path = tmp / "lockdep_witness_abba.json"
+    atomic_write_text(abba_path, json.dumps(abba))
+    abba_problems = gate.check_witness(abba)
+    bad = run_gate(abba_path)
+    require(any("cycle" in q for q in abba_problems) and bad.returncode != 0
+            and "gate: FAIL" in bad.stdout, f"the gate passed an ABBA witness: {bad.stdout[-1000:]}")
+    lint = clean.stdout.splitlines()
+    emit({"phase": "lockdep", "lanes": LOCKDEP_LANES, "buckets": list(LOCKDEP_BUCKETS),
+          "slices": len(slices), "studies": len(study_pids), "statuses": statuses,
+          "edges": len(witness["edges"]), "sites": len(witness["sites"]),
+          "inversions": len(witness["inversions"]), "cycles": 0,
+          "gate": next((ln for ln in lint if ln.startswith("lockdep:")), None),
+          "lint": next((ln for ln in lint if ln.startswith("nm03-lint:")), None),
+          "abba_problems": abba_problems, "launches": launches,
+          "seconds": time.perf_counter() - phase_t0, "nvidia_smi": smi})
+    return launches
+
+
+def sanitize_phase(tmp: Path, driver_out: dict, smi: str, kernels: dict, reset) -> dict:
+    """``--sanitize`` on the card (phase 13 of the docstring).
+
+    Returns each kernel's launches in the sanitized parallel driver's run
+    (the median kernel's from its unfused patient)."""
+    from nm03_capstone_project_tpu_torch.cli import parallel as parallel_cli
+    from nm03_capstone_project_tpu_torch.cli.runner import CohortProcessor
+    from nm03_capstone_project_tpu_torch.config import BatchConfig, PipelineConfig
+    from nm03_capstone_project_tpu_torch.core import pad_to_canvas
+    from nm03_capstone_project_tpu_torch.data.dicomlite import read_dicom
+    from nm03_capstone_project_tpu_torch.data.discovery import load_dicom_files_for_patient
+    from nm03_capstone_project_tpu_torch.pipeline import process_batch
+    from nm03_capstone_project_tpu_torch.resilience import ResilienceConfig
+    from nm03_capstone_project_tpu_torch.serving.graphs import BucketGraph
+    from nm03_capstone_project_tpu_torch.utils import sanitize
+
+    phase_t0 = time.perf_counter()
+    n_pat, n_sl, size = DRIVER_COHORT
+    n = n_pat * n_sl
+    cohort, dfiles, dmasks = driver_out["cohort"], driver_out["files"], driver_out["masks"]
+    cfg = PipelineConfig(canvas=size)
+
+    # the main path: the parallel driver's CLI with --sanitize
+    out, rj, mj = tmp / "sanitize", tmp / "sanitize.json", tmp / "sanitize_metrics.json"
+    reset()
+    rc = parallel_cli.main(["--base-path", str(cohort), "--output", str(out), "--results-json",
+                            str(rj), "--metrics-out", str(mj), "--canvas", str(size),
+                            "--sanitize"])
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    require(rc == 0, f"the sanitized parallel CLI exited {rc}")
+    rec = json.loads(rj.read_text())
+    require(rec["summary"]["slices_ok"] == n, f"sanitized run: {rec['summary']}")
+    require(launches["fused"] > 0 and launches["grow"] > 0, f"sanitized launches {launches}")
+    require(files_of(out) == dfiles, "sanitized JPEG pairs != the clean run's")
+    clean_manifest = (tmp / "cli_1" / "manifest.json").read_bytes()
+    require((out / "manifest.json").read_bytes() == clean_manifest,
+            "sanitized manifest != the clean CLI run's")
+    metrics = {m["name"]: m["value"] for m in json.loads(mj.read_text())["metrics"]
+               if not m["labels"]}
+    require(metrics.get("pipeline_recompiles_total") == 0,
+            f"pipeline_recompiles_total {metrics.get('pipeline_recompiles_total')} after warm-up")
+    require(not sanitize.active(), "the CLI left its sanitize session on")
+
+    # the unfused patient (the median kernel) under a session of its own
+    pid = "PGBM-0003"
+    sanitize.enable()
+    try:
+        sanitize.mark_warm()  # every library is loaded by now
+        reset()
+        res = CohortProcessor(cohort, tmp / "sanitize_unfused", mode="parallel",
+                              cfg=PipelineConfig(canvas=size, fuse_preprocess=False),
+                              batch_cfg=BatchConfig()).process_patient(pid)
+        unfused = {k: fn.launches for k, fn in kernels.items()}
+        require(res.succeeded == n_sl and unfused["median"] > 0,
+                f"sanitized unfused patient: {res.succeeded}/{n_sl}, launches {unfused}")
+        require(files_of(tmp / "sanitize_unfused") == {
+            k: v for k, v in dfiles.items() if k.startswith(pid + "/")},
+            "sanitized unfused JPEG pairs != the clean run's")
+        launches["median"] = unfused["median"]
+
+        # a NaN planted in the first stage's input: the stage is named
+        files = load_dicom_files_for_patient(cohort, pid)
+        batch = pad_to_canvas([read_dicom(f).pixels for f in files], cfg.canvas_hw,
+                              device="cuda")
+        nan_px = batch.pixels.clone()
+        nan_px[3, 40, 40] = float("nan")
+        try:
+            process_batch(nan_px, batch.dims, cfg)
+            raise AssertionError("a NaN input passed the sanitized pipeline")
+        except sanitize.NonFiniteStage as e:
+            nan_eager = {"stage": e.stage, "error": str(e)}
+        require(nan_eager["stage"] == "extend_edges", f"NaN named {nan_eager}")
+
+        # the same through a CUDA graph: a capture after warm-up counts, and
+        # the replay's stage flags are checked at its fetch
+        g = BucketGraph(cfg, 1, "cuda:0", torch.cuda.graph_pool_handle(), torch.cuda.Stream())
+        g.capture()
+        st = sanitize.state()
+        require(st.recompiles == 1 and st.events[0][0] == "graph",
+                f"the watchdog saw {st.recompiles} recompiles: {st.events}")
+        px0 = batch.pixels[:1].cpu().numpy()
+        dims0 = batch.dims[:1].cpu().numpy()
+        g.launch(px0, dims0)
+        mask0, _ = g.fetch()
+        require(np.array_equal(mask0[0], dmasks[(pid, files[0].stem)]),
+                "the sanitized graph's mask != the driver's")
+        bad = px0.copy()
+        bad[0, 40, 40] = np.nan
+        g.launch(bad, dims0)
+        try:
+            g.fetch()
+            raise AssertionError("a NaN passed the sanitized graph replay")
+        except sanitize.NonFiniteStage as e:
+            nan_graph = {"stage": e.stage, "error": str(e)}
+        require(nan_graph["stage"] == "extend_edges", f"graph NaN named {nan_graph}")
+
+        # a CPU tensor handed to a guarded dispatch, inline and supervised
+        uploads = {}
+        for key, res_cfg in (("inline", ResilienceConfig()),
+                             ("supervised", ResilienceConfig(dispatch_timeout_s=60.0))):
+            proc = CohortProcessor(cohort, tmp / f"sanitize_upload_{key}", mode="sequential",
+                                   cfg=cfg, resilience=res_cfg)
+            px_cpu, dm_cpu = batch.pixels[0].cpu(), batch.dims[0].cpu()
+            got = proc._dispatch_slice({"stem": files[0].stem, "index": 0, "pixels": px_cpu,
+                                        "dims": dm_cpu, "pixels_host": px_cpu.numpy(),
+                                        "dims_host": dm_cpu.numpy()}, True, pid)
+            err = got.get("error")
+            require(isinstance(err, sanitize.ImplicitUpload)
+                    and err.site == "cli/runner.py::_dispatch_slice",
+                    f"{key}: the planted upload gave {err!r}")
+            uploads[key] = str(err)
+    finally:
+        sanitize.disable()
+    emit({"phase": "sanitize", "slices": n, "byte_equal_to_clean": True,
+          "pipeline_recompiles_total": metrics["pipeline_recompiles_total"],
+          "wall_s": rec["wall_s"],
+          "clean_wall_s": json.loads((tmp / "results_1.json").read_text())["wall_s"],
+          "nan_eager": nan_eager, "nan_graph": nan_graph, "graph_capture_counted": 1,
+          "uploads": uploads, "launches": launches,
+          "seconds": time.perf_counter() - phase_t0, "nvidia_smi": smi})
+    return launches
 
 
 def main() -> int:
@@ -3781,8 +4078,12 @@ def main() -> int:
         operate_launches = operate_phase(Path(tmp), driver_out, smi, kernels, reset)
         # -- 11. a fleet of replicas on the card --------------------------
         fleet_launches = fleet_phase(Path(tmp), driver_out, smi)
+        # -- 12. the lock-order witness ------------------------------------
+        lockdep_launches = lockdep_phase(Path(tmp), driver_out, smi, kernels, reset)
+        # -- 13. --sanitize ------------------------------------------------
+        sanitize_launches = sanitize_phase(Path(tmp), driver_out, smi, kernels, reset)
 
-    # -- 12. kernels ---------------------------------------------------------
+    # -- 14. kernels ---------------------------------------------------------
     meta = {
         "median": ("vector_median_filter", "csrc/median.cu",
                    "nm03_capstone_project_tpu/ops/pallas_median.py:101"),
@@ -3805,6 +4106,8 @@ def main() -> int:
             "operate_launches": operate_launches[key],
             "fleet_launches": fleet_launches[key],
             "shard_launches": shard_launches[key],
+            "lockdep_launches": lockdep_launches.get(key, 0),
+            "sanitize_launches": sanitize_launches[key],
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "device_ms": r["device_ms"], "device_ms_by": r["device_ms_by"],
             "plain_ms": r["plain_ms"],

@@ -58,9 +58,7 @@ DEFAULT_COHORT_SUBPATH = "Brain-Tumor-Progression/T1-Post-Combined-P001-P020"
 # flags of the JAX drivers whose layers the port does not have (yet), each
 # with the reason it is refused, grouped as the JAX drivers take them
 NOT_PORTED = {
-    "observability": {
-        "--sanitize": "the JAX transfer guard has no counterpart in the port",
-    },
+    "observability": {},
     "resilience": {
         "--fallback-cpu": "the port has no CPU fallback",
         "--no-fallback-cpu": "the port has no CPU fallback; it always fails fast",
@@ -83,9 +81,8 @@ def add_not_ported_args(parser: argparse.ArgumentParser, *groups: str) -> None:
 
 
 def add_observability_args(parser: argparse.ArgumentParser) -> None:
-    """--metrics-out / --log-json / --heartbeat-s / --profile-dir, as every
-    JAX driver takes them (``--sanitize`` stays refused:
-    :func:`add_not_ported_args` with ``"observability"``)."""
+    """--metrics-out / --log-json / --heartbeat-s / --profile-dir /
+    --sanitize, as every JAX driver takes them."""
     g = parser.add_argument_group("observability", "structured run telemetry")
     g.add_argument(
         "--metrics-out", default=None, metavar="JSON",
@@ -108,6 +105,15 @@ def add_observability_args(parser: argparse.ArgumentParser) -> None:
         help="capture a torch.profiler trace of the run here (a Chrome/"
         "Perfetto JSON with the card's kernels by name)",
     )
+    g.add_argument(
+        "--sanitize", action="store_true",
+        help="enable the runtime twins of the port's lint rules (docs/"
+        "STATIC_ANALYSIS_TORCH.md): every stage's f32 output held finite, an "
+        "upload guard around the staged-batch dispatch, and a recompile "
+        "watchdog (graph captures and kernel library loads after warm-up) "
+        "feeding pipeline_recompiles_total. Debugging/CI mode: the checks "
+        "sync the host and cost throughput",
+    )
 
 
 def make_run_context(args: argparse.Namespace, driver: str, argv=None, rank: int = 0):
@@ -127,6 +133,10 @@ def make_run_context(args: argparse.Namespace, driver: str, argv=None, rank: int
         heartbeat_s=getattr(args, "heartbeat_s", 0.0) or 0.0,
         argv=argv,
     )
+    if getattr(args, "sanitize", False):
+        from nm03_capstone_project_tpu_torch.utils import sanitize
+
+        sanitize.enable(ctx.registry)
     if hasattr(args, "median_impl"):
         from nm03_capstone_project_tpu_torch.ops.selection_network import comparator_counts
 
@@ -140,6 +150,32 @@ def make_run_context(args: argparse.Namespace, driver: str, argv=None, rank: int
             comparators=comparator_counts(args.median_window),
         )
     return ctx
+
+
+def sanitize_warmup(args: argparse.Namespace, device) -> None:
+    """``--sanitize``: load the kernel libraries the run may launch, then
+    arm the recompile watchdog. A driver's warm-up is its libraries (it
+    captures no graphs): every later load counts into
+    ``pipeline_recompiles_total``. A no-op without the flag."""
+    from nm03_capstone_project_tpu_torch.utils import sanitize
+
+    if not getattr(args, "sanitize", False):
+        return
+    if device.type == "cuda" and not getattr(args, "no_kernels", False):
+        from nm03_capstone_project_tpu_torch.kernels import build
+
+        for name in build.SOURCES:
+            build.load(name)
+    sanitize.mark_warm()
+
+
+def end_sanitize(args: argparse.Namespace) -> None:
+    """End the run's ``--sanitize`` session: its counts are in the run's
+    metrics snapshot, and the next run in this process starts clean."""
+    if getattr(args, "sanitize", False):
+        from nm03_capstone_project_tpu_torch.utils import sanitize
+
+        sanitize.disable()
 
 
 def add_resilience_args(parser: argparse.ArgumentParser) -> None:

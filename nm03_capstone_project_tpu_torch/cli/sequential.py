@@ -78,6 +78,7 @@ def run(args: argparse.Namespace, mode: str) -> int:
         rank, world = common.init_distributed(args)
         run_ctx = common.make_run_context(args, mode, rank=rank)
         device = resolve_device(args.device)
+        common.sanitize_warmup(args, device)
         cfg = common.pipeline_config_from_args(args)
         batch_cfg = common.batch_config_from_args(args)
         encoder = jpeg_encoder()
@@ -165,6 +166,7 @@ def run(args: argparse.Namespace, mode: str) -> int:
         return 1
     finally:
         common.finish_distributed(args)
+        common.end_sanitize(args)
 
 
 if __name__ == "__main__":

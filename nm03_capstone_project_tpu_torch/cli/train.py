@@ -197,6 +197,7 @@ def run(args: argparse.Namespace) -> int:
         raise
     finally:
         common.finish_distributed(args)
+        common.end_sanitize(args)
 
 
 def _local_mesh(device):
@@ -250,6 +251,7 @@ def _train(args: argparse.Namespace, rank: int, world: int, run_ctx) -> int:
     # own device: its card under NCCL, the CPU under gloo
     across_ranks = distributed.is_initialized() and not args.model_3d
     device = distributed.local_device(args.device) if across_ranks else resolve_device(args.device)
+    common.sanitize_warmup(args, device)
     if cfg.canvas % 4:
         raise SystemExit("--canvas must be divisible by 4 (two U-Net poolings)")
     if args.eval_only and not args.restore:
@@ -322,6 +324,7 @@ def _train(args: argparse.Namespace, rank: int, world: int, run_ctx) -> int:
                 # pure data parallelism across the ranks: each pads its
                 # shard to the size every rank agreed on (one device a rank)
                 counts = distributed.allgather([x.shape[0]])
+                # nm03-lint: disable=NM321 counts is a host tensor from a gloo/NCCL all_gather read back once before training
                 per_rank = int(counts.max())
                 x_l, lb_l, dm_l = pad_local_shard(x, labels, dm, per_rank)
                 print(f"training {args.steps} steps at lr={args.lr} over {world} "
@@ -334,6 +337,7 @@ def _train(args: argparse.Namespace, rank: int, world: int, run_ctx) -> int:
                       f"devices (dp={dp} x tp={tp})...")
                 model, losses = fit_sharded(model, x, labels, dm, mesh, steps=args.steps,
                                             lr=args.lr, compute_dtype=dtype)
+                # nm03-lint: disable=NM401 one-time weight placement: parameters are not the data path
                 model = model.to(device)
             else:
                 print(f"training {args.steps} steps at lr={args.lr}...")

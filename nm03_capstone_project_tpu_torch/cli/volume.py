@@ -210,6 +210,7 @@ def run(args: argparse.Namespace) -> int:
         return rc
     finally:
         common.finish_distributed(args)
+        common.end_sanitize(args)
 
 
 def _run_inner(args: argparse.Namespace, run_ctx, rank: int = 0, world: int = 1) -> int:
@@ -246,6 +247,7 @@ def _run_inner(args: argparse.Namespace, run_ctx, rank: int = 0, world: int = 1)
     configure_reporting(verbose=args.verbose)
     common.apply_native_flag(args)
     device = resolve_device(args.device)
+    common.sanitize_warmup(args, device)
     cfg = common.pipeline_config_from_args(args)
     model = common.load_model_checkpoint(args, cfg, want_3d=True, device=device)
     if model is not None and args.z_shard:
@@ -390,11 +392,14 @@ def _run_inner(args: argparse.Namespace, run_ctx, rank: int = 0, world: int = 1)
                         mask_t = out["mask"][:depth]
                         px = out["original"][:depth]
                         dm = dm.to(mask_t.device)
+                        # nm03-lint: disable=NM321 the volume's convergence flag ends its device work: the section measures it
                         conv = bool(out["grow_converged"])
                     else:
                         px = torch.from_numpy(vol).to(device)
                         out = process_volume(px, dm, cfg, device=device)
+                        # nm03-lint: disable=NM321 the volume's convergence flag ends its device work: the section measures it
                         mask_t, conv = out["mask"], bool(out["grow_converged"])
+                    # nm03-lint: disable=NM321 the mask fetch is the volume section's end by design (one volume in flight)
                     mask = mask_t.cpu().numpy()  # waits for the card
                 if not conv:
                     truncated_patients.append(pid)
@@ -432,6 +437,7 @@ def _run_inner(args: argparse.Namespace, run_ctx, rank: int = 0, world: int = 1)
                         gray = seg = None
                         if not host_render:
                             g, sg = render_pair(px, mask_t, dm.expand(depth, 2), cfg)
+                            # nm03-lint: disable=NM321 the device render's fetch belongs to the export section it feeds
                             gray, seg = g.cpu().numpy(), sg.cpu().numpy()
                         if not args.resume:
                             clean_directory(out_root / pid)

@@ -85,6 +85,7 @@ def _load() -> Optional[ctypes.CDLL]:
         if path is None:
             return None
         try:
+            # nm03-lint: disable=NM361 loads the library native/buildlib.py built and keyed: the shim loads, the home builds
             lib = ctypes.CDLL(str(path))
         except OSError as e:
             _log.info("gdcm fallback load failed: %s", e)

@@ -364,8 +364,11 @@ class ReplicaStates:
         """
         # the caller holds _lock (eject/fail_probation); one helper so the
         # two transition paths cannot drift
+        # nm03-lint: disable=NM331 caller holds _lock by contract (eject/fail_probation); the shared helper exists so the two transition paths cannot drift
         self._states[target] = EJECTED
+        # nm03-lint: disable=NM331 caller holds _lock, see above
         self._causes[target] = str(cause)
+        # nm03-lint: disable=NM331 caller holds _lock, see above
         self._ejections[target] += 1
         self._set_state_gauge(target, EJECTED)
         if self.obs is not None:

@@ -17,6 +17,8 @@ plan the plain PyTorch median runs:
 Libraries go into ``_build/<key>/`` beside this package, where ``key``
 hashes the sources, the generated headers and the flags: an edited source
 is rebuilt, an unchanged one is loaded. Sources come from the package only.
+The port's lint holds the key to the build (NM381): every module constant
+:func:`build_all` reads must be read by :func:`build_dir` too.
 
 Every C entry point takes its pointers and the CUDA stream as
 ``ctypes.c_void_p`` and returns ``cudaGetLastError()`` after its launch;
@@ -193,10 +195,14 @@ def build_all() -> Dict[str, float]:
 
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
-    """The built library ``lib<name>.so`` with its argtypes declared."""
+    """The built library ``lib<name>.so`` with its argtypes declared (once
+    a process: the ``--sanitize`` watchdog counts each load)."""
+    from nm03_capstone_project_tpu_torch.utils import sanitize
+
     path = build_dir() / f"lib{name}.so"
     if not path.exists():
         build_all()
+    sanitize.note_compile("library", f"lib{name}.so")
     lib = ctypes.CDLL(str(path))
     for fn, argtypes in ARGTYPES[name].items():
         getattr(lib, fn).argtypes = argtypes

@@ -173,6 +173,7 @@ def init_unet(
     dev = resolve_device(device)
     model = UNet(base, levels, in_ch)
     _he_init_(model, generator)
+    # nm03-lint: disable=NM401 one-time weight placement: parameters are not the data path
     return model.to(dev)
 
 

@@ -36,6 +36,7 @@ def init_unet3d(
     dev = resolve_device(device)
     model = UNet3d(base, levels, in_ch)
     _he_init_(model, generator)
+    # nm03-lint: disable=NM401 one-time weight placement: parameters are not the data path
     return model.to(dev)
 
 

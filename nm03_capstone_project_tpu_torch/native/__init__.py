@@ -76,6 +76,7 @@ def _load() -> Optional[ctypes.CDLL]:
                 )
             else:
                 try:
+                    # nm03-lint: disable=NM361 loads the library native/buildlib.py built and keyed: the shim loads, the home builds
                     lib = ctypes.CDLL(str(path))
                 except OSError as e:
                     _build_error = f"failed to load {path}: {e}"

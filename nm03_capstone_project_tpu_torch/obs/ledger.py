@@ -610,6 +610,7 @@ class ProfileSampler:
     def start(self) -> None:
         if self.interval_s <= 0 or self._thread is not None:
             return
+        # nm03-lint: disable=NM331 start()/stop() run on the owning thread; the sampler thread never reads _thread
         self._thread = threading.Thread(
             target=self._run, name="ledger-sampler", daemon=True
         )
@@ -624,4 +625,5 @@ class ProfileSampler:
         t = self._thread
         if t is not None:
             t.join(timeout)
+            # nm03-lint: disable=NM331 start()/stop() run on the owning thread; the sampler thread never reads _thread
             self._thread = None

@@ -42,6 +42,9 @@ RESILIENCE_RETRIES_TOTAL = "resilience_retries_total"
 # faults fired by a seeded fault plan ({site, kind}; resilience.faultinject)
 RESILIENCE_FAULTS_INJECTED_TOTAL = "resilience_faults_injected_total"
 PIPELINE_DEGRADED_TOTAL = "pipeline_degraded_total"
+# the --sanitize watchdog (utils.sanitize): CUDA graph captures and kernel
+# library loads after warm-up
+PIPELINE_RECOMPILES_TOTAL = "pipeline_recompiles_total"
 TRAIN_FINAL_LOSS = "nm03_train_final_loss"
 TRAIN_IOU_VS_TEACHER = "nm03_train_iou_vs_teacher"
 # the batch drivers' feed accounting (obs.saturation.PhaseAccountant): the

@@ -330,6 +330,7 @@ def broadcast_study(op: int = OP_STUDY, stack=None, dims=None):
     header = torch.tensor(head, dtype=torch.int64)
     if is_initialized():
         _dist().broadcast(header, src=0, group=control_group())
+    # nm03-lint: disable=NM422 the header's read is part of the broadcast sequence the gang's collective lock serializes; it is a host tensor (the control group is gloo)
     op, d, h, w, dh, dw = (int(v) for v in header.tolist())
     if op != OP_STUDY:
         return op, None, None

@@ -23,6 +23,11 @@ Two variants mirror the reference's drivers:
 The entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no GPU and no explicit CPU request they raise.
 
+Under ``--sanitize`` (:mod:`..utils.sanitize`) the f32 output of every
+stage is held to ``torch.isfinite`` (the fused kernel's output is one
+stage) and a host array reaching :func:`_inputs` for the card inside a
+guarded dispatch raises; both hooks are a module-global read otherwise.
+
 Under :func:`stage_ranges` each stage of ``_process`` runs inside a
 ``record_function`` range named after it (``normalize``, ``median7``,
 ``sharpen``, ``grow``, ``morph``): the serving executor records one eager
@@ -53,6 +58,7 @@ from nm03_capstone_project_tpu_torch.ops.morphology import dilate, erode
 from nm03_capstone_project_tpu_torch.ops.neighborhood import extend_edges
 from nm03_capstone_project_tpu_torch.ops.seeds import seed_mask
 from nm03_capstone_project_tpu_torch.ops.sharpen import sharpen
+from nm03_capstone_project_tpu_torch.utils import sanitize
 
 
 _ranges = threading.local()
@@ -78,27 +84,34 @@ def _stage(name: str):
 def _inputs(pixels, dims, device) -> Tuple[torch.Tensor, torch.Tensor]:
     """Pixels (float32) and dims (int32) as tensors on the resolved device."""
     dev = resolve_device(device)
+    sanitize.check_upload(pixels, dev)
     px = torch.as_tensor(pixels, dtype=torch.float32, device=dev)
     dm = torch.as_tensor(dims, dtype=torch.int32, device=dev)
     return px, dm
 
 
+def _checked(stage: str, x: torch.Tensor) -> torch.Tensor:
+    sanitize.check_finite(stage, x)
+    return x
+
+
 def _preprocess(px: torch.Tensor, dm: torch.Tensor, cfg: PipelineConfig) -> torch.Tensor:
     with _stage("normalize"):
-        x = extend_edges(px, dm)
+        x = _checked("extend_edges", extend_edges(px, dm))
     if cfg.fuse_preprocess:
         with _stage("median7"):
-            return _fused(x, cfg)
+            return _checked("fused_preprocess", _fused(x, cfg))
     with _stage("normalize"):
-        x = normalize(
+        x = _checked("normalize", normalize(
             x, cfg.norm_low, cfg.norm_high, cfg.norm_intensity_min, cfg.norm_intensity_max
-        )
-        x = clip_intensity(x, cfg.clip_low, cfg.clip_high)
+        ))
+        x = _checked("clip_intensity", clip_intensity(x, cfg.clip_low, cfg.clip_high))
     with _stage("median7"):
-        x = median_filter(x, cfg.median_window, use_kernels=cfg.use_kernels,
-                          impl=cfg.median_impl)
+        x = _checked("median_filter", median_filter(
+            x, cfg.median_window, use_kernels=cfg.use_kernels, impl=cfg.median_impl))
     with _stage("sharpen"):
-        return sharpen(x, cfg.sharpen_gain, cfg.sharpen_sigma, cfg.sharpen_kernel)
+        return _checked("sharpen", sharpen(
+            x, cfg.sharpen_gain, cfg.sharpen_sigma, cfg.sharpen_kernel))
 
 
 def _fused(x: torch.Tensor, cfg: PipelineConfig) -> torch.Tensor:

@@ -28,6 +28,7 @@ dispatches run inline on the caller's thread, with retries only.
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 from typing import Callable, Optional
@@ -39,6 +40,7 @@ from nm03_capstone_project_tpu_torch.resilience.policy import (
     RetryPolicy,
     is_retryable,
 )
+from nm03_capstone_project_tpu_torch.utils import sanitize
 
 
 class DispatchSupervisor:
@@ -83,9 +85,12 @@ class DispatchSupervisor:
             return self.retry.call(attempt, cause=label, obs=self.obs)
 
         deadline = Deadline.start(self.cfg.dispatch_timeout_s)
+        # --sanitize: the upload guard is per thread, so the caller's guarded
+        # site is re-armed on the worker; a no-op when sanitize is off
+        site = sanitize.current_site()
         attempt = 0
         while True:
-            status, value = self._attempt(primary, pre, deadline)
+            status, value = self._attempt(primary, pre, deadline, site)
             if status == "ok":
                 return value
             if status == "timeout":
@@ -113,15 +118,18 @@ class DispatchSupervisor:
             time.sleep(delay)
 
     @staticmethod
-    def _attempt(primary, pre, deadline: Deadline):
+    def _attempt(primary, pre, deadline: Deadline, site: Optional[str] = None):
         box: dict = {}
         cancel = threading.Event()
 
         def work():
             try:
-                if pre is not None:
-                    pre(cancel)
-                box["out"] = primary()
+                guard = (sanitize.guard_dispatch(site) if site is not None
+                         else contextlib.nullcontext())
+                with guard:
+                    if pre is not None:
+                        pre(cancel)
+                    box["out"] = primary()
             except BaseException as e:  # noqa: BLE001 — crosses the thread
                 box["err"] = e
 

@@ -37,6 +37,10 @@ Capture rules the class keeps:
   so a later graph may reuse an earlier one's intermediates, never its
   live outputs.
 
+Under ``--sanitize`` each stage's finite flag (:mod:`..utils.sanitize`)
+is one more output of the graph, checked after the replay's fetch, and a
+capture counts into the recompile watchdog.
+
 A capture that fails raises; nothing runs eagerly in its place. The
 kernel wrappers' ``.launches`` counters tick at capture only; the graph
 records how many launches of each kernel it holds (:attr:`kernels`) and
@@ -63,6 +67,7 @@ from nm03_capstone_project_tpu_torch.config import PipelineConfig
 from nm03_capstone_project_tpu_torch.ops import hopper_median as hm
 from nm03_capstone_project_tpu_torch.ops import hopper_region_growing as hg
 from nm03_capstone_project_tpu_torch.pipeline.slice_pipeline import _process
+from nm03_capstone_project_tpu_torch.utils import sanitize
 
 # the kernel wrappers a serving graph may hold, by the names chip_smoke.py
 # and PERF.md use
@@ -111,9 +116,13 @@ class BucketGraph:
         self.stream = stream
         self.pixels = torch.zeros((bucket, c, c), dtype=torch.float32, device=dev)
         self.dims = torch.full((bucket, 2), cfg.min_dim, dtype=torch.int32, device=dev)
+        # nm03-lint: disable=NM401 the graph's own staging: static buffers and their pinned twins, filled before each replay
         self.host_pixels = torch.zeros((bucket, c, c), dtype=torch.float32).pin_memory()
+        # nm03-lint: disable=NM401 the graph's own staging: static buffers and their pinned twins, filled before each replay
         self.host_dims = torch.zeros((bucket, 2), dtype=torch.int32).pin_memory()
+        # nm03-lint: disable=NM401 the graph's own staging: static buffers and their pinned twins, filled before each replay
         self.host_mask = torch.zeros((bucket, c, c), dtype=torch.uint8).pin_memory()
+        # nm03-lint: disable=NM401 the graph's own staging: static buffers and their pinned twins, filled before each replay
         self.host_conv = torch.zeros((bucket,), dtype=torch.bool).pin_memory()
         self.graph = torch.cuda.CUDAGraph()
         self.mask = None  # static outputs, set by capture()
@@ -122,6 +131,7 @@ class BucketGraph:
         self.capture_s = None
         self.memory: Dict[str, int] = {}
         self.replays = 0
+        self.finite_flags = []  # --sanitize: (stage, flag) outputs of the graph
         self._done = torch.cuda.Event()
 
     def capture(self) -> float:
@@ -136,17 +146,24 @@ class BucketGraph:
             before = kernel_launches()
             torch.cuda.reset_peak_memory_stats(self.device)
             held0 = torch.cuda.memory_allocated(self.device)
-            with torch.cuda.graph(self.graph, pool=self.pool, stream=self.stream):
+            with sanitize.capture_checks() as flags, torch.cuda.graph(
+                    self.graph, pool=self.pool, stream=self.stream):
                 out = _process(self.pixels, self.dims, self.cfg)
             after = kernel_launches()
             torch.cuda.synchronize()
             peak = max(torch.cuda.max_memory_allocated(self.device) - held0, 0)
         self.mask, self.converged = out["mask"], out["grow_converged"]
+        # nm03-lint: disable=NM331 BucketGraph is driven under its lane's lock: WarmExecutor.run_batch holds it around launch and fetch, and capture runs at warmup before any request
+        self.finite_flags = flags
+        sanitize.note_compile("graph", f"bucket {self.bucket} on {self.device}")
+        # nm03-lint: disable=NM331 BucketGraph is driven under its lane's lock: WarmExecutor.run_batch holds it around launch and fetch, and capture runs at warmup before any request
         self.kernels = {k: after[k] - before[k] for k in KERNELS if after[k] > before[k]}
         args = self.pixels.nbytes + self.dims.nbytes
         outs = self.mask.nbytes + self.converged.nbytes
+        # nm03-lint: disable=NM331 BucketGraph is driven under its lane's lock: WarmExecutor.run_batch holds it around launch and fetch, and capture runs at warmup before any request
         self.memory = {"argument_bytes": args, "output_bytes": outs,
                        "temp_bytes": max(peak - outs, 0), "peak_hbm_bytes": args + peak}
+        # nm03-lint: disable=NM331 BucketGraph is driven under its lane's lock: WarmExecutor.run_batch holds it around launch and fetch, and capture runs at warmup before any request
         self.capture_s = time.perf_counter() - t0
         return self.capture_s
 
@@ -163,20 +180,29 @@ class BucketGraph:
                 f"bucket {self.bucket} takes pixels {tuple(self.host_pixels.shape)} and "
                 f"dims ({self.bucket}, 2), got {pixels.shape} and {dims.shape}"
             )
+        # nm03-lint: disable=NM322 a pinned host tensor's .numpy() is a view of host memory, no device sync
         np.copyto(self.host_pixels.numpy(), pixels, casting="same_kind")
+        # nm03-lint: disable=NM322 a pinned host tensor's .numpy() is a view of host memory, no device sync
         np.copyto(self.host_dims.numpy(), dims, casting="same_kind")
         with torch.cuda.stream(self.stream):
+            # nm03-lint: disable=NM401 the graph's own staging: static buffers and their pinned twins, filled before each replay
             self.pixels.copy_(self.host_pixels, non_blocking=True)
+            # nm03-lint: disable=NM401 the graph's own staging: static buffers and their pinned twins, filled before each replay
             self.dims.copy_(self.host_dims, non_blocking=True)
             self.graph.replay()
+            # nm03-lint: disable=NM401 the graph's own staging: static buffers and their pinned twins, filled before each replay
             self.host_mask.copy_(self.mask, non_blocking=True)
+            # nm03-lint: disable=NM401 the graph's own staging: static buffers and their pinned twins, filled before each replay
             self.host_conv.copy_(self.converged, non_blocking=True)
             self._done.record(self.stream)
+        # nm03-lint: disable=NM331 BucketGraph is driven under its lane's lock: WarmExecutor.run_batch holds it around launch and fetch, and capture runs at warmup before any request
         self.replays += 1
 
     def fetch(self):
-        """Wait for the last replay; host copies of ``(mask, converged)``."""
+        """Wait for the last replay; host copies of ``(mask, converged)``.
+        Under ``--sanitize`` the replay's stage flags are checked first."""
         self._done.synchronize()
+        sanitize.raise_if_nonfinite(self.finite_flags)
         return self.host_mask.numpy().copy(), self.host_conv.numpy().copy()
 
     def stats(self) -> dict:

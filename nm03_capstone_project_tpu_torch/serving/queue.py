@@ -86,6 +86,7 @@ class ServeRequest:
     def fail(self, exc: BaseException) -> None:
         # the write is sequenced before done.set(); the waiter reads error
         # only after wait() returns
+        # nm03-lint: disable=NM331 release ordering via the Event: the write is sequenced before done.set(), and the waiter reads error only after wait() returns
         self.error = exc
         self.done.set()
 

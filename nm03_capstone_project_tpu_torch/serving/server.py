@@ -1434,7 +1434,6 @@ NOT_PORTED = {
                            "PyTorch (warmup captures CUDA graphs instead)",
     "--fallback-cpu": "the port has no CPU fallback",
     "--no-fallback-cpu": "the port has no CPU fallback; it always fails fast",
-    "--sanitize": "the JAX transfer guard has no counterpart in the port",
 }
 
 
@@ -1562,6 +1561,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="write structured JSON-lines events here (nm03.events.v1)")
     o.add_argument("--heartbeat-s", type=float, default=30.0, metavar="SEC",
                    help="heartbeat event period for --log-json streams (0 disables)")
+    o.add_argument(
+        "--sanitize", action="store_true",
+        help="the runtime twins of the port's lint rules (docs/STATIC_ANALYSIS_TORCH.md): "
+        "every stage's f32 output held finite (a graph replay's flags checked at its "
+        "fetch), an upload guard around each dispatch, and a recompile watchdog "
+        "(captures and library loads after warmup) feeding pipeline_recompiles_total",
+    )
     for flag in NOT_PORTED:
         p.add_argument(flag, nargs="?", action=_NotPorted, help=argparse.SUPPRESS)
     return p
@@ -1684,6 +1690,13 @@ def main(argv=None) -> int:
     from nm03_capstone_project_tpu_torch.utils.reporter import configure_reporting
 
     configure_reporting(verbose=args.verbose)
+    # NM03_LOCKDEP=1: instrument every lock the app is ABOUT to create
+    # (docs/STATIC_ANALYSIS_TORCH.md, the NM421/NM422 runtime twin) — before
+    # any serving object exists, since only locks created after install are
+    # wrapped; a no-op (nothing patched) without the variable
+    from nm03_capstone_project_tpu_torch.utils import lockdep
+
+    lockdep.install_from_env()
     if args.distributed_init:
         try:
             rc = _join_job(args)
@@ -1696,10 +1709,15 @@ def main(argv=None) -> int:
         return _serve(args, argv)
     finally:
         distributed.shutdown()  # a no-op outside a job
+        if args.sanitize:
+            from nm03_capstone_project_tpu_torch.utils import sanitize
+
+            sanitize.disable()
 
 
 def _serve(args: argparse.Namespace, argv) -> int:
     from nm03_capstone_project_tpu_torch.obs import RunContext, flightrec
+    from nm03_capstone_project_tpu_torch.utils import sanitize
 
     run_ctx = RunContext.create(
         "serve",
@@ -1708,6 +1726,8 @@ def _serve(args: argparse.Namespace, argv) -> int:
         heartbeat_s=args.heartbeat_s or 0.0,
         argv=argv,
     )
+    if args.sanitize:
+        sanitize.enable(run_ctx.registry)
     try:
         app = app_from_args(args, obs=run_ctx)
         httpd = make_http_server(app, args.host, args.port)
@@ -1728,6 +1748,7 @@ def _serve(args: argparse.Namespace, argv) -> int:
     flightrec.install(dump_dir=args.flight_dir)
     try:
         timings = app.start()
+        sanitize.mark_warm()  # captures and loads from here on count
     except Exception as e:  # noqa: BLE001 — a failed warmup (capture) ends the process
         print(f"nm03-serve: warmup failed: {type(e).__name__}: {e}", file=sys.stderr)
         httpd.server_close()

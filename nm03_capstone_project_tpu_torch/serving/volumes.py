@@ -73,7 +73,7 @@ import threading
 import time
 import uuid
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Tuple
+from typing import TYPE_CHECKING, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -89,6 +89,10 @@ from nm03_capstone_project_tpu_torch.parallel.zshard import (
 )
 from nm03_capstone_project_tpu_torch.serving.queue import AdmissionQueue
 from nm03_capstone_project_tpu_torch.utils.reporter import get_logger
+
+if TYPE_CHECKING:  # the lock-order analysis resolves the gang's calls through them
+    from nm03_capstone_project_tpu_torch.serving.batcher import DynamicBatcher
+    from nm03_capstone_project_tpu_torch.serving.executor import WarmExecutor
 
 log = get_logger("serving")
 
@@ -135,6 +139,7 @@ class VolumeRequest:
         return self.trace.trace_id if self.trace is not None else None
 
     def fail(self, exc: BaseException) -> None:
+        # nm03-lint: disable=NM331 release ordering via the Event (ServeRequest.fail's contract)
         self.error = exc
         self.done.set()
 
@@ -201,8 +206,8 @@ class VolumeGang:
     def __init__(
         self,
         cfg: PipelineConfig,
-        executor,
-        batcher,
+        executor: "WarmExecutor",
+        batcher: "DynamicBatcher",
         queue_capacity: int = 4,
         depth_buckets: Tuple[int, ...] = DEFAULT_VOLUME_DEPTH_BUCKETS,
         fault_plan=None,
@@ -359,6 +364,7 @@ class VolumeGang:
                         marks.append(time.monotonic())
                         mask, conv = distributed_gang_program(vol, dm, self.cfg)
                     with gather:
+                        # nm03-lint: disable=NM422 the mask's fetch ends the study's device work inside the one broadcast sequence the collective lock exists to serialize (no keepalive may interleave)
                         return mask.cpu().numpy(), bool(conv)
             except BaseException as e:  # noqa: BLE001 — the job is broken either way
                 self._mark_down(f"{type(e).__name__}: {e}")
@@ -368,6 +374,7 @@ class VolumeGang:
 
     def _mark_down(self, cause: str) -> None:
         if self._down is None:
+            # nm03-lint: disable=NM331 every caller holds _collective (the dispatch, the keepalive, close); readers only test it for None
             self._down = cause
             log.error("volume gang: the cross-process gang is down: %s", cause)
 
@@ -399,6 +406,7 @@ class VolumeGang:
         try:
             if self._down is None:
                 distributed.broadcast_study(distributed.OP_STOP)
+                # nm03-lint: disable=NM331 under _collective, acquired just above with a timeout
                 self._down = "stopped"
         except BaseException as e:  # noqa: BLE001 — closing either way
             self._mark_down(f"stop: {type(e).__name__}: {e}")
@@ -428,6 +436,7 @@ class VolumeGang:
                 self._run_program(stack, dims, [ln for ln, _ in pool[:n]],
                                   [d for _, d in pool[:n]])
             timings[b] = round(time.perf_counter() - t0, 3)
+        # nm03-lint: disable=NM331 single writer: warmup() runs once on the startup thread before start(); /readyz readers see 0 (warming) or the final width
         self._warm_width = width
         return timings
 
@@ -441,6 +450,7 @@ class VolumeGang:
         return stack
 
     def start(self) -> "VolumeGang":
+        # nm03-lint: disable=NM331 owner-thread write before _thread.start(); the start() fence orders it
         self._started = True
         self._thread.start()
         if self.in_job:
@@ -530,6 +540,7 @@ class VolumeGang:
         """Run the study over a z-mesh of the healthy lanes, re-meshing
         onto the survivors after a lane death."""
         h, w = req.dims
+        # nm03-lint: disable=NM322 host ints of the request's header, no device value
         dims = np.asarray([h, w], np.int32)
         if self.in_job:
             self._dispatch_across_job(req, seq, dims)
@@ -568,6 +579,7 @@ class VolumeGang:
             sup = self.executor.new_supervisor()
             trace = req.trace
             try:
+                # nm03-lint: disable=NM422 the canonical gang hold: the WHOLE study's program runs under the parked batcher; that exclusivity is what makes a volume dispatch safe
                 mask, conv = sup.run(
                     lambda: self._run_program(stack, dims, lanes, [d for _, d in pool], trace),
                     label="volume_dispatch",

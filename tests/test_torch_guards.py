@@ -244,6 +244,19 @@ class TestDrivers:
         else:
             assert "unrecognized arguments" in err or "invalid choice" in err
 
+    @pytest.mark.parametrize("name", OBSERVED)
+    def test_sanitize_flag_is_accepted(self, name):
+        """``--sanitize`` is ported: every driver with the observability
+        group parses it (off by default) instead of refusing it."""
+        import importlib
+
+        from nm03_capstone_project_tpu_torch.cli import common
+
+        driver = importlib.import_module(f"nm03_capstone_project_tpu_torch.cli.{name}")
+        assert driver.build_parser().parse_args(["--sanitize"]).sanitize is True
+        assert driver.build_parser().parse_args([]).sanitize is False
+        assert "--sanitize" not in common.NOT_PORTED["observability"]
+
     @pytest.mark.parametrize("name", DISTRIBUTED)
     def test_distributed_flags_are_accepted(self, name):
         import importlib
@@ -491,12 +504,12 @@ class TestServer:
         assert not flightrec.get_recorder().configured
 
     # the ids stay those of the cases before volume serving, fault plans,
-    # the SLO plane, the ledger and --distributed-init were ported (flag0-
-    # flag2 and flag4-flag8 were their flags, now accepted: see the tests
-    # below)
+    # the SLO plane, the ledger, --distributed-init and --sanitize were
+    # ported (flag0-flag2, flag4-flag8 and flag10 were their flags, now
+    # accepted: see the tests below)
     @pytest.mark.parametrize("flag", [pytest.param(f, id=f"flag{i}") for i, f in [
         (3, ["--compile-cache-dir", "c"]),
-        (9, ["--no-fallback-cpu"]), (10, ["--sanitize"]), (11, ["--device", "auto"]),
+        (9, ["--no-fallback-cpu"]), (11, ["--device", "auto"]),
     ]])
     def test_flags_of_layers_not_ported_are_rejected(self, flag, capsys):
         from nm03_capstone_project_tpu_torch.serving import server
@@ -507,6 +520,15 @@ class TestServer:
         err = capsys.readouterr().err
         if flag[0] in server.NOT_PORTED:
             assert server.NOT_PORTED[flag[0]] in err
+
+    def test_sanitize_flag_is_accepted(self):
+        """``--sanitize`` (the runtime twins, utils/sanitize.py) is ported:
+        parsed, not refused, and off by default."""
+        from nm03_capstone_project_tpu_torch.serving import server
+
+        assert "--sanitize" not in server.NOT_PORTED
+        assert server.build_parser().parse_args(["--device", "cpu", "--sanitize"]).sanitize
+        assert not server.build_parser().parse_args(["--device", "cpu"]).sanitize
 
     @pytest.mark.parametrize("flag,attr,value", [
         (["--volume-serving"], "volume_serving", True),

@@ -314,7 +314,37 @@ toolkit. Phases, each printing one JSON line:
    ``cli/runner.py::_dispatch_slice``, inline and on a supervised worker
    thread. The line has the sanitized and the clean run's walls, the
    raised errors, the launches and the card's name and power limit.
-14. ``kernels`` — one line, ``{"kernels": [...]}``, per kernel: launches in
+14. ``compile_cache`` — the kernel-library cache (``compilehub/``,
+   ``--compile-cache-dir``) on the card, through port servers started as
+   subprocesses (canvas 256, buckets 1 and 4, the result tier on), each
+   answering the first 20 slices of ``testdata/driver_golden.json`` as
+   DICOM bodies, one at a time: every mask the golden's, every JPEG pair
+   the driver phase's, and every start's answers equal to the first's. (1)
+   A cold start on an empty directory: 3 misses, 0 hits, the three
+   libraries built and published, three entries that verify. (2) A warm
+   start with ``nvcc`` out of reach (``PATH`` and ``CUDA_HOME`` stripped of
+   the toolkit, so a build would raise): 3 hits, 0 builds, ``/readyz``
+   ``replica.compile_cache_hits`` 3. (3) One flipped byte in the median
+   library's entry: ``cache_cli verify`` exits 1, the next start misses 1
+   and hits 2 (the median library rebuilt and stored again), and
+   ``verify`` then exits 0. (4) At the same time, on a copy of the
+   directory, the median library's entry gone and a ``cache``/``io_error``
+   fault plan: the store is aborted, the server serves from its own build,
+   a miss and the fault counted, and ``gc`` reclaims the tmp file once it
+   is past the grace for a live writer's.
+   (5) Three replicas cold together on an empty directory: all serve, and
+   every entry verifies. (6) ``python -m
+   nm03_capstone_project_tpu_torch.fleet.cli restart --compile-cache-dir``
+   over those three: every relaunch reports ``compile_cache_hits`` 3 and
+   builds 0, and serves the golden. Each stop's metrics snapshot passes
+   ``scripts/check_telemetry.py``'s exact counter forms
+   (``compile_cache_hits_total==0`` cold, ``==3`` warm). The line has
+   ``warm_s`` (process start to ready) of every start, each library's
+   source, build and load seconds and each graph's capture seconds, the
+   relaunches' split of their ``warm_s``, the launches and the card's name
+   and power limit (``until_app_s``: spawn to the app's identity, from its
+   ``/readyz`` ``replica.start_unix``).
+15. ``kernels`` — one line, ``{"kernels": [...]}``, per kernel: launches in
    the driver's run (``launches``; the median kernel's from the unfused
    patient), in the ``slice`` phase's (``slice_launches``), by the
    ``serve`` phase's graph replays (``serve_launches``: replays times the
@@ -334,7 +364,9 @@ toolkit. Phases, each printing one JSON line:
    by the ``lockdep`` phase's instrumented server (``lockdep_launches``:
    replays and the gang's launches) and in the ``sanitize`` phase's
    sanitized driver run (``sanitize_launches``; the median kernel's from
-   its unfused patient), the largest difference
+   its unfused patient), by the ``compile_cache`` phase's servers
+   (``compile_cache_launches``: every start's graph replays), the largest
+   difference
    from the plain version, its wrapper and device time, the plain time and
    the bound.
 
@@ -3745,6 +3777,323 @@ def sanitize_phase(tmp: Path, driver_out: dict, smi: str, kernels: dict, reset) 
     return launches
 
 
+COMPILE_CACHE_SLICES = 20  # golden slices each server answers
+COMPILE_CACHE_BUCKETS = (1, 4)
+COMPILE_CACHE_REPLICAS = 3
+
+
+def compile_cache_phase(tmp: Path, driver_out: dict, smi: str, kernels: dict, reset) -> dict:
+    """The kernel-library cache on the card (phase 14 of the docstring).
+
+    Returns the fused, grow and median launches the phase's servers made on
+    its main path (every start's graph replays), read from each server's own
+    /readyz and /metrics."""
+    import contextlib
+    import os
+    import signal
+    import urllib.error
+    import urllib.request
+
+    from nm03_capstone_project_tpu_torch.compilehub import scan_entries
+    from nm03_capstone_project_tpu_torch.data.discovery import load_dicom_files_for_patient
+    from nm03_capstone_project_tpu_torch.kernels import build
+
+    phase_t0 = time.perf_counter()
+    root = tmp / "compile_cache"
+    root.mkdir()
+    repo = Path(__file__).resolve().parent
+    checker = repo / "scripts" / "check_telemetry.py"
+    size = DRIVER_COHORT[2]
+    cohort, dfiles = driver_out["cohort"], driver_out["files"]
+    golden = json.loads((build.PKG / "testdata" / "driver_golden.json").read_text())[
+        "slices"][:COMPILE_CACHE_SLICES]
+    bodies = {}
+    for g in golden:
+        pid = g["patient"]
+        if pid not in bodies:
+            bodies[pid] = {f.stem: f.read_bytes()
+                           for f in load_dicom_files_for_patient(cohort, pid)}
+    env = dict(os.environ)
+    for var in ("NM03_FAULT_PLAN", "NM03_COMPILE_CACHE_DIR"):
+        env.pop(var, None)
+    # a toolkit out of reach: nothing on PATH holds nvcc, CUDA_HOME names none
+    no_nvcc = dict(env, CUDA_HOME=str(root / "no-toolkit"), PATH=os.pathsep.join(
+        p for p in env.get("PATH", "").split(os.pathsep)
+        if p and not os.path.exists(os.path.join(p, "nvcc"))))
+    require(shutil.which("nvcc", path=no_nvcc["PATH"]) is None, "nvcc still on PATH")
+    procs, detached = [], []  # children, and replicas the fleet CLI relaunched
+    ports = []  # every port handed out: servers started together never share one
+
+    def sha(b: bytes) -> str:
+        return hashlib.sha256(b).hexdigest()
+
+    def get_json(url: str):
+        try:
+            with urllib.request.urlopen(url, timeout=10) as r:
+                return r.status, json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read() or b"{}")
+
+    def start(tag: str, cache: Path, env_=None, extra=()):
+        """A port server on the card with ``--compile-cache-dir cache``."""
+        port = stable_port(ports)
+        ports.append(port)
+        port_file = root / f"{tag}.port"
+        argv = [sys.executable, "-m", "nm03_capstone_project_tpu_torch.serving.server",
+                "--port", str(port), "--port-file", str(port_file),
+                "--compile-cache-dir", str(cache), "--canvas", str(size),
+                "--buckets", ",".join(map(str, COMPILE_CACHE_BUCKETS)),
+                "--result-cache-bytes", "16m", "--heartbeat-s", "0",
+                "--flight-dir", str(root), "--metrics-out", str(root / f"{tag}.metrics.json"),
+                "--log-json", str(root / f"{tag}.jsonl"), *extra]
+        # nm03-lint: disable=NM351 a server's stdout log stream, not an artifact: read only after the process ends
+        with open(root / f"{tag}.out", "w") as out:
+            proc = subprocess.Popen(argv, cwd=repo, env=env_ or env, stdout=out,
+                                    stderr=subprocess.STDOUT)
+        procs.append(proc)
+        return {"tag": tag, "proc": proc, "port_file": port_file, "t0": time.monotonic(),
+                "t0_unix": time.time()}
+
+    def ready(*servers: dict) -> list:
+        """Wait for each port file (written after warmup); each server's
+        warm_s (process start to ready) and its /readyz."""
+        pending = list(servers)
+        while pending:
+            for s in list(pending):
+                if s["port_file"].exists():
+                    s["warm_s"] = round(time.monotonic() - s["t0"], 3)
+                    pending.remove(s)
+                    continue
+                require(s["proc"].poll() is None,
+                        f"server {s['tag']} exited {s['proc'].returncode}: "
+                        f"{(root / (s['tag'] + '.out')).read_text()[-3000:]}")
+                require(time.monotonic() < s["t0"] + FLEET_START_TIMEOUT_S,
+                        f"server {s['tag']} never became ready")
+            time.sleep(0.05)
+        for s in servers:
+            s["url"] = f"http://127.0.0.1:{int(s['port_file'].read_text())}"
+            status, s["readyz"] = get_json(s["url"] + "/readyz")
+            require(status == 200 and s["readyz"]["cuda_graphs"]["enabled"],
+                    f"server {s['tag']} is not ready on the card: {status}")
+        return list(servers)
+
+    def serve(url: str, where: str) -> list:
+        """The golden slices one at a time: each answer's mask equal to the
+        golden's and its JPEG pair to the driver's files; the answers."""
+        answers = []
+        for g in golden:
+            req = urllib.request.Request(
+                url + "/v1/segment", data=bodies[g["patient"]][g["stem"]], method="POST",
+                headers={"Content-Type": "application/dicom"})
+            with urllib.request.urlopen(req, timeout=120) as r:
+                require(r.status == 200, f"{where}: {g['patient']}/{g['stem']} {r.status}")
+                p = json.loads(r.read())
+            key = f"{g['patient']}/{g['stem']}"
+            got = (p["mask_sha256"], p["mask_pixels"], p["grow_converged"],
+                   sha(base64.b64decode(p["original_jpeg_b64"])),
+                   sha(base64.b64decode(p["processed_jpeg_b64"])))
+            require(got == (g["mask_sha256"], g["area"], g["converged"],
+                            sha(dfiles[f"{key}_original.jpg"]),
+                            sha(dfiles[f"{key}_processed.jpg"])),
+                    f"{where}: {key} differs from the golden or the driver's pair")
+            answers.append(got)
+        return answers
+
+    def launches_of(url: str) -> dict:
+        _, st = get_json(url + "/readyz")
+        _, snap = get_json(url + "/metrics.json")
+        graphs = st["cuda_graphs"]["lanes"]
+        out = {"fused": 0, "grow": 0, "median": 0}
+        for m in snap["metrics"]:
+            if m["name"] == "serving_graph_replays_total":
+                g = graphs.get(m["labels"]["lane"], {}).get(m["labels"]["bucket"], {})
+                for k, c in g.get("kernels", {}).items():
+                    out[k] += int(m["value"]) * c
+        return out
+
+    def stop(s: dict, hits: int, misses: int, extra=()) -> None:
+        """SIGTERM (the drain writes the metrics snapshot), then the
+        telemetry checker's exact counter forms on it."""
+        s["proc"].send_signal(signal.SIGTERM)
+        require(s["proc"].wait(timeout=120) == 0, f"server {s['tag']} did not drain cleanly")
+        res = subprocess.run(
+            [sys.executable, str(checker), "--metrics", str(root / f"{s['tag']}.metrics.json"),
+             "--expect-counter", f"compile_cache_hits_total=={hits}",
+             "--expect-counter", f"compile_cache_misses_total=={misses}", *extra],
+            capture_output=True, text=True, timeout=120)
+        require(res.returncode == 0, f"check_telemetry on {s['tag']}: {res.stdout} {res.stderr}")
+
+    def hub_of(s: dict) -> dict:
+        hub = s["readyz"]["compile_hub"]
+        return {"warm_s": s["warm_s"],
+                # spawn to the app's identity: interpreter, imports, construction
+                "until_app_s": round(s["readyz"]["replica"]["start_unix"] - s["t0_unix"], 3),
+                "hits": hub.get("cache_hits"), "misses": hub.get("cache_misses"),
+                "libraries": hub["libraries"], "capture_s": hub["capture_seconds"],
+                "cache_load_s": hub.get("cache_load_seconds")}
+
+    def cache_cli(*argv) -> tuple:
+        res = subprocess.run(
+            [sys.executable, "-m", "nm03_capstone_project_tpu_torch.compilehub.cache_cli",
+             "--format", "json", *argv], cwd=repo, env=env, capture_output=True, text=True,
+            timeout=120)
+        return res.returncode, (json.loads(res.stdout) if res.stdout.strip() else None)
+
+    def sources(s: dict) -> dict:
+        return {n: r["source"] for n, r in s["readyz"]["compile_hub"]["libraries"].items()}
+
+    def stop_detached(pid: int) -> None:
+        """SIGTERM a replica the fleet CLI relaunched (not our child), and
+        wait until it is gone or a zombie."""
+        with contextlib.suppress(ProcessLookupError):
+            os.kill(pid, signal.SIGTERM)
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline:
+            try:
+                state = Path(f"/proc/{pid}/stat").read_text().rsplit(")", 1)[1].split()[0]
+            except (OSError, IndexError):
+                return
+            if state == "Z":
+                return
+            time.sleep(0.1)
+        with contextlib.suppress(ProcessLookupError):
+            os.kill(pid, signal.SIGKILL)
+
+    launches = {"fused": 0, "grow": 0, "median": 0}
+
+    def count(url: str) -> None:
+        for k, v in launches_of(url).items():
+            launches[k] += v
+
+    out = {}
+    try:
+        reset()  # the main path's run: the servers' own counts are read below
+        # -- 1. cold: an empty directory ------------------------------------
+        cache = root / "cache"
+        cold, = ready(start("cold", cache))
+        require(cold["readyz"]["replica"]["compile_cache_hits"] == 0, "cold: hits")
+        require(sources(cold) == dict.fromkeys(build.SOURCES, "built"), f"cold {sources(cold)}")
+        rows = scan_entries(cache)
+        require([r["status"] for r in rows] == ["ok"] * 3, f"cold entries {rows}")
+        answers = serve(cold["url"], "cold")
+        count(cold["url"])
+        out["cold"] = hub_of(cold)
+        stop(cold, 0, 3)
+
+        # -- 2. warm, with nvcc out of reach ---------------------------------
+        warm, = ready(start("warm", cache, env_=no_nvcc))
+        require(warm["readyz"]["replica"]["compile_cache_hits"] == 3, "warm: replica hits")
+        require(sources(warm) == dict.fromkeys(build.SOURCES, "cache"), f"warm {sources(warm)}")
+        require(warm["readyz"]["compile_hub"]["builds"] == 0, "warm: a library was built")
+        require(serve(warm["url"], "warm") == answers, "warm answers != cold answers")
+        count(warm["url"])
+        out["warm"] = hub_of(warm)
+        stop(warm, 3, 0)
+
+        # -- 3 and 4 at once, on two copies of the directory ----------------
+        # 3: one flipped byte in the median library's entry; 4: that entry
+        # gone and a cache/io_error plan that aborts its store
+        faulty = root / "cache_fault"
+        shutil.copytree(cache, faulty)
+        name = build.persist_key("median").filename()
+        (faulty / name).unlink()
+        raw = bytearray((cache / name).read_bytes())
+        raw[-4096] ^= 0x01
+        # nm03-lint: disable=NM351 the flipped byte in place is the drill: bit rot in a published entry
+        (cache / name).write_bytes(bytes(raw))
+        rc, report = cache_cli("--dir", str(cache), "verify")
+        require(rc == 1 and len(report["corrupt"]) == 1, f"verify after the flip: {rc} {report}")
+        plan = json.dumps({"seed": 3, "faults": [{"site": "cache", "kind": "io_error"}]})
+        corrupt, fault = ready(start("corrupt", cache),
+                               start("store_fault", faulty, extra=("--fault-plan", plan)))
+        for s_ in (corrupt, fault):
+            require(sources(s_) == {"fused": "cache", "grow": "cache", "median": "built"},
+                    f"{s_['tag']} {sources(s_)}")
+            require(serve(s_["url"], s_["tag"]) == answers, f"{s_['tag']} answers differ")
+            count(s_["url"])
+        out["corrupt"] = {**hub_of(corrupt), "verify_before": report["corrupt"]}
+        out["store_fault"] = hub_of(fault)
+        stop(corrupt, 2, 1)
+        stop(fault, 2, 1, ("--expect-counter",
+                           "resilience_faults_injected_total{site=cache,kind=io_error}==1"))
+        rc, report = cache_cli("--dir", str(cache), "verify")
+        require(rc == 0 and report["ok"] == 3, f"verify after the rebuild: {rc} {report}")
+        tmps = list(faulty.glob("*.tmp"))
+        require(len(tmps) == 1 and not (faulty / name).exists(),
+                f"after the aborted store: {tmps}")
+        old = time.time() - 3600  # past the ten-minute grace for a live writer's tmp
+        os.utime(tmps[0], (old, old))
+        rc, report = cache_cli("--dir", str(faulty), "gc")
+        require(rc == 0 and report["removed"] == [tmps[0].name] and report["kept"] == 2,
+                f"gc: {rc} {report}")
+        out["store_fault"]["gc"] = report
+
+        # -- 5. three replicas cold together on an empty directory -----------
+        shared = root / "shared"
+        t0 = time.perf_counter()
+        reps = ready(*[start(f"r{i}", shared) for i in range(COMPILE_CACHE_REPLICAS)])
+        together_s = time.perf_counter() - t0
+        for s in reps:
+            hub = s["readyz"]["compile_hub"]
+            require(hub["cache_hits"] + hub["cache_misses"] == 3, f"{s['tag']} {hub}")
+            require(serve(s["url"], s["tag"]) == answers, f"{s['tag']} answers differ")
+            count(s["url"])
+        rc, report = cache_cli("--dir", str(shared), "verify")
+        require(rc == 0 and report["ok"] == 3 and report["entries"] == 3,
+                f"verify after the concurrent cold start: {rc} {report}")
+        out["together"] = {"seconds": together_s, "replicas": [
+            {"warm_s": s["warm_s"], "hits": s["readyz"]["compile_hub"]["cache_hits"],
+             "misses": s["readyz"]["compile_hub"]["cache_misses"]} for s in reps]}
+
+        # -- 6. the rolling restart through nm03-fleet -----------------------
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "nm03_capstone_project_tpu_torch.fleet.cli", "restart",
+             "--replicas", ",".join(s["url"] for s in reps), "--compile-cache-dir", str(shared),
+             "--format", "json", "--warm-timeout-s", "300"],
+            cwd=repo, env=env, capture_output=True, text=True, timeout=900)
+        restart_s = time.perf_counter() - t0
+        report = json.loads(res.stdout) if res.stdout.strip() else {}
+        detached += [e["new_pid"] for e in report.get("replicas", []) if e.get("new_pid")]
+        require(res.returncode == 0 and report.get("ok"), f"fleet restart: {res.stderr[-3000:]}")
+        restarted = []
+        for e, s in zip(report["replicas"], reps):
+            require(e["compile_cache_hits"] == 3 and e["builds"] == 0,
+                    f"relaunch of {e['replica']}: {e}")
+            _, st = get_json(s["url"] + "/readyz")
+            require(st["replica"]["pid"] == e["new_pid"], f"{e['replica']} pid")
+            require(serve(s["url"], f"relaunched {e['replica']}") == answers,
+                    f"relaunched {e['replica']} answers differ")
+            count(s["url"])
+            hub = st["compile_hub"]
+            lib_s = sum(r["load_s"] for r in hub["libraries"].values())
+            cap_s = sum(v or 0.0 for v in hub["capture_seconds"].values())
+            until_app = st["replica"]["start_unix"] - e["spawned_unix"]
+            restarted.append({
+                "replica": e["replica"], "drain_s": e["drain_s"], "warm_s": e["warm_s"],
+                "compile_cache_hits": e["compile_cache_hits"], "builds": e["builds"],
+                "until_app_s": round(until_app, 3), "libraries_load_s": round(lib_s, 4),
+                "capture_s": round(cap_s, 4),
+                "rest_s": round(e["warm_s"] - until_app - lib_s - cap_s, 3)})
+        out["restart"] = {"seconds": restart_s, "replicas": restarted}
+        emit({"phase": "compile_cache", **out, "compile_cache_launches": launches,
+              "seconds": time.perf_counter() - phase_t0, "nvidia_smi": smi})
+        require(launches["fused"] > 0 and launches["grow"] > 0, f"launches {launches}")
+        return launches
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.send_signal(signal.SIGTERM)
+        for proc in procs:
+            try:
+                proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=30)
+        for pid in detached:
+            stop_detached(pid)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing to drive", file=sys.stderr)
@@ -4082,8 +4431,11 @@ def main() -> int:
         lockdep_launches = lockdep_phase(Path(tmp), driver_out, smi, kernels, reset)
         # -- 13. --sanitize ------------------------------------------------
         sanitize_launches = sanitize_phase(Path(tmp), driver_out, smi, kernels, reset)
+        # -- 14. the kernel-library cache ---------------------------------
+        compile_cache_launches = compile_cache_phase(Path(tmp), driver_out, smi, kernels,
+                                                     reset)
 
-    # -- 14. kernels ---------------------------------------------------------
+    # -- 15. kernels ---------------------------------------------------------
     meta = {
         "median": ("vector_median_filter", "csrc/median.cu",
                    "nm03_capstone_project_tpu/ops/pallas_median.py:101"),
@@ -4108,6 +4460,7 @@ def main() -> int:
             "shard_launches": shard_launches[key],
             "lockdep_launches": lockdep_launches.get(key, 0),
             "sanitize_launches": sanitize_launches[key],
+            "compile_cache_launches": compile_cache_launches[key],
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "device_ms": r["device_ms"], "device_ms_by": r["device_ms_by"],
             "plain_ms": r["plain_ms"],

@@ -80,7 +80,7 @@ RULE_CATALOG = {
     "NM351": "atomic-io: truncating artifact write without tmp+rename",
     "NM361": "compile-home: CUDA graph/torch.compile/CDLL/nvcc outside its home",
     "NM371": "obs-io: flight-recorder/trace module writes without atomic_write_*",
-    "NM381": "cache-key: kernel build input not consumed by build_dir()'s key",
+    "NM381": "cache-key: kernel build input not consumed by persist_key() or build_dir()",
     "NM392": "metrics-docs: metric name and docs/OBSERVABILITY_TORCH.md table drifted",
     "NM401": "staging-home: host->card copy outside ingest/",
     "NM421": "lock-order: cycle in the may-hold graph (static deadlock)",

@@ -66,6 +66,9 @@ CONTRACT_REGISTRY: Dict[str, Tuple[str, ...]] = {
     f"{_P}.ingest.pipeline": ("torch", "numpy"),
     f"{_P}.fleet": ("torch", "numpy"),
     f"{_P}.cache": ("torch", "numpy"),
+    # the compile cache and its CLI: the key comes from kernels/build.py,
+    # imported only where a key is computed
+    f"{_P}.compilehub": ("torch", "numpy"),
     # the runtime twins: importable (and the witness dumpable) without a
     # backend; sanitize imports torch inside the checks that need it
     f"{_P}.utils.lockdep": ("torch", "numpy"),

@@ -11,7 +11,9 @@ The port's copy of the JAX package's ``fleet/cli.py``; run it as
   ``--slo-*`` flags add the SLO plane's burn-rate gauges);
 * ``restart --replicas URL,URL,...`` — the rolling restart: drain →
   relaunch → warm-wait, one replica at a time, so a redeploy never drops
-  the fleet below (N−1)/N capacity;
+  the fleet below (N−1)/N capacity (``--compile-cache-dir`` puts one
+  shared kernel-library cache in every relaunch, so each warm-wait loads
+  the libraries instead of running ``nvcc``);
 * ``flightrec --replicas URL,URL,...`` — the remote debug pull: every
   replica's ``GET /debug/flightrec`` (its flight rings) into one dump per
   replica;
@@ -116,6 +118,11 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument(
         "--replicas", required=True, metavar="URL[,URL...]",
         help="comma list of replica base URLs, restarted in order",
+    )
+    r.add_argument(
+        "--compile-cache-dir", default=None, metavar="DIR",
+        help="ensure every relaunch carries this kernel-library cache dir, so "
+        "the warm-wait loads the libraries, verified, instead of building them",
     )
     r.add_argument(
         "--fleet-url", default=None, metavar="URL",
@@ -253,6 +260,7 @@ def _restart(args) -> int:
     try:
         report = rolling_restart(
             _split_targets(args.replicas),
+            compile_cache_dir=args.compile_cache_dir,
             drain_timeout_s=args.drain_timeout_s,
             warm_timeout_s=args.warm_timeout_s,
             fleet_url=args.fleet_url,
@@ -270,7 +278,8 @@ def _restart(args) -> int:
             print(
                 f"{r['replica']:<22} pid {r['old_pid']} -> {r['new_pid']}  "
                 f"drain {r['drain_s']}s  warm {r['warm_s']}s  "
-                f"graph capture {r['capture_s']}s"
+                f"graph capture {r['capture_s']}s  "
+                f"cache_hits {r['compile_cache_hits']}"
             )
         done = sum(1 for r in report["replicas"] if r.get("ok"))
         print(

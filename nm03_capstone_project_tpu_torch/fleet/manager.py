@@ -10,12 +10,15 @@ next replica. The fleet front end's health loop ejects the draining
 replica within one poll and probation reinstates the fresh one, so the
 routed capacity never drops below (N−1)/N.
 
-The port has no executable cache (the server refuses
-``--compile-cache-dir``): a relaunched replica captures its CUDA graphs
-anew. The report records, for each replica, its drain seconds, its warm
-seconds (process start to ``/readyz`` 200, mostly graph capture on the
-card) and the capture seconds its graphs report, where the JAX report has
-its cache hits.
+With ``compile_cache_dir`` every relaunch carries that kernel-library
+cache (:func:`_relaunch_argv` replaces or appends the flag in the
+published recipe), so the relaunched replica loads its three libraries,
+verified, instead of running ``nvcc``; its CUDA graphs are captured anew
+either way (a graph cannot be persisted). The report records, for each
+replica, its drain seconds, its warm seconds (process start to
+``/readyz`` 200), the capture seconds its graphs report and, as the JAX
+report does, its builds and cache hits (``compile_cache_hits``: null for
+a replica without a cache).
 
 Same-host by construction: the SIGTERM and the relaunch both happen on
 the machine this runs on (the replica block's ``pid``/``cwd`` are local
@@ -150,8 +153,22 @@ def _wait_fleet_sees(
     )
 
 
+def _relaunch_argv(argv: Sequence[str], compile_cache_dir: Optional[str]):
+    """The replica's published relaunch argv, with the cache dir ensured."""
+    out: List[str] = list(argv)
+    if compile_cache_dir:
+        if "--compile-cache-dir" in out:
+            i = out.index("--compile-cache-dir")
+            if i + 1 < len(out):
+                out[i + 1] = compile_cache_dir
+        else:
+            out += ["--compile-cache-dir", compile_cache_dir]
+    return out
+
+
 def rolling_restart(
     targets: Sequence[str],
+    compile_cache_dir: Optional[str] = None,
     drain_timeout_s: float = 120.0,
     warm_timeout_s: float = 600.0,
     poll_s: float = 0.25,
@@ -215,8 +232,11 @@ def rolling_restart(
                 _wait_listener_closed(target, drain_timeout_s, poll_s), 3
             )
             say(f"fleet restart: {label} drained in {entry['drain_s']}s; relaunching")
-            launch = list(argv)
+            launch = _relaunch_argv(argv, compile_cache_dir)
             entry["argv"] = launch
+            # beside the new replica's replica.start_unix: how much of
+            # warm_s passed before its app existed (interpreter, imports)
+            entry["spawned_unix"] = round(time.time(), 3)
             proc = spawn(
                 launch,
                 cwd=cwd or None,
@@ -237,6 +257,7 @@ def rolling_restart(
             err.report = report
             raise err from e
         new_rep = ready.get("replica") or {}
+        hub = ready.get("compile_hub") or {}
         entry["new_pid"] = new_rep.get("pid")
         entry["new_id"] = new_rep.get("id")
         entry["warm_s"] = ready.get("_warm_wait_s")
@@ -248,9 +269,16 @@ def rolling_restart(
                       for g in lane.values()), 3)
             if graphs else None
         )
+        # the cache-hit proof: a warm relaunch loads every library, so
+        # builds stays 0 and the hits equal the library count
+        entry["builds"] = hub.get("builds")
+        entry["cache_hits"] = hub.get("cache_hits")
+        entry["cache_misses"] = hub.get("cache_misses")
+        entry["compile_cache_hits"] = new_rep.get("compile_cache_hits")
         say(
             f"fleet restart: {label} ready in {entry['warm_s']}s "
-            f"(pid {entry['new_pid']}, graph capture {entry['capture_s']}s)"
+            f"(pid {entry['new_pid']}, graph capture {entry['capture_s']}s, "
+            f"builds={entry['builds']}, cache_hits={entry['cache_hits']})"
         )
         if fleet_url:
             try:

@@ -43,10 +43,12 @@ Kinds by site (:data:`KINDS_BY_SITE`, as the JAX package has them):
 * ``export``:   ``io_error`` (raise before the JPEG pair writes),
   ``sigterm`` (deliver SIGTERM to this process: the crash-safe resume
   drill);
-* ``cache``:    ``corrupt_entry`` (the result tier's verify-on-read sees one
-  flipped byte: ``stem`` selects the result-key digest). ``io_error``
-  targets the JAX package's persistent compile cache, which the port does
-  not have: a plan holding such a rule is refused when it is parsed;
+* ``cache``:    ``io_error`` (abort the publish of a compile-cache entry
+  between the write of its tmp file and its rename: the process serves
+  from its own build, the next start misses and rebuilds, the tmp file is
+  left for ``gc``; ``stem`` selects the entry filename), ``corrupt_entry``
+  (the result tier's verify-on-read sees one flipped byte: ``stem``
+  selects the result-key digest);
 * ``ingest``:   ``decode_error`` (fail one work item on the ingest decode
   pool), ``stall`` (wedge the stager ``hang_s`` seconds);
 * ``fleet``:    ``replica_unreachable`` (the router's health poll sees
@@ -82,11 +84,14 @@ KINDS_BY_SITE = {
     "dispatch": ("transient", "hang"),
     "export": ("io_error", "sigterm"),
     # one site for both cache tiers, told apart by fire()'s `kinds`
-    # filter. corrupt_entry is the result tier's read path
-    # (cache/store.py verify-on-read): the lookup sees one flipped byte,
-    # the digest check evicts the entry and reports a miss, so a corrupt
-    # entry costs one recompute, never a wrong mask (`stem` selects the
-    # result-key digest). io_error is the JAX package's compile cache
+    # filter. io_error is the compile cache's store path
+    # (compilehub/persist.py): it aborts an entry's publish, so a failed
+    # persist costs a rebuild on the next start, never a torn entry
+    # (`stem` selects the entry filename). corrupt_entry is the result
+    # tier's read path (cache/store.py verify-on-read): the lookup sees one
+    # flipped byte, the digest check evicts the entry and reports a miss,
+    # so a corrupt entry costs one recompute, never a wrong mask (`stem`
+    # selects the result-key digest)
     "cache": ("io_error", "corrupt_entry"),
     # the ingest pipeline: `decode_error` fails one work item on the
     # decode pool (an IngestFailure record the driver counts); `stall`
@@ -108,11 +113,9 @@ KINDS_BY_SITE = {
 }
 
 # kinds of KINDS_BY_SITE whose target the port does not have: a plan holding
-# one is refused when it is parsed, rather than accepted and never fired
-NOT_PORTED_KINDS = {
-    ("cache", "io_error"): "it targets the JAX package's persistent compile "
-    "cache, which the port leaves out (there is nothing to compile)",
-}
+# one is refused when it is parsed, rather than accepted and never fired.
+# None is left
+NOT_PORTED_KINDS: dict = {}
 
 
 class InjectedDecodeError(RuntimeError):

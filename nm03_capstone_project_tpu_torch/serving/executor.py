@@ -449,6 +449,14 @@ class WarmExecutor:
         """
         c = self.cfg.canvas
         devs = self._resolve_lanes()
+        if self.cfg.use_kernels and any(d.type == "cuda" for d in devs):
+            # the kernel libraries first (from the compile cache, a build,
+            # or _build/: kernels/build.py), so a bucket's capture seconds
+            # are its capture alone
+            from nm03_capstone_project_tpu_torch.kernels import build
+
+            for name in build.SOURCES:
+                build.load(name)
         timings: Dict[str, Dict[int, float]] = {}
         for lane, dev in enumerate(devs):
             pool = stream = None

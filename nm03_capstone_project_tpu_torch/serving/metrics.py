@@ -3,8 +3,7 @@
 The port's copy of the JAX package's ``serving/metrics.py``: the same
 series names (docs/OBSERVABILITY.md), so one dashboard reads both
 packages' servers. Only the series the ported layers register are here;
-the saturation, ledger, SLO and compile-cache series come with their
-layers. ``serving_warmup_seconds`` holds the CUDA graph capture
+the saturation, ledger and SLO series come with their layers. ``serving_warmup_seconds`` holds the CUDA graph capture
 seconds a bucket took (the JAX package's compile + first execute).
 """
 
@@ -36,6 +35,13 @@ SERVING_RESULT_CACHE_HIT_TOTAL = "serving_result_cache_hit_total"
 SERVING_RESULT_CACHE_MISS_TOTAL = "serving_result_cache_miss_total"
 SERVING_RESULT_CACHE_FILL_TOTAL = "serving_result_cache_fill_total"
 SERVING_RESULT_CACHE_EVICT_TOTAL = "serving_result_cache_evict_total"
+# the kernel library cache (--compile-cache-dir): libraries loaded,
+# verified, from the cache and lookups that fell through to an nvcc build
+# (absent, stale, torn or corrupt entries). Published once after warmup,
+# zeros included, exactly when the server attached a cache: a cold start
+# reads hits 0, a warm one hits 3 (the three libraries)
+COMPILE_CACHE_HITS_TOTAL = "compile_cache_hits_total"
+COMPILE_CACHE_MISSES_TOTAL = "compile_cache_misses_total"
 # whole-volume serving: terminal POST /v1/segment-volume outcomes by status
 # (ok | error | shed | invalid | timeout), apart from the per-slice series
 # because one volume request is a whole-gang dispatch, not one slice
@@ -58,6 +64,10 @@ SERVING_WARMUP_SECONDS = "serving_warmup_seconds"
 # it waited for the slice batcher to park
 SERVING_VOLUME_ZSHARDS = "serving_volume_zshards"
 SERVING_VOLUME_GANG_WAIT_SECONDS = "serving_volume_gang_wait_seconds"
+
+# the gauge twin of the cache counters: seconds spent reading, checking and
+# copying the cache's entries (what a warm start paid instead of nvcc)
+COMPILE_CACHE_LOAD_SECONDS = "compile_cache_load_seconds"
 
 # -- histograms -------------------------------------------------------------
 SERVING_QUEUE_WAIT_SECONDS = "serving_queue_wait_seconds"

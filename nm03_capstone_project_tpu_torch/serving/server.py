@@ -26,9 +26,12 @@ The port's counterpart of the JAX package's ``nm03-serve``::
   fractions, MFU and its peak, padding waste, window occupancy),
   ``ledger`` (device seconds by account, the sampled stage pie, each
   bucket's graph bytes) and ``slo`` (burn rates and budget, null without
-  an objective) are refreshed on every probe; ``compile_hub`` is null
-  (there is nothing to compile), ``cuda_graphs`` holds each bucket's
-  capture seconds and replays, and ``volumes`` the gang's shape;
+  an objective) are refreshed on every probe; ``compile_hub`` names where
+  each kernel library came from (``cache``, ``built`` or ``local``), its
+  build and load seconds, the cache's counts under ``--compile-cache-dir``
+  and each (lane, bucket) graph's capture seconds, ``cuda_graphs`` holds
+  each bucket's capture seconds and replays, and ``volumes`` the gang's
+  shape;
 * ``GET /metrics`` (Prometheus text) and ``GET /metrics.json`` (the
   ``nm03.metrics.v1`` snapshot), the saturation, ledger and SLO gauges
   refreshed on every scrape and once more at drain;
@@ -38,10 +41,17 @@ The port's counterpart of the JAX package's ``nm03-serve``::
   profiler), ``GET /debug/result-cache`` (the result tier's entries) and
   ``POST /debug/result-cache/evict[?digest=D]``.
 
+``--compile-cache-dir`` (or ``$NM03_COMPILE_CACHE_DIR``; the flag wins)
+loads the three kernel libraries, verified, from an operator's directory
+instead of running ``nvcc`` at warmup, and publishes those that had to be
+built there (:mod:`..compilehub`); the ``compile_cache_*`` series appear
+exactly when a cache is attached.
+
 ``--fault-plan`` (or ``NM03_FAULT_PLAN``) arms the seeded chaos plan of
 :mod:`..resilience.faultinject` at the ``dispatch`` site (every lane's
-supervised dispatch), the ``volume`` site (the gang) and the result
-tier's ``cache``/``corrupt_entry`` site. ``--slo-availability`` /
+supervised dispatch), the ``volume`` site (the gang), the result tier's
+``cache``/``corrupt_entry`` site and the compile cache's
+``cache``/``io_error`` site (an entry's publish aborted). ``--slo-availability`` /
 ``--slo-p99-ms`` declare an objective (:mod:`..obs.slo`), and
 ``--ledger-profile-interval-s`` turns on the ledger's profiler sampler
 (off by default: the profiler slows eager launches).
@@ -103,6 +113,9 @@ from nm03_capstone_project_tpu_torch.serving.executor import (
     WarmExecutor,
 )
 from nm03_capstone_project_tpu_torch.serving.metrics import (
+    COMPILE_CACHE_HITS_TOTAL,
+    COMPILE_CACHE_LOAD_SECONDS,
+    COMPILE_CACHE_MISSES_TOTAL,
     LATENCY_BUCKETS,
     SERVING_DEGRADED,
     SERVING_INFLIGHT,
@@ -158,6 +171,26 @@ _CACHEABLE_VOLUME_FIELDS = (
     "mhd_data_b64",
     "mhd_data_file",
 )
+
+
+def _cache_fault_hook(fault_plan, obs):
+    """The compile cache's chaos hook (site ``cache``/``io_error``), or None.
+
+    Fired with the entry's filename between the write of its tmp file and
+    the rename that publishes it; a firing rule aborts the publish: the
+    drill that proves a failed store leaves the process serving from its
+    own build, a miss counted, and a tmp file for ``gc``, never a torn
+    entry.
+    """
+    if fault_plan is None or not fault_plan.has_site("cache"):
+        return None
+    from nm03_capstone_project_tpu_torch.resilience import InjectedExportError
+
+    def hook(entry_name: str) -> None:
+        if fault_plan.fire("cache", obs=obs, stem=entry_name, kinds=("io_error",)) is not None:
+            raise InjectedExportError(f"injected compile-cache io error ({entry_name})")
+
+    return hook
 
 
 def _result_corrupt_hook(fault_plan, obs):
@@ -220,6 +253,7 @@ class ServingApp:
         ledger_profile_interval_s: float = 0.0,
         ledger_profile_ms: int = 200,
         distributed_init: bool = False,
+        compile_cache_dir: Optional[str] = None,
     ):
         from nm03_capstone_project_tpu_torch.obs import RunContext
 
@@ -322,6 +356,25 @@ class ServingApp:
         self._drained = threading.Event()
         self._t0 = time.monotonic()
         self.registry = self.obs.registry
+        self._attached_cache = None
+        if compile_cache_dir:
+            # attached last (after every fallible construction above, so a
+            # raising __init__ cannot leave its fault hook on the process)
+            # and before warmup, whose captures load the libraries
+            from nm03_capstone_project_tpu_torch.compilehub import KernelCache
+            from nm03_capstone_project_tpu_torch.kernels import build
+
+            try:
+                self._attached_cache = KernelCache(
+                    compile_cache_dir, fault_hook=_cache_fault_hook(fault_plan, self.obs))
+            except OSError as e:
+                # an optimization, never a crash loop: one replica with a
+                # bad mount builds privately and serves
+                log.warning("compile cache dir %s unusable (%s); building the kernel "
+                            "libraries privately", compile_cache_dir, e)
+                build.attach_cache(None, private=True)
+            else:
+                build.attach_cache(self._attached_cache)
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -342,6 +395,7 @@ class ServingApp:
         # warmup filled the ledger's HBM table and kernel sequences: publish
         # the per-bucket gauges now, then start the sampler (no-op at 0)
         self.ledger.publish()
+        self._publish_compile_cache()
         self._ledger_sampler.start()
         self.obs.events.emit(
             "serving_ready",
@@ -351,6 +405,59 @@ class ServingApp:
         )
         return timings
 
+    def _publish_compile_cache(self) -> None:
+        """The cache's counts after warmup, zeros included, exactly when this
+        app attached a cache (read from its own cache object), so a cold
+        start (hits 0) is told apart from a run without the cache."""
+        if self._attached_cache is None:
+            return
+        stats = self._attached_cache.readyz_stats()
+        self.registry.counter(
+            COMPILE_CACHE_HITS_TOTAL,
+            help="kernel libraries loaded, verified, from --compile-cache-dir "
+            "instead of built",
+        ).inc(stats["cache_hits"])
+        self.registry.counter(
+            COMPILE_CACHE_MISSES_TOTAL,
+            help="compile-cache lookups that fell through to an nvcc build "
+            "(absent, stale, torn or corrupt entries)",
+        ).inc(stats["cache_misses"])
+        self.registry.gauge(
+            COMPILE_CACHE_LOAD_SECONDS,
+            help="total seconds reading and checking cache entries: what the "
+            "warm start paid instead of nvcc",
+        ).set(stats["cache_load_seconds"])
+
+    def compile_hub(self) -> dict:
+        """The ``/readyz`` ``compile_hub`` block: each kernel library's source
+        (``cache``, ``built`` or ``local``) with its build and load seconds,
+        the cache's counts when one is attached, and each (lane, bucket)
+        graph's capture seconds in the place of the JAX per-spec
+        ``compile_seconds``."""
+        from nm03_capstone_project_tpu_torch.kernels import build
+
+        libs = build.records()
+        graphs = self.executor.graph_stats()["lanes"]
+        out = {
+            "libraries": libs,
+            "builds": sum(1 for r in libs.values() if r["build_s"] is not None),
+            "cache_loads": sum(1 for r in libs.values() if r["source"] == "cache"),
+            # summed over libraries that compile in parallel, as the JAX
+            # hub sums its specs
+            "total_compile_seconds": round(
+                sum(r["build_s"] or 0.0 for r in libs.values()), 4),
+            "cache_dir": (
+                str(self._attached_cache.root) if self._attached_cache is not None else None
+            ),
+            "capture_seconds": {
+                f"lane{lane}/bucket{b}": g.get("capture_s")
+                for lane, per in graphs.items() for b, g in per.items()
+            },
+        }
+        if self._attached_cache is not None:
+            out.update(self._attached_cache.readyz_stats())
+        return out
+
     @property
     def ready(self) -> bool:
         """Warm, admitting, and not degraded (at least one lane healthy)."""
@@ -358,9 +465,12 @@ class ServingApp:
 
     def status(self) -> dict:
         lane_count = self.executor.lane_count
+        hub = self.compile_hub()
         return {
             "ready": self.ready,
-            "replica": {**self.replica_identity, "compile_cache_hits": None},
+            # who is answering, and what its warmup loaded from the cache
+            # (None without one): the rolling restart's report keys on it
+            "replica": {**self.replica_identity, "compile_cache_hits": hub.get("cache_hits")},
             "warm": self.executor.warm,
             "draining": self.draining,
             "degraded": self.executor.degraded,
@@ -395,8 +505,7 @@ class ServingApp:
             },
             # each bucket's CUDA graph: capture seconds, replays, kernels
             "cuda_graphs": self.executor.graph_stats(),
-            # the JAX package's compile hub: nothing to compile here
-            "compile_hub": None,
+            "compile_hub": hub,
             # publish() also refreshes the gauges, so a probe and a scrape
             # can never disagree
             "saturation": self.saturation.publish(),
@@ -464,6 +573,15 @@ class ServingApp:
         return drained
 
     def close(self, status: str = "ok") -> None:
+        cache, self._attached_cache = self._attached_cache, None
+        if cache is not None:
+            # detach OUR cache (and its fault hook, which closes over this
+            # app's obs): a later app in this process starts clean.
+            # Identity-checked: a cache attached after ours is not ours
+            from nm03_capstone_project_tpu_torch.kernels import build
+
+            if build.attached_cache() is cache:
+                build.attach_cache(None)
         if self.volumes is not None:
             self.volumes.close()  # a cross-process gang's followers stop
         self.executor.close()
@@ -1430,8 +1548,6 @@ def serve_in_thread(app: ServingApp, host: str = "127.0.0.1", port: int = 0):
 # flags of the JAX package's nm03-serve whose layers the port does not have
 # (yet), each with the reason it is refused
 NOT_PORTED = {
-    "--compile-cache-dir": "an XLA executable cache has no counterpart in eager "
-                           "PyTorch (warmup captures CUDA graphs instead)",
     "--fallback-cpu": "the port has no CPU fallback",
     "--no-fallback-cpu": "the port has no CPU fallback; it always fails fast",
 }
@@ -1482,6 +1598,14 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument(
         "--lane-probe-interval-s", type=float, default=None, metavar="S",
         help="probation probe cadence for quarantined lanes (default 5s)",
+    )
+    g.add_argument(
+        "--compile-cache-dir", default=None, metavar="DIR",
+        help="persistent cache of the kernel libraries: warmup loads each one, "
+        "verified, from here instead of running nvcc, and publishes those it had "
+        "to build (default: $NM03_COMPILE_CACHE_DIR; unset = build beside the "
+        "package; `python -m nm03_capstone_project_tpu_torch.compilehub.cache_cli` "
+        "for ls/verify/gc)",
     )
     g.add_argument(
         "--result-cache-bytes", default="0", metavar="BYTES",
@@ -1539,7 +1663,8 @@ def build_parser() -> argparse.ArgumentParser:
         "--fault-plan", default=None, metavar="SPEC",
         help="seeded deterministic fault plan: a JSON file path or inline JSON "
         "(resilience.faultinject), also honoured from $NM03_FAULT_PLAN; chaos "
-        "drills only (dispatch, volume and cache/corrupt_entry sites)",
+        "drills only (dispatch, volume, cache/corrupt_entry and cache/io_error "
+        "sites)",
     )
     o = p.add_argument_group("observability", "structured run telemetry")
     add_slo_args(o)
@@ -1575,6 +1700,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def app_from_args(args: argparse.Namespace, obs=None) -> ServingApp:
     from nm03_capstone_project_tpu_torch.cli import common
+    from nm03_capstone_project_tpu_torch.compilehub import cache_dir_from_env
     from nm03_capstone_project_tpu_torch.resilience import FaultPlan, ResilienceConfig
 
     plan = FaultPlan.from_spec(args.fault_plan) or FaultPlan.from_env()
@@ -1610,6 +1736,7 @@ def app_from_args(args: argparse.Namespace, obs=None) -> ServingApp:
         ledger_profile_interval_s=args.ledger_profile_interval_s,
         ledger_profile_ms=args.ledger_profile_ms,
         distributed_init=args.distributed_init,
+        compile_cache_dir=args.compile_cache_dir or cache_dir_from_env(),
     )
 
 

@@ -112,6 +112,8 @@ _BUILD = """
 import hashlib
 from pathlib import Path
 
+from compilehub.persist import PersistKey
+
 CSRC = Path("csrc")
 SOURCES = ("a",)
 FLAGS = ("-O3",)
@@ -120,12 +122,19 @@ WINDOWS = (3, 5)
 def header():
     return "".join(str(k) for k in WINDOWS)
 
-def build_dir():
+def persist_key():
     h = hashlib.sha256(" ".join(FLAGS).encode())
     for name in SOURCES:
         h.update((CSRC / name).read_bytes())
     {key_extra}
-    return h.hexdigest()
+    return PersistKey(h.hexdigest())
+
+def build_dir():
+    h = hashlib.sha256(" ".join(FLAGS).encode())
+    for name in SOURCES:
+        h.update((CSRC / name).read_bytes())
+    h.update(header().encode())
+    return Path("_build") / h.hexdigest()
 
 def build_all():
     out = build_dir()

@@ -454,3 +454,67 @@ def test_student_forward_equals_the_cpu_with_tf32_on(cuda, ndim, monkeypatch):
     assert float((tf32 - want).abs().max()) > bound
     differ = (bf16 > 0) != (f32 > 0)
     assert not bool(differ[f32.abs() >= 2.0].any())
+
+
+# one process's run of the three kernels on seeded inputs: each output's
+# sha256, whether it equals its plain version, and where each library came from
+_CACHE_RUN = r'''
+import hashlib, json, sys
+import torch
+from nm03_capstone_project_tpu_torch.kernels import build
+from nm03_capstone_project_tpu_torch.ops import hopper_median as hm
+from nm03_capstone_project_tpu_torch.ops import hopper_region_growing as hg
+from nm03_capstone_project_tpu_torch.ops.median import vector_median_filter
+from nm03_capstone_project_tpu_torch.ops.region_growing import region_grow
+pre = json.loads(sys.argv[1])
+g = torch.Generator().manual_seed(11)
+x = (torch.rand(3, 251, 241, generator=g) * 4000 + 0.68).cuda()
+img = hm._fused_preprocess_plain(x, **pre)
+seeds = torch.zeros(img.shape, dtype=torch.bool)
+seeds[:, 120, 120] = True
+seeds = seeds.cuda()
+got = {"median": hm.vector_median_filter_kernel(x, 7),
+       "fused": hm.fused_preprocess_kernel(x, **pre),
+       "grow": hg.region_grow_kernel(img, seeds, 0.74, 0.91)[0]}
+plain = {"median": vector_median_filter(x, 7), "fused": img,
+         "grow": region_grow(img, seeds, 0.74, 0.91)[0]}
+torch.cuda.synchronize()
+print(json.dumps({
+    "sha": {k: hashlib.sha256(v.cpu().numpy().tobytes()).hexdigest() for k, v in got.items()},
+    "plain_equal": {k: bool(torch.equal(got[k], plain[k])) for k in got},
+    "sources": {n: r["source"] for n, r in build.records().items()}}))
+'''
+
+
+def test_a_cached_library_runs_bitwise_like_a_fresh_build(cuda, tmp_path):
+    """A real nvcc build published into a fresh cache, then loaded from it
+    by a process that cannot reach nvcc, gives every kernel's output
+    bitwise, and each equals its plain version."""
+    import json
+    import os
+    import pathlib
+    import subprocess
+    import sys
+
+    from nm03_capstone_project_tpu_torch.compilehub import ENV_CACHE_DIR, scan_entries
+
+    repo = pathlib.Path(__file__).resolve().parents[1]
+    cache = tmp_path / "cache"
+
+    def run(env):
+        proc = subprocess.run([sys.executable, "-c", _CACHE_RUN, json.dumps(PRE)], cwd=repo,
+                              env=env, capture_output=True, text=True, timeout=600)
+        assert proc.returncode == 0, proc.stderr[-4000:]
+        return json.loads(proc.stdout.strip().splitlines()[-1])
+
+    env = dict(os.environ, **{ENV_CACHE_DIR: str(cache)})
+    cold = run(env)
+    assert cold["sources"] == {"fused": "built", "grow": "built", "median": "built"}
+    assert [r["status"] for r in scan_entries(cache)] == ["ok"] * 3
+    no_nvcc = dict(env, CUDA_HOME=str(tmp_path / "no-toolkit"), PATH=os.pathsep.join(
+        p for p in env.get("PATH", "").split(os.pathsep)
+        if not os.path.exists(os.path.join(p, "nvcc"))))
+    warm = run(no_nvcc)
+    assert warm["sources"] == {"fused": "cache", "grow": "cache", "median": "cache"}
+    assert warm["sha"] == cold["sha"]
+    assert all(cold["plain_equal"].values()) and all(warm["plain_equal"].values())

@@ -43,7 +43,7 @@ def test_sites_and_kinds_are_the_jax_packages():
     assert fi.SITES == jfi.SITES
     assert fi.KINDS_BY_SITE == jfi.KINDS_BY_SITE
     assert fi.ENV_VAR == jfi.ENV_VAR == "NM03_FAULT_PLAN"
-    assert set(fi.NOT_PORTED_KINDS) == {("cache", "io_error")}
+    assert fi.NOT_PORTED_KINDS == {}  # the compile cache's io_error is ported
 
 
 @pytest.mark.parametrize("site,kind", PORTED_KINDS)
@@ -90,13 +90,20 @@ def test_refusals_match(spec):
 
 
 def test_the_compile_cache_kind_is_refused_with_its_reason():
-    spec = {"faults": [{"site": "cache", "kind": "io_error", "stem": "entry"}]}
-    assert jfi.FaultPlan.from_spec(spec).has_site("cache")  # the JAX package fires it
-    with pytest.raises(ValueError, match="compile cache"):
-        fi.FaultPlan.from_spec(spec)
-    # the result tier's kind of the same site is ported
-    assert fi.FaultPlan.from_spec(
-        {"faults": [{"site": "cache", "kind": "corrupt_entry"}]}).has_site("cache")
+    """Refused until the compile cache was ported (the name is kept): now
+    both packages parse cache/io_error and fire it on the same checks, and
+    its `kinds` filter keeps it apart from the result tier's kind."""
+    spec = {"seed": 2, "faults": [{"site": "cache", "kind": "io_error", "stem": "e1",
+                                   "count": 1}]}
+    jp, pp = _both(spec)
+    assert pp.has_site("cache") and jp.has_site("cache")
+    for plan in (jp, pp):
+        assert plan.fire("cache", stem="e1", kinds=("corrupt_entry",)) is None
+        assert plan.fire("cache", stem="e0", kinds=("io_error",)) is None
+        assert plan.fire("cache", stem="e1", kinds=("io_error",)) is not None
+        assert plan.fire("cache", stem="e1", kinds=("io_error",)) is None  # count 1
+    with pytest.raises(ValueError, match="invalid for site 'cache'"):
+        fi.FaultPlan.from_spec({"faults": [{"site": "cache", "kind": "evict"}]})
 
 
 def test_environment_activation(monkeypatch):

@@ -1356,8 +1356,10 @@ class TestRollingRestart:
             for entry, old in zip(report["replicas"], old_pids):
                 assert entry["ok"] and entry["old_pid"] == old
                 assert entry["new_pid"] != old
-                # a replica without CUDA graphs reports no capture time
+                # a replica without CUDA graphs reports no capture time,
+                # one without a compile cache no cache hits
                 assert entry["capture_s"] is None
+                assert entry["compile_cache_hits"] is None and entry["builds"] is None
                 assert entry["drain_s"] >= 0 and entry["warm_s"] >= 0
                 assert entry["new_id"].startswith("gen2-")
             # the originals really died, the spawns really live
@@ -1397,10 +1399,17 @@ class TestRollingRestart:
         ]
 
     def test_relaunch_is_the_published_argv_verbatim(self, tmp_path):
-        """The port has no executable cache (the server refuses
-        --compile-cache-dir): the relaunch adds nothing to the recipe the
-        replica published — no cache flag, and no --device, so a replica
-        started on the card comes back on the card."""
+        """Without a compile cache dir the relaunch adds nothing to the
+        recipe the replica published: no --device, so a replica started on
+        the card comes back on the card."""
+        self._relaunch(tmp_path, None)
+
+    def test_relaunch_carries_the_compile_cache_dir(self, tmp_path):
+        """With one, the recipe gains exactly ``--compile-cache-dir DIR``
+        (``fleet/manager.py::_relaunch_argv``, the JAX package's rule)."""
+        self._relaunch(tmp_path, "/shared/nm03-cache")
+
+    def _relaunch(self, tmp_path, cache_dir):
         from nm03_capstone_project_tpu_torch.fleet.manager import rolling_restart
 
         script = tmp_path / "dummy.py"
@@ -1421,9 +1430,11 @@ class TestRollingRestart:
             assert _wait_http(f"http://127.0.0.1:{port}/readyz")
             _, st = _readyz(f"http://127.0.0.1:{port}")
             published = st["replica"]["relaunch_argv"]
-            rolling_restart([f"127.0.0.1:{port}"], drain_timeout_s=30, warm_timeout_s=30,
+            rolling_restart([f"127.0.0.1:{port}"], compile_cache_dir=cache_dir,
+                            drain_timeout_s=30, warm_timeout_s=30,
                             poll_s=0.05, spawn=spawn, emit=lambda m: None)
-            assert launched == [published]
+            extra = ["--compile-cache-dir", cache_dir] if cache_dir else []
+            assert launched == [published + extra]
         finally:
             for p in procs:
                 if p.poll() is None:

@@ -70,6 +70,7 @@ def test_port_has_the_slice_modules():
         "fleet", "fleet.replicas", "fleet.router", "fleet.manager", "fleet.cli",
         "serving.top", "parallel", "parallel.mesh", "parallel.dp", "parallel.zshard",
         "parallel.distributed", "serving.follower",
+        "compilehub", "compilehub.persist", "compilehub.cache_cli",
     ):
         assert f"nm03_capstone_project_tpu_torch.{mod}" in names
 
@@ -94,7 +95,8 @@ def test_importing_the_port_imports_no_jax():
 # the front-end modules: stdlib orchestration that must never load a backend
 # (nor claim the card) in the process that imports them
 BACKEND_FREE = ("fleet", "fleet.replicas", "fleet.router", "fleet.manager", "fleet.cli",
-                "serving.top", "obs.trace", "serving.metrics", "obs.metrics")
+                "serving.top", "obs.trace", "serving.metrics", "obs.metrics",
+                "compilehub", "compilehub.persist", "compilehub.cache_cli")
 
 
 @pytest.mark.parametrize("mod", BACKEND_FREE)
@@ -369,14 +371,20 @@ class TestDrivers:
             driver.build_parser().parse_args(["--fault-plan", spec])).fault_plan
         assert plan.seed == 4 and [(r.site, r.kind, r.stem) for r in plan.rules] == [
             ("decode", "error", "1-01")]
+        # the compile cache's kind is ported: a driver accepts it, as the JAX
+        # drivers do, and runs (its stores are the server's drill); an
+        # unknown kind of the same site is refused before anything is written
+        cache_plan = '{"faults": [{"site": "cache", "kind": "io_error"}]}'
+        base = ["--device", "cpu", "--synthetic", "1", "--synthetic-slices", "1",
+                "--canvas", "128", "--fault-plan"]
         out = tmp_path / "out"
-        # the compile cache's kind has no target in the port: refused, not ignored
-        bad = '{"faults": [{"site": "cache", "kind": "io_error"}]}'
-        argv = ["--output", str(out), "--device", "cpu", "--synthetic", "1",
-                "--synthetic-slices", "1", "--canvas", "128", "--fault-plan", bad]
-        assert driver.main(argv) == 1
-        assert "compile cache" in capsys.readouterr().err
-        assert not list(out.rglob("*.jpg"))
+        assert driver.main(["--output", str(out), *base, cache_plan]) == 0
+        assert list(out.rglob("*.jpg"))
+        bad_out = tmp_path / "bad"
+        bad = '{"faults": [{"site": "cache", "kind": "evict"}]}'
+        assert driver.main(["--output", str(bad_out), *base, bad]) == 1
+        assert "invalid for site 'cache'" in capsys.readouterr().err
+        assert not list(bad_out.rglob("*.jpg"))
         for flag in (["--fallback-cpu"], ["--no-fallback-cpu"]):
             with pytest.raises(SystemExit) as exc:
                 driver.build_parser().parse_args(flag)
@@ -504,11 +512,12 @@ class TestServer:
         assert not flightrec.get_recorder().configured
 
     # the ids stay those of the cases before volume serving, fault plans,
-    # the SLO plane, the ledger, --distributed-init and --sanitize were
-    # ported (flag0-flag2, flag4-flag8 and flag10 were their flags, now
-    # accepted: see the tests below)
+    # the SLO plane, the ledger, --distributed-init, --sanitize and the
+    # compile cache were ported (flag0-flag2, flag4-flag8 and flag10 were
+    # their flags, now accepted: see the tests below). flag3 was
+    # --compile-cache-dir: ported, it still refuses to go without its DIR
     @pytest.mark.parametrize("flag", [pytest.param(f, id=f"flag{i}") for i, f in [
-        (3, ["--compile-cache-dir", "c"]),
+        (3, ["--compile-cache-dir"]),
         (9, ["--no-fallback-cpu"]), (11, ["--device", "auto"]),
     ]])
     def test_flags_of_layers_not_ported_are_rejected(self, flag, capsys):
@@ -520,6 +529,34 @@ class TestServer:
         err = capsys.readouterr().err
         if flag[0] in server.NOT_PORTED:
             assert server.NOT_PORTED[flag[0]] in err
+
+    def test_only_the_fallback_flags_are_refused(self):
+        from nm03_capstone_project_tpu_torch.serving import server
+
+        assert set(server.NOT_PORTED) == {"--fallback-cpu", "--no-fallback-cpu"}
+
+    def test_compile_cache_dir_is_accepted_and_wins_over_the_variable(
+            self, monkeypatch, tmp_path):
+        from nm03_capstone_project_tpu_torch.compilehub import ENV_CACHE_DIR
+        from nm03_capstone_project_tpu_torch.serving import server
+
+        seen = {}
+
+        class FakeApp:
+            def __init__(self, **kw):
+                seen.update(kw)
+
+        monkeypatch.setattr(server, "ServingApp", FakeApp)
+        monkeypatch.delenv(ENV_CACHE_DIR, raising=False)
+        server.app_from_args(server.build_parser().parse_args(["--device", "cpu"]))
+        assert seen["compile_cache_dir"] is None
+        monkeypatch.setenv(ENV_CACHE_DIR, str(tmp_path / "env"))
+        server.app_from_args(server.build_parser().parse_args(["--device", "cpu"]))
+        assert seen["compile_cache_dir"] == str(tmp_path / "env")
+        args = server.build_parser().parse_args(
+            ["--device", "cpu", "--compile-cache-dir", str(tmp_path / "flag")])
+        server.app_from_args(args)
+        assert seen["compile_cache_dir"] == str(tmp_path / "flag")
 
     def test_sanitize_flag_is_accepted(self):
         """``--sanitize`` (the runtime twins, utils/sanitize.py) is ported:
@@ -627,8 +664,10 @@ class TestServer:
     @pytest.mark.parametrize("flag,rc,reason", [
         (["--slo-availability", "100"], 2, "availability_pct"),
         (["--slo-p99-ms", "-5"], 2, "latency_target_s"),
-        (["--fault-plan", '{"faults": [{"site": "cache", "kind": "io_error"}]}'], 1,
-         "compile cache"),
+        # the id stays that of the case before cache/io_error was ported (the
+        # compile cache's kind, then refused): a kind neither cache tier has
+        pytest.param(["--fault-plan", '{"faults": [{"site": "cache", "kind": "evict"}]}'], 1,
+                     "invalid for site 'cache'", id="flag2-1-compile cache"),
         (["--fault-plan", '{"faults": [{"site": "nowhere", "kind": "x"}]}'], 1,
          "unknown fault site"),
     ])

@@ -188,6 +188,7 @@ class TestRecompileWatchdog:
         from nm03_capstone_project_tpu_torch.kernels import build
 
         monkeypatch.setattr(build, "build_dir", lambda: tmp_path)
+        monkeypatch.setattr(build, "_RECORDS", {})  # this load's record stays here
         (tmp_path / "libfused.so").write_bytes(b"")
         monkeypatch.setattr(build.ctypes, "CDLL", lambda path: type("L", (), {
             "nm03_fused_preprocess": type("F", (), {})()})())

@@ -83,7 +83,13 @@ BUCKETS = (1, 2, 4)
 CACHE_BYTES = 1 << 24
 PAYLOAD_FIELDS = ("shape", "grow_converged", "mask_pixels", "mask_sha256",
                   "original_jpeg_b64", "processed_jpeg_b64")
-NOT_PORTED_BLOCKS = ("compile_hub",)
+# /readyz blocks the port publishes as null; compile_hub was the last (ported
+# with the kernel library cache, compilehub/)
+NOT_PORTED_BLOCKS = ()
+# the compile hub's rollups both packages publish: JAX counts executables,
+# the port its kernel libraries (and the graphs' capture seconds where JAX
+# has its per-spec compile seconds)
+COMPILE_HUB_ROLLUPS = {"builds", "cache_loads", "total_compile_seconds"}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -262,6 +268,16 @@ class TestCopiesPinned:
         assert set(pst) - {"cuda_graphs"} == set(jst)
         for block in NOT_PORTED_BLOCKS:
             assert pst[block] is None, block
+        jhub, phub = jst["compile_hub"], pst["compile_hub"]
+        assert COMPILE_HUB_ROLLUPS <= set(jhub) and COMPILE_HUB_ROLLUPS <= set(phub)
+        assert {"libraries", "capture_seconds", "cache_dir"} <= set(phub)
+        # no cache attached on either side: no cache fields, no hits
+        assert phub["cache_dir"] is None and "cache_hits" not in phub
+        assert "cache_hits" not in jhub
+        assert pst["replica"]["compile_cache_hits"] is None
+        assert jst["replica"]["compile_cache_hits"] is None
+        # the CPU captures no graph
+        assert phub["capture_seconds"] == {}
         # the saturation and ledger planes: the JAX key sets (no SLO declared)
         for block in ("saturation", "ledger"):
             assert set(pst[block]) == set(jst[block]), block

@@ -73,6 +73,7 @@ _DISPATCH_METHODS = {
 # thread behind the card
 _KERNEL_WRAPPERS = {
     "vector_median_filter_kernel", "fused_preprocess_kernel", "region_grow_kernel",
+    "vector_median_select_kernel", "region_grow_global_kernel",
 }
 
 # host syncs on a tensor, an event or a stream, whatever the receiver

@@ -59,8 +59,7 @@ def run(args: argparse.Namespace, mode: str) -> int:
         PIPELINE_FEED_STALL_RATIO,
         RUN_WALL_SECONDS,
     )
-    from nm03_capstone_project_tpu_torch.ops import hopper_median as hm
-    from nm03_capstone_project_tpu_torch.ops import hopper_region_growing as hg
+    from nm03_capstone_project_tpu_torch.ops import launches
     from nm03_capstone_project_tpu_torch.render.export import jpeg_encoder
     from nm03_capstone_project_tpu_torch.utils.profiling import profile_trace
     from nm03_capstone_project_tpu_torch.utils.reporter import configure_reporting
@@ -68,11 +67,7 @@ def run(args: argparse.Namespace, mode: str) -> int:
 
     configure_reporting(verbose=args.verbose)
     common.apply_native_flag(args)
-    kernels = {
-        "fused": hm.fused_preprocess_kernel,
-        "grow": hg.region_grow_kernel,
-        "median": hm.vector_median_filter_kernel,
-    }
+    kernels = launches.KERNELS
     run_ctx = None
     try:
         rank, world = common.init_distributed(args)

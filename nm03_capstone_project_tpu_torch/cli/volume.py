@@ -224,8 +224,7 @@ def _run_inner(args: argparse.Namespace, run_ctx, rank: int = 0, world: int = 1)
         load_dicom_files_for_patient,
     )
     from nm03_capstone_project_tpu_torch.data.imageio import write_metaimage
-    from nm03_capstone_project_tpu_torch.ops import hopper_median as hm
-    from nm03_capstone_project_tpu_torch.ops import hopper_region_growing as hg
+    from nm03_capstone_project_tpu_torch.ops import launches
     from nm03_capstone_project_tpu_torch.parallel import distributed
     from nm03_capstone_project_tpu_torch.pipeline.volume_pipeline import process_volume
     from nm03_capstone_project_tpu_torch.render.export import (
@@ -286,11 +285,7 @@ def _run_inner(args: argparse.Namespace, run_ctx, rank: int = 0, world: int = 1)
                 )
             print(f"z-sharding volumes over {mesh.shape['z']} "
                   f"{'global' if global_zshard else 'local'} devices")
-    kernels = {
-        "fused": hm.fused_preprocess_kernel,
-        "grow": hg.region_grow_kernel,
-        "median": hm.vector_median_filter_kernel,
-    }
+    kernels = launches.KERNELS
     before = {k: fn.launches for k, fn in kernels.items()}
 
     out_root = Path(args.output)

@@ -48,6 +48,26 @@
 // Bound on the H100: the data moved (7 bytes a pixel) and the bit
 // operations are tiny; the time goes to the sequential depth, about the
 // lesion's diameter in steps, and to the barriers between them.
+//
+// Slices past one cluster (nm03_region_grow_global, the wrapper's "global"
+// route): where a slice's share of rows does not fit the shared memory of
+// 8 CTAs (past about 2160 x 2048), the band and the two Jacobi region
+// buffers stay bit-packed in global memory, which the wrapper allocates:
+// 2 MiB each for a 4096 x 4096 slice, resident in the H100's 50 MB L2.
+// One persistent cooperative grid (as many CTAs as fit the SMs at once)
+// walks every word of every slice a step, reading the region through L2
+// (ld.global.cg: another SM wrote it the step before), with a grid-wide
+// barrier (cooperative_groups grid sync) between steps. After each block
+// of block_iters steps the popcounts go to per-slice counters by atomics
+// (three in rotation: this block's, the last one's, and the one being
+// cleared), one thread takes each slice's loop test as the cluster kernel
+// does (block j + 1 runs while count_j != count_{j-1} and (j + 1) *
+// block_iters < max_iters) and writes steps and converged for a slice
+// that stops; a stopped slice's words are copied, not stepped, so its
+// region stays what its own loop left. The mask, converged and steps are
+// the plain region_grow's bit for bit, as for the cluster kernel. Bound:
+// bytes (the image, seeds and valid read once, the mask written once);
+// the time goes to the steps' L2 traffic and grid barriers.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -88,6 +108,47 @@ __device__ __forceinline__ uint32_t nonzero16(uint4 v) {
   return nonzero4(v.x) | (nonzero4(v.y) << 4) | (nonzero4(v.z) << 8) | (nonzero4(v.w) << 12);
 }
 
+// The band word and the seed word of the 32 pixels from image offset q
+// (canvas column x0 of a row): from 16-byte loads (8 float4 of the image, 2
+// uint4 each of seeds and valid, all issued before the first compare)
+// where `vec` and the word is whole, else from 32 independent scalar loads.
+__device__ __forceinline__ void pack_word(const float* __restrict__ image,
+                                          const uint8_t* __restrict__ seeds,
+                                          const uint8_t* __restrict__ valid, size_t q, int x0,
+                                          int W, float low, float high, int vec, uint32_t& bw,
+                                          uint32_t& sw) {
+  bw = 0;
+  sw = 0;
+  if (vec && x0 + 32 <= W) {
+    const float4* ip = reinterpret_cast<const float4*>(image + q);
+    const uint4* sp = reinterpret_cast<const uint4*>(seeds + q);
+    float4 v[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) v[j] = ip[j];
+    const uint4 s0 = sp[0], s1 = sp[1];
+    uint32_t vw = 0xffffffffu;
+    if (valid != nullptr) {
+      const uint4* vp = reinterpret_cast<const uint4*>(valid + q);
+      const uint4 v0 = vp[0], v1 = vp[1];
+      vw = nonzero16(v0) | (nonzero16(v1) << 16);
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) bw |= in_band4(v[j], low, high) << (4 * j);
+    bw &= vw;
+    sw = nonzero16(s0) | (nonzero16(s1) << 16);
+  } else {
+#pragma unroll
+    for (int b = 0; b < 32; ++b) {
+      if (x0 + b < W) {
+        const float v = image[q + b];
+        const bool in = v >= low && v <= high && (valid == nullptr || valid[q + b] != 0);
+        bw |= (uint32_t)in << b;
+        sw |= (uint32_t)(seeds[q + b] != 0) << b;
+      }
+    }
+  }
+}
+
 // Pack band and seeds & band for `nw` words starting at global row g0 into
 // band[] and cur[], one word a thread.
 __device__ void pack_rows(const float* __restrict__ image, const uint8_t* __restrict__ seeds,
@@ -97,37 +158,24 @@ __device__ void pack_rows(const float* __restrict__ image, const uint8_t* __rest
   for (int w = threadIdx.x; w < nw; w += blockDim.x) {
     const int ly = w / WW, x0 = (w - ly * WW) * 32;
     const size_t q = off + (size_t)(g0 + ly) * W + x0;
-    uint32_t bw = 0, sw = 0;
-    if (vec && x0 + 32 <= W) {
-      const float4* ip = reinterpret_cast<const float4*>(image + q);
-      const uint4* sp = reinterpret_cast<const uint4*>(seeds + q);
-      float4 v[8];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) v[j] = ip[j];
-      const uint4 s0 = sp[0], s1 = sp[1];
-      uint32_t vw = 0xffffffffu;
-      if (valid != nullptr) {
-        const uint4* vp = reinterpret_cast<const uint4*>(valid + q);
-        const uint4 v0 = vp[0], v1 = vp[1];
-        vw = nonzero16(v0) | (nonzero16(v1) << 16);
-      }
-#pragma unroll
-      for (int j = 0; j < 8; ++j) bw |= in_band4(v[j], low, high) << (4 * j);
-      bw &= vw;
-      sw = nonzero16(s0) | (nonzero16(s1) << 16);
-    } else {
-#pragma unroll
-      for (int b = 0; b < 32; ++b) {
-        if (x0 + b < W) {
-          const float v = image[q + b];
-          const bool in = v >= low && v <= high && (valid == nullptr || valid[q + b] != 0);
-          bw |= (uint32_t)in << b;
-          sw |= (uint32_t)(seeds[q + b] != 0) << b;
-        }
-      }
-    }
+    uint32_t bw, sw;
+    pack_word(image, seeds, valid, q, x0, W, low, high, vec, bw, sw);
     band[w] = bw;
     cur[w] = sw & bw;
+  }
+}
+
+// The 32 mask bytes of one region word at image offset q (canvas column x0).
+__device__ __forceinline__ void unpack_word(uint8_t* __restrict__ mask, size_t q, int x0, int W,
+                                            uint32_t word, int vec) {
+  if (vec && x0 + 32 <= W) {
+    uint4* mp = reinterpret_cast<uint4*>(mask + q);
+    mp[0] = make_uint4(spread4(word), spread4(word >> 4), spread4(word >> 8),
+                       spread4(word >> 12));
+    mp[1] = make_uint4(spread4(word >> 16), spread4(word >> 20), spread4(word >> 24),
+                       spread4(word >> 28));
+  } else {
+    for (int b = 0; b < 32 && x0 + b < W; ++b) mask[q + b] = (word >> b) & 1u;
   }
 }
 
@@ -289,16 +337,7 @@ grow_kernel(const float* __restrict__ image, const uint8_t* __restrict__ seeds,
   for (int w = threadIdx.x; w < nown * WW; w += blockDim.x) {
     const int ly = w / WW, x0 = (w - ly * WW) * 32;
     const size_t q = off + (size_t)(row0 + ly) * W + x0;
-    const uint32_t word = region[w];
-    if (vec && x0 + 32 <= W) {
-      uint4* mp = reinterpret_cast<uint4*>(mask + q);
-      mp[0] = make_uint4(spread4(word), spread4(word >> 4), spread4(word >> 8),
-                         spread4(word >> 12));
-      mp[1] = make_uint4(spread4(word >> 16), spread4(word >> 20), spread4(word >> 24),
-                         spread4(word >> 28));
-    } else {
-      for (int b = 0; b < 32 && x0 + b < W; ++b) mask[q + b] = (word >> b) & 1u;
-    }
+    unpack_word(mask, q, x0, W, region[w], vec);
   }
   if (rank == 0 && threadIdx.x == 0) {
     conv[slice] = count == prev;
@@ -308,6 +347,168 @@ grow_kernel(const float* __restrict__ image, const uint8_t* __restrict__ seeds,
 
 bool aligned(const void* p, uintptr_t bytes) {
   return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
+}
+
+// -- slices past one cluster: the region in global memory ---------------------
+
+constexpr int GLOBAL_THREADS = 512;
+
+// A thread's walk over the words of the whole batch, word w = slice s, row
+// y, word i, advanced by the grid's stride without dividing.
+struct WordWalk {
+  int64_t w;
+  int s, y, i;
+  __device__ WordWalk(int64_t w0, int H, int WW) : w(w0) {
+    const int64_t per = (int64_t)H * WW;
+    s = (int)(w0 / per);
+    const int rem = (int)(w0 - (int64_t)s * per);
+    y = rem / WW;
+    i = rem - y * WW;
+  }
+  __device__ void advance(int64_t stride, int ds, int dy, int di, int H, int WW) {
+    w += stride;
+    s += ds;
+    y += dy;
+    i += di;
+    if (i >= WW) {
+      i -= WW;
+      ++y;
+    }
+    if (y >= H) {
+      y -= H;
+      ++s;
+    }
+  }
+};
+
+// The popcount of words of one slice, added to cnt[s]: a warp sums first
+// where its lanes share a slice.
+__device__ __forceinline__ void add_count(int* cnt, int s, int c, bool live) {
+  const unsigned lanes = __ballot_sync(0xffffffffu, live);
+  if (!live) return;
+  const int s0 = __shfl_sync(lanes, s, __ffs(lanes) - 1);
+  const bool same = __all_sync(lanes, s == s0);
+  if (same) {
+    const int total = __reduce_add_sync(lanes, c);
+    if ((threadIdx.x & 31) == __ffs(lanes) - 1 && total) atomicAdd(cnt + s0, total);
+  } else if (c) {
+    atomicAdd(cnt + s, c);
+  }
+}
+
+// Scratch (int32, zeroed by the wrapper): cnt[3][B] popcounts in rotation,
+// act[B] whether a slice runs the current block, go[1] whether any does.
+__global__ void __launch_bounds__(GLOBAL_THREADS)
+grow_global_kernel(const float* __restrict__ image, const uint8_t* __restrict__ seeds,
+                   const uint8_t* __restrict__ valid, uint8_t* __restrict__ mask,
+                   int32_t* __restrict__ conv, int32_t* __restrict__ steps,
+                   uint32_t* __restrict__ band, uint32_t* __restrict__ buf0,
+                   uint32_t* __restrict__ buf1, int* __restrict__ scratch, int B, int H, int W,
+                   float low, float high, int conn8, int block_iters, int max_iters, int vec) {
+  cg::grid_group grid = cg::this_grid();
+  const int WW = (W + 31) >> 5;
+  const int64_t total = (int64_t)B * H * WW;
+  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  const int64_t per = (int64_t)H * WW;
+  const int ds = (int)(stride / per);
+  const int dy = (int)((stride - (int64_t)ds * per) / WW);
+  const int di = (int)(stride - (int64_t)ds * per - (int64_t)dy * WW);
+  int* cnt = scratch;           // cnt[(j mod 3) * B + s]: the count after block j
+  int* act = scratch + 3 * B;   // act[s]
+  int* go = scratch + 4 * B;
+
+  // pack every word; the seeded region's popcount is the count "after
+  // block -1", in cnt[2]
+  for (WordWalk it(tid, H, WW);; it.advance(stride, ds, dy, di, H, WW)) {
+    const bool live = it.w < total;
+    int c = 0;
+    if (live) {
+      const int x0 = it.i * 32;
+      const size_t q = ((size_t)it.s * H + it.y) * W + x0;
+      uint32_t bw, sw;
+      pack_word(image, seeds, valid, q, x0, W, low, high, vec, bw, sw);
+      band[it.w] = bw;
+      buf0[it.w] = sw & bw;
+      c = __popc(sw & bw);
+    }
+    add_count(cnt + 2 * B, live ? it.s : 0, c, live);
+    if (__all_sync(0xffffffffu, !live)) break;
+  }
+  for (int64_t s = tid; s < B; s += stride) act[s] = 1;
+  grid.sync();
+
+  int p = 0;  // the current region is in buf0 when p == 0
+  for (int j = 0;; ++j) {
+    for (int t = 0; t < block_iters; ++t) {
+      const uint32_t* cur = p ? buf1 : buf0;
+      uint32_t* nxt = p ? buf0 : buf1;
+      for (WordWalk it(tid, H, WW); it.w < total; it.advance(stride, ds, dy, di, H, WW)) {
+        const int64_t w = it.w;
+        const uint32_t c = __ldcg(cur + w);
+        if (!__ldcg(act + it.s)) {  // a stopped slice keeps its region
+          nxt[w] = c;
+          continue;
+        }
+        // neighbours past the row's ends or the slice's rows are 0
+        const bool has_l = it.i > 0, has_r = it.i + 1 < WW;
+        const bool has_u = it.y > 0, has_d = it.y + 1 < H;
+        const uint32_t l = has_l ? __ldcg(cur + w - 1) : 0u;
+        const uint32_t r = has_r ? __ldcg(cur + w + 1) : 0u;
+        const uint32_t up = has_u ? __ldcg(cur + w - WW) : 0u;
+        const uint32_t dn = has_d ? __ldcg(cur + w + WW) : 0u;
+        uint32_t g = hdilate(c, l, r);
+        if (conn8) {
+          g |= hdilate(up, has_u && has_l ? __ldcg(cur + w - WW - 1) : 0u,
+                       has_u && has_r ? __ldcg(cur + w - WW + 1) : 0u);
+          g |= hdilate(dn, has_d && has_l ? __ldcg(cur + w + WW - 1) : 0u,
+                       has_d && has_r ? __ldcg(cur + w + WW + 1) : 0u);
+        } else {
+          g |= up | dn;
+        }
+        nxt[w] = g & __ldcg(band + w);
+      }
+      grid.sync();
+      p ^= 1;
+    }
+    // the count after block j, into cnt[j mod 3]
+    const uint32_t* region = p ? buf1 : buf0;
+    int* cj = cnt + (j % 3) * B;
+    for (WordWalk it(tid, H, WW);; it.advance(stride, ds, dy, di, H, WW)) {
+      const bool live = it.w < total;
+      const int c = live ? __popc(__ldcg(region + it.w)) : 0;
+      add_count(cj, live ? it.s : 0, c, live);
+      if (__all_sync(0xffffffffu, !live)) break;
+    }
+    grid.sync();
+    if (tid == 0) {
+      const int* cprev = cnt + ((j + 2) % 3) * B;
+      int* cfree = cnt + ((j + 1) % 3) * B;  // block j + 1 counts into it
+      int any = 0;
+      for (int s = 0; s < B; ++s) {
+        if (__ldcg(act + s)) {
+          const int c = __ldcg(cj + s), pv = __ldcg(cprev + s);
+          if (c != pv && (j + 1) * block_iters < max_iters) {
+            any = 1;
+          } else {
+            act[s] = 0;
+            conv[s] = c == pv;
+            if (steps != nullptr) steps[s] = (j + 1) * block_iters;
+          }
+        }
+        cfree[s] = 0;
+      }
+      *go = any;
+    }
+    grid.sync();
+    if (!__ldcg(go)) break;
+  }
+
+  const uint32_t* region = p ? buf1 : buf0;
+  for (WordWalk it(tid, H, WW); it.w < total; it.advance(stride, ds, dy, di, H, WW)) {
+    const int x0 = it.i * 32;
+    unpack_word(mask, ((size_t)it.s * H + it.y) * W + x0, x0, W, __ldcg(region + it.w), vec);
+  }
 }
 
 }  // namespace
@@ -361,6 +562,51 @@ extern "C" int nm03_region_grow(const float* image, const uint8_t* seeds,
   err = cudaLaunchKernelEx(&cfg, grow_kernel, image, seeds, valid, mask, conv, steps, H, W,
                            rows, halo, low, high, connectivity == 8 ? 1 : 0, block_iters,
                            max_iters, vec);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// Region growing of a (B, H, W) batch whose slices do not fit one
+// cluster: the arguments of nm03_region_grow, plus `band`, `buf0` and
+// `buf1` (B * H * ceil(W / 32) uint32 words each) and `scratch` (4 B + 1
+// int32, zeroed), all allocated by the caller. One cooperative launch of
+// as many CTAs as fit the SMs at once.
+extern "C" int nm03_region_grow_global(const float* image, const uint8_t* seeds,
+                                       const uint8_t* valid, uint8_t* mask, int32_t* conv,
+                                       int32_t* steps, uint32_t* band, uint32_t* buf0,
+                                       uint32_t* buf1, int32_t* scratch, int B, int H, int W,
+                                       float low, float high, int connectivity,
+                                       int block_iters, int max_iters, void* stream) {
+  (void)cudaGetLastError();  // clear an error already reported by an earlier call
+  if (B <= 0 || H <= 0 || W <= 0 || block_iters < 1 || max_iters < 1 ||
+      (connectivity != 4 && connectivity != 8)) {
+    return cudaErrorInvalidValue;
+  }
+  int dev = 0, n_sm = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, grow_global_kernel,
+                                                      GLOBAL_THREADS, 0);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const int64_t words = (int64_t)B * H * ((W + 31) / 32);
+  int64_t ctas = (int64_t)n_sm * per_sm;
+  const int64_t need = (words + GLOBAL_THREADS - 1) / GLOBAL_THREADS;
+  if (need < ctas) ctas = need;
+  if (ctas < 1) ctas = 1;
+  const int vec = W % 16 == 0 && aligned(image, 16) && aligned(seeds, 16) &&
+                  aligned(mask, 16) && (valid == nullptr || aligned(valid, 16));
+  const int conn8 = connectivity == 8 ? 1 : 0;
+  void* args[] = {(void*)&image, (void*)&seeds, (void*)&valid, (void*)&mask, (void*)&conv,
+                  (void*)&steps, (void*)&band, (void*)&buf0, (void*)&buf1,
+                  (void*)&scratch, (void*)&B, (void*)&H, (void*)&W, (void*)&low,
+                  (void*)&high, (void*)&conn8, (void*)&block_iters, (void*)&max_iters,
+                  (void*)&vec};
+  err = cudaLaunchCooperativeKernel((const void*)grow_global_kernel, dim3((unsigned)ctas),
+                                    dim3(GLOBAL_THREADS), args, 0,
+                                    static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }

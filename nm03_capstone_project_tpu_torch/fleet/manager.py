@@ -24,6 +24,19 @@ Same-host by construction: the SIGTERM and the relaunch both happen on
 the machine this runs on (the replica block's ``pid``/``cwd`` are local
 facts).
 
+A relaunch on a held port. A replica first started with ``--port 0`` got
+its port from the kernel's ephemeral range, and once its listener is gone
+any ``connect()`` on this host may take that port as its own source port
+(the front end's health probes of the dead replica, this walk's own
+polls; to a port with nothing listening, a connect can even reach
+itself). Such a socket holds the port until it closes, and the relaunched
+server's ``bind`` fails with EADDRINUSE. ``nm03-serve`` then exits with
+:data:`ADDRESS_IN_USE_EXIT`; the walk watches the relaunched process
+(``proc.poll()``) while it waits for ``/readyz``, relaunches after
+:data:`RELAUNCH_BACKOFF_S` while the port stays held and the warm deadline
+allows, naming the sockets that hold it (:func:`port_holders`), and fails
+at once, with the exit code, when the process exits for any other reason.
+
 Free of torch and numpy at import.
 """
 
@@ -37,21 +50,56 @@ import time
 import urllib.error
 import urllib.request
 from typing import List, Optional, Sequence
+from urllib.parse import urlsplit
 
 from nm03_capstone_project_tpu_torch.fleet.replicas import (
     normalize_target,
     target_label,
 )
+from nm03_capstone_project_tpu_torch.utils.exitcodes import ADDRESS_IN_USE_EXIT
 from nm03_capstone_project_tpu_torch.utils.reporter import get_logger
 
 log = get_logger("fleet")
 
 SCHEMA_RESTART = "nm03.fleetrestart.v1"
+RELAUNCH_BACKOFF_S = 0.5  # between relaunches on a held port
+
+_TCP_STATES = {"01": "ESTABLISHED", "02": "SYN_SENT", "03": "SYN_RECV", "04": "FIN_WAIT1",
+               "05": "FIN_WAIT2", "06": "TIME_WAIT", "07": "CLOSE", "08": "CLOSE_WAIT",
+               "09": "LAST_ACK", "0A": "LISTEN", "0B": "CLOSING"}
 
 
 class RestartError(RuntimeError):
     """One replica failed a restart step; the rolling walk stops there
     (continuing would risk a second replica down at the same time)."""
+
+
+class _Exited(Exception):
+    """The relaunched process exited before its ``/readyz`` went 200."""
+
+    def __init__(self, rc: int):
+        super().__init__(rc)
+        self.rc = rc
+
+
+def port_holders(port: int) -> List[str]:
+    """The TCP sockets of this host whose local port is ``port``, from
+    ``/proc/net/tcp`` and ``tcp6`` ("local :P -> remote :Q STATE"); empty
+    where those files are missing."""
+    out = []
+    for table in ("/proc/net/tcp", "/proc/net/tcp6"):
+        try:
+            with open(table) as f:
+                rows = f.read().splitlines()[1:]
+        except OSError:
+            continue
+        for row in rows:
+            cols = row.split()
+            if len(cols) < 4 or int(cols[1].rsplit(":", 1)[1], 16) != port:
+                continue
+            remote = int(cols[2].rsplit(":", 1)[1], 16)
+            out.append(f"local :{port} -> remote :{remote} {_TCP_STATES.get(cols[3], cols[3])}")
+    return out
 
 
 def _get_json(url: str, timeout_s: float = 5.0):
@@ -100,13 +148,19 @@ def _wait_listener_closed(target: str, timeout_s: float, poll_s: float) -> float
 
 
 def _wait_ready(
-    target: str, timeout_s: float, poll_s: float, old_pid: Optional[int]
+    target: str, timeout_s: float, poll_s: float, old_pid: Optional[int], proc=None
 ) -> dict:
-    """Block until ``/readyz`` answers 200 from a NEW pid; returns it."""
+    """Block until ``/readyz`` answers 200 from a NEW pid; returns it.
+    Raises :class:`_Exited` as soon as ``proc`` (the relaunched process,
+    when it can be polled) has exited."""
     t0 = time.monotonic()
     deadline = t0 + timeout_s
     last = "no response yet"
+    poll = getattr(proc, "poll", None)
     while time.monotonic() < deadline:
+        rc = poll() if poll is not None else None
+        if rc is not None:
+            raise _Exited(rc)
         try:
             status, st = _get_json(f"{target}/readyz", timeout_s=5.0)
         except Exception as e:  # noqa: BLE001 — not up yet
@@ -164,6 +218,48 @@ def _relaunch_argv(argv: Sequence[str], compile_cache_dir: Optional[str]):
         else:
             out += ["--compile-cache-dir", compile_cache_dir]
     return out
+
+
+def _relaunch(target, label, launch, cwd, env, spawn, entry, warm_timeout_s, poll_s,
+              old_pid, say) -> dict:
+    """Spawn the relaunch and wait for its ``/readyz`` 200; spawn it again
+    while it exits on a held port (:data:`ADDRESS_IN_USE_EXIT`) and the
+    warm deadline allows. Any other exit fails at once."""
+    deadline = time.monotonic() + warm_timeout_s
+    port = urlsplit(target).port
+    entry["relaunch_attempts"] = 0
+    held_error = None  # the last relaunch's bind error, while one exits on it
+    while True:
+        proc = spawn(
+            launch,
+            cwd=cwd or None,
+            env=env,
+            stdout=subprocess.DEVNULL,
+            stderr=subprocess.DEVNULL,
+            start_new_session=True,
+        )
+        entry["relaunch_attempts"] += 1
+        entry["spawned_pid"] = getattr(proc, "pid", None)
+        try:
+            return _wait_ready(target, max(0.0, deadline - time.monotonic()), poll_s, old_pid,
+                               proc=proc)
+        except RestartError as e:  # the warm deadline, while a relaunch still starts
+            if held_error is None:
+                raise
+            raise RestartError(f"{e}; {held_error}") from None
+        except _Exited as e:
+            held = port_holders(port) if port else []
+            if e.rc != ADDRESS_IN_USE_EXIT:
+                raise RestartError(
+                    f"{label}: the relaunched process (pid {entry['spawned_pid']}) exited "
+                    f"with code {e.rc} before /readyz went 200") from None
+            held_error = (f"the relaunched process exited with code {e.rc}: port {port} in "
+                          f"use (EADDRINUSE), held by {held or 'a socket gone by now'}")
+            if time.monotonic() + RELAUNCH_BACKOFF_S >= deadline:
+                raise RestartError(
+                    f"{label}: {held_error}, for {warm_timeout_s:.0f}s") from None
+            say(f"fleet restart: {label} {held_error}; relaunching in {RELAUNCH_BACKOFF_S}s")
+            time.sleep(RELAUNCH_BACKOFF_S)
 
 
 def rolling_restart(
@@ -237,16 +333,8 @@ def rolling_restart(
             # beside the new replica's replica.start_unix: how much of
             # warm_s passed before its app existed (interpreter, imports)
             entry["spawned_unix"] = round(time.time(), 3)
-            proc = spawn(
-                launch,
-                cwd=cwd or None,
-                env=env,
-                stdout=subprocess.DEVNULL,
-                stderr=subprocess.DEVNULL,
-                start_new_session=True,
-            )
-            entry["spawned_pid"] = getattr(proc, "pid", None)
-            ready = _wait_ready(target, warm_timeout_s, poll_s, old_pid)
+            ready = _relaunch(target, label, launch, cwd, env, spawn, entry,
+                              warm_timeout_s, poll_s, old_pid, say)
         except RestartError as e:
             entry["error"] = str(e)
             e.report = report

@@ -31,8 +31,11 @@ A cache entry's key (:func:`persist_key`) digests the sources and the
 generated headers and names the flags, the arch, ``nvcc --version`` and the
 port's version: an edited source or a new toolkit is rebuilt, an unchanged
 one is loaded. ``_build/<key>`` keeps its key (:func:`build_dir`: the
-sources, the headers and the flags; not the toolkit, which only a cache
-checks). Sources come from the package only. The port's lint holds both
+sources, the headers and the flags) and records beside the libraries the
+``nvcc --version`` that built them: a process that reaches ``nvcc``
+rebuilds a directory another toolkit (or no record) made, and one that
+reaches none loads it as it is, since it could build nothing in its
+place. Sources come from the package only. The port's lint holds both
 keys to the build (NM381): every module constant :func:`build_all` reads
 must be read by :func:`persist_key` and by :func:`build_dir`.
 :func:`records` reports each library's source, build seconds and load
@@ -89,6 +92,7 @@ _F = ctypes.c_float
 ARGTYPES = {
     "median": {
         "nm03_median_filter": [_P, _P, _I, _I, _I, _I, _P],
+        "nm03_median_select": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
     },
     "fused": {
         "nm03_fused_preprocess": [_P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F,
@@ -97,6 +101,8 @@ ARGTYPES = {
     "grow": {
         "nm03_region_grow": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _I, _I, _I,
                              _P],
+        "nm03_region_grow_global": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                    _F, _F, _I, _I, _I, _P],
     },
 }
 
@@ -277,16 +283,42 @@ def _compile(names, out_dir: Path) -> Dict[str, float]:
     return seconds
 
 
+def _toolkit_record(out_dir: Path) -> Path:
+    """Where ``_build/<key>`` records the ``nvcc --version`` that built it."""
+    return out_dir / "nvcc_version.txt"
+
+
+def _built_by_another_toolkit(out_dir: Path) -> bool:
+    """Whether the reachable ``nvcc`` differs from the one that built
+    ``out_dir`` (or no record says which did); False where no ``nvcc`` is
+    reachable: such a process loads what is there."""
+    version = nvcc_version()
+    if version is None:
+        return False
+    try:
+        return _toolkit_record(out_dir).read_text() != version
+    except OSError:
+        return True
+
+
 def build_all() -> Dict[str, float]:
-    """Compile every library missing from :func:`build_dir`, all nvcc
-    processes at once; seconds per library built (empty when all were
+    """Compile every library missing from :func:`build_dir`, or all of them
+    where the reachable ``nvcc`` is not the toolkit that built them, all
+    nvcc processes at once; seconds per library built (empty when all were
     there)."""
     out_dir = build_dir()
-    missing = [n for n in SOURCES if not (out_dir / f"lib{n}.so").exists()]
+    stale = out_dir.is_dir() and _built_by_another_toolkit(out_dir)
+    missing = [n for n in SOURCES if stale or not (out_dir / f"lib{n}.so").exists()]
     if not missing:
         return {}
+    if stale:
+        log.warning("kernel libraries in %s were built by another nvcc; rebuilding", out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
-    return _compile(missing, out_dir)
+    seconds = _compile(missing, out_dir)
+    version = nvcc_version()
+    if version is not None:
+        atomic_write_text(_toolkit_record(out_dir), version)
+    return seconds
 
 
 # -- where a process's libraries come from -------------------------------------
@@ -373,8 +405,10 @@ def _resolve_private(cache: Optional[KernelCache]) -> None:
 def _resolve(name: str) -> Path:
     cache, private = _process_cache()
     if not private:
-        path = build_dir() / f"lib{name}.so"
-        built = build_all() if not path.exists() else {}
+        out_dir = build_dir()
+        path = out_dir / f"lib{name}.so"
+        stale = path.exists() and _built_by_another_toolkit(out_dir)
+        built = build_all() if stale or not path.exists() else {}
         for n in (*built, name):
             _RECORDS.setdefault(n, {"source": "local", "build_s": built.get(n),
                                     "load_s": 0.0, "entry": None,

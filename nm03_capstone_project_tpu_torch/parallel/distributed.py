@@ -36,12 +36,23 @@ whereas an NCCL collective with a dead peer blocks until the process
 group's timeout. So a rank lost between dispatches fails the next header
 in rank 0's Python before any NCCL op is queued. The study follows on the
 backend's device: the card's under NCCL, the host's under gloo.
+
+A served gang bounds its studies (:func:`open_data_plane`): the study and
+every collective of its program go on a **data-plane group** of their own
+whose timeout is the server's ``--volume-timeout-s``, while headers and
+keepalives keep the job's long timeout. When a study passes that bound,
+:func:`abort_data_plane` aborts the data plane's communicator, so a rank
+blocked on a lost peer returns instead of waiting out the job's timeout;
+:func:`initialize` sets NCCL's asynchronous error handling to abort a
+failed communicator without tearing the process down.
 """
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import os
+import threading
 from typing import Dict, Optional, Sequence
 
 import numpy as np
@@ -73,6 +84,13 @@ _HEADER_LEN = 6  # op, depth, height, width, true height, true width
 
 # the gloo side group of an NCCL job (:func:`control_group`)
 _CONTROL = None
+# the study data plane of a served gang (:func:`open_data_plane`)
+_DATA = None
+# TORCH_NCCL_ASYNC_ERROR_HANDLING=2 (CleanUpOnly): NCCL's watchdog aborts a
+# failed or timed-out communicator and leaves the process running; the
+# default (3, SkipCleanUp) tears the process down, and with it every slice
+# lane of a serving rank
+_NCCL_ERROR_HANDLING = ("TORCH_NCCL_ASYNC_ERROR_HANDLING", "2")
 
 
 def _cluster_env() -> Optional[Dict[str, object]]:
@@ -164,6 +182,11 @@ def initialize(
         # one process a device: the rank's own card is current before NCCL
         # sees it (batch_isend_irecv hangs otherwise)
         torch.cuda.set_device(_local_cuda_index(rank))
+        var, mode = _NCCL_ERROR_HANDLING
+        if os.environ.get(var, mode) != mode:
+            log.warning("%s=%s replaced by %s: a failed communicator is aborted, "
+                        "the process keeps running", var, os.environ[var], mode)
+        os.environ[var] = mode
     log.info("joining a %d-process job as rank %d at %s over %s",
              world, rank, address, backend)
     _dist().init_process_group(
@@ -186,10 +209,78 @@ def initialize(
 
 def shutdown() -> None:
     """Leave the job (destroy the process group); a no-op outside one."""
-    global _CONTROL
+    global _CONTROL, _DATA
     if is_initialized():
-        _dist().destroy_process_group()  # the side group with it
-    _CONTROL = None
+        _dist().destroy_process_group()  # the side groups with it
+    _CONTROL = _DATA = None
+
+
+def open_data_plane(timeout_s: float) -> None:
+    """Give the studies of a served gang a group of their own, on the job's
+    backend, whose collectives time out after ``timeout_s`` (the server's
+    ``--volume-timeout-s``): the study's broadcast and every collective of
+    its z-sharded program. Every rank calls it, in the same place; a no-op
+    outside a job."""
+    global _DATA
+    if not is_initialized():
+        return
+    dist = _dist()
+    _DATA = dist.new_group(backend=dist.get_backend(),
+                           timeout=datetime.timedelta(seconds=float(timeout_s)))
+
+
+def data_group():
+    """The data-plane group of a served gang, else None (the job's own
+    group: the batch drivers, training)."""
+    return _DATA
+
+
+@contextlib.contextmanager
+def bounded_study(bound_s: Optional[float], on_passed=None):
+    """Run a study's block under its bound: past ``bound_s`` seconds a
+    timer calls ``on_passed()`` and then :func:`abort_data_plane`, so the
+    block's blocked collectives return. Yields an Event that is set once
+    the bound passed: the block's data must then be thrown away. No bound
+    for ``bound_s`` None."""
+    passed = threading.Event()
+    timer = None
+    if bound_s is not None:
+        def fire():
+            passed.set()
+            if on_passed is not None:
+                on_passed()
+            abort_data_plane()
+
+        timer = threading.Timer(bound_s, fire)
+        timer.daemon = True
+        timer.start()
+    try:
+        yield passed
+    finally:
+        if timer is not None:
+            timer.cancel()
+
+
+def abort_data_plane() -> bool:
+    """Abort the data plane's communicator, so that a collective blocked on
+    a lost peer returns (with an error, or with data that must be
+    discarded). Uses ``torch.distributed.distributed_c10d.
+    _abort_process_group(group)``, which aborts the group's NCCL
+    communicators (``ProcessGroupNCCL::abort``); a gloo group has no abort,
+    and its own timeout ends the wait. True if an abort was issued."""
+    group = _DATA
+    if group is None:
+        return False
+    from torch.distributed import distributed_c10d
+
+    try:
+        distributed_c10d._abort_process_group(group)
+    except Exception as e:  # noqa: BLE001 — gloo, or a version without the call
+        log.warning("data plane: no abort (%s: %s); its timeout ends the wait",
+                    type(e).__name__, e)
+        return False
+    log.error("data plane: communicator aborted")
+    return True
 
 
 def control_group():
@@ -308,6 +399,15 @@ def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
     return t
 
 
+def _broadcast_header(head) -> tuple:
+    """Rank 0's dispatch header, on every rank, over :func:`control_group`."""
+    header = torch.tensor(head, dtype=torch.int64)
+    if is_initialized():
+        _dist().broadcast(header, src=0, group=control_group())
+    # nm03-lint: disable=NM422 the header's read is part of the broadcast sequence the gang's collective lock serializes; it is a host tensor (the control group is gloo)
+    return tuple(int(v) for v in header.tolist())
+
+
 def broadcast_study(op: int = OP_STUDY, stack=None, dims=None):
     """Rank 0's gang dispatch, on every rank: ``(op, stack, dims)``.
 
@@ -327,11 +427,7 @@ def broadcast_study(op: int = OP_STUDY, stack=None, dims=None):
         if op == OP_STUDY:
             head[1:4] = [int(n) for n in stack.shape]
             head[4:6] = [int(n) for n in np.asarray(dims).reshape(2)]
-    header = torch.tensor(head, dtype=torch.int64)
-    if is_initialized():
-        _dist().broadcast(header, src=0, group=control_group())
-    # nm03-lint: disable=NM422 the header's read is part of the broadcast sequence the gang's collective lock serializes; it is a host tensor (the control group is gloo)
-    op, d, h, w, dh, dw = (int(v) for v in header.tolist())
+    op, d, h, w, dh, dw = _broadcast_header(head)
     if op != OP_STUDY:
         return op, None, None
     if process_index() == 0:
@@ -339,5 +435,5 @@ def broadcast_study(op: int = OP_STUDY, stack=None, dims=None):
     else:
         t = torch.empty((d, h, w), dtype=torch.float32, device=dev)
     if is_initialized():
-        _dist().broadcast(t, src=0)
+        _dist().broadcast(t, src=0, group=data_group())
     return op, t, np.asarray([dh, dw], np.int32)

@@ -120,7 +120,13 @@ class _ProcessGroupRing:
     def __init__(self, peers: Optional[Sequence[int]] = None, row: int = 0, n_rows: int = 1):
         import torch.distributed as dist
 
+        from nm03_capstone_project_tpu_torch.parallel.distributed import data_group
+
         self.dist = dist
+        # a served gang's data plane (its collectives bounded by the server's
+        # volume timeout), else the job's group; it holds every rank, so
+        # group ranks are the job's
+        self.group = data_group()
         self.world = dist.get_world_size()
         self.peers = list(range(self.world)) if peers is None else list(peers)
         self.pos = self.peers.index(dist.get_rank())
@@ -139,11 +145,11 @@ class _ProcessGroupRing:
         from_next = torch.zeros_like(send_up)
         ops = []
         if i > 0:
-            ops += [dist.P2POp(dist.isend, send_down, peers[i - 1]),
-                    dist.P2POp(dist.irecv, from_prev, peers[i - 1])]
+            ops += [dist.P2POp(dist.isend, send_down, peers[i - 1], self.group),
+                    dist.P2POp(dist.irecv, from_prev, peers[i - 1], self.group)]
         if i < len(peers) - 1:
-            ops += [dist.P2POp(dist.isend, send_up, peers[i + 1]),
-                    dist.P2POp(dist.irecv, from_next, peers[i + 1])]
+            ops += [dist.P2POp(dist.isend, send_up, peers[i + 1], self.group),
+                    dist.P2POp(dist.irecv, from_next, peers[i + 1], self.group)]
         if ops:
             for req in dist.batch_isend_irecv(ops):
                 req.wait()
@@ -154,7 +160,7 @@ class _ProcessGroupRing:
         (v,) = values
         slots = torch.zeros((self.n_rows,) + tuple(v.shape), dtype=v.dtype, device=v.device)
         slots[self.row] = v
-        self.dist.all_reduce(slots)
+        self.dist.all_reduce(slots, group=self.group)
         return slots[self.row]
 
     def any_growing(self, growing: bool, device) -> bool:
@@ -163,7 +169,7 @@ class _ProcessGroupRing:
         if self.n_rows == 1:  # one ring: every rank saw the same counts
             return growing
         flag = torch.tensor([int(growing)], dtype=torch.int32, device=device)
-        self.dist.all_reduce(flag, op=self.dist.ReduceOp.MAX)
+        self.dist.all_reduce(flag, op=self.dist.ReduceOp.MAX, group=self.group)
         return bool(flag.item())
 
     def gather(self, blocks: List[torch.Tensor]) -> torch.Tensor:
@@ -173,7 +179,7 @@ class _ProcessGroupRing:
     def gather_all(self, blocks: List[torch.Tensor]) -> List[torch.Tensor]:
         (blk,) = blocks
         parts = [torch.empty_like(blk) for _ in range(self.world)]
-        self.dist.all_gather(parts, blk.contiguous())
+        self.dist.all_gather(parts, blk.contiguous(), group=self.group)
         return parts
 
 

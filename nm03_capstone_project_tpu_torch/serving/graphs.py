@@ -64,24 +64,19 @@ import numpy as np
 import torch
 
 from nm03_capstone_project_tpu_torch.config import PipelineConfig
-from nm03_capstone_project_tpu_torch.ops import hopper_median as hm
-from nm03_capstone_project_tpu_torch.ops import hopper_region_growing as hg
+from nm03_capstone_project_tpu_torch.ops import launches
 from nm03_capstone_project_tpu_torch.pipeline.slice_pipeline import _process
 from nm03_capstone_project_tpu_torch.utils import sanitize
 
 # the kernel wrappers a serving graph may hold, by the names chip_smoke.py
 # and PERF.md use
-KERNELS = {
-    "fused": hm.fused_preprocess_kernel,
-    "grow": hg.region_grow_kernel,
-    "median": hm.vector_median_filter_kernel,
-}
+KERNELS = launches.KERNELS
 EAGER_ITERS = 2  # eager runs on the capture stream before capture
 
 
 def kernel_launches() -> Dict[str, int]:
     """Each kernel wrapper's launch count so far."""
-    return {k: fn.launches for k, fn in KERNELS.items()}
+    return launches.launch_counts()
 
 
 class BucketGraph:

@@ -74,6 +74,7 @@ from __future__ import annotations
 
 import argparse
 import base64
+import errno
 import hashlib
 import json
 import os
@@ -143,9 +144,15 @@ from nm03_capstone_project_tpu_torch.serving.volumes import (
     GangUnavailable,
     VolumeGang,
 )
+from nm03_capstone_project_tpu_torch.utils.exitcodes import ADDRESS_IN_USE_EXIT
 from nm03_capstone_project_tpu_torch.utils.reporter import get_logger
 
 log = get_logger("serving")
+
+# a cross-process volume request waits this much past --volume-timeout-s:
+# the gang's own bound ends a stuck study at the timeout, with a 503 that
+# must reach the client before the wait's 504 would
+GANG_BOUND_SLACK_S = 2.0
 
 RETRY_AFTER_S = 1  # the shed hint: capacity problems clear in ~one window
 
@@ -331,6 +338,7 @@ class ServingApp:
                 fault_plan=fault_plan,
                 obs=self.obs,
                 distributed=distributed_init,
+                bound_s=self.volume_timeout_s,
             )
         # the content-addressed result tier: a replica-side store in front
         # of the batcher, bounded by bytes (0 = disabled). The in-flight
@@ -813,7 +821,7 @@ class ServingApp:
         inflight = self.registry.gauge(SERVING_INFLIGHT, help="admitted requests not yet responded")
         inflight.inc()
         try:
-            if not leader.wait(self.volume_timeout_s):
+            if not leader.wait(self._volume_wait_s()):
                 self._count_volume_request("timeout")
                 raise TimeoutError(
                     f"coalesced volume request (leader {leader.request_id}) "
@@ -1078,6 +1086,13 @@ class ServingApp:
             )
         return np.stack(planes)
 
+    def _volume_wait_s(self) -> float:
+        """How long a volume request waits for its study: the volume
+        timeout, and for a cross-process gang GANG_BOUND_SLACK_S more, since
+        the gang itself ends a study at that bound (503, the gang down)."""
+        in_job = self.volumes is not None and self.volumes.in_job
+        return self.volume_timeout_s + (GANG_BOUND_SLACK_S if in_job else 0.0)
+
     def guard_volume(self, volume: np.ndarray) -> Tuple[int, int, int]:
         """Admission guards for one decoded study; (depth, h, w)."""
         if self.volumes is None:
@@ -1148,7 +1163,7 @@ class ServingApp:
         inflight = self.registry.gauge(SERVING_INFLIGHT, help="admitted requests not yet responded")
         inflight.inc()
         try:
-            if not req.wait(self.volume_timeout_s):
+            if not req.wait(self._volume_wait_s()):
                 self._count_volume_request("timeout")
                 raise TimeoutError(
                     f"volume request {req.request_id} timed out after "
@@ -1756,6 +1771,8 @@ def _join_job(args: argparse.Namespace):
         distributed.shutdown()
         raise ValueError(f"--distributed-init in a job of {world} processes needs "
                          "--volume-serving: the other ranks serve only the volume gang")
+    # every rank, in the same place: the studies' group, bounded by the timeout
+    distributed.open_data_plane(args.volume_timeout_s)
     if rank == 0:
         return None
     from nm03_capstone_project_tpu_torch.serving.follower import follow
@@ -1763,7 +1780,7 @@ def _join_job(args: argparse.Namespace):
     print(f"nm03-serve: rank {rank} of {world} follows the volume gang", file=sys.stderr,
           flush=True)
     try:
-        rc = follow(common.pipeline_config_from_args(args))
+        rc = follow(common.pipeline_config_from_args(args), bound_s=args.volume_timeout_s)
     finally:
         distributed.shutdown()
     print(f"nm03-serve: rank {rank} stopped with the gang", file=sys.stderr, flush=True)
@@ -1861,7 +1878,8 @@ def _serve(args: argparse.Namespace, argv) -> int:
     except (RuntimeError, ValueError, OSError) as e:
         print(f"nm03-serve: {e}", file=sys.stderr)
         run_ctx.close(status="error")
-        return 1
+        # a held port has its own exit code: the fleet's restart relaunches on it
+        return ADDRESS_IN_USE_EXIT if getattr(e, "errno", None) == errno.EADDRINUSE else 1
     port = httpd.server_address[1]
     # the relaunch recipe for the fleet's rolling restart: the flags this
     # process was started with (the bound port substituted) and the cwd

@@ -48,8 +48,15 @@ cross-process dispatch (a follower's death) marks the gang down, that
 request and every later one shed with 503 + ``Retry-After``, and
 ``status()`` says why; slices keep serving on rank 0's lanes. A follower
 lost between dispatches fails the next header (gloo raises when a peer's
-socket closes). One lost during a dispatch's NCCL collectives is not
-seen: NCCL blocks until the process group's timeout.
+socket closes). One lost during a study is caught by the study's bound
+(``bound_s``, the server's ``--volume-timeout-s``): the study and its
+collectives run on the job's data-plane group
+(:func:`..parallel.distributed.open_data_plane`), whose timeout is that
+bound, and when a study outlasts it rank 0 marks the gang down, aborts the
+data plane's communicator (:func:`..parallel.distributed.abort_data_plane`)
+and fails the request with :class:`GangUnavailable`, while its slice lanes
+keep serving. A follower bounds its studies the same way and exits
+non-zero (:func:`.follower.follow`).
 
 Depth buckets mirror the batch buckets: a study pads with zero planes
 (which segment empty) up to the smallest bucket that fits, rounded up to a
@@ -213,6 +220,7 @@ class VolumeGang:
         fault_plan=None,
         obs=None,
         distributed: bool = False,
+        bound_s: Optional[float] = None,
     ):
         buckets = tuple(int(b) for b in depth_buckets)
         if not buckets or list(buckets) != sorted(set(buckets)):
@@ -239,6 +247,9 @@ class VolumeGang:
         # one broadcast sequence at a time: a dispatch, a keepalive, the stop
         self._collective = threading.Lock()
         self._down: Optional[str] = None  # why the cross-process gang stopped
+        self._down_lock = threading.Lock()  # the bound's timer marks it down too
+        # a cross-process study's bound (the server's --volume-timeout-s)
+        self.bound_s = None if bound_s is None else float(bound_s)
         self._stopped = threading.Event()
         self._keepalive = threading.Thread(target=self._keepalive_loop,
                                            name="nm03-serve-gang-keepalive", daemon=True)
@@ -342,12 +353,14 @@ class VolumeGang:
                 conv = bool(out["grow_converged"])
         return mask, conv
 
-    def _run_distributed(self, stack: np.ndarray, dims: np.ndarray, trace=None):
+    def _run_distributed(self, stack: np.ndarray, dims: np.ndarray, trace=None,
+                         req: Optional[VolumeRequest] = None):
         """:meth:`_run_program` across the job: broadcast the study, run
         :func:`distributed_gang_program` with the followers, fetch the mask.
         Any failure marks the gang down and sheds (:class:`GangUnavailable`):
         after a collective failed, the ranks' places in the op sequence can
-        no longer be trusted."""
+        no longer be trusted. So does a study that outlasts ``bound_s``
+        (:meth:`_bound_passed`), whatever its collectives return after."""
         # refused here, before any collective, so that no follower meets it
         _check_depth(stack.shape[0], distributed.process_count(), self.cfg)
         dev = distributed.local_device()
@@ -357,26 +370,45 @@ class VolumeGang:
             if self._down is not None:
                 raise GangUnavailable(f"the cross-process volume gang is down ({self._down})")
             try:
-                with (torch.cuda.stream(st) if st is not None else contextlib.nullcontext()):
-                    with _dispatch_span(trace, None, distributed.process_count()) as marks:
-                        _, vol, dm = distributed.broadcast_study(
-                            distributed.OP_STUDY, stack, dims)
-                        marks.append(time.monotonic())
-                        mask, conv = distributed_gang_program(vol, dm, self.cfg)
-                    with gather:
-                        # nm03-lint: disable=NM422 the mask's fetch ends the study's device work inside the one broadcast sequence the collective lock exists to serialize (no keepalive may interleave)
-                        return mask.cpu().numpy(), bool(conv)
+                with distributed.bounded_study(self.bound_s,
+                                               lambda: self._bound_passed(req)) as passed:
+                    with (torch.cuda.stream(st) if st is not None
+                          else contextlib.nullcontext()):
+                        with _dispatch_span(trace, None, distributed.process_count()) as marks:
+                            _, vol, dm = distributed.broadcast_study(
+                                distributed.OP_STUDY, stack, dims)
+                            marks.append(time.monotonic())
+                            mask, conv = distributed_gang_program(vol, dm, self.cfg)
+                        with gather:
+                            # nm03-lint: disable=NM422 the mask's fetch ends the study's device work inside the one broadcast sequence the collective lock exists to serialize (no keepalive may interleave)
+                            out = mask.cpu().numpy(), bool(conv)
+                if passed.is_set():  # an aborted communicator's data is not a mask
+                    raise GangUnavailable(f"the study passed its bound of {self.bound_s:g}s")
+                return out
             except BaseException as e:  # noqa: BLE001 — the job is broken either way
                 self._mark_down(f"{type(e).__name__}: {e}")
                 raise GangUnavailable(
                     f"cross-process volume dispatch failed ({type(e).__name__}); the gang "
                     "is down until the job restarts") from e
 
+    def _bound_passed(self, req: Optional[VolumeRequest]) -> None:
+        """A cross-process study outlasted ``bound_s`` (a follower lost or
+        stopped mid-study): mark the gang down and fail the request now
+        (503 + ``Retry-After``); :func:`..parallel.distributed.bounded_study`
+        then aborts the data plane's communicator so the blocked
+        collectives return. The process and its slice lanes live on; every
+        later study sheds."""
+        self._mark_down(f"a study passed its bound of {self.bound_s:g}s (--volume-timeout-s)")
+        if req is not None and not req.done.is_set():
+            req.fail(GangUnavailable(
+                f"the cross-process study passed its bound of {self.bound_s:g}s; the gang "
+                "is down until the job restarts"))
+
     def _mark_down(self, cause: str) -> None:
-        if self._down is None:
-            # nm03-lint: disable=NM331 every caller holds _collective (the dispatch, the keepalive, close); readers only test it for None
-            self._down = cause
-            log.error("volume gang: the cross-process gang is down: %s", cause)
+        with self._down_lock:
+            if self._down is None:
+                self._down = cause
+                log.error("volume gang: the cross-process gang is down: %s", cause)
 
     def _keepalive_loop(self) -> None:
         """Keep the followers' wait for the next dispatch alive while idle,
@@ -532,7 +564,8 @@ class VolumeGang:
             try:
                 self._dispatch_volume(req, seq)
             except BaseException as e:  # noqa: BLE001 — per-request containment
-                req.fail(e)
+                if not req.done.is_set():  # the bound may have answered it already
+                    req.fail(e)
                 return
         req.done.set()
 
@@ -627,7 +660,7 @@ class VolumeGang:
             raise GangUnavailable("injected unattributable volume failure (volume dispatch_error)")
         h, w = req.dims
         mask, conv = self._run_distributed(self._padded_stack(req.volume, req.depth, n), dims,
-                                           req.trace)
+                                           req.trace, req)
         req.mask = np.ascontiguousarray(mask[: req.depth, :h, :w])
         req.converged = conv
         req.z_shards = n

@@ -19,6 +19,18 @@ def get_logger(child: str | None = None) -> logging.Logger:
     return logging.getLogger(name)
 
 
+# the keys log_once has logged in this process
+_logged_once: set = set()
+
+
+def log_once(logger: logging.Logger, key, msg: str, *args) -> None:
+    """Log ``msg`` at INFO the first time this process passes ``key`` (a
+    kernel's route at its first use)."""
+    if key not in _logged_once:
+        _logged_once.add(key)
+        logger.info(msg, *args)
+
+
 def configure_reporting(verbose: bool = False, stream=None) -> logging.Logger:
     """INFO silenced (unless verbose), WARNING/ERROR to console.
 

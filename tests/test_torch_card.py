@@ -116,12 +116,12 @@ def test_grow_refuses_what_it_cannot_take(cuda):
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert int(got[0].sum()) == 300 * 1024
-    # past the cluster's capacity: refused before launch
-    huge = torch.full((1, 4096, 4096), 0.8, device=cuda)
-    launches = hg.region_grow_kernel.launches
-    with pytest.raises(ValueError, match="4096x4096"):
+    # past the global route's limit: refused before launch
+    huge = torch.full((1, 16385, 2304), 0.8, device=cuda)
+    launches = hg.region_grow_kernel.launches, hg.region_grow_global_kernel.launches
+    with pytest.raises(ValueError, match="16385x2304"):
         hg.region_grow_kernel(huge, huge > 0.9)
-    assert hg.region_grow_kernel.launches == launches
+    assert (hg.region_grow_kernel.launches, hg.region_grow_global_kernel.launches) == launches
 
 
 @pytest.mark.parametrize("hw", [(2048, 2048), (97, 1000), (1000, 33)])
@@ -518,3 +518,100 @@ def test_a_cached_library_runs_bitwise_like_a_fresh_build(cuda, tmp_path):
     assert warm["sources"] == {"fused": "cache", "grow": "cache", "median": "cache"}
     assert warm["sha"] == cold["sha"]
     assert all(cold["plain_equal"].values()) and all(warm["plain_equal"].values())
+
+
+# -- the routes over the JAX package's whole envelope (tests/test_torch_envelope.py) --
+
+
+def _same_bits(a, b):
+    return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("k", [17, 21, 31])
+def test_median_select_windows(cuda, k):
+    x = (torch.rand(3, 251, 241) * 4000 + 0.68).to(cuda)
+    dup = (torch.randint(-2, 3, (2, 61, 300)).float()).to(cuda)  # duplicates, both signs
+    before = hm.vector_median_select_kernel.launches
+    for inp in (x, dup):
+        assert _same_bits(hm.vector_median_filter_kernel(inp, k), vector_median_filter(inp, k))
+    assert hm.vector_median_select_kernel.launches == before + 2
+
+
+@pytest.mark.parametrize("k", [7, 17])
+def test_median_batch_past_the_grid_splits(cuda, k):
+    x = (torch.rand(hm.MAX_BATCH + 100, 8, 8) * 4000).to(cuda)
+    counters = (hm.vector_median_filter_kernel, hm.vector_median_select_kernel)
+    before = sum(fn.launches for fn in counters)
+    assert _same_bits(hm.vector_median_filter_kernel(x, k), vector_median_filter(x, k))
+    assert sum(fn.launches for fn in counters) == before + 2
+
+
+def test_median_select_signed_zeros_and_nan(cuda):
+    rng = np.random.default_rng(5)
+    z = torch.from_numpy(rng.choice(np.array([-0.0, 0.0, 1.0, -1.0], np.float32),
+                                    size=(4, 40, 40), p=[0.35, 0.35, 0.15, 0.15])).to(cuda)
+    z[0, 5, 5] = float("nan")
+    for k in (17, 19):
+        got, want = hm.vector_median_filter_kernel(z, k), vector_median_filter(z, k)
+        assert _same_bits(got, want)
+        assert bool((torch.signbit(want) & (want == 0)).any()) and bool(torch.isnan(want).any())
+
+
+@pytest.mark.parametrize("k,ks", [(17, 9), (7, 33), (31, 35)])
+def test_fused_unfused_route(cuda, k, ks):
+    x = (torch.rand(3, 251, 241) * 9000).to(cuda)
+    kw = dict(PRE, median_window=k, sharpen_kernel=ks)
+    fused = hm.fused_preprocess_kernel.launches
+    assert _same_bits(hm.fused_preprocess_kernel(x, **kw), hm._fused_preprocess_plain(x, **kw))
+    assert hm.fused_preprocess_kernel.launches == fused  # no fused launch: the unfused route
+
+
+@pytest.mark.parametrize("hw", [(2304, 2304), (1024, 4096), (512, 8192)])
+def test_grow_global_route(cuda, hw):
+    g = torch.Generator().manual_seed(hw[1])
+    img = (torch.rand((2, *hw), generator=g) * 0.3 + 0.68).to(cuda)
+    seeds = (torch.rand((2, *hw), generator=g) < 0.0005).to(cuda)
+    valid = (torch.rand((2, *hw), generator=g) < 0.95).to(cuda)
+    assert hg.grow_launch_shape(*hw).route == "global"
+    before = hg.region_grow_global_kernel.launches
+    for conn in (4, 8):
+        kw = dict(valid=valid, connectivity=conn, block_iters=4, return_steps=True)
+        got = hg.region_grow_kernel(img, seeds, **kw)
+        want = region_grow(img, seeds, **kw)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    assert hg.region_grow_global_kernel.launches == before + 2
+
+
+@pytest.mark.parametrize("bi,mi", [(16, 1024), (2, 4), (3, 7)])
+def test_grow_global_kernel_follows_the_schedule(cuda, bi, mi):
+    # the global route on a slice the cluster kernel would take: the same
+    # schedule's mask, flags and steps, a block cut short by max_iters too
+    img, seeds, valid = (torch.from_numpy(a).to(cuda) for a in _grow_case())
+    kw = dict(valid=valid, block_iters=bi, max_iters=mi, return_steps=True)
+    got = hg.region_grow_global_kernel(img, seeds, 0.74, 0.91, **kw)
+    want = region_grow(img, seeds, 0.74, 0.91, **kw)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_pipeline_at_canvas_3072_k17_equals_the_jax_golden(cuda):
+    import hashlib
+    import json
+    import pathlib
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    golden = json.loads(
+        (root / "nm03_capstone_project_tpu_torch" / "testdata" / "envelope_golden.json")
+        .read_text())
+    case = golden["case"]
+    slices = [phantom_slice(h, w, seed=s, lesion_radius=case["lesion_radius"])
+              for (h, w), s in zip(case["dims"], case["seeds"])]
+    c = case["canvas"]
+    b = pad_to_canvas(slices, (c, c), device=cuda)
+    out = process_batch(b.pixels, b.dims, PipelineConfig(canvas=c,
+                                                         median_window=case["median_window"]))
+    masks = out["mask"].cpu().numpy()
+    got = [{"sha256": hashlib.sha256(m.tobytes()).hexdigest(), "area": int(m.sum()),
+            "converged": bool(cv)} for m, cv in zip(masks, out["grow_converged"].tolist())]
+    assert got == golden["slices"]

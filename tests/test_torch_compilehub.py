@@ -317,6 +317,34 @@ def test_without_a_cache_libraries_build_and_load_beside_the_package(stub_build)
     assert all(r["build_s"] == 0.25 and r["entry"] is None for r in recs.values())
 
 
+@pytest.mark.parametrize("reached,recorded,rebuilds", [
+    (NVCC, NVCC, False),  # the toolkit that built it: loaded
+    ("Cuda compilation tools, release 12.8, V12.8.93", NVCC, True),  # another: rebuilt
+    (NVCC, None, True),  # no record of its toolkit: rebuilt
+    (None, NVCC, False),  # no nvcc in reach: loaded as it is
+    (None, None, False),
+])
+def test_build_dir_follows_the_reachable_toolkit(stub_build, monkeypatch, reached, recorded,
+                                                 rebuilds):
+    out_dir = build.build_dir()
+    out_dir.mkdir(parents=True)
+    for n in build.SOURCES:
+        _stub_lib(out_dir / f"lib{n}.so", n)
+    if recorded is not None:
+        (out_dir / "nvcc_version.txt").write_text(recorded)
+    monkeypatch.setattr(build, "nvcc_version", lambda: reached)
+    libs = _load_all()
+    assert stub_build == ([(list(build.SOURCES), out_dir)] if rebuilds else [])
+    assert {pathlib.Path(lib.path).parent for lib in libs.values()} == {out_dir}
+    record = out_dir / "nvcc_version.txt"
+    assert (record.read_text() if record.exists() else None) == (reached if rebuilds
+                                                                 else recorded)
+    # a second process with the same toolkit loads what the first left
+    fresh_process(monkeypatch, out_dir.parent / "private")
+    _load_all()
+    assert len(stub_build) == (1 if rebuilds else 0)
+
+
 def test_cold_then_warm_through_the_cache(stub_build, monkeypatch, tmp_path):
     root = tmp_path / "cache"
     cold = KernelCache(root)

@@ -419,7 +419,7 @@ class _ServerJob:
     torchrun would (``MASTER_ADDR``/``MASTER_PORT``/``WORLD_SIZE``/``RANK``).
     Rank 0 writes its HTTP port to a file; every wait is bounded."""
 
-    def __init__(self, tmp_path, extra):
+    def __init__(self, tmp_path, extra, follower_code=None):
         self.tmp = tmp_path
         self.port_file = tmp_path / "port.txt"
         master = _free_port()
@@ -431,8 +431,10 @@ class _ServerJob:
             out = open(tmp_path / f"serve_r{r}.out", "w")
             err = open(tmp_path / f"serve_r{r}.err", "w")
             self.logs += [out, err]
+            entry = (["-c", follower_code] if r == 1 and follower_code else
+                     ["-m", "nm03_capstone_project_tpu_torch.serving.server"])
             self.procs.append(subprocess.Popen(
-                [sys.executable, "-m", "nm03_capstone_project_tpu_torch.serving.server",
+                [sys.executable, *entry,
                  "--device", "cpu", "--port", "0", "--port-file", str(self.port_file),
                  "--heartbeat-s", "0", "--buckets", "1", "--volume-serving",
                  "--distributed-init", "--flight-dir", str(tmp_path), *extra],
@@ -467,6 +469,34 @@ class _ServerJob:
                 p.wait()
         for f in self.logs:
             f.close()
+
+
+# a follower that stops itself (SIGSTOP) right after it receives a study's
+# header, once the file stop_follower exists in its working directory
+STOP_AFTER_HEADER = r"""
+import os
+import signal
+import sys
+from nm03_capstone_project_tpu_torch.parallel import distributed
+from nm03_capstone_project_tpu_torch.serving import server
+
+real = distributed._broadcast_header
+
+
+def stop_after_a_study_header(head):
+    got = real(head)
+    if got[0] == distributed.OP_STUDY and os.path.exists("stop_follower"):
+        os.kill(os.getpid(), signal.SIGSTOP)
+    return got
+
+
+distributed._broadcast_header = stop_after_a_study_header
+sys.exit(server.main(sys.argv[1:]))
+"""
+
+
+def _process_state(pid: int) -> str:
+    return pathlib.Path(f"/proc/{pid}/stat").read_text().rsplit(")", 1)[1].split()[0]
 
 
 def _study_parts(cohort: pathlib.Path, pid: str) -> bytes:
@@ -666,6 +696,60 @@ class TestTwoProcessTrainingAndServing:
                                   {"Content-Type": "application/octet-stream",
                                    "X-Nm03-Height": "64", "X-Nm03-Width": "60"})
             assert status == 200 and sl["mask_pixels"] >= 0
+            rcs = job.stop()
+            assert rcs[0] == 0 and rcs[1] == -signal.SIGKILL, job.errors()
+        finally:
+            job.close()
+
+    def test_a_follower_stopped_mid_study_sheds_within_the_bound(self, tmp_path):
+        from nm03_capstone_project_tpu_torch.config import PipelineConfig
+        from nm03_capstone_project_tpu_torch.core import pad_to_canvas
+        from nm03_capstone_project_tpu_torch.data.synthetic import phantom_volume
+        from nm03_capstone_project_tpu_torch.pipeline import process_slice
+
+        bound = 10.0
+        job = _ServerJob(tmp_path, ["--canvas", "64", "--min-dim", "32",
+                                    "--volume-depth-buckets", "8",
+                                    "--volume-timeout-s", str(bound),
+                                    "--result-cache-bytes", "8m"],  # mask_sha256 on slices
+                         follower_code=STOP_AFTER_HEADER)
+        # three studies: the result tier would answer a repeated one itself
+        vol, vol2, vol3 = (phantom_volume(6, 64, 60, seed=s).astype("<f4") for s in (1, 2, 3))
+        raw = {"Content-Type": "application/octet-stream", "X-Nm03-Depth": "6",
+               "X-Nm03-Height": "64", "X-Nm03-Width": "60"}
+        try:
+            status, first, _ = _post(job.url + "/v1/segment-volume", vol.tobytes(), raw)
+            assert status == 200 and first["z_shards"] == 2, job.errors()
+            (tmp_path / "stop_follower").write_text("")
+            t0 = time.monotonic()
+            status, payload, headers = _post(job.url + "/v1/segment-volume", vol2.tobytes(), raw,
+                                             timeout=bound + 60)
+            shed_s = time.monotonic() - t0
+            assert status == 503 and headers.get("Retry-After"), (status, payload, job.errors())
+            assert shed_s < bound + 5, shed_s
+            assert _process_state(job.procs[1].pid) == "T"  # stopped, after the header
+            assert "passed its bound" in payload["error"], payload
+            with urllib.request.urlopen(job.url + "/healthz", timeout=30) as r:
+                assert r.status == 200
+            vols = _get(job.url + "/readyz")["volumes"]
+            assert vols["ready"] is False and vols["down_cause"], vols
+            # the next study sheds at once, and slices keep serving, right
+            t0 = time.monotonic()
+            status, _, headers = _post(job.url + "/v1/segment-volume", vol3.tobytes(), raw)
+            assert status == 503 and headers.get("Retry-After") and time.monotonic() - t0 < 5
+            status, sl, _ = _post(job.url + "/v1/segment", vol[2].tobytes(),
+                                  {"Content-Type": "application/octet-stream",
+                                   "X-Nm03-Height": "64", "X-Nm03-Width": "60"})
+            b = pad_to_canvas([vol[2]], (64, 64), device="cpu")
+            want = process_slice(b.pixels[0], b.dims[0], PipelineConfig(canvas=64, min_dim=32),
+                                 device="cpu")["mask"][:64, :60].numpy()
+            assert status == 200, (sl, job.errors())
+            assert sl["mask_pixels"] == int(np.count_nonzero(want)) > 0
+            assert sl["mask_sha256"] == hashlib.sha256(
+                np.ascontiguousarray(want).tobytes()).hexdigest()
+            assert job.procs[0].poll() is None  # rank 0 lives
+            job.procs[1].kill()
+            job.procs[1].wait(timeout=30)
             rcs = job.stop()
             assert rcs[0] == 0 and rcs[1] == -signal.SIGKILL, job.errors()
         finally:

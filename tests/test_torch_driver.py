@@ -149,7 +149,8 @@ class TestAgainstJax:
         assert rec["summary"]["slices_ok"] == 8
         assert rec["backend"] == "cpu" and rec["backend_degraded"] is False
         assert rec["jpeg_encoder"] == "PIL"
-        assert rec["kernel_launches"] == {"fused": 0, "grow": 0, "median": 0}
+        assert rec["kernel_launches"] == {"fused": 0, "grow": 0, "median": 0,
+                                          "median_select": 0, "grow_global": 0}
         assert rec["ingest"]["counts"]["yielded"] > 0
 
     def test_python_decode_path_is_identical(self, jax_runs, cohort, tmp_path):

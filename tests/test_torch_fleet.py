@@ -28,6 +28,7 @@ import json
 import os
 import signal
 import socket
+import struct
 import subprocess
 import sys
 import threading
@@ -1436,6 +1437,103 @@ class TestRollingRestart:
             extra = ["--compile-cache-dir", cache_dir] if cache_dir else []
             assert launched == [published + extra]
         finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait(timeout=10)
+
+    @pytest.mark.parametrize("case", ["held_then_released", "held_throughout", "exits"])
+    def test_a_relaunch_on_a_held_port_retries_or_fails_at_once(self, tmp_path, case):
+        """A bound, connected client socket holds the replica's port when
+        the relaunch binds (what a connect() that took the freed port as its
+        source port does): the relaunched server exits with
+        ADDRESS_IN_USE_EXIT, and the walk relaunches until the holder closes
+        (or fails with the bind error at the warm deadline). A relaunch that
+        exits for another reason fails at once with its exit code. None of
+        them waits out warm_timeout_s past its deadline."""
+        from nm03_capstone_project_tpu_torch.fleet import manager
+
+        # the dummy lets each client close first and then resets the
+        # connection, so that no TIME_WAIT of its own holds the port after it
+        # exits, and exits as nm03-serve does on a held port
+        script = tmp_path / "dummy.py"
+        script.write_text(_DUMMY.replace(
+            'srv = HTTPServer(("127.0.0.1", port), H)',
+            'import socket, struct\n'
+            'def _handle(self):\n'
+            '    BaseHTTPRequestHandler.handle(self)\n'
+            '    self.connection.settimeout(5)\n'
+            '    try:\n'
+            '        self.rfile.read()\n'
+            '    except OSError:\n'
+            '        pass\n'
+            '    self.connection.setsockopt(socket.SOL_SOCKET, socket.SO_LINGER,\n'
+            '                               struct.pack("ii", 1, 0))\n'
+            'H.handle = _handle\n'
+            'def _drain(*a):  # after the request in hand, whose client closes first\n'
+            '    import threading\n'
+            '    threading.Thread(target=srv.shutdown).start()\n'
+            'try:\n'
+            '    srv = HTTPServer(("127.0.0.1", port), H)\n'
+            'except OSError as e:\n'
+            '    print(f"nm03-serve: {e}", file=sys.stderr)\n'
+            f'    sys.exit({manager.ADDRESS_IN_USE_EXIT} if e.errno == 98 else 1)').replace(
+            "signal.signal(signal.SIGTERM, lambda *a: sys.exit(0))",
+            "signal.signal(signal.SIGTERM, _drain)").replace(
+            "srv.serve_forever()", "srv.serve_forever()\nsrv.server_close()"))
+        (port,) = _free_ports(1)
+        procs = [subprocess.Popen([sys.executable, str(script), str(port), "1"])]
+        listener = socket.socket()
+        listener.bind(("127.0.0.1", 0))
+        listener.listen(4)
+        holder = []
+
+        def spawn(argv, **kw):
+            if not holder:  # the first relaunch finds its port held
+                s = socket.socket()
+                # closed with a reset: no TIME_WAIT of the holder's own after it
+                s.setsockopt(socket.SOL_SOCKET, socket.SO_LINGER, struct.pack("ii", 1, 0))
+                s.bind(("127.0.0.1", port))
+                s.connect(listener.getsockname())
+                holder.append(s)
+                if case == "held_then_released":
+                    threading.Timer(1.5, s.close).start()
+            if case == "exits":
+                argv = [sys.executable, "-c", "import sys; sys.exit(3)"]
+            kw.pop("stdout", None)
+            kw.pop("stderr", None)
+            kw.pop("start_new_session", None)
+            procs.append(subprocess.Popen(argv, **kw))
+            return procs[-1]
+
+        warm = 600.0 if case != "held_throughout" else 4.0
+        said = []
+        try:
+            assert _wait_http(f"http://127.0.0.1:{port}/readyz")
+            t0 = time.monotonic()
+            if case == "held_then_released":
+                report = manager.rolling_restart(
+                    [f"127.0.0.1:{port}"], drain_timeout_s=30, warm_timeout_s=warm,
+                    poll_s=0.05, spawn=spawn, emit=said.append)
+                entry = report["replicas"][0]
+                assert report["ok"] and entry["relaunch_attempts"] >= 2
+                assert entry["new_id"].startswith("gen2-")
+                assert any("EADDRINUSE" in m and f"local :{port}" in m for m in said), said
+            else:
+                with pytest.raises(manager.RestartError) as err:
+                    manager.rolling_restart(
+                        [f"127.0.0.1:{port}"], drain_timeout_s=30, warm_timeout_s=warm,
+                        poll_s=0.05, spawn=spawn, emit=said.append)
+                if case == "exits":
+                    assert "exited with code 3" in str(err.value)
+                    assert err.value.report["replicas"][0]["relaunch_attempts"] == 1
+                else:
+                    assert "EADDRINUSE" in str(err.value) and f"local :{port}" in str(err.value)
+            assert time.monotonic() - t0 < min(warm, 60.0) + 5
+        finally:
+            for s in holder:
+                s.close()
+            listener.close()
             for p in procs:
                 if p.poll() is None:
                     p.kill()

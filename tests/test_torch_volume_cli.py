@@ -109,7 +109,8 @@ class TestAgainstJax:
         assert rec["grow_truncated_patients"] == want["grow_truncated_patients"]
         assert rec["mode"] == "volume" and rec["z_sharded"] is False
         assert rec["backend_requested"] == rec["backend_actual"] == "cpu"
-        assert rec["kernel_launches"] == {"fused": 0, "grow": 0, "median": 0}
+        assert rec["kernel_launches"] == {"fused": 0, "grow": 0, "median": 0,
+                                          "median_select": 0, "grow_global": 0}
         # the run's metrics snapshot, as the JAX driver's results JSON carries it
         assert rec["metrics"]["schema"] == want["metrics"]["schema"] == "nm03.metrics.v1"
         assert {k.split("/")[0] for k in rec["timings_s"]} == {"load", "compute", "export"}

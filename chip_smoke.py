@@ -416,6 +416,9 @@ ENVELOPE_BATCH = (70000, 16, 16)  # more slices than the median grid's z dimensi
 ENVELOPE_TAPS = 33
 ENVELOPE_CANVASES = ((2304, 2304), (3072, 3072), (4096, 4096), (1024, 4096))
 ENVELOPE_PIPELINE = (3072, 17)  # canvas and median window of process_batch, 2 slices
+ENVELOPE_LIMIT = (2, 256, 256)  # the select kernel at MAX_SELECT_WINDOW
+ENVELOPE_STREAMED = 2  # the 4096 x 4096 grow case upsampled this many times a side:
+# past the global route's resident tiles (8192 x 8192 x 2)
 REPEATS = 20
 PROFILE_TRIES = 3  # profiler windows for one device time before CUDA events
 PROFILE_MARGIN_S = 0.05  # a device-time window open this long around its calls
@@ -4112,9 +4115,12 @@ def compile_cache_phase(tmp: Path, driver_out: dict, smi: str, kernels: dict, re
 
 
 def select_ops(x, k: int) -> float:
-    """Operations the select kernel runs on ``x`` at window k: per output
-    the k*k-sample scan for its extreme keys and first NaN (3 a sample),
-    then k*k compares and adds for each bisection step, one a bit from the
+    """Operations the select kernel's first design (a bisection on the
+    key's bits) ran on ``x`` at window k, kept as ``first_design_bound_ms``
+    beside the new design's floor, so that old and new times share one
+    yardstick: per output the
+    k*k-sample scan for its extreme keys and first NaN (3 a sample), then
+    k*k compares and adds for each bisection step, one a bit from the
     highest where the window's least and greatest keys differ (none for a
     window of one value). Counted on the card from this input's windows."""
     import torch.nn.functional as F
@@ -4132,6 +4138,142 @@ def select_ops(x, k: int) -> float:
     steps = torch.where(diff > 0, torch.floor(torch.log2(diff.clamp(min=1))) + 1,
                         torch.zeros_like(diff))
     return float(3 * k * k * x.numel() + 2 * k * k * steps.sum())
+
+
+def _windows(x, k: int, b: int):
+    """Slice b's k x k clamp-to-edge windows, (H W, k*k), row-major."""
+    import torch.nn.functional as F
+
+    r = k // 2
+    xp = F.pad(x[b][None, None], (r, r, r, r), mode="replicate")
+    return F.unfold(xp, k)[0].t().contiguous()
+
+
+def select_design_ops(x, k: int) -> dict:
+    """Operations the select kernel (``csrc/median.cu``) runs on ``x`` at
+    window k, from this input's windows, and its passes.
+
+    Per output: the sort of the column segments, shared by a CTA's 8 x 32
+    outputs (each key of the staged (8 + k - 1) x (32 + k - 1) tile
+    compared with the k keys of its first segment, then two a further
+    segment; a compare and an add each), the extreme keys (2 k), and per
+    pass of the bisection, for each of the k segments, ceil(log2(k + 1))
+    probes (a compare and a select) and the sum, least and greatest (3).
+    The passes run the kernel's rule on each window's sorted keys: l =
+    least key, u = greatest + 1; cand = l + (u - l) / 2; below = keys <
+    cand; l = the least key >= cand if below <= k*k/2, else u = the
+    greatest key < cand, + 1; until u - l = 1. A NaN window runs none.
+    ``warp_passes`` is the sum over warps (32 outputs of a row) of their
+    slowest lane's passes, times 32: what the warps issue."""
+    rank, lv = (k * k) // 2, k.bit_length()
+    passes, warp, outputs = 0.0, 0.0, 0
+    for b in range(x.shape[0]):
+        w = _windows(x, k, b).view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+        w = torch.where(w >= 0x80000000, (~w) & 0xFFFFFFFF, w | 0x80000000)
+        w = torch.sort(w, dim=1).values
+        lo, hi = w[:, 0], w[:, -1]
+        nan = (lo < 0x007FFFFF) | (hi > 0xFF800000)
+        l, u = lo.clone(), hi + 1
+        n = torch.zeros_like(lo)
+        run = (u - l > 1) & ~nan
+        while bool(run.any()):
+            cand = l + (u - l) // 2
+            below = torch.searchsorted(w, cand[:, None]).squeeze(1)
+            succ = w.gather(1, below.clamp(max=k * k - 1)[:, None]).squeeze(1)
+            pred = w.gather(1, (below - 1).clamp(min=0)[:, None]).squeeze(1)
+            up = below <= rank
+            l = torch.where(run & up, succ, l)
+            u = torch.where(run & ~up, pred + 1, u)
+            n += run.long()
+            run = run & (u - l > 1)
+        h, wd = x.shape[-2:]
+        rows = torch.nn.functional.pad(n.view(h, wd), (0, (-wd) % 32)).view(h, -1, 32)
+        passes += float(n.sum())
+        warp += float(rows.max(dim=2).values.sum()) * 32
+        outputs += n.numel()
+    ih, iw = 8 + k - 1, 32 + k - 1
+    sort = 2 * iw * (ih * k + 2 * (8 * k - ih)) / (8 * 32)
+    per_pass = k * (2 * lv + 3)
+    return {"ops": outputs * (sort + 2 * k) + passes * per_pass,
+            "passes_per_output": passes / outputs, "warp_passes_per_output": warp / outputs}
+
+
+def median_library_ms(x, k: int, repeats: int = 5) -> float:
+    """``torch.median(dim=-1)`` over the replicate-padded, unfolded k x k
+    windows of every slice of ``x``: the one PyTorch call that computes
+    the median filter (a yardstick; the port never calls it). The
+    unfolding is set-up, outside the time."""
+    w = torch.cat([_windows(x, k, b) for b in range(x.shape[0])])
+    ms = cuda_ms(lambda: torch.median(w, dim=-1), repeats=repeats)
+    del w
+    return ms
+
+
+def grow_design_ops(img, seeds, valid, low, high, block_iters, max_iters, tiles) -> float:
+    """Word-steps the global grow kernel (``csrc/grow.cu``) computes on this
+    input, times 9 operations a word (the first design's count stepped
+    every word at every step): per super-step, each
+    tile of a running slice that is not quiet (its popcount or a
+    neighbour's changed in the last super-step) steps its held words, at
+    step t of s the held rows within s - t of its own. The region follows
+    the plain schedule, connectivity 4 (the pipeline's)."""
+    import torch.nn.functional as F
+    from nm03_capstone_project_tpu_torch.ops.morphology import dilate
+    from nm03_capstone_project_tpu_torch.ops.region_growing import grow_band
+
+    b, h, w = img.shape
+    ww = (w + 31) // 32
+    tr, tw, halo = tiles.rows, tiles.words, tiles.halo
+    ty, tx = -(-h // tr), -(-ww // tw)
+    band = grow_band(img, low, high, valid)
+    region = seeds.bool() & band
+
+    def tile_counts(r):
+        pad = F.pad(r.to(torch.int32), (0, tx * tw * 32 - w, 0, ty * tr - h))
+        return pad.view(b, ty, tr, tx, tw * 32).sum(dim=(2, 4))
+
+    def cost(s):  # word-steps of one tile's super-step of s steps, (ty, tx)
+        out = torch.zeros((ty, tx), dtype=torch.float64)
+        for yi in range(ty):
+            r0, r1 = yi * tr, min(h, yi * tr + tr)
+            hr0, hr1 = max(0, r0 - halo), min(h, r1 + halo)
+            up, nown = r0 - hr0, r1 - r0
+            rows = sum(min(hr1 - hr0, up + nown + s - t) - max(0, up - (s - t))
+                       for t in range(1, s + 1))
+            for xi in range(tx):
+                c0, c1 = xi * tw, min(ww, xi * tw + tw)
+                out[yi, xi] = rows * (min(ww, c1 + 1) - max(0, c0 - 1))
+        return out.to(img.device)
+
+    costs = {}
+    counts = tile_counts(region)
+    changed = torch.ones((b, ty, tx), dtype=torch.bool, device=img.device)
+    act = torch.ones(b, dtype=torch.bool, device=img.device)
+    prev = region.sum(dim=(-2, -1))
+    total, j = 0.0, 0
+    while True:
+        done = 0
+        while done < block_iters:
+            s = min(halo, block_iters - done)
+            if s not in costs:
+                costs[s] = cost(s)
+            near = F.max_pool2d(changed.float()[:, None], 3, stride=1, padding=1)[:, 0] > 0
+            stepped = near & act[:, None, None]
+            total += float((stepped * costs[s]).sum())
+            nxt = region
+            for _ in range(s):
+                nxt = dilate(nxt, 3, "cross") & band
+            region = torch.where(act[:, None, None], nxt, region)
+            new = tile_counts(region)
+            changed = (new != counts) & stepped
+            counts = new
+            done += s
+        count = region.sum(dim=(-2, -1))
+        act = act & (count != prev) & ((j + 1) * block_iters < max_iters)
+        if not bool(act.any()):
+            return 9.0 * total
+        prev = count
+        j += 1
 
 
 def envelope_phase(median_x, fused_x, pre_kw: dict, smi: str, kernels: dict, reset):
@@ -4206,26 +4348,55 @@ def envelope_phase(median_x, fused_x, pre_kw: dict, smi: str, kernels: dict, res
     pair = torch.tensor([-0.0, 0.0], device=dev), torch.tensor([0.0, -0.0], device=dev)
     zeros["torch_minimum_signbit"] = torch.signbit(torch.minimum(*pair)).tolist()
     zeros["torch_maximum_signbit"] = torch.signbit(torch.maximum(*pair)).tolist()
+    # the limit, MAX_SELECT_WINDOW, on a smaller batch
+    lim_x = (torch.rand(ENVELOPE_LIMIT, generator=gen) * 4000 + 0.68).to(dev)
+    klim = hm.MAX_SELECT_WINDOW
+    before = sel.launches
+    got = hm.vector_median_filter_kernel(lim_x, klim)
+    # the plain median at the limit takes seconds a call: this one call,
+    # timed, is both the check's and the row's plain_ms
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    want = vector_median_filter(lim_x, klim)
+    e1.record()
+    e1.synchronize()
+    lim_plain_ms = e0.elapsed_time(e1)
+    require(same_bits(got, want), f"median select != plain at the limit, k={klim}")
+    require(sel.launches == before + 1, f"k={klim}: not one select launch")
+    cases.append(f"limit:k{klim}")
+    del got, want
     k = ENVELOPE_WINDOWS[0]
     timing = {}
-    for kk in ENVELOPE_WINDOWS:
-        n = median_x.numel()
-        ops = select_ops(median_x, kk)
-        b_ms, b_by = bound(8 * n, {"minmax_bitwise": ops})
+    for kk, x in [(kk, median_x) for kk in ENVELOPE_WINDOWS] + [(klim, lim_x)]:
+        n = x.numel()
+        first = select_ops(x, kk)
+        design = select_design_ops(x, kk)
+        # the floor: the bytes or this design's operations on this data;
+        # the first design's count beside it, the yardstick of its times
+        b_ms, b_by = bound(8 * n, {"minmax_bitwise": design["ops"]})
+        first_ms = bound(8 * n, {"minmax_bitwise": first})[0]
+        dev_ms, dev_by, dev_missed = device_ms(lambda: hm.vector_median_filter_kernel(x, kk),
+                                               "select_kernel", sel, repeats=5)
         timing[f"k{kk}"] = {
-            "ms": cuda_ms(lambda: hm.vector_median_filter_kernel(median_x, kk), repeats=5),
-            "plain_ms": cuda_ms(lambda: vector_median_filter(median_x, kk), repeats=2),
-            "ops_per_output": ops / n, "bound_ms": b_ms, "bound_by": b_by}
-    dev_ms, dev_by, dev_missed = device_ms(lambda: hm.vector_median_filter_kernel(median_x, k),
-                                           "select_kernel", sel, repeats=5)
+            "shape": list(x.shape), "device_ms": dev_ms, "device_ms_by": dev_by,
+            "profiler_missed": dev_missed,
+            "ms": cuda_ms(lambda: hm.vector_median_filter_kernel(x, kk), repeats=5),
+            "plain_ms": (lim_plain_ms if kk == klim else
+                         cuda_ms(lambda: vector_median_filter(x, kk), repeats=2)),
+            "library_ms": median_library_ms(x, kk, repeats=3),
+            "ops_per_output": design["ops"] / n, "bound_ms": b_ms, "bound_by": b_by,
+            "first_design_ops_per_output": first / n, "first_design_bound_ms": first_ms,
+            "passes_per_output": design["passes_per_output"],
+            "warp_passes_per_output": design["warp_passes_per_output"]}
+    del lim_x
     t = timing[f"k{k}"]
-    results["median_select"] = dict(max_abs_err=0.0, ms=t["ms"], device_ms=dev_ms,
-                                    device_ms_by=dev_by, plain_ms=t["plain_ms"],
-                                    bound_ms=t["bound_ms"], bound_by=t["bound_by"])
+    results["median_select"] = dict(max_abs_err=0.0, ms=t["ms"], device_ms=t["device_ms"],
+                                    device_ms_by=t["device_ms_by"], plain_ms=t["plain_ms"],
+                                    bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+                                    first_design_bound_ms=t["first_design_bound_ms"],
+                                    library_ms=t["library_ms"])
     line["median_select"] = {"bitwise": True, "cases": cases, "batch_split_launches": split,
                              "signed_zeros_and_nan": zeros, "timing": timing,
-                             "device_ms_k%d" % k: dev_ms, "device_ms_by": dev_by,
-                             "profiler_missed": dev_missed,
                              "limit": hm.MAX_SELECT_WINDOW}
 
     # -- the fused preprocess past its plans and taps: the unfused route ----
@@ -4248,19 +4419,26 @@ def envelope_phase(median_x, fused_x, pre_kw: dict, smi: str, kernels: dict, res
     kw = dict(pre_kw, median_window=ENVELOPE_WINDOWS[0])
     n = fused_x.numel()
     ks = kw["sharpen_kernel"]
-    ops = {"minmax_bitwise": select_ops(fused_x, ENVELOPE_WINDOWS[0]) + 2 * n,
-           "add_mul": (3 + 2 * (2 * ks - 1) + 3) * n}
-    b_ms, b_by = bound(8 * n, ops)
+    add_mul = (3 + 2 * (2 * ks - 1) + 3) * n
+    f_bound = bound(8 * n, {"minmax_bitwise": select_ops(fused_x, ENVELOPE_WINDOWS[0]) + 2 * n,
+                            "add_mul": add_mul})[0]
+    med_in = clip_intensity(normalize(fused_x, kw["norm_low"], kw["norm_high"], kw["norm_min"],
+                                      kw["norm_max"]), kw["clip_low"], kw["clip_high"])
+    b_ms, b_by = bound(8 * n, {
+        "minmax_bitwise": select_design_ops(med_in, ENVELOPE_WINDOWS[0])["ops"] + 2 * n,
+        "add_mul": add_mul})
+    del med_in
     f_ms = cuda_ms(lambda: hm.fused_preprocess_kernel(fused_x, **kw), repeats=5)
     f_plain = cuda_ms(lambda: hm._fused_preprocess_plain(fused_x, **kw), repeats=2)
     f_dev, f_by, f_missed = device_ms(lambda: hm.fused_preprocess_kernel(fused_x, **kw),
                                       "select_kernel", sel, repeats=5)
     results["fused_unfused"] = dict(max_abs_err=0.0, ms=f_ms, device_ms=f_dev,
                                     device_ms_by=f_by, plain_ms=f_plain, bound_ms=b_ms,
-                                    bound_by=b_by)
+                                    bound_by=b_by, first_design_bound_ms=f_bound)
     line["fused_unfused"] = {"bitwise": True, "cases": cases, "ms": f_ms, "plain_ms": f_plain,
                              "median_device_ms": f_dev, "device_ms_by": f_by,
-                             "profiler_missed": f_missed, "bound_ms": b_ms, "bound_by": b_by}
+                             "profiler_missed": f_missed, "bound_ms": b_ms, "bound_by": b_by,
+                             "first_design_bound_ms": f_bound}
 
     # -- grow past one cluster: the global route ------------------------------
     def phantoms(h: int, w: int, seed: int):
@@ -4330,16 +4508,45 @@ def envelope_phase(median_x, fused_x, pre_kw: dict, smi: str, kernels: dict, res
     b, h, w = img.shape
     words = h * ((w + 31) // 32)
     steps = steps_by["canvas4096x4096"]
-    g_bound = bound(b * h * w * (4 + 1 + 1 + 1) + 8 * b,
-                    {"minmax_bitwise": float(sum(steps)) * words * 9})
+    g_bytes = b * h * w * (4 + 1 + 1 + 1) + 8 * b
+    g_first = bound(g_bytes, {"minmax_bitwise": float(sum(steps)) * words * 9})[0]
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    g_tiles = hg.global_tiles(b, h, w, cfg.grow_block_iters, n_sm)
+    g_bound = bound(g_bytes, {"minmax_bitwise": grow_design_ops(
+        img, seeds, valid, cfg.grow_low, cfg.grow_high, cfg.grow_block_iters,
+        cfg.grow_max_iters, g_tiles)})
+    # past the resident tiles: the 4096 case upsampled, every CTA walking
+    # two tiles a super-step
+    up = ENVELOPE_STREAMED
+    big = [t.repeat_interleave(up, dim=-2).repeat_interleave(up, dim=-1)
+           for t in (img, seeds, valid)]
+    s_tiles = hg.global_tiles(b, h * up, w * up, cfg.grow_block_iters, n_sm)
+    require(hg.grow_launch_shape(h * up, w * up).route == "global" and not s_tiles.resident,
+            f"{h * up}x{w * up} x{b}: not past the resident tiles ({s_tiles})")
+    skw = dict(gkw, valid=big[2], return_steps=True)
+    before = gg.launches
+    got = hg.region_grow_kernel(big[0], big[1], cfg.grow_low, cfg.grow_high, **skw)
+    want = region_grow(big[0], big[1], cfg.grow_low, cfg.grow_high, **skw)
+    torch.cuda.synchronize()
+    require(gg.launches == before + 1, "streamed grow: not one global launch")
+    for what, a, bb in zip(("mask", "converged", "steps"), got, want):
+        require(torch.equal(a, bb), f"grow global {what} != plain ({h * up}x{w * up} x{b})")
+    streamed = {"shape": [b, h * up, w * up], "tiles": g_tiles._asdict() | {"resident": g_tiles.resident},
+                "streamed_tiles": s_tiles._asdict() | {"resident": s_tiles.resident},
+                "steps": got[2].tolist(), "bitwise": True,
+                "ms": cuda_ms(lambda: hg.region_grow_kernel(
+                    big[0], big[1], cfg.grow_low, cfg.grow_high, **skw), repeats=3)}
+    del got, want, big
     results["grow_global"] = dict(max_abs_err=0.0, ms=g_ms, device_ms=g_dev, device_ms_by=g_by,
-                                  plain_ms=g_plain, bound_ms=g_bound[0], bound_by=g_bound[1])
+                                  plain_ms=g_plain, bound_ms=g_bound[0], bound_by=g_bound[1],
+                                  first_design_bound_ms=g_first)
     line["grow_global"] = {"bitwise": True, "cases": cases, "jump_at_3072": jump,
                            "timed": "4096x4096 x2", "steps": steps, "ms": g_ms,
                            "device_ms": g_dev, "device_ms_by": g_by,
                            "profiler_missed": g_missed, "plain_ms": g_plain,
                            "bound_ms": g_bound[0], "bound_by": g_bound[1],
-                           "limit": hg.GLOBAL_MAX_SIDE}
+                           "first_design_bound_ms": g_first,
+                           "streamed": streamed, "limit": hg.GLOBAL_MAX_SIDE}
     del grow_cases, small, img, seeds, valid
 
     # -- process_batch at canvas 3072, k = 17: the main path of the routes ---
@@ -4492,13 +4699,15 @@ def main() -> int:
     dev_ms, dev_by, dev_missed = device_ms(lambda: hm.vector_median_filter_kernel(x, 7),
                                            "band_kernel", hm.vector_median_filter_kernel)
     plain_ms = cuda_ms(lambda: vector_median_filter(x, 7), repeats=5)
+    library_ms = median_library_ms(x, 7)
     n = x.numel()
     b_ms, b_by = bound(8 * n, {"minmax_bitwise": median_ops * n})
     results["median"] = dict(max_abs_err=err, ms=ms, device_ms=dev_ms, device_ms_by=dev_by,
-                             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+                             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                             library_ms=library_ms)
     emit({"phase": "median", "bitwise": True, "cases": cases, "ms": ms, "device_ms": dev_ms,
           "device_ms_by": dev_by, "profiler_missed": dev_missed,
-          "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+          "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
           "launches": hm.vector_median_filter_kernel.launches})
 
     # -- 2b. fused preprocess ------------------------------------------------
@@ -4780,7 +4989,9 @@ def main() -> int:
             "ms": r["ms"], "device_ms": r["device_ms"], "device_ms_by": r["device_ms_by"],
             "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": None,
+            "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
+            **({"first_design_bound_ms": r["first_design_bound_ms"]}
+               if "first_design_bound_ms" in r else {}),
         })
     emit({"kernels": rows})
     print(nvidia_smi(), flush=True)

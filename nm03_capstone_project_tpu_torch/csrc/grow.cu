@@ -52,22 +52,60 @@
 // Slices past one cluster (nm03_region_grow_global, the wrapper's "global"
 // route): where a slice's share of rows does not fit the shared memory of
 // 8 CTAs (past about 2160 x 2048), the band and the two Jacobi region
-// buffers stay bit-packed in global memory, which the wrapper allocates:
-// 2 MiB each for a 4096 x 4096 slice, resident in the H100's 50 MB L2.
-// One persistent cooperative grid (as many CTAs as fit the SMs at once)
-// walks every word of every slice a step, reading the region through L2
-// (ld.global.cg: another SM wrote it the step before), with a grid-wide
-// barrier (cooperative_groups grid sync) between steps. After each block
-// of block_iters steps the popcounts go to per-slice counters by atomics
-// (three in rotation: this block's, the last one's, and the one being
-// cleared), one thread takes each slice's loop test as the cluster kernel
-// does (block j + 1 runs while count_j != count_{j-1} and (j + 1) *
-// block_iters < max_iters) and writes steps and converged for a slice
-// that stops; a stopped slice's words are copied, not stepped, so its
-// region stays what its own loop left. The mask, converged and steps are
-// the plain region_grow's bit for bit, as for the cluster kernel. Bound:
-// bytes (the image, seeds and valid read once, the mask written once);
-// the time goes to the steps' L2 traffic and grid barriers.
+// buffers stay bit-packed in global memory, which the wrapper allocates
+// (2 MiB each for a 4096 x 4096 slice), and the steps run in shared memory
+// by tiles, with the same temporal blocking as the cluster kernel.
+//
+// * Tiles: the wrapper cuts each slice into tiles of `tr` own rows and `tw`
+//   own words (a slice wide where that is at most 128 words, else at most
+//   126), as many as the SMs where they fit, and picks the shared row
+//   pitch and the grid (global_tiles in ops/hopper_region_growing.py owns
+//   the layout; nm03_region_grow_global only checks it). A CTA of 512
+//   threads holds its tile
+//   with `halo` = min(block_iters, 32, tr) rows of each neighbour and one
+//   word each side: a step moves a pixel one place, so the own words stay
+//   exact for `halo` steps (32 for the side words). A super-step loads the
+//   held tile, runs s = min(halo, block_iters - done) Jacobi steps between
+//   its two shared buffers (step t computes only the rows within s - t of
+//   the own ones) and writes the own words to the other global buffer:
+//   one grid barrier per super-step of up to block_iters steps.
+// * A step: the held tile sits in a border of zero words, so no word
+//   tests its edges. A thread walks a strip of rows down a pair of word
+//   columns, keeping the rows above and below in registers: a 64-bit and
+//   two 32-bit shared loads of the incoming row, a 64-bit load of the band
+//   and a 64-bit store for two words. 512 threads a CTA leave it 128
+//   registers (at 1024 the step spills).
+// * Resident tiles: where every tile has a CTA of its own (4096 x 4096 x 2
+//   on 132 SMs: 132 tiles of 63 rows, 150 KB each), the band is loaded
+//   once and the own words stay in shared memory for the whole fixpoint:
+//   a super-step loads only the halo rows and words, the other CTAs' own
+//   words of the last super-step. Past that (8192 x 8192 x 2, 16384 x
+//   16384) the CTAs walk the tiles, whole rounds of them, and load each
+//   whole every super-step, from L2 or device memory.
+// * Quiet tiles: growth is monotone, so a tile whose popcount and its
+//   eight neighbours' did not change in the last super-step cannot change
+//   in the next (every pixel a super-step can reach lies in them) and is
+//   not stepped. The global buffer it would write still holds its words
+//   from the super-step before (the same words, or the tile was quiet
+//   then too), so nothing is copied either: only the front moves.
+// * The loop test: each tile's popcount (kept per tile, a quiet tile's
+//   unchanged) goes to its slice's counter at a block's end (four
+//   counters in rotation: this block's, the last one's, and two cleared
+//   ahead). After the block's last barrier every CTA takes every slice's
+//   test alike (block j + 1 runs while count_j != count_{j-1} and (j + 1)
+//   * block_iters < max_iters) into a bitmap of running slices in its
+//   shared memory, so the test needs no barrier of its own; CTA 0 writes
+//   steps, converged and the buffer of a slice that stops, whose tiles are
+//   never stepped again. The mask, converged and steps are the plain
+//   region_grow's bit for bit, as for the cluster kernel.
+//
+// Bound: bytes (the image, seeds and valid read once, the mask written
+// once; chip_smoke.py also counts 9 bit operations a word a step, and the
+// words this design steps). The time goes to a busy tile's steps (about
+// 1.1 us a step on an H100 at 4096 x 4096: the shared loads and stores,
+// ten warp-wide accesses a row of 64 words), far less to its halo load and
+// write (about 4 us a super-step) and the grid barrier (about 1 us);
+// scripts/torch_kernel_probe.py stamps the phases.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -349,165 +387,303 @@ bool aligned(const void* p, uintptr_t bytes) {
   return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
 }
 
-// -- slices past one cluster: the region in global memory ---------------------
+// -- slices past one cluster: tiles stepped in shared memory ---------------------
 
 constexpr int GLOBAL_THREADS = 512;
+constexpr int GLOBAL_MAX_HALO = 32;  // a step moves a pixel at most one place: one word
+constexpr int GLOBAL_RED = 40;       // ints of reduction scratch after the active-slice bits
 
-// A thread's walk over the words of the whole batch, word w = slice s, row
-// y, word i, advanced by the grid's stride without dividing.
-struct WordWalk {
-  int64_t w;
-  int s, y, i;
-  __device__ WordWalk(int64_t w0, int H, int WW) : w(w0) {
-    const int64_t per = (int64_t)H * WW;
-    s = (int)(w0 / per);
-    const int rem = (int)(w0 - (int64_t)s * per);
-    y = rem / WW;
-    i = rem - y * WW;
-  }
-  __device__ void advance(int64_t stride, int ds, int dy, int di, int H, int WW) {
-    w += stride;
-    s += ds;
-    y += dy;
-    i += di;
-    if (i >= WW) {
-      i -= WW;
-      ++y;
-    }
-    if (y >= H) {
-      y -= H;
-      ++s;
-    }
-  }
+// The tiling, chosen by the wrapper (ops/hopper_region_growing.py,
+// global_tiles) and checked by nm03_region_grow_global.
+struct GlobalTiles {
+  int tr, tw;      // own rows and own words of a tile (the last row and column of
+                   // tiles may be smaller)
+  int ty, tx;      // tiles down and across a slice
+  int halo;        // rows held beyond the own ones on each side, 1..GLOBAL_MAX_HALO
+  int pitch;       // words of a row in shared memory: the held words at most
+                   // (min(WW, tw + 2)), rounded up to even, and 4 of border
+  int rows;        // held rows at most: min(H, tr + 2 halo)
+  int resident;    // every tile has a CTA of its own for the whole fixpoint
 };
 
-// The popcount of words of one slice, added to cnt[s]: a warp sums first
-// where its lanes share a slice.
-__device__ __forceinline__ void add_count(int* cnt, int s, int c, bool live) {
-  const unsigned lanes = __ballot_sync(0xffffffffu, live);
-  if (!live) return;
-  const int s0 = __shfl_sync(lanes, s, __ffs(lanes) - 1);
-  const bool same = __all_sync(lanes, s == s0);
-  if (same) {
-    const int total = __reduce_add_sync(lanes, c);
-    if ((threadIdx.x & 31) == __ffs(lanes) - 1 && total) atomicAdd(cnt + s0, total);
-  } else if (c) {
-    atomicAdd(cnt + s, c);
+// Tile t's place: slice s, own rows [r0, r1) and words [c0, c1) of the slice,
+// held rows [hr0, hr1) and words [hc0, hc1).
+struct TilePlace {
+  int s, yi, xi, r0, r1, c0, c1, hr0, hr1, hc0, hc1;
+};
+
+__device__ __forceinline__ TilePlace place_of(int t, const GlobalTiles& g, int H, int WW) {
+  TilePlace p;
+  const int per = g.ty * g.tx;
+  p.s = t / per;
+  const int rem = t - p.s * per;
+  p.yi = rem / g.tx;
+  p.xi = rem - p.yi * g.tx;
+  p.r0 = p.yi * g.tr;
+  p.r1 = min(H, p.r0 + g.tr);
+  p.c0 = p.xi * g.tw;
+  p.c1 = min(WW, p.c0 + g.tw);
+  p.hr0 = max(0, p.r0 - g.halo);
+  p.hr1 = min(H, p.r1 + g.halo);
+  p.hc0 = max(0, p.c0 - 1);
+  p.hc1 = min(WW, p.c1 + 1);
+  return p;
+}
+
+// The sum of c over the CTA, returned to every thread.
+__device__ __forceinline__ int block_sum(int c, int* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int o = 16; o > 0; o >>= 1) c += __shfl_down_sync(0xffffffffu, c, o);
+  if (lane == 0) red[warp] = c;
+  __syncthreads();
+  if (warp == 0) {
+    c = lane < (int)(blockDim.x >> 5) ? red[lane] : 0;
+    for (int o = 16; o > 0; o >>= 1) c += __shfl_down_sync(0xffffffffu, c, o);
+    if (lane == 0) red[32] = c;
+  }
+  __syncthreads();
+  return red[32];
+}
+
+// Whether tile p or one of its eight neighbours of the slice changed its
+// popcount in the last super-step (chg: that super-step's flags), to every
+// thread: threads 0..8 load one flag each, so the nine loads overlap.
+__device__ __forceinline__ int tile_busy(const int* chg, const TilePlace& p, const GlobalTiles& g) {
+  int flag = 0;
+  if (threadIdx.x < 9) {
+    const int y = p.yi + (int)threadIdx.x / 3 - 1, x = p.xi + (int)threadIdx.x % 3 - 1;
+    if (y >= 0 && y < g.ty && x >= 0 && x < g.tx) {
+      flag = __ldcg(chg + p.s * g.ty * g.tx + y * g.tx + x);
+    }
+  }
+  return __syncthreads_or(flag);
+}
+
+// Rows [y0, y1) of a held tile from global memory (src: held word (0, 0);
+// rows WW words apart) into shared memory, where held word (y, x) sits at
+// (y + 1) pitch + 2 + x; thread (col, strip) copies column col of every
+// strips-th row.
+__device__ __forceinline__ void load_rows(uint32_t* dst, const uint32_t* src, int pitch, int WW,
+                                          int y0, int y1, int col, int strip, int strips) {
+#pragma unroll 4
+  for (int y = y0 + strip; y < y1; y += strips) {
+    dst[(y + 1) * pitch + 2 + col] = __ldcg(src + (size_t)y * WW + col);
   }
 }
 
-// Scratch (int32, zeroed by the wrapper): cnt[3][B] popcounts in rotation,
-// act[B] whether a slice runs the current block, go[1] whether any does.
-__global__ void __launch_bounds__(GLOBAL_THREADS)
+// One Jacobi step of held rows [lo, hi): nxt = (cur dilated) & band. The
+// held tile sits in a border of zero words (a row above and below, two
+// words left, at least one right), so the words beyond it read as 0 with
+// no test. Thread (pair, strip) walks its share of the rows down the two
+// words 2 pair and 2 pair + 1, keeping the rows above and below in
+// registers: a 64-bit load and two 32-bit loads of the incoming row, a
+// 64-bit load of the band and a 64-bit store for two words. A pair's
+// second word past the held ones has band 0, so it stays 0.
+template <bool CONN8>
+__device__ __forceinline__ void step_rows(const uint32_t* __restrict__ cur,
+                                          uint32_t* __restrict__ nxt,
+                                          const uint32_t* __restrict__ band, int pitch, int lo,
+                                          int hi, int pair, int strip, int strips) {
+  const int chunk = (hi - lo + strips - 1) / strips;
+  const int y0 = lo + strip * chunk, y1 = min(hi, y0 + chunk);
+  if (y0 >= y1) return;
+  const int col = 2 + 2 * pair;
+  // held row y's two words c and their horizontal dilations h
+  auto row_at = [&](int y, uint2& c, uint2& h) {
+    const uint32_t* row = cur + (y + 1) * pitch + col;
+    c = *reinterpret_cast<const uint2*>(row);
+    h.x = hdilate(c.x, row[-1], c.y);
+    h.y = hdilate(c.y, c.x, row[2]);
+  };
+  uint2 uc, uh, mc, mh, dc, dh;
+  row_at(y0 - 1, uc, uh);
+  row_at(y0, mc, mh);
+#pragma unroll 4
+  for (int y = y0; y < y1; ++y) {
+    row_at(y + 1, dc, dh);
+    const int o = (y + 1) * pitch + col;
+    const uint2 bd = *reinterpret_cast<const uint2*>(band + o);
+    uint2 gv;
+    gv.x = (mh.x | (CONN8 ? (uh.x | dh.x) : (uc.x | dc.x))) & bd.x;
+    gv.y = (mh.y | (CONN8 ? (uh.y | dh.y) : (uc.y | dc.y))) & bd.y;
+    *reinterpret_cast<uint2*>(nxt + o) = gv;
+    uc = mc;
+    uh = mh;
+    mc = dc;
+    mh = dh;
+  }
+}
+
+// Scratch (int32, zeroed by the wrapper): cnt[4][B] popcounts after each
+// block in rotation, par[B] the buffer of each slice's region when it
+// stopped, pop[tiles] each tile's own popcount, chg[2][tiles] whether it
+// changed in the last two super-steps.
+__global__ void __launch_bounds__(GLOBAL_THREADS, 1)
 grow_global_kernel(const float* __restrict__ image, const uint8_t* __restrict__ seeds,
                    const uint8_t* __restrict__ valid, uint8_t* __restrict__ mask,
                    int32_t* __restrict__ conv, int32_t* __restrict__ steps,
-                   uint32_t* __restrict__ band, uint32_t* __restrict__ buf0,
+                   uint32_t* __restrict__ gband, uint32_t* __restrict__ buf0,
                    uint32_t* __restrict__ buf1, int* __restrict__ scratch, int B, int H, int W,
-                   float low, float high, int conn8, int block_iters, int max_iters, int vec) {
+                   float low, float high, int conn8, int block_iters, int max_iters, int vec,
+                   GlobalTiles g) {
   cg::grid_group grid = cg::this_grid();
   const int WW = (W + 31) >> 5;
-  const int64_t total = (int64_t)B * H * WW;
-  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  const int64_t per = (int64_t)H * WW;
-  const int ds = (int)(stride / per);
-  const int dy = (int)((stride - (int64_t)ds * per) / WW);
-  const int di = (int)(stride - (int64_t)ds * per - (int64_t)dy * WW);
-  int* cnt = scratch;           // cnt[(j mod 3) * B + s]: the count after block j
-  int* act = scratch + 3 * B;   // act[s]
-  int* go = scratch + 4 * B;
+  const int tiles = B * g.ty * g.tx, nbw = (B + 31) >> 5;
+  int* cnt = scratch;  // cnt[(j & 3) * B + s]: the count after block j (block -1: 3)
+  int* par = scratch + 4 * B;
+  int* pop = scratch + 5 * B;
+  int* chg = scratch + 5 * B + tiles;  // chg[(super-step & 1) * tiles + t]
+  extern __shared__ uint32_t sm[];
+  const int hold = (g.rows + 2) * g.pitch;  // a tile with its border of zero words
+  uint32_t* sband = sm;
+  uint32_t* sreg = sm + hold;  // two region buffers, sreg + hold * q
+  uint32_t* act = sm + 3 * hold;  // bit s: slice s runs the current block
+  int* red = reinterpret_cast<int*>(act + nbw);
+  for (int i = threadIdx.x; i < 3 * hold; i += blockDim.x) sm[i] = 0u;
 
-  // pack every word; the seeded region's popcount is the count "after
-  // block -1", in cnt[2]
-  for (WordWalk it(tid, H, WW);; it.advance(stride, ds, dy, di, H, WW)) {
-    const bool live = it.w < total;
+  // pack every tile's own words from the image; the seeded region's
+  // popcount is the count "after block -1"
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const TilePlace p = place_of(t, g, H, WW);
+    const int ncw = p.c1 - p.c0, nw = (p.r1 - p.r0) * ncw;
     int c = 0;
-    if (live) {
-      const int x0 = it.i * 32;
-      const size_t q = ((size_t)it.s * H + it.y) * W + x0;
+    for (int w = threadIdx.x; w < nw; w += blockDim.x) {
+      const int y = p.r0 + w / ncw, i = p.c0 + w % ncw;
+      const size_t gw = ((size_t)p.s * H + y) * WW + i;
       uint32_t bw, sw;
-      pack_word(image, seeds, valid, q, x0, W, low, high, vec, bw, sw);
-      band[it.w] = bw;
-      buf0[it.w] = sw & bw;
-      c = __popc(sw & bw);
+      pack_word(image, seeds, valid, ((size_t)p.s * H + y) * W + i * 32, i * 32, W, low, high,
+                vec, bw, sw);
+      gband[gw] = bw;
+      buf0[gw] = sw & bw;
+      c += __popc(sw & bw);
     }
-    add_count(cnt + 2 * B, live ? it.s : 0, c, live);
-    if (__all_sync(0xffffffffu, !live)) break;
+    c = block_sum(c, red);
+    if (threadIdx.x == 0) {
+      pop[t] = c;
+      if (c) atomicAdd(cnt + 3 * B + p.s, c);
+    }
   }
-  for (int64_t s = tid; s < B; s += stride) act[s] = 1;
+  for (int i = threadIdx.x; i < nbw; i += blockDim.x) {
+    act[i] = (i + 1) * 32 <= B ? 0xffffffffu : (1u << (B & 31)) - 1u;
+  }
   grid.sync();
 
-  int p = 0;  // the current region is in buf0 when p == 0
+  int p = 0;    // the region is in buf0 when p == 0, else in buf1
+  int q = 0;    // the tile's region is in sreg + hold * q
+  int gs = 0;   // super-steps run
+  bool loaded = false;  // a resident tile is in shared memory
   for (int j = 0;; ++j) {
-    for (int t = 0; t < block_iters; ++t) {
+    for (int done = 0; done < block_iters;) {
+      const int s = min(g.halo, block_iters - done);
+      const bool last = done + s == block_iters;
       const uint32_t* cur = p ? buf1 : buf0;
       uint32_t* nxt = p ? buf0 : buf1;
-      for (WordWalk it(tid, H, WW); it.w < total; it.advance(stride, ds, dy, di, H, WW)) {
-        const int64_t w = it.w;
-        const uint32_t c = __ldcg(cur + w);
-        if (!__ldcg(act + it.s)) {  // a stopped slice keeps its region
-          nxt[w] = c;
-          continue;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const TilePlace tp = place_of(t, g, H, WW);
+        if (!((act[tp.s >> 5] >> (tp.s & 31)) & 1u)) continue;  // a stopped slice
+        if (gs == 0 || tile_busy(chg + ((gs - 1) & 1) * tiles, tp, g)) {
+          const int nr = tp.hr1 - tp.hr0, nc = tp.hc1 - tp.hc0;
+          const int up = tp.r0 - tp.hr0, nown = tp.r1 - tp.r0;
+          const int left = tp.c0 - tp.hc0, ncw = tp.c1 - tp.c0;
+          const int strips = blockDim.x / nc;
+          const int col = threadIdx.x % nc, strip = (int)threadIdx.x / nc;
+          const int sstrip = strip < strips ? strip : nr;  // an idle thread: no rows
+          const int npair = (nc + 1) / 2, pstrips = blockDim.x / npair;
+          const int pair = threadIdx.x % npair, pstrip = (int)threadIdx.x / npair;
+          const int spstrip = pstrip < pstrips ? pstrip : nr;
+          const size_t held = ((size_t)tp.s * H + tp.hr0) * WW + tp.hc0;
+          uint32_t* reg = sreg + hold * q;
+          if (!g.resident) {  // another tile's words may lie where this one's border is
+            for (int i = threadIdx.x; i < 3 * hold; i += blockDim.x) sm[i] = 0u;
+            __syncthreads();
+          }
+          if (!g.resident || !loaded) {
+            load_rows(reg, cur + held, g.pitch, WW, 0, nr, col, sstrip, strips);
+            load_rows(sband, gband + held, g.pitch, WW, 0, nr, col, sstrip, strips);
+            loaded = true;
+          } else {  // the own words are this CTA's from the last super-step
+            load_rows(reg, cur + held, g.pitch, WW, 0, up, col, sstrip, strips);
+            load_rows(reg, cur + held, g.pitch, WW, up + nown, nr, col, sstrip, strips);
+            if (col < left || col >= left + ncw) {
+              load_rows(reg, cur + held, g.pitch, WW, up, up + nown, col, sstrip, strips);
+            }
+          }
+          __syncthreads();
+          // s steps; step t2 computes the rows that still reach the own ones
+          for (int t2 = 1; t2 <= s; ++t2) {
+            const int lo = max(0, up - (s - t2)), hi = min(nr, up + nown + (s - t2));
+            if (conn8) {
+              step_rows<true>(sreg + hold * q, sreg + hold * (q ^ 1), sband, g.pitch, lo, hi,
+                              pair, spstrip, pstrips);
+            } else {
+              step_rows<false>(sreg + hold * q, sreg + hold * (q ^ 1), sband, g.pitch, lo, hi,
+                               pair, spstrip, pstrips);
+            }
+            __syncthreads();
+            q ^= 1;
+          }
+          // the own words out, and their popcount
+          int c = 0;
+          if (col >= left && col < left + ncw) {
+            const uint32_t* src = sreg + hold * q;
+            for (int y = up + sstrip; y < up + nown; y += strips) {
+              const uint32_t v = src[(y + 1) * g.pitch + 2 + col];
+              nxt[held + (size_t)y * WW + col] = v;
+              c += __popc(v);
+            }
+          }
+          c = block_sum(c, red);
+          if (threadIdx.x == 0) {
+            chg[(gs & 1) * tiles + t] = c != pop[t];
+            pop[t] = c;
+          }
+          if (!g.resident) q = 0;
+        } else if (threadIdx.x == 0) {
+          chg[(gs & 1) * tiles + t] = 0;
         }
-        // neighbours past the row's ends or the slice's rows are 0
-        const bool has_l = it.i > 0, has_r = it.i + 1 < WW;
-        const bool has_u = it.y > 0, has_d = it.y + 1 < H;
-        const uint32_t l = has_l ? __ldcg(cur + w - 1) : 0u;
-        const uint32_t r = has_r ? __ldcg(cur + w + 1) : 0u;
-        const uint32_t up = has_u ? __ldcg(cur + w - WW) : 0u;
-        const uint32_t dn = has_d ? __ldcg(cur + w + WW) : 0u;
-        uint32_t g = hdilate(c, l, r);
-        if (conn8) {
-          g |= hdilate(up, has_u && has_l ? __ldcg(cur + w - WW - 1) : 0u,
-                       has_u && has_r ? __ldcg(cur + w - WW + 1) : 0u);
-          g |= hdilate(dn, has_d && has_l ? __ldcg(cur + w + WW - 1) : 0u,
-                       has_d && has_r ? __ldcg(cur + w + WW + 1) : 0u);
-        } else {
-          g |= up | dn;
-        }
-        nxt[w] = g & __ldcg(band + w);
+        if (last && threadIdx.x == 0 && pop[t]) atomicAdd(cnt + (j & 3) * B + tp.s, pop[t]);
       }
       grid.sync();
       p ^= 1;
+      ++gs;
+      done += s;
     }
-    // the count after block j, into cnt[j mod 3]
-    const uint32_t* region = p ? buf1 : buf0;
-    int* cj = cnt + (j % 3) * B;
-    for (WordWalk it(tid, H, WW);; it.advance(stride, ds, dy, di, H, WW)) {
-      const bool live = it.w < total;
-      const int c = live ? __popc(__ldcg(region + it.w)) : 0;
-      add_count(cj, live ? it.s : 0, c, live);
-      if (__all_sync(0xffffffffu, !live)) break;
-    }
-    grid.sync();
-    if (tid == 0) {
-      const int* cprev = cnt + ((j + 2) % 3) * B;
-      int* cfree = cnt + ((j + 1) % 3) * B;  // block j + 1 counts into it
-      int any = 0;
-      for (int s = 0; s < B; ++s) {
-        if (__ldcg(act + s)) {
-          const int c = __ldcg(cj + s), pv = __ldcg(cprev + s);
-          if (c != pv && (j + 1) * block_iters < max_iters) {
-            any = 1;
-          } else {
-            act[s] = 0;
-            conv[s] = c == pv;
-            if (steps != nullptr) steps[s] = (j + 1) * block_iters;
-          }
+    // the loop test of every slice, taken alike by every CTA: block j + 1
+    // runs while count_j != count_{j-1} and (j + 1) * block_iters <
+    // max_iters. CTA 0 writes the results of a slice that stops and clears
+    // the counts of block j + 2.
+    int any = 0;
+    for (int i = threadIdx.x; i < nbw; i += blockDim.x) {
+      uint32_t bits = act[i];
+      for (int b = 0; b < 32 && i * 32 + b < B; ++b) {
+        const int sl = i * 32 + b;
+        if (blockIdx.x == 0) cnt[((j + 2) & 3) * B + sl] = 0;
+        if (!((bits >> b) & 1u)) continue;
+        const int c = __ldcg(cnt + (j & 3) * B + sl), pv = __ldcg(cnt + ((j + 3) & 3) * B + sl);
+        if (c != pv && (long long)(j + 1) * block_iters < max_iters) continue;
+        bits &= ~(1u << b);
+        if (blockIdx.x == 0) {
+          conv[sl] = c == pv;
+          if (steps != nullptr) steps[sl] = (j + 1) * block_iters;
+          par[sl] = p;
         }
-        cfree[s] = 0;
       }
-      *go = any;
+      act[i] = bits;
+      any |= bits != 0u;
     }
-    grid.sync();
-    if (!__ldcg(go)) break;
+    if (!__syncthreads_or(any)) break;
   }
+  grid.sync();  // every slice's buffer in par[]
 
-  const uint32_t* region = p ? buf1 : buf0;
-  for (WordWalk it(tid, H, WW); it.w < total; it.advance(stride, ds, dy, di, H, WW)) {
-    const int x0 = it.i * 32;
-    unpack_word(mask, ((size_t)it.s * H + it.y) * W + x0, x0, W, __ldcg(region + it.w), vec);
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const TilePlace tp = place_of(t, g, H, WW);
+    const uint32_t* region = __ldcg(par + tp.s) ? buf1 : buf0;
+    const int ncw = tp.c1 - tp.c0, nw = (tp.r1 - tp.r0) * ncw;
+    for (int w = threadIdx.x; w < nw; w += blockDim.x) {
+      const int y = tp.r0 + w / ncw, i = tp.c0 + w % ncw;
+      unpack_word(mask, ((size_t)tp.s * H + y) * W + i * 32, i * 32, W,
+                  __ldcg(region + ((size_t)tp.s * H + y) * WW + i), vec);
+    }
   }
 }
 
@@ -568,34 +744,61 @@ extern "C" int nm03_region_grow(const float* image, const uint8_t* seeds,
 
 // Region growing of a (B, H, W) batch whose slices do not fit one
 // cluster: the arguments of nm03_region_grow, plus `band`, `buf0` and
-// `buf1` (B * H * ceil(W / 32) uint32 words each) and `scratch` (4 B + 1
-// int32, zeroed), all allocated by the caller. One cooperative launch of
-// as many CTAs as fit the SMs at once.
+// `buf1` (B * H * ceil(W / 32) uint32 words each) and `scratch` (5 B + 3
+// tiles int32, zeroed), all allocated by the caller, and the layout the
+// caller chose (global_tiles): `tile_rows` own rows and `tile_words` own
+// 32-pixel words a tile (tile_words = ceil(W / 32) for tiles a slice wide),
+// held with `halo` rows (1..32) beyond its own on each side, `pitch` words
+// a row in shared memory (even, at least the held words and a border of 4),
+// and `grid` CTAs: one a tile (every tile resident) or fewer, each walking
+// several. The layout is checked, not chosen, here. One cooperative launch.
 extern "C" int nm03_region_grow_global(const float* image, const uint8_t* seeds,
                                        const uint8_t* valid, uint8_t* mask, int32_t* conv,
                                        int32_t* steps, uint32_t* band, uint32_t* buf0,
                                        uint32_t* buf1, int32_t* scratch, int B, int H, int W,
                                        float low, float high, int connectivity,
-                                       int block_iters, int max_iters, void* stream) {
+                                       int block_iters, int max_iters, int tile_rows,
+                                       int tile_words, int halo, int pitch, int grid,
+                                       void* stream) {
   (void)cudaGetLastError();  // clear an error already reported by an earlier call
+  const int WW = (W + 31) / 32;
   if (B <= 0 || H <= 0 || W <= 0 || block_iters < 1 || max_iters < 1 ||
-      (connectivity != 4 && connectivity != 8)) {
+      (connectivity != 4 && connectivity != 8) || tile_rows < 1 || tile_words < 1 ||
+      tile_words > WW || halo < 1 || halo > GLOBAL_MAX_HALO || grid < 1) {
     return cudaErrorInvalidValue;
   }
-  int dev = 0, n_sm = 0, per_sm = 0;
+  GlobalTiles g;
+  g.tr = tile_rows;
+  g.tw = tile_words;
+  g.ty = (H + tile_rows - 1) / tile_rows;
+  g.tx = (WW + tile_words - 1) / tile_words;
+  g.halo = halo;
+  const int held_words = tile_words == WW ? WW : (tile_words + 2 < WW ? tile_words + 2 : WW);
+  if (held_words > GLOBAL_THREADS || pitch % 2 != 0 || pitch < held_words + 4) {
+    return cudaErrorInvalidValue;
+  }
+  g.pitch = pitch;
+  g.rows = tile_rows + 2 * halo < H ? tile_rows + 2 * halo : H;
+  const int64_t tiles = (int64_t)B * g.ty * g.tx;
+  if (grid > tiles) return cudaErrorInvalidValue;
+  const size_t bytes = (3 * (size_t)(g.rows + 2) * g.pitch + (size_t)(B + 31) / 32 + GLOBAL_RED) *
+                       sizeof(uint32_t);
+  int dev = 0, n_sm = 0, optin = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, grow_global_kernel,
-                                                      GLOBAL_THREADS, 0);
+  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  const int64_t words = (int64_t)B * H * ((W + 31) / 32);
-  int64_t ctas = (int64_t)n_sm * per_sm;
-  const int64_t need = (words + GLOBAL_THREADS - 1) / GLOBAL_THREADS;
-  if (need < ctas) ctas = need;
-  if (ctas < 1) ctas = 1;
+  if (bytes > (size_t)optin || tiles > (int64_t)1 << 30) return cudaErrorInvalidConfiguration;
+  err = cudaFuncSetAttribute(grow_global_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)bytes);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, grow_global_kernel,
+                                                      GLOBAL_THREADS, bytes);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1 || grid > (int64_t)per_sm * n_sm) return cudaErrorInvalidConfiguration;
+  g.resident = tiles <= grid;
   const int vec = W % 16 == 0 && aligned(image, 16) && aligned(seeds, 16) &&
                   aligned(mask, 16) && (valid == nullptr || aligned(valid, 16));
   const int conn8 = connectivity == 8 ? 1 : 0;
@@ -603,9 +806,9 @@ extern "C" int nm03_region_grow_global(const float* image, const uint8_t* seeds,
                   (void*)&steps, (void*)&band, (void*)&buf0, (void*)&buf1,
                   (void*)&scratch, (void*)&B, (void*)&H, (void*)&W, (void*)&low,
                   (void*)&high, (void*)&conn8, (void*)&block_iters, (void*)&max_iters,
-                  (void*)&vec};
-  err = cudaLaunchCooperativeKernel((const void*)grow_global_kernel, dim3((unsigned)ctas),
-                                    dim3(GLOBAL_THREADS), args, 0,
+                  (void*)&vec, (void*)&g};
+  err = cudaLaunchCooperativeKernel((const void*)grow_global_kernel, dim3((unsigned)grid),
+                                    dim3(GLOBAL_THREADS), args, bytes,
                                     static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return err;
   return cudaGetLastError();

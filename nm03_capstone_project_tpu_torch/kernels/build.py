@@ -102,7 +102,7 @@ ARGTYPES = {
         "nm03_region_grow": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _I, _I, _I,
                              _P],
         "nm03_region_grow_global": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                    _F, _F, _I, _I, _I, _P],
+                                    _F, _F, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     },
 }
 

@@ -56,12 +56,36 @@ from nm03_capstone_project_tpu_torch.utils.reporter import get_logger, log_once
 log = get_logger("kernels")
 
 MAX_WINDOW = 15  # odd median windows 1..15 run the generated plans
-MAX_SELECT_WINDOW = 63  # the largest odd window of the select route
 MAX_TAPS = 31  # longest sharpen kernel the fused kernel takes
 MAX_BATCH = 65535  # the standalone median grid's z dimension
 MAX_TILE_W = 256  # widest tile of the fused kernel
 BLUR_ROWS = 4  # rows the fused kernel's blur accumulates together
 SMEM_PER_BLOCK = 232448  # the H100's opt-in shared memory per block (227 KB)
+SELECT_ROWS, SELECT_COLS = 8, 32  # outputs of a select CTA (STH, STW in csrc/median.cu)
+
+
+def select_smem_bytes(k: int) -> int:
+    """Shared bytes of a select CTA at window k, laid out as
+    ``SelectLayout`` in ``csrc/median.cu``: 2P + 1 planes (P the largest
+    power of 2 <= k) of the CTA's SELECT_ROWS x (SELECT_COLS + k - 1)
+    column segments, a plane rounded up to a multiple of 32 words, then the
+    staged (SELECT_ROWS + k - 1) x (SELECT_COLS + k - 1) tile of keys."""
+    iw = SELECT_COLS + k - 1
+    plane = -(-SELECT_ROWS * iw // 32) * 32
+    planes = 2 * (1 << (k.bit_length() - 1)) + 1
+    return 4 * (planes * plane + (SELECT_ROWS + k - 1) * iw)
+
+
+def _largest_select_window() -> int:
+    k = 1
+    while select_smem_bytes(k + 2) <= SMEM_PER_BLOCK:  # the bytes grow with k
+        k += 2
+    return k
+
+
+# the largest odd window of the select route: the last whose tile fits a
+# block's shared memory (63: 226,000 bytes; 65 would take 423,936)
+MAX_SELECT_WINDOW = _largest_select_window()
 
 
 def _note_route(kernel: str, route: str, detail: str) -> None:
@@ -196,7 +220,9 @@ vector_median_filter_kernel.launches = 0
 
 def vector_median_select_kernel(x: torch.Tensor, size: int = 17) -> torch.Tensor:
     """The k x k clamp-to-edge median of a (..., H, W) CUDA tensor by exact
-    selection (``csrc/median.cu``, ``nm03_median_select``): any odd k up to
+    selection (``csrc/median.cu``, ``nm03_median_select``): each CTA sorts
+    its column segments once and bisects each window's keys with a binary
+    search a segment (:func:`select_smem_bytes`). Any odd k up to
     MAX_SELECT_WINDOW, bit-identical to :func:`.median.vector_median_filter`
     (NaN and signed zeros as the source note there says). The route of
     :func:`vector_median_filter_kernel` from k = 17."""

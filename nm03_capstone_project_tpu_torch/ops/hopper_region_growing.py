@@ -14,9 +14,10 @@ a log line at its first use:
   theirs. Up to about a 2160 x 2048 slice (8 CTAs' shared memory); every
   slice that fits takes it.
 * ``global``: past that, :func:`region_grow_global_kernel`, one
-  persistent cooperative grid over the whole batch with the bit-packed
-  band and region in global memory (L2-resident at these sizes) and a
-  grid barrier a step, up to GLOBAL_MAX_SIDE rows and columns; a larger
+  cooperative grid over the whole batch with the bit-packed band and
+  region in global memory, stepped by tiles in shared memory
+  (:func:`global_tiles`) with one grid barrier per super-step of up to
+  ``block_iters`` steps, up to GLOBAL_MAX_SIDE rows and columns; a larger
   slice is refused with a ValueError before launch.
 
 Neither route ends in the plain op on the card.
@@ -45,6 +46,11 @@ MAX_HALO = 16  # rows a CTA holds beyond its own on each side
 SCRATCH_WORDS = 64  # popcount partials: one per warp and one per rank
 GLOBAL_MAX_SIDE = 16384  # the global route's largest slice side
 GLOBAL_MAX_WORDS = 1 << 30  # packed words of one global launch (the rest in more)
+GLOBAL_THREADS = 512  # threads of a global-route CTA
+GLOBAL_MAX_HALO = 32  # rows a global tile holds beyond its own (a step moves a pixel one place)
+GLOBAL_WIDE_WORDS = 128  # a global tile spans its slice's width up to this many words
+GLOBAL_TILE_WORDS = 126  # else at most this many own words, 128 held with a word each side
+GLOBAL_RED = 40  # ints of reduction scratch a global CTA keeps after its slice bits
 
 
 class GrowLaunch(NamedTuple):
@@ -92,6 +98,80 @@ def grow_launch_shape(h: int, w: int) -> GrowLaunch:
             f"grow kernel: a {h}x{w} slice exceeds the global route's limit of "
             f"{GLOBAL_MAX_SIDE} rows and columns (GLOBAL_MAX_SIDE)")
     return GrowLaunch(0, 0, 0)
+
+
+class GlobalTiles(NamedTuple):
+    """The global route's tiling of a launch, which the kernel takes as
+    given (``csrc/grow.cu``, ``GlobalTiles``): own rows and words of a
+    tile, the rows it holds beyond them each side, the words of a row in
+    shared memory (:func:`global_pitch`), the tiles of the launch, its
+    CTAs, the shared bytes of one, and whether every tile has a CTA of its
+    own."""
+
+    rows: int
+    words: int
+    halo: int
+    pitch: int
+    tiles: int
+    grid: int
+    smem: int
+
+    @property
+    def resident(self) -> bool:
+        return self.tiles <= self.grid
+
+
+@functools.lru_cache(maxsize=None)
+def global_tiles(b: int, h: int, w: int, block_iters: int, n_sm: int) -> GlobalTiles:
+    """The tiles of the global route for b (h, w) slices on n_sm SMs.
+
+    A tile spans its slice's width up to GLOBAL_WIDE_WORDS words, else the
+    width is cut into equal tiles of at most GLOBAL_TILE_WORDS. The rows
+    are cut so that the tiles number about one an SM, where the held tile
+    (its own rows and ``halo`` = min(block_iters, GLOBAL_MAX_HALO, rows)
+    rows each side, band and two region buffers) fits a CTA's shared
+    memory, with a border of zero words around it (:func:`global_pitch`):
+    then every tile stays in its CTA for the whole fixpoint. Otherwise the
+    CTAs walk the tiles, cut as many as make whole rounds of the CTAs. A tile
+    is at least min(block_iters, GLOBAL_MAX_HALO, h) rows tall, so that
+    one super-step reaches no farther than the neighbouring tiles.
+    """
+    ww = (w + 31) // 32
+    s0 = min(block_iters, GLOBAL_MAX_HALO)
+    tx = 1 if ww <= GLOBAL_WIDE_WORDS else -(-ww // GLOBAL_TILE_WORDS)
+    tw = -(-ww // tx)
+    pitch = global_pitch(ww, tw)
+    fixed = 4 * ((b + 31) // 32 + GLOBAL_RED)
+    tr_max = (SMEM_PER_BLOCK - fixed) // (12 * pitch) - 2 * s0 - 2
+    tr = -(-h // max(1, n_sm // (b * tx)))
+    tr = max(tr, min(s0, h))
+    if tr > tr_max:
+        if tr_max < min(s0, h):
+            raise ValueError(f"grow kernel: no global tile of a {h}x{w} slice fits shared memory")
+        # as many tile rows as make whole rounds of the CTAs, at least
+        # those that fit
+        ty = -(-h // tr_max)
+        rounds = -(-(b * ty * tx) // n_sm)
+        ty = max(ty, min(h // min(s0, h), rounds * n_sm // (b * tx)))
+        tr = -(-h // ty)
+    halo = min(s0, tr)
+    tiles = b * -(-h // tr) * tx
+    rows = min(h, tr + 2 * halo)
+    return GlobalTiles(tr, tw, halo, pitch, tiles, min(tiles, n_sm),
+                       4 * (3 * (rows + 2) * pitch) + fixed)
+
+
+def global_pitch(ww: int, tw: int) -> int:
+    """Words of a row of a global tile in shared memory: its held words (a
+    word each side of the own ones, within the slice) rounded up to even,
+    and a border of zero words, two left and two right (``csrc/grow.cu``)."""
+    held = ww if tw == ww else min(ww, tw + 2)
+    return -(-held // 2) * 2 + 4
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check_args(image: torch.Tensor, what: str, connectivity: int, block_iters: int,
@@ -186,7 +266,8 @@ def region_grow_global_kernel(
 ):
     """:func:`region_grow_kernel` by the global route (``csrc/grow.cu``,
     ``nm03_region_grow_global``): the band and the two region buffers
-    bit-packed in global memory, one cooperative launch a batch of at most
+    bit-packed in global memory, the steps run by tiles in shared memory
+    (:func:`global_tiles`), one cooperative launch a batch of at most
     GLOBAL_MAX_WORDS packed words. The route of :func:`region_grow_kernel`
     for slices past one cluster; any slice size up to GLOBAL_MAX_SIDE
     works here."""
@@ -211,17 +292,20 @@ def region_grow_global_kernel(
         lib = build.load("grow")
         stream = torch.cuda.current_stream(img.device).cuda_stream
         lo, hi = float(np.float32(low)), float(np.float32(high))
+        n_sm = _sm_count(img.device.index or 0)
         for b0 in range(0, b, per_launch):
             nb = min(per_launch, b - b0)
+            tiles = global_tiles(nb, h, w, block_iters, n_sm)
             packed = torch.empty((3, nb * words), dtype=torch.int32, device=img.device)
-            scratch = torch.zeros((4 * nb + 1,), dtype=torch.int32, device=img.device)
+            scratch = torch.zeros((5 * nb + 3 * tiles.tiles,), dtype=torch.int32,
+                                  device=img.device)
             err = lib.nm03_region_grow_global(
                 img[b0].data_ptr(), sd[b0].data_ptr(),
                 None if vd is None else vd[b0].data_ptr(),
                 mask[b0].data_ptr(), conv[b0:].data_ptr(), steps[b0:].data_ptr(),
                 packed[0].data_ptr(), packed[1].data_ptr(), packed[2].data_ptr(),
                 scratch.data_ptr(), nb, h, w, lo, hi, connectivity, block_iters, max_iters,
-                stream,
+                tiles.rows, tiles.words, tiles.halo, tiles.pitch, tiles.grid, stream,
             )
             build.check(err, "nm03_region_grow_global")
             region_grow_global_kernel.launches += 1

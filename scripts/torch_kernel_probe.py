@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Where the port's fused and grow kernels spend their time, on the card.
 
-    python scripts/torch_kernel_probe.py            # both kernels
-    python scripts/torch_kernel_probe.py fused      # or one of them
+    python scripts/torch_kernel_probe.py            # every probe
+    python scripts/torch_kernel_probe.py fused      # or one of fused, grow, grow_global
 
 Run from the repository root on a machine with an NVIDIA H100 and the CUDA
 toolkit; it needs no profiler such as ``ncu``. The script builds copies of
@@ -21,7 +21,11 @@ boundaries, and prints one JSON line per measurement:
   the centre, so the region grows for every step ``max_iters`` allows; the
   time a launch at 16, 48 and 160 steps for clusters of 2, 4 and 8 CTAs,
   and, at 48 steps, the cycles of packing, of the first barrier, exchange
-  and block of 16 steps together, then of each exchange and block.
+  and block of 16 steps together, then of each exchange and block;
+* ``grow_global``: the global route at 4096 x 4096 x 2 (two phantoms), its
+  time a launch as built and stamped, and for each super-step the tiles
+  stepped and the slowest CTA's tile load, steps, write and grid barrier
+  (``%globaltimer`` stamps, comparable across SMs).
 
 Every line carries the card's name and power limit. Nothing here is used
 by the port.
@@ -242,6 +246,109 @@ def probe_grow(card: dict) -> None:
             print(json.dumps({**line, **card}), flush=True)
 
 
+GLOBAL_SUPERSTEPS = 40  # super-steps stamped a CTA (slots of g_stamp: 132 x 40 x 6)
+
+
+def probe_grow_global(card: dict) -> None:
+    """The global grow route at 4096 x 4096 x 2 (two phantoms, as
+    chip_smoke.py's envelope phase grows them): ``%globaltimer`` stamps by
+    thread 0 of each CTA at each super-step's start, after its tile load,
+    after its steps, after its write, and before and after the grid
+    barrier; per super-step the tiles stepped and the slowest of each
+    phase."""
+    from nm03_capstone_project_tpu_torch.config import PipelineConfig
+    from nm03_capstone_project_tpu_torch.core import pad_to_canvas, valid_mask
+    from nm03_capstone_project_tpu_torch.data.synthetic import phantom_slice
+    from nm03_capstone_project_tpu_torch.ops import hopper_region_growing as hg
+    from nm03_capstone_project_tpu_torch.ops.neighborhood import extend_edges
+    from nm03_capstone_project_tpu_torch.ops.seeds import seed_mask
+
+    ns = GLOBAL_SUPERSTEPS
+
+    def st(slot: int) -> str:
+        return ('{ unsigned long long t_; asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t_)); '
+                f"if (threadIdx.x == 0 && gs < {ns}) "
+                f"g_stamp[((size_t)blockIdx.x * {ns} + gs) * 6 + {slot}] = (long long)t_; }}\n")
+
+    subs = [
+        ("      const uint32_t* cur = p ? buf1 : buf0;\n",
+         "      const uint32_t* cur = p ? buf1 : buf0;\n" + st(0)),
+        ("          __syncthreads();\n          // s steps;",
+         "          __syncthreads();\n" + st(1) + "          // s steps;"),
+        ("          // the own words out, and their popcount\n",
+         st(2) + "          // the own words out, and their popcount\n"),
+        ("          if (!g.resident) q = 0;\n", st(3) + "          if (!g.resident) q = 0;\n"),
+        ("      grid.sync();\n      p ^= 1;\n", st(4) + "      grid.sync();\n" + st(5) + "      p ^= 1;\n"),
+    ]
+    libs = compile_all({"grow_global": (variant("grow_global", "grow", []), "grow"),
+                        "grow_global_stamped": (variant("grow_global_stamped", "grow", subs),
+                                                "grow")})
+    cfg = PipelineConfig(canvas=256)
+    c = 4096
+    dims = [(c, c), (c - c // 8, c - c // 5)]
+    bt = pad_to_canvas([phantom_slice(h, w, seed=10 + i, lesion_radius=0.12)
+                        for i, (h, w) in enumerate(dims)], (c, c), device="cuda")
+    pre = dict(norm_low=cfg.norm_low, norm_high=cfg.norm_high,
+               norm_min=cfg.norm_intensity_min, norm_max=cfg.norm_intensity_max,
+               clip_low=cfg.clip_low, clip_high=cfg.clip_high, median_window=cfg.median_window,
+               sharpen_gain=cfg.sharpen_gain, sharpen_sigma=cfg.sharpen_sigma,
+               sharpen_kernel=cfg.sharpen_kernel)
+    img = hm._fused_preprocess_plain(extend_edges(bt.pixels, bt.dims), **pre).contiguous()
+    seeds = seed_mask(bt.dims, (c, c)).contiguous().view(torch.uint8)
+    valid = valid_mask(bt.dims, (c, c)).contiguous().view(torch.uint8)
+    b, h, w = img.shape
+    tiles = hg.global_tiles(b, h, w, cfg.grow_block_iters,
+                            torch.cuda.get_device_properties(0).multi_processor_count)
+    words = h * ((w + 31) // 32)
+    mask = torch.empty((b, h, w), dtype=torch.uint8, device="cuda")
+    conv = torch.empty((b,), dtype=torch.int32, device="cuda")
+    steps = torch.empty_like(conv)
+    packed = torch.empty((3, b * words), dtype=torch.int32, device="cuda")
+    scratch = torch.empty((5 * b + 3 * tiles.tiles,), dtype=torch.int32, device="cuda")
+    for name, lib in libs.items():
+        f = lib.nm03_region_grow_global
+        f.argtypes = build.ARGTYPES["grow"]["nm03_region_grow_global"]
+        f.restype = ctypes.c_int
+
+        def call():
+            scratch.zero_()
+            err = f(img.data_ptr(), seeds.data_ptr(), valid.data_ptr(), mask.data_ptr(),
+                    conv.data_ptr(), steps.data_ptr(), packed[0].data_ptr(),
+                    packed[1].data_ptr(), packed[2].data_ptr(), scratch.data_ptr(), b, h, w,
+                    cfg.grow_low, cfg.grow_high, 4, cfg.grow_block_iters, cfg.grow_max_iters,
+                    tiles.rows, tiles.words, tiles.halo, tiles.pitch, tiles.grid,
+                    torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"probe {name}: CUDA error {err}")
+
+        line = {"probe": name, "shape": [b, h, w], "tiles": tiles._asdict(),
+                "ms": event_ms(call, 10), "steps": steps.tolist()}
+        if name == "grow_global_stamped":
+            lib.probe_read.argtypes = [ctypes.c_void_p]
+            call()
+            torch.cuda.synchronize()
+            st_ = stamps(lib).reshape(-1)[: 2048 * 16 // (ns * 6) * ns * 6]
+            st_ = st_.reshape(-1, ns, 6)[: tiles.grid]
+            per = []
+            for gs in range(ns):
+                a = st_[:, gs]
+                if not (a[:, 0] > 0).any():
+                    break
+                busy = a[:, 1] > 0
+                us = lambda x: round(float(x) / 1e3, 3)  # noqa: E731
+                per.append({"busy_tiles": int(busy.sum()),
+                            "load_us": us((a[busy, 1] - a[busy, 0]).max()) if busy.any() else 0,
+                            "steps_us": us((a[busy, 2] - a[busy, 1]).max()) if busy.any() else 0,
+                            "write_us": us((a[busy, 3] - a[busy, 2]).max()) if busy.any() else 0,
+                            "barrier_us": us(a[:, 5].max() - a[:, 4].max()),
+                            "superstep_us": us(a[:, 5].max() - a[:, 0].min())})
+            line["supersteps"] = len(per)
+            line["median_of_later_supersteps"] = {
+                k: float(np.median([r[k] for r in per[1:]])) for k in per[0]}
+            line["first_superstep"] = per[0]
+        print(json.dumps({**line, **card}), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("torch_kernel_probe: CUDA is not available", file=sys.stderr)
@@ -254,6 +361,8 @@ def main() -> int:
         probe_fused(card)
     if which in ("all", "grow"):
         probe_grow(card)
+    if which in ("all", "grow_global"):
+        probe_grow_global(card)
     return 0
 
 

@@ -537,6 +537,15 @@ def test_median_select_windows(cuda, k):
     assert hm.vector_median_select_kernel.launches == before + 2
 
 
+def test_median_select_at_the_limit(cuda):
+    # MAX_SELECT_WINDOW: the select kernel's largest shared tile (226,000 bytes)
+    x = (torch.rand(2, 256, 256) * 4000 + 0.68).to(cuda)
+    k = hm.MAX_SELECT_WINDOW
+    before = hm.vector_median_select_kernel.launches
+    assert _same_bits(hm.vector_median_filter_kernel(x, k), vector_median_filter(x, k))
+    assert hm.vector_median_select_kernel.launches == before + 1
+
+
 @pytest.mark.parametrize("k", [7, 17])
 def test_median_batch_past_the_grid_splits(cuda, k):
     x = (torch.rand(hm.MAX_BATCH + 100, 8, 8) * 4000).to(cuda)
@@ -581,6 +590,24 @@ def test_grow_global_route(cuda, hw):
         for a, b in zip(got, want):
             assert torch.equal(a, b)
     assert hg.region_grow_global_kernel.launches == before + 2
+
+
+def test_grow_global_past_the_resident_tiles(cuda):
+    # 8192 x 8192 x 2: more tiles than SMs, so every CTA walks two a super-step
+    g = torch.Generator().manual_seed(8192)
+    img = (torch.rand((2, 8192, 8192), generator=g) * 0.2 + 0.72).to(cuda)
+    seeds = torch.zeros((2, 8192, 8192), dtype=torch.bool)
+    seeds[0, 4096, 4096] = seeds[1, 10, 8000] = True
+    seeds = seeds.to(cuda)
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert not hg.global_tiles(2, 8192, 8192, 16, n_sm).resident
+    before = hg.region_grow_global_kernel.launches
+    kw = dict(block_iters=16, max_iters=1024, return_steps=True)
+    got = hg.region_grow_kernel(img, seeds, **kw)
+    want = region_grow(img, seeds, **kw)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert hg.region_grow_global_kernel.launches == before + 1
 
 
 @pytest.mark.parametrize("bi,mi", [(16, 1024), (2, 4), (3, 7)])

@@ -14,10 +14,10 @@ config before launch (``ops/hopper_median.py``,
   the envelope and never raise a KeyError;
 * the wrappers take the route before launch and log its name (the ctypes
   library and the device are stand-ins here: there is no ``nvcc``);
-* the select kernel's bisection and the global grow kernel's per-slice
-  loop are run here in numpy/torch, step for step as ``csrc/median.cu``
-  and ``csrc/grow.cu`` do, against a brute-force median and the plain
-  ``region_grow``;
+* the global grow kernel's per-slice loop is run here in torch, as
+  ``csrc/grow.cu`` does, against the plain ``region_grow`` (the select
+  kernel's rule and the grow's tiled schedule in full:
+  ``tests/test_torch_redesign.py``);
 * the plain median at k = 17 against the JAX package's
   ``ops.median.vector_median_filter`` and a brute-force numpy median, on a
   (2, 24, 24) array: the JAX network's 4,638 min/max run eagerly there in
@@ -134,6 +134,7 @@ def stand_in_card(monkeypatch, caplog):
 
     monkeypatch.setattr(hm, "_batched", batched)
     monkeypatch.setattr(hm, "_sm_count", lambda index: N_SM)
+    monkeypatch.setattr(hg, "_sm_count", lambda index: N_SM)
     monkeypatch.setattr(hg, "_check_args", lambda *a: None)
     monkeypatch.setattr(hm.build, "load", lambda name: lib)
     monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: _Stream())
@@ -219,7 +220,7 @@ def test_a_global_batch_past_the_word_limit_goes_in_several_launches(stand_in_ca
     assert counts == [2, 2, 1] and hg.region_grow_global_kernel.launches == 3
 
 
-# -- the select kernel's algorithm, as csrc/median.cu runs it ---------------------------
+# -- the plain median at wide windows -------------------------------------------------
 
 
 def _keys(x: np.ndarray) -> np.ndarray:
@@ -238,56 +239,10 @@ def _windows(x: np.ndarray, k: int) -> np.ndarray:
     return win.reshape(win.shape[:-2] + (k * k,))  # row-major within the window
 
 
-def select_emulated(x: np.ndarray, k: int) -> np.ndarray:
-    """``select_kernel``: extreme keys, first NaN, bisection from the top
-    differing bit."""
-    win = _windows(_keys(np.ascontiguousarray(x, np.float32)), k).astype(np.int64)
-    rank = (k * k) // 2
-    lo, hi = win.min(-1), win.max(-1)
-    is_nan = (win > 0xFF800000) | (win < 0x007FFFFF)
-    first_nan = np.take_along_axis(win, is_nan.argmax(-1)[..., None], -1)[..., 0]
-    diff = lo ^ hi
-    top = np.where(diff > 0, np.floor(np.log2(np.maximum(diff, 1))).astype(np.int64), -1)
-    prefix = np.where(diff > 0, lo & ~((2 << top) - 1), lo)
-    for bit in range(31, -1, -1):
-        cand = prefix | (1 << bit)
-        below = (win < cand[..., None]).sum(-1)
-        prefix = np.where((bit <= top) & (below <= rank), cand, prefix)
-    out = _values(prefix.astype(np.uint32))
-    nan_vals = _values(first_nan.astype(np.uint32))
-    return np.where(is_nan.any(-1), nan_vals, out)
-
-
 def brute_median(x: np.ndarray, k: int) -> np.ndarray:
     """Rank k*k // 2 of each window by sorting its order-preserving keys."""
     win = _windows(_keys(np.ascontiguousarray(x, np.float32)), k)
     return _values(np.sort(win, -1)[..., (k * k) // 2])
-
-
-@pytest.mark.parametrize("k", [1, 3, 17, 21, 31])
-def test_the_select_bisection_is_an_exact_rank(k):
-    rng = np.random.default_rng(k)
-    cases = [
-        (rng.random((2, 19, 23)) * 4000 + 0.68).astype(np.float32),
-        rng.integers(-2, 3, (2, 19, 23)).astype(np.float32),  # duplicates, both signs
-        rng.choice(np.array([-0.0, 0.0, 1.5, -2.0], np.float32), (2, 19, 23)),
-        np.full((1, 7, 9), 0.68, np.float32),  # a window of one value: no bisection
-        (rng.standard_normal((1, 9, 40)) * 1e-38).astype(np.float32),  # subnormals
-    ]
-    for x in cases:
-        got = select_emulated(x, k)
-        np.testing.assert_array_equal(got.view(np.uint32), brute_median(x, k).view(np.uint32))
-
-
-def test_select_takes_the_windows_first_nan():
-    x = np.random.default_rng(1).random((1, 20, 20)).astype(np.float32)
-    a, b = np.float32("nan"), -np.float32("nan")
-    x[0, 5, 5], x[0, 5, 7] = a, b
-    got = select_emulated(x, 17)
-    np.testing.assert_array_equal(np.isnan(got), np.isnan(_windows(x, 17)).any(-1))
-    # both NaNs in the window: the first in row-major order; one: that one
-    assert got.view(np.uint32)[0, 0, 0] == a.view(np.uint32)
-    assert got.view(np.uint32)[0, 0, 15] == b.view(np.uint32)
 
 
 @pytest.mark.parametrize("k", [17, 19])
@@ -297,7 +252,6 @@ def test_the_plain_median_at_wide_windows_equals_jax_and_brute_force(k):
     port = vector_median_filter(torch.from_numpy(x), k).numpy()
     np.testing.assert_array_equal(port, np.asarray(jax_median(jnp.asarray(x), k)))
     np.testing.assert_array_equal(port, brute_median(x, k))
-    np.testing.assert_array_equal(port, select_emulated(x, k))
 
 
 # -- the global grow kernel's per-slice loop, as csrc/grow.cu runs it --------------------
@@ -305,9 +259,10 @@ def test_the_plain_median_at_wide_windows_equals_jax_and_brute_force(k):
 
 def global_grow_emulated(image, seeds, low, high, valid, connectivity, block_iters,
                          max_iters):
-    """``grow_global_kernel``: every slice in lockstep, a stopped slice's
-    words copied, one loop test a slice after each block from the counts of
-    the last two blocks."""
+    """``grow_global_kernel``'s loop over slices: every slice in lockstep, a
+    stopped slice's region kept, one loop test a slice after each block
+    from the counts of the last two blocks (its tiles:
+    ``tests/test_torch_redesign.py``)."""
     band = grow_band(image, low, high, valid)
     shape = "cross" if connectivity == 4 else "box"
     region = seeds.bool() & band
@@ -360,27 +315,6 @@ def test_the_global_loop_equals_the_plain_schedule(connectivity, block_iters, ma
     want = region_grow(img, seeds, 0.74, 0.91, return_steps=True, **kw)
     assert torch.equal(got[0], want[0])
     assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
-
-
-@pytest.mark.parametrize("b,h,ww,threads", [(3, 5, 7, 4), (2, 9, 3, 50), (4, 2, 129, 1000),
-                                            (1, 1, 1, 3)])
-def test_the_word_walk_visits_words_as_division_would(b, h, ww, threads):
-    """``WordWalk``: a thread's (slice, row, word) advanced by the grid's
-    stride with one carry a level, no division."""
-    per, total = h * ww, b * h * ww
-    ds, rem = divmod(threads, per)
-    dy, di = divmod(rem, ww)
-    for tid in range(min(threads, total)):
-        w = tid
-        s, rem0 = divmod(w, per)
-        y, i = divmod(rem0, ww)
-        while w < total:
-            assert (s, y, i) == (w // per, (w % per) // ww, w % ww)
-            w, s, y, i = w + threads, s + ds, y + dy, i + di
-            if i >= ww:
-                i, y = i - ww, y + 1
-            if y >= h:
-                y, s = y - h, s + 1
 
 
 # -- the golden of chip_smoke.py's envelope phase ----------------------------------------

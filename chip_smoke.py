@@ -344,7 +344,30 @@ toolkit. Phases, each printing one JSON line:
    relaunches' split of their ``warm_s``, the launches and the card's name
    and power limit (``until_app_s``: spawn to the app's identity, from its
    ``/readyz`` ``replica.start_unix``).
-15. ``kernels`` — one line, ``{"kernels": [...]}``, per kernel: launches in
+15. ``envelope`` — every route past the default config, each bitwise to
+   its plain version: the median's ``select`` route at k = 17, 31 and 63
+   (and 70,000 slices in two launches, signed zeros and a NaN), its
+   ``wide`` route at k = 65 (the canvas-256 ``process_batch``'s median
+   input and a random batch, signed zeros and a NaN), 127 (keys staged)
+   and 257 (keys read from the image; held to the plain sort median, the
+   network there being some 5 million min/max) on a 64 x 64 slice; the
+   fused stage's ``unfused`` route at k = 17, 65 and a 33-tap sharpen; the
+   grow's ``global`` route on two phantoms at 2304², 3072², 4096², 1024 x
+   4096, 16,385 x 2,304, 2,304 x 16,385 and 20,000² (past the old side
+   limit) and 8192² (past the resident tiles), mask, ``converged`` and
+   steps. Then ``process_batch`` at canvas 3072 with k = 17 (one select
+   and one global launch) and at canvas 256 with k = 65 (one wide and one
+   cluster grow launch), each against a golden the JAX package made
+   (``testdata/envelope_golden.json``, ``envelope_wide_golden.json``). The
+   line has each route's wrapper and device time, plain and library
+   times and floor, the 20,000² grow's among them.
+16. ``serve_envelope`` — every route inside the served CUDA graphs: a
+   server at canvas 3072 (the global grow in its graphs), buckets 1 and
+   2, two lanes on the card, at k = 17 (select, unfused), 7 (fused) and 65
+   (wide): 8 phantom bodies at concurrency 4, each answer the batch
+   path's mask, and at k = 17 the batch path the golden's; each bucket's
+   kernels and capture seconds.
+17. ``kernels`` — one line, ``{"kernels": [...]}``, per kernel: launches in
    the driver's run (``launches``; the median kernel's from the unfused
    patient), in the ``slice`` phase's (``slice_launches``), by the
    ``serve`` phase's graph replays (``serve_launches``: replays times the
@@ -365,12 +388,17 @@ toolkit. Phases, each printing one JSON line:
    replays and the gang's launches) and in the ``sanitize`` phase's
    sanitized driver run (``sanitize_launches``; the median kernel's from
    its unfused patient), by the ``compile_cache`` phase's servers
-   (``compile_cache_launches``: every start's graph replays), the largest
-   difference
+   (``compile_cache_launches``: every start's graph replays), in the
+   ``envelope`` phase (``envelope_launches``; the wide route's from its own
+   ``process_batch``) and by the ``serve_envelope`` servers' replays
+   (``serve_envelope_launches``), the largest difference
    from the plain version, its wrapper and device time, the plain time and
    the bound.
 
-The card's ``nvidia-smi`` name and power limit print on a line of their own;
+Every phase line names the card (``nvidia_smi``) and the host (``host``:
+CPU model, logical cores, the 1-minute load average at the phase's start,
+the Python and torch versions), so a slower host and a slower port can be
+told apart. The card's ``nvidia-smi`` name and power limit print on a line of their own;
 the last line is ``{"ok": true, "device": {...}}``. Any failed check exits
 non-zero without that line, as does a machine without CUDA.
 """
@@ -381,6 +409,8 @@ import base64
 import hashlib
 import itertools
 import json
+import os
+import platform
 import re
 import shutil
 import statistics
@@ -419,9 +449,29 @@ ENVELOPE_PIPELINE = (3072, 17)  # canvas and median window of process_batch, 2 s
 ENVELOPE_LIMIT = (2, 256, 256)  # the select kernel at MAX_SELECT_WINDOW
 ENVELOPE_STREAMED = 2  # the 4096 x 4096 grow case upsampled this many times a side:
 # past the global route's resident tiles (8192 x 8192 x 2)
+# past the select route: the wide median at k = 65 (the canvas-256
+# process_batch's median input, and a random batch), then 127 (staged) and
+# 257 (read from the image) on a slice narrower than 257
+ENVELOPE_WIDE = (65, 127, 257)
+ENVELOPE_WIDE_SMALL = (1, 64, 64)
+# the first window read from the image, on signed zeros, negatives and NaNs of
+# both signs: slices wider than the window, so some windows miss the NaNs
+ENVELOPE_WIDE_KEYS = (223, (2, 24, 260))
+ENVELOPE_WIDE_PIPELINE = (256, 65)  # canvas and median window of the wide route's process_batch
+ENVELOPE_SIDES = ((16385, 2304), (2304, 16385))  # grow past the old 16,384 side limit
+ENVELOPE_HUGE = (5000, 4)  # phantoms at 5000 x 5000 upsampled 4 times a side: 20,000 x 20,000
+# serve_envelope: the server at canvas 3072 (the global grow in its
+# graphs), buckets 1 and 2, two lanes on the card, at each median window
+# (the select and unfused routes at 17, the fused kernel at 7, the wide
+# route at 65), phantom bodies at concurrency 4
+SERVE_ENVELOPE = (3072, (1, 2), 2)
+SERVE_ENVELOPE_WINDOWS = (17, 7, 65)
+SERVE_ENVELOPE_PHANTOMS = 8
+SERVE_ENVELOPE_CONCURRENCY = 4
 REPEATS = 20
-PROFILE_TRIES = 3  # profiler windows for one device time before CUDA events
+PROFILE_TRIES = 3  # profiles of a path before its check fails, or before CUDA events
 PROFILE_MARGIN_S = 0.05  # a device-time window open this long around its calls
+BACKLOG_S = 0.05  # the CUDA-events fallback's sleep kernel ahead of the timed calls
 SERVE_BUCKETS = (1, 2, 4, 8, 16)
 SERVE_CONCURRENCY = 16
 SERVE_SINGLES = 50  # requests one at a time (bucket 1)
@@ -493,8 +543,39 @@ FLEET_RESTART_LOAD = (64, 4)
 FLEET_START_TIMEOUT_S = 240
 
 
+# the 1-minute load average when the line being built began: taken as
+# each line is printed (and at the start of main), so a phase's line
+# carries the load at its phase's start
+_PHASE_LOAD = {}
+
+
+def host_record(load_1m) -> dict:
+    """The host a line was measured on, beside its card: CPU model, logical
+    cores, the 1-minute load average at the phase's start, and the Python
+    and torch versions. Host-bound numbers move with these, not only with
+    the port."""
+    info = {}
+    try:  # the first processor's fields; x86 names its model, Arm its part
+        for ln in Path("/proc/cpuinfo").read_text().split("\n\n")[0].splitlines():
+            key, _, value = ln.partition(":")
+            info.setdefault(key.strip(), value.strip())
+    except OSError:
+        pass
+    model = next((info[k] for k in ("model name", "Model", "cpu model", "Hardware", "CPU part")
+                  if info.get(k)), None)
+    return {"cpu_model": model or platform.processor() or "not reported",
+            "machine": platform.machine(), "logical_cores": os.cpu_count(),
+            "load_1m_at_start": load_1m, "python": platform.python_version(),
+            "torch": torch.__version__, "torch_cuda": torch.version.cuda}
+
+
 def emit(obj) -> None:
+    """Print one JSON line. A line that names the card (``nvidia_smi``)
+    also names the host (:func:`host_record`)."""
+    if isinstance(obj, dict) and "nvidia_smi" in obj:
+        obj = dict(obj, host=host_record(_PHASE_LOAD.get("load_1m")))
     print(json.dumps(obj), flush=True)
+    _PHASE_LOAD["load_1m"] = os.getloadavg()[0]
 
 
 def require(cond, what: str) -> None:
@@ -544,13 +625,14 @@ def device_ms(fn, kernel: str, wrapper, repeats: int = REPEATS):
     launch counter must rise by ``repeats``. Each window is held open
     ``PROFILE_MARGIN_S`` on both sides of the calls, so that records whose
     device timestamps land just outside the calls' few milliseconds still
-    fall in it. A window whose kernel records are not ``repeats`` (the
-    profiler on an H100 has returned one with none of 20 grow launches;
-    ``scripts/torch_profiler_windows.py`` counts how often) is opened
-    again, up to ``PROFILE_TRIES`` windows; after that the time is
-    ``repeats`` back-to-back calls between CUDA events, which holds the
-    wrapper's host time where that is the longer. Returns ``(ms,
-    "profiler" | "cuda_events", the record counts of the missed windows)``.
+    fall in it. A window whose kernel records are not ``repeats`` (on an
+    H100 windows lose records after a million launches outside any window:
+    ``scripts/torch_profiler_windows.py --launches``) is opened again, up to
+    ``PROFILE_TRIES`` windows; after that the time is ``repeats`` calls
+    between CUDA events behind a sleep kernel of ``BACKLOG_S``, so that the
+    calls run back to back on the card and the events hold no host time.
+    Returns ``(ms, "profiler" | "cuda_events", the missed windows: their
+    records of the kernel and the device records they did hold, by name)``.
     """
     from torch.profiler import ProfilerActivity, profile
 
@@ -567,13 +649,16 @@ def device_ms(fn, kernel: str, wrapper, repeats: int = REPEATS):
             time.sleep(PROFILE_MARGIN_S)
         require(wrapper.launches - before == repeats,
                 f"{kernel}: the wrapper launched {wrapper.launches - before}, not {repeats}")
-        hits = [e for e in prof.key_averages() if kernel in e.key]
+        events = prof.key_averages()
+        hits = [e for e in events if kernel in e.key]
         calls = sum(e.count for e in hits)
         if calls == repeats:
             return sum(e.self_device_time_total for e in hits) / calls / 1e3, "profiler", missed
-        missed.append(calls)
+        missed.append({"calls": calls, "saw": {e.key[:60]: e.count for e in events
+                                               if e.self_device_time_total > 0}})
     before = wrapper.launches
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(BACKLOG_S * 2e9))  # cycles: the H100's SM clock is below 2 GHz
     start.record()
     for _ in range(repeats):
         fn()
@@ -810,7 +895,8 @@ def driver_phase(tmp: Path, smi: str, kernels: dict, reset):
           "variants": variants, "timing": timing, "telemetry": telemetry,
           "profiled_wall_ms": wall_ms,
           "device_busy_ms": busy_ms if busy_ms > 0 else "not measured",
-          "idle_share": 1 - busy_ms / wall_ms if busy_ms > 0 else "not measured"})
+          "idle_share": 1 - busy_ms / wall_ms if busy_ms > 0 else "not measured",
+          "nvidia_smi": smi})
     emit({"phase": "driver_throughput",
           "kernels_slices_per_s": runs["kernels"], "plain_slices_per_s": runs["plain"],
           "jpeg_encoder": encoder, "launches": launches, "nvidia_smi": smi})
@@ -4149,23 +4235,18 @@ def _windows(x, k: int, b: int):
     return F.unfold(xp, k)[0].t().contiguous()
 
 
-def select_design_ops(x, k: int) -> dict:
-    """Operations the select kernel (``csrc/median.cu``) runs on ``x`` at
-    window k, from this input's windows, and its passes.
+def bisection_passes(x, k: int):
+    """The passes of the select and wide kernels' bisection (``csrc/
+    median.cu``) on ``x``'s windows at k: ``(passes, warp passes,
+    outputs)``, summed over the outputs.
 
-    Per output: the sort of the column segments, shared by a CTA's 8 x 32
-    outputs (each key of the staged (8 + k - 1) x (32 + k - 1) tile
-    compared with the k keys of its first segment, then two a further
-    segment; a compare and an add each), the extreme keys (2 k), and per
-    pass of the bisection, for each of the k segments, ceil(log2(k + 1))
-    probes (a compare and a select) and the sum, least and greatest (3).
-    The passes run the kernel's rule on each window's sorted keys: l =
+    The passes run the kernels' rule on each window's sorted keys: l =
     least key, u = greatest + 1; cand = l + (u - l) / 2; below = keys <
     cand; l = the least key >= cand if below <= k*k/2, else u = the
     greatest key < cand, + 1; until u - l = 1. A NaN window runs none.
-    ``warp_passes`` is the sum over warps (32 outputs of a row) of their
+    The warp passes are the sum over warps (32 outputs of a row) of their
     slowest lane's passes, times 32: what the warps issue."""
-    rank, lv = (k * k) // 2, k.bit_length()
+    rank = (k * k) // 2
     passes, warp, outputs = 0.0, 0.0, 0
     for b in range(x.shape[0]):
         w = _windows(x, k, b).view(torch.int32).to(torch.int64) & 0xFFFFFFFF
@@ -4191,11 +4272,78 @@ def select_design_ops(x, k: int) -> dict:
         passes += float(n.sum())
         warp += float(rows.max(dim=2).values.sum()) * 32
         outputs += n.numel()
+    return passes, warp, outputs
+
+
+def select_design_ops(x, k: int, passes=None) -> dict:
+    """Operations the select kernel (``csrc/median.cu``) runs on ``x`` at
+    window k, from this input's windows, and its passes (``passes``:
+    :func:`bisection_passes` of ``x`` at k where already counted).
+
+    Per output: the sort of the column segments, shared by a CTA's 8 x 32
+    outputs (each key of the staged (8 + k - 1) x (32 + k - 1) tile
+    compared with the k keys of its first segment, then two a further
+    segment; a compare and an add each), the extreme keys (2 k), and per
+    pass of the bisection (:func:`bisection_passes`), for each of the k
+    segments, ceil(log2(k + 1)) probes (a compare and a select) and the
+    sum, least and greatest (3). The count does not need the planes to fit
+    a block, so it is also the least count of a known exact design past
+    the select's last window."""
+    lv = k.bit_length()
+    passes, warp, outputs = passes or bisection_passes(x, k)
     ih, iw = 8 + k - 1, 32 + k - 1
     sort = 2 * iw * (ih * k + 2 * (8 * k - ih)) / (8 * 32)
     per_pass = k * (2 * lv + 3)
     return {"ops": outputs * (sort + 2 * k) + passes * per_pass,
             "passes_per_output": passes / outputs, "warp_passes_per_output": warp / outputs}
+
+
+def wide_design_ops(x, k: int, passes=None) -> dict:
+    """Operations the wide kernel (``csrc/median.cu``) runs on ``x`` at
+    window k, from this input's windows, and its passes: per output the
+    scan of its k*k keys for the extreme keys (two min/max a key), then
+    per pass of the bisection (:func:`bisection_passes`) a compare, an add
+    and two selects a key of the window."""
+    passes, warp, outputs = passes or bisection_passes(x, k)
+    kk = k * k
+    return {"ops": outputs * 2 * kk + passes * 4 * kk, "passes_per_output": passes / outputs,
+            "warp_passes_per_output": warp / outputs}
+
+
+def signed_keys_input(shape, seed: int):
+    """Signed zeros, ±1 and negatives on ``shape`` (b, h, w) with w > 255; in
+    slice 0 a NaN at (10, 200) and a negative NaN at (2, 255), so that at k
+    = 223 some windows hold neither, some the first, some both (the second
+    first in row-major order)."""
+    rng = np.random.default_rng(seed)
+    z = rng.choice(np.array([-0.0, 0.0, 1.0, -1.0, -3.5], np.float32), size=shape,
+                   p=[0.25, 0.25, 0.2, 0.2, 0.1])  # the rank in the -0.0s, +0.0s above
+    z = np.where(z < -2, z + rng.random(shape).astype(np.float32), z)  # distinct negatives
+    z[0, 10, 200] = np.float32("nan")
+    z[0, 2, 255] = np.array(0xFFC00000, np.uint32).view(np.float32)
+    return torch.from_numpy(z)
+
+
+def key_sort_median(x, k: int):
+    """The k x k clamp-to-edge median of ``x`` by the order-preserving keys
+    of the select and wide kernels: the rank-(k*k // 2) key of each
+    window's keys, a NaN window's first NaN in row-major order. Independent
+    of the kernels' bisection; on the card its ±0 order is the plain
+    network's (``torch.minimum`` gives -0.0 both ways)."""
+    out = torch.empty_like(x)
+    for b in range(x.shape[0]):
+        wins, meds = _windows(x, k, b), []
+        for w in wins.split(1024):
+            u = w.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+            key = torch.where(u >= 0x80000000, (~u) & 0xFFFFFFFF, u | 0x80000000)
+            mid = key.kthvalue((k * k) // 2 + 1, dim=1).values
+            bits = torch.where(mid >= 0x80000000, mid & 0x7FFFFFFF, (~mid) & 0xFFFFFFFF)
+            med = torch.where(bits >= 2**31, bits - 2**32, bits).to(torch.int32)
+            nan = torch.isnan(w)
+            first = w.gather(1, nan.to(torch.uint8).argmax(dim=1, keepdim=True))[:, 0]
+            meds.append(torch.where(nan.any(dim=1), first, med.view(torch.float32)))
+        out[b] = torch.cat(meds).view(x.shape[-2:])
+    return out
 
 
 def median_library_ms(x, k: int, repeats: int = 5) -> float:
@@ -4276,26 +4424,122 @@ def grow_design_ops(img, seeds, valid, low, high, block_iters, max_iters, tiles)
         j += 1
 
 
-def envelope_phase(median_x, fused_x, pre_kw: dict, smi: str, kernels: dict, reset):
+def envelope_phantoms(h: int, w: int, seed: int, lesion_radius: float = 0.12):
+    """Two phantoms on an h x w canvas on the card, one of full size, one smaller."""
+    from nm03_capstone_project_tpu_torch.core import pad_to_canvas
+    from nm03_capstone_project_tpu_torch.data.synthetic import phantom_slice
+
+    dims = [(h, w), (h - h // 8, w - w // 5)]
+    return pad_to_canvas([phantom_slice(a, b, seed=seed + i, lesion_radius=lesion_radius)
+                          for i, (a, b) in enumerate(dims)], (h, w), device="cuda")
+
+
+def envelope_grow_inputs(bt, pre_kw: dict):
+    """The grow kernel's inputs from a phantom batch: the plain preprocess,
+    the seeds and the valid mask."""
+    from nm03_capstone_project_tpu_torch.core import valid_mask
+    from nm03_capstone_project_tpu_torch.ops import hopper_median as hm
+    from nm03_capstone_project_tpu_torch.ops.neighborhood import extend_edges
+    from nm03_capstone_project_tpu_torch.ops.seeds import seed_mask
+
+    hw = tuple(bt.pixels.shape[-2:])
+    pre = hm._fused_preprocess_plain(extend_edges(bt.pixels, bt.dims), **pre_kw)
+    return pre, seed_mask(bt.dims, hw), valid_mask(bt.dims, hw)
+
+
+def envelope_huge_inputs(pre_kw: dict):
+    """The grow's inputs at 20,000 x 20,000: two phantoms at 5000 x 5000
+    upsampled on the card (a phantom that size would take the host tens of
+    seconds)."""
+    side, up = ENVELOPE_HUGE
+    return tuple(t.repeat_interleave(up, dim=-2).repeat_interleave(up, dim=-1)
+                 for t in envelope_grow_inputs(envelope_phantoms(side, side, 10), pre_kw))
+
+
+def envelope_limit_input():
+    """The select kernel's batch at MAX_SELECT_WINDOW: random, seeded."""
+    gen = torch.Generator(device="cpu").manual_seed(63)
+    return (torch.rand(ENVELOPE_LIMIT, generator=gen) * 4000 + 0.68).to("cuda")
+
+
+def envelope_wide_inputs(pre_kw: dict):
+    """The wide route's main path: ``(golden, phantom batch, fused input,
+    median input)`` of testdata/envelope_wide_golden.json's phantoms."""
+    from nm03_capstone_project_tpu_torch.kernels import build
+    from nm03_capstone_project_tpu_torch.ops.elementwise import clip_intensity, normalize
+    from nm03_capstone_project_tpu_torch.ops.neighborhood import extend_edges
+
+    golden = json.loads((build.PKG / "testdata" / "envelope_wide_golden.json").read_text())
+    c = ENVELOPE_WIDE_PIPELINE[0]
+    bt = envelope_phantoms(c, c, golden["case"]["seeds"][0], golden["case"]["lesion_radius"])
+    fx = extend_edges(bt.pixels, bt.dims)
+    mx = clip_intensity(normalize(fx, pre_kw["norm_low"], pre_kw["norm_high"],
+                                  pre_kw["norm_min"], pre_kw["norm_max"]),
+                        pre_kw["clip_low"], pre_kw["clip_high"])
+    return golden, bt, fx, mx
+
+
+def envelope_device_times(median_x, fused_x, pre_kw: dict) -> dict:
+    """The envelope routes' own device times (:func:`device_ms`), taken
+    early, right after the ``grow`` phase: late in this script, and in one
+    process after about a million plain-op launches, the profiler's windows
+    have come back with few or none of the kernels' records, never this
+    early (``PERF.md`` §7). ``{row: (ms, method, missed windows)}`` for the
+    select at each ENVELOPE_WINDOWS on the main batch and at
+    MAX_SELECT_WINDOW, the wide route at k = 65, the unfused route's select
+    at k = 17, and the global grow at 4096 x 4096 and 20,000 x 20,000."""
+    from nm03_capstone_project_tpu_torch.config import PipelineConfig
+    from nm03_capstone_project_tpu_torch.ops import hopper_median as hm
+    from nm03_capstone_project_tpu_torch.ops import hopper_region_growing as hg
+
+    sel, gg = hm.vector_median_select_kernel, hg.region_grow_global_kernel
+    times = {}
+    for k in ENVELOPE_WINDOWS:
+        times[f"select_k{k}"] = device_ms(lambda: hm.vector_median_filter_kernel(median_x, k),
+                                          "select_kernel", sel, repeats=5)
+    lim_x, klim = envelope_limit_input(), hm.MAX_SELECT_WINDOW
+    times[f"select_k{klim}"] = device_ms(lambda: hm.vector_median_filter_kernel(lim_x, klim),
+                                         "select_kernel", sel, repeats=5)
+    mx, wk = envelope_wide_inputs(pre_kw)[3], ENVELOPE_WIDE_PIPELINE[1]
+    times[f"wide_k{wk}"] = device_ms(lambda: hm.vector_median_filter_kernel(mx, wk),
+                                     "wide_kernel", hm.vector_median_wide_kernel, repeats=5)
+    kw = dict(pre_kw, median_window=ENVELOPE_WINDOWS[0])
+    times["unfused"] = device_ms(lambda: hm.fused_preprocess_kernel(fused_x, **kw),
+                                 "select_kernel", sel, repeats=5)
+    cfg = PipelineConfig(canvas=256)
+    for name, (img, seeds, valid), repeats in (
+            ("grow_4096", envelope_grow_inputs(envelope_phantoms(4096, 4096, 10), pre_kw), 5),
+            ("grow_huge", envelope_huge_inputs(pre_kw), 3)):
+        gkw = dict(valid=valid, block_iters=cfg.grow_block_iters, max_iters=cfg.grow_max_iters)
+        times[name] = device_ms(lambda: hg.region_grow_kernel(img, seeds, cfg.grow_low,
+                                                              cfg.grow_high, **gkw),
+                                "grow_global_kernel", gg, repeats=repeats)
+    return times
+
+
+def envelope_phase(median_x, fused_x, pre_kw: dict, smi: str, kernels: dict, reset, times):
     """The routes past the generated plans and past one cluster, each held
     bitwise against its plain version on the card; then ``process_batch``
-    at canvas 3072 with k = 17, the main path of these routes.
+    at canvas 3072 with k = 17, the main path of the select, unfused and
+    global routes, and at canvas 256 with k = 65, the wide route's.
 
     ``median_x`` and ``fused_x`` are the main batch's median and fused
-    inputs. Returns ``(results, launches)``: the three new rows' numbers
-    (``median_select`` at k = 17, the ``fused_unfused`` route at k = 17,
-    ``grow_global`` at 4096 x 4096) and the launches of the main run."""
+    inputs, ``times`` the routes' device times (:func:`envelope_device_times`).
+    Returns ``(results, launches)``: the four new rows' numbers
+    (``median_select`` at k = 17, ``median_wide`` at k = 65, the
+    ``fused_unfused`` route at k = 17, ``grow_global`` at 4096 x 4096) and
+    the launches of the main runs (the wide route's from its own)."""
     from nm03_capstone_project_tpu_torch.config import PipelineConfig
-    from nm03_capstone_project_tpu_torch.core import pad_to_canvas, valid_mask
-    from nm03_capstone_project_tpu_torch.data.synthetic import phantom_slice
     from nm03_capstone_project_tpu_torch.kernels import build
     from nm03_capstone_project_tpu_torch.ops import hopper_median as hm
     from nm03_capstone_project_tpu_torch.ops import hopper_region_growing as hg
     from nm03_capstone_project_tpu_torch.ops.elementwise import clip_intensity, normalize
-    from nm03_capstone_project_tpu_torch.ops.median import vector_median_filter
+    from nm03_capstone_project_tpu_torch.ops.median import (
+        vector_median_filter,
+        vector_median_filter_sort,
+    )
     from nm03_capstone_project_tpu_torch.ops.neighborhood import extend_edges
     from nm03_capstone_project_tpu_torch.ops.region_growing import region_grow
-    from nm03_capstone_project_tpu_torch.ops.seeds import seed_mask
     from nm03_capstone_project_tpu_torch.pipeline import process_batch
 
     t_phase = time.perf_counter()
@@ -4306,6 +4550,17 @@ def envelope_phase(median_x, fused_x, pre_kw: dict, smi: str, kernels: dict, res
 
     def same_bits(a, b) -> bool:
         return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+    def timed_once(fn):
+        """``(fn(), its milliseconds)``, CUDA events around one call: a plain
+        median at a wide window takes seconds, so its check's one call is
+        also its row's plain time."""
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = fn()
+        e1.record()
+        e1.synchronize()
+        return out, e0.elapsed_time(e1)
 
     # -- the median past the plans: exact selection -------------------------
     cases = []
@@ -4349,18 +4604,11 @@ def envelope_phase(median_x, fused_x, pre_kw: dict, smi: str, kernels: dict, res
     zeros["torch_minimum_signbit"] = torch.signbit(torch.minimum(*pair)).tolist()
     zeros["torch_maximum_signbit"] = torch.signbit(torch.maximum(*pair)).tolist()
     # the limit, MAX_SELECT_WINDOW, on a smaller batch
-    lim_x = (torch.rand(ENVELOPE_LIMIT, generator=gen) * 4000 + 0.68).to(dev)
+    lim_x = envelope_limit_input()
     klim = hm.MAX_SELECT_WINDOW
     before = sel.launches
     got = hm.vector_median_filter_kernel(lim_x, klim)
-    # the plain median at the limit takes seconds a call: this one call,
-    # timed, is both the check's and the row's plain_ms
-    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    e0.record()
-    want = vector_median_filter(lim_x, klim)
-    e1.record()
-    e1.synchronize()
-    lim_plain_ms = e0.elapsed_time(e1)
+    want, lim_plain_ms = timed_once(lambda: vector_median_filter(lim_x, klim))
     require(same_bits(got, want), f"median select != plain at the limit, k={klim}")
     require(sel.launches == before + 1, f"k={klim}: not one select launch")
     cases.append(f"limit:k{klim}")
@@ -4375,8 +4623,7 @@ def envelope_phase(median_x, fused_x, pre_kw: dict, smi: str, kernels: dict, res
         # the first design's count beside it, the yardstick of its times
         b_ms, b_by = bound(8 * n, {"minmax_bitwise": design["ops"]})
         first_ms = bound(8 * n, {"minmax_bitwise": first})[0]
-        dev_ms, dev_by, dev_missed = device_ms(lambda: hm.vector_median_filter_kernel(x, kk),
-                                               "select_kernel", sel, repeats=5)
+        dev_ms, dev_by, dev_missed = times[f"select_k{kk}"]
         timing[f"k{kk}"] = {
             "shape": list(x.shape), "device_ms": dev_ms, "device_ms_by": dev_by,
             "profiler_missed": dev_missed,
@@ -4399,6 +4646,89 @@ def envelope_phase(median_x, fused_x, pre_kw: dict, smi: str, kernels: dict, res
                              "signed_zeros_and_nan": zeros, "timing": timing,
                              "limit": hm.MAX_SELECT_WINDOW}
 
+    # -- the median past the select's planes: the wide route ----------------
+    wide = hm.vector_median_wide_kernel
+    wc, wk = ENVELOPE_WIDE_PIPELINE
+    wide_golden, wide_bt, wide_fx, wide_mx = envelope_wide_inputs(pre_kw)
+    rand_w = (torch.rand(ENVELOPE_LIMIT, generator=gen) * 4000 + 0.68).to(dev)
+    small_w = (torch.rand(ENVELOPE_WIDE_SMALL, generator=gen) * 4000 + 0.68).to(dev)
+    wide_cases, wide_plain_ms, wide_window_ms = [], None, {}
+    checks = [("main", wide_mx, wk, vector_median_filter), ("random", rand_w, wk,
+                                                             vector_median_filter)]
+    # k = 127 against the plain network (934k min/max); at 257 the network is
+    # some 5 million, so the plain sort median holds it: the same bits on
+    # finite data without signed zeros (ops/median.py)
+    checks += [("random", small_w, ENVELOPE_WIDE[1], vector_median_filter),
+               ("random", small_w, ENVELOPE_WIDE[2], vector_median_filter_sort)]
+    for name, x, kk, plain in checks:
+        require(hm.median_launch_shape(*x.shape, kk).route == "wide", f"k={kk}: not the wide route")
+        before = wide.launches
+        got = hm.vector_median_filter_kernel(x, kk)
+        want, p_ms = timed_once(lambda: plain(x, kk))
+        require(same_bits(got, want), f"median wide != {plain.__name__} ({name}, k={kk})")
+        require(wide.launches == before + 1, f"k={kk}: not one wide launch")
+        if name == "main":
+            wide_plain_ms = p_ms
+        if x is small_w:
+            wide_window_ms[f"k{kk}"] = cuda_ms(lambda: hm.vector_median_filter_kernel(x, kk),
+                                               repeats=3)
+        staged = "staged" if hm.wide_staged(kk) else "image"
+        wide_cases.append(f"{name}{list(x.shape)}:k{kk}:{staged}:{plain.__name__}")
+    del got, want, small_w
+    got, want = hm.vector_median_filter_kernel(z, wk), vector_median_filter(z, wk)
+    torch.cuda.synchronize()
+    require(same_bits(got, want), f"median wide != plain on signed zeros and NaN, k={wk}")
+    wide_zeros = {}
+    # the keys read from the image (past the staged tile) on the same kinds
+    # of value, held to a sort of the same keys
+    kz, zshape = ENVELOPE_WIDE_KEYS
+    zi = signed_keys_input(zshape, kz).to(dev)
+    require(not hm.wide_staged(kz), f"k={kz}: staged")
+    before = wide.launches
+    got_i = hm.vector_median_filter_kernel(zi, kz)
+    require(wide.launches == before + 1, f"k={kz}: not one wide launch")
+    want_i = key_sort_median(zi, kz)
+    require(same_bits(got_i, want_i), f"median wide != key sort on signed zeros and NaN, k={kz}")
+    for kk, v in ((wk, want), (kz, want_i)):
+        is_zero = v == 0
+        wide_zeros[f"k{kk}"] = {
+            "zero_medians": int(is_zero.sum()),
+            "negative_zero_medians": int((is_zero & torch.signbit(v)).sum()),
+            "negative_medians": int((v < 0).sum()), "nan_medians": int(torch.isnan(v).sum()),
+            "negative_nan_medians": int((torch.isnan(v) & torch.signbit(v)).sum())}
+    require(all(wide_zeros[f"k{kz}"][c] > 0 for c in ("negative_zero_medians", "nan_medians",
+                                                      "negative_nan_medians")),
+            f"k={kz}: the signed-zeros case does not reach -0.0 and both NaNs")
+    wide_cases.append(f"signed_keys{list(zshape)}:k{kz}:image:key_sort_median")
+    del zi, got_i, want_i
+    n = wide_mx.numel()
+    counted = bisection_passes(wide_mx, wk)
+    design = wide_design_ops(wide_mx, wk, counted)
+    # the floor: the bytes or the least operations of a known exact design
+    # on this data (the select's sorted segments, which need no block to
+    # hold them in the count); the wide design's own count beside it
+    least = select_design_ops(wide_mx, wk, counted)["ops"]
+    b_ms, b_by = bound(8 * n, {"minmax_bitwise": min(least, design["ops"])})
+    own_ms = bound(8 * n, {"minmax_bitwise": design["ops"]})[0]
+    w_dev, w_by, w_missed = times[f"wide_k{wk}"]
+    w_ms = cuda_ms(lambda: hm.vector_median_filter_kernel(wide_mx, wk), repeats=5)
+    w_lib = median_library_ms(wide_mx, wk, repeats=3)
+    results["median_wide"] = dict(max_abs_err=0.0, ms=w_ms, device_ms=w_dev, device_ms_by=w_by,
+                                  plain_ms=wide_plain_ms, bound_ms=b_ms, bound_by=b_by,
+                                  library_ms=w_lib)
+    line["median_wide"] = {
+        "bitwise": True, "cases": wide_cases, "signed_zeros_and_nan": wide_zeros,
+        "timed": f"k{wk} on {list(wide_mx.shape)}, the canvas-{wc} process_batch's median input",
+        "ms": w_ms, "device_ms": w_dev, "device_ms_by": w_by, "profiler_missed": w_missed,
+        "plain_ms": wide_plain_ms, "library_ms": w_lib, "bound_ms": b_ms, "bound_by": b_by,
+        "bound_ops_per_output": min(least, design["ops"]) / n,
+        "ops_per_output": design["ops"] / n, "own_design_bound_ms": own_ms,
+        "passes_per_output": design["passes_per_output"],
+        "warp_passes_per_output": design["warp_passes_per_output"],
+        "ms_on_small": wide_window_ms, "staged_up_to": max(
+            k for k in range(1, 400, 2) if hm.wide_staged(k))}
+    del rand_w
+
     # -- the fused preprocess past its plans and taps: the unfused route ----
     cases = []
     rand_f = (torch.rand(MAIN_SHAPE, generator=gen) * 9000).to(dev)
@@ -4416,6 +4746,19 @@ def envelope_phase(median_x, fused_x, pre_kw: dict, smi: str, kernels: dict, res
             med = "median_select" if k > hm.MAX_WINDOW else "median"
             require(ran == launch_dict(**{med: 1}), f"unfused route launched {ran}")
             cases.append(f"{name}:k{k}:taps{ks}")
+    # past the select: the wide median between the torch ops, on the
+    # canvas-256 process_batch's fused input
+    kw = dict(pre_kw, median_window=wk)
+    require(hm.fused_launch_shape(*wide_fx.shape, wk, kw["sharpen_kernel"], 132).route
+            == "unfused", f"k={wk}: not the unfused route")
+    before = {n: fn.launches for n, fn in kernels.items()}
+    got, want = hm.fused_preprocess_kernel(wide_fx, **kw), hm._fused_preprocess_plain(wide_fx, **kw)
+    torch.cuda.synchronize()
+    require(same_bits(got, want), f"unfused route != plain (main, k={wk})")
+    ran = {n: fn.launches - before[n] for n, fn in kernels.items()}
+    require(ran == launch_dict(median_wide=1), f"unfused route at k={wk} launched {ran}")
+    cases.append(f"main{list(wide_fx.shape)}:k{wk}:taps{kw['sharpen_kernel']}")
+    del got, want
     kw = dict(pre_kw, median_window=ENVELOPE_WINDOWS[0])
     n = fused_x.numel()
     ks = kw["sharpen_kernel"]
@@ -4430,8 +4773,7 @@ def envelope_phase(median_x, fused_x, pre_kw: dict, smi: str, kernels: dict, res
     del med_in
     f_ms = cuda_ms(lambda: hm.fused_preprocess_kernel(fused_x, **kw), repeats=5)
     f_plain = cuda_ms(lambda: hm._fused_preprocess_plain(fused_x, **kw), repeats=2)
-    f_dev, f_by, f_missed = device_ms(lambda: hm.fused_preprocess_kernel(fused_x, **kw),
-                                      "select_kernel", sel, repeats=5)
+    f_dev, f_by, f_missed = times["unfused"]
     results["fused_unfused"] = dict(max_abs_err=0.0, ms=f_ms, device_ms=f_dev,
                                     device_ms_by=f_by, plain_ms=f_plain, bound_ms=b_ms,
                                     bound_by=b_by, first_design_bound_ms=f_bound)
@@ -4440,25 +4782,19 @@ def envelope_phase(median_x, fused_x, pre_kw: dict, smi: str, kernels: dict, res
                              "profiler_missed": f_missed, "bound_ms": b_ms, "bound_by": b_by,
                              "first_design_bound_ms": f_bound}
 
-    # -- grow past one cluster: the global route ------------------------------
-    def phantoms(h: int, w: int, seed: int):
-        """Two phantoms on an h x w canvas, one of full size, one smaller."""
-        dims = [(h, w), (h - h // 8, w - w // 5)]
-        return pad_to_canvas([phantom_slice(a, b, seed=seed + i, lesion_radius=0.12)
-                              for i, (a, b) in enumerate(dims)], (h, w), device=dev)
-
-    def grow_inputs(bt):
-        hw = tuple(bt.pixels.shape[-2:])
-        pre = hm._fused_preprocess_plain(extend_edges(bt.pixels, bt.dims), **pre_kw)
-        return pre, seed_mask(bt.dims, hw), valid_mask(bt.dims, hw)
-
+    # -- grow past one cluster: the global route, at any size -----------------
     cfg = PipelineConfig(canvas=256)
     gg = hg.region_grow_global_kernel
     cases, steps_by = [], {}
-    small = grow_inputs(phantoms(256, 256, 10))
+    small = envelope_grow_inputs(envelope_phantoms(256, 256, 10), pre_kw)
     grow_cases = [("forced256_conn8", small, dict(connectivity=8))]
-    for h, w in ENVELOPE_CANVASES:
-        grow_cases.append((f"canvas{h}x{w}", grow_inputs(phantoms(h, w, 10)), {}))
+    for h, w in ENVELOPE_CANVASES + ENVELOPE_SIDES:
+        grow_cases.append((f"canvas{h}x{w}",
+                           envelope_grow_inputs(envelope_phantoms(h, w, 10), pre_kw), {}))
+    side, up = ENVELOPE_HUGE
+    huge_name = f"canvas{side * up}x{side * up}"
+    grow_cases.append((huge_name, envelope_huge_inputs(pre_kw), {}))
+    huge_plain_ms = None
     jump = None
     for name, (img, seeds, valid), extra in grow_cases:
         forced = name.startswith("forced")
@@ -4472,8 +4808,10 @@ def envelope_phase(median_x, fused_x, pre_kw: dict, smi: str, kernels: dict, res
                 got = gg(img, seeds, cfg.grow_low, cfg.grow_high, **kw, **extra)
             else:
                 got = hg.region_grow_kernel(img, seeds, cfg.grow_low, cfg.grow_high, **kw)
-            want = region_grow(img, seeds, cfg.grow_low, cfg.grow_high, connectivity=conn, **kw)
-            torch.cuda.synchronize()
+            want, p_ms = timed_once(lambda: region_grow(img, seeds, cfg.grow_low, cfg.grow_high,
+                                                        connectivity=conn, **kw))
+            if name == huge_name and mi == cfg.grow_max_iters:
+                huge_plain_ms = p_ms
             require((gg.launches, hg.region_grow_kernel.launches) == (before[0] + 1, before[1]),
                     f"{name}: not one global launch")
             for what, a, b in zip(("mask", "converged", "steps"), got, want):
@@ -4497,12 +4835,27 @@ def envelope_phase(median_x, fused_x, pre_kw: dict, smi: str, kernels: dict, res
             require(torch.equal(jm, dm), "jump mask != the global route's at canvas 3072")
             jump = {"converged": jc.tolist(), "dilate_converged": dc.tolist(),
                     "mask_equal_dilate": True, "mask_area": [int(m.sum()) for m in jm]}
-    img, seeds, valid = grow_cases[-2][1]  # 4096 x 4096
-    gkw = dict(valid=valid, block_iters=cfg.grow_block_iters, max_iters=cfg.grow_max_iters)
+    gkw = dict(block_iters=cfg.grow_block_iters, max_iters=cfg.grow_max_iters)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    # the 20,000 x 20,000 case: its call, device time, plain time and floor
+    img, seeds, valid = dict((c[0], c[1]) for c in grow_cases)[huge_name]
+    hkw = dict(gkw, valid=valid)
+    b, h, w = img.shape
+    h_tiles = hg.global_tiles(b, h, w, cfg.grow_block_iters, n_sm)
+    h_bound = bound(b * h * w * (4 + 1 + 1 + 1) + 8 * b, {"minmax_bitwise": grow_design_ops(
+        img, seeds, valid, cfg.grow_low, cfg.grow_high, cfg.grow_block_iters,
+        cfg.grow_max_iters, h_tiles)})
+    huge = {"shape": [b, h, w], "steps": steps_by[huge_name],
+            "tiles": h_tiles._asdict() | {"resident": h_tiles.resident},
+            "ms": cuda_ms(lambda: hg.region_grow_kernel(img, seeds, cfg.grow_low, cfg.grow_high,
+                                                        **hkw), repeats=3),
+            "plain_ms": huge_plain_ms, "bound_ms": h_bound[0], "bound_by": h_bound[1]}
+    huge["device_ms"], huge["device_ms_by"], huge["profiler_missed"] = times["grow_huge"]
+    img, seeds, valid = dict((c[0], c[1]) for c in grow_cases)["canvas4096x4096"]
+    gkw = dict(gkw, valid=valid)
     g_ms = cuda_ms(lambda: hg.region_grow_kernel(img, seeds, cfg.grow_low, cfg.grow_high, **gkw),
                    repeats=5)
-    g_dev, g_by, g_missed = device_ms(lambda: hg.region_grow_kernel(
-        img, seeds, cfg.grow_low, cfg.grow_high, **gkw), "grow_global_kernel", gg, repeats=5)
+    g_dev, g_by, g_missed = times["grow_4096"]
     g_plain = cuda_ms(lambda: region_grow(img, seeds, cfg.grow_low, cfg.grow_high, **gkw),
                       repeats=2)
     b, h, w = img.shape
@@ -4510,7 +4863,6 @@ def envelope_phase(median_x, fused_x, pre_kw: dict, smi: str, kernels: dict, res
     steps = steps_by["canvas4096x4096"]
     g_bytes = b * h * w * (4 + 1 + 1 + 1) + 8 * b
     g_first = bound(g_bytes, {"minmax_bitwise": float(sum(steps)) * words * 9})[0]
-    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     g_tiles = hg.global_tiles(b, h, w, cfg.grow_block_iters, n_sm)
     g_bound = bound(g_bytes, {"minmax_bitwise": grow_design_ops(
         img, seeds, valid, cfg.grow_low, cfg.grow_high, cfg.grow_block_iters,
@@ -4546,12 +4898,12 @@ def envelope_phase(median_x, fused_x, pre_kw: dict, smi: str, kernels: dict, res
                            "profiler_missed": g_missed, "plain_ms": g_plain,
                            "bound_ms": g_bound[0], "bound_by": g_bound[1],
                            "first_design_bound_ms": g_first,
-                           "streamed": streamed, "limit": hg.GLOBAL_MAX_SIDE}
+                           "streamed": streamed, "huge": huge}
     del grow_cases, small, img, seeds, valid
 
     # -- process_batch at canvas 3072, k = 17: the main path of the routes ---
     c, k = ENVELOPE_PIPELINE
-    bt = phantoms(c, c, 30)
+    bt = envelope_phantoms(c, c, 30)
     kcfg = PipelineConfig(canvas=c, median_window=k)
     pcfg = PipelineConfig(canvas=c, median_window=k, use_kernels=False)
     reset()  # the main path's run: every launch from here to the read counts
@@ -4591,10 +4943,135 @@ def envelope_phase(median_x, fused_x, pre_kw: dict, smi: str, kernels: dict, res
     line["process_batch"] = {"canvas": c, "median_window": k, "slices": 2, "launches": launches,
                              "equal_plain": True, "median_and_fused_bitwise": True, "golden": golden["made_by"], "masks": got,
                              "kernels_s": pipe_s}
+
+    # -- process_batch at canvas 256, k = 65: the main path of the wide route
+    kcfg = PipelineConfig(canvas=wc, median_window=wk)
+    pcfg = PipelineConfig(canvas=wc, median_window=wk, use_kernels=False)
+    reset()  # the wide route's main run: every launch from here to the read counts
+    fast = process_batch(wide_bt.pixels, wide_bt.dims, kcfg)
+    torch.cuda.synchronize()
+    wide_launches = {n: fn.launches for n, fn in kernels.items()}
+    require(wide_launches == launch_dict(median_wide=1, grow=1),
+            f"canvas {wc}, k={wk}: launches {wide_launches}")
+    slow = process_batch(wide_bt.pixels, wide_bt.dims, pcfg)
+    torch.cuda.synchronize()
+    require(torch.equal(fast["mask"], slow["mask"]), f"canvas {wc}, k={wk}: kernel masks != plain")
+    require(torch.equal(fast["grow_converged"], slow["grow_converged"]),
+            f"canvas {wc}, k={wk}: kernel grow_converged != plain")
+    masks = fast["mask"].cpu().numpy()
+    got = [{"sha256": hashlib.sha256(m.tobytes()).hexdigest(), "area": int(m.sum()),
+            "converged": bool(cv)} for m, cv in zip(masks, fast["grow_converged"].tolist())]
+    require(all(g["area"] > 0 for g in got), f"canvas {wc}, k={wk} segmented nothing")
+    golden = wide_golden
+    require(golden["case"]["canvas"] == wc and golden["case"]["median_window"] == wk
+            and golden["slices"] == got, f"canvas {wc}, k={wk}: masks differ from the JAX golden")
+    line["process_batch_wide"] = {"canvas": wc, "median_window": wk, "slices": 2,
+                                  "launches": wide_launches, "equal_plain": True,
+                                  "golden": golden["made_by"], "masks": got}
+    launches = dict(launches, median_wide=wide_launches["median_wide"])
+    line["device_ms_taken"] = "after the grow phase (envelope_device_times)"
     line["seconds"] = time.perf_counter() - t_phase
     line["nvidia_smi"] = smi
     emit(line)
     return results, launches
+
+
+def serve_envelope_phase(smi: str, kernels: dict, reset) -> dict:
+    """Every route inside the served CUDA graphs (``serve_envelope``).
+
+    For each window of SERVE_ENVELOPE_WINDOWS a server (``ServingApp`` in
+    this process, canvas 3072: the global grow in every graph; buckets 1
+    and 2; two lanes on the card, each with its own stream and graphs)
+    answers SERVE_ENVELOPE_PHANTOMS raw float32 phantom bodies at
+    concurrency SERVE_ENVELOPE_CONCURRENCY: the two of
+    ``testdata/envelope_golden.json`` and six more, of other sizes. Each
+    served mask must equal ``process_batch``'s with the kernels on the same
+    phantoms (the batch path), and at k = 17 that batch path's masks of the
+    golden's two phantoms must equal the golden. The line has each bucket's
+    kernels and capture seconds, the statuses, the lanes that answered and
+    the replays' launches. Returns the launches of the three servers'
+    requests (replays x the launches a graph holds; no wrapper runs outside
+    a graph)."""
+    from nm03_capstone_project_tpu_torch.config import PipelineConfig
+    from nm03_capstone_project_tpu_torch.core import pad_to_canvas
+    from nm03_capstone_project_tpu_torch.data.synthetic import phantom_slice
+    from nm03_capstone_project_tpu_torch.kernels import build
+    from nm03_capstone_project_tpu_torch.pipeline import process_batch
+    from nm03_capstone_project_tpu_torch.serving.server import ServingApp, serve_in_thread
+
+    t_phase = time.perf_counter()
+    c, buckets, lanes = SERVE_ENVELOPE
+    golden = json.loads((build.PKG / "testdata" / "envelope_golden.json").read_text())
+    case = golden["case"]
+    require(case["canvas"] == c, f"the golden's canvas {case['canvas']} is not {c}")
+    dims = [tuple(d) for d in case["dims"]]
+    seeds = list(case["seeds"])
+    for i in range(SERVE_ENVELOPE_PHANTOMS - len(dims)):
+        dims.append((c - c // (3 + i), c - c // (4 + i)))
+        seeds.append(50 + i)
+    slices = [phantom_slice(h, w, seed=s, lesion_radius=case["lesion_radius"])
+              for (h, w), s in zip(dims, seeds)]
+    bt = pad_to_canvas(slices, (c, c), device="cuda")
+    out, total = {"canvas": c, "buckets": list(buckets), "lanes": lanes, "windows": {}}, {}
+    for k in SERVE_ENVELOPE_WINDOWS:
+        cfg = PipelineConfig(canvas=c, median_window=k)
+        batch = process_batch(bt.pixels, bt.dims, cfg)
+        masks = batch["mask"].cpu().numpy()
+        want = {i: hashlib.sha256(np.ascontiguousarray(masks[i, :h, :w]).tobytes()).hexdigest()
+                for i, (h, w) in enumerate(dims)}
+        if k == case["median_window"]:
+            got = [{"sha256": hashlib.sha256(m.tobytes()).hexdigest(), "area": int(m.sum()),
+                    "converged": bool(cv)}
+                   for m, cv in zip(masks[:2], batch["grow_converged"][:2].tolist())]
+            require(got == golden["slices"], f"k={k}: the batch path differs from the golden")
+        del batch
+        app = ServingApp(cfg=cfg, buckets=buckets, max_wait_s=0.05,
+                         lane_devices=["cuda:0"] * lanes, result_cache_bytes=1 << 28)
+        t0 = time.perf_counter()
+        httpd, _, port = serve_in_thread(app)
+        warm_s = time.perf_counter() - t0
+        try:
+            graphs = app.status()["cuda_graphs"]
+            require(graphs["enabled"] and len(graphs["lanes"]) == lanes,
+                    f"k={k}: graphs {graphs}")
+            reset()
+            app.executor.reset_replays()
+            jobs = [(i, np.ascontiguousarray(slices[i]).astype("<f4").tobytes(),
+                     {"Content-Type": "application/octet-stream", "X-Nm03-Height": str(h),
+                      "X-Nm03-Width": str(w)}) for i, (h, w) in enumerate(dims)]
+            res, wall = client_run(f"http://127.0.0.1:{port}/v1/segment?output=mask", jobs,
+                                   SERVE_ENVELOPE_CONCURRENCY)
+            launches = app.executor.replay_launches()
+            eager = {n: fn.launches for n, fn in kernels.items() if fn.launches}
+            graphs = {lane: {b: {"kernels": g["kernels"], "capture_s": g["capture_s"],
+                                 "replays": g["replays"]} for b, g in bk.items()}
+                      for lane, bk in app.executor.graph_stats()["lanes"].items()}
+        finally:
+            app.begin_drain(reason="chip_smoke")
+            httpd.shutdown()
+            httpd.server_close()
+            app.close()
+        statuses = sorted(r[0] for r in res.values())
+        require(statuses == [200] * len(jobs), f"k={k}: statuses {statuses}")
+        for i, (_, payload, _, _) in res.items():
+            require(payload["mask_sha256"] == want[i],
+                    f"k={k}: served phantom {i} {dims[i]} != the batch path")
+        require(not eager, f"k={k}: wrappers ran outside the graphs: {eager}")
+        route = {17: "median_select", 65: "median_wide"}.get(k, "fused")
+        require(launches.get("grow_global", 0) > 0 and launches.get(route, 0) > 0,
+                f"k={k}: the replays launched {launches}")
+        for name, n in launches.items():
+            total[name] = total.get(name, 0) + n
+        out["windows"][f"k{k}"] = {
+            "warm_s": warm_s,
+            "graphs": graphs,
+            "statuses": statuses, "lanes_answered": sorted({r[1]["lane"] for r in res.values()}),
+            "requests_per_s": len(jobs) / wall, "launches": launches,
+            "equal_batch_path": True, "golden": k == case["median_window"]}
+    out.update(phase="serve_envelope", launches=total,
+               seconds=time.perf_counter() - t_phase, nvidia_smi=smi)
+    emit(out)
+    return total
 
 
 def main() -> int:
@@ -4627,6 +5104,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     smi = nvidia_smi()
+    _PHASE_LOAD["load_1m"] = os.getloadavg()[0]
 
     # -- 1. build ------------------------------------------------------------
     t0 = time.perf_counter()
@@ -4708,7 +5186,7 @@ def main() -> int:
     emit({"phase": "median", "bitwise": True, "cases": cases, "ms": ms, "device_ms": dev_ms,
           "device_ms_by": dev_by, "profiler_missed": dev_missed,
           "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
-          "launches": hm.vector_median_filter_kernel.launches})
+          "launches": hm.vector_median_filter_kernel.launches, "nvidia_smi": smi})
 
     # -- 2b. fused preprocess ------------------------------------------------
     # one long study as the volume path launches it: its planes as the batch
@@ -4755,7 +5233,7 @@ def main() -> int:
           "tile": [tile_h, tile_w], "grid": grid, "smem_bytes": smem,
           "study": {"shape": list(LONG_STUDY), "ms": study_ms, "bound_ms": study_bound[0],
                     "bound_by": study_bound[1], "launch_shape": list(study_shape)},
-          "launches": hm.fused_preprocess_kernel.launches})
+          "launches": hm.fused_preprocess_kernel.launches, "nvidia_smi": smi})
 
     # -- 2c. region growing --------------------------------------------------
     def grow_inputs(px, dims):
@@ -4814,7 +5292,12 @@ def main() -> int:
           "truncated_slices": truncated, "steps_per_slice": steps.tolist(),
           "launch_shapes": shapes, "ms": ms, "device_ms": dev_ms,
           "device_ms_by": dev_by, "profiler_missed": dev_missed, "plain_ms": plain_ms,
-          "bound_ms": b_ms, "bound_by": b_by, "launches": hg.region_grow_kernel.launches})
+          "bound_ms": b_ms, "bound_by": b_by, "launches": hg.region_grow_kernel.launches,
+          "nvidia_smi": smi})
+
+    # the envelope routes' device times, before the launch-heavy phases
+    envelope_times = envelope_device_times(median_input(main_px, main_dims),
+                                           extend_edges(main_px, main_dims), pre_kw)
 
     # -- 3. the cohort through process_batch ---------------------------------
     def run(c):
@@ -4897,7 +5380,8 @@ def main() -> int:
     emit({"phase": "profile", "batches": 4, "wall_ms": wall_ms,
           "device_busy_ms": busy_ms if by_kernel else "not measured",
           "idle_share": 1 - busy_ms / wall_ms if by_kernel else "not measured",
-          "top": [{"kernel": k[:80], "ms": ms, "calls": c} for k, ms, c in by_kernel[:10]]})
+          "top": [{"kernel": k[:80], "ms": ms, "calls": c} for k, ms, c in by_kernel[:10]],
+          "nvidia_smi": smi})
 
     n = len(cohort)
     emit({"phase": "slice", "slices": n, "batch": DEFAULT_BATCH_SIZE, "canvas": 256,
@@ -4906,7 +5390,7 @@ def main() -> int:
           "golden_slices": len(golden),
           "converged": int(conv.sum()), "mask_area": int(masks.sum()),
           "launches": launches, "unfused_launches": unfused_launches,
-          "canvas1024_mask_area": int(big_fast["mask"].sum())})
+          "canvas1024_mask_area": int(big_fast["mask"].sum()), "nvidia_smi": smi})
 
     # -- 4. the batch drivers -------------------------------------------------
     with tempfile.TemporaryDirectory(prefix="nm03_driver_") as tmp:
@@ -4940,10 +5424,12 @@ def main() -> int:
     # -- 15. the kernels over the JAX package's whole envelope ---------------
     envelope_results, envelope_launches = envelope_phase(
         median_input(main_px, main_dims), extend_edges(main_px, main_dims), pre_kw, smi,
-        kernels, reset)
+        kernels, reset, envelope_times)
     results.update(envelope_results)
+    # -- 16. every route inside the served graphs -----------------------------
+    serve_envelope_launches = serve_envelope_phase(smi, kernels, reset)
 
-    # -- 16. kernels ---------------------------------------------------------
+    # -- 17. kernels ---------------------------------------------------------
     # name, source, TPU kernel, and the launch key its main-path counts read:
     # the unfused route launches the select kernel, no kernel of its own
     meta = {
@@ -4956,6 +5442,8 @@ def main() -> int:
         "median_select": ("vector_median_filter:select", "csrc/median.cu",
                           "nm03_capstone_project_tpu/ops/pallas_median.py:101",
                           "median_select"),
+        "median_wide": ("vector_median_filter:wide", "csrc/median.cu",
+                        "nm03_capstone_project_tpu/ops/pallas_median.py:101", "median_wide"),
         "fused_unfused": ("fused_preprocess:unfused", "csrc/median.cu",
                           "nm03_capstone_project_tpu/ops/pallas_median.py:165",
                           "median_select"),
@@ -4985,6 +5473,7 @@ def main() -> int:
             "sanitize_launches": sanitize_launches.get(lk, 0),
             "compile_cache_launches": compile_cache_launches.get(lk, 0),
             "envelope_launches": envelope_launches[lk],
+            "serve_envelope_launches": serve_envelope_launches.get(lk, 0),
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "device_ms": r["device_ms"], "device_ms_by": r["device_ms_by"],
             "plain_ms": r["plain_ms"],

@@ -453,7 +453,7 @@ __device__ __forceinline__ int tile_busy(const int* chg, const TilePlace& p, con
   if (threadIdx.x < 9) {
     const int y = p.yi + (int)threadIdx.x / 3 - 1, x = p.xi + (int)threadIdx.x % 3 - 1;
     if (y >= 0 && y < g.ty && x >= 0 && x < g.tx) {
-      flag = __ldcg(chg + p.s * g.ty * g.tx + y * g.tx + x);
+      flag = __ldcg(chg + ((size_t)p.s * g.ty + y) * g.tx + x);
     }
   }
   return __syncthreads_or(flag);
@@ -529,10 +529,11 @@ grow_global_kernel(const float* __restrict__ image, const uint8_t* __restrict__ 
   cg::grid_group grid = cg::this_grid();
   const int WW = (W + 31) >> 5;
   const int tiles = B * g.ty * g.tx, nbw = (B + 31) >> 5;
+  // offsets into the scratch are 64-bit: B and the tile count multiply
   int* cnt = scratch;  // cnt[(j & 3) * B + s]: the count after block j (block -1: 3)
-  int* par = scratch + 4 * B;
-  int* pop = scratch + 5 * B;
-  int* chg = scratch + 5 * B + tiles;  // chg[(super-step & 1) * tiles + t]
+  int* par = scratch + (size_t)4 * B;
+  int* pop = scratch + (size_t)5 * B;
+  int* chg = scratch + (size_t)5 * B + tiles;  // chg[(super-step & 1) * tiles + t]
   extern __shared__ uint32_t sm[];
   const int hold = (g.rows + 2) * g.pitch;  // a tile with its border of zero words
   uint32_t* sband = sm;
@@ -560,7 +561,7 @@ grow_global_kernel(const float* __restrict__ image, const uint8_t* __restrict__ 
     c = block_sum(c, red);
     if (threadIdx.x == 0) {
       pop[t] = c;
-      if (c) atomicAdd(cnt + 3 * B + p.s, c);
+      if (c) atomicAdd(cnt + (size_t)3 * B + p.s, c);
     }
   }
   for (int i = threadIdx.x; i < nbw; i += blockDim.x) {
@@ -581,7 +582,7 @@ grow_global_kernel(const float* __restrict__ image, const uint8_t* __restrict__ 
       for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
         const TilePlace tp = place_of(t, g, H, WW);
         if (!((act[tp.s >> 5] >> (tp.s & 31)) & 1u)) continue;  // a stopped slice
-        if (gs == 0 || tile_busy(chg + ((gs - 1) & 1) * tiles, tp, g)) {
+        if (gs == 0 || tile_busy(chg + (size_t)((gs - 1) & 1) * tiles, tp, g)) {
           const int nr = tp.hr1 - tp.hr0, nc = tp.hc1 - tp.hc0;
           const int up = tp.r0 - tp.hr0, nown = tp.r1 - tp.r0;
           const int left = tp.c0 - tp.hc0, ncw = tp.c1 - tp.c0;
@@ -634,14 +635,16 @@ grow_global_kernel(const float* __restrict__ image, const uint8_t* __restrict__ 
           }
           c = block_sum(c, red);
           if (threadIdx.x == 0) {
-            chg[(gs & 1) * tiles + t] = c != pop[t];
+            chg[(size_t)(gs & 1) * tiles + t] = c != pop[t];
             pop[t] = c;
           }
           if (!g.resident) q = 0;
         } else if (threadIdx.x == 0) {
-          chg[(gs & 1) * tiles + t] = 0;
+          chg[(size_t)(gs & 1) * tiles + t] = 0;
         }
-        if (last && threadIdx.x == 0 && pop[t]) atomicAdd(cnt + (j & 3) * B + tp.s, pop[t]);
+        if (last && threadIdx.x == 0 && pop[t]) {
+          atomicAdd(cnt + (size_t)(j & 3) * B + tp.s, pop[t]);
+        }
       }
       grid.sync();
       p ^= 1;
@@ -657,9 +660,10 @@ grow_global_kernel(const float* __restrict__ image, const uint8_t* __restrict__ 
       uint32_t bits = act[i];
       for (int b = 0; b < 32 && i * 32 + b < B; ++b) {
         const int sl = i * 32 + b;
-        if (blockIdx.x == 0) cnt[((j + 2) & 3) * B + sl] = 0;
+        if (blockIdx.x == 0) cnt[(size_t)((j + 2) & 3) * B + sl] = 0;
         if (!((bits >> b) & 1u)) continue;
-        const int c = __ldcg(cnt + (j & 3) * B + sl), pv = __ldcg(cnt + ((j + 3) & 3) * B + sl);
+        const int c = __ldcg(cnt + (size_t)(j & 3) * B + sl);
+        const int pv = __ldcg(cnt + (size_t)((j + 3) & 3) * B + sl);
         if (c != pv && (long long)(j + 1) * block_iters < max_iters) continue;
         bits &= ~(1u << b);
         if (blockIdx.x == 0) {
@@ -751,7 +755,8 @@ extern "C" int nm03_region_grow(const float* image, const uint8_t* seeds,
 // held with `halo` rows (1..32) beyond its own on each side, `pitch` words
 // a row in shared memory (even, at least the held words and a border of 4),
 // and `grid` CTAs: one a tile (every tile resident) or fewer, each walking
-// several. The layout is checked, not chosen, here. One cooperative launch.
+// several. The layout is checked, not chosen, here. One cooperative launch;
+// any slice size (offsets past 2^31 words and pixels are 64-bit).
 extern "C" int nm03_region_grow_global(const float* image, const uint8_t* seeds,
                                        const uint8_t* valid, uint8_t* mask, int32_t* conv,
                                        int32_t* steps, uint32_t* band, uint32_t* buf0,
@@ -802,14 +807,21 @@ extern "C" int nm03_region_grow_global(const float* image, const uint8_t* seeds,
   const int vec = W % 16 == 0 && aligned(image, 16) && aligned(seeds, 16) &&
                   aligned(mask, 16) && (valid == nullptr || aligned(valid, 16));
   const int conn8 = connectivity == 8 ? 1 : 0;
-  void* args[] = {(void*)&image, (void*)&seeds, (void*)&valid, (void*)&mask, (void*)&conv,
-                  (void*)&steps, (void*)&band, (void*)&buf0, (void*)&buf1,
-                  (void*)&scratch, (void*)&B, (void*)&H, (void*)&W, (void*)&low,
-                  (void*)&high, (void*)&conn8, (void*)&block_iters, (void*)&max_iters,
-                  (void*)&vec, (void*)&g};
-  err = cudaLaunchCooperativeKernel((const void*)grow_global_kernel, dim3((unsigned)grid),
-                                    dim3(GLOBAL_THREADS), args, bytes,
-                                    static_cast<cudaStream_t>(stream));
+  // the cooperative launch as a launch attribute, which stream capture
+  // records as a cooperative kernel node: the serving graphs hold this kernel
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)grid);
+  cfg.blockDim = dim3(GLOBAL_THREADS);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, grow_global_kernel, image, seeds, valid, mask, conv, steps,
+                           band, buf0, buf1, scratch, B, H, W, low, high, conn8, block_iters,
+                           max_iters, vec, g);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }

@@ -61,6 +61,22 @@
 // them. Shared memory: (2P + 1) planes of the 8 x (32 + k - 1) segments (P
 // the largest power of 2 <= k) and the staged tile, 55 KB at k = 17 and
 // 226,000 bytes at k = 63, the largest window.
+//
+// Windows past 63 (nm03_median_wide, the wrapper's "wide" route): the
+// planes no longer fit a block, so each output bisects over its window's
+// keys alone, with the select kernel's keys and rule (the extreme keys,
+// the first NaN row-major, then candidates between keys of the window that
+// snap to the least key at or above the candidate or past the greatest
+// below it). One CTA per (slice, 8-row band, 32-column band), 256 threads,
+// one output a thread. Where the CTA's (8 + k - 1) x (32 + k - 1) keys fit
+// its shared memory (k <= 221: 229,824 bytes) it stages them once, clamped
+// to the canvas, and every pass reads them there, a warp's 32 lanes 32
+// neighbouring words; past that each pass reads the window from global
+// memory through L1 and L2 (clamped indices, the key made on the fly).
+// Bound on the H100: a pass reads k*k keys an output, one load, a compare
+// and two selects a key; about log2(k*k) passes on noisy data and one or
+// two on flat, so operations, not bytes, bound it. Counts are 64-bit, so
+// any odd k the int arguments hold works.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -342,6 +358,115 @@ cudaError_t launch_select(const float* x, float* out, int b0, int nb, int H, int
   return cudaGetLastError();
 }
 
+// -- windows past 63: a bisection over each window's keys --------------------
+
+__host__ __device__ inline size_t wide_smem_bytes(int K) {  // the staged tile of keys
+  return (size_t)(STH + K - 1) * (STW + K - 1) * sizeof(uint32_t);
+}
+
+// f(key) for each key of output (gy, gx)'s window, row-major: from the
+// staged tile (tile (i, j) is canvas (y0 - R + i, x0 - R + j), clamped), or
+// from the image with clamped indices.
+template <bool STAGED, typename F>
+__device__ __forceinline__ void for_window(const uint32_t* keys, const float* __restrict__ xb,
+                                           int H, int W, int K, int i, int j, int gy, int gx,
+                                           F f) {
+  const int R = K / 2, IW = STW + K - 1;
+  for (int dy = 0; dy < K; ++dy) {
+    if (STAGED) {
+      const uint32_t* row = keys + (size_t)(i + dy) * IW + j;
+      for (int dx = 0; dx < K; ++dx) f(row[dx]);
+    } else {
+      const float* row = xb + (size_t)clampi(gy - R + dy, 0, H - 1) * W;
+      for (int dx = 0; dx < K; ++dx) f(order_key(__ldg(row + clampi(gx - R + dx, 0, W - 1))));
+    }
+  }
+}
+
+template <bool STAGED>
+__global__ void __launch_bounds__(SNT)
+wide_kernel(const float* __restrict__ x, float* __restrict__ out, int H, int W, int K, int b0) {
+  const int R = K / 2, IH = STH + K - 1, IW = STW + K - 1;
+  const int b = b0 + blockIdx.z, y0 = blockIdx.y * STH, x0 = blockIdx.x * STW;
+  extern __shared__ uint32_t keys[];
+  const float* xb = x + (size_t)b * H * W;
+  if (STAGED) {
+    for (int idx = threadIdx.x; idx < IH * IW; idx += SNT) {
+      const int i = idx / IW, j = idx - i * IW;
+      const int gy = clampi(y0 - R + i, 0, H - 1);
+      const int gx = clampi(x0 - R + j, 0, W - 1);
+      keys[idx] = order_key(xb[(size_t)gy * W + gx]);
+    }
+    __syncthreads();
+  }
+  const int i = threadIdx.x / STW, j = threadIdx.x - i * STW;
+  const int gy = y0 + i, gx = x0 + j;
+  if (gy >= H || gx >= W) return;
+  uint32_t lo = 0xffffffffu, hi = 0u;
+  for_window<STAGED>(keys, xb, H, W, K, i, j, gy, gx, [&](uint32_t k) {
+    lo = min(lo, k);
+    hi = max(hi, k);
+  });
+  float* o = out + (size_t)b * H * W + (size_t)gy * W + gx;
+  if (key_is_nan(lo) || key_is_nan(hi)) {  // the window's first NaN, row-major
+    uint32_t first = 0u;
+    bool seen = false;
+    for_window<STAGED>(keys, xb, H, W, K, i, j, gy, gx, [&](uint32_t k) {
+      if (!seen && key_is_nan(k)) {
+        first = k;
+        seen = true;
+      }
+    });
+    *o = key_value(first);
+    return;
+  }
+  // the select kernel's bisection, l <= median < u, counting over the
+  // whole window: l moves up to the least key at or above the candidate,
+  // or u down past the greatest key below it
+  const long long rank = (long long)K * K / 2;
+  uint32_t l = lo, u = hi + 1u;
+  while (u - l > 1u) {
+    const uint32_t cand = l + ((u - l) >> 1);
+    long long below = 0;
+    uint32_t succ = KEY_PAD_HI, pred = KEY_PAD_LO;
+    for_window<STAGED>(keys, xb, H, W, K, i, j, gy, gx, [&](uint32_t k) {
+      const bool lt = k < cand;
+      below += lt;
+      pred = lt ? max(pred, k) : pred;
+      succ = lt ? succ : min(succ, k);
+    });
+    if (below <= rank) {
+      l = succ;
+    } else {
+      u = pred + 1u;
+    }
+  }
+  *o = key_value(l);
+}
+
+template <bool STAGED>
+cudaError_t launch_wide(const float* x, float* out, int b0, int nb, int H, int W, int K,
+                        cudaStream_t stream) {
+  size_t bytes = 0;
+  if (STAGED) {
+    bytes = wide_smem_bytes(K);
+    int dev = 0, optin = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) return err;
+    if (bytes > (size_t)optin) return cudaErrorInvalidConfiguration;
+    if (bytes > 48 * 1024) {
+      err = cudaFuncSetAttribute(wide_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)bytes);
+      if (err != cudaSuccess) return err;
+    }
+  }
+  const dim3 grid((W + STW - 1) / STW, (H + STH - 1) / STH, nb);
+  wide_kernel<STAGED><<<grid, SNT, bytes, stream>>>(x, out, H, W, K, b0);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // k x k median of a (B, H, W) float32 batch, clamp-to-edge; odd k <= 15.
@@ -382,4 +507,20 @@ extern "C" int nm03_median_select(const float* x, float* out, int b0, int nb, in
     case 4: return launch_select<4>(x, out, b0, nb, H, W, k, s);
     default: return launch_select<5>(x, out, b0, nb, H, W, k, s);
   }
+}
+
+// k x k median of slices [b0, b0 + nb) of a (., H, W) float32 batch,
+// clamp-to-edge, by a bisection over each window's keys; any odd k. With
+// `staged` the CTA's keys sit in shared memory (the caller checks that they
+// fit: wide_smem_bytes; cudaErrorInvalidConfiguration if they do not), else
+// each pass reads the image. nb <= 65535, as for nm03_median_select.
+extern "C" int nm03_median_wide(const float* x, float* out, int b0, int nb, int H, int W,
+                                int k, int staged, void* stream) {
+  (void)cudaGetLastError();  // clear an error already reported by an earlier call
+  if (b0 < 0 || nb <= 0 || nb > 65535 || H <= 0 || W <= 0 || k < 1 || k % 2 == 0) {
+    return cudaErrorInvalidValue;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return staged ? launch_wide<true>(x, out, b0, nb, H, W, k, s)
+                : launch_wide<false>(x, out, b0, nb, H, W, k, s);
 }

@@ -8,12 +8,14 @@ is its plain PyTorch version, which the CPU tests and ``chip_smoke.py``
 hold it against:
 
 * :func:`vector_median_filter_kernel` — the k x k clamp-to-edge median,
-  bit-identical to :func:`.median.vector_median_filter`: the generated
-  selection plan for k <= MAX_WINDOW (route ``network``), and from
-  k = 17 to MAX_SELECT_WINDOW the exact selection of
+  bit-identical to :func:`.median.vector_median_filter` for any odd k:
+  the generated selection plan for k <= MAX_WINDOW (route ``network``),
+  from k = 17 to MAX_SELECT_WINDOW the exact selection of
   :func:`vector_median_select_kernel` (route ``select``), which the
-  plans' register budget cannot reach. A batch of more than MAX_BATCH
-  slices goes in several launches;
+  plans' register budget cannot reach, and past that the bisection of
+  :func:`vector_median_wide_kernel` (route ``wide``), whose keys need no
+  sorted planes. A batch of more than MAX_BATCH slices goes in several
+  launches;
 * :func:`fused_preprocess_kernel` — normalize -> clip -> median ->
   sharpen in one pass over the image, bit-identical to
   :func:`_fused_preprocess_plain` (the kernel rounds every step as the
@@ -61,7 +63,7 @@ MAX_BATCH = 65535  # the standalone median grid's z dimension
 MAX_TILE_W = 256  # widest tile of the fused kernel
 BLUR_ROWS = 4  # rows the fused kernel's blur accumulates together
 SMEM_PER_BLOCK = 232448  # the H100's opt-in shared memory per block (227 KB)
-SELECT_ROWS, SELECT_COLS = 8, 32  # outputs of a select CTA (STH, STW in csrc/median.cu)
+SELECT_ROWS, SELECT_COLS = 8, 32  # outputs of a select or wide CTA (STH, STW in csrc/median.cu)
 
 
 def select_smem_bytes(k: int) -> int:
@@ -88,6 +90,19 @@ def _largest_select_window() -> int:
 MAX_SELECT_WINDOW = _largest_select_window()
 
 
+def wide_smem_bytes(k: int) -> int:
+    """Shared bytes of a wide CTA that stages its keys (``wide_smem_bytes``
+    in ``csrc/median.cu``): the (SELECT_ROWS + k - 1) x (SELECT_COLS + k -
+    1) tile of keys its outputs' windows cover."""
+    return 4 * (SELECT_ROWS + k - 1) * (SELECT_COLS + k - 1)
+
+
+def wide_staged(k: int) -> bool:
+    """Whether the wide kernel stages window k's keys in shared memory
+    (up to k = 221: 229,824 bytes); past that each pass reads the image."""
+    return wide_smem_bytes(k) <= SMEM_PER_BLOCK
+
+
 def _note_route(kernel: str, route: str, detail: str) -> None:
     """Log a kernel's route the first time this process takes it."""
     log_once(log, (kernel, route), "%s: route %s (%s)", kernel, route, detail)
@@ -96,23 +111,21 @@ def _note_route(kernel: str, route: str, detail: str) -> None:
 class MedianLaunch(NamedTuple):
     """How :func:`vector_median_filter_kernel` runs a (b, h, w) batch."""
 
-    route: str  # "network" (odd k <= MAX_WINDOW) or "select"
+    route: str  # "network" (odd k <= MAX_WINDOW), "select" (<= MAX_SELECT_WINDOW) or "wide"
     launches: int  # grids of at most MAX_BATCH slices
 
 
 def _check_window(k: int) -> None:
-    if k % 2 != 1 or not 1 <= k <= MAX_SELECT_WINDOW:
-        raise ValueError(
-            f"median window must be odd and in [1, {MAX_SELECT_WINDOW}] on the card "
-            f"(MAX_SELECT_WINDOW), got {k}")
+    if k % 2 != 1 or k < 1:
+        raise ValueError(f"median window must be odd and positive, got {k}")
 
 
 def median_launch_shape(b: int, h: int, w: int, k: int) -> MedianLaunch:
     """The median kernel's route and launches for a (b, h, w) batch and an
-    odd window k; ValueError past MAX_SELECT_WINDOW."""
+    odd window k; ValueError for an even or non-positive window."""
     _check_window(k)
-    return MedianLaunch("network" if k <= MAX_WINDOW else "select",
-                        max(1, -(-b // MAX_BATCH)))
+    route = "network" if k <= MAX_WINDOW else "select" if k <= MAX_SELECT_WINDOW else "wide"
+    return MedianLaunch(route, max(1, -(-b // MAX_BATCH)))
 
 
 class FusedLaunch(NamedTuple):
@@ -192,13 +205,16 @@ def _batched(x: torch.Tensor, what: str) -> torch.Tensor:
 def vector_median_filter_kernel(x: torch.Tensor, size: int = 7) -> torch.Tensor:
     """The k x k clamp-to-edge median of a (..., H, W) CUDA tensor: the
     generated plan for k <= MAX_WINDOW, else
-    :func:`vector_median_select_kernel`."""
+    :func:`vector_median_select_kernel` up to MAX_SELECT_WINDOW, else
+    :func:`vector_median_wide_kernel`."""
     _check_window(size)
     xb = _batched(x, "vector_median_filter_kernel")
     b, h, w = xb.shape
     shape = median_launch_shape(b, h, w, size)
     if shape.route == "select":
         return vector_median_select_kernel(x, size)
+    if shape.route == "wide":
+        return vector_median_wide_kernel(x, size)
     out = torch.empty_like(xb)
     if xb.numel() == 0:
         return out.reshape(x.shape)
@@ -227,6 +243,9 @@ def vector_median_select_kernel(x: torch.Tensor, size: int = 17) -> torch.Tensor
     (NaN and signed zeros as the source note there says). The route of
     :func:`vector_median_filter_kernel` from k = 17."""
     _check_window(size)
+    if size > MAX_SELECT_WINDOW:
+        raise ValueError(f"the select kernel takes windows up to {MAX_SELECT_WINDOW} "
+                         f"(MAX_SELECT_WINDOW), got {size}: the wide route takes it")
     xb = _batched(x, "vector_median_select_kernel")
     b, h, w = xb.shape
     shape = median_launch_shape(b, h, w, size)
@@ -246,6 +265,39 @@ def vector_median_select_kernel(x: torch.Tensor, size: int = 17) -> torch.Tensor
 
 
 vector_median_select_kernel.launches = 0
+
+
+def vector_median_wide_kernel(x: torch.Tensor, size: int = 65) -> torch.Tensor:
+    """The k x k clamp-to-edge median of a (..., H, W) CUDA tensor by a
+    bisection over each window's keys (``csrc/median.cu``,
+    ``nm03_median_wide``): the select kernel's order-preserving keys and
+    rule without its sorted planes, the CTA's keys staged in shared memory
+    where they fit (:func:`wide_staged`), else read from the image each
+    pass. Any odd k, bit-identical to :func:`.median.vector_median_filter`
+    (NaN and signed zeros as for the select kernel). The route of
+    :func:`vector_median_filter_kernel` past MAX_SELECT_WINDOW."""
+    _check_window(size)
+    xb = _batched(x, "vector_median_wide_kernel")
+    b, h, w = xb.shape
+    shape = median_launch_shape(b, h, w, size)
+    out = torch.empty_like(xb)
+    if xb.numel() == 0:
+        return out.reshape(x.shape)
+    staged = wide_staged(size)
+    _note_route("median", "wide", f"k={size}, keys {'staged' if staged else 'from the image'}, "
+                f"{shape.launches} launch(es) of {b} slices")
+    lib = build.load("median")
+    stream = torch.cuda.current_stream(xb.device).cuda_stream
+    for b0 in range(0, b, MAX_BATCH):
+        nb = min(MAX_BATCH, b - b0)
+        err = lib.nm03_median_wide(xb.data_ptr(), out.data_ptr(), b0, nb, h, w, size,
+                                   int(staged), stream)
+        build.check(err, "nm03_median_wide")
+        vector_median_wide_kernel.launches += 1
+    return out.reshape(x.shape)
+
+
+vector_median_wide_kernel.launches = 0
 
 
 def fused_preprocess_kernel(

@@ -17,8 +17,8 @@ a log line at its first use:
   cooperative grid over the whole batch with the bit-packed band and
   region in global memory, stepped by tiles in shared memory
   (:func:`global_tiles`) with one grid barrier per super-step of up to
-  ``block_iters`` steps, up to GLOBAL_MAX_SIDE rows and columns; a larger
-  slice is refused with a ValueError before launch.
+  ``block_iters`` steps, at any slice size whose buffers fit the card's
+  memory (one that does not fails in torch's own allocation).
 
 Neither route ends in the plain op on the card.
 """
@@ -44,7 +44,6 @@ MAX_CLUSTER = 8  # the largest portable cluster
 WORDS_PER_CTA = 512  # the cluster grows until each CTA owns about this many words
 MAX_HALO = 16  # rows a CTA holds beyond its own on each side
 SCRATCH_WORDS = 64  # popcount partials: one per warp and one per rank
-GLOBAL_MAX_SIDE = 16384  # the global route's largest slice side
 GLOBAL_MAX_WORDS = 1 << 30  # packed words of one global launch (the rest in more)
 GLOBAL_THREADS = 512  # threads of a global-route CTA
 GLOBAL_MAX_HALO = 32  # rows a global tile holds beyond its own (a step moves a pixel one place)
@@ -76,8 +75,7 @@ def grow_launch_shape(h: int, w: int) -> GrowLaunch:
     two region buffers fit a CTA's shared memory: its own rows and
     min(MAX_HALO, rows) halo rows each side, as ``csrc/grow.cu`` lays them
     out. Where not even 8 CTAs hold the slice, the global route
-    (``GrowLaunch(0, 0, 0)``) up to GLOBAL_MAX_SIDE a side; ValueError
-    past that.
+    (``GrowLaunch(0, 0, 0)``), at any size. ValueError for an empty slice.
     """
     if h < 1 or w < 1:
         raise ValueError(f"grow kernel: empty slice {h}x{w}")
@@ -93,10 +91,6 @@ def grow_launch_shape(h: int, w: int) -> GrowLaunch:
         c *= 2
     if shape(c)[2] <= SMEM_PER_BLOCK:
         return shape(c)
-    if h > GLOBAL_MAX_SIDE or w > GLOBAL_MAX_SIDE:
-        raise ValueError(
-            f"grow kernel: a {h}x{w} slice exceeds the global route's limit of "
-            f"{GLOBAL_MAX_SIDE} rows and columns (GLOBAL_MAX_SIDE)")
     return GrowLaunch(0, 0, 0)
 
 
@@ -268,15 +262,13 @@ def region_grow_global_kernel(
     ``nm03_region_grow_global``): the band and the two region buffers
     bit-packed in global memory, the steps run by tiles in shared memory
     (:func:`global_tiles`), one cooperative launch a batch of at most
-    GLOBAL_MAX_WORDS packed words. The route of :func:`region_grow_kernel`
-    for slices past one cluster; any slice size up to GLOBAL_MAX_SIDE
-    works here."""
+    GLOBAL_MAX_WORDS packed words (a slice past that alone in its own
+    launch). The route of :func:`region_grow_kernel` for slices past one
+    cluster; any slice size works here."""
     _check_args(image, "region_grow_global_kernel", connectivity, block_iters, max_iters)
     lead, (h, w) = image.shape[:-2], image.shape[-2:]
-    if h < 1 or w < 1 or h > GLOBAL_MAX_SIDE or w > GLOBAL_MAX_SIDE:
-        raise ValueError(
-            f"grow kernel: a {h}x{w} slice is outside the global route's 1..{GLOBAL_MAX_SIDE} "
-            "rows and columns (GLOBAL_MAX_SIDE)")
+    if h < 1 or w < 1:
+        raise ValueError(f"grow kernel: empty slice {h}x{w}")
     img = image.reshape(-1, h, w).contiguous()
     b = img.shape[0]
     sd = _flat_u8(seeds, "seeds", image)

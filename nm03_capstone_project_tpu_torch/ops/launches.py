@@ -2,8 +2,9 @@
 
 Each wrapper counts its own launches in ``.launches``; the drivers'
 results JSON (``kernel_launches``) and the serving graphs report them by
-these names. ``median_select`` and ``grow_global`` are the routes of the
-median and grow wrappers past the generated plans and past one cluster.
+these names. ``median_select`` and ``median_wide`` are the routes of the
+median wrapper past the generated plans and past the select kernel's
+planes, ``grow_global`` the grow wrapper's past one cluster.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ KERNELS = {
     "grow": hg.region_grow_kernel,
     "median": hm.vector_median_filter_kernel,
     "median_select": hm.vector_median_select_kernel,
+    "median_wide": hm.vector_median_wide_kernel,
     "grow_global": hg.region_grow_global_kernel,
 }
 

@@ -116,12 +116,17 @@ def test_grow_refuses_what_it_cannot_take(cuda):
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert int(got[0].sum()) == 300 * 1024
-    # past the global route's limit: refused before launch
+    # past the old side limit of 16,384 the global route takes the slice
+    # (seeds none: it grows nothing); an empty slice is refused before launch
     huge = torch.full((1, 16385, 2304), 0.8, device=cuda)
     launches = hg.region_grow_kernel.launches, hg.region_grow_global_kernel.launches
-    with pytest.raises(ValueError, match="16385x2304"):
-        hg.region_grow_kernel(huge, huge > 0.9)
-    assert (hg.region_grow_kernel.launches, hg.region_grow_global_kernel.launches) == launches
+    mask, conv = hg.region_grow_kernel(huge, huge > 0.9)
+    assert int(mask.sum()) == 0 and bool(conv.all())
+    assert (hg.region_grow_kernel.launches, hg.region_grow_global_kernel.launches) == (
+        launches[0], launches[1] + 1)
+    with pytest.raises(ValueError, match="0x2304"):
+        hg.region_grow_kernel(huge[:, :0], huge[:, :0] > 0.9)
+    assert hg.region_grow_global_kernel.launches == launches[1] + 1
 
 
 @pytest.mark.parametrize("hw", [(2048, 2048), (97, 1000), (1000, 33)])
@@ -372,6 +377,30 @@ def test_process_volume_kernels_equal_plain(cuda, fuse, alg):
 
 
 @pytest.mark.parametrize("fuse", [True, False])
+def test_process_volume_takes_the_wide_route(cuda, fuse):
+    # k = 65: the volume path's preprocess reaches the wide median kernel,
+    # once over the study's planes, through the unfused route or the median
+    # dispatch, with no code of its own; masks equal to the plain ops
+    from nm03_capstone_project_tpu_torch.pipeline import process_volume
+
+    # lesions wide enough to outlive a 65 x 65 median (over 65 * 65 / 2 pixels)
+    vol = np.zeros((4, 128, 128), np.float32)
+    vol[:, :120, :112] = [phantom_slice(120, 112, lesion_radius=0.3, seed=5 + i)
+                          for i in range(4)]
+    dims = np.asarray([120, 112], np.int32)
+    cfg = PipelineConfig(canvas=128, min_dim=32, median_window=65, fuse_preprocess=fuse)
+    kernels = (hm.fused_preprocess_kernel, hm.vector_median_wide_kernel)
+    before = tuple(fn.launches for fn in kernels)
+    got = process_volume(vol, dims, cfg)
+    ran = tuple(fn.launches - b for fn, b in zip(kernels, before))
+    want = process_volume(vol, dims, PipelineConfig(canvas=128, min_dim=32, median_window=65,
+                                                    fuse_preprocess=fuse, use_kernels=False))
+    assert torch.equal(got["mask"], want["mask"]) and int(got["mask"].sum()) > 0
+    assert bool(got["grow_converged"]) is bool(want["grow_converged"])
+    assert ran == (0, 1)
+
+
+@pytest.mark.parametrize("fuse", [True, False])
 def test_served_volume_equals_plain_process_volume(cuda, fuse):
     # the volume gang on the card: its own stream on a thread of its own,
     # the study padded from 11 planes to the 16-plane bucket, cropped back
@@ -566,7 +595,7 @@ def test_median_select_signed_zeros_and_nan(cuda):
         assert bool((torch.signbit(want) & (want == 0)).any()) and bool(torch.isnan(want).any())
 
 
-@pytest.mark.parametrize("k,ks", [(17, 9), (7, 33), (31, 35)])
+@pytest.mark.parametrize("k,ks", [(17, 9), (7, 33), (31, 35), (65, 9)])
 def test_fused_unfused_route(cuda, k, ks):
     x = (torch.rand(3, 251, 241) * 9000).to(cuda)
     kw = dict(PRE, median_window=k, sharpen_kernel=ks)
@@ -575,7 +604,8 @@ def test_fused_unfused_route(cuda, k, ks):
     assert hm.fused_preprocess_kernel.launches == fused  # no fused launch: the unfused route
 
 
-@pytest.mark.parametrize("hw", [(2304, 2304), (1024, 4096), (512, 8192)])
+@pytest.mark.parametrize("hw", [(2304, 2304), (1024, 4096), (512, 8192), (16385, 2304),
+                                (2304, 16385)])
 def test_grow_global_route(cuda, hw):
     g = torch.Generator().manual_seed(hw[1])
     img = (torch.rand((2, *hw), generator=g) * 0.3 + 0.68).to(cuda)
@@ -642,3 +672,196 @@ def test_pipeline_at_canvas_3072_k17_equals_the_jax_golden(cuda):
     got = [{"sha256": hashlib.sha256(m.tobytes()).hexdigest(), "area": int(m.sum()),
             "converged": bool(cv)} for m, cv in zip(masks, out["grow_converged"].tolist())]
     assert got == golden["slices"]
+
+
+# -- the last limits: the median past MAX_SELECT_WINDOW, grow at any size, every
+# -- route inside the served graphs
+
+
+@pytest.mark.parametrize("k,shape", [(65, (2, 256, 256)), (127, (1, 64, 64))])
+def test_median_wide_windows(cuda, k, shape):
+    x = (torch.rand(shape) * 4000 + 0.68).to(cuda)
+    dup = torch.randint(-2, 3, shape).float().to(cuda)  # duplicates, both signs
+    before = hm.vector_median_wide_kernel.launches
+    assert hm.median_launch_shape(*shape, k).route == "wide" and hm.wide_staged(k)
+    for inp in (x, dup):
+        assert _same_bits(hm.vector_median_filter_kernel(inp, k), vector_median_filter(inp, k))
+    assert hm.vector_median_wide_kernel.launches == before + 2
+
+
+def test_median_wide_reads_the_image_past_the_staged_tile(cuda):
+    # k = 257: the CTA's keys do not fit a block, each pass reads the image.
+    # The plain network at this window is some 5 million min/max, so the
+    # plain sort median holds it: the same bits on finite data without
+    # signed zeros (ops/median.py)
+    from nm03_capstone_project_tpu_torch.ops.median import vector_median_filter_sort
+
+    x = (torch.rand(1, 64, 64) * 4000 + 0.68).to(cuda)
+    assert not hm.wide_staged(257)
+    before = hm.vector_median_wide_kernel.launches
+    got = hm.vector_median_filter_kernel(x, 257)
+    assert _same_bits(got, vector_median_filter_sort(x, 257))
+    assert hm.vector_median_wide_kernel.launches == before + 1
+
+
+def test_median_wide_signed_zeros_and_nan(cuda):
+    rng = np.random.default_rng(65)
+    z = torch.from_numpy(rng.choice(np.array([-0.0, 0.0, 1.0, -1.0], np.float32),
+                                    size=(4, 40, 40), p=[0.35, 0.35, 0.15, 0.15])).to(cuda)
+    z[0, 5, 5] = float("nan")
+    got, want = hm.vector_median_filter_kernel(z, 65), vector_median_filter(z, 65)
+    assert _same_bits(got, want)
+    assert bool((torch.signbit(want) & (want == 0)).any()) and bool(torch.isnan(want).any())
+
+
+def _key_sort_median(x, k):
+    """Each window's rank-(k*k // 2) order-preserving key (the kernels' keys,
+    by kthvalue, not by their bisection); a NaN window's first NaN."""
+    r, out = k // 2, torch.empty_like(x)
+    for b in range(x.shape[0]):
+        xp = torch.nn.functional.pad(x[b][None, None], (r, r, r, r), mode="replicate")
+        meds = []
+        for w in torch.nn.functional.unfold(xp, k)[0].t().split(1024):
+            u = w.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+            key = torch.where(u >= 0x80000000, ~u & 0xFFFFFFFF, u | 0x80000000)
+            mid = key.kthvalue((k * k) // 2 + 1, dim=1).values
+            bits = torch.where(mid >= 0x80000000, mid & 0x7FFFFFFF, ~mid & 0xFFFFFFFF)
+            med = torch.where(bits >= 2**31, bits - 2**32, bits).to(torch.int32)
+            nan = torch.isnan(w)
+            first = w.gather(1, nan.to(torch.uint8).argmax(dim=1, keepdim=True))[:, 0]
+            meds.append(torch.where(nan.any(dim=1), first, med.view(torch.float32)))
+        out[b] = torch.cat(meds).view(x.shape[-2:])
+    return out
+
+
+def test_median_wide_from_the_image_on_signed_zeros_negatives_and_nan(cuda):
+    # k = 223: the first window whose keys are read from the image. Slice 0
+    # holds a NaN at (10, 200) and a negative NaN at (2, 255): windows with
+    # neither, with the first, and with both (the negative one first)
+    rng = np.random.default_rng(223)
+    z = rng.choice(np.array([-0.0, 0.0, 1.0, -1.0, -3.5], np.float32), size=(2, 24, 260),
+                   p=[0.25, 0.25, 0.2, 0.2, 0.1])
+    z = np.where(z < -2, z + rng.random(z.shape).astype(np.float32), z)
+    z[0, 10, 200] = np.float32("nan")
+    z[0, 2, 255] = np.array(0xFFC00000, np.uint32).view(np.float32)
+    x = torch.from_numpy(z).to(cuda)
+    assert not hm.wide_staged(223)
+    before = hm.vector_median_wide_kernel.launches
+    got = hm.vector_median_filter_kernel(x, 223)
+    assert hm.vector_median_wide_kernel.launches == before + 1
+    want = _key_sort_median(x, 223)
+    assert _same_bits(got, want)
+    zero, nan = want == 0, torch.isnan(want)
+    assert bool((zero & torch.signbit(want)).any()) and bool((zero & ~torch.signbit(want)).any())
+    assert bool((nan & torch.signbit(want)).any()) and bool((nan & ~torch.signbit(want)).any())
+    assert not bool(nan[1].any())
+
+
+def test_median_wide_batch_past_the_grid_splits(cuda):
+    # 2 x 2 slices: the plain network's live values at k = 65 (thousands of
+    # arrays of the input's size) must fit the card beside the kernel's
+    x = (torch.rand(hm.MAX_BATCH + 100, 2, 2) * 4000).to(cuda)
+    before = hm.vector_median_wide_kernel.launches
+    assert _same_bits(hm.vector_median_filter_kernel(x, 65), vector_median_filter(x, 65))
+    assert hm.vector_median_wide_kernel.launches == before + 2
+
+
+def test_grow_past_two_to_the_31_pixels(cuda):
+    # 6 slices of 20,000 x 20,000: 2.4e9 pixels in one launch, past 2^31, and
+    # each slice past the old side limit of 16,384; held slice by slice to
+    # the plain grow, which cannot hold the whole batch's temporaries
+    b, h, w = 6, 20000, 20000
+    g = torch.Generator(device=cuda).manual_seed(20000)
+    img = torch.rand((b, h, w), generator=g, device=cuda) * 0.3 + 0.68
+    seeds = torch.rand((b, h, w), generator=g, device=cuda) < 0.0005
+    assert b * h * w > 2**31 and hg.grow_launch_shape(h, w).route == "global"
+    before = hg.region_grow_global_kernel.launches
+    kw = dict(block_iters=4, max_iters=64, return_steps=True)
+    mask, conv, steps = hg.region_grow_kernel(img, seeds, **kw)
+    assert hg.region_grow_global_kernel.launches == before + 1
+    for i in range(b):
+        want = region_grow(img[i:i + 1], seeds[i:i + 1], **kw)
+        for got, ref in zip((mask[i:i + 1], conv[i:i + 1], steps[i:i + 1]), want):
+            assert torch.equal(got, ref), i
+        del want
+    assert int(mask[-1, -1].sum()) > 0  # the last row of the last slice, past 2^31
+
+
+def _phantom_batch(b, canvas, seed):
+    """b phantoms on a canvas: the first of full size, the rest smaller."""
+    dims = [(canvas, canvas)] + [(canvas - canvas // (8 + i), canvas - canvas // (5 + i))
+                                 for i in range(b - 1)]
+    slices = [phantom_slice(h, w, seed=seed + i, lesion_radius=0.12)
+              for i, (h, w) in enumerate(dims)]
+    batch = pad_to_canvas(slices, (canvas, canvas), device="cpu")
+    return batch.pixels.numpy(), batch.dims.numpy()
+
+
+@pytest.mark.parametrize("canvas,k,held", [
+    (3072, 7, {"fused": 1, "grow_global": 1}),
+    (3072, 17, {"median_select": 1, "grow_global": 1}),
+    (256, 65, {"median_wide": 1, "grow": 1}),
+])
+def test_bucket_graphs_hold_every_route(cuda, canvas, k, held):
+    # the global grow (a cooperative launch, its scratch zeroed inside the
+    # graph), the select and the wide median between the unfused route's
+    # torch ops, captured and replayed twice on new inputs: each replay
+    # bitwise equal to eager _process with the kernels and to the plain ops
+    from nm03_capstone_project_tpu_torch.pipeline.slice_pipeline import _process
+    from nm03_capstone_project_tpu_torch.serving.graphs import BucketGraph
+
+    cfg = PipelineConfig(canvas=canvas, median_window=k)
+    plain = PipelineConfig(canvas=canvas, median_window=k, use_kernels=False)
+    pool, stream = torch.cuda.graph_pool_handle(), torch.cuda.Stream(cuda)
+    graphs = {b: BucketGraph(cfg, b, cuda, pool, stream) for b in (1, 2)}
+    for g in graphs.values():
+        assert g.capture() > 0 and g.kernels == held
+    for rnd in range(2):
+        for b, g in graphs.items():
+            px, dm = _phantom_batch(b, canvas, seed=40 + 10 * rnd + b)
+            g.launch(px, dm)
+            mask, conv = g.fetch()
+            x, d = torch.from_numpy(px).to(cuda), torch.from_numpy(dm).to(cuda)
+            for want_cfg in (cfg, plain):
+                want = _process(x, d, want_cfg)
+                assert np.array_equal(mask, want["mask"].cpu().numpy()), (b, rnd, want_cfg)
+                assert np.array_equal(conv, want["grow_converged"].cpu().numpy())
+            assert int(mask.sum()) > 0
+    assert all(g.replays == 2 for g in graphs.values())
+
+
+def test_two_lanes_serve_the_global_route_at_once(cuda):
+    # two lanes on the one card, each with its own stream and graphs, four
+    # requests in flight: cooperative grids of both lanes may run at once
+    import hashlib
+    from concurrent.futures import ThreadPoolExecutor
+
+    from nm03_capstone_project_tpu_torch.serving.server import ServingApp
+
+    canvas = 3072
+    cfg = PipelineConfig(canvas=canvas)
+    app = ServingApp(cfg=cfg, buckets=(1, 2), max_wait_s=0.05, lane_devices=[cuda, cuda],
+                     result_cache_bytes=1 << 28)
+    app.start()
+    try:
+        px, dm = _phantom_batch(4, canvas, seed=60)
+        want = process_batch(torch.from_numpy(px).to(cuda), torch.from_numpy(dm).to(cuda),
+                             PipelineConfig(canvas=canvas, use_kernels=False))["mask"]
+        want = want.cpu().numpy()
+
+        def one(i):
+            h, w = dm[i].tolist()
+            return app.segment(px[i, :h, :w].copy(), render=False)
+
+        with ThreadPoolExecutor(4) as pool:
+            payloads = list(pool.map(one, [0, 1, 2, 3, 0, 1, 2, 3]))
+        for i, payload in enumerate(payloads):
+            h, w = dm[i % 4].tolist()
+            m = np.ascontiguousarray(want[i % 4, :h, :w])
+            assert payload["mask_sha256"] == hashlib.sha256(m.tobytes()).hexdigest(), i
+        assert app.executor.replay_launches().get("grow_global", 0) >= 2
+        lanes = {p["lane"] for p in payloads}
+        assert lanes == {0, 1}, lanes
+    finally:
+        app.begin_drain(reason="test")
+        app.close()

@@ -6,10 +6,11 @@ kernels take the same on the card by routes picked from the shape and the
 config before launch (``ops/hopper_median.py``,
 ``ops/hopper_region_growing.py``):
 
-* the median from k = 17 by exact selection (``select``), the fused
-  preprocess past its plans or taps by the median kernel between torch ops
-  (``unfused``), grow past one cluster's shared memory with the region in
-  global memory (``global``);
+* the median from k = 17 by exact selection (``select``) and past
+  MAX_SELECT_WINDOW by a bisection over each window's keys (``wide``),
+  the fused preprocess past its plans or taps by the median kernel between
+  torch ops (``unfused``), grow past one cluster's shared memory with the
+  region in global memory (``global``), at any slice size;
 * the launch-shape functions name the route for every size and window of
   the envelope and never raise a KeyError;
 * the wrappers take the route before launch and log its name (the ctypes
@@ -18,10 +19,11 @@ config before launch (``ops/hopper_median.py``,
   ``csrc/grow.cu`` does, against the plain ``region_grow`` (the select
   kernel's rule and the grow's tiled schedule in full:
   ``tests/test_torch_redesign.py``);
-* the plain median at k = 17 against the JAX package's
-  ``ops.median.vector_median_filter`` and a brute-force numpy median, on a
-  (2, 24, 24) array: the JAX network's 4,638 min/max run eagerly there in
-  about 2 s, where its jit at canvas 64 takes minutes.
+* the plain median at k = 17, 19, 65 and 127 against the JAX package's
+  ``ops.median.vector_median_filter`` and a brute-force numpy median, on
+  small arrays: the JAX network runs eagerly there (4,638 min/max at k =
+  17 in about 2 s; 172,222 at k = 65 and 933,978 at k = 127 take most of
+  this file's time), where its jit at canvas 64 takes minutes.
 
 The kernels themselves run on the card: ``tests/test_torch_card.py -m
 cuda`` and ``chip_smoke.py``'s ``envelope`` phase.
@@ -88,16 +90,38 @@ def test_no_window_or_sharpen_length_raises_a_key_error(k):
     assert hm.median_launch_shape(3, 97, 300, k).route == want
 
 
+@pytest.mark.parametrize("k", range(hm.MAX_SELECT_WINDOW + 2, 302, 2))
+def test_windows_past_the_select_take_the_wide_route(k):
+    for b, h, w in [(2, 256, 256), (1, 64, 64), (70000, 16, 16)]:
+        assert hm.median_launch_shape(b, h, w, k) == ("wide", -(-b // hm.MAX_BATCH))
+        assert hm.fused_launch_shape(b, h, w, k, 9, N_SM) == hm.UNFUSED
+    # the CTA's keys are staged where its (8 + k - 1) x (32 + k - 1) tile fits
+    # a block: up to k = 221 (229,824 bytes), read from the image past that
+    assert hm.wide_smem_bytes(k) == 4 * (hm.SELECT_ROWS + k - 1) * (hm.SELECT_COLS + k - 1)
+    assert hm.wide_staged(k) == (k <= 221)
+    assert hm.wide_smem_bytes(221) == 229824 < hm.SMEM_PER_BLOCK < hm.wide_smem_bytes(223)
+
+
 @pytest.mark.parametrize("k", [65, 16, 0])
 def test_the_median_limit_is_named_before_launch(k):
-    with pytest.raises(ValueError, match="MAX_SELECT_WINDOW"):
-        hm.median_launch_shape(1, 8, 8, k)
+    # past MAX_SELECT_WINDOW the wide route, named before launch; an even
+    # or non-positive window is refused
+    if k % 2:
+        assert hm.median_launch_shape(1, 8, 8, k).route == "wide"
+    else:
+        with pytest.raises(ValueError, match="odd and positive"):
+            hm.median_launch_shape(1, 8, 8, k)
 
 
-@pytest.mark.parametrize("hw", [(16385, 2304), (2304, 16385), (20000, 20000)])
+@pytest.mark.parametrize("hw", [(16385, 2304), (2304, 16385), (20000, 20000), (0, 16)])
 def test_the_grow_limit_is_named_before_launch(hw):
-    with pytest.raises(ValueError, match="GLOBAL_MAX_SIDE"):
-        hg.grow_launch_shape(*hw)
+    # no side limit: past one cluster the global route at any size; an
+    # empty slice is refused
+    if 0 in hw:
+        with pytest.raises(ValueError, match="empty slice"):
+            hg.grow_launch_shape(*hw)
+    else:
+        assert hg.grow_launch_shape(*hw).route == "global"
 
 
 # -- routes taken before launch, and named ---------------------------------------------
@@ -114,8 +138,8 @@ class _Fn:
 
 class _Lib:
     def __init__(self, calls):
-        for fn in ("nm03_median_filter", "nm03_median_select", "nm03_fused_preprocess",
-                   "nm03_region_grow", "nm03_region_grow_global"):
+        for fn in ("nm03_median_filter", "nm03_median_select", "nm03_median_wide",
+                   "nm03_fused_preprocess", "nm03_region_grow", "nm03_region_grow_global"):
             setattr(self, fn, _Fn(calls, fn))
 
 
@@ -143,7 +167,8 @@ def stand_in_card(monkeypatch, caplog):
     monkeypatch.setattr(logger, "propagate", True)
     caplog.set_level(logging.INFO, logger="nm03_torch")
     for fn in (hm.vector_median_filter_kernel, hm.vector_median_select_kernel,
-               hm.fused_preprocess_kernel, hg.region_grow_kernel, hg.region_grow_global_kernel):
+               hm.vector_median_wide_kernel, hm.fused_preprocess_kernel, hg.region_grow_kernel,
+               hg.region_grow_global_kernel):
         monkeypatch.setattr(fn, "launches", 0)
     return calls
 
@@ -154,17 +179,26 @@ def _routes(caplog):
 
 def test_median_routes_by_window(stand_in_card, caplog):
     x = torch.rand(3, 40, 50)
-    hm.vector_median_filter_kernel(x, 15)
-    hm.vector_median_filter_kernel(x, 17)
-    assert [c[0] for c in stand_in_card] == ["nm03_median_filter", "nm03_median_select"]
+    for k in (15, 17, 63, 65, 221, 223, 257):
+        hm.vector_median_filter_kernel(x, k)
+    assert [c[0] for c in stand_in_card] == (
+        ["nm03_median_filter"] + ["nm03_median_select"] * 2 + ["nm03_median_wide"] * 4)
     name, args = stand_in_card[1]
     assert args[2:8] == (0, 3, 40, 50, 17, hm.MAX_SELECT_WINDOW)
+    # the wide kernel: first slice, slices, h, w, k and whether the keys are staged
+    assert [c[1][2:8] for c in stand_in_card[3:]] == [
+        (0, 3, 40, 50, 65, 1), (0, 3, 40, 50, 221, 1), (0, 3, 40, 50, 223, 0),
+        (0, 3, 40, 50, 257, 0)]
     assert hm.vector_median_filter_kernel.launches == 1
-    assert hm.vector_median_select_kernel.launches == 1
-    assert _routes(caplog) == ["median: route select (k=17, 1 launch(es) of 3 slices)"]
+    assert hm.vector_median_select_kernel.launches == 2
+    assert hm.vector_median_wide_kernel.launches == 4
+    assert _routes(caplog) == [
+        "median: route select (k=17, 1 launch(es) of 3 slices)",
+        "median: route wide (k=65, keys staged, 1 launch(es) of 3 slices)"]
 
 
-@pytest.mark.parametrize("k,route", [(7, "network"), (17, "select")])
+@pytest.mark.parametrize("k,route", [(7, "network"), (17, "select"), (65, "wide"),
+                                     (257, "wide")])
 def test_a_batch_past_the_grid_goes_in_several_launches(stand_in_card, k, route):
     x = torch.zeros(hm.MAX_BATCH + 5, 2, 3)
     hm.vector_median_filter_kernel(x, k)
@@ -176,14 +210,18 @@ def test_a_batch_past_the_grid_goes_in_several_launches(stand_in_card, k, route)
     else:  # one base pointer, the first slice and the count of each grid
         assert first[2:4] == (0, hm.MAX_BATCH) and second[2:4] == (hm.MAX_BATCH, 5)
         assert first[0] == second[0]
+    launched = {"network": hm.vector_median_filter_kernel, "select":
+                hm.vector_median_select_kernel, "wide": hm.vector_median_wide_kernel}[route]
+    assert launched.launches == 2
 
 
-@pytest.mark.parametrize("k,ks", [(17, 9), (7, 33), (31, 41)])
+@pytest.mark.parametrize("k,ks", [(17, 9), (7, 33), (31, 41), (65, 9), (127, 33)])
 def test_the_unfused_route_runs_the_median_kernel_between_torch_ops(stand_in_card, caplog,
                                                                     k, ks):
     x = torch.rand(2, 30, 40) * 9000
     hm.fused_preprocess_kernel(x, median_window=k, sharpen_kernel=ks)
-    want = "nm03_median_select" if k > hm.MAX_WINDOW else "nm03_median_filter"
+    want = ("nm03_median_filter" if k <= hm.MAX_WINDOW else
+            "nm03_median_select" if k <= hm.MAX_SELECT_WINDOW else "nm03_median_wide")
     assert [c[0] for c in stand_in_card] == [want]
     assert hm.fused_preprocess_kernel.launches == 0
     assert _routes(caplog)[0] == (
@@ -220,6 +258,31 @@ def test_a_global_batch_past_the_word_limit_goes_in_several_launches(stand_in_ca
     assert counts == [2, 2, 1] and hg.region_grow_global_kernel.launches == 3
 
 
+def test_a_slice_past_the_word_limit_goes_alone(stand_in_card, monkeypatch):
+    # one slice holds more packed words than a launch: each slice alone,
+    # its tiles from global_tiles as for any slice
+    monkeypatch.setattr(hg, "GLOBAL_MAX_WORDS", 1000)
+    img = torch.zeros((3, 2304, 2304))
+    hg.region_grow_kernel(img, img > 0)
+    tiles = hg.global_tiles(1, 2304, 2304, 16, N_SM)
+    assert [c[1][10] for c in stand_in_card] == [1, 1, 1]
+    assert [c[1][18:23] for c in stand_in_card] == [
+        (tiles.rows, tiles.words, tiles.halo, tiles.pitch, tiles.grid)] * 3
+    assert hg.region_grow_global_kernel.launches == 3
+
+
+@pytest.mark.parametrize("hw", [(16385, 2304), (2304, 16385), (20000, 20000)])
+def test_slices_past_the_old_side_limit_launch_the_global_kernel(stand_in_card, caplog, hw):
+    # torch.empty: the stand-in library reads nothing, so no page is touched
+    img = torch.empty((1, *hw), dtype=torch.float32)
+    hg.region_grow_kernel(img, torch.empty((1, *hw), dtype=torch.bool))
+    ((name, args),) = stand_in_card
+    t = hg.global_tiles(1, *hw, 16, N_SM)
+    assert name == "nm03_region_grow_global" and args[10:13] == (1, *hw)
+    assert args[18:23] == (t.rows, t.words, t.halo, t.pitch, t.grid)
+    assert hg.region_grow_global_kernel.launches == 1
+
+
 # -- the plain median at wide windows -------------------------------------------------
 
 
@@ -245,10 +308,11 @@ def brute_median(x: np.ndarray, k: int) -> np.ndarray:
     return _values(np.sort(win, -1)[..., (k * k) // 2])
 
 
-@pytest.mark.parametrize("k", [17, 19])
-def test_the_plain_median_at_wide_windows_equals_jax_and_brute_force(k):
+@pytest.mark.parametrize("k,shape", [(17, (2, 24, 24)), (19, (2, 24, 24)), (65, (1, 12, 12)),
+                                     (127, (1, 8, 8))])
+def test_the_plain_median_at_wide_windows_equals_jax_and_brute_force(k, shape):
     # finite data without signed zeros: every exact rank selection agrees
-    x = np.random.default_rng(17).random((2, 24, 24)).astype(np.float32)
+    x = np.random.default_rng(17).random(shape).astype(np.float32)
     port = vector_median_filter(torch.from_numpy(x), k).numpy()
     np.testing.assert_array_equal(port, np.asarray(jax_median(jnp.asarray(x), k)))
     np.testing.assert_array_equal(port, brute_median(x, k))
@@ -355,14 +419,83 @@ def jax_envelope_golden() -> dict:
     }
 
 
-def test_the_envelope_golden_names_its_case():
+WIDE_GOLDEN = "nm03_capstone_project_tpu_torch/testdata/envelope_wide_golden.json"
+# a lesion wider than 0.12's: at k = 65 a disc of fewer than 65 * 65 / 2
+# pixels is filtered away, and the check would hold an empty mask
+WIDE_CASE = dict(canvas=256, median_window=65, median_impl="sort", seeds=(40, 41),
+                 lesion_radius=0.2)
+
+
+def jax_wide_golden() -> dict:
+    """The JAX package's ``process_batch`` masks of two phantoms on a 256
+    canvas at k = 65, past the port's select route, with its ``sort``
+    median (``median_impl='sort'``; its docstring: bit-identical to the
+    default network, whose 172,222 min/max at this window neither jit in
+    reasonable time nor run eagerly under vmap in this host's memory)."""
+    import hashlib
+
+    import jax
+
+    from nm03_capstone_project_tpu.config import PipelineConfig
+    from nm03_capstone_project_tpu.core import pad_to_canvas
+    from nm03_capstone_project_tpu.data.synthetic import phantom_slice
+    from nm03_capstone_project_tpu.pipeline import process_batch
+
+    c, k = WIDE_CASE["canvas"], WIDE_CASE["median_window"]
+    dims = [(c, c), (c - c // 8, c - c // 5)]
+    slices = [phantom_slice(h, w, seed=s, lesion_radius=WIDE_CASE["lesion_radius"])
+              for (h, w), s in zip(dims, WIDE_CASE["seeds"])]
+    b = pad_to_canvas(slices, (c, c))
+    cfg = PipelineConfig(canvas=c, median_window=k, median_impl="sort")
+    out = jax.jit(lambda p, d: process_batch(p, d, cfg))(b.pixels, b.dims)
+    masks, conv = np.asarray(out["mask"]), np.asarray(out["grow_converged"])
+    return {
+        "what": "process_batch masks of two phantoms on a 256 canvas at median window 65, "
+                "median_impl='sort' (chip_smoke.py's envelope phase: the wide route)",
+        "made_by": "the JAX package on the CPU: python tests/test_torch_envelope.py --write-wide",
+        "case": {**WIDE_CASE, "seeds": list(WIDE_CASE["seeds"]),
+                 "dims": [list(d) for d in dims]},
+        "slices": [{"sha256": hashlib.sha256(m.tobytes()).hexdigest(), "area": int(m.sum()),
+                    "converged": bool(cv)} for m, cv in zip(masks, conv)],
+    }
+
+
+@pytest.mark.parametrize("path,canvas,k", [(GOLDEN, 3072, 17), (WIDE_GOLDEN, 256, 65)])
+def test_the_envelope_golden_names_its_case(path, canvas, k):
     import json
     import pathlib
 
-    golden = json.loads((pathlib.Path(__file__).resolve().parents[1] / GOLDEN).read_text())
-    assert golden["case"]["canvas"] == 3072 and golden["case"]["median_window"] == 17
+    golden = json.loads((pathlib.Path(__file__).resolve().parents[1] / path).read_text())
+    assert golden["case"]["canvas"] == canvas and golden["case"]["median_window"] == k
     assert len(golden["slices"]) == 2 and all(s["area"] > 0 for s in golden["slices"])
     assert "JAX" in golden["made_by"]
+
+
+def test_the_ports_process_batch_at_k65_equals_the_jax_golden():
+    # the port's plain path (its default pruned network, 172,222 min/max at
+    # k = 65) against the JAX package's sort median: every exact rank
+    # selection gives the same bits on clipped finite data (about 13 s)
+    import hashlib
+    import json
+    import pathlib
+
+    from nm03_capstone_project_tpu_torch.config import PipelineConfig
+    from nm03_capstone_project_tpu_torch.core import pad_to_canvas
+    from nm03_capstone_project_tpu_torch.data.synthetic import phantom_slice
+    from nm03_capstone_project_tpu_torch.pipeline import process_batch
+
+    golden = json.loads((pathlib.Path(__file__).resolve().parents[1] / WIDE_GOLDEN).read_text())
+    case = golden["case"]
+    slices = [phantom_slice(h, w, seed=s, lesion_radius=case["lesion_radius"])
+              for (h, w), s in zip(case["dims"], case["seeds"])]
+    c = case["canvas"]
+    b = pad_to_canvas(slices, (c, c), device="cpu")
+    out = process_batch(b.pixels, b.dims,
+                        PipelineConfig(canvas=c, median_window=case["median_window"]),
+                        device="cpu")
+    got = [{"sha256": hashlib.sha256(m.numpy().tobytes()).hexdigest(), "area": int(m.sum()),
+            "converged": bool(cv)} for m, cv in zip(out["mask"], out["grow_converged"].tolist())]
+    assert got == golden["slices"]
 
 
 if __name__ == "__main__":
@@ -370,8 +503,12 @@ if __name__ == "__main__":
     import pathlib
     import sys
 
-    if sys.argv[1:] != ["--write"]:
-        sys.exit("usage: JAX_PLATFORMS=cpu python tests/test_torch_envelope.py --write")
-    path = pathlib.Path(__file__).resolve().parents[1] / GOLDEN
-    path.write_text(json.dumps(jax_envelope_golden(), indent=1) + "\n")
+    writers = {"--write": (GOLDEN, jax_envelope_golden),
+               "--write-wide": (WIDE_GOLDEN, jax_wide_golden)}
+    if len(sys.argv) != 2 or sys.argv[1] not in writers:
+        sys.exit("usage: JAX_PLATFORMS=cpu python tests/test_torch_envelope.py "
+                 "--write | --write-wide")
+    rel, make = writers[sys.argv[1]]
+    path = pathlib.Path(__file__).resolve().parents[1] / rel
+    path.write_text(json.dumps(make(), indent=1) + "\n")
     print(f"wrote {path}")

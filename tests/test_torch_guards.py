@@ -449,12 +449,19 @@ class TestLaunchCounters:
 
     def test_window_limits_checked_before_launch(self):
         # windows from 17 and sharpen kernels past 31 take routes of their
-        # own (tests/test_torch_envelope.py); past those, the limits hold
-        too_wide = hm.MAX_SELECT_WINDOW + 2
-        with pytest.raises(ValueError, match="odd"):
-            hm.vector_median_filter_kernel(torch.rand(8, 8), too_wide)
-        with pytest.raises(ValueError, match="odd"):
-            hm.fused_preprocess_kernel(torch.rand(8, 8), median_window=too_wide)
+        # own (tests/test_torch_envelope.py), any odd window included: an
+        # even window is refused before the device is looked at, a wide one
+        # passes that check and reaches the device check
+        wide = hm.MAX_SELECT_WINDOW + 2
+        for even in (wide + 1, 0):
+            with pytest.raises(ValueError, match="odd"):
+                hm.vector_median_filter_kernel(torch.rand(8, 8), even)
+            with pytest.raises(ValueError, match="odd"):
+                hm.fused_preprocess_kernel(torch.rand(8, 8), median_window=even)
+        with pytest.raises(ValueError, match="CUDA"):
+            hm.vector_median_filter_kernel(torch.rand(8, 8), wide)
+        with pytest.raises(ValueError, match="CUDA"):
+            hm.fused_preprocess_kernel(torch.rand(8, 8), median_window=wide)
         with pytest.raises(ValueError, match="sharpen kernel"):
             hm.fused_preprocess_kernel(torch.rand(8, 8), sharpen_kernel=32)
 

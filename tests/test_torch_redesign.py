@@ -1,4 +1,4 @@
-"""The schedules of the select and global grow kernels, modelled on the CPU.
+"""The schedules of the select, wide and global grow kernels, modelled on the CPU.
 
 The two kernels that ``csrc/median.cu`` and ``csrc/grow.cu`` run past the
 generated plans and past one cluster were rebuilt for the H100: the select
@@ -19,9 +19,13 @@ the source notes, runs on seeded numpy inputs:
   candidate by P, P/2, ..., 1 probes a segment, the bisection snapping to
   keys of the window. Against ``torch.sort``'s middle key, with signed
   zeros and NaNs, and against the plain median;
+* the wide kernel (past MAX_SELECT_WINDOW): the same bisection with each
+  count, least key and greatest key taken over the whole window's keys,
+  against ``torch.sort``'s middle key at k = 65 and 127 and the plain
+  median at k = 65;
 * the launch-shape arithmetic of both: the select's shared bytes for every
   odd window up to MAX_SELECT_WINDOW, the grow tiles and halo for canvases
-  from 2161 to 16384.
+  from 2161 to 65,536 a side and for strips one pixel thin.
 """
 
 import itertools
@@ -295,6 +299,47 @@ def test_the_select_rule_equals_the_plain_median(k):
     np.testing.assert_array_equal(select_scheme(x, k), plain)
 
 
+def wide_scheme(x: np.ndarray, k: int) -> np.ndarray:
+    """``wide_kernel``'s rule: the select's bisection, each count below a
+    candidate, least key at or above it and greatest below it taken over
+    all k*k keys of the window; a NaN window's first NaN, row-major."""
+    xw = _windows(np.ascontiguousarray(x, np.float32), k)
+    keys = torch.from_numpy(_keys(np.ascontiguousarray(xw)))
+    rank = (k * k) // 2
+    nan = np.isnan(xw)
+    l, u = keys.min(-1).values, keys.max(-1).values + 1
+    run = (u - l > 1) & ~torch.from_numpy(nan.any(-1))
+    while bool(run.any()):
+        cand = (l + (u - l) // 2)[..., None]
+        lt = keys < cand
+        below = lt.sum(-1)
+        succ = torch.where(lt, 0xFFFFFFFF, keys).min(-1).values
+        pred = torch.where(lt, keys, 0).max(-1).values
+        up = below <= rank
+        l = torch.where(run & up, succ, l)
+        u = torch.where(run & ~up, pred + 1, u)
+        run = run & (u - l > 1)
+    first = np.take_along_axis(xw, nan.argmax(-1)[..., None], -1)[..., 0]
+    return np.where(nan.any(-1), first, _values(l.numpy()))
+
+
+@pytest.mark.parametrize("case", SELECT_CASES)
+@pytest.mark.parametrize("k", [3, 17, 65, 127])
+def test_the_wide_rule_gives_the_sorted_middle_key(k, case):
+    x = _select_cases(k)[case]
+    if k > 65:  # the windows of every pixel cover most of these small slices
+        x = x[:1, :9, :11]
+    got = wide_scheme(x, k)
+    np.testing.assert_array_equal(got.view(np.uint32), sort_median(x, k).view(np.uint32))
+
+
+def test_the_wide_rule_equals_the_plain_median():
+    # finite data without signed zeros: every exact rank selection agrees
+    x = np.random.default_rng(65).random((1, 14, 16)).astype(np.float32)
+    plain = vector_median_filter(torch.from_numpy(x), 65).numpy()
+    np.testing.assert_array_equal(wide_scheme(x, 65), plain)
+
+
 @pytest.mark.parametrize("k", [3, 17, 31, 63])
 def test_a_probe_count_is_a_binary_search(k):
     # the count below a candidate in one padded segment, by P, P/2, ..., 1
@@ -330,7 +375,9 @@ def test_the_select_tile_at_the_limit():
 
 
 GROW_CANVASES = [(2161, 2161), (2304, 2304), (3072, 3072), (4096, 4096), (2161, 16384),
-                 (6000, 9000), (8192, 8192), (12000, 12000), (16384, 2161), (16384, 16384)]
+                 (6000, 9000), (8192, 8192), (12000, 12000), (16384, 2161), (16384, 16384),
+                 (16385, 2304), (2304, 16385), (20000, 20000), (32768, 1000), (65536, 65536),
+                 (1, 100000), (100000, 1), (1, 300000), (300000, 1), (3, 65536)]
 
 
 @pytest.mark.parametrize("hw", GROW_CANVASES)
@@ -356,6 +403,7 @@ def test_the_grow_tiles_fit_and_cover_every_canvas(hw, b, block_iters):
     # kernel's own check of the pitch it is given)
     rows = min(h, t.rows + 2 * t.halo)
     assert t.smem == 4 * (3 * (rows + 2) * t.pitch + (b + 31) // 32 + hg.GLOBAL_RED)
+    assert t.tiles <= 1 << 30  # the kernel's own bound on a launch's tiles
 
 
 def test_the_main_grow_case_is_resident_and_the_double_one_is_not():

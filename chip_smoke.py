@@ -259,10 +259,10 @@ toolkit. Phases, each printing one JSON line:
    (``python -m nm03_capstone_project_tpu_torch.serving.server``, buckets
    1-16, each with its own CUDA context, graphs and ``--log-json``) behind
    the fleet router (``fleet/router.py``) in this process, with its own
-   event log. The driver phase's 500 DICOM files go once straight to one
-   replica (the baseline: what the router costs) and once through the
-   router at concurrency 16 (the port's loadgen as a library); then the
-   SIGKILL drill: once a third of the cohort is answered, one replica is
+   event log. The first 250 of the driver phase's 500 DICOM files go once
+   straight to one replica (the baseline: what the router costs) and once
+   through the router at concurrency 16 (the port's loadgen as a library);
+   then the SIGKILL drill: once a third of them is answered, one replica is
    frozen (SIGSTOP) for half a second, so requests park on it, and killed.
    Every request answers 200 with the driver's JPEG pair for its slice, the
    router fails requests over and ejects the replica, ``/readyz`` stays 200
@@ -283,7 +283,8 @@ toolkit. Phases, each printing one JSON line:
    ``/metrics`` (graph replays times the launches a graph holds). The line
    has requests/s and p50/p99 direct and through the router, the drill's
    counts, each replica's drain, warm and graph capture seconds, the
-   capacity floor, the launches and the card's name and power limit.
+   capacity floor, the seconds of each step (``steps_s``), the launches
+   and the card's name and power limit.
 12. ``lockdep`` — the lock-order witness (``utils/lockdep.py``) on the card:
    under ``lockdep.install()`` a server with four lanes on ``cuda:0``
    (buckets 1 and 4, each lane's own graphs) and the volume gang (depth
@@ -317,40 +318,48 @@ toolkit. Phases, each printing one JSON line:
 14. ``compile_cache`` — the kernel-library cache (``compilehub/``,
    ``--compile-cache-dir``) on the card, through port servers started as
    subprocesses (canvas 256, buckets 1 and 4, the result tier on), each
-   answering the first 20 slices of ``testdata/driver_golden.json`` as
+   answering the first 2 slices of ``testdata/driver_golden.json`` as
    DICOM bodies, one at a time: every mask the golden's, every JPEG pair
    the driver phase's, and every start's answers equal to the first's. (1)
    A cold start on an empty directory: 3 misses, 0 hits, the three
    libraries built and published, three entries that verify. (2) A warm
-   start with ``nvcc`` out of reach (``PATH`` and ``CUDA_HOME`` stripped of
-   the toolkit, so a build would raise): 3 hits, 0 builds, ``/readyz``
-   ``replica.compile_cache_hits`` 3. (3) One flipped byte in the median
-   library's entry: ``cache_cli verify`` exits 1, the next start misses 1
-   and hits 2 (the median library rebuilt and stored again), and
-   ``verify`` then exits 0. (4) At the same time, on a copy of the
-   directory, the median library's entry gone and a ``cache``/``io_error``
-   fault plan: the store is aborted, the server serves from its own build,
-   a miss and the fault counted, and ``gc`` reclaims the tmp file once it
-   is past the grace for a live writer's.
-   (5) Three replicas cold together on an empty directory: all serve, and
-   every entry verifies. (6) ``python -m
+   start on its own with ``nvcc`` out of reach (``PATH`` and
+   ``CUDA_HOME`` stripped of the toolkit, so a build would raise): 3
+   hits, 0 builds, ``/readyz`` ``replica.compile_cache_hits`` 3. Then
+   three drills at once, each on its own directory: (3) one flipped byte
+   in the median library's entry, on a copy of the directory:
+   ``cache_cli verify`` exits 1, the next start misses 1 and hits 2 (the
+   median library rebuilt and stored again), and ``verify`` then exits
+   0; (4) on another copy, the median library's entry gone and a
+   ``cache``/``io_error`` fault plan: the store is aborted, the server
+   serves from its own build, a miss and the fault counted, and ``gc``
+   reclaims the tmp file once it is past the grace for a live writer's;
+   (5) two replicas cold together on an empty directory: both serve, and
+   every entry verifies. (6) On its own, ``python -m
    nm03_capstone_project_tpu_torch.fleet.cli restart --compile-cache-dir``
-   over those three: every relaunch reports ``compile_cache_hits`` 3 and
+   over the first replica of (5) (the ``fleet`` phase walks a restart of
+   three): the relaunch reports ``compile_cache_hits`` 3 and
    builds 0, and serves the golden. Each stop's metrics snapshot passes
    ``scripts/check_telemetry.py``'s exact counter forms
    (``compile_cache_hits_total==0`` cold, ``==3`` warm). The line has
-   ``warm_s`` (process start to ready) of every start, each library's
+   ``warm_s`` (process start to ready; the cold, warm and relaunched
+   starts each alone, the four of (3)-(5) together) of every start, each library's
    source, build and load seconds and each graph's capture seconds, the
-   relaunches' split of their ``warm_s``, the launches and the card's name
-   and power limit (``until_app_s``: spawn to the app's identity, from its
-   ``/readyz`` ``replica.start_unix``).
+   relaunches' split of their ``warm_s``, each stop's drain (``stop_s``:
+   SIGTERM to exit), each start's answers (``serve_s``), the seconds of
+   each step (``steps_s``), the launches
+   and the card's name and power limit
+   (``until_app_s``: spawn to the app's identity, from its ``/readyz``
+   ``replica.start_unix``).
 15. ``envelope`` — every route past the default config, each bitwise to
    its plain version: the median's ``select`` route at k = 17, 31 and 63
    (and 70,000 slices in two launches, signed zeros and a NaN), its
    ``wide`` route at k = 65 (the canvas-256 ``process_batch``'s median
-   input and a random batch, signed zeros and a NaN), 127 (keys staged)
-   and 257 (keys read from the image; held to the plain sort median, the
-   network there being some 5 million min/max) on a 64 x 64 slice; the
+   input and a random batch, signed zeros and a NaN), 127 and 225
+   (segments in shared memory), 227 and 257 (in a device scratch; from
+   225 held to the plain sort median, the network there being millions of
+   min/max) on a 64 x 64 slice, with ``torch.median``'s time at each, and
+   signed zeros, negatives and NaNs of both signs at 223 and 227; the
    fused stage's ``unfused`` route at k = 17, 65 and a 33-tap sharpen; the
    grow's ``global`` route on two phantoms at 2304², 3072², 4096², 1024 x
    4096, 16,385 x 2,304, 2,304 x 16,385 and 20,000² (past the old side
@@ -360,7 +369,8 @@ toolkit. Phases, each printing one JSON line:
    cluster grow launch), each against a golden the JAX package made
    (``testdata/envelope_golden.json``, ``envelope_wide_golden.json``). The
    line has each route's wrapper and device time, plain and library
-   times and floor, the 20,000² grow's among them.
+   times and floor, the 20,000² grow's among them, and the seconds of
+   each step (``steps_s``).
 16. ``serve_envelope`` — every route inside the served CUDA graphs: a
    server at canvas 3072 (the global grow in its graphs), buckets 1 and
    2, two lanes on the card, at k = 17 (select, unfused), 7 (fused) and 65
@@ -398,7 +408,8 @@ toolkit. Phases, each printing one JSON line:
 Every phase line names the card (``nvidia_smi``) and the host (``host``:
 CPU model, logical cores, the 1-minute load average at the phase's start,
 the Python and torch versions), so a slower host and a slower port can be
-told apart. The card's ``nvidia-smi`` name and power limit print on a line of their own;
+told apart. Before the ``kernels`` line a ``script`` line gives the
+script's seconds from its imports to there. The card's ``nvidia-smi`` name and power limit print on a line of their own;
 the last line is ``{"ok": true, "device": {...}}``. Any failed check exits
 non-zero without that line, as does a machine without CUDA.
 """
@@ -450,13 +461,14 @@ ENVELOPE_LIMIT = (2, 256, 256)  # the select kernel at MAX_SELECT_WINDOW
 ENVELOPE_STREAMED = 2  # the 4096 x 4096 grow case upsampled this many times a side:
 # past the global route's resident tiles (8192 x 8192 x 2)
 # past the select route: the wide median at k = 65 (the canvas-256
-# process_batch's median input, and a random batch), then 127 (staged) and
-# 257 (read from the image) on a slice narrower than 257
+# process_batch's median input, and a random batch), then 127 (segments in
+# shared memory) and 257 (in a device scratch) on a slice narrower than 257
 ENVELOPE_WIDE = (65, 127, 257)
 ENVELOPE_WIDE_SMALL = (1, 64, 64)
-# the first window read from the image, on signed zeros, negatives and NaNs of
-# both signs: slices wider than the window, so some windows miss the NaNs
-ENVELOPE_WIDE_KEYS = (223, (2, 24, 260))
+# either side of the segments' switch to a device scratch, on signed zeros,
+# negatives and NaNs of both signs: slices wider than the window, so some
+# windows miss the NaNs
+ENVELOPE_WIDE_KEYS = ((223, 227), (2, 24, 260))
 ENVELOPE_WIDE_PIPELINE = (256, 65)  # canvas and median window of the wide route's process_batch
 ENVELOPE_SIDES = ((16385, 2304), (2304, 16385))  # grow past the old 16,384 side limit
 ENVELOPE_HUGE = (5000, 4)  # phantoms at 5000 x 5000 upsampled 4 times a side: 20,000 x 20,000
@@ -539,7 +551,8 @@ DRIVER_SIGTERM_AFTER = 60  # export checks before the SIGTERM
 FLEET_REPLICAS = 3
 FLEET_KILL_SHARE = 1 / 3
 FLEET_STOP_S = 0.5
-FLEET_RESTART_LOAD = (64, 4)
+FLEET_RESTART_LOAD = (32, 4)  # requests and concurrency of each round during the rolling restart
+FLEET_SLICES = 250  # the first slices of the cohort, sent by each run around the SIGKILL
 FLEET_START_TIMEOUT_S = 240
 
 
@@ -547,6 +560,7 @@ FLEET_START_TIMEOUT_S = 240
 # each line is printed (and at the start of main), so a phase's line
 # carries the load at its phase's start
 _PHASE_LOAD = {}
+_SCRIPT_T0 = time.perf_counter()  # the script's seconds run from its imports
 
 
 def host_record(load_1m) -> dict:
@@ -581,6 +595,20 @@ def emit(obj) -> None:
 def require(cond, what: str) -> None:
     if not cond:
         raise RuntimeError(what)
+
+
+class StepTimer:
+    """The seconds of a phase's steps: ``timer(name)`` records under
+    ``name`` the seconds since the previous call (or the timer's start) in
+    ``timer.spent``."""
+
+    def __init__(self, t0: float | None = None):
+        self.spent = {}
+        self._t = time.perf_counter() if t0 is None else t0
+
+    def __call__(self, name: str) -> None:
+        now = time.perf_counter()
+        self.spent[name], self._t = round(now - self._t, 3), now
 
 
 def launch_dict(**nonzero) -> dict:
@@ -676,7 +704,7 @@ def ptxas_report(log: str) -> dict:
         m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
         if m:
             k = re.search(r"(band_kernel|fused_kernel|grow_kernel|grow_global_kernel|"
-                          r"select_kernel)(I(?:Li\d+E)+E)?", m.group(1))
+                          r"select_kernel|wide_kernel)(I(?:L[ib]\d+E)+E)?", m.group(1))
             name = None if k is None else k.group(1) + (
                 "<%s>" % ",".join(re.findall(r"\d+", k.group(2))) if k.group(2) else "")
             continue
@@ -3240,7 +3268,7 @@ def fleet_phase(tmp: Path, driver_out: dict, smi: str) -> dict:
     cohort, dfiles = driver_out["cohort"], driver_out["files"]
     dicom = [(pid, f.stem, f.read_bytes()) for pid in find_patient_dirs(cohort)
              for f in load_dicom_files_for_patient(cohort, pid)]
-    n = len(dicom)
+    n, m = len(dicom), min(FLEET_SLICES, len(dicom))  # the cohort, and the slices a run sends
 
     def sha(b: bytes) -> str:
         return hashlib.sha256(b).hexdigest()
@@ -3321,6 +3349,7 @@ def fleet_phase(tmp: Path, driver_out: dict, smi: str) -> dict:
             self._t.join(timeout=10)
             return self.samples
 
+    step = StepTimer()
     httpd = app = None
     try:
         # -- setup: three replicas, each its own process on the card -------
@@ -3397,28 +3426,31 @@ def fleet_phase(tmp: Path, driver_out: dict, smi: str) -> dict:
                 require(time.monotonic() < deadline, f"{what}: never reinstated")
                 time.sleep(0.05)
 
+        step("start")
         # -- the baseline: the cohort straight to one replica --------------
-        direct, _ = load(urls[0], n, SERVE_CONCURRENCY)
-        require(direct["statuses"] == {"ok": n}, f"direct run {direct['statuses']}")
+        direct, _ = load(urls[0], m, SERVE_CONCURRENCY)
+        require(direct["statuses"] == {"ok": m}, f"direct run {direct['statuses']}")
+        step("direct")
 
         # -- the main path: the cohort through the router, then the drill --
         before = [replica_launches(u) for u in urls]
-        clean, clean_res = load(fleet_url, n, SERVE_CONCURRENCY)
-        require(clean["statuses"] == {"ok": n}, f"fleet run {clean['statuses']}")
-        check_answers(clean_res, n, "fleet run")
+        clean, clean_res = load(fleet_url, m, SERVE_CONCURRENCY)
+        require(clean["statuses"] == {"ok": m}, f"fleet run {clean['statuses']}")
+        check_answers(clean_res, m, "fleet run")
         require(set(clean["replicas_observed"]) == set(labels),
                 f"fleet run spread {clean['replicas_observed']}")
 
+        step("fleet_run")
         victim = FLEET_REPLICAS - 1
         vproc, vtarget = started[victim][0], app.replicas.targets[victim]
         poller = ReadyzPoller(fleet_url)
         drill_res, box = loadgen.LoadResult(), {}
         loader = threading.Thread(
-            target=lambda: box.update(summary=load(fleet_url, n, SERVE_CONCURRENCY,
+            target=lambda: box.update(summary=load(fleet_url, m, SERVE_CONCURRENCY,
                                                    drill_res)[0]), daemon=True)
         loader.start()
         deadline = time.monotonic() + 120
-        while len(drill_res.latencies_s) < n * FLEET_KILL_SHARE:
+        while len(drill_res.latencies_s) < m * FLEET_KILL_SHARE:
             require(loader.is_alive() and time.monotonic() < deadline,
                     "the drill's loadgen ended before a third was answered")
             time.sleep(0.005)
@@ -3433,8 +3465,8 @@ def fleet_phase(tmp: Path, driver_out: dict, smi: str) -> dict:
         require(not loader.is_alive(), "the drill's loadgen hung")
         samples = poller.stop()
         drill = box["summary"]
-        require(drill["statuses"] == {"ok": n}, f"SIGKILL drill statuses {drill['statuses']}")
-        check_answers(drill_res, n, "SIGKILL drill")
+        require(drill["statuses"] == {"ok": m}, f"SIGKILL drill statuses {drill['statuses']}")
+        check_answers(drill_res, m, "SIGKILL drill")
         survivors = [replica_launches(u) for u in urls[:victim]]
         fleet_launches = {k: sum(r[k] for r in survivors) + victim_launches[k]
                           - sum(b[k] for b in before) for k in ("fused", "grow", "median")}
@@ -3450,6 +3482,7 @@ def fleet_phase(tmp: Path, driver_out: dict, smi: str) -> dict:
         dip = min(c for _, c, _ in samples if c is not None)
         require(abs(dip - 2 / 3) < 1e-3, f"the fleet's capacity dipped to {dip}, not 2/3")
 
+        step("sigkill")
         # -- one timeline: the router's stream and the three replicas' -----
         merged = root / "fleet.trace.json"
         n_traces = export_chrome_trace([str(router_log)] + [str(lg) for _, _, lg in started],
@@ -3473,6 +3506,7 @@ def fleet_phase(tmp: Path, driver_out: dict, smi: str) -> dict:
                              capture_output=True, text=True, timeout=120)
         require(res.returncode == 0, f"--expect-fleet-trace: {res.stderr}")
 
+        step("trace")
         # -- the killed replica comes back: probation, then reinstatement --
         t0 = time.perf_counter()
         revived = spawn_replica("r%d_revived" % victim, ports[victim])
@@ -3488,6 +3522,7 @@ def fleet_phase(tmp: Path, driver_out: dict, smi: str) -> dict:
         require(drill_counts == {"ejections": 1, "probes": 1, "reinstated": 1},
                 f"the killed replica's ejection/probation/reinstatement {drill_counts}")
 
+        step("revive")
         # -- the fault plan's fleet rules, each once -----------------------
         ej0, re0 = total("fleet_replica_ejections_total"), total("fleet_replica_reinstated_total")
         app.fault_plan = FaultPlan.from_spec({"faults": [
@@ -3519,6 +3554,7 @@ def fleet_phase(tmp: Path, driver_out: dict, smi: str) -> dict:
                                  "ejections": 2, "reinstated": 2},
                 f"the fault plan's drill {fault_counts}")
 
+        step("fault_plan")
         # -- nm03-top over the fleet ----------------------------------------
         fsample, per = top.fetch_fleet_sample(fleet_url, 10.0)
         view = top.build_fleet_view(fsample, per)
@@ -3531,6 +3567,7 @@ def fleet_phase(tmp: Path, driver_out: dict, smi: str) -> dict:
         require(top_rc == 0 and all(lb in screen.getvalue() for lb in labels),
                 f"nm03-top --fleet exited {top_rc}")
 
+        step("top")
         # -- the rolling restart under load ---------------------------------
         old_pids = [get_json(u + "/readyz")[1]["replica"]["pid"] for u in urls]
         poller = ReadyzPoller(fleet_url)
@@ -3573,6 +3610,7 @@ def fleet_phase(tmp: Path, driver_out: dict, smi: str) -> dict:
         require({s for s, _, _ in samples} == {200} and floor >= 2 / 3 - 1e-6,
                 f"routed capacity fell to {floor} during the rolling restart")
 
+        step("rolling_restart")
         httpd.shutdown()
         httpd.server_close()
         app.begin_drain()
@@ -3585,8 +3623,9 @@ def fleet_phase(tmp: Path, driver_out: dict, smi: str) -> dict:
              "--expect-counter", f"fleet_replica_reinstated_total{{replica={vl}}}=1"],
             capture_output=True, text=True, timeout=120)
         require(res.returncode == 0, f"check_telemetry on the router: {res.stderr}")
+        step("router_check")
 
-        emit({"phase": "fleet", "replicas": FLEET_REPLICAS, "slices": n,
+        emit({"phase": "fleet", "steps_s": step.spent, "replicas": FLEET_REPLICAS, "slices": m,
               "concurrency": SERVE_CONCURRENCY, "start_s": start_s,
               "direct": rates(direct), "fleet": rates(clean),
               "sigkill": {"killed_after": killed_at, "stopped_s": FLEET_STOP_S,
@@ -3883,9 +3922,10 @@ def sanitize_phase(tmp: Path, driver_out: dict, smi: str, kernels: dict, reset) 
     return launches
 
 
-COMPILE_CACHE_SLICES = 20  # golden slices each server answers
+COMPILE_CACHE_SLICES = 2  # golden slices each server answers
 COMPILE_CACHE_BUCKETS = (1, 4)
-COMPILE_CACHE_REPLICAS = 3
+COMPILE_CACHE_REPLICAS = 2  # replicas cold together on one directory
+COMPILE_CACHE_RELAUNCHES = 1  # of those, relaunched from the cache through nm03-fleet restart
 
 
 def compile_cache_phase(tmp: Path, driver_out: dict, smi: str, kernels: dict, reset) -> dict:
@@ -3895,6 +3935,7 @@ def compile_cache_phase(tmp: Path, driver_out: dict, smi: str, kernels: dict, re
     its main path (every start's graph replays), read from each server's own
     /readyz and /metrics."""
     import contextlib
+    import io
     import os
     import signal
     import urllib.error
@@ -3983,10 +4024,12 @@ def compile_cache_phase(tmp: Path, driver_out: dict, smi: str, kernels: dict, re
                     f"server {s['tag']} is not ready on the card: {status}")
         return list(servers)
 
+    served_s = {}  # each serve()'s seconds, by where
+
     def serve(url: str, where: str) -> list:
         """The golden slices one at a time: each answer's mask equal to the
         golden's and its JPEG pair to the driver's files; the answers."""
-        answers = []
+        answers, t = [], time.perf_counter()
         for g in golden:
             req = urllib.request.Request(
                 url + "/v1/segment", data=bodies[g["patient"]][g["stem"]], method="POST",
@@ -4003,6 +4046,7 @@ def compile_cache_phase(tmp: Path, driver_out: dict, smi: str, kernels: dict, re
                             sha(dfiles[f"{key}_processed.jpg"])),
                     f"{where}: {key} differs from the golden or the driver's pair")
             answers.append(got)
+        served_s[where] = round(time.perf_counter() - t, 3)
         return answers
 
     def launches_of(url: str) -> dict:
@@ -4017,17 +4061,21 @@ def compile_cache_phase(tmp: Path, driver_out: dict, smi: str, kernels: dict, re
                     out[k] += int(m["value"]) * c
         return out
 
-    def stop(s: dict, hits: int, misses: int, extra=()) -> None:
+    def stop(s: dict, hits: int, misses: int, extra=()) -> float:
         """SIGTERM (the drain writes the metrics snapshot), then the
-        telemetry checker's exact counter forms on it."""
+        telemetry checker's exact counter forms on it; the seconds from
+        the signal to the server's exit."""
+        t = time.perf_counter()
         s["proc"].send_signal(signal.SIGTERM)
         require(s["proc"].wait(timeout=120) == 0, f"server {s['tag']} did not drain cleanly")
+        drain_s = round(time.perf_counter() - t, 3)
         res = subprocess.run(
             [sys.executable, str(checker), "--metrics", str(root / f"{s['tag']}.metrics.json"),
              "--expect-counter", f"compile_cache_hits_total=={hits}",
              "--expect-counter", f"compile_cache_misses_total=={misses}", *extra],
             capture_output=True, text=True, timeout=120)
         require(res.returncode == 0, f"check_telemetry on {s['tag']}: {res.stdout} {res.stderr}")
+        return drain_s
 
     def hub_of(s: dict) -> dict:
         hub = s["readyz"]["compile_hub"]
@@ -4039,11 +4087,16 @@ def compile_cache_phase(tmp: Path, driver_out: dict, smi: str, kernels: dict, re
                 "cache_load_s": hub.get("cache_load_seconds")}
 
     def cache_cli(*argv) -> tuple:
-        res = subprocess.run(
-            [sys.executable, "-m", "nm03_capstone_project_tpu_torch.compilehub.cache_cli",
-             "--format", "json", *argv], cwd=repo, env=env, capture_output=True, text=True,
-            timeout=120)
-        return res.returncode, (json.loads(res.stdout) if res.stdout.strip() else None)
+        """``nm03-torch-cache`` run in this process (its ``main``): its exit
+        code and its JSON report. A subprocess would import torch and
+        derive this tree's keys again, seconds a call on the card's host."""
+        from nm03_capstone_project_tpu_torch.compilehub import cache_cli as cli
+
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            rc = cli.main(["--format", "json", *argv])
+        text = printed.getvalue()
+        return rc, (json.loads(text) if text.strip() else None)
 
     def sources(s: dict) -> dict:
         return {n: r["source"] for n, r in s["readyz"]["compile_hub"]["libraries"].items()}
@@ -4071,7 +4124,7 @@ def compile_cache_phase(tmp: Path, driver_out: dict, smi: str, kernels: dict, re
         for k, v in launches_of(url).items():
             launches[k] += v
 
-    out = {}
+    out, step = {}, StepTimer()
     try:
         reset()  # the main path's run: the servers' own counts are read below
         # -- 1. cold: an empty directory ------------------------------------
@@ -4084,9 +4137,10 @@ def compile_cache_phase(tmp: Path, driver_out: dict, smi: str, kernels: dict, re
         answers = serve(cold["url"], "cold")
         count(cold["url"])
         out["cold"] = hub_of(cold)
-        stop(cold, 0, 3)
+        out["cold"]["stop_s"] = stop(cold, 0, 3)
+        step("cold")
 
-        # -- 2. warm, with nvcc out of reach ---------------------------------
+        # -- 2. warm, with nvcc out of reach, on its own ---------------------
         warm, = ready(start("warm", cache, env_=no_nvcc))
         require(warm["readyz"]["replica"]["compile_cache_hits"] == 3, "warm: replica hits")
         require(sources(warm) == dict.fromkeys(build.SOURCES, "cache"), f"warm {sources(warm)}")
@@ -4094,24 +4148,32 @@ def compile_cache_phase(tmp: Path, driver_out: dict, smi: str, kernels: dict, re
         require(serve(warm["url"], "warm") == answers, "warm answers != cold answers")
         count(warm["url"])
         out["warm"] = hub_of(warm)
-        stop(warm, 3, 0)
+        out["warm"]["stop_s"] = stop(warm, 3, 0)
+        step("warm")
 
-        # -- 3 and 4 at once, on two copies of the directory ----------------
-        # 3: one flipped byte in the median library's entry; 4: that entry
-        # gone and a cache/io_error plan that aborts its store
-        faulty = root / "cache_fault"
+        # -- 3, 4 and 5 at once, each on its own directory ------------------
+        # 3: one flipped byte in the median library's entry, on a copy of
+        # the directory; 4: that entry gone and a cache/io_error plan that
+        # aborts its store, on another copy; 5: replicas cold together on
+        # an empty directory, racing to publish. Their warm_s are taken
+        # four starts at once, not the start cost of one
+        broken, faulty = root / "cache_corrupt", root / "cache_fault"
+        shutil.copytree(cache, broken)
         shutil.copytree(cache, faulty)
         name = build.persist_key("median").filename()
         (faulty / name).unlink()
-        raw = bytearray((cache / name).read_bytes())
+        raw = bytearray((broken / name).read_bytes())
         raw[-4096] ^= 0x01
         # nm03-lint: disable=NM351 the flipped byte in place is the drill: bit rot in a published entry
-        (cache / name).write_bytes(bytes(raw))
-        rc, report = cache_cli("--dir", str(cache), "verify")
+        (broken / name).write_bytes(bytes(raw))
+        rc, report = cache_cli("--dir", str(broken), "verify")
         require(rc == 1 and len(report["corrupt"]) == 1, f"verify after the flip: {rc} {report}")
         plan = json.dumps({"seed": 3, "faults": [{"site": "cache", "kind": "io_error"}]})
-        corrupt, fault = ready(start("corrupt", cache),
-                               start("store_fault", faulty, extra=("--fault-plan", plan)))
+        shared = root / "shared"
+        corrupt, fault, *reps = ready(
+            start("corrupt", broken), start("store_fault", faulty, extra=("--fault-plan", plan)),
+            *[start(f"r{i}", shared) for i in range(COMPILE_CACHE_REPLICAS)])
+        step("four_starts")
         for s_ in (corrupt, fault):
             require(sources(s_) == {"fused": "cache", "grow": "cache", "median": "built"},
                     f"{s_['tag']} {sources(s_)}")
@@ -4119,10 +4181,10 @@ def compile_cache_phase(tmp: Path, driver_out: dict, smi: str, kernels: dict, re
             count(s_["url"])
         out["corrupt"] = {**hub_of(corrupt), "verify_before": report["corrupt"]}
         out["store_fault"] = hub_of(fault)
-        stop(corrupt, 2, 1)
-        stop(fault, 2, 1, ("--expect-counter",
-                           "resilience_faults_injected_total{site=cache,kind=io_error}==1"))
-        rc, report = cache_cli("--dir", str(cache), "verify")
+        out["corrupt"]["stop_s"] = stop(corrupt, 2, 1)
+        out["store_fault"]["stop_s"] = stop(fault, 2, 1, (
+            "--expect-counter", "resilience_faults_injected_total{site=cache,kind=io_error}==1"))
+        rc, report = cache_cli("--dir", str(broken), "verify")
         require(rc == 0 and report["ok"] == 3, f"verify after the rebuild: {rc} {report}")
         tmps = list(faulty.glob("*.tmp"))
         require(len(tmps) == 1 and not (faulty / name).exists(),
@@ -4133,12 +4195,7 @@ def compile_cache_phase(tmp: Path, driver_out: dict, smi: str, kernels: dict, re
         require(rc == 0 and report["removed"] == [tmps[0].name] and report["kept"] == 2,
                 f"gc: {rc} {report}")
         out["store_fault"]["gc"] = report
-
-        # -- 5. three replicas cold together on an empty directory -----------
-        shared = root / "shared"
-        t0 = time.perf_counter()
-        reps = ready(*[start(f"r{i}", shared) for i in range(COMPILE_CACHE_REPLICAS)])
-        together_s = time.perf_counter() - t0
+        step("corrupt_and_store_fault")
         for s in reps:
             hub = s["readyz"]["compile_hub"]
             require(hub["cache_hits"] + hub["cache_misses"] == 3, f"{s['tag']} {hub}")
@@ -4147,15 +4204,18 @@ def compile_cache_phase(tmp: Path, driver_out: dict, smi: str, kernels: dict, re
         rc, report = cache_cli("--dir", str(shared), "verify")
         require(rc == 0 and report["ok"] == 3 and report["entries"] == 3,
                 f"verify after the concurrent cold start: {rc} {report}")
-        out["together"] = {"seconds": together_s, "replicas": [
+        step("together")
+        out["together"] = {"seconds": max(s["warm_s"] for s in reps), "replicas": [
             {"warm_s": s["warm_s"], "hits": s["readyz"]["compile_hub"]["cache_hits"],
              "misses": s["readyz"]["compile_hub"]["cache_misses"]} for s in reps]}
 
-        # -- 6. the rolling restart through nm03-fleet -----------------------
+        # -- 6. a relaunch from the cache through nm03-fleet restart, on its
+        # own (the fleet phase walks three)
+        walked = reps[:COMPILE_CACHE_RELAUNCHES]
         t0 = time.perf_counter()
         res = subprocess.run(
             [sys.executable, "-m", "nm03_capstone_project_tpu_torch.fleet.cli", "restart",
-             "--replicas", ",".join(s["url"] for s in reps), "--compile-cache-dir", str(shared),
+             "--replicas", ",".join(s["url"] for s in walked), "--compile-cache-dir", str(shared),
              "--format", "json", "--warm-timeout-s", "300"],
             cwd=repo, env=env, capture_output=True, text=True, timeout=900)
         restart_s = time.perf_counter() - t0
@@ -4163,7 +4223,8 @@ def compile_cache_phase(tmp: Path, driver_out: dict, smi: str, kernels: dict, re
         detached += [e["new_pid"] for e in report.get("replicas", []) if e.get("new_pid")]
         require(res.returncode == 0 and report.get("ok"), f"fleet restart: {res.stderr[-3000:]}")
         restarted = []
-        for e, s in zip(report["replicas"], reps):
+        require(len(report["replicas"]) == len(walked), f"fleet restart walked {report}")
+        for e, s in zip(report["replicas"], walked):
             require(e["compile_cache_hits"] == 3 and e["builds"] == 0,
                     f"relaunch of {e['replica']}: {e}")
             _, st = get_json(s["url"] + "/readyz")
@@ -4182,7 +4243,9 @@ def compile_cache_phase(tmp: Path, driver_out: dict, smi: str, kernels: dict, re
                 "capture_s": round(cap_s, 4),
                 "rest_s": round(e["warm_s"] - until_app - lib_s - cap_s, 3)})
         out["restart"] = {"seconds": restart_s, "replicas": restarted}
-        emit({"phase": "compile_cache", **out, "compile_cache_launches": launches,
+        step("restart")
+        emit({"phase": "compile_cache", **out, "steps_s": step.spent, "serve_s": served_s,
+              "compile_cache_launches": launches,
               "seconds": time.perf_counter() - phase_t0, "nvidia_smi": smi})
         require(launches["fused"] > 0 and launches["grow"] > 0, f"launches {launches}")
         return launches
@@ -4238,16 +4301,18 @@ def _windows(x, k: int, b: int):
 def bisection_passes(x, k: int):
     """The passes of the select and wide kernels' bisection (``csrc/
     median.cu``) on ``x``'s windows at k: ``(passes, warp passes,
-    outputs)``, summed over the outputs.
+    outputs, wide warp passes)``, summed over the outputs.
 
     The passes run the kernels' rule on each window's sorted keys: l =
     least key, u = greatest + 1; cand = l + (u - l) / 2; below = keys <
     cand; l = the least key >= cand if below <= k*k/2, else u = the
     greatest key < cand, + 1; until u - l = 1. A NaN window runs none.
-    The warp passes are the sum over warps (32 outputs of a row) of their
-    slowest lane's passes, times 32: what the warps issue."""
+    The warp passes are the sum over the select's warps (32 outputs of a
+    row) of their slowest lane's passes, times 32: what the warps issue;
+    the wide warp passes the same over the wide kernel's warps (4 outputs
+    of a row, 8 columns apart), times 4."""
     rank = (k * k) // 2
-    passes, warp, outputs = 0.0, 0.0, 0
+    passes, warp, outputs, wide = 0.0, 0.0, 0, 0.0
     for b in range(x.shape[0]):
         w = _windows(x, k, b).view(torch.int32).to(torch.int64) & 0xFFFFFFFF
         w = torch.where(w >= 0x80000000, (~w) & 0xFFFFFFFF, w | 0x80000000)
@@ -4271,8 +4336,9 @@ def bisection_passes(x, k: int):
         rows = torch.nn.functional.pad(n.view(h, wd), (0, (-wd) % 32)).view(h, -1, 32)
         passes += float(n.sum())
         warp += float(rows.max(dim=2).values.sum()) * 32
+        wide += float(rows.view(h, -1, 4, 8).max(dim=2).values.sum()) * 4
         outputs += n.numel()
-    return passes, warp, outputs
+    return passes, warp, outputs, wide
 
 
 def select_design_ops(x, k: int, passes=None) -> dict:
@@ -4290,7 +4356,7 @@ def select_design_ops(x, k: int, passes=None) -> dict:
     a block, so it is also the least count of a known exact design past
     the select's last window."""
     lv = k.bit_length()
-    passes, warp, outputs = passes or bisection_passes(x, k)
+    passes, warp, outputs = (passes or bisection_passes(x, k))[:3]
     ih, iw = 8 + k - 1, 32 + k - 1
     sort = 2 * iw * (ih * k + 2 * (8 * k - ih)) / (8 * 32)
     per_pass = k * (2 * lv + 3)
@@ -4298,16 +4364,84 @@ def select_design_ops(x, k: int, passes=None) -> dict:
             "passes_per_output": passes / outputs, "warp_passes_per_output": warp / outputs}
 
 
-def wide_design_ops(x, k: int, passes=None) -> dict:
+def bitonic_pairs(k: int) -> int:
+    """Compare-exchanges of the wide kernel's bitonic sort of a k-key
+    segment (``csrc/median.cu``): over every stage, the pairs whose upper
+    place is below k (the others meet +inf and are skipped)."""
+    n, pairs, size = 1 << max(0, (k - 1).bit_length()), 0, 2
+    while size <= n:
+        d = size // 2
+        while d:
+            for p in range(n // 2):
+                i = ((p & ~(d - 1)) << 1) | (p & (d - 1))
+                pairs += (i ^ (size - 1) if d == size // 2 else i | d) < k
+            d //= 2
+        size *= 2
+    return pairs
+
+
+def wide_upkeep_ops(x, k: int, rows: int) -> float:
+    """Operations of the wide kernel's walk down its bands on ``x`` at k:
+    for each tile column of each row but a band's first, where the key
+    that leaves and the key that enters differ, two binary searches
+    (ceil(log2(k + 1)) probes, a compare and an add each) and a move of
+    each key between the two places, plus the entering key's write.
+    Counted on the card from this input: the places are the counts below
+    each key in the column's segment of the row above."""
+    b, h, w = x.shape
+    r, lv, iw = k // 2, k.bit_length(), 32 + k - 1
+    first = torch.zeros(h, dtype=torch.bool, device=x.device)
+    first[::rows] = True
+    total = 0.0
+    for sl in range(b):
+        u = x[sl].view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+        key = torch.where(u >= 0x80000000, (~u) & 0xFFFFFFFF, u | 0x80000000)
+        ys = torch.arange(h, device=x.device)
+        ko = key[(ys - 1 - r).clamp(0, h - 1)]  # (h, w): the key leaving row y's segment
+        kn = key[(ys + r).clamp(0, h - 1)]  # and the one entering
+        cost = torch.zeros((h, w), dtype=torch.float64, device=x.device)
+        for y in range(1, h):
+            seg = key[(torch.arange(k, device=x.device) + y - 1 - r).clamp(0, h - 1)]
+            p = (seg < ko[y]).sum(0)
+            q = (seg < kn[y]).sum(0) - (ko[y] < kn[y]).long()
+            moved = ko[y] != kn[y]
+            cost[y] = torch.where(moved, 4 * lv + (p - q).abs() + 1, 0).double()
+        cost[first] = 0
+        col = cost.sum(0)  # a canvas column's upkeep over the rows
+        tile_cols = torch.arange(iw, device=x.device) - r
+        for x0 in range(0, w, 32):
+            total += float(col[(tile_cols + x0).clamp(0, w - 1)].sum())
+    return total
+
+
+def wide_design_ops(x, k: int, rows: int, passes=None) -> dict:
     """Operations the wide kernel (``csrc/median.cu``) runs on ``x`` at
-    window k, from this input's windows, and its passes: per output the
-    scan of its k*k keys for the extreme keys (two min/max a key), then
-    per pass of the bisection (:func:`bisection_passes`) a compare, an add
-    and two selects a key of the window."""
-    passes, warp, outputs = passes or bisection_passes(x, k)
-    kk = k * k
-    return {"ops": outputs * 2 * kk + passes * 4 * kk, "passes_per_output": passes / outputs,
-            "warp_passes_per_output": warp / outputs}
+    window k in bands of ``rows`` rows, from this input's windows, and its
+    passes: each tile's sort of its strip's 32 + k - 1 column segments (a
+    compare-exchange of the bitonic network, :func:`bitonic_pairs`, a min
+    and a max), the walk down the band (:func:`wide_upkeep_ops`), and per
+    output the extreme keys (2 k) and per pass of the bisection
+    (:func:`bisection_passes`), for each of its k segments, ceil(log2(k +
+    1)) probes (a compare and an add) and the sum, least and greatest
+    (3): the select's count with the segments shared down the rows
+    instead of across a 2D tile.
+
+    The count is least at one band a slice (``rows`` = the height): a
+    band's first row sorts each column (2 x :func:`bitonic_pairs` a
+    column) where a later row moves a key (at most 4 ceil(log2(k + 1)) + k
+    + 1), and the sort costs more for every k (tests). The wrapper picks
+    shorter bands to fill the card."""
+    from nm03_capstone_project_tpu_torch.ops import hopper_median as hm
+
+    passes, warp, outputs, wide = passes or bisection_passes(x, k)
+    b, h, w = x.shape
+    tiles = b * -(-h // rows) * -(-w // hm.WIDE_COLS)
+    sort = tiles * 2 * bitonic_pairs(k) * (hm.WIDE_COLS + k - 1)
+    upkeep = wide_upkeep_ops(x, k, rows)
+    ops = sort + upkeep + outputs * 2 * k + passes * k * (2 * k.bit_length() + 3)
+    return {"ops": ops, "sort_ops_per_output": sort / outputs,
+            "upkeep_ops_per_output": upkeep / outputs, "passes_per_output": passes / outputs,
+            "warp_passes_per_output": wide / outputs, "rows": rows, "tiles": tiles}
 
 
 def signed_keys_input(shape, seed: int):
@@ -4543,6 +4677,8 @@ def envelope_phase(median_x, fused_x, pre_kw: dict, smi: str, kernels: dict, res
     from nm03_capstone_project_tpu_torch.pipeline import process_batch
 
     t_phase = time.perf_counter()
+    step = StepTimer(t_phase)
+
     dev = torch.device("cuda")
     gen = torch.Generator(device="cpu").manual_seed(14)
     sel = hm.vector_median_select_kernel
@@ -4646,6 +4782,7 @@ def envelope_phase(median_x, fused_x, pre_kw: dict, smi: str, kernels: dict, res
                              "signed_zeros_and_nan": zeros, "timing": timing,
                              "limit": hm.MAX_SELECT_WINDOW}
 
+    step("median_select")
     # -- the median past the select's planes: the wide route ----------------
     wide = hm.vector_median_wide_kernel
     wc, wk = ENVELOPE_WIDE_PIPELINE
@@ -4655,11 +4792,15 @@ def envelope_phase(median_x, fused_x, pre_kw: dict, smi: str, kernels: dict, res
     wide_cases, wide_plain_ms, wide_window_ms = [], None, {}
     checks = [("main", wide_mx, wk, vector_median_filter), ("random", rand_w, wk,
                                                              vector_median_filter)]
-    # k = 127 against the plain network (934k min/max); at 257 the network is
-    # some 5 million, so the plain sort median holds it: the same bits on
-    # finite data without signed zeros (ops/median.py)
-    checks += [("random", small_w, ENVELOPE_WIDE[1], vector_median_filter),
-               ("random", small_w, ENVELOPE_WIDE[2], vector_median_filter_sort)]
+    # k = 127 against the plain network (934k min/max); past it (225 and 227,
+    # either side of the segments' switch to a device scratch, and 257) the
+    # network is millions, so the plain sort median holds them: the same
+    # bits on finite data without signed zeros (ops/median.py)
+    checks += [("random", small_w, ENVELOPE_WIDE[1], vector_median_filter)]
+    checks += [("random", small_w, kk, vector_median_filter_sort)
+               for kk in (hm.MAX_WIDE_SHARED_WINDOW, hm.MAX_WIDE_SHARED_WINDOW + 2,
+                          ENVELOPE_WIDE[2])]
+    wide_library_ms = {}
     for name, x, kk, plain in checks:
         require(hm.median_launch_shape(*x.shape, kk).route == "wide", f"k={kk}: not the wide route")
         before = wide.launches
@@ -4672,63 +4813,88 @@ def envelope_phase(median_x, fused_x, pre_kw: dict, smi: str, kernels: dict, res
         if x is small_w:
             wide_window_ms[f"k{kk}"] = cuda_ms(lambda: hm.vector_median_filter_kernel(x, kk),
                                                repeats=3)
-        staged = "staged" if hm.wide_staged(kk) else "image"
-        wide_cases.append(f"{name}{list(x.shape)}:k{kk}:{staged}:{plain.__name__}")
+            wide_library_ms[f"k{kk}"] = median_library_ms(x, kk, repeats=3)
+        where = "shared" if hm.wide_shared(kk) else "scratch"
+        wide_cases.append(f"{name}{list(x.shape)}:k{kk}:{where}:{plain.__name__}")
     del got, want, small_w
     got, want = hm.vector_median_filter_kernel(z, wk), vector_median_filter(z, wk)
     torch.cuda.synchronize()
     require(same_bits(got, want), f"median wide != plain on signed zeros and NaN, k={wk}")
     wide_zeros = {}
-    # the keys read from the image (past the staged tile) on the same kinds
-    # of value, held to a sort of the same keys
-    kz, zshape = ENVELOPE_WIDE_KEYS
-    zi = signed_keys_input(zshape, kz).to(dev)
-    require(not hm.wide_staged(kz), f"k={kz}: staged")
-    before = wide.launches
-    got_i = hm.vector_median_filter_kernel(zi, kz)
-    require(wide.launches == before + 1, f"k={kz}: not one wide launch")
-    want_i = key_sort_median(zi, kz)
-    require(same_bits(got_i, want_i), f"median wide != key sort on signed zeros and NaN, k={kz}")
-    for kk, v in ((wk, want), (kz, want_i)):
+    # signed zeros, negatives and NaNs of both signs either side of the
+    # segments' switch to a device scratch, held to a sort of the same keys
+    kzs, zshape = ENVELOPE_WIDE_KEYS
+    checked = [(wk, want)]
+    for kz in kzs:
+        zi = signed_keys_input(zshape, kz).to(dev)
+        before = wide.launches
+        got_i = hm.vector_median_filter_kernel(zi, kz)
+        require(wide.launches == before + 1, f"k={kz}: not one wide launch")
+        want_i = key_sort_median(zi, kz)
+        require(same_bits(got_i, want_i),
+                f"median wide != key sort on signed zeros and NaN, k={kz}")
+        checked.append((kz, want_i))
+        where = "shared" if hm.wide_shared(kz) else "scratch"
+        wide_cases.append(f"signed_keys{list(zshape)}:k{kz}:{where}:key_sort_median")
+        del zi, got_i
+    require([hm.wide_shared(kz) for kz in kzs] == [True, False],
+            f"k={kzs}: not either side of the switch")
+    for kk, v in checked:
         is_zero = v == 0
         wide_zeros[f"k{kk}"] = {
             "zero_medians": int(is_zero.sum()),
             "negative_zero_medians": int((is_zero & torch.signbit(v)).sum()),
             "negative_medians": int((v < 0).sum()), "nan_medians": int(torch.isnan(v).sum()),
             "negative_nan_medians": int((torch.isnan(v) & torch.signbit(v)).sum())}
-    require(all(wide_zeros[f"k{kz}"][c] > 0 for c in ("negative_zero_medians", "nan_medians",
-                                                      "negative_nan_medians")),
-            f"k={kz}: the signed-zeros case does not reach -0.0 and both NaNs")
-    wide_cases.append(f"signed_keys{list(zshape)}:k{kz}:image:key_sort_median")
-    del zi, got_i, want_i
+    for kz in kzs:
+        require(all(wide_zeros[f"k{kz}"][c] > 0 for c in ("negative_zero_medians", "nan_medians",
+                                                          "negative_nan_medians")),
+                f"k={kz}: the signed-zeros case does not reach -0.0 and both NaNs")
+    del checked, want_i
     n = wide_mx.numel()
     counted = bisection_passes(wide_mx, wk)
-    design = wide_design_ops(wide_mx, wk, counted)
+    mb, mh, mw = wide_mx.shape
+    per_sm = hm._wide_ctas_per_sm(0, wk)
+    launched = hm.wide_launch_shape(mb, mh, mw, wk, hm._sm_count(0), per_sm)
+    design = wide_design_ops(wide_mx, wk, launched.rows, counted)  # as the wrapper runs it
+    one_band = wide_design_ops(wide_mx, wk, mh, counted)  # its least count
+    require(one_band["ops"] <= design["ops"], "the wide count is not least at one band a slice")
     # the floor: the bytes or the least operations of a known exact design
-    # on this data (the select's sorted segments, which need no block to
-    # hold them in the count); the wide design's own count beside it
+    # on this data, this design's at one band a slice or the select's
+    # (which needs no block to hold its planes in the count; the floor of
+    # the first wide design, kept as its yardstick). The count at the
+    # launched bands is the design's own
     least = select_design_ops(wide_mx, wk, counted)["ops"]
-    b_ms, b_by = bound(8 * n, {"minmax_bitwise": min(least, design["ops"])})
+    b_ms, b_by = bound(8 * n, {"minmax_bitwise": min(least, one_band["ops"])})
     own_ms = bound(8 * n, {"minmax_bitwise": design["ops"]})[0]
+    first_ms = bound(8 * n, {"minmax_bitwise": least})[0]
     w_dev, w_by, w_missed = times[f"wide_k{wk}"]
     w_ms = cuda_ms(lambda: hm.vector_median_filter_kernel(wide_mx, wk), repeats=5)
     w_lib = median_library_ms(wide_mx, wk, repeats=3)
     results["median_wide"] = dict(max_abs_err=0.0, ms=w_ms, device_ms=w_dev, device_ms_by=w_by,
                                   plain_ms=wide_plain_ms, bound_ms=b_ms, bound_by=b_by,
+                                  own_design_bound_ms=own_ms, first_design_bound_ms=first_ms,
                                   library_ms=w_lib)
     line["median_wide"] = {
         "bitwise": True, "cases": wide_cases, "signed_zeros_and_nan": wide_zeros,
         "timed": f"k{wk} on {list(wide_mx.shape)}, the canvas-{wc} process_batch's median input",
         "ms": w_ms, "device_ms": w_dev, "device_ms_by": w_by, "profiler_missed": w_missed,
         "plain_ms": wide_plain_ms, "library_ms": w_lib, "bound_ms": b_ms, "bound_by": b_by,
-        "bound_ops_per_output": min(least, design["ops"]) / n,
+        "bound_ops_per_output": min(least, one_band["ops"]) / n,
+        "one_band_ops_per_output": one_band["ops"] / n,
         "ops_per_output": design["ops"] / n, "own_design_bound_ms": own_ms,
+        "first_design_bound_ms": first_ms, "first_design_ops_per_output": least / n,
+        "sort_ops_per_output": design["sort_ops_per_output"],
+        "upkeep_ops_per_output": design["upkeep_ops_per_output"],
+        "band_rows": design["rows"], "tiles": design["tiles"], "ctas_per_sm": per_sm,
+        "grid": launched.grid,
         "passes_per_output": design["passes_per_output"],
         "warp_passes_per_output": design["warp_passes_per_output"],
-        "ms_on_small": wide_window_ms, "staged_up_to": max(
-            k for k in range(1, 400, 2) if hm.wide_staged(k))}
+        "ms_on_small": wide_window_ms, "library_ms_on_small": wide_library_ms,
+        "shared_up_to": hm.MAX_WIDE_SHARED_WINDOW}
     del rand_w
 
+    step("median_wide")
     # -- the fused preprocess past its plans and taps: the unfused route ----
     cases = []
     rand_f = (torch.rand(MAIN_SHAPE, generator=gen) * 9000).to(dev)
@@ -4782,6 +4948,7 @@ def envelope_phase(median_x, fused_x, pre_kw: dict, smi: str, kernels: dict, res
                              "profiler_missed": f_missed, "bound_ms": b_ms, "bound_by": b_by,
                              "first_design_bound_ms": f_bound}
 
+    step("fused_unfused")
     # -- grow past one cluster: the global route, at any size -----------------
     cfg = PipelineConfig(canvas=256)
     gg = hg.region_grow_global_kernel
@@ -4835,6 +5002,7 @@ def envelope_phase(median_x, fused_x, pre_kw: dict, smi: str, kernels: dict, res
             require(torch.equal(jm, dm), "jump mask != the global route's at canvas 3072")
             jump = {"converged": jc.tolist(), "dilate_converged": dc.tolist(),
                     "mask_equal_dilate": True, "mask_area": [int(m.sum()) for m in jm]}
+    step("grow_cases")
     gkw = dict(block_iters=cfg.grow_block_iters, max_iters=cfg.grow_max_iters)
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     # the 20,000 x 20,000 case: its call, device time, plain time and floor
@@ -4901,6 +5069,7 @@ def envelope_phase(median_x, fused_x, pre_kw: dict, smi: str, kernels: dict, res
                            "streamed": streamed, "huge": huge}
     del grow_cases, small, img, seeds, valid
 
+    step("grow_timing")
     # -- process_batch at canvas 3072, k = 17: the main path of the routes ---
     c, k = ENVELOPE_PIPELINE
     bt = envelope_phantoms(c, c, 30)
@@ -4944,6 +5113,7 @@ def envelope_phase(median_x, fused_x, pre_kw: dict, smi: str, kernels: dict, res
                              "equal_plain": True, "median_and_fused_bitwise": True, "golden": golden["made_by"], "masks": got,
                              "kernels_s": pipe_s}
 
+    step("process_batch")
     # -- process_batch at canvas 256, k = 65: the main path of the wide route
     kcfg = PipelineConfig(canvas=wc, median_window=wk)
     pcfg = PipelineConfig(canvas=wc, median_window=wk, use_kernels=False)
@@ -4969,6 +5139,8 @@ def envelope_phase(median_x, fused_x, pre_kw: dict, smi: str, kernels: dict, res
                                   "launches": wide_launches, "equal_plain": True,
                                   "golden": golden["made_by"], "masks": got}
     launches = dict(launches, median_wide=wide_launches["median_wide"])
+    step("process_batch_wide")
+    line["steps_s"] = step.spent
     line["device_ms_taken"] = "after the grow phase (envelope_device_times)"
     line["seconds"] = time.perf_counter() - t_phase
     line["nvidia_smi"] = smi
@@ -5479,9 +5651,10 @@ def main() -> int:
             "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
-            **({"first_design_bound_ms": r["first_design_bound_ms"]}
-               if "first_design_bound_ms" in r else {}),
+            **{b: r[b] for b in ("own_design_bound_ms", "first_design_bound_ms") if b in r},
         })
+    emit({"phase": "script", "seconds": round(time.perf_counter() - _SCRIPT_T0, 3),
+          "nvidia_smi": smi})
     emit({"kernels": rows})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

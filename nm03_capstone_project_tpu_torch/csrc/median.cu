@@ -63,22 +63,29 @@
 // 226,000 bytes at k = 63, the largest window.
 //
 // Windows past 63 (nm03_median_wide, the wrapper's "wide" route): the
-// planes no longer fit a block, so each output bisects over its window's
-// keys alone, with the select kernel's keys and rule (the extreme keys,
-// the first NaN row-major, then candidates between keys of the window that
-// snap to the least key at or above the candidate or past the greatest
-// below it). One CTA per (slice, 8-row band, 32-column band), 256 threads,
-// one output a thread. Where the CTA's (8 + k - 1) x (32 + k - 1) keys fit
-// its shared memory (k <= 221: 229,824 bytes) it stages them once, clamped
-// to the canvas, and every pass reads them there, a warp's 32 lanes 32
-// neighbouring words; past that each pass reads the window from global
-// memory through L1 and L2 (clamped indices, the key made on the fly).
-// Bound on the H100: a pass reads k*k keys an output, one load, a compare
-// and two selects a key; about log2(k*k) passes on noisy data and one or
-// two on flat, so operations, not bytes, bound it. Counts are 64-bit, so
-// any odd k the int arguments hold works.
+// select's planes of a 2D tile no longer fit a block, so the sort is shared
+// down the rows instead. A CTA owns a strip of 32 output columns and walks
+// a band of output rows (the wrapper picks the band so that the tiles fill
+// the card where the canvas allows). It keeps the 32 + k - 1 column
+// segments of its current row, k keys each, sorted: at the top of the band
+// it loads and sorts them once (a bitonic network), and moving down a row
+// each segment drops its top key and takes the new bottom one (two counts
+// find their places, the keys between shift by one), O(k) a column
+// instead of a sort. Each output then runs the select kernel's bisection
+// with the same keys and rule (the extreme keys, the window's first NaN
+// row-major, candidates that snap to the least key at or above them or
+// past the greatest below), a count below a candidate by a binary search
+// in each of its k segments; an output's segments are split over 8 lanes
+// and reduced by shuffles, so a warp holds 4 outputs and its 32 lanes read
+// 32 neighbouring columns at any ranks, one conflict-free load. The
+// segments take k x (32 + k - 1, rounded up to 32) words: in shared memory
+// up to k = 225 (230,400 bytes), past that in a device scratch the wrapper
+// allocates, read through L1 and L2. Bound on the H100: operations (about
+// k (2 ceil(log2(k + 1)) + 3) a pass an output, plus the band's sort and
+// the rows' upkeep shared by the strip), not bytes. Counts are 64-bit.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 #include "median_plans.cuh"
@@ -358,98 +365,221 @@ cudaError_t launch_select(const float* x, float* out, int b0, int nb, int H, int
   return cudaGetLastError();
 }
 
-// -- windows past 63: a bisection over each window's keys --------------------
+// -- windows past 63: sorted column segments kept down a strip --------------
 
-__host__ __device__ inline size_t wide_smem_bytes(int K) {  // the staged tile of keys
-  return (size_t)(STH + K - 1) * (STW + K - 1) * sizeof(uint32_t);
-}
+constexpr int WTW = 32;     // output columns of a tile: one strip
+constexpr int WNT = 256;    // threads of a CTA
+constexpr int WSPLIT = 8;   // threads of an output: segments t, t + 8, t + 16, ...
+constexpr unsigned WFULL = 0xffffffffu;
 
-// f(key) for each key of output (gy, gx)'s window, row-major: from the
-// staged tile (tile (i, j) is canvas (y0 - R + i, x0 - R + j), clamped), or
-// from the image with clamped indices.
-template <bool STAGED, typename F>
-__device__ __forceinline__ void for_window(const uint32_t* keys, const float* __restrict__ xb,
-                                           int H, int W, int K, int i, int j, int gy, int gx,
-                                           F f) {
-  const int R = K / 2, IW = STW + K - 1;
-  for (int dy = 0; dy < K; ++dy) {
-    if (STAGED) {
-      const uint32_t* row = keys + (size_t)(i + dy) * IW + j;
-      for (int dx = 0; dx < K; ++dx) f(row[dx]);
-    } else {
-      const float* row = xb + (size_t)clampi(gy - R + dy, 0, H - 1) * W;
-      for (int dx = 0; dx < K; ++dx) f(order_key(__ldg(row + clampi(gx - R + dx, 0, W - 1))));
-    }
+// A wide CTA's segments: plane a (a = 0 .. K - 1) at seg + a PL holds, at
+// column cx, the a-th smallest key of column segment cx (canvas column x0 -
+// R + cx, clamped; the K rows of the current output row's windows). PL is a
+// multiple of 32 words: any mix of ranks over 32 neighbouring columns is
+// one conflict-free load.
+struct WideLayout {
+  int R, IW, PL;
+  __host__ __device__ explicit WideLayout(int K) {
+    R = K / 2;
+    IW = WTW + K - 1;
+    PL = (IW + 31) / 32 * 32;
   }
+};
+
+__host__ __device__ inline size_t wide_segment_words(int K) {
+  return (size_t)K * WideLayout(K).PL;
 }
 
-template <bool STAGED>
-__global__ void __launch_bounds__(SNT)
-wide_kernel(const float* __restrict__ x, float* __restrict__ out, int H, int W, int K, int b0) {
-  const int R = K / 2, IH = STH + K - 1, IW = STW + K - 1;
-  const int b = b0 + blockIdx.z, y0 = blockIdx.y * STH, x0 = blockIdx.x * STW;
-  extern __shared__ uint32_t keys[];
-  const float* xb = x + (size_t)b * H * W;
-  if (STAGED) {
-    for (int idx = threadIdx.x; idx < IH * IW; idx += SNT) {
-      const int i = idx / IW, j = idx - i * IW;
-      const int gy = clampi(y0 - R + i, 0, H - 1);
-      const int gx = clampi(x0 - R + j, 0, W - 1);
-      keys[idx] = order_key(xb[(size_t)gy * W + gx]);
+// The keys of sorted segment `col` (K keys, stride PL) below v. The first
+// probe, at P - 1 (P the largest power of 2 <= K), leaves P places to
+// search, so no later probe checks a bound.
+__device__ __forceinline__ int count_below(const uint32_t* col, int PL, int K, int P,
+                                           uint32_t v) {
+  int pos = col[(P - 1) * PL] < v ? K - P + 1 : 0;
+  for (int step = P >> 1; step > 0; step >>= 1) {
+    if (col[(pos + step - 1) * PL] < v) pos += step;
+  }
+  return pos;
+}
+
+template <typename T, typename F>
+__device__ __forceinline__ T group_reduce(T v, F f) {  // over an output's 8 lanes
+#pragma unroll
+  for (int d = 1; d < WSPLIT; d <<= 1) v = f(v, __shfl_xor_sync(WFULL, v, d));
+  return v;
+}
+
+// One CTA walks tiles (slice, band of `rows` output rows, strip of 32
+// columns), blockIdx.x, + gridDim.x, ... For each it loads the segments of
+// the band's first row and sorts them (a bitonic network, ascending
+// compare-exchanges; partners past K hold +inf and are skipped), then for
+// each row of the band: the segments move down a row (each drops its top
+// key and takes the new bottom one: two counts find their places, the keys
+// between shift by one), then each output's rank K*K/2 by the select
+// kernel's bisection, an output's K segments split over 8 lanes (warp w
+// holds outputs w, w + 8, w + 16, w + 24, so its 32 lanes read 32
+// neighbouring columns) and reduced by shuffles. SHARED: the segments in
+// shared memory, else in `scratch`, K PL words a CTA, through L1 and L2.
+template <bool SHARED>
+__global__ void __launch_bounds__(WNT)
+wide_kernel(const float* __restrict__ x, float* __restrict__ out, uint32_t* scratch, int H,
+            int W, int K, int b0, int rows, int bands, int strips, long long tiles) {
+  const WideLayout L(K);
+  const int R = L.R, IW = L.IW, PL = L.PL;
+  extern __shared__ uint32_t wseg[];
+  uint32_t* seg = SHARED ? wseg : scratch + (size_t)blockIdx.x * K * PL;
+  int P = 1, N = 1;
+  while ((P << 1) <= K) P <<= 1;
+  while (N < K) N <<= 1;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int t = lane & (WSPLIT - 1);
+  const int j = warp + (WNT / 32) * (lane / WSPLIT);  // the output's column in the strip
+  const int nseg = (K - t + WSPLIT - 1) / WSPLIT;
+  const long long rank = (long long)K * K / 2;
+  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int strip = (int)(tile % strips);
+    const long long rest = tile / strips;
+    const int y0 = (int)(rest % bands) * rows, y1 = min(H, y0 + rows);
+    const int b = b0 + (int)(rest / bands), x0 = strip * WTW;
+    const float* xb = x + (size_t)b * H * W;
+    float* ob = out + (size_t)b * H * W;
+
+    // 1. row y0's segments, then a bitonic sort of each
+    for (int a = warp; a < K; a += WNT / 32) {
+      const float* row = xb + (size_t)clampi(y0 - R + a, 0, H - 1) * W;
+      for (int cx = lane; cx < IW; cx += 32) {
+        seg[a * PL + cx] = order_key(__ldg(row + clampi(x0 - R + cx, 0, W - 1)));
+      }
     }
     __syncthreads();
-  }
-  const int i = threadIdx.x / STW, j = threadIdx.x - i * STW;
-  const int gy = y0 + i, gx = x0 + j;
-  if (gy >= H || gx >= W) return;
-  uint32_t lo = 0xffffffffu, hi = 0u;
-  for_window<STAGED>(keys, xb, H, W, K, i, j, gy, gx, [&](uint32_t k) {
-    lo = min(lo, k);
-    hi = max(hi, k);
-  });
-  float* o = out + (size_t)b * H * W + (size_t)gy * W + gx;
-  if (key_is_nan(lo) || key_is_nan(hi)) {  // the window's first NaN, row-major
-    uint32_t first = 0u;
-    bool seen = false;
-    for_window<STAGED>(keys, xb, H, W, K, i, j, gy, gx, [&](uint32_t k) {
-      if (!seen && key_is_nan(k)) {
-        first = k;
-        seen = true;
+    for (int size = 2; size <= N; size <<= 1) {
+      for (int d = size >> 1; d > 0; d >>= 1) {
+        for (int p = warp; p < N / 2; p += WNT / 32) {
+          const int i = ((p & ~(d - 1)) << 1) | (p & (d - 1));
+          const int i2 = d == (size >> 1) ? (i ^ (size - 1)) : (i | d);
+          if (i2 >= K) continue;
+          for (int cx = lane; cx < IW; cx += 32) {
+            const uint32_t a = seg[i * PL + cx], c = seg[i2 * PL + cx];
+            if (c < a) {
+              seg[i * PL + cx] = c;
+              seg[i2 * PL + cx] = a;
+            }
+          }
+        }
+        __syncthreads();
       }
-    });
-    *o = key_value(first);
-    return;
-  }
-  // the select kernel's bisection, l <= median < u, counting over the
-  // whole window: l moves up to the least key at or above the candidate,
-  // or u down past the greatest key below it
-  const long long rank = (long long)K * K / 2;
-  uint32_t l = lo, u = hi + 1u;
-  while (u - l > 1u) {
-    const uint32_t cand = l + ((u - l) >> 1);
-    long long below = 0;
-    uint32_t succ = KEY_PAD_HI, pred = KEY_PAD_LO;
-    for_window<STAGED>(keys, xb, H, W, K, i, j, gy, gx, [&](uint32_t k) {
-      const bool lt = k < cand;
-      below += lt;
-      pred = lt ? max(pred, k) : pred;
-      succ = lt ? succ : min(succ, k);
-    });
-    if (below <= rank) {
-      l = succ;
-    } else {
-      u = pred + 1u;
+    }
+
+    for (int y = y0; y < y1; ++y) {
+      // 2. down one row: drop canvas row yo, take row yn (a column a thread)
+      if (y > y0) {
+        const int yo = clampi(y - 1 - R, 0, H - 1), yn = clampi(y + R, 0, H - 1);
+        for (int cx = tid; cx < IW && yo != yn; cx += WNT) {
+          const int gx = clampi(x0 - R + cx, 0, W - 1);
+          const uint32_t ko = order_key(__ldg(xb + (size_t)yo * W + gx));
+          const uint32_t kn = order_key(__ldg(xb + (size_t)yn * W + gx));
+          if (ko == kn) continue;
+          uint32_t* col = seg + cx;
+          const int p = count_below(col, PL, K, P, ko);             // ko's place
+          const int q = count_below(col, PL, K, P, kn) - (ko < kn);  // kn's, ko gone
+          for (int i = p; i < q; ++i) col[i * PL] = col[(i + 1) * PL];
+          for (int i = p; i > q; --i) col[i * PL] = col[(i - 1) * PL];
+          col[q * PL] = kn;
+        }
+        __syncthreads();
+      }
+
+      // 3. rank K*K/2 of each output's window: its segments j .. j + K - 1
+      const uint32_t* base = seg + j + t;  // plane 0 of this lane's first segment
+      uint32_t lo = 0xffffffffu, hi = 0u;
+      for (int m = 0; m < nseg; ++m) {
+        lo = min(lo, base[WSPLIT * m]);
+        hi = max(hi, base[(K - 1) * PL + WSPLIT * m]);
+      }
+      lo = group_reduce(lo, [](uint32_t a, uint32_t c) { return min(a, c); });
+      hi = group_reduce(hi, [](uint32_t a, uint32_t c) { return max(a, c); });
+      const int gx = x0 + j;
+      const bool nan = key_is_nan(lo) || key_is_nan(hi);
+      long long first = LLONG_MAX;  // the window's first NaN, row-major: dy K + dx
+      if (nan) {
+        for (int dy = t; dy < K && first == LLONG_MAX; dy += WSPLIT) {
+          const float* row = xb + (size_t)clampi(y - R + dy, 0, H - 1) * W;
+          for (int dx = 0; dx < K; ++dx) {
+            if (key_is_nan(order_key(__ldg(row + clampi(gx - R + dx, 0, W - 1))))) {
+              first = (long long)dy * K + dx;
+              break;
+            }
+          }
+        }
+      }
+      first = group_reduce(first, [](long long a, long long c) { return min(a, c); });
+      // the select kernel's bisection, l <= median < u: l moves up to the
+      // least key at or above the candidate, or u down past the greatest
+      // key below it
+      uint32_t l = lo, u = hi + 1u;
+      bool run = !nan && u - l > 1u;
+      while (__any_sync(WFULL, run)) {
+        const uint32_t cand = l + ((u - l) >> 1);
+        int below = 0;
+        uint32_t succ = KEY_PAD_HI, pred = KEY_PAD_LO;
+        for (int m0 = 0; m0 < nseg; m0 += 4) {
+          int off[4], pos[4];
+#pragma unroll
+          for (int v = 0; v < 4; ++v) {
+            off[v] = WSPLIT * min(m0 + v, nseg - 1);
+            pos[v] = base[(P - 1) * PL + off[v]] < cand ? K - P + 1 : 0;
+          }
+          for (int step = P >> 1; step > 0; step >>= 1) {
+#pragma unroll
+            for (int v = 0; v < 4; ++v) {
+              if (base[(pos[v] + step - 1) * PL + off[v]] < cand) pos[v] += step;
+            }
+          }
+#pragma unroll
+          for (int v = 0; v < 4; ++v) {
+            if (m0 + v < nseg) {
+              below += pos[v];
+              const uint32_t s = base[min(pos[v], K - 1) * PL + off[v]];
+              const uint32_t r = base[max(pos[v] - 1, 0) * PL + off[v]];
+              succ = pos[v] < K ? min(succ, s) : succ;
+              pred = pos[v] > 0 ? max(pred, r) : pred;
+            }
+          }
+        }
+        const long long all = group_reduce((long long)below,
+                                           [](long long a, long long c) { return a + c; });
+        succ = group_reduce(succ, [](uint32_t a, uint32_t c) { return min(a, c); });
+        pred = group_reduce(pred, [](uint32_t a, uint32_t c) { return max(a, c); });
+        if (run) {
+          if (all <= rank) {
+            l = succ;
+          } else {
+            u = pred + 1u;
+          }
+        }
+        run = run && u - l > 1u;
+      }
+      if (t == 0 && gx < W) {
+        float v = key_value(l);
+        if (nan) {
+          const int dy = (int)(first / K), dx = (int)(first - (long long)dy * K);
+          v = xb[(size_t)clampi(y - R + dy, 0, H - 1) * W + clampi(gx - R + dx, 0, W - 1)];
+        }
+        ob[(size_t)y * W + gx] = v;
+      }
+      __syncthreads();  // the next row moves the segments, or the next tile loads them
     }
   }
-  *o = key_value(l);
 }
 
-template <bool STAGED>
-cudaError_t launch_wide(const float* x, float* out, int b0, int nb, int H, int W, int K,
-                        cudaStream_t stream) {
+template <bool SHARED>
+cudaError_t launch_wide(const float* x, float* out, uint32_t* scratch, int b0, int nb, int H,
+                        int W, int K, int rows, int grid, cudaStream_t stream) {
+  const int strips = (W + WTW - 1) / WTW, bands = (H + rows - 1) / rows;
+  const long long tiles = (long long)nb * bands * strips;
   size_t bytes = 0;
-  if (STAGED) {
-    bytes = wide_smem_bytes(K);
+  if (SHARED) {
+    bytes = wide_segment_words(K) * sizeof(uint32_t);
     int dev = 0, optin = 0;
     cudaError_t err = cudaGetDevice(&dev);
     if (err != cudaSuccess) return err;
@@ -462,8 +592,9 @@ cudaError_t launch_wide(const float* x, float* out, int b0, int nb, int H, int W
       if (err != cudaSuccess) return err;
     }
   }
-  const dim3 grid((W + STW - 1) / STW, (H + STH - 1) / STH, nb);
-  wide_kernel<STAGED><<<grid, SNT, bytes, stream>>>(x, out, H, W, K, b0);
+  const int g = tiles < grid ? (int)tiles : grid;
+  wide_kernel<SHARED><<<g, WNT, bytes, stream>>>(x, out, scratch, H, W, K, b0, rows, bands,
+                                                 strips, tiles);
   return cudaGetLastError();
 }
 
@@ -510,17 +641,44 @@ extern "C" int nm03_median_select(const float* x, float* out, int b0, int nb, in
 }
 
 // k x k median of slices [b0, b0 + nb) of a (., H, W) float32 batch,
-// clamp-to-edge, by a bisection over each window's keys; any odd k. With
-// `staged` the CTA's keys sit in shared memory (the caller checks that they
-// fit: wide_smem_bytes; cudaErrorInvalidConfiguration if they do not), else
-// each pass reads the image. nb <= 65535, as for nm03_median_select.
-extern "C" int nm03_median_wide(const float* x, float* out, int b0, int nb, int H, int W,
-                                int k, int staged, void* stream) {
+// clamp-to-edge, by a bisection over sorted column segments that each CTA
+// keeps down a band of `rows` output rows; any odd k. With `scratch` null
+// the segments sit in shared memory (cudaErrorInvalidConfiguration where
+// wide_segment_words(k) words do not fit a block), else in `scratch`,
+// grid x wide_segment_words(k) words. `grid` CTAs (at most the tiles) walk
+// the nb x ceil(H / rows) x ceil(W / 32) tiles. nb <= 65535, as for
+// nm03_median_select.
+extern "C" int nm03_median_wide(const float* x, float* out, void* scratch, int b0, int nb,
+                                int H, int W, int k, int rows, int grid, void* stream) {
   (void)cudaGetLastError();  // clear an error already reported by an earlier call
-  if (b0 < 0 || nb <= 0 || nb > 65535 || H <= 0 || W <= 0 || k < 1 || k % 2 == 0) {
+  if (b0 < 0 || nb <= 0 || nb > 65535 || H <= 0 || W <= 0 || k < 1 || k % 2 == 0 ||
+      rows < 1 || grid < 1 || wide_segment_words(k) > (size_t)INT_MAX) {
     return cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return staged ? launch_wide<true>(x, out, b0, nb, H, W, k, s)
-                : launch_wide<false>(x, out, b0, nb, H, W, k, s);
+  uint32_t* sc = static_cast<uint32_t*>(scratch);
+  return sc ? launch_wide<false>(x, out, sc, b0, nb, H, W, k, rows, grid, s)
+            : launch_wide<true>(x, out, nullptr, b0, nb, H, W, k, rows, grid, s);
+}
+
+// The wide kernel's CTAs an SM holds at once with window k's segments in
+// shared memory, by the runtime's occupancy (threads, registers and shared
+// memory): *per_sm. cudaErrorInvalidConfiguration where the segments do not
+// fit a block. Legal during stream capture, as the launch is.
+extern "C" int nm03_median_wide_ctas_per_sm(int k, int* per_sm) {
+  (void)cudaGetLastError();  // clear an error already reported by an earlier call
+  if (k < 1 || k % 2 == 0 || per_sm == nullptr) return cudaErrorInvalidValue;
+  const size_t bytes = wide_segment_words(k) * sizeof(uint32_t);
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  if (bytes > (size_t)optin) return cudaErrorInvalidConfiguration;
+  if (bytes > 48 * 1024) {
+    err = cudaFuncSetAttribute(wide_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)bytes);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, wide_kernel<true>, WNT, bytes);
 }

@@ -93,7 +93,8 @@ ARGTYPES = {
     "median": {
         "nm03_median_filter": [_P, _P, _I, _I, _I, _I, _P],
         "nm03_median_select": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
-        "nm03_median_wide": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
+        "nm03_median_wide": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+        "nm03_median_wide_ctas_per_sm": [_I, _P],
     },
     "fused": {
         "nm03_fused_preprocess": [_P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F,

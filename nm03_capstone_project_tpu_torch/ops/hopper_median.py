@@ -12,10 +12,11 @@ hold it against:
   the generated selection plan for k <= MAX_WINDOW (route ``network``),
   from k = 17 to MAX_SELECT_WINDOW the exact selection of
   :func:`vector_median_select_kernel` (route ``select``), which the
-  plans' register budget cannot reach, and past that the bisection of
-  :func:`vector_median_wide_kernel` (route ``wide``), whose keys need no
-  sorted planes. A batch of more than MAX_BATCH slices goes in several
-  launches;
+  plans' register budget cannot reach, and past that
+  :func:`vector_median_wide_kernel` (route ``wide``), the same selection
+  over sorted column segments kept down a strip of rows instead of
+  planes of a 2D tile. A batch of more than MAX_BATCH slices goes in
+  several launches;
 * :func:`fused_preprocess_kernel` — normalize -> clip -> median ->
   sharpen in one pass over the image, bit-identical to
   :func:`_fused_preprocess_plain` (the kernel rounds every step as the
@@ -63,7 +64,8 @@ MAX_BATCH = 65535  # the standalone median grid's z dimension
 MAX_TILE_W = 256  # widest tile of the fused kernel
 BLUR_ROWS = 4  # rows the fused kernel's blur accumulates together
 SMEM_PER_BLOCK = 232448  # the H100's opt-in shared memory per block (227 KB)
-SELECT_ROWS, SELECT_COLS = 8, 32  # outputs of a select or wide CTA (STH, STW in csrc/median.cu)
+SELECT_ROWS, SELECT_COLS = 8, 32  # outputs of a select CTA (STH, STW in csrc/median.cu)
+WIDE_COLS, WIDE_THREADS = 32, 256  # a wide tile's output columns, a wide CTA's threads (WTW, WNT)
 
 
 def select_smem_bytes(k: int) -> int:
@@ -90,17 +92,60 @@ def _largest_select_window() -> int:
 MAX_SELECT_WINDOW = _largest_select_window()
 
 
-def wide_smem_bytes(k: int) -> int:
-    """Shared bytes of a wide CTA that stages its keys (``wide_smem_bytes``
-    in ``csrc/median.cu``): the (SELECT_ROWS + k - 1) x (SELECT_COLS + k -
-    1) tile of keys its outputs' windows cover."""
-    return 4 * (SELECT_ROWS + k - 1) * (SELECT_COLS + k - 1)
+def wide_segment_bytes(k: int) -> int:
+    """Bytes of a wide CTA's sorted column segments (``wide_segment_words``
+    in ``csrc/median.cu``): k planes of the strip's WIDE_COLS + k - 1
+    columns, a plane rounded up to a multiple of 32 words."""
+    return 4 * k * (-(-(WIDE_COLS + k - 1) // 32) * 32)
 
 
-def wide_staged(k: int) -> bool:
-    """Whether the wide kernel stages window k's keys in shared memory
-    (up to k = 221: 229,824 bytes); past that each pass reads the image."""
-    return wide_smem_bytes(k) <= SMEM_PER_BLOCK
+def wide_shared(k: int) -> bool:
+    """Whether the wide kernel keeps window k's segments in shared memory
+    (up to k = 225: 230,400 bytes); past that in a device scratch the
+    wrapper allocates, read through L1 and L2."""
+    return wide_segment_bytes(k) <= SMEM_PER_BLOCK
+
+
+# the largest odd window whose wide segments fit a block's shared memory
+MAX_WIDE_SHARED_WINDOW = max(k for k in range(1, 401, 2) if wide_shared(k))
+
+
+class WideLaunch(NamedTuple):
+    """How :func:`vector_median_wide_kernel` runs a batch (its first launch)."""
+
+    rows: int  # output rows a tile walks: a band
+    tiles: int  # slices x bands x strips
+    grid: int  # CTAs, each walking every grid-th tile
+    smem: int  # shared bytes a CTA; 0 where the segments are in scratch
+    scratch: int  # 32-bit words of device scratch; 0 where they are in shared memory
+
+
+@functools.lru_cache(maxsize=None)
+def wide_launch_shape(b: int, h: int, w: int, k: int, n_sm: int, per_sm: int) -> WideLaunch:
+    """The wide kernel's bands, grid and memory for a (b, h, w) batch at
+    window k on a card of ``n_sm`` SMs, each holding ``per_sm`` CTAs at
+    once with the segments in shared memory (the runtime's occupancy,
+    :func:`_wide_ctas_per_sm`; unused where they are in scratch).
+
+    A tile is a strip of WIDE_COLS output columns down a band of rows; its
+    CTA sorts the strip's segments at the top of the band and moves them
+    down a row at a time after that. The band is the shortest whose tiles
+    all run at once (the slots: n_sm x per_sm; one CTA an SM where the
+    segments are in scratch, each CTA its own): a CTA waits on its loads,
+    so the card wants every slot filled, and the extra sorts of shorter
+    bands cost less than idle slots (``scripts/torch_kernel_probe.py
+    wide`` times each band height on the card). Where even one-band tiles
+    overflow the slots, the band is the whole height."""
+    nb = min(b, MAX_BATCH)
+    strips = -(-w // WIDE_COLS)
+    seg = wide_segment_bytes(k)
+    shared = seg <= SMEM_PER_BLOCK
+    slots = n_sm * (max(1, per_sm) if shared else 1)
+    bands = slots // (nb * strips)  # the most bands whose tiles all fit the slots
+    rows = -(-h // bands) if bands else h
+    tiles = nb * -(-h // rows) * strips
+    grid = min(tiles, slots)
+    return WideLaunch(rows, tiles, grid, seg if shared else 0, 0 if shared else grid * seg // 4)
 
 
 def _note_route(kernel: str, route: str, detail: str) -> None:
@@ -191,6 +236,20 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+@functools.lru_cache(maxsize=None)
+def _wide_ctas_per_sm(index: int, k: int) -> int:
+    """The wide kernel's CTAs an SM of device ``index`` holds at once with
+    window k's segments in shared memory, by the runtime's occupancy
+    (``nm03_median_wide_ctas_per_sm``); 1 where they are in scratch."""
+    if not wide_shared(k):
+        return 1
+    n = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        err = build.load("median").nm03_median_wide_ctas_per_sm(k, ctypes.byref(n))
+    build.check(err, "nm03_median_wide_ctas_per_sm")
+    return n.value
+
+
 def _batched(x: torch.Tensor, what: str) -> torch.Tensor:
     """``x`` as a contiguous (B, H, W) float32 CUDA tensor, or raise."""
     if x.device.type != "cuda":
@@ -269,13 +328,16 @@ vector_median_select_kernel.launches = 0
 
 def vector_median_wide_kernel(x: torch.Tensor, size: int = 65) -> torch.Tensor:
     """The k x k clamp-to-edge median of a (..., H, W) CUDA tensor by a
-    bisection over each window's keys (``csrc/median.cu``,
-    ``nm03_median_wide``): the select kernel's order-preserving keys and
-    rule without its sorted planes, the CTA's keys staged in shared memory
-    where they fit (:func:`wide_staged`), else read from the image each
-    pass. Any odd k, bit-identical to :func:`.median.vector_median_filter`
-    (NaN and signed zeros as for the select kernel). The route of
-    :func:`vector_median_filter_kernel` past MAX_SELECT_WINDOW."""
+    bisection over sorted column segments (``csrc/median.cu``,
+    ``nm03_median_wide``): each CTA walks a strip of 32 output columns down
+    a band of rows (:func:`wide_launch_shape`), sorting the strip's
+    segments once and moving them down a row by one deletion and one
+    insertion each; the select kernel's order-preserving keys and rule. The
+    segments sit in shared memory where they fit (:func:`wide_shared`),
+    else in a device scratch allocated here. Any odd k, bit-identical to
+    :func:`.median.vector_median_filter` (NaN and signed zeros as for the
+    select kernel). The route of :func:`vector_median_filter_kernel` past
+    MAX_SELECT_WINDOW."""
     _check_window(size)
     xb = _batched(x, "vector_median_wide_kernel")
     b, h, w = xb.shape
@@ -283,15 +345,20 @@ def vector_median_wide_kernel(x: torch.Tensor, size: int = 65) -> torch.Tensor:
     out = torch.empty_like(xb)
     if xb.numel() == 0:
         return out.reshape(x.shape)
-    staged = wide_staged(size)
-    _note_route("median", "wide", f"k={size}, keys {'staged' if staged else 'from the image'}, "
+    index = xb.device.index or 0
+    wl = wide_launch_shape(b, h, w, size, _sm_count(index), _wide_ctas_per_sm(index, size))
+    where = "shared memory" if wl.smem else "a device scratch"
+    _note_route("median", "wide", f"k={size}, segments in {where}, {wl.rows}-row bands, "
                 f"{shape.launches} launch(es) of {b} slices")
+    scratch = (torch.empty(wl.scratch, dtype=torch.int32, device=xb.device) if wl.scratch
+               else None)
     lib = build.load("median")
     stream = torch.cuda.current_stream(xb.device).cuda_stream
     for b0 in range(0, b, MAX_BATCH):
         nb = min(MAX_BATCH, b - b0)
-        err = lib.nm03_median_wide(xb.data_ptr(), out.data_ptr(), b0, nb, h, w, size,
-                                   int(staged), stream)
+        err = lib.nm03_median_wide(xb.data_ptr(), out.data_ptr(),
+                                   None if scratch is None else scratch.data_ptr(), b0, nb, h,
+                                   w, size, wl.rows, wl.grid, stream)
         build.check(err, "nm03_median_wide")
         vector_median_wide_kernel.launches += 1
     return out.reshape(x.shape)

@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
-"""Where the port's fused and grow kernels spend their time, on the card.
+"""Where the port's fused, grow and wide median kernels spend their time, on the card.
 
     python scripts/torch_kernel_probe.py            # every probe
-    python scripts/torch_kernel_probe.py fused      # or one of fused, grow, grow_global
+    python scripts/torch_kernel_probe.py fused      # or one of fused, grow, grow_global, wide
 
 Run from the repository root on a machine with an NVIDIA H100 and the CUDA
 toolkit; it needs no profiler such as ``ncu``. The script builds copies of
-``nm03_capstone_project_tpu_torch/csrc/{fused,grow}.cu`` into the
+``nm03_capstone_project_tpu_torch/csrc/{fused,grow,median}.cu`` into the
 git-ignored ``nm03_capstone_project_tpu_torch/_build/probe/``, with
 ``clock64()`` stamps written by thread 0 of each CTA at the phase
 boundaries, and prints one JSON line per measurement:
@@ -25,7 +25,15 @@ boundaries, and prints one JSON line per measurement:
 * ``grow_global``: the global route at 4096 x 4096 x 2 (two phantoms), its
   time a launch as built and stamped, and for each super-step the tiles
   stepped and the slowest CTA's tile load, steps, write and grid barrier
-  (``%globaltimer`` stamps, comparable across SMs).
+  (``%globaltimer`` stamps, comparable across SMs);
+* ``wide``: the median's wide route at k = 65 on the canvas-256
+  ``process_batch``'s median input (two phantoms, (2, 256, 256)) and on
+  random data of that shape, and at k = 127 on random (1, 64, 64): the
+  time a launch for band heights from 1 row to the whole slice, the
+  wrapper's own choice marked (``wide_launch_shape``), and at each
+  height the cycles of a CTA's first tile in its sort (load and bitonic
+  network) and in its walk down the band (upkeep and bisection), the
+  median over the CTAs.
 
 Every line carries the card's name and power limit. Nothing here is used
 by the port.
@@ -349,6 +357,73 @@ def probe_grow_global(card: dict) -> None:
         print(json.dumps({**line, **card}), flush=True)
 
 
+def probe_wide(card: dict) -> None:
+    from nm03_capstone_project_tpu_torch.config import PipelineConfig
+    from nm03_capstone_project_tpu_torch.core import pad_to_canvas
+    from nm03_capstone_project_tpu_torch.data.synthetic import phantom_slice
+    from nm03_capstone_project_tpu_torch.ops.elementwise import clip_intensity, normalize
+    from nm03_capstone_project_tpu_torch.ops.neighborhood import extend_edges
+
+    first = "if (tile == blockIdx.x) "
+    row_end = ("      __syncthreads();  // the next row moves the segments, or the next tile "
+               "loads them\n    }\n")
+    d = variant("wide", "median", [
+        ("    // 1. row y0's segments, then a bitonic sort of each\n",
+         "    " + first + "{" + stamp("0") + "}\n    // 1. row y0's segments, then a bitonic "
+         "sort of each\n"),
+        ("    for (int y = y0; y < y1; ++y) {\n      // 2. down one row",
+         "    " + first + "{" + stamp("1") + "}\n    for (int y = y0; y < y1; ++y) {\n"
+         "      // 2. down one row"),
+        (row_end, row_end + "    " + first + "{" + stamp("2") + "}\n"),
+    ])
+    lib = compile_all({"wide": (d, "median")})["wide"]
+    lib.nm03_median_wide.argtypes = build.ARGTYPES["median"]["nm03_median_wide"]
+    cfg = PipelineConfig(canvas=256)
+    dims = [(256, 256), (224, 205)]  # testdata/envelope_wide_golden.json
+    bt = pad_to_canvas([phantom_slice(a, b, seed=40 + i, lesion_radius=0.2)
+                        for i, (a, b) in enumerate(dims)], (256, 256), device="cuda")
+    mx = clip_intensity(normalize(extend_edges(bt.pixels, bt.dims), cfg.norm_low, cfg.norm_high,
+                                  cfg.norm_intensity_min, cfg.norm_intensity_max),
+                        cfg.clip_low, cfg.clip_high)
+    gen = torch.Generator(device="cpu").manual_seed(65)
+    cases = [("phantoms", mx, 65),
+             ("random", (torch.rand((2, 256, 256), generator=gen) * 4000 + 0.68).cuda(), 65),
+             ("random", (torch.rand((1, 64, 64), generator=gen) * 4000 + 0.68).cuda(), 127)]
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    stream = torch.cuda.current_stream().cuda_stream
+    for name, x, k in cases:
+        b, h, w = x.shape
+        per_sm = hm._wide_ctas_per_sm(0, k)  # the runtime's, as the wrapper takes it
+        chosen = hm.wide_launch_shape(b, h, w, k, n_sm, per_sm)
+        out = torch.empty_like(x)
+        want = hm.vector_median_filter_kernel(x, k)
+        bands = {}
+        for rows in sorted({1, 2, 4, 8, 16, 32, 64, h, chosen.rows} & set(range(1, h + 1))):
+            shape = chosen._replace(rows=rows)
+            tiles = b * -(-h // rows) * -(-w // hm.WIDE_COLS)
+            grid = min(tiles, shape.grid if rows == chosen.rows else n_sm * per_sm)
+            scratch = (torch.empty(grid * hm.wide_segment_bytes(k) // 4, dtype=torch.int32,
+                                   device="cuda") if shape.scratch else None)
+
+            def call():
+                err = lib.nm03_median_wide(x.data_ptr(), out.data_ptr(),
+                                           None if scratch is None else scratch.data_ptr(), 0,
+                                           b, h, w, k, rows, grid, stream)
+                build.check(err, "nm03_median_wide (probe)")
+
+            ms = event_ms(call, n=20)
+            torch.cuda.synchronize()
+            if not torch.equal(out.view(torch.int32), want.view(torch.int32)):
+                raise RuntimeError(f"probe wide: {name} k={k} rows={rows} differs")
+            st = stamps(lib)[:grid]
+            bands[rows] = {"tiles": tiles, "grid": grid, "ms": ms,
+                           "sort_cycles": float(np.median(st[:, 1] - st[:, 0])),
+                           "walk_cycles": float(np.median(st[:, 2] - st[:, 1]))}
+        print(json.dumps({"probe": "wide", "case": name, "shape": [b, h, w], "k": k,
+                          "chosen_rows": chosen.rows, "ctas_per_sm": per_sm, "bands": bands,
+                          **card}), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("torch_kernel_probe: CUDA is not available", file=sys.stderr)
@@ -363,6 +438,8 @@ def main() -> int:
         probe_grow(card)
     if which in ("all", "grow_global"):
         probe_grow_global(card)
+    if which in ("all", "wide"):
+        probe_wide(card)
     return 0
 
 

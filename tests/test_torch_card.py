@@ -253,32 +253,57 @@ def test_served_masks_equal_plain(cuda):
         app.close()
 
 
+# the profiler window of the test below, in a process of its own: after about
+# a million launches outside profiler windows (the earlier card tests), a
+# later window of the same process can lose kernel records
+_REPLAY_WINDOW = """
+import json, sys
+from pathlib import Path
+import numpy as np, torch
+from nm03_capstone_project_tpu_torch.config import PipelineConfig
+from nm03_capstone_project_tpu_torch.serving.graphs import BucketGraph, record_kernel_sequence
+from nm03_capstone_project_tpu_torch.utils import profiling
+fuse, out = sys.argv[1] == "1", Path(sys.argv[2])
+batch = np.load(out / "batch.npz")
+cuda = torch.device("cuda")
+cfg = PipelineConfig(fuse_preprocess=fuse)
+pool, stream = torch.cuda.graph_pool_handle(), torch.cuda.Stream(cuda)
+g = BucketGraph(cfg, 4, cuda, pool, stream)
+g.capture()
+seq = record_kernel_sequence(cfg, 4, cuda, stream)
+with profiling.exclusive_profiler() as prof:
+    for _ in range(3):
+        g.launch(batch["px"], batch["dm"])
+        g.fetch()
+prof.export_chrome_trace(str(out / "replays.json"))
+(out / "seq.json").write_text(json.dumps(seq))
+"""
+
+
 @pytest.mark.parametrize("fuse", [True, False])
 def test_graph_replay_under_the_profiler_names_the_kernels(cuda, fuse, tmp_path):
     # a replay is one cudaGraphLaunch: CUPTI must still report each kernel
-    # node by name, or the ledger's stage pie cannot see median7 and grow
+    # node by name, or the ledger's stage pie cannot see median7 and grow.
+    # The window runs first in a fresh process (_REPLAY_WINDOW)
     import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
 
     from nm03_capstone_project_tpu_torch.obs import ledger
-    from nm03_capstone_project_tpu_torch.serving.graphs import (
-        BucketGraph,
-        record_kernel_sequence,
-    )
-    from nm03_capstone_project_tpu_torch.utils import profiling
 
-    cfg = PipelineConfig(fuse_preprocess=fuse)
-    pool, stream = torch.cuda.graph_pool_handle(), torch.cuda.Stream(cuda)
-    g = BucketGraph(cfg, 4, cuda, pool, stream)
-    g.capture()
-    seq = record_kernel_sequence(cfg, 4, cuda, stream)
     px, dm = _serve_batch(4, seed=1)
-    with profiling.exclusive_profiler() as prof:
-        for _ in range(3):
-            g.launch(px, dm)
-            g.fetch()
-    trace = tmp_path / "replays.json"
-    prof.export_chrome_trace(str(trace))
-    events = json.loads(trace.read_text())["traceEvents"]
+    np.savez(tmp_path / "batch.npz", px=px, dm=dm)
+    repo = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(repo)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    res = subprocess.run([sys.executable, "-c", _REPLAY_WINDOW, "1" if fuse else "0",
+                          str(tmp_path)], cwd=repo, env=env, capture_output=True, text=True,
+                         timeout=600)
+    assert res.returncode == 0, res.stderr[-3000:]
+    events = json.loads((tmp_path / "replays.json").read_text())["traceEvents"]
+    seq = [tuple(e) for e in json.loads((tmp_path / "seq.json").read_text())]
     kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
     want = ("fused_kernel", "grow_kernel") if fuse else ("band_kernel", "grow_kernel")
     for name in want:
@@ -683,21 +708,21 @@ def test_median_wide_windows(cuda, k, shape):
     x = (torch.rand(shape) * 4000 + 0.68).to(cuda)
     dup = torch.randint(-2, 3, shape).float().to(cuda)  # duplicates, both signs
     before = hm.vector_median_wide_kernel.launches
-    assert hm.median_launch_shape(*shape, k).route == "wide" and hm.wide_staged(k)
+    assert hm.median_launch_shape(*shape, k).route == "wide" and hm.wide_shared(k)
     for inp in (x, dup):
         assert _same_bits(hm.vector_median_filter_kernel(inp, k), vector_median_filter(inp, k))
     assert hm.vector_median_wide_kernel.launches == before + 2
 
 
-def test_median_wide_reads_the_image_past_the_staged_tile(cuda):
-    # k = 257: the CTA's keys do not fit a block, each pass reads the image.
+def test_median_wide_in_a_device_scratch(cuda):
+    # k = 257: the segments do not fit a block, they sit in a device scratch.
     # The plain network at this window is some 5 million min/max, so the
     # plain sort median holds it: the same bits on finite data without
     # signed zeros (ops/median.py)
     from nm03_capstone_project_tpu_torch.ops.median import vector_median_filter_sort
 
     x = (torch.rand(1, 64, 64) * 4000 + 0.68).to(cuda)
-    assert not hm.wide_staged(257)
+    assert not hm.wide_shared(257)
     before = hm.vector_median_wide_kernel.launches
     got = hm.vector_median_filter_kernel(x, 257)
     assert _same_bits(got, vector_median_filter_sort(x, 257))
@@ -734,27 +759,93 @@ def _key_sort_median(x, k):
     return out
 
 
-def test_median_wide_from_the_image_on_signed_zeros_negatives_and_nan(cuda):
-    # k = 223: the first window whose keys are read from the image. Slice 0
-    # holds a NaN at (10, 200) and a negative NaN at (2, 255): windows with
-    # neither, with the first, and with both (the negative one first)
-    rng = np.random.default_rng(223)
+def _signed_keys(k):
+    """(2, 24, 260) of signed zeros, ±1 and negatives; slice 0 holds a NaN
+    at (10, 200) and a negative NaN at (2, 255): at k >= 223 windows with
+    neither, with the first, and with both (the negative one first)."""
+    rng = np.random.default_rng(k)
     z = rng.choice(np.array([-0.0, 0.0, 1.0, -1.0, -3.5], np.float32), size=(2, 24, 260),
                    p=[0.25, 0.25, 0.2, 0.2, 0.1])
     z = np.where(z < -2, z + rng.random(z.shape).astype(np.float32), z)
     z[0, 10, 200] = np.float32("nan")
     z[0, 2, 255] = np.array(0xFFC00000, np.uint32).view(np.float32)
-    x = torch.from_numpy(z).to(cuda)
-    assert not hm.wide_staged(223)
+    return torch.from_numpy(z)
+
+
+def _check_signed_keys(x, k):
     before = hm.vector_median_wide_kernel.launches
-    got = hm.vector_median_filter_kernel(x, 223)
+    got = hm.vector_median_filter_kernel(x, k)
     assert hm.vector_median_wide_kernel.launches == before + 1
-    want = _key_sort_median(x, 223)
+    want = _key_sort_median(x, k)
     assert _same_bits(got, want)
     zero, nan = want == 0, torch.isnan(want)
     assert bool((zero & torch.signbit(want)).any()) and bool((zero & ~torch.signbit(want)).any())
     assert bool((nan & torch.signbit(want)).any()) and bool((nan & ~torch.signbit(want)).any())
     assert not bool(nan[1].any())
+
+
+def test_median_wide_signed_keys_in_shared_memory(cuda):
+    # k = 223, segments in shared memory: signed zeros, negatives and NaNs
+    # of both signs against a sort of the same keys
+    assert hm.wide_shared(223)
+    _check_signed_keys(_signed_keys(223).to(cuda), 223)
+
+
+@pytest.mark.parametrize("k", [65, 127, 223, 225, 227])
+def test_the_wide_occupancy_comes_from_the_runtime(cuda, k):
+    # the CTAs an SM holds at once with the segments in shared memory, as
+    # the runtime counts them (threads, registers, shared memory): never
+    # more than threads and shared memory allow; one where they are in scratch
+    per_sm = hm._wide_ctas_per_sm(cuda.index or 0, k)
+    if hm.wide_shared(k):
+        assert 1 <= per_sm <= min(2048 // hm.WIDE_THREADS,
+                                  233472 // (hm.wide_segment_bytes(k) + 1024))
+    else:
+        assert per_sm == 1
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert hm.wide_launch_shape(2, 256, 256, k, n_sm, per_sm).grid <= n_sm * per_sm
+
+
+@pytest.mark.parametrize("k", [225, 227])
+def test_median_wide_either_side_of_the_shared_memory_switch(cuda, k):
+    # 225: the last window whose segments fit a block; 227: the first in the
+    # device scratch. Random data against the plain sort median, and the
+    # signed keys against a sort of the same keys
+    from nm03_capstone_project_tpu_torch.ops.median import vector_median_filter_sort
+
+    assert hm.wide_shared(k) == (k == 225)
+    x = (torch.rand(1, 64, 64) * 4000 + 0.68).to(cuda)
+    assert _same_bits(hm.vector_median_filter_kernel(x, k), vector_median_filter_sort(x, k))
+    _check_signed_keys(_signed_keys(k).to(cuda), k)
+
+
+@pytest.mark.parametrize("k", [65, 227])
+def test_median_wide_replays_in_a_cuda_graph(cuda, k):
+    # the wide route captured (its scratch, where it has one, from the
+    # graph's pool) and replayed on new inputs: each replay bitwise equal to
+    # the eager call
+    g = torch.Generator(device="cpu").manual_seed(k)
+    shape = (2, 256, 256) if k == 65 else (1, 64, 64)
+    static = (torch.rand(shape, generator=g) * 4000 + 0.68).to(cuda)
+    stream = torch.cuda.Stream(cuda)
+    stream.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(stream):
+        hm.vector_median_filter_kernel(static, k)  # warm: build, attributes
+    torch.cuda.current_stream(cuda).wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    before = hm.vector_median_wide_kernel.launches
+    with torch.cuda.graph(graph, stream=stream):
+        out = hm.vector_median_filter_kernel(static, k)
+    assert hm.vector_median_wide_kernel.launches == before + 1
+    for rnd in range(2):
+        new = (torch.rand(shape, generator=g) * 4000 + 0.68).to(cuda)
+        if rnd:
+            new = torch.randint(-2, 3, shape, generator=g).float().to(cuda)
+        static.copy_(new)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert _same_bits(out, hm.vector_median_filter_kernel(new, k)), rnd
+    assert hm.vector_median_wide_kernel.launches == before + 3
 
 
 def test_median_wide_batch_past_the_grid_splits(cuda):

@@ -7,7 +7,8 @@ config before launch (``ops/hopper_median.py``,
 ``ops/hopper_region_growing.py``):
 
 * the median from k = 17 by exact selection (``select``) and past
-  MAX_SELECT_WINDOW by a bisection over each window's keys (``wide``),
+  MAX_SELECT_WINDOW by the same selection over sorted column segments kept
+  down a strip of rows (``wide``),
   the fused preprocess past its plans or taps by the median kernel between
   torch ops (``unfused``), grow past one cluster's shared memory with the
   region in global memory (``global``), at any slice size;
@@ -47,6 +48,17 @@ from nm03_capstone_project_tpu_torch.utils import reporter
 ENVELOPE_CANVASES = [(2304, 2304), (3072, 3072), (4096, 4096), (1024, 4096), (512, 8192)]
 CLUSTER_CANVASES = [(256, 256), (1024, 1024), (2048, 2048), (2160, 2048), (8192, 64)]
 N_SM = 132
+
+
+def h100_wide_ctas_per_sm(index: int, k: int) -> int:
+    """The wide CTAs an H100 SM holds by registers (65,536; ptxas gives the
+    kernel 48 a thread on sm_90a), threads (2048) and shared memory
+    (233,472 bytes, 1 KB a block reserved): the runtime's count on the card
+    (5 at k = 65, 2 at 127); one where the segments are in scratch."""
+    if not hm.wide_shared(k):
+        return 1
+    return min(65536 // (48 * hm.WIDE_THREADS), 2048 // hm.WIDE_THREADS,
+               233472 // (hm.wide_segment_bytes(k) + 1024))
 
 
 # -- the launch-shape functions ----------------------------------------------------
@@ -95,11 +107,16 @@ def test_windows_past_the_select_take_the_wide_route(k):
     for b, h, w in [(2, 256, 256), (1, 64, 64), (70000, 16, 16)]:
         assert hm.median_launch_shape(b, h, w, k) == ("wide", -(-b // hm.MAX_BATCH))
         assert hm.fused_launch_shape(b, h, w, k, 9, N_SM) == hm.UNFUSED
-    # the CTA's keys are staged where its (8 + k - 1) x (32 + k - 1) tile fits
-    # a block: up to k = 221 (229,824 bytes), read from the image past that
-    assert hm.wide_smem_bytes(k) == 4 * (hm.SELECT_ROWS + k - 1) * (hm.SELECT_COLS + k - 1)
-    assert hm.wide_staged(k) == (k <= 221)
-    assert hm.wide_smem_bytes(221) == 229824 < hm.SMEM_PER_BLOCK < hm.wide_smem_bytes(223)
+    # the CTA's k sorted segments of its strip's 32 + k - 1 columns (a plane
+    # rounded up to 32 words) sit in shared memory where they fit a block:
+    # up to k = 225 (230,400 bytes), in a device scratch past that
+    pitch = -(-(hm.WIDE_COLS + k - 1) // 32) * 32
+    assert hm.wide_segment_bytes(k) == 4 * k * pitch and pitch % 32 == 0
+    assert hm.wide_shared(k) == (k <= 225) == (k <= hm.MAX_WIDE_SHARED_WINDOW)
+    assert hm.wide_segment_bytes(225) == 230400 < hm.SMEM_PER_BLOCK < hm.wide_segment_bytes(227)
+    shape = hm.wide_launch_shape(2, 256, 256, k, N_SM, h100_wide_ctas_per_sm(0, k))
+    assert (shape.smem, shape.scratch) == ((hm.wide_segment_bytes(k), 0) if k <= 225 else
+                                           (0, shape.grid * hm.wide_segment_bytes(k) // 4))
 
 
 @pytest.mark.parametrize("k", [65, 16, 0])
@@ -158,6 +175,7 @@ def stand_in_card(monkeypatch, caplog):
 
     monkeypatch.setattr(hm, "_batched", batched)
     monkeypatch.setattr(hm, "_sm_count", lambda index: N_SM)
+    monkeypatch.setattr(hm, "_wide_ctas_per_sm", h100_wide_ctas_per_sm)
     monkeypatch.setattr(hg, "_sm_count", lambda index: N_SM)
     monkeypatch.setattr(hg, "_check_args", lambda *a: None)
     monkeypatch.setattr(hm.build, "load", lambda name: lib)
@@ -179,22 +197,27 @@ def _routes(caplog):
 
 def test_median_routes_by_window(stand_in_card, caplog):
     x = torch.rand(3, 40, 50)
-    for k in (15, 17, 63, 65, 221, 223, 257):
+    for k in (15, 17, 63, 65, 225, 227, 257):
         hm.vector_median_filter_kernel(x, k)
     assert [c[0] for c in stand_in_card] == (
         ["nm03_median_filter"] + ["nm03_median_select"] * 2 + ["nm03_median_wide"] * 4)
     name, args = stand_in_card[1]
     assert args[2:8] == (0, 3, 40, 50, 17, hm.MAX_SELECT_WINDOW)
-    # the wide kernel: first slice, slices, h, w, k and whether the keys are staged
-    assert [c[1][2:8] for c in stand_in_card[3:]] == [
-        (0, 3, 40, 50, 65, 1), (0, 3, 40, 50, 221, 1), (0, 3, 40, 50, 223, 0),
-        (0, 3, 40, 50, 257, 0)]
+    # the wide kernel: first slice, slices, h, w, k, band rows and grid; a
+    # scratch pointer only where the segments do not fit shared memory. Two
+    # strips a slice: 40 one-row bands where five CTAs share an SM (240
+    # tiles), 20 two-row bands where one CTA takes an SM (120)
+    assert [c[1][3:10] for c in stand_in_card[3:]] == [
+        (0, 3, 40, 50, 65, 1, 240), (0, 3, 40, 50, 225, 2, 120), (0, 3, 40, 50, 227, 2, 120),
+        (0, 3, 40, 50, 257, 2, 120)]
+    assert [c[1][2] is None for c in stand_in_card[3:]] == [True, True, False, False]
     assert hm.vector_median_filter_kernel.launches == 1
     assert hm.vector_median_select_kernel.launches == 2
     assert hm.vector_median_wide_kernel.launches == 4
     assert _routes(caplog) == [
         "median: route select (k=17, 1 launch(es) of 3 slices)",
-        "median: route wide (k=65, keys staged, 1 launch(es) of 3 slices)"]
+        "median: route wide (k=65, segments in shared memory, 1-row bands, "
+        "1 launch(es) of 3 slices)"]
 
 
 @pytest.mark.parametrize("k,route", [(7, "network"), (17, "select"), (65, "wide"),
@@ -208,8 +231,11 @@ def test_a_batch_past_the_grid_goes_in_several_launches(stand_in_card, k, route)
         assert first[2] == hm.MAX_BATCH and second[2] == 5
         assert second[0] - first[0] == hm.MAX_BATCH * 2 * 3 * 4
     else:  # one base pointer, the first slice and the count of each grid
-        assert first[2:4] == (0, hm.MAX_BATCH) and second[2:4] == (hm.MAX_BATCH, 5)
+        at = 3 if route == "wide" else 2  # the wide kernel's scratch comes first
+        assert first[at:at + 2] == (0, hm.MAX_BATCH) and second[at:at + 2] == (hm.MAX_BATCH, 5)
         assert first[0] == second[0]
+        if route == "wide":  # one scratch for both grids, where there is one
+            assert first[2] == second[2] and (first[2] is None) == hm.wide_shared(k)
     launched = {"network": hm.vector_median_filter_kernel, "select":
                 hm.vector_median_select_kernel, "wide": hm.vector_median_wide_kernel}[route]
     assert launched.launches == 2

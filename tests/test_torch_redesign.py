@@ -19,13 +19,19 @@ the source notes, runs on seeded numpy inputs:
   candidate by P, P/2, ..., 1 probes a segment, the bisection snapping to
   keys of the window. Against ``torch.sort``'s middle key, with signed
   zeros and NaNs, and against the plain median;
-* the wide kernel (past MAX_SELECT_WINDOW): the same bisection with each
-  count, least key and greatest key taken over the whole window's keys,
-  against ``torch.sort``'s middle key at k = 65 and 127 and the plain
-  median at k = 65;
-* the launch-shape arithmetic of both: the select's shared bytes for every
-  odd window up to MAX_SELECT_WINDOW, the grow tiles and halo for canvases
-  from 2161 to 65,536 a side and for strips one pixel thin.
+* the wide kernel (past MAX_SELECT_WINDOW): the select's rule over a
+  whole window's keys (``wide_scheme``), and the kernel's schedule
+  (``strip_scheme``): a strip's column segments sorted at the top of a
+  band by a bitonic network, kept down the rows by one deletion and one
+  insertion each (equal to a fresh sort at every row), counts by a binary
+  search with no bound check (equal to the direct count). Against
+  ``torch.sort``'s middle key at k = 65 and 127, with signed zeros and
+  NaNs, and the plain median at k = 65;
+* the launch-shape arithmetic: the select's shared bytes for every odd
+  window up to MAX_SELECT_WINDOW, the wide segments' bytes for every odd
+  window up to the switch to a device scratch and the bands of the
+  envelope's shapes, the grow tiles and halo for canvases from 2161 to
+  65,536 a side and for strips one pixel thin.
 """
 
 import itertools
@@ -44,6 +50,17 @@ from nm03_capstone_project_tpu_torch.ops.morphology import dilate
 from nm03_capstone_project_tpu_torch.ops.region_growing import grow_band, region_grow
 
 N_SM = 132
+
+
+def h100_wide_ctas_per_sm(index: int, k: int) -> int:
+    """The wide CTAs an H100 SM holds by registers (65,536; ptxas gives the
+    kernel 48 a thread on sm_90a), threads (2048) and shared memory
+    (233,472 bytes, 1 KB a block reserved): the runtime's count on the card
+    (5 at k = 65, 2 at 127); one where the segments are in scratch."""
+    if not hm.wide_shared(k):
+        return 1
+    return min(65536 // (48 * hm.WIDE_THREADS), 2048 // hm.WIDE_THREADS,
+               233472 // (hm.wide_segment_bytes(k) + 1024))
 
 # -- the tiled grow ------------------------------------------------------------------
 
@@ -340,6 +357,228 @@ def test_the_wide_rule_equals_the_plain_median():
     np.testing.assert_array_equal(wide_scheme(x, 65), plain)
 
 
+# -- the wide kernel's strip walk -----------------------------------------------------
+
+
+def bitonic_stages(k: int) -> list:
+    """``wide_kernel``'s sort of a k-key segment, stage by stage: for each
+    block size 2, 4, ..., N (N the least power of 2 >= k) a mirrored stage
+    (place i against i ^ (size - 1)), then half-cleaners (i against i | d,
+    d = size / 4, ..., 1), every compare-exchange ascending. A pair whose
+    upper place is past k would meet a +inf there: skipped."""
+    n = 1 << max(0, (k - 1).bit_length())
+    stages, size = [], 2
+    while size <= n:
+        d = size // 2
+        while d:
+            pairs = []
+            for p in range(n // 2):
+                i = ((p & ~(d - 1)) << 1) | (p & (d - 1))
+                j = i ^ (size - 1) if d == size // 2 else i | d
+                if j < k:
+                    pairs.append((i, j))
+            stages.append(np.array(pairs, dtype=np.int64).reshape(-1, 2))
+            d //= 2
+        size *= 2
+    return stages
+
+
+def bitonic_sort(seg: np.ndarray, stages: list) -> np.ndarray:
+    """Each column of ``seg`` (k, n) through :func:`bitonic_stages`."""
+    seg = seg.copy()
+    for pairs in stages:
+        i, j = pairs[:, 0], pairs[:, 1]
+        a, b = seg[i], seg[j]
+        seg[i], seg[j] = np.minimum(a, b), np.maximum(a, b)
+    return seg
+
+
+def count_below(seg: np.ndarray, v: np.ndarray) -> np.ndarray:
+    """The kernel's count of each sorted column of ``seg`` (k, n) below
+    ``v`` (n,): a first probe at P - 1 (P the largest power of 2 <= k)
+    leaves P places, then probes P/2, ..., 1 with no bound check (numpy
+    raises on a probe past the column)."""
+    k = seg.shape[0]
+    p = 1 << (k.bit_length() - 1)
+    cols = np.arange(seg.shape[1])
+    pos = np.where(seg[p - 1] < v, k - p + 1, 0)
+    step = p // 2
+    while step:
+        pos = pos + np.where(seg[pos + step - 1, cols] < v, step, 0)
+        step //= 2
+    return pos
+
+
+def strip_walk(x: np.ndarray, k: int, rows: int):
+    """``wide_kernel``'s segments as it walks: for each slice, strip of 32
+    output columns and band of ``rows`` rows, the strip's 32 + k - 1 column
+    segments of the band's first row sorted by :func:`bitonic_sort`, then
+    each row down: every column drops its top key and takes the new bottom
+    one, both places found by :func:`count_below` and the keys between
+    shifted by one. Yields ``(slice, x0, y, segments (k, 32 + k - 1))``."""
+    keys = _keys(np.ascontiguousarray(x, np.float32))
+    b, h, w = x.shape
+    r, iw = k // 2, 32 + k - 1
+    stages = bitonic_stages(k)
+    for sl, x0 in itertools.product(range(b), range(0, w, 32)):
+        cols = np.clip(np.arange(x0 - r, x0 - r + iw), 0, w - 1)
+        for y0 in range(0, h, rows):
+            ys = np.clip(np.arange(y0 - r, y0 - r + k), 0, h - 1)
+            seg = bitonic_sort(keys[sl][np.ix_(ys, cols)], stages)
+            for y in range(y0, min(h, y0 + rows)):
+                if y > y0:
+                    ko = keys[sl, min(max(y - 1 - r, 0), h - 1), cols]
+                    kn = keys[sl, min(max(y + r, 0), h - 1), cols]
+                    p = count_below(seg, ko)
+                    q = count_below(seg, kn) - (ko < kn)
+                    for c in np.nonzero(ko != kn)[0]:
+                        a, col = seg[:, c].copy(), seg[:, c]
+                        if p[c] < q[c]:
+                            col[p[c]:q[c]] = a[p[c] + 1:q[c] + 1]
+                        else:
+                            col[q[c] + 1:p[c] + 1] = a[q[c]:p[c]]
+                        col[q[c]] = kn[c]
+                yield sl, x0, y, seg
+
+
+def strip_scheme(x: np.ndarray, k: int, rows: int) -> np.ndarray:
+    """``wide_kernel``'s medians: along :func:`strip_walk`, each output's
+    bisection over its k segments (the select's rule, a count by
+    :func:`count_below` in each); a window whose least or greatest key is
+    a NaN's takes its first NaN, row-major."""
+    x = np.ascontiguousarray(x, np.float32)
+    rank = (k * k) // 2
+    out = np.empty(x.shape, np.uint32)
+    flagged = np.zeros(x.shape, bool)
+    for sl, x0, y, seg in strip_walk(x, k, rows):
+        n = min(32, x.shape[2] - x0)
+        win = seg[:, (np.arange(n)[:, None] + np.arange(k)[None, :]).ravel()]
+        cols = np.arange(n * k)
+        lo, hi = win[0].reshape(n, k).min(1), win[-1].reshape(n, k).max(1)
+        nan = (lo < 0x007FFFFF) | (hi > 0xFF800000)
+        l, u = lo.copy(), hi + 1
+        run = (u - l > 1) & ~nan
+        while run.any():
+            cand = l + (u - l) // 2
+            pos = count_below(win, np.repeat(cand, k))
+            below = pos.reshape(n, k).sum(1)
+            succ = np.where(pos < k, win[np.minimum(pos, k - 1), cols], 0xFFFFFFFF)
+            pred = np.where(pos > 0, win[np.maximum(pos - 1, 0), cols], 0)
+            up = below <= rank
+            l = np.where(run & up, succ.reshape(n, k).min(1), l)
+            u = np.where(run & ~up, pred.reshape(n, k).max(1) + 1, u)
+            run &= u - l > 1
+        out[sl, y, x0:x0 + n] = l
+        flagged[sl, y, x0:x0 + n] = nan
+    xw = _windows(x, k)
+    nan = np.isnan(xw)
+    assert np.array_equal(flagged, nan.any(-1))  # the extreme keys show every NaN window
+    first = np.take_along_axis(xw, nan.argmax(-1)[..., None], -1)[..., 0]
+    return np.where(flagged, first, _values(out))
+
+
+STRIP_CASES = ["noise", "duplicates", "signed_zeros_and_nan"]
+
+
+@pytest.mark.parametrize("case", STRIP_CASES)
+@pytest.mark.parametrize("k,rows", [(3, 4), (65, 1), (65, 6), (65, 40), (127, 3)])
+def test_strip_segments_kept_a_row_at_a_time_equal_a_fresh_sort(k, rows, case):
+    x = _select_cases(k)[case]
+    if k > 65:
+        x = x[:1, :9, :40]
+    keys = _keys(np.ascontiguousarray(x, np.float32))
+    b, h, w = x.shape
+    r, seen = k // 2, 0
+    for sl, x0, y, seg in strip_walk(x, k, rows):
+        cols = np.clip(np.arange(x0 - r, x0 + 32 + r), 0, w - 1)
+        ys = np.clip(np.arange(y - r, y + r + 1), 0, h - 1)
+        np.testing.assert_array_equal(seg, np.sort(keys[sl][np.ix_(ys, cols)], axis=0))
+        seen += 1
+    assert seen == b * h * -(-w // 32)
+
+
+@pytest.mark.parametrize("k", [1, 3, 5, 63, 65, 127, 129, 225, 227, 257])
+def test_the_bitonic_stages_sort_any_segment(k):
+    rng = np.random.default_rng(k)
+    seg = np.concatenate([rng.integers(0, 2**32, (k, 40)), rng.integers(0, 3, (k, 40))], 1)
+    np.testing.assert_array_equal(bitonic_sort(seg, bitonic_stages(k)), np.sort(seg, axis=0))
+    assert all(len(set(p.ravel())) == 2 * len(p) for p in bitonic_stages(k))  # disjoint pairs
+
+
+@pytest.mark.parametrize("k", [1, 3, 65, 127, 225, 227])
+def test_the_binary_search_count_equals_the_direct_count(k):
+    rng = np.random.default_rng(k)
+    seg = np.sort(rng.integers(0, 40, (k, 300)), axis=0)
+    for cand in range(-1, 42):
+        v = np.full(300, cand)
+        np.testing.assert_array_equal(count_below(seg, v), (seg < v).sum(0))
+
+
+@pytest.mark.parametrize("k", [3, 9, 65])
+def test_chip_smokes_wide_counts_follow_the_schedule(k):
+    # chip_smoke.py's operation count of the wide kernel (its floor) counts
+    # the network's compare-exchanges and, for each column of each row but
+    # a band's first where the keys that leave and enter differ, two binary
+    # searches and the keys moved between their places
+    import chip_smoke
+
+    assert chip_smoke.bitonic_pairs(k) == sum(len(p) for p in bitonic_stages(k))
+    x = _select_cases(k)["duplicates"]
+    keys = _keys(np.ascontiguousarray(x, np.float32))
+    b, h, w = x.shape
+    r, lv, rows, want = k // 2, k.bit_length(), 4, 0
+    for sl, x0 in itertools.product(range(b), range(0, w, 32)):
+        for c in np.clip(np.arange(x0 - r, x0 + 32 + r), 0, w - 1):
+            for y in (y for y in range(h) if y % rows):
+                seg = keys[sl, np.clip(np.arange(y - 1 - r, y + r), 0, h - 1), c]
+                ko, kn = seg[0], keys[sl, min(y + r, h - 1), c]
+                if ko != kn:
+                    p, q = (seg < ko).sum(), (seg < kn).sum() - (ko < kn)
+                    want += 4 * lv + abs(p - q) + 1
+    assert chip_smoke.wide_upkeep_ops(torch.from_numpy(x), k, rows) == want
+
+
+@pytest.mark.parametrize("k", range(hm.MAX_SELECT_WINDOW + 2, 302, 2))
+def test_a_band_start_costs_more_than_the_row_it_replaces(k):
+    # a band's first row sorts each column; a later row moves one key by two
+    # binary searches and at most k shifts: so the wide count is least at
+    # one band a slice, the floor chip_smoke.py takes
+    import chip_smoke
+
+    assert 2 * chip_smoke.bitonic_pairs(k) > 4 * k.bit_length() + k + 1
+
+
+@pytest.mark.parametrize("rows", [1, 2, 4, 11])
+def test_chip_smokes_wide_count_is_least_at_one_band_a_slice(rows):
+    import chip_smoke
+
+    x = torch.from_numpy(_select_cases(65)["noise"][:1, :12].copy())  # two strips
+    one_band = chip_smoke.wide_design_ops(x, 65, 12)
+    banded = chip_smoke.wide_design_ops(x, 65, rows)
+    assert one_band["tiles"] == 2 and banded["tiles"] == 2 * -(-12 // rows)
+    assert one_band["ops"] < banded["ops"]
+    sort = 2 * chip_smoke.bitonic_pairs(65) * (32 + 64) / x.numel()
+    assert banded["sort_ops_per_output"] == banded["tiles"] * sort
+
+
+@pytest.mark.parametrize("case", SELECT_CASES)
+@pytest.mark.parametrize("k", [65, 127])
+def test_the_strip_scheme_gives_the_sorted_middle_key(k, case):
+    x = _select_cases(k)[case]
+    if k > 65:  # the windows of every pixel cover most of these small slices
+        x = x[:1, :9, :11]
+    got = strip_scheme(x, k, rows=4)
+    np.testing.assert_array_equal(got.view(np.uint32), sort_median(x, k).view(np.uint32))
+    np.testing.assert_array_equal(got.view(np.uint32), wide_scheme(x, k).view(np.uint32))
+
+
+def test_the_strip_scheme_equals_the_plain_median():
+    # finite data without signed zeros: every exact rank selection agrees
+    x = np.random.default_rng(65).random((1, 14, 40)).astype(np.float32)
+    plain = vector_median_filter(torch.from_numpy(x), 65).numpy()
+    np.testing.assert_array_equal(strip_scheme(x, 65, rows=5), plain)
+
+
 @pytest.mark.parametrize("k", [3, 17, 31, 63])
 def test_a_probe_count_is_a_binary_search(k):
     # the count below a candidate in one padded segment, by P, P/2, ..., 1
@@ -372,6 +611,59 @@ def test_the_select_tile_at_the_limit():
     assert hm.select_smem_bytes(hm.MAX_SELECT_WINDOW) == 226000
     assert hm.select_smem_bytes(hm.MAX_SELECT_WINDOW + 2) > hm.SMEM_PER_BLOCK
     assert hm.select_smem_bytes(17) == 55296
+
+
+@pytest.mark.parametrize("k", range(hm.MAX_SELECT_WINDOW + 2, hm.MAX_WIDE_SHARED_WINDOW + 1, 2))
+def test_the_wide_segments_fit_a_block_below_the_switch(k):
+    assert hm.wide_segment_bytes(k) <= hm.SMEM_PER_BLOCK == 232448
+    assert hm.wide_shared(k)
+    shape = hm.wide_launch_shape(2, 256, 256, k, N_SM, h100_wide_ctas_per_sm(0, k))
+    assert shape.smem == hm.wide_segment_bytes(k) and shape.scratch == 0
+
+
+def test_the_wide_switch_to_a_device_scratch():
+    # the last odd window whose k x (32 + k - 1, rounded to 32) words fit a block
+    assert hm.MAX_WIDE_SHARED_WINDOW == 225
+    assert hm.wide_segment_bytes(225) == 4 * 225 * 256 == 230400
+    assert hm.wide_segment_bytes(227) == 4 * 227 * 288 > hm.SMEM_PER_BLOCK
+    assert hm.wide_segment_bytes(65) == 4 * 65 * 96 == 24960
+    for k in (227, 257, 1001):
+        shape = hm.wide_launch_shape(1, 64, 64, k, N_SM, h100_wide_ctas_per_sm(0, k))
+        assert not hm.wide_shared(k) and shape.smem == 0
+        assert shape.scratch == shape.grid * hm.wide_segment_bytes(k) // 4
+        assert shape.grid == min(shape.tiles, N_SM)  # one CTA, one scratch, an SM
+
+
+# the envelope's wide shapes: (b, h, w, k) -> (band rows, tiles)
+WIDE_SHAPES = {(2, 256, 256, 65): (7, 592), (1, 256, 256, 65): (4, 512),
+               (2, 256, 256, 127): (16, 256), (1, 64, 64, 127): (1, 128),
+               (1, 64, 64, 257): (1, 128), (2, 24, 260, 223): (4, 108),
+               (2, 24, 260, 227): (4, 108), (hm.MAX_BATCH + 100, 2, 2, 65): (2, hm.MAX_BATCH),
+               (2, 3072, 3072, 65): (1024, 576), (4, 40, 40, 65): (1, 320)}
+
+
+@pytest.mark.parametrize("shape", list(WIDE_SHAPES))
+def test_the_wide_bands_fill_the_card_where_the_canvas_allows(shape):
+    # the shortest band whose tiles all run at once: the slots are the CTAs
+    # the SMs hold together (on an H100 by registers, threads and shared
+    # memory; one an SM where the segments are in scratch), the whole height
+    # where one band overflows
+    b, h, w, k = shape
+    per_sm = h100_wide_ctas_per_sm(0, k)
+    t = hm.wide_launch_shape(b, h, w, k, N_SM, per_sm)
+    strips, nb = -(-w // 32), min(b, hm.MAX_BATCH)
+    slots = N_SM * per_sm
+
+    def tiles(rows):
+        return nb * -(-h // rows) * strips
+
+    assert (t.rows, t.tiles) == WIDE_SHAPES[shape] and t.tiles == tiles(t.rows)
+    if tiles(h) <= slots:
+        assert t.tiles <= slots and (t.rows == 1 or tiles(t.rows - 1) > slots)
+    else:
+        assert t.rows == h
+    assert t.grid == min(t.tiles, slots)
+    assert t.tiles >= min(N_SM, nb * h * strips) or 2 * t.tiles > slots  # fills the card
 
 
 GROW_CANVASES = [(2161, 2161), (2304, 2304), (3072, 3072), (4096, 4096), (2161, 16384),

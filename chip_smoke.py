@@ -360,21 +360,25 @@ toolkit. Phases, each printing one JSON line:
    225 held to the plain sort median, the network there being millions of
    min/max) on a 64 x 64 slice, with ``torch.median``'s time at each, and
    signed zeros, negatives and NaNs of both signs at 223 and 227; the
-   fused stage's ``unfused`` route at k = 17, 65 and a 33-tap sharpen; the
+   fused stage's ``split`` route (the median with normalize and clip on
+   load, then the sharpen kernel: two launches a call) at k = 17, 65 and
+   a 33-tap sharpen, and the sharpen kernel alone at 9 and 33 taps; the
    grow's ``global`` route on two phantoms at 2304², 3072², 4096², 1024 x
    4096, 16,385 x 2,304, 2,304 x 16,385 and 20,000² (past the old side
    limit) and 8192² (past the resident tiles), mask, ``converged`` and
-   steps. Then ``process_batch`` at canvas 3072 with k = 17 (one select
-   and one global launch) and at canvas 256 with k = 65 (one wide and one
-   cluster grow launch), each against a golden the JAX package made
+   steps. Then ``process_batch`` at canvas 3072 with k = 17 (one select,
+   one sharpen and one global launch) and at canvas 256 with k = 65 (one
+   wide, one sharpen and one cluster grow launch), each against a golden
+   the JAX package made
    (``testdata/envelope_golden.json``, ``envelope_wide_golden.json``). The
    line has each route's wrapper and device time, plain and library
    times and floor, the 20,000² grow's among them, and the seconds of
    each step (``steps_s``).
 16. ``serve_envelope`` — every route inside the served CUDA graphs: a
    server at canvas 3072 (the global grow in its graphs), buckets 1 and
-   2, two lanes on the card, at k = 17 (select, unfused), 7 (fused) and 65
-   (wide): 8 phantom bodies at concurrency 4, each answer the batch
+   2, two lanes on the card, at k = 17 (split: select and sharpen), 7
+   (fused) and 65 (split: wide and sharpen): 8 phantom bodies at
+   concurrency 4, each answer the batch
    path's mask, and at k = 17 the batch path the golden's; each bucket's
    kernels and capture seconds.
 17. ``kernels`` — one line, ``{"kernels": [...]}``, per kernel: launches in
@@ -408,7 +412,10 @@ toolkit. Phases, each printing one JSON line:
 Every phase line names the card (``nvidia_smi``) and the host (``host``:
 CPU model, logical cores, the 1-minute load average at the phase's start,
 the Python and torch versions), so a slower host and a slower port can be
-told apart. Before the ``kernels`` line a ``script`` line gives the
+told apart, and carries its own ``seconds``; each long phase also carries
+the seconds of its steps (``steps_s``). The ``median`` and ``fused`` lines
+time the other plans (k = 9 to 15) beside k = 7 (``windows``). Before
+the ``kernels`` line a ``script`` line gives the
 script's seconds from its imports to there. The card's ``nvidia-smi`` name and power limit print on a line of their own;
 the last line is ``{"ok": true, "device": {...}}``. Any failed check exits
 non-zero without that line, as does a machine without CUDA.
@@ -451,6 +458,7 @@ DRIVER_COHORT = (20, 25, 256)  # patients, slices each, slice size
 PRIME_SHAPE = (3, 251, 241)
 GROW_CANVASES = (512, 1024, 2048)
 WINDOWS = (3, 5, 7, 9, 11, 13, 15)
+WINDOWS_TIMED = (9, 11, 13, 15)  # the median and fused plans timed beside k = 7
 # the envelope phase: the routes past the generated plans and one cluster
 ENVELOPE_WINDOWS = (17, 31)
 ENVELOPE_BATCH = (70000, 16, 16)  # more slices than the median grid's z dimension
@@ -474,8 +482,8 @@ ENVELOPE_SIDES = ((16385, 2304), (2304, 16385))  # grow past the old 16,384 side
 ENVELOPE_HUGE = (5000, 4)  # phantoms at 5000 x 5000 upsampled 4 times a side: 20,000 x 20,000
 # serve_envelope: the server at canvas 3072 (the global grow in its
 # graphs), buckets 1 and 2, two lanes on the card, at each median window
-# (the select and unfused routes at 17, the fused kernel at 7, the wide
-# route at 65), phantom bodies at concurrency 4
+# (the split route's select and sharpen at 17, the fused kernel at 7, its
+# wide and sharpen at 65), phantom bodies at concurrency 4
 SERVE_ENVELOPE = (3072, (1, 2), 2)
 SERVE_ENVELOPE_WINDOWS = (17, 7, 65)
 SERVE_ENVELOPE_PHANTOMS = 8
@@ -645,15 +653,17 @@ def cuda_ms(fn, repeats: int = REPEATS) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, kernel: str, wrapper, repeats: int = REPEATS):
+def device_ms(fn, kernel, wrapper, repeats: int = REPEATS):
     """The kernel's own device time a launch, and how it was taken.
 
     torch.profiler's self device time of the kernels whose name holds
-    ``kernel``, over a window of ``repeats`` calls, in which ``wrapper``'s
-    launch counter must rise by ``repeats``. Each window is held open
-    ``PROFILE_MARGIN_S`` on both sides of the calls, so that records whose
-    device timestamps land just outside the calls' few milliseconds still
-    fall in it. A window whose kernel records are not ``repeats`` (on an
+    ``kernel`` (a name, or a tuple of names a call launches one each of:
+    their sum a call), over a window of ``repeats`` calls, in which
+    ``wrapper``'s launch counter must rise by ``repeats``. Each window is
+    held open ``PROFILE_MARGIN_S`` on both sides of the calls, so that
+    records whose device timestamps land just outside the calls' few
+    milliseconds still fall in it. A window in which any one name's kernel
+    records are not ``repeats`` (on an
     H100 windows lose records after a million launches outside any window:
     ``scripts/torch_profiler_windows.py --launches``) is opened again, up to
     ``PROFILE_TRIES`` windows; after that the time is ``repeats`` calls
@@ -678,10 +688,11 @@ def device_ms(fn, kernel: str, wrapper, repeats: int = REPEATS):
         require(wrapper.launches - before == repeats,
                 f"{kernel}: the wrapper launched {wrapper.launches - before}, not {repeats}")
         events = prof.key_averages()
-        hits = [e for e in events if kernel in e.key]
-        calls = sum(e.count for e in hits)
-        if calls == repeats:
-            return sum(e.self_device_time_total for e in hits) / calls / 1e3, "profiler", missed
+        names = (kernel,) if isinstance(kernel, str) else kernel
+        hits = [e for e in events if any(n in e.key for n in names)]
+        calls = [sum(e.count for e in hits if n in e.key) for n in names]
+        if calls == [repeats] * len(names):
+            return sum(e.self_device_time_total for e in hits) / repeats / 1e3, "profiler", missed
         missed.append({"calls": calls, "saw": {e.key[:60]: e.count for e in events
                                                if e.self_device_time_total > 0}})
     before = wrapper.launches
@@ -773,6 +784,8 @@ def driver_phase(tmp: Path, smi: str, kernels: dict, reset):
     from nm03_capstone_project_tpu_torch.pipeline import process_batch
     from nm03_capstone_project_tpu_torch.render.export import encode_jpeg_bytes, jpeg_encoder
 
+    t_phase = time.perf_counter()
+    phase_step = StepTimer(t_phase)
     n_pat, n_sl, size = DRIVER_COHORT
     cfg = PipelineConfig(canvas=size)
     t0 = time.perf_counter()
@@ -790,6 +803,7 @@ def driver_phase(tmp: Path, smi: str, kernels: dict, reset):
                 masks[(pid, stem)] = np.array(mask, copy=True)
         return masks, sink
 
+    phase_step("write_cohort")
     # the main path: the parallel driver over the whole cohort
     masks, sink = collector()
     out_par = tmp / "parallel"
@@ -815,6 +829,7 @@ def driver_phase(tmp: Path, smi: str, kernels: dict, reset):
             f"the driver did not launch every kernel of its path: {launches}")
     require(len(masks) == n, f"the mask sink saw {len(masks)} slices")
 
+    phase_step("parallel_run")
     # the same decoded pixels through process_batch with the plain ops
     plain_cfg = PipelineConfig(canvas=size, use_kernels=False)
     decoded = {}
@@ -833,6 +848,7 @@ def driver_phase(tmp: Path, smi: str, kernels: dict, reset):
             require(np.array_equal(masks[(pid, f.stem)], want[i]),
                     f"{pid}/{f.stem}: driver mask != plain process_batch")
 
+    phase_step("plain_check")
     # the first 50 masks and their host renders against the JAX-made golden;
     # the renders are the ones the driver encoded (same renderer, same bytes)
     golden = json.loads((build.PKG / "testdata" / "driver_golden.json").read_text())
@@ -852,6 +868,7 @@ def driver_phase(tmp: Path, smi: str, kernels: dict, reset):
                 and par_files[f"{pid}/{stem}_processed.jpg"] == encode_jpeg_bytes(seg),
                 f"{pid}/{stem}: the driver's JPEG pair is not its render")
 
+    phase_step("golden")
     # one patient each: sequential, device render, the unfused (median) path
     variants = {}
     for key, pid, mode, vcfg, bcfg in (
@@ -880,6 +897,7 @@ def driver_phase(tmp: Path, smi: str, kernels: dict, reset):
         variants[key] = {"patient": pid, "launches": vl}
     launches["median"] = variants["unfused"]["launches"]["median"]
 
+    phase_step("variants")
     # the parallel driver's CLI, end to end: plain, kernels, kernels, plain
     runs = {"kernels": [], "plain": []}
     timing = {}
@@ -901,6 +919,7 @@ def driver_phase(tmp: Path, smi: str, kernels: dict, reset):
         runs[which].append(n / rec["wall_s"])
         timing[f"{which}_{i}"] = {"wall_s": rec["wall_s"], "timing_s": rec["timing_s"]}
 
+    phase_step("cli_turns")
     # where the device sits idle under the driver: device busy over one run
     from torch.profiler import ProfilerActivity, profile
 
@@ -911,12 +930,14 @@ def driver_phase(tmp: Path, smi: str, kernels: dict, reset):
         wall_ms = (time.perf_counter() - t0) * 1e3
     busy_ms = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
 
+    phase_step("profiled_run")
     # the drivers' telemetry, apart from the throughput turns
     telemetry = telemetry_run(parallel_cli.main, ["--base-path", str(cohort), "--canvas",
                                                   str(size)],
                               tmp / "cli_telemetry", kernels, reset, ("fused", "grow"),
                               feed_stall=True)
 
+    phase_step("telemetry")
     emit({"phase": "driver", "patients": n_pat, "slices": n, "size": size,
           "write_cohort_s": write_s, "parallel_s": par_s, "jpeg_files": len(par_files),
           "launches": launches, "golden_slices": len(golden["slices"]),
@@ -924,10 +945,13 @@ def driver_phase(tmp: Path, smi: str, kernels: dict, reset):
           "profiled_wall_ms": wall_ms,
           "device_busy_ms": busy_ms if busy_ms > 0 else "not measured",
           "idle_share": 1 - busy_ms / wall_ms if busy_ms > 0 else "not measured",
+          "seconds": time.perf_counter() - t_phase, "steps_s": phase_step.spent,
           "nvidia_smi": smi})
+    # the throughput turns' line: their seconds are the driver line's cli_turns
     emit({"phase": "driver_throughput",
           "kernels_slices_per_s": runs["kernels"], "plain_slices_per_s": runs["plain"],
-          "jpeg_encoder": encoder, "launches": launches, "nvidia_smi": smi})
+          "jpeg_encoder": encoder, "launches": launches,
+          "seconds": phase_step.spent["cli_turns"], "nvidia_smi": smi})
     return launches, {"cohort": cohort, "masks": masks, "files": par_files,
                       "slices_per_s": runs["kernels"]}
 
@@ -1004,6 +1028,8 @@ def serve_phase(driver_out: dict, smi: str, kernels: dict, reset) -> dict:
     from nm03_capstone_project_tpu_torch.render.host_render import host_render_pair
     from nm03_capstone_project_tpu_torch.serving.server import ServingApp, serve_in_thread
 
+    t_phase = time.perf_counter()
+    phase_step = StepTimer(t_phase)
     cohort, dmasks, dfiles = driver_out["cohort"], driver_out["masks"], driver_out["files"]
     dicom = [(pid, f.stem, f.read_bytes()) for pid in find_patient_dirs(cohort)
              for f in load_dicom_files_for_patient(cohort, pid)]
@@ -1030,6 +1056,7 @@ def serve_phase(driver_out: dict, smi: str, kernels: dict, reset) -> dict:
                         == dfiles[f"{pid}/{stem}_processed.jpg"],
                         f"served {pid}/{stem}: JPEG pair != the driver's files")
 
+    phase_step("read_cohort")
     app = ServingApp(cfg=cfg, buckets=SERVE_BUCKETS, result_cache_bytes=1 << 30)
     httpd, _, port = serve_in_thread(app)  # warmup: one CUDA graph a bucket
     url = f"http://127.0.0.1:{port}/v1/segment"
@@ -1041,6 +1068,7 @@ def serve_phase(driver_out: dict, smi: str, kernels: dict, reset) -> dict:
         reset()
         app.executor.reset_replays()  # the main path's run: replays from here count
 
+        phase_step("start_and_capture")
         # the cohort's 500 DICOM files from 16 clients, under the profiler
         jobs = [((pid, stem), body, {"Content-Type": "application/dicom"})
                 for pid, stem, body in dicom]
@@ -1051,6 +1079,7 @@ def serve_phase(driver_out: dict, smi: str, kernels: dict, reset) -> dict:
         tally(c16)
         check_dicom(c16, jpeg=True)
 
+        phase_step("concurrency16")
         # one at a time: bucket 1 (mask only: another result key, so no hit)
         jobs = [((pid, stem), body, {"Content-Type": "application/dicom"})
                 for pid, stem, body in dicom[:SERVE_SINGLES]]
@@ -1058,6 +1087,7 @@ def serve_phase(driver_out: dict, smi: str, kernels: dict, reset) -> dict:
         tally(c1)
         check_dicom(c1, jpeg=False)
 
+        phase_step("concurrency1")
         # the smoke cohort's non-square phantoms as raw float32 bodies, in
         # bursts that each coalesce into one batch: a 0.25 s window, taken
         # up by the batcher from its next batch on (the first phantom's)
@@ -1093,6 +1123,7 @@ def serve_phase(driver_out: dict, smi: str, kernels: dict, reset) -> dict:
         require(sum(wrapper_launches.values()) == 0,
                 f"serving ran a kernel wrapper outside a graph: {wrapper_launches}")
 
+        phase_step("bursts")
         # the result tier: repeats of answered bodies, with and without the ETag
         cached = 0
         for pid, stem, body in dicom[:SERVE_REPEATS]:
@@ -1111,6 +1142,7 @@ def serve_phase(driver_out: dict, smi: str, kernels: dict, reset) -> dict:
             cached += 1
         require(app.executor.replay_launches() == launches, "a cached repeat replayed")
 
+        phase_step("result_tier")
         # where a concurrency-16 request's time goes on the host: the
         # server's own wall and queue wait (its histograms), and one
         # slice's decode and render + encode, alone (median of 20)
@@ -1154,6 +1186,7 @@ def serve_phase(driver_out: dict, smi: str, kernels: dict, reset) -> dict:
         httpd.shutdown()
         httpd.server_close()
 
+    phase_step("host_costs")
     # one graph replay against eager _process, per bucket, on the same inputs
     graph_vs_eager = {}
     for b in SERVE_BUCKETS:
@@ -1163,6 +1196,7 @@ def serve_phase(driver_out: dict, smi: str, kernels: dict, reset) -> dict:
                              "eager_ms": cuda_ms(lambda: _process(px, dm, cfg))}
     app.close()
 
+    phase_step("graph_vs_eager")
     # the unfused path: the standalone median kernel inside the graphs
     uapp = ServingApp(cfg=PipelineConfig(canvas=cfg.canvas, fuse_preprocess=False),
                       buckets=(1, 4), result_cache_bytes=1 << 26)
@@ -1187,6 +1221,7 @@ def serve_phase(driver_out: dict, smi: str, kernels: dict, reset) -> dict:
             f"the unfused graphs' launches: {ulaunch}")
 
     serve_launches = {k: launches.get(k, 0) + ulaunch.get(k, 0) for k in kernels}
+    phase_step("unfused_server")
     emit({"phase": "serve", "buckets": list(SERVE_BUCKETS), "statuses": statuses,
           "dicom_requests": len(dicom), "singles": SERVE_SINGLES,
           "phantoms": len(phantoms), "cached_repeats": cached,
@@ -1197,7 +1232,8 @@ def serve_phase(driver_out: dict, smi: str, kernels: dict, reset) -> dict:
           "c16_device_busy_ms": busy_ms if busy_ms > 0 else "not measured",
           "c16_idle_share": 1 - busy_ms / (c16_wall * 1e3) if busy_ms > 0 else "not measured",
           "graph_vs_eager_ms": graph_vs_eager, "serve_launches": serve_launches,
-          "unfused_launches": ulaunch, "nvidia_smi": smi})
+          "unfused_launches": ulaunch, "seconds": time.perf_counter() - t_phase,
+          "steps_s": phase_step.spent, "nvidia_smi": smi})
     return serve_launches
 
 
@@ -1248,6 +1284,8 @@ def volume_phase(tmp: Path, cohort: Path, study, smi: str, kernels: dict, reset)
     from nm03_capstone_project_tpu_torch.kernels import build
     from nm03_capstone_project_tpu_torch.pipeline import process_volume
 
+    t_phase = time.perf_counter()
+    phase_step = StepTimer(t_phase)
     n_pat, n_sl, size = DRIVER_COHORT
     n = n_pat * n_sl
     cfg = PipelineConfig(canvas=size)
@@ -1271,6 +1309,7 @@ def volume_phase(tmp: Path, cohort: Path, study, smi: str, kernels: dict, reset)
         masks = {pid: read_metaimage(out / pid / "mask.mhd")[0] for pid in rec["patients"]}
         return files_of(out), masks
 
+    phase_step("setup")
     # the main path, the volume CLI over the cohort: kernels and plain in turns
     runs, kept, launches = {"kernels": [], "plain": []}, {}, None
     for i, which in enumerate(VOLUME_TURNS):
@@ -1307,6 +1346,7 @@ def volume_phase(tmp: Path, cohort: Path, study, smi: str, kernels: dict, reset)
     require(all(np.array_equal(kmasks[p], pmasks[p]) for p in kmasks),
             "volume: masks with the kernels != plain")
 
+    phase_step("cli_turns")
     # the cohort holds two distinct masks; phantom volumes of four other
     # shapes, each a mask of its own, through process_volume with the kernels
     for ph in golden_file["phantoms"]:
@@ -1320,6 +1360,7 @@ def volume_phase(tmp: Path, cohort: Path, study, smi: str, kernels: dict, reset)
         require(got == {k: ph[k] for k in got}, f"phantom volume {ph['shape']}: "
                 "differs from the golden")
 
+    phase_step("phantoms")
     # one patient each through the variants, against the kernels run
     variants = {}
     for key, pid, extra, need in (
@@ -1346,6 +1387,7 @@ def volume_phase(tmp: Path, cohort: Path, study, smi: str, kernels: dict, reset)
         variants[key] = {"patient": pid, "launches": vl, "converged": conv}
     launches["median"] = variants["unfused"]["launches"]["median"]
 
+    phase_step("variants")
     # where a kernels run's time goes, and the device's idle share under it
     rec0 = runs["kernels"][0]
     shares = {}
@@ -1359,6 +1401,7 @@ def volume_phase(tmp: Path, cohort: Path, study, smi: str, kernels: dict, reset)
         wall_ms = (time.perf_counter() - t0) * 1e3
     busy_ms = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
 
+    phase_step("profiled_run")
     # the volume driver's telemetry, apart from the turns (it launches no
     # grow kernel: the 3D growth is torch ops)
     telemetry = telemetry_run(volume_cli.main, ["--base-path", str(cohort), "--canvas",
@@ -1366,6 +1409,7 @@ def volume_phase(tmp: Path, cohort: Path, study, smi: str, kernels: dict, reset)
                               tmp / "volume_telemetry", kernels, reset, ("fused",),
                               feed_stall=False)
 
+    phase_step("telemetry")
     # the 3D growth alone: every cohort patient, the median one reported
     per_patient = {}
     for pid in golden:
@@ -1375,6 +1419,7 @@ def volume_phase(tmp: Path, cohort: Path, study, smi: str, kernels: dict, reset)
     by_ms = sorted(per_patient, key=lambda p: per_patient[p]["grow_ms"])
     median_pid = by_ms[len(by_ms) // 2]
 
+    phase_step("growth_3d")
     # one long study through process_volume, kernels and plain
     svol, sdims = study
     spx, sdm = torch.from_numpy(svol).cuda(), torch.from_numpy(sdims).cuda()
@@ -1411,6 +1456,7 @@ def volume_phase(tmp: Path, cohort: Path, study, smi: str, kernels: dict, reset)
         return {"volumes_per_s": statistics.median(n_pat / w for w in walls),
                 "slices_per_s": statistics.median(n / w for w in walls), "wall_s": walls}
 
+    phase_step("long_study")
     emit({"phase": "volume", "patients": n_pat, "planes": n, "size": size,
           "jpeg_files": len(kfiles), "golden_patients": len(golden),
           "golden_phantoms": len(golden_file["phantoms"]),
@@ -1433,6 +1479,7 @@ def volume_phase(tmp: Path, cohort: Path, study, smi: str, kernels: dict, reset)
                          "voxels": int(sfast["mask"].sum()),
                          "converged": bool(sfast["grow_converged"]), **study_grow},
           "variants": variants, "telemetry": telemetry, "launches": launches,
+          "seconds": time.perf_counter() - t_phase, "steps_s": phase_step.spent,
           "nvidia_smi": smi})
     return launches, {"masks": kmasks, "volumes_per_s": rate(runs["kernels"])["volumes_per_s"],
                       "mhd_dir": kout}
@@ -1531,6 +1578,9 @@ def shard_phase(tmp: Path, driver_out: dict, volume_out: dict, study, smoke, smi
 
     launches = {}
 
+    phase_step = StepTimer(phase_t0)
+    phase_step("setup")
+
     # (a) the cohort's 25-plane volumes padded to 28, z-sharded over
     # [cuda:0] x 4: the phase's main path for the fused kernel
     vols = {}
@@ -1611,6 +1661,7 @@ def shard_phase(tmp: Path, driver_out: dict, volume_out: dict, study, smoke, smi
     require(int(want["mask"].sum()) > 0, "the long study segmented nothing")
     del out, out2, out5, want5
 
+    phase_step("zshard")
     # (b) the smoke cohort over a ("data",) mesh of [cuda:0] x 4, in
     # batches of 100 (25 a chunk)
     smoke_cohort_px, smoke_masks, smoke_conv = smoke
@@ -1643,6 +1694,7 @@ def shard_phase(tmp: Path, driver_out: dict, volume_out: dict, study, smoke, smi
             and np.array_equal(unf["mask"].cpu().numpy(), smoke_masks[:100]),
             f"unfused data-parallel: launches {launches['dp_unfused']}")
 
+    phase_step("data_mesh")
     # (c) world-of-1 driver runs under NCCL, byte-identical to the earlier phases
     def dist_flags():
         return ["--distributed", "--coordinator-address", f"127.0.0.1:{free_port()}",
@@ -1683,6 +1735,7 @@ def shard_phase(tmp: Path, driver_out: dict, volume_out: dict, study, smoke, smi
                 and all(np.array_equal(read_metaimage(out / pid / "mask.mhd")[0],
                                        volume_out["masks"][pid]) for pid in pids),
                 f"world-of-1 {tag}: mask.mhd differs")
+    phase_step("world1_drivers")
     # the drivers' own multi-device paths through their entry points: with
     # four local devices (the one card named four times, as the CPU tests
     # name the CPU four times) the volume driver z-shards each study and
@@ -1760,6 +1813,7 @@ def shard_phase(tmp: Path, driver_out: dict, volume_out: dict, study, smoke, smi
     finally:
         mesh_mod.local_devices = real_local_devices
 
+    phase_step("local_devices")
     # the process-group transport under NCCL in a world of 1: the count's
     # all_reduce and the mask's all_gather on the card (no halo peers)
     require(distributed.initialize(f"127.0.0.1:{free_port()}", 1, 0, device="cuda"),
@@ -1799,6 +1853,7 @@ def shard_phase(tmp: Path, driver_out: dict, volume_out: dict, study, smoke, smi
     finally:
         distributed.shutdown()
 
+    phase_step("process_group")
     # (d) the volume gang over four lanes on the one card: 20 studies at
     # z_shards 4, then a lane's death mid-volume and the next at 3
     studies = {}
@@ -1849,6 +1904,7 @@ def shard_phase(tmp: Path, driver_out: dict, volume_out: dict, study, smoke, smi
                                             "batch_pg"))
             for k in kernels}
     main["median"] = launches["zshard_unfused"]["median"] + launches["dp_unfused"]["median"]
+    phase_step("gang")
     emit({"phase": "shard", "checks": [
               "cohort 20 x 25 (padded 28) z-sharded x4 and x2 = volume_golden.json = process_volume",
               "morph_size 5 x4 (two halo planes) = process_volume; fused 4 a volume",
@@ -1870,7 +1926,8 @@ def shard_phase(tmp: Path, driver_out: dict, volume_out: dict, study, smoke, smi
                          "x4_median_s": statistics.median(study_times["x4"])},
           "cohort_x4_s": cohort4_s, "data_parallel_s": dp_s, "world1": world1,
           "gang": gang, "launches": launches,
-          "phase_s": time.perf_counter() - phase_t0, "nvidia_smi": smi})
+          "seconds": time.perf_counter() - phase_t0, "steps_s": phase_step.spent,
+          "nvidia_smi": smi})
     return main
 
 
@@ -1909,6 +1966,7 @@ def serve_volume_phase(tmp: Path, driver_out: dict, volume_out: dict, smi: str,
     golden = {g["patient"]: g for g in golden_file["patients"]}
     parts = "application/x-nm03-dicom-parts"
 
+    phase_step = StepTimer(phase_t0)
     # each patient's 25 DICOM files, as they are on disk, one study a body
     studies, slices = {}, []
     for pid in find_patient_dirs(cohort):
@@ -2117,6 +2175,7 @@ def serve_volume_phase(tmp: Path, driver_out: dict, volume_out: dict, smi: str,
         httpd.server_close()
         app.close()
 
+    phase_step("main_server")
     # a server started with --distributed-init in a world-of-1 job under
     # NCCL: the gang's z-mesh is the process group, its broadcasts, counts
     # and gather on the card; the cohort again, each study = the golden
@@ -2167,6 +2226,7 @@ def serve_volume_phase(tmp: Path, driver_out: dict, volume_out: dict, smi: str,
     finally:
         distributed.shutdown()
 
+    phase_step("distributed_server")
     # the same cohort jobs under the profiler, on a second server (a fresh
     # result store, so every study is dispatched again): the device's idle
     # share, and what the profiler costs the wall
@@ -2198,6 +2258,7 @@ def serve_volume_phase(tmp: Path, driver_out: dict, volume_out: dict, smi: str,
         phttpd.server_close()
         papp.close()
 
+    phase_step("profiled_server")
     # the server's own split of a study's time, from its trace spans
     split, by_trace = {}, {}
     for line in log_json.read_text().splitlines():
@@ -2241,6 +2302,7 @@ def serve_volume_phase(tmp: Path, driver_out: dict, volume_out: dict, smi: str,
                 parts_ms.setdefault(k, []).append(v)
         wall_split_ms[f"c{conc}"] = {k: statistics.median(v) for k, v in parts_ms.items()}
 
+    phase_step("wall_split")
     # host costs of one study alone: decoding its 25 parts, and base64 + JSON
     # of its 1.6 MB mask (median of 20)
     def host_ms(fn):
@@ -2259,6 +2321,7 @@ def serve_volume_phase(tmp: Path, driver_out: dict, volume_out: dict, smi: str,
             {"mask_b64": base64.b64encode(one.tobytes()).decode("ascii")})),
     }
 
+    phase_step("host_costs")
     # the unfused server: the standalone median kernel, once a study
     ucfg = PipelineConfig(canvas=size, fuse_preprocess=False)
     uapp = ServingApp(cfg=ucfg, buckets=(1,), volume_serving=True,
@@ -2280,6 +2343,7 @@ def serve_volume_phase(tmp: Path, driver_out: dict, volume_out: dict, smi: str,
         uhttpd.server_close()
         uapp.close()
 
+    phase_step("unfused_server")
     # the kernels at the shapes the gang gives them (the fused kernel's tile
     # plan is chosen by the depth): a cohort study padded to the 32-plane
     # bucket and the 13-plane phantom padded to 16, each bitwise against
@@ -2315,6 +2379,7 @@ def serve_volume_phase(tmp: Path, driver_out: dict, volume_out: dict, smi: str,
             "fused_max_abs_err": max_abs(got, want), "median_max_abs_err": max_abs(mgot, mwant)}
     del x, m, got, want, mgot, mwant
 
+    phase_step("bucket_kernels")
     # the plain merge and sort medians on the card: the pruned plan's bits
     x = (torch.rand(MAIN_SHAPE, generator=torch.Generator().manual_seed(11)) * 4000
          + 0.68).cuda()
@@ -2327,10 +2392,12 @@ def serve_volume_phase(tmp: Path, driver_out: dict, volume_out: dict, smi: str,
             impls.setdefault(name, []).append(k)
     del x, pruned
 
+    phase_step("plain_medians")
     # the main path: the cohort at concurrency 1 and 4, and again through
     # the --distributed-init server
     launches = {k: main_launches[k] + distributed_run["launches"][k] for k in kernels}
     launches["median"] = ulaunch["median"]
+    phase_step("tally")
     emit({"phase": "serve_volume", "studies": n_pat, "planes": n_pat * n_sl, "size": size,
           "depth_buckets": list(SERVE_VOLUME_BUCKETS), "statuses": statuses,
           "checks": [f"{dispatched} cohort studies (x-nm03-dicom-parts) = "
@@ -2357,7 +2424,8 @@ def serve_volume_phase(tmp: Path, driver_out: dict, volume_out: dict, smi: str,
           "mixed": {"slices": len(sres), "studies": len(vjobs),
                     "gang_wait_s_max": max(mixed_gang_wait)},
           "unfused_launches": ulaunch, "medians_on_card": impls,
-          "serve_volume_launches": launches, "phase_s": time.perf_counter() - phase_t0,
+          "serve_volume_launches": launches, "seconds": time.perf_counter() - phase_t0,
+          "steps_s": phase_step.spent,
           "nvidia_smi": smi})
     return launches
 
@@ -2455,6 +2523,9 @@ def student_phase(tmp: Path, driver_out: dict, volume_out: dict, smi: str, kerne
             union += int((pred | truth).sum())
         return inter / union if union else 1.0
 
+    phase_step = StepTimer(phase_t0)
+    phase_step("setup")
+
     # -- 2D distillation at full width: 256 slices, 300 steps, bf16 --------
     reset()  # the main path's run: the teacher's launches while it labels
     rec2, loss2, train2_s = train(tmp / "student2d", "--max-slices", "256",
@@ -2474,6 +2545,7 @@ def student_phase(tmp: Path, driver_out: dict, volume_out: dict, smi: str, kerne
             and round(rec_eval["iou_vs_teacher"], 4) == round(rec2["iou_vs_teacher"], 4),
             f"eval-only IoU {rec_eval['iou_vs_teacher']} != {rec2['iou_vs_teacher']}")
 
+    phase_step("train_2d")
     # -- 3D distillation: 20 volumes of 8 planes, 100 steps, bf16 ---------
     reset()
     rec3, loss3, train3_s = train(tmp / "student3d", "--model-3d", "--volume-depth", "8",
@@ -2486,6 +2558,7 @@ def student_phase(tmp: Path, driver_out: dict, volume_out: dict, smi: str, kerne
     require(rec3["iou_vs_teacher"] > 0.6, f"3D IoU vs the teacher {rec3['iou_vs_teacher']}")
     ckpt3 = tmp / "student3d" / "checkpoint"
 
+    phase_step("train_3d")
     # -- the f32 forward on the card = the CPU, with TF32 allowed globally --
     model, _ = pm.load_params(ckpt2, device="cuda")
     cpu_model, _ = pm.load_params(ckpt2, device="cpu")
@@ -2534,6 +2607,7 @@ def student_phase(tmp: Path, driver_out: dict, volume_out: dict, smi: str, kerne
                "max_abs_f32_logit_where_differ": worst}
     del cpu_model
 
+    phase_step("tf32_guard")
     # -- deployment: the parallel driver's CLI and the volume CLI, --model --
     # the student's CLI run hands its masks to a mask_sink; then the
     # classical CLI runs for slices/s beside it in the same turn
@@ -2596,6 +2670,7 @@ def student_phase(tmp: Path, driver_out: dict, volume_out: dict, smi: str, kerne
     require(all(m.shape == (n_sl, size, size) for m in vmasks.values()),
             "volume CLI --model: a mask is not cropped back to its 25 planes")
     vol_iou = iou((vmasks[p], volume_out["masks"][p]) for p in pats)
+    phase_step("deploy_turns")
     # the planes it was trained on: each series' first 8
     vol_iou_8 = iou((vmasks[p][:8], volume_out["masks"][p][:8]) for p in pats)
     # two patients' exported masks (of distinct teacher masks) held to the
@@ -2638,6 +2713,7 @@ def student_phase(tmp: Path, driver_out: dict, volume_out: dict, smi: str, kerne
     per_plane = {"patient": first, "student": vmasks[first].sum(axis=(1, 2)).tolist(),
                  "teacher": volume_out["masks"][first].sum(axis=(1, 2)).tolist()}
 
+    phase_step("student_vs_cpu")
     # -- one training step, timed: 256 slices, bf16 and f32 ----------------
     planes = [volume_cli._load_volume(cohort, pid, cfg)[0] for pid in find_patient_dirs(cohort)]
     px = torch.from_numpy(np.concatenate(planes)[:256]).cuda()
@@ -2660,6 +2736,7 @@ def student_phase(tmp: Path, driver_out: dict, volume_out: dict, smi: str, kerne
         del net, opt, step
         torch.cuda.empty_cache()
 
+    phase_step("step_timing")
     # -- the 2D student beyond one device: dp x tp over [cuda:0] x 4 as
     # (data, model) = (2, 2), and data parallel across the ranks of a world
     # of 1 under NCCL; f32 (TF32 off), held to one device's curve ----------
@@ -2705,6 +2782,7 @@ def student_phase(tmp: Path, driver_out: dict, volume_out: dict, smi: str, kerne
     del step_fn
     torch.cuda.empty_cache()
 
+    phase_step("multi_device_fit")
     # the train driver three ways on the same 256 slices, each continuing
     # the trained 2D student (so that the IoU has something to hold): one
     # device, its local devices patched to [cuda:0] x 4 (dp 2 x tp 2),
@@ -2759,6 +2837,7 @@ def student_phase(tmp: Path, driver_out: dict, volume_out: dict, smi: str, kerne
              "nvidia_smi": smi}
 
     launches = {k: launches_2d[k] + launches_3d[k] + multi_launches[k] for k in kernels}
+    phase_step("train_drivers")
     emit({"phase": "student", "cohort": {"patients": n_pat, "slices": n, "size": size},
           "checks": ["2D: 256 slices, 300 steps bf16, loss falls below 0.7x, IoU > 0.6",
                      "eval-only --restore: the same IoU to 4 decimals",
@@ -2797,7 +2876,7 @@ def student_phase(tmp: Path, driver_out: dict, volume_out: dict, smi: str, kerne
                      "volume_volumes_per_s": n_pat / vol_rec["wall_s"],
                      "volume_timings_s": vol_rec["timings_s"],
                      "classical_volumes_per_s": volume_out["volumes_per_s"]},
-          "phase_s": time.perf_counter() - phase_t0,
+          "seconds": time.perf_counter() - phase_t0, "steps_s": phase_step.spent,
           "launches": launches, "nvidia_smi": smi})
     return launches
 
@@ -3174,7 +3253,7 @@ def operate_phase(tmp: Path, driver_out: dict, smi: str, kernels: dict, reset) -
           "driver_drill": {"counts": counts, "files": len(drill_files),
                            "sigterm_after": DRIVER_SIGTERM_AFTER, "files_before_kill": partial,
                            "killed_run_s": killed_s},
-          "phase_s": time.perf_counter() - phase_t0,
+          "seconds": time.perf_counter() - phase_t0,
           "launches": launches, "nvidia_smi": smi})
     return launches
 
@@ -4620,12 +4699,15 @@ def envelope_device_times(median_x, fused_x, pre_kw: dict) -> dict:
     have come back with few or none of the kernels' records, never this
     early (``PERF.md`` §7). ``{row: (ms, method, missed windows)}`` for the
     select at each ENVELOPE_WINDOWS on the main batch and at
-    MAX_SELECT_WINDOW, the wide route at k = 65, the unfused route's select
-    at k = 17, and the global grow at 4096 x 4096 and 20,000 x 20,000."""
+    MAX_SELECT_WINDOW, the wide route at k = 65, the split route at k = 17
+    (its select and sharpen kernels, summed a call) and the sharpen kernel
+    alone on its median image, and the global grow at 4096 x 4096 and
+    20,000 x 20,000."""
     from nm03_capstone_project_tpu_torch.config import PipelineConfig
     from nm03_capstone_project_tpu_torch.ops import hopper_median as hm
     from nm03_capstone_project_tpu_torch.ops import hopper_region_growing as hg
 
+    t0 = time.perf_counter()
     sel, gg = hm.vector_median_select_kernel, hg.region_grow_global_kernel
     times = {}
     for k in ENVELOPE_WINDOWS:
@@ -4638,8 +4720,14 @@ def envelope_device_times(median_x, fused_x, pre_kw: dict) -> dict:
     times[f"wide_k{wk}"] = device_ms(lambda: hm.vector_median_filter_kernel(mx, wk),
                                      "wide_kernel", hm.vector_median_wide_kernel, repeats=5)
     kw = dict(pre_kw, median_window=ENVELOPE_WINDOWS[0])
-    times["unfused"] = device_ms(lambda: hm.fused_preprocess_kernel(fused_x, **kw),
-                                 "select_kernel", sel, repeats=5)
+    shp = hm.sharpen_filter_kernel
+    times["split"] = device_ms(lambda: hm.fused_preprocess_kernel(fused_x, **kw),
+                               ("select_kernel", "sharpen_kernel"), shp, repeats=5)
+    med = split_median(fused_x, kw)
+    times["sharpen"] = device_ms(lambda: shp(med, kw["sharpen_gain"], kw["sharpen_sigma"],
+                                             kw["sharpen_kernel"]), "sharpen_kernel", shp,
+                                 repeats=5)
+    del med
     cfg = PipelineConfig(canvas=256)
     for name, (img, seeds, valid), repeats in (
             ("grow_4096", envelope_grow_inputs(envelope_phantoms(4096, 4096, 10), pre_kw), 5),
@@ -4648,21 +4736,34 @@ def envelope_device_times(median_x, fused_x, pre_kw: dict) -> dict:
         times[name] = device_ms(lambda: hg.region_grow_kernel(img, seeds, cfg.grow_low,
                                                               cfg.grow_high, **gkw),
                                 "grow_global_kernel", gg, repeats=repeats)
+    times["seconds"] = time.perf_counter() - t0
     return times
+
+
+def split_median(fused_x, kw: dict):
+    """The split route's median image: the window's median kernel with
+    normalize and clip on load, as ``fused_preprocess_kernel`` launches it."""
+    from nm03_capstone_project_tpu_torch.ops import hopper_median as hm
+
+    pro = hm.Prologue.of(kw["norm_low"], kw["norm_high"], kw["norm_min"], kw["norm_max"],
+                         kw["clip_low"], kw["clip_high"])
+    return hm.vector_median_filter_kernel(fused_x, kw["median_window"], pro)
 
 
 def envelope_phase(median_x, fused_x, pre_kw: dict, smi: str, kernels: dict, reset, times):
     """The routes past the generated plans and past one cluster, each held
     bitwise against its plain version on the card; then ``process_batch``
-    at canvas 3072 with k = 17, the main path of the select, unfused and
-    global routes, and at canvas 256 with k = 65, the wide route's.
+    at canvas 3072 with k = 17, the main path of the select, split and
+    global routes, and at canvas 256 with k = 65, the wide route's (and
+    the split route's again).
 
     ``median_x`` and ``fused_x`` are the main batch's median and fused
     inputs, ``times`` the routes' device times (:func:`envelope_device_times`).
-    Returns ``(results, launches)``: the four new rows' numbers
+    Returns ``(results, launches)``: the five new rows' numbers
     (``median_select`` at k = 17, ``median_wide`` at k = 65, the
-    ``fused_unfused`` route at k = 17, ``grow_global`` at 4096 x 4096) and
-    the launches of the main runs (the wide route's from its own)."""
+    ``fused_split`` route at k = 17, the ``sharpen`` kernel at 9 taps on
+    its median image, ``grow_global`` at 4096 x 4096) and the launches of
+    the main runs (the wide route's and its second sharpen from its own)."""
     from nm03_capstone_project_tpu_torch.config import PipelineConfig
     from nm03_capstone_project_tpu_torch.kernels import build
     from nm03_capstone_project_tpu_torch.ops import hopper_median as hm
@@ -4674,6 +4775,7 @@ def envelope_phase(median_x, fused_x, pre_kw: dict, smi: str, kernels: dict, res
     )
     from nm03_capstone_project_tpu_torch.ops.neighborhood import extend_edges
     from nm03_capstone_project_tpu_torch.ops.region_growing import region_grow
+    from nm03_capstone_project_tpu_torch.ops.sharpen import sharpen
     from nm03_capstone_project_tpu_torch.pipeline import process_batch
 
     t_phase = time.perf_counter()
@@ -4895,37 +4997,44 @@ def envelope_phase(median_x, fused_x, pre_kw: dict, smi: str, kernels: dict, res
     del rand_w
 
     step("median_wide")
-    # -- the fused preprocess past its plans and taps: the unfused route ----
+    # -- the fused preprocess past its plans and taps: the split route ------
+    # two launches and no torch op: the window's median with normalize and
+    # clip on load, then the sharpen kernel
     cases = []
+    shp = hm.sharpen_filter_kernel
+    med_route = {"network": "median", "select": "median_select", "wide": "median_wide"}
     rand_f = (torch.rand(MAIN_SHAPE, generator=gen) * 9000).to(dev)
-    for k, ks in ((ENVELOPE_WINDOWS[0], pre_kw["sharpen_kernel"]), (pre_kw["median_window"],
-                                                                     ENVELOPE_TAPS)):
+    split_cases = [(name, x, k, ks) for k, ks in ((ENVELOPE_WINDOWS[0], pre_kw["sharpen_kernel"]),
+                                                (pre_kw["median_window"], ENVELOPE_TAPS))
+                   for name, x in (("main", fused_x), ("random", rand_f))]
+    # past the select: the wide median, on the canvas-256 process_batch's fused input
+    split_cases.append((f"main{list(wide_fx.shape)}", wide_fx, wk, pre_kw["sharpen_kernel"]))
+    for name, x, k, ks in split_cases:
         kw = dict(pre_kw, median_window=k, sharpen_kernel=ks)
-        require(hm.fused_launch_shape(*fused_x.shape, k, ks, 132).route == "unfused",
-                f"k={k}, {ks} taps: not the unfused route")
-        for name, x in (("main", fused_x), ("random", rand_f)):
-            before = {n: fn.launches for n, fn in kernels.items()}
-            got, want = hm.fused_preprocess_kernel(x, **kw), hm._fused_preprocess_plain(x, **kw)
-            torch.cuda.synchronize()
-            require(same_bits(got, want), f"unfused route != plain ({name}, k={k}, {ks} taps)")
-            ran = {n: fn.launches - before[n] for n, fn in kernels.items()}
-            med = "median_select" if k > hm.MAX_WINDOW else "median"
-            require(ran == launch_dict(**{med: 1}), f"unfused route launched {ran}")
-            cases.append(f"{name}:k{k}:taps{ks}")
-    # past the select: the wide median between the torch ops, on the
-    # canvas-256 process_batch's fused input
-    kw = dict(pre_kw, median_window=wk)
-    require(hm.fused_launch_shape(*wide_fx.shape, wk, kw["sharpen_kernel"], 132).route
-            == "unfused", f"k={wk}: not the unfused route")
-    before = {n: fn.launches for n, fn in kernels.items()}
-    got, want = hm.fused_preprocess_kernel(wide_fx, **kw), hm._fused_preprocess_plain(wide_fx, **kw)
-    torch.cuda.synchronize()
-    require(same_bits(got, want), f"unfused route != plain (main, k={wk})")
-    ran = {n: fn.launches - before[n] for n, fn in kernels.items()}
-    require(ran == launch_dict(median_wide=1), f"unfused route at k={wk} launched {ran}")
-    cases.append(f"main{list(wide_fx.shape)}:k{wk}:taps{kw['sharpen_kernel']}")
+        require(hm.fused_launch_shape(*x.shape, k, ks, 132).route == "split",
+                f"k={k}, {ks} taps: not the split route")
+        before = {n: fn.launches for n, fn in kernels.items()}
+        got, want = hm.fused_preprocess_kernel(x, **kw), hm._fused_preprocess_plain(x, **kw)
+        torch.cuda.synchronize()
+        require(same_bits(got, want), f"split route != plain ({name}, k={k}, {ks} taps)")
+        ran = {n: fn.launches - before[n] for n, fn in kernels.items()}
+        med = med_route[hm.median_launch_shape(*x.shape, k).route]
+        require(ran == launch_dict(**{med: 1, "sharpen": 1}), f"split route launched {ran}")
+        cases.append(f"{name}:k{k}:taps{ks}:{med}+sharpen")
     del got, want
+    # the sharpen kernel alone: at the main path's 9 taps on the k = 17
+    # median image, and at 33 taps, each bitwise to the plain sharpen
     kw = dict(pre_kw, median_window=ENVELOPE_WINDOWS[0])
+    med_img = split_median(fused_x, kw)
+    sharpen_cases = []
+    for ks in (kw["sharpen_kernel"], ENVELOPE_TAPS):
+        before = shp.launches
+        got = shp(med_img, kw["sharpen_gain"], kw["sharpen_sigma"], ks)
+        want = sharpen(med_img, kw["sharpen_gain"], kw["sharpen_sigma"], ks)
+        require(same_bits(got, want), f"sharpen kernel != plain ({ks} taps)")
+        require(shp.launches == before + 1, f"{ks} taps: not one sharpen launch")
+        sharpen_cases.append(f"median_k{kw['median_window']}:taps{ks}")
+    del got, want
     n = fused_x.numel()
     ks = kw["sharpen_kernel"]
     add_mul = (3 + 2 * (2 * ks - 1) + 3) * n
@@ -4939,16 +5048,39 @@ def envelope_phase(median_x, fused_x, pre_kw: dict, smi: str, kernels: dict, res
     del med_in
     f_ms = cuda_ms(lambda: hm.fused_preprocess_kernel(fused_x, **kw), repeats=5)
     f_plain = cuda_ms(lambda: hm._fused_preprocess_plain(fused_x, **kw), repeats=2)
-    f_dev, f_by, f_missed = times["unfused"]
-    results["fused_unfused"] = dict(max_abs_err=0.0, ms=f_ms, device_ms=f_dev,
-                                    device_ms_by=f_by, plain_ms=f_plain, bound_ms=b_ms,
-                                    bound_by=b_by, first_design_bound_ms=f_bound)
-    line["fused_unfused"] = {"bitwise": True, "cases": cases, "ms": f_ms, "plain_ms": f_plain,
-                             "median_device_ms": f_dev, "device_ms_by": f_by,
-                             "profiler_missed": f_missed, "bound_ms": b_ms, "bound_by": b_by,
-                             "first_design_bound_ms": f_bound}
+    f_dev, f_by, f_missed = times["split"]
+    results["fused_split"] = dict(max_abs_err=0.0, ms=f_ms, device_ms=f_dev, device_ms_by=f_by,
+                                  plain_ms=f_plain, bound_ms=b_ms, bound_by=b_by,
+                                  first_design_bound_ms=f_bound)
+    line["fused_split"] = {"bitwise": True, "cases": cases, "timed": f"k{kw['median_window']}, "
+                           f"{ks} taps on {list(fused_x.shape)}", "ms": f_ms,
+                           "plain_ms": f_plain, "device_ms": f_dev, "device_ms_by": f_by,
+                           "device_ms_of": "select_kernel + sharpen_kernel, a call",
+                           "profiler_missed": f_missed, "bound_ms": b_ms, "bound_by": b_by,
+                           "first_design_bound_ms": f_bound}
+    # the sharpen's floor: one read of the median image, one write (8 bytes
+    # an output), against two ks-tap passes and the update
+    s_bound = bound(8 * n, {"add_mul": (2 * (2 * ks - 1) + 3) * n})
+    s_ms = cuda_ms(lambda: shp(med_img, kw["sharpen_gain"], kw["sharpen_sigma"], ks), repeats=5)
+    s_plain = cuda_ms(lambda: sharpen(med_img, kw["sharpen_gain"], kw["sharpen_sigma"], ks),
+                      repeats=5)
+    s_dev, s_by, s_missed = times["sharpen"]
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    results["sharpen"] = dict(max_abs_err=0.0, ms=s_ms, device_ms=s_dev, device_ms_by=s_by,
+                              plain_ms=s_plain, bound_ms=s_bound[0], bound_by=s_bound[1],
+                              library_ms=None)
+    line["sharpen"] = {"bitwise": True, "cases": sharpen_cases,
+                       "timed": f"{ks} taps on {list(med_img.shape)}", "ms": s_ms,
+                       "plain_ms": s_plain, "device_ms": s_dev, "device_ms_by": s_by,
+                       "profiler_missed": s_missed, "bound_ms": s_bound[0],
+                       "bound_by": s_bound[1],
+                       "launch_shape": hm.sharpen_launch_shape(*med_img.shape, ks, n_sm)._asdict(),
+                       "ms_at_33_taps": cuda_ms(lambda: shp(med_img, kw["sharpen_gain"],
+                                                            kw["sharpen_sigma"], ENVELOPE_TAPS),
+                                                repeats=5)}
+    del med_img, rand_f
 
-    step("fused_unfused")
+    step("fused_split")
     # -- grow past one cluster: the global route, at any size -----------------
     cfg = PipelineConfig(canvas=256)
     gg = hg.region_grow_global_kernel
@@ -5079,7 +5211,7 @@ def envelope_phase(median_x, fused_x, pre_kw: dict, smi: str, kernels: dict, res
     fast = process_batch(bt.pixels, bt.dims, kcfg)
     torch.cuda.synchronize()
     launches = {n: fn.launches for n, fn in kernels.items()}
-    require(launches == launch_dict(median_select=1, grow_global=1),
+    require(launches == launch_dict(median_select=1, sharpen=1, grow_global=1),
             f"canvas {c}, k={k}: launches {launches}")
     slow = process_batch(bt.pixels, bt.dims, pcfg)
     torch.cuda.synchronize()
@@ -5103,7 +5235,7 @@ def envelope_phase(median_x, fused_x, pre_kw: dict, smi: str, kernels: dict, res
     got_f, want_f = hm.fused_preprocess_kernel(fx, **kw), hm._fused_preprocess_plain(fx, **kw)
     torch.cuda.synchronize()
     require(same_bits(got_m, want_m), f"canvas {c}: median select != plain, k={k}")
-    require(same_bits(got_f, want_f), f"canvas {c}: unfused route != plain, k={k}")
+    require(same_bits(got_f, want_f), f"canvas {c}: split route != plain, k={k}")
     del fx, mx, got_m, want_m, got_f, want_f
     t = time.perf_counter()
     process_batch(bt.pixels, bt.dims, kcfg)
@@ -5121,7 +5253,7 @@ def envelope_phase(median_x, fused_x, pre_kw: dict, smi: str, kernels: dict, res
     fast = process_batch(wide_bt.pixels, wide_bt.dims, kcfg)
     torch.cuda.synchronize()
     wide_launches = {n: fn.launches for n, fn in kernels.items()}
-    require(wide_launches == launch_dict(median_wide=1, grow=1),
+    require(wide_launches == launch_dict(median_wide=1, sharpen=1, grow=1),
             f"canvas {wc}, k={wk}: launches {wide_launches}")
     slow = process_batch(wide_bt.pixels, wide_bt.dims, pcfg)
     torch.cuda.synchronize()
@@ -5138,10 +5270,12 @@ def envelope_phase(median_x, fused_x, pre_kw: dict, smi: str, kernels: dict, res
     line["process_batch_wide"] = {"canvas": wc, "median_window": wk, "slices": 2,
                                   "launches": wide_launches, "equal_plain": True,
                                   "golden": golden["made_by"], "masks": got}
-    launches = dict(launches, median_wide=wide_launches["median_wide"])
+    launches = dict(launches, median_wide=wide_launches["median_wide"],
+                    sharpen=launches["sharpen"] + wide_launches["sharpen"])
     step("process_batch_wide")
     line["steps_s"] = step.spent
     line["device_ms_taken"] = "after the grow phase (envelope_device_times)"
+    line["device_times_s"] = times["seconds"]
     line["seconds"] = time.perf_counter() - t_phase
     line["nvidia_smi"] = smi
     emit(line)
@@ -5229,8 +5363,10 @@ def serve_envelope_phase(smi: str, kernels: dict, reset) -> dict:
             require(payload["mask_sha256"] == want[i],
                     f"k={k}: served phantom {i} {dims[i]} != the batch path")
         require(not eager, f"k={k}: wrappers ran outside the graphs: {eager}")
-        route = {17: "median_select", 65: "median_wide"}.get(k, "fused")
-        require(launches.get("grow_global", 0) > 0 and launches.get(route, 0) > 0,
+        routes = {17: ("median_select", "sharpen"), 65: ("median_wide", "sharpen")}.get(
+            k, ("fused",))
+        require(launches.get("grow_global", 0) > 0 and all(launches.get(r, 0) > 0
+                                                           for r in routes),
                 f"k={k}: the replays launched {launches}")
         for name, n in launches.items():
             total[name] = total.get(name, 0) + n
@@ -5332,6 +5468,7 @@ def main() -> int:
 
     # -- 2a. median ----------------------------------------------------------
 
+    t_phase = time.perf_counter()
     err, cases = 0.0, []
     for shape, x in (
         ("main", median_input(main_px, main_dims)),
@@ -5355,13 +5492,29 @@ def main() -> int:
     results["median"] = dict(max_abs_err=err, ms=ms, device_ms=dev_ms, device_ms_by=dev_by,
                              plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                              library_ms=library_ms)
+    windows = {}  # the other plans' times on the main batch, each held bitwise first
+    for k in WINDOWS_TIMED:
+        require(torch.equal(hm.vector_median_filter_kernel(x, k), vector_median_filter(x, k)),
+                f"median kernel != plain (main, k={k})")
+        cases.append(f"main:k{k}")
+        c = comparator_counts(k)
+        w_dev, w_by, w_missed = device_ms(lambda: hm.vector_median_filter_kernel(x, k),
+                                          "band_kernel", hm.vector_median_filter_kernel,
+                                          repeats=5)
+        windows[f"k{k}"] = {
+            "device_ms": w_dev, "device_ms_by": w_by, "profiler_missed": w_missed,
+            "ms": cuda_ms(lambda: hm.vector_median_filter_kernel(x, k), repeats=5),
+            "bound_ms": bound(8 * n, {"minmax_bitwise": (
+                c["presort_minmax"] + c["merge_minmax_pruned_shared"]) * n})[0]}
     emit({"phase": "median", "bitwise": True, "cases": cases, "ms": ms, "device_ms": dev_ms,
           "device_ms_by": dev_by, "profiler_missed": dev_missed,
           "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
-          "launches": hm.vector_median_filter_kernel.launches, "nvidia_smi": smi})
+          "windows": windows, "launches": hm.vector_median_filter_kernel.launches,
+          "seconds": time.perf_counter() - t_phase, "nvidia_smi": smi})
 
     # -- 2b. fused preprocess ------------------------------------------------
     # one long study as the volume path launches it: its planes as the batch
+    t_phase = time.perf_counter()
     study = long_study()
     study_x = extend_edges(torch.from_numpy(study[0]).to(dev),
                            torch.from_numpy(study[1]).to(dev).expand(LONG_STUDY[0], 2))
@@ -5399,15 +5552,36 @@ def main() -> int:
     del study_x
     results["fused"] = dict(max_abs_err=err, ms=ms, device_ms=dev_ms, device_ms_by=dev_by,
                             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    windows = {}  # the other plans' times on the main batch, each held bitwise first
+    for k in WINDOWS_TIMED:
+        kw = dict(pre_kw, median_window=k)
+        require(torch.equal(hm.fused_preprocess_kernel(x, **kw),
+                            hm._fused_preprocess_plain(x, **kw)),
+                f"fused kernel != plain (main, k={k})")
+        cases.append(f"main:k{k}")
+        c = comparator_counts(k)
+        w_ops = {"minmax_bitwise": c["presort_minmax"] + c["merge_minmax_pruned_shared"] + 2,
+                 "add_mul": fused_ops["add_mul"]}
+        w_dev, w_by, w_missed = device_ms(lambda: hm.fused_preprocess_kernel(x, **kw),
+                                          "fused_kernel", hm.fused_preprocess_kernel,
+                                          repeats=5)
+        windows[f"k{k}"] = {
+            "device_ms": w_dev, "device_ms_by": w_by, "profiler_missed": w_missed,
+            "ms": cuda_ms(lambda: hm.fused_preprocess_kernel(x, **kw), repeats=5),
+            "bound_ms": bound(8 * n, {o: v * n for o, v in w_ops.items()})[0],
+            "launch_shape": list(hm.fused_launch_shape(*x.shape, k, cfg.sharpen_kernel, n_sm))}
     emit({"phase": "fused", "bitwise": True, "cases": cases, "ms": ms, "device_ms": dev_ms,
           "device_ms_by": dev_by, "profiler_missed": dev_missed,
           "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
           "tile": [tile_h, tile_w], "grid": grid, "smem_bytes": smem,
           "study": {"shape": list(LONG_STUDY), "ms": study_ms, "bound_ms": study_bound[0],
                     "bound_by": study_bound[1], "launch_shape": list(study_shape)},
-          "launches": hm.fused_preprocess_kernel.launches, "nvidia_smi": smi})
+          "windows": windows, "launches": hm.fused_preprocess_kernel.launches,
+          "seconds": time.perf_counter() - t_phase, "nvidia_smi": smi})
 
     # -- 2c. region growing --------------------------------------------------
+    t_phase = time.perf_counter()
+
     def grow_inputs(px, dims):
         pre = hm._fused_preprocess_plain(extend_edges(px, dims), **pre_kw)
         hw = tuple(px.shape[-2:])
@@ -5465,13 +5639,15 @@ def main() -> int:
           "launch_shapes": shapes, "ms": ms, "device_ms": dev_ms,
           "device_ms_by": dev_by, "profiler_missed": dev_missed, "plain_ms": plain_ms,
           "bound_ms": b_ms, "bound_by": b_by, "launches": hg.region_grow_kernel.launches,
-          "nvidia_smi": smi})
+          "seconds": time.perf_counter() - t_phase, "nvidia_smi": smi})
 
     # the envelope routes' device times, before the launch-heavy phases
     envelope_times = envelope_device_times(median_input(main_px, main_dims),
                                            extend_edges(main_px, main_dims), pre_kw)
 
     # -- 3. the cohort through process_batch ---------------------------------
+    t_phase = time.perf_counter()
+
     def run(c):
         outs = [process_batch(bt.pixels, bt.dims, c) for bt in batches]
         torch.cuda.synchronize()
@@ -5537,6 +5713,7 @@ def main() -> int:
     # where a batch's time goes: device time by kernel over 4 batches
     from torch.profiler import ProfilerActivity, profile
 
+    t_prof = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         for bt in batches[:4]:
@@ -5553,7 +5730,7 @@ def main() -> int:
           "device_busy_ms": busy_ms if by_kernel else "not measured",
           "idle_share": 1 - busy_ms / wall_ms if by_kernel else "not measured",
           "top": [{"kernel": k[:80], "ms": ms, "calls": c} for k, ms, c in by_kernel[:10]],
-          "nvidia_smi": smi})
+          "seconds": time.perf_counter() - t_prof, "nvidia_smi": smi})
 
     n = len(cohort)
     emit({"phase": "slice", "slices": n, "batch": DEFAULT_BATCH_SIZE, "canvas": 256,
@@ -5562,7 +5739,8 @@ def main() -> int:
           "golden_slices": len(golden),
           "converged": int(conv.sum()), "mask_area": int(masks.sum()),
           "launches": launches, "unfused_launches": unfused_launches,
-          "canvas1024_mask_area": int(big_fast["mask"].sum()), "nvidia_smi": smi})
+          "canvas1024_mask_area": int(big_fast["mask"].sum()),
+          "seconds": time.perf_counter() - t_phase, "nvidia_smi": smi})
 
     # -- 4. the batch drivers -------------------------------------------------
     with tempfile.TemporaryDirectory(prefix="nm03_driver_") as tmp:
@@ -5603,7 +5781,8 @@ def main() -> int:
 
     # -- 17. kernels ---------------------------------------------------------
     # name, source, TPU kernel, and the launch key its main-path counts read:
-    # the unfused route launches the select kernel, no kernel of its own
+    # the split route's calls are its sharpen launches (its median launches
+    # count under the median route's own key)
     meta = {
         "median": ("vector_median_filter", "csrc/median.cu",
                    "nm03_capstone_project_tpu/ops/pallas_median.py:101", "median"),
@@ -5616,9 +5795,10 @@ def main() -> int:
                           "median_select"),
         "median_wide": ("vector_median_filter:wide", "csrc/median.cu",
                         "nm03_capstone_project_tpu/ops/pallas_median.py:101", "median_wide"),
-        "fused_unfused": ("fused_preprocess:unfused", "csrc/median.cu",
-                          "nm03_capstone_project_tpu/ops/pallas_median.py:165",
-                          "median_select"),
+        "fused_split": ("fused_preprocess:split", "csrc/median.cu",
+                        "nm03_capstone_project_tpu/ops/pallas_median.py:165", "sharpen"),
+        "sharpen": ("sharpen", "csrc/fused.cu",
+                    "nm03_capstone_project_tpu/ops/pallas_median.py:165", "sharpen"),
         "grow_global": ("region_grow:global", "csrc/grow.cu",
                         "nm03_capstone_project_tpu/ops/pallas_region_growing.py:30",
                         "grow_global"),

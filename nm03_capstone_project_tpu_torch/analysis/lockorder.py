@@ -74,6 +74,7 @@ _DISPATCH_METHODS = {
 _KERNEL_WRAPPERS = {
     "vector_median_filter_kernel", "fused_preprocess_kernel", "region_grow_kernel",
     "vector_median_select_kernel", "vector_median_wide_kernel", "region_grow_global_kernel",
+    "sharpen_filter_kernel",
 }
 
 # host syncs on a tensor, an event or a stream, whatever the receiver

@@ -40,6 +40,37 @@
 // the issue rate of min/max bounds it; the design spends its effort on
 // doing fewer of them (shared plan, optimal presort, little halo, whole
 // waves).
+//
+// The sharpen kernel (nm03_sharpen) is the second launch of the fused
+// stage's split route, which takes every config the fused kernel does not
+// (k > 15, or more than 31 taps; ops/hopper_median.py): the median kernel
+// of median.cu with normalize and clip in its prologue, then this kernel,
+// the unsharp update of the median image with its ks-tap separable
+// gaussian blur, so the route runs no torch op between its two launches.
+// It replaces no Pallas kernel of its own: it is the sharpen half of
+// _fused_band_kernel (ops/pallas_median.py:165), which the JAX package
+// runs as XLA ops where no band fits VMEM.
+//
+// Design. Each CTA takes tiles of TH x TW outputs. It stages the median
+// tile plus rs = ks / 2 rows and columns each side in shared memory, each
+// read at its canvas-clamped index, which is the plain version's edge pad
+// on both passes (the horizontal pass pads the vertical result, and the
+// vertical result at a clamped column is the blur of the clamped column),
+// so neither pass clamps an index. The vertical pass fills V (the tile's
+// rows over its staged columns), then the horizontal pass and c + gain *
+// (c - blur); a thread sums BLUR_ROWS rows of one column at once, one
+// shared load of a tap for the four. Each pass sums its taps in the plain
+// order (acc = t0 x0, then acc + ti xi), every product and sum rounded on
+// its own, as fused_kernel does. The taps come from a device buffer into
+// shared memory. Where the staged tile does not fit a block (past 177
+// taps at 32 x 64 tiles), the kernel stages only V, the rows of one pass,
+// and the vertical pass reads the median through L1 at clamped indices;
+// the wrapper shortens the tile until V fits, reads the taps from their
+// buffer where they do not fit beside it, and past that keeps V in a
+// device scratch of its own (a sharpen longer than a block's shared
+// memory holds twice). Bound on the H100: bytes, one read of the median
+// and one write of the output (8 bytes an output), against 4 ks + 3
+// operations an output.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -232,6 +263,144 @@ cudaError_t launch(const float* x, float* out, int B, int H, int W, int TH, int 
   return cudaGetLastError();
 }
 
+constexpr int SHARPEN_THREADS = 256;
+
+// Shared floats of a sharpen CTA, the wrapper's sharpen_smem_bytes / 4:
+// staged, the taps and the staged tile ((TH + 2 rs) x (TW + 2 rs)); and V
+// (TH x (TW + 2 rs)) where it is in shared memory.
+__host__ __device__ inline size_t sharpen_floats(int ks, int TH, int TW, int staged,
+                                                 int v_shared) {
+  const size_t sw = TW + ks - 1;
+  return (staged ? ks + (TH + ks - 1) * sw : 0) + (v_shared ? TH * sw : 0);
+}
+
+// STAGED: the staged tile, the taps and V in shared memory (the wrapper's
+// tile plan). Else V in shared memory or in `vscratch`, the taps and the
+// median read from their buffers.
+template <bool STAGED>
+__global__ void __launch_bounds__(SHARPEN_THREADS)
+sharpen_kernel(const float* __restrict__ m, float* __restrict__ out,
+               const float* __restrict__ taps, float* vscratch, int H, int W, int ks,
+               float gain, int TH, int TW, long long tiles) {
+  extern __shared__ float smem[];
+  const int rs = ks / 2, SW = TW + 2 * rs;  // SW: the row stride of S and V
+  float* S = smem + (STAGED ? ks : 0);  // STAGED: tile (i, j) = canvas (y0 - rs + i, x0 - rs + j)
+  float* V = (!STAGED && vscratch) ? vscratch + (size_t)blockIdx.x * TH * SW
+                                   : S + (STAGED ? (size_t)(TH + 2 * rs) * SW : 0);
+  if (STAGED) {
+    for (int i = threadIdx.x; i < ks; i += SHARPEN_THREADS) smem[i] = taps[i];
+  }
+  const float* tp = STAGED ? smem : taps;
+  const int n_r = (H + TH - 1) / TH, n_c = (W + TW - 1) / TW;
+
+  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int tx = (int)(t % n_c), ty = (int)((t / n_c) % n_r);
+    const long long b = t / ((long long)n_c * n_r);
+    const int y0 = ty * TH, x0 = tx * TW;
+    const int th = min(TH, H - y0), tw = min(TW, W - x0);
+    const int groups = (th + BLUR_ROWS - 1) / BLUR_ROWS;  // BLUR_ROWS rows a thread
+    const float* mb = m + (size_t)b * H * W;
+    float* ob = out + (size_t)b * H * W;
+
+    if (STAGED) {
+      for (int idx = threadIdx.x; idx < (th + 2 * rs) * SW; idx += SHARPEN_THREADS) {
+        const int i = idx / SW, j = idx - i * SW;
+        S[idx] = mb[(size_t)clampi(y0 - rs + i, 0, H - 1) * W + clampi(x0 - rs + j, 0, W - 1)];
+      }
+    }
+    __syncthreads();
+
+    // vertical pass: V (y, j) = sum_i t_i S (y + i, j); a thread's rows
+    // past the tile repeat its last (their sums are dropped)
+    for (int q = threadIdx.x; q < groups * SW; q += SHARPEN_THREADS) {
+      const int g = q / SW, j = q - g * SW, y = g * BLUR_ROWS;
+      const int last = min(BLUR_ROWS, th - y) - 1;
+      float acc[BLUR_ROWS];
+      if (STAGED) {
+        int off[BLUR_ROWS];
+#pragma unroll
+        for (int u = 0; u < BLUR_ROWS; ++u) off[u] = min(u, last) * SW;
+        const float* s = S + y * SW + j;
+        for (int i = 0; i < ks; ++i, s += SW) {
+          const float tap = tp[i];
+#pragma unroll
+          for (int u = 0; u < BLUR_ROWS; ++u) {
+            const float term = __fmul_rn(tap, s[off[u]]);
+            acc[u] = i == 0 ? term : __fadd_rn(acc[u], term);
+          }
+        }
+      } else {
+        const float* col = mb + clampi(x0 - rs + j, 0, W - 1);
+        for (int i = 0; i < ks; ++i) {
+          const float tap = tp[i];
+#pragma unroll
+          for (int u = 0; u < BLUR_ROWS; ++u) {
+            const int row = clampi(y0 + y + u - rs + i, 0, H - 1);
+            const float term = __fmul_rn(tap, __ldg(col + (size_t)row * W));
+            acc[u] = i == 0 ? term : __fadd_rn(acc[u], term);
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < BLUR_ROWS; ++u) {
+        if (u <= last) V[(y + u) * SW + j] = acc[u];
+      }
+    }
+    __syncthreads();
+
+    // horizontal pass, V (y, xx .. xx + ks - 1), and the unsharp update
+    for (int q = threadIdx.x; q < groups * tw; q += SHARPEN_THREADS) {
+      const int g = q / tw, xx = q - g * tw, y = g * BLUR_ROWS;
+      const int last = min(BLUR_ROWS, th - y) - 1;
+      int off[BLUR_ROWS];
+#pragma unroll
+      for (int u = 0; u < BLUR_ROWS; ++u) off[u] = min(u, last) * SW;
+      float acc[BLUR_ROWS];
+      const float* v = V + y * SW + xx;
+      for (int i = 0; i < ks; ++i, ++v) {
+        const float tap = tp[i];
+#pragma unroll
+        for (int u = 0; u < BLUR_ROWS; ++u) {
+          const float term = __fmul_rn(tap, v[off[u]]);
+          acc[u] = i == 0 ? term : __fadd_rn(acc[u], term);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < BLUR_ROWS; ++u) {
+        if (u <= last) {
+          const int gy = y0 + y + u, gx = x0 + xx;
+          const float c = STAGED ? S[(y + u + rs) * SW + xx + rs] : __ldg(mb + (size_t)gy * W + gx);
+          ob[(size_t)gy * W + gx] = __fadd_rn(c, __fmul_rn(gain, __fsub_rn(c, acc[u])));
+        }
+      }
+    }
+    __syncthreads();  // the next tile overwrites S and V
+  }
+}
+
+template <bool STAGED>
+cudaError_t launch_sharpen(const float* m, float* out, const float* taps, float* vs, int B,
+                           int H, int W, int ks, float gain, int TH, int TW, int grid,
+                           cudaStream_t stream) {
+  const size_t bytes = sharpen_floats(ks, TH, TW, STAGED, vs == nullptr) * sizeof(float);
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  if (bytes > (size_t)optin) return cudaErrorInvalidConfiguration;
+  if (bytes > 48 * 1024) {
+    err = cudaFuncSetAttribute(sharpen_kernel<STAGED>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return err;
+  }
+  const long long tiles = (long long)B * ((H + TH - 1) / TH) * ((W + TW - 1) / TW);
+  const int g = tiles < grid ? (int)tiles : grid;
+  sharpen_kernel<STAGED><<<g, SHARPEN_THREADS, bytes, stream>>>(m, out, taps, vs, H, W, ks, gain,
+                                                                 TH, TW, tiles);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // normalize -> clip -> k x k median -> unsharp sharpen of a (B, H, W)
@@ -268,4 +437,28 @@ extern "C" int nm03_fused_preprocess(const float* x, float* out, int B, int H, i
     case 15: return launch<15>(x, out, B, H, W, tile_h, tile_w, grid, p, s);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// The unsharp sharpen of a (B, H, W) float32 batch: c + gain * (c -
+// blur(c)), the blur ks taps (a device array, any odd ks) down the rows,
+// then along them, clamp-to-edge. `grid` CTAs walk the tiles of tile_h x
+// tile_w outputs. `staged` stages the median tile, the taps and V in shared
+// memory (then `vscratch` must be null); else the median and the taps are
+// read from their buffers through L1, and V goes to shared memory, or with
+// `vscratch` not null to that device scratch (grid x tile_h x (tile_w + ks
+// - 1) floats).
+extern "C" int nm03_sharpen(const float* m, float* out, const float* taps, void* vscratch,
+                            int B, int H, int W, int ks, float gain, int tile_h, int tile_w,
+                            int staged, int grid, void* stream) {
+  (void)cudaGetLastError();  // clear an error already reported by an earlier call
+  float* vs = static_cast<float*>(vscratch);
+  if (B <= 0 || H <= 0 || W <= 0 || ks < 1 || ks % 2 == 0 || tile_h < 1 || tile_w < 1 ||
+      grid < 1 || taps == nullptr || (staged && vs != nullptr)) {
+    return cudaErrorInvalidValue;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return staged ? launch_sharpen<true>(m, out, taps, vs, B, H, W, ks, gain, tile_h, tile_w,
+                                       grid, s)
+                : launch_sharpen<false>(m, out, taps, vs, B, H, W, ks, gain, tile_h, tile_w,
+                                        grid, s);
 }

@@ -83,6 +83,18 @@
 // allocates, read through L1 and L2. Bound on the H100: operations (about
 // k (2 ceil(log2(k + 1)) + 3) a pass an output, plus the band's sort and
 // the rows' upkeep shared by the strip), not bytes. Counts are 64-bit.
+//
+// The prologue (the *_pre entry points: the first launch of the fused
+// stage's split route, ops/hopper_median.py). Each kernel can normalize and
+// clip every value where it reads the input: (x - norm_min) * scale +
+// norm_low, each step rounded on its own (__fsub_rn, __fmul_rn, __fadd_rn:
+// no FMA, as the plain ops and fused.cu round), then torch.clamp's rule, a
+// NaN kept. So the median is that of clip_intensity(normalize(x)), bit for
+// bit, with no pass of its own over the image. It runs on every value
+// read, not once on the selected one: the order statistic would commute
+// with these non-decreasing maps, but a NaN's bits and the first NaN of a
+// window are decided on the mapped values. Off (the standalone entry
+// points), a kernel reads the input as it is.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -99,6 +111,16 @@ constexpr int NTHREADS = 256;
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
+
+struct Prologue {
+  int on;
+  float norm_min, scale, norm_low, clip_low, clip_high;
+  __device__ __forceinline__ float operator()(float v) const {
+    if (!on) return v;
+    const float n = __fadd_rn(__fmul_rn(__fsub_rn(v, norm_min), scale), norm_low);
+    return n != n ? n : fminf(fmaxf(n, clip_low), clip_high);
+  }
+};
 
 // Odd-even transposition sort: K rounds of neighbour compare-exchanges.
 template <int K>
@@ -124,7 +146,7 @@ __host__ __device__ inline size_t smem_floats(int K) {
 // `S` (each TH x IW). Tile coordinate (i, j) is canvas (y0 + i, x0 + j).
 template <int K>
 __global__ void __launch_bounds__(NTHREADS)
-band_kernel(const float* __restrict__ x, float* __restrict__ out, int H, int W) {
+band_kernel(const float* __restrict__ x, float* __restrict__ out, int H, int W, Prologue pro) {
   constexpr int R = K / 2;
   constexpr int IH = TH + 2 * R, IW = TW + 2 * R;
   const int b = blockIdx.z, y0 = blockIdx.y * TH, x0 = blockIdx.x * TW;
@@ -139,7 +161,7 @@ band_kernel(const float* __restrict__ x, float* __restrict__ out, int H, int W) 
     const int i = idx / IW, j = idx - i * IW;
     const int gy = clampi(y0 - R + i, 0, H - 1);
     const int gx = clampi(x0 - R + j, 0, W - 1);
-    in[idx] = xb[(size_t)gy * W + gx];
+    in[idx] = pro(xb[(size_t)gy * W + gx]);
   }
   __syncthreads();
 
@@ -165,7 +187,8 @@ band_kernel(const float* __restrict__ x, float* __restrict__ out, int H, int W) 
 }
 
 template <int K>
-cudaError_t launch(const float* x, float* out, int B, int H, int W, cudaStream_t stream) {
+cudaError_t launch(const float* x, float* out, int B, int H, int W, const Prologue& pro,
+                   cudaStream_t stream) {
   const size_t bytes = smem_floats(K) * sizeof(float);
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -179,7 +202,7 @@ cudaError_t launch(const float* x, float* out, int B, int H, int W, cudaStream_t
     if (err != cudaSuccess) return err;
   }
   const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);
-  band_kernel<K><<<grid, NTHREADS, bytes, stream>>>(x, out, H, W);
+  band_kernel<K><<<grid, NTHREADS, bytes, stream>>>(x, out, H, W, pro);
   return cudaGetLastError();
 }
 
@@ -237,7 +260,8 @@ __host__ __device__ inline size_t select_smem_bytes(int K) {
 // staged tile: tile (i, j) is canvas (y0 - R + i, x0 - R + j), clamped.
 template <int LOGP>
 __global__ void __launch_bounds__(SNT)
-select_kernel(const float* __restrict__ x, float* __restrict__ out, int H, int W, int K, int b0) {
+select_kernel(const float* __restrict__ x, float* __restrict__ out, int H, int W, int K, int b0,
+              Prologue pro) {
   constexpr int LV = LOGP + 1;  // probes a count: ceil(log2(K + 1))
   const SelectLayout L(K);
   const int R = L.R, IH = L.IH, IW = L.IW, PL = L.PL;
@@ -250,7 +274,7 @@ select_kernel(const float* __restrict__ x, float* __restrict__ out, int H, int W
     const int i = idx / IW, j = idx - i * IW;
     const int gy = clampi(y0 - R + i, 0, H - 1);
     const int gx = clampi(x0 - R + j, 0, W - 1);
-    keys[idx] = order_key(xb[(size_t)gy * W + gx]);
+    keys[idx] = order_key(pro(xb[(size_t)gy * W + gx]));
   }
   __syncthreads();
 
@@ -347,7 +371,7 @@ select_kernel(const float* __restrict__ x, float* __restrict__ out, int H, int W
 
 template <int LOGP>
 cudaError_t launch_select(const float* x, float* out, int b0, int nb, int H, int W, int K,
-                          cudaStream_t stream) {
+                          const Prologue& pro, cudaStream_t stream) {
   const size_t bytes = select_smem_bytes(K);
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -361,7 +385,7 @@ cudaError_t launch_select(const float* x, float* out, int b0, int nb, int H, int
     if (err != cudaSuccess) return err;
   }
   const dim3 grid((W + STW - 1) / STW, (H + STH - 1) / STH, nb);
-  select_kernel<LOGP><<<grid, SNT, bytes, stream>>>(x, out, H, W, K, b0);
+  select_kernel<LOGP><<<grid, SNT, bytes, stream>>>(x, out, H, W, K, b0, pro);
   return cudaGetLastError();
 }
 
@@ -423,7 +447,8 @@ __device__ __forceinline__ T group_reduce(T v, F f) {  // over an output's 8 lan
 template <bool SHARED>
 __global__ void __launch_bounds__(WNT)
 wide_kernel(const float* __restrict__ x, float* __restrict__ out, uint32_t* scratch, int H,
-            int W, int K, int b0, int rows, int bands, int strips, long long tiles) {
+            int W, int K, int b0, int rows, int bands, int strips, long long tiles,
+            Prologue pro) {
   const WideLayout L(K);
   const int R = L.R, IW = L.IW, PL = L.PL;
   extern __shared__ uint32_t wseg[];
@@ -448,7 +473,7 @@ wide_kernel(const float* __restrict__ x, float* __restrict__ out, uint32_t* scra
     for (int a = warp; a < K; a += WNT / 32) {
       const float* row = xb + (size_t)clampi(y0 - R + a, 0, H - 1) * W;
       for (int cx = lane; cx < IW; cx += 32) {
-        seg[a * PL + cx] = order_key(__ldg(row + clampi(x0 - R + cx, 0, W - 1)));
+        seg[a * PL + cx] = order_key(pro(__ldg(row + clampi(x0 - R + cx, 0, W - 1))));
       }
     }
     __syncthreads();
@@ -476,8 +501,8 @@ wide_kernel(const float* __restrict__ x, float* __restrict__ out, uint32_t* scra
         const int yo = clampi(y - 1 - R, 0, H - 1), yn = clampi(y + R, 0, H - 1);
         for (int cx = tid; cx < IW && yo != yn; cx += WNT) {
           const int gx = clampi(x0 - R + cx, 0, W - 1);
-          const uint32_t ko = order_key(__ldg(xb + (size_t)yo * W + gx));
-          const uint32_t kn = order_key(__ldg(xb + (size_t)yn * W + gx));
+          const uint32_t ko = order_key(pro(__ldg(xb + (size_t)yo * W + gx)));
+          const uint32_t kn = order_key(pro(__ldg(xb + (size_t)yn * W + gx)));
           if (ko == kn) continue;
           uint32_t* col = seg + cx;
           const int p = count_below(col, PL, K, P, ko);             // ko's place
@@ -505,7 +530,7 @@ wide_kernel(const float* __restrict__ x, float* __restrict__ out, uint32_t* scra
         for (int dy = t; dy < K && first == LLONG_MAX; dy += WSPLIT) {
           const float* row = xb + (size_t)clampi(y - R + dy, 0, H - 1) * W;
           for (int dx = 0; dx < K; ++dx) {
-            if (key_is_nan(order_key(__ldg(row + clampi(gx - R + dx, 0, W - 1))))) {
+            if (key_is_nan(order_key(pro(__ldg(row + clampi(gx - R + dx, 0, W - 1)))))) {
               first = (long long)dy * K + dx;
               break;
             }
@@ -563,7 +588,7 @@ wide_kernel(const float* __restrict__ x, float* __restrict__ out, uint32_t* scra
         float v = key_value(l);
         if (nan) {
           const int dy = (int)(first / K), dx = (int)(first - (long long)dy * K);
-          v = xb[(size_t)clampi(y - R + dy, 0, H - 1) * W + clampi(gx - R + dx, 0, W - 1)];
+          v = pro(xb[(size_t)clampi(y - R + dy, 0, H - 1) * W + clampi(gx - R + dx, 0, W - 1)]);
         }
         ob[(size_t)y * W + gx] = v;
       }
@@ -574,7 +599,8 @@ wide_kernel(const float* __restrict__ x, float* __restrict__ out, uint32_t* scra
 
 template <bool SHARED>
 cudaError_t launch_wide(const float* x, float* out, uint32_t* scratch, int b0, int nb, int H,
-                        int W, int K, int rows, int grid, cudaStream_t stream) {
+                        int W, int K, int rows, int grid, const Prologue& pro,
+                        cudaStream_t stream) {
   const int strips = (W + WTW - 1) / WTW, bands = (H + rows - 1) / rows;
   const long long tiles = (long long)nb * bands * strips;
   size_t bytes = 0;
@@ -594,36 +620,30 @@ cudaError_t launch_wide(const float* x, float* out, uint32_t* scratch, int b0, i
   }
   const int g = tiles < grid ? (int)tiles : grid;
   wide_kernel<SHARED><<<g, WNT, bytes, stream>>>(x, out, scratch, H, W, K, b0, rows, bands,
-                                                 strips, tiles);
+                                                 strips, tiles, pro);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// k x k median of a (B, H, W) float32 batch, clamp-to-edge; odd k <= 15.
-extern "C" int nm03_median_filter(const float* x, float* out, int B, int H, int W,
-                                  int k, void* stream) {
+cudaError_t median_filter(const float* x, float* out, int B, int H, int W, int k,
+                          const Prologue& pro, void* stream) {
   (void)cudaGetLastError();  // clear an error already reported by an earlier call
   if (B <= 0 || H <= 0 || W <= 0 || B > 65535) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (k) {
-    case 1: return launch<1>(x, out, B, H, W, s);
-    case 3: return launch<3>(x, out, B, H, W, s);
-    case 5: return launch<5>(x, out, B, H, W, s);
-    case 7: return launch<7>(x, out, B, H, W, s);
-    case 9: return launch<9>(x, out, B, H, W, s);
-    case 11: return launch<11>(x, out, B, H, W, s);
-    case 13: return launch<13>(x, out, B, H, W, s);
-    case 15: return launch<15>(x, out, B, H, W, s);
+    case 1: return launch<1>(x, out, B, H, W, pro, s);
+    case 3: return launch<3>(x, out, B, H, W, pro, s);
+    case 5: return launch<5>(x, out, B, H, W, pro, s);
+    case 7: return launch<7>(x, out, B, H, W, pro, s);
+    case 9: return launch<9>(x, out, B, H, W, pro, s);
+    case 11: return launch<11>(x, out, B, H, W, pro, s);
+    case 13: return launch<13>(x, out, B, H, W, pro, s);
+    case 15: return launch<15>(x, out, B, H, W, pro, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
-// k x k median of slices [b0, b0 + nb) of a (., H, W) float32 batch,
-// clamp-to-edge, by exact selection; odd k in [1, max_k]. nb <= 65535 (the
-// grid's z dimension: the wrapper splits a larger batch).
-extern "C" int nm03_median_select(const float* x, float* out, int b0, int nb, int H, int W,
-                                  int k, int max_k, void* stream) {
+cudaError_t median_select(const float* x, float* out, int b0, int nb, int H, int W, int k,
+                          int max_k, const Prologue& pro, void* stream) {
   (void)cudaGetLastError();  // clear an error already reported by an earlier call
   if (b0 < 0 || nb <= 0 || nb > 65535 || H <= 0 || W <= 0 || k < 1 || k % 2 == 0 ||
       k > max_k || k > 63) {
@@ -631,13 +651,47 @@ extern "C" int nm03_median_select(const float* x, float* out, int b0, int nb, in
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (select_log2p(k)) {
-    case 0: return launch_select<0>(x, out, b0, nb, H, W, k, s);
-    case 1: return launch_select<1>(x, out, b0, nb, H, W, k, s);
-    case 2: return launch_select<2>(x, out, b0, nb, H, W, k, s);
-    case 3: return launch_select<3>(x, out, b0, nb, H, W, k, s);
-    case 4: return launch_select<4>(x, out, b0, nb, H, W, k, s);
-    default: return launch_select<5>(x, out, b0, nb, H, W, k, s);
+    case 0: return launch_select<0>(x, out, b0, nb, H, W, k, pro, s);
+    case 1: return launch_select<1>(x, out, b0, nb, H, W, k, pro, s);
+    case 2: return launch_select<2>(x, out, b0, nb, H, W, k, pro, s);
+    case 3: return launch_select<3>(x, out, b0, nb, H, W, k, pro, s);
+    case 4: return launch_select<4>(x, out, b0, nb, H, W, k, pro, s);
+    default: return launch_select<5>(x, out, b0, nb, H, W, k, pro, s);
   }
+}
+
+cudaError_t median_wide(const float* x, float* out, void* scratch, int b0, int nb, int H, int W,
+                        int k, int rows, int grid, const Prologue& pro, void* stream) {
+  (void)cudaGetLastError();  // clear an error already reported by an earlier call
+  if (b0 < 0 || nb <= 0 || nb > 65535 || H <= 0 || W <= 0 || k < 1 || k % 2 == 0 ||
+      rows < 1 || grid < 1 || wide_segment_words(k) > (size_t)INT_MAX) {
+    return cudaErrorInvalidValue;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  uint32_t* sc = static_cast<uint32_t*>(scratch);
+  return sc ? launch_wide<false>(x, out, sc, b0, nb, H, W, k, rows, grid, pro, s)
+            : launch_wide<true>(x, out, nullptr, b0, nb, H, W, k, rows, grid, pro, s);
+}
+
+Prologue prologue(float norm_min, float scale, float norm_low, float clip_low,
+                  float clip_high) {
+  return Prologue{1, norm_min, scale, norm_low, clip_low, clip_high};
+}
+
+}  // namespace
+
+// k x k median of a (B, H, W) float32 batch, clamp-to-edge; odd k <= 15.
+extern "C" int nm03_median_filter(const float* x, float* out, int B, int H, int W,
+                                  int k, void* stream) {
+  return median_filter(x, out, B, H, W, k, Prologue{}, stream);
+}
+
+// k x k median of slices [b0, b0 + nb) of a (., H, W) float32 batch,
+// clamp-to-edge, by exact selection; odd k in [1, max_k]. nb <= 65535 (the
+// grid's z dimension: the wrapper splits a larger batch).
+extern "C" int nm03_median_select(const float* x, float* out, int b0, int nb, int H, int W,
+                                  int k, int max_k, void* stream) {
+  return median_select(x, out, b0, nb, H, W, k, max_k, Prologue{}, stream);
 }
 
 // k x k median of slices [b0, b0 + nb) of a (., H, W) float32 batch,
@@ -650,15 +704,32 @@ extern "C" int nm03_median_select(const float* x, float* out, int b0, int nb, in
 // nm03_median_select.
 extern "C" int nm03_median_wide(const float* x, float* out, void* scratch, int b0, int nb,
                                 int H, int W, int k, int rows, int grid, void* stream) {
-  (void)cudaGetLastError();  // clear an error already reported by an earlier call
-  if (b0 < 0 || nb <= 0 || nb > 65535 || H <= 0 || W <= 0 || k < 1 || k % 2 == 0 ||
-      rows < 1 || grid < 1 || wide_segment_words(k) > (size_t)INT_MAX) {
-    return cudaErrorInvalidValue;
-  }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  uint32_t* sc = static_cast<uint32_t*>(scratch);
-  return sc ? launch_wide<false>(x, out, sc, b0, nb, H, W, k, rows, grid, s)
-            : launch_wide<true>(x, out, nullptr, b0, nb, H, W, k, rows, grid, s);
+  return median_wide(x, out, scratch, b0, nb, H, W, k, rows, grid, Prologue{}, stream);
+}
+
+// The same three, each with the prologue on: the median of
+// clamp((x - norm_min) * scale + norm_low, clip_low, clip_high).
+extern "C" int nm03_median_filter_pre(const float* x, float* out, int B, int H, int W, int k,
+                                      float norm_min, float scale, float norm_low,
+                                      float clip_low, float clip_high, void* stream) {
+  return median_filter(x, out, B, H, W, k,
+                       prologue(norm_min, scale, norm_low, clip_low, clip_high), stream);
+}
+
+extern "C" int nm03_median_select_pre(const float* x, float* out, int b0, int nb, int H, int W,
+                                      int k, int max_k, float norm_min, float scale,
+                                      float norm_low, float clip_low, float clip_high,
+                                      void* stream) {
+  return median_select(x, out, b0, nb, H, W, k, max_k,
+                       prologue(norm_min, scale, norm_low, clip_low, clip_high), stream);
+}
+
+extern "C" int nm03_median_wide_pre(const float* x, float* out, void* scratch, int b0, int nb,
+                                    int H, int W, int k, int rows, int grid, float norm_min,
+                                    float scale, float norm_low, float clip_low,
+                                    float clip_high, void* stream) {
+  return median_wide(x, out, scratch, b0, nb, H, W, k, rows, grid,
+                     prologue(norm_min, scale, norm_low, clip_low, clip_high), stream);
 }
 
 // The wide kernel's CTAs an SM holds at once with window k's segments in

@@ -95,10 +95,17 @@ ARGTYPES = {
         "nm03_median_select": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
         "nm03_median_wide": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
         "nm03_median_wide_ctas_per_sm": [_I, _P],
+        # the same with the split route's prologue: norm_min, scale,
+        # norm_low, clip_low, clip_high before the stream
+        "nm03_median_filter_pre": [_P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _P],
+        "nm03_median_select_pre": [_P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _P],
+        "nm03_median_wide_pre": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F,
+                                 _P],
     },
     "fused": {
         "nm03_fused_preprocess": [_P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F,
                                   _P, _I, _I, _I, _I, _P],
+        "nm03_sharpen": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _P],
     },
     "grow": {
         "nm03_region_grow": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _I, _I, _I,

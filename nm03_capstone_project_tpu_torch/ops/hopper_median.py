@@ -23,10 +23,20 @@ hold it against:
   plain ops do; see the source note in ``csrc/fused.cu``). Its persistent
   grid walks tiles whose shape :func:`fused_launch_shape` picks. For a
   window past MAX_WINDOW or a sharpen kernel past MAX_TAPS that function
-  picks the ``unfused`` route instead, before launch: the port's torch
-  ops for normalize, clip and sharpen around the median kernel, as the
-  JAX package runs XLA where no band fits. Its bits are the plain
-  composition's by construction.
+  picks the ``split`` route instead, before launch, where the JAX package
+  runs XLA because no band fits: two hand-written kernels and no torch op
+  between them. The median kernel of the window's route (``network``,
+  ``select`` or ``wide``) normalizes and clips every value where it reads
+  it (its prologue), then :func:`sharpen_filter_kernel` blurs and updates
+  the median image in one pass, with any odd number of taps. The same
+  bits as the plain composition;
+* :func:`sharpen_filter_kernel` — the unsharp sharpen alone, bit-identical
+  to :func:`.sharpen.sharpen`, over tiles that :func:`sharpen_launch_shape`
+  picks.
+
+Torch ops remain around a median kernel only where the caller asks for
+the stages apart (``PipelineConfig(fuse_preprocess=False)``): the plain
+normalize, clip and sharpen around :func:`vector_median_filter_kernel`.
 
 Each route is chosen from the shape and the config before launch, never
 after a kernel error, and named in a log line at its first use.
@@ -65,6 +75,7 @@ MAX_TILE_W = 256  # widest tile of the fused kernel
 BLUR_ROWS = 4  # rows the fused kernel's blur accumulates together
 SMEM_PER_BLOCK = 232448  # the H100's opt-in shared memory per block (227 KB)
 SELECT_ROWS, SELECT_COLS = 8, 32  # outputs of a select CTA (STH, STW in csrc/median.cu)
+SHARPEN_ROWS, SHARPEN_COLS = 32, 64  # a sharpen tile's outputs, where its staged tile fits
 WIDE_COLS, WIDE_THREADS = 32, 256  # a wide tile's output columns, a wide CTA's threads (WTW, WNT)
 
 
@@ -174,7 +185,7 @@ def median_launch_shape(b: int, h: int, w: int, k: int) -> MedianLaunch:
 
 
 class FusedLaunch(NamedTuple):
-    """The fused kernel's tiles, or the ``unfused`` route (all zero)."""
+    """The fused kernel's tiles, or the ``split`` route (all zero)."""
 
     tile_h: int
     tile_w: int
@@ -183,16 +194,16 @@ class FusedLaunch(NamedTuple):
 
     @property
     def route(self) -> str:
-        return "fused" if self.grid else "unfused"
+        return "fused" if self.grid else "split"
 
 
-UNFUSED = FusedLaunch(0, 0, 0, 0)
+SPLIT = FusedLaunch(0, 0, 0, 0)
 
 
 @functools.lru_cache(maxsize=None)
 def fused_launch_shape(b: int, h: int, w: int, k: int, ks: int, n_sm: int) -> FusedLaunch:
     """``(tile_h, tile_w, grid, shared bytes)`` of the fused kernel, or
-    :data:`UNFUSED` where the fused kernel does not take the config: a
+    :data:`SPLIT` where the fused kernel does not take the config: a
     window past MAX_WINDOW, a sharpen kernel past MAX_TAPS, or no tile
     that fits shared memory.
 
@@ -204,7 +215,7 @@ def fused_launch_shape(b: int, h: int, w: int, k: int, ks: int, n_sm: int) -> Fu
     mirrors ``Layout`` in ``csrc/fused.cu``.
     """
     if k not in FUSED_RUNS or ks % 2 != 1 or not 1 <= ks <= MAX_TAPS:
-        return UNFUSED
+        return SPLIT
     r, rs, runs = k // 2, ks // 2, FUSED_RUNS[k]
     n_c = -(-w // MAX_TILE_W)
     tw = -(-w // n_c)
@@ -226,9 +237,55 @@ def fused_launch_shape(b: int, h: int, w: int, k: int, ks: int, n_sm: int) -> Fu
         if best is None or cost < best[0]:
             best = (cost, th, min(tiles, n_sm))
     if best is None:
-        return UNFUSED
+        return SPLIT
     _, th, grid = best
     return FusedLaunch(th, tw, grid, smem(th))
+
+
+def sharpen_smem_bytes(ks: int, th: int, tw: int, staged: bool) -> int:
+    """Shared bytes of a sharpen CTA that holds V (the vertical pass: th
+    rows of tw + ks - 1) in shared memory (``sharpen_floats`` in
+    ``csrc/fused.cu``); ``staged``, also the ks taps and the staged median
+    tile (th + ks - 1 rows of tw + ks - 1: its outputs plus ks // 2 rows
+    and columns each side)."""
+    sw = tw + ks - 1
+    return 4 * ((ks + (th + ks - 1) * sw) * staged + th * sw)
+
+
+class SharpenLaunch(NamedTuple):
+    """How :func:`sharpen_filter_kernel` runs a batch."""
+
+    tile_h: int
+    tile_w: int
+    staged: bool  # the median tile, the taps and V in shared memory
+    grid: int  # CTAs, each walking every grid-th tile
+    smem: int  # shared bytes a CTA
+    scratch: int  # floats of the device scratch that holds V; 0 where V is shared
+
+
+MAX_GRID = 2**31 - 1  # a launch's largest x dimension
+
+
+@functools.lru_cache(maxsize=None)
+def sharpen_launch_shape(b: int, h: int, w: int, ks: int, n_sm: int) -> SharpenLaunch:
+    """The sharpen kernel's tiles and memory for a (b, h, w) batch and an
+    odd ks.
+
+    The first that fits a block's shared memory: SHARPEN_ROWS x
+    SHARPEN_COLS tiles with the median tile, the taps and V staged (up to
+    177 taps), one tile a CTA; else the rows of one pass only, V staged and
+    the median and the taps read through L1, the tile halved in height
+    until V fits; else one-row tiles with V in a device scratch, one CTA an
+    SM, each with its own V."""
+    tw = SHARPEN_COLS
+    heights = [SHARPEN_ROWS >> i for i in range(SHARPEN_ROWS.bit_length())]  # 32, 16, ..., 1
+    for th, staged in [(SHARPEN_ROWS, True)] + [(th, False) for th in heights]:
+        smem = sharpen_smem_bytes(ks, th, tw, staged)
+        if smem <= SMEM_PER_BLOCK:
+            tiles = b * -(-h // th) * -(-w // tw)
+            return SharpenLaunch(th, tw, staged, min(tiles, MAX_GRID), smem, 0)
+    grid = min(b * h * -(-w // tw), n_sm)
+    return SharpenLaunch(1, tw, False, grid, 0, grid * (tw + ks - 1))
 
 
 @functools.lru_cache(maxsize=None)
@@ -261,31 +318,61 @@ def _batched(x: torch.Tensor, what: str) -> torch.Tensor:
     return x.reshape(-1, x.shape[-2], x.shape[-1]).contiguous()
 
 
-def vector_median_filter_kernel(x: torch.Tensor, size: int = 7) -> torch.Tensor:
+class Prologue(NamedTuple):
+    """Normalize and clip, applied by a median kernel to every value it
+    reads (the ``*_pre`` entry points of ``csrc/median.cu``): the median of
+    ``clip_intensity(normalize(x, ...), clip_low, clip_high)``, bit for bit.
+    ``scale`` is :func:`.elementwise.normalize`'s, computed in double and
+    used as float32."""
+
+    norm_min: float
+    scale: float
+    norm_low: float
+    clip_low: float
+    clip_high: float
+
+    @classmethod
+    def of(cls, norm_low: float, norm_high: float, norm_min: float, norm_max: float,
+           clip_low: float, clip_high: float) -> "Prologue":
+        return cls(norm_min, (norm_high - norm_low) / (norm_max - norm_min), norm_low,
+                   clip_low, clip_high)
+
+
+def _entry(name: str, prologue):
+    """``(function, its name, arguments before the stream)``: the median
+    library's entry ``name``, or with a prologue its ``_pre`` twin, which
+    takes the prologue's five constants just before the stream."""
+    if prologue is not None:
+        name += "_pre"
+    return getattr(build.load("median"), name), name, tuple(prologue or ())
+
+
+def vector_median_filter_kernel(x: torch.Tensor, size: int = 7,
+                                prologue: Prologue | None = None) -> torch.Tensor:
     """The k x k clamp-to-edge median of a (..., H, W) CUDA tensor: the
     generated plan for k <= MAX_WINDOW, else
     :func:`vector_median_select_kernel` up to MAX_SELECT_WINDOW, else
-    :func:`vector_median_wide_kernel`."""
+    :func:`vector_median_wide_kernel`. With a ``prologue`` the kernel
+    normalizes and clips each value where it reads it."""
     _check_window(size)
     xb = _batched(x, "vector_median_filter_kernel")
     b, h, w = xb.shape
     shape = median_launch_shape(b, h, w, size)
     if shape.route == "select":
-        return vector_median_select_kernel(x, size)
+        return vector_median_select_kernel(x, size, prologue)
     if shape.route == "wide":
-        return vector_median_wide_kernel(x, size)
+        return vector_median_wide_kernel(x, size, prologue)
     out = torch.empty_like(xb)
     if xb.numel() == 0:
         return out.reshape(x.shape)
     if shape.launches > 1:
         _note_route("median", "network", f"{b} slices in {shape.launches} launches")
-    lib = build.load("median")
+    fn, name, pre = _entry("nm03_median_filter", prologue)
     stream = torch.cuda.current_stream(xb.device).cuda_stream
     for b0 in range(0, b, MAX_BATCH):
         nb = min(MAX_BATCH, b - b0)
-        err = lib.nm03_median_filter(xb[b0].data_ptr(), out[b0].data_ptr(), nb, h, w, size,
-                                     stream)
-        build.check(err, "nm03_median_filter")
+        err = fn(xb[b0].data_ptr(), out[b0].data_ptr(), nb, h, w, size, *pre, stream)
+        build.check(err, name)
         vector_median_filter_kernel.launches += 1
     return out.reshape(x.shape)
 
@@ -293,14 +380,15 @@ def vector_median_filter_kernel(x: torch.Tensor, size: int = 7) -> torch.Tensor:
 vector_median_filter_kernel.launches = 0
 
 
-def vector_median_select_kernel(x: torch.Tensor, size: int = 17) -> torch.Tensor:
+def vector_median_select_kernel(x: torch.Tensor, size: int = 17,
+                                prologue: Prologue | None = None) -> torch.Tensor:
     """The k x k clamp-to-edge median of a (..., H, W) CUDA tensor by exact
     selection (``csrc/median.cu``, ``nm03_median_select``): each CTA sorts
     its column segments once and bisects each window's keys with a binary
     search a segment (:func:`select_smem_bytes`). Any odd k up to
     MAX_SELECT_WINDOW, bit-identical to :func:`.median.vector_median_filter`
     (NaN and signed zeros as the source note there says). The route of
-    :func:`vector_median_filter_kernel` from k = 17."""
+    :func:`vector_median_filter_kernel` from k = 17; ``prologue`` as there."""
     _check_window(size)
     if size > MAX_SELECT_WINDOW:
         raise ValueError(f"the select kernel takes windows up to {MAX_SELECT_WINDOW} "
@@ -312,13 +400,13 @@ def vector_median_select_kernel(x: torch.Tensor, size: int = 17) -> torch.Tensor
     if xb.numel() == 0:
         return out.reshape(x.shape)
     _note_route("median", "select", f"k={size}, {shape.launches} launch(es) of {b} slices")
-    lib = build.load("median")
+    fn, name, pre = _entry("nm03_median_select", prologue)
     stream = torch.cuda.current_stream(xb.device).cuda_stream
     for b0 in range(0, b, MAX_BATCH):
         nb = min(MAX_BATCH, b - b0)
-        err = lib.nm03_median_select(xb.data_ptr(), out.data_ptr(), b0, nb, h, w, size,
-                                     MAX_SELECT_WINDOW, stream)
-        build.check(err, "nm03_median_select")
+        err = fn(xb.data_ptr(), out.data_ptr(), b0, nb, h, w, size, MAX_SELECT_WINDOW, *pre,
+                 stream)
+        build.check(err, name)
         vector_median_select_kernel.launches += 1
     return out.reshape(x.shape)
 
@@ -326,7 +414,8 @@ def vector_median_select_kernel(x: torch.Tensor, size: int = 17) -> torch.Tensor
 vector_median_select_kernel.launches = 0
 
 
-def vector_median_wide_kernel(x: torch.Tensor, size: int = 65) -> torch.Tensor:
+def vector_median_wide_kernel(x: torch.Tensor, size: int = 65,
+                              prologue: Prologue | None = None) -> torch.Tensor:
     """The k x k clamp-to-edge median of a (..., H, W) CUDA tensor by a
     bisection over sorted column segments (``csrc/median.cu``,
     ``nm03_median_wide``): each CTA walks a strip of 32 output columns down
@@ -337,7 +426,7 @@ def vector_median_wide_kernel(x: torch.Tensor, size: int = 65) -> torch.Tensor:
     else in a device scratch allocated here. Any odd k, bit-identical to
     :func:`.median.vector_median_filter` (NaN and signed zeros as for the
     select kernel). The route of :func:`vector_median_filter_kernel` past
-    MAX_SELECT_WINDOW."""
+    MAX_SELECT_WINDOW; ``prologue`` as there."""
     _check_window(size)
     xb = _batched(x, "vector_median_wide_kernel")
     b, h, w = xb.shape
@@ -352,19 +441,63 @@ def vector_median_wide_kernel(x: torch.Tensor, size: int = 65) -> torch.Tensor:
                 f"{shape.launches} launch(es) of {b} slices")
     scratch = (torch.empty(wl.scratch, dtype=torch.int32, device=xb.device) if wl.scratch
                else None)
-    lib = build.load("median")
+    fn, name, pre = _entry("nm03_median_wide", prologue)
     stream = torch.cuda.current_stream(xb.device).cuda_stream
     for b0 in range(0, b, MAX_BATCH):
         nb = min(MAX_BATCH, b - b0)
-        err = lib.nm03_median_wide(xb.data_ptr(), out.data_ptr(),
-                                   None if scratch is None else scratch.data_ptr(), b0, nb, h,
-                                   w, size, wl.rows, wl.grid, stream)
-        build.check(err, "nm03_median_wide")
+        err = fn(xb.data_ptr(), out.data_ptr(), None if scratch is None else scratch.data_ptr(),
+                 b0, nb, h, w, size, wl.rows, wl.grid, *pre, stream)
+        build.check(err, name)
         vector_median_wide_kernel.launches += 1
     return out.reshape(x.shape)
 
 
 vector_median_wide_kernel.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _device_taps(sigma: float, size: int, device: torch.device) -> torch.Tensor:
+    """:func:`.sharpen.gaussian_kernel_1d`'s float32 taps on ``device``,
+    copied once a (sigma, size, device): the first call on a device runs
+    eagerly (``serving/graphs.py`` warms before it captures), so a captured
+    graph reads a buffer that outlives it."""
+    # nm03-lint: disable=NM401 the sharpen's taps: a kernel constant copied once a device, not streamed input
+    return torch.from_numpy(gaussian_kernel_1d(sigma, size).copy()).to(device)
+
+
+def sharpen_filter_kernel(x: torch.Tensor, gain: float = 2.0, sigma: float = 0.5,
+                          size: int = 9) -> torch.Tensor:
+    """The unsharp sharpen of a (..., H, W) CUDA tensor (``csrc/fused.cu``,
+    ``nm03_sharpen``): ``x + gain * (x - blur(x))``, the gaussian blur of
+    ``size`` taps down the rows, then along them, clamp-to-edge; any odd
+    ``size``. Bit-identical to :func:`.sharpen.sharpen`. The second launch
+    of :func:`fused_preprocess_kernel`'s ``split`` route."""
+    if size % 2 != 1 or size < 1:
+        raise ValueError(f"sharpen kernel must be odd and positive, got {size}")
+    xb = _batched(x, "sharpen_filter_kernel")
+    b, h, w = xb.shape
+    out = torch.empty_like(xb)
+    if xb.numel() == 0:
+        return out.reshape(x.shape)
+    sl = sharpen_launch_shape(b, h, w, size, _sm_count(xb.device.index or 0))
+    if not sl.staged:
+        v_in = "a device scratch" if sl.scratch else "shared memory"
+        _note_route("sharpen", "rows", f"{size} taps over {h}x{w}: {sl.tile_h}-row tiles, the "
+                    f"median and the taps through L1, V in {v_in}")
+    taps = _device_taps(float(sigma), size, xb.device)
+    scratch = (torch.empty(sl.scratch, dtype=torch.float32, device=xb.device) if sl.scratch
+               else None)
+    err = build.load("fused").nm03_sharpen(
+        xb.data_ptr(), out.data_ptr(), taps.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), b, h, w, size, gain, sl.tile_h,
+        sl.tile_w, int(sl.staged), sl.grid,
+        torch.cuda.current_stream(xb.device).cuda_stream)
+    build.check(err, "nm03_sharpen")
+    sharpen_filter_kernel.launches += 1
+    return out.reshape(x.shape)
+
+
+sharpen_filter_kernel.launches = 0
 
 
 def fused_preprocess_kernel(
@@ -385,35 +518,35 @@ def fused_preprocess_kernel(
 
     ``x`` is the (..., H, W) float32 canvas on the GPU, already
     edge-extended for the true dims by the pipeline. Where
-    :func:`fused_launch_shape` picks the ``unfused`` route, the median
-    kernel runs between the torch ops of the plain composition.
+    :func:`fused_launch_shape` picks the ``split`` route, two kernels: the
+    window's median route with normalize and clip on load into one
+    ``torch.empty`` buffer, then :func:`sharpen_filter_kernel`.
     """
     _check_window(median_window)
     if sharpen_kernel % 2 != 1 or sharpen_kernel < 1:
         raise ValueError(f"sharpen kernel must be odd and positive, got {sharpen_kernel}")
     xb = _batched(x, "fused_preprocess_kernel")
     b, h, w = xb.shape
-    out = torch.empty_like(xb)
     if xb.numel() == 0:
-        return out.reshape(x.shape)
+        return torch.empty_like(xb).reshape(x.shape)
     th, tw, grid, _ = fused_launch_shape(
         b, h, w, median_window, sharpen_kernel, _sm_count(xb.device.index or 0))
+    pro = Prologue.of(norm_low, norm_high, norm_min, norm_max, clip_low, clip_high)
     if not grid:
-        _note_route("fused", "unfused",
-                    f"k={median_window}, {sharpen_kernel} sharpen taps: the median kernel "
-                    "between torch normalize, clip and sharpen")
-        out = clip_intensity(normalize(x, norm_low, norm_high, norm_min, norm_max),
-                             clip_low, clip_high)
-        out = vector_median_filter_kernel(out, median_window)
-        return sharpen(out, sharpen_gain, sharpen_sigma, sharpen_kernel)
+        route = median_launch_shape(b, h, w, median_window).route
+        _note_route("fused", "split",
+                    f"k={median_window}, {sharpen_kernel} sharpen taps: the {route} median "
+                    "with normalize and clip on load, then the sharpen kernel")
+        med = vector_median_filter_kernel(xb, median_window, pro)
+        return sharpen_filter_kernel(med, sharpen_gain, sharpen_sigma,
+                                     sharpen_kernel).reshape(x.shape)
+    out = torch.empty_like(xb)
     taps = gaussian_kernel_1d(sharpen_sigma, sharpen_kernel)
     c_taps = (ctypes.c_float * len(taps))(*[float(t) for t in taps])
-    scale = (norm_high - norm_low) / (norm_max - norm_min)
     lib = build.load("fused")
     stream = torch.cuda.current_stream(xb.device).cuda_stream
     err = lib.nm03_fused_preprocess(
-        xb.data_ptr(), out.data_ptr(), b, h, w, median_window,
-        norm_min, scale, norm_low, clip_low, clip_high, sharpen_gain,
+        xb.data_ptr(), out.data_ptr(), b, h, w, median_window, *pro, sharpen_gain,
         ctypes.cast(c_taps, ctypes.c_void_p), len(taps), th, tw, grid, stream,
     )
     build.check(err, "nm03_fused_preprocess")

@@ -4,7 +4,9 @@ Each wrapper counts its own launches in ``.launches``; the drivers'
 results JSON (``kernel_launches``) and the serving graphs report them by
 these names. ``median_select`` and ``median_wide`` are the routes of the
 median wrapper past the generated plans and past the select kernel's
-planes, ``grow_global`` the grow wrapper's past one cluster.
+planes, ``grow_global`` the grow wrapper's past one cluster. ``sharpen``
+is the second launch of the fused wrapper's ``split`` route (the first is
+the window's median route, counted under its own name).
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ KERNELS = {
     "median_select": hm.vector_median_select_kernel,
     "median_wide": hm.vector_median_wide_kernel,
     "grow_global": hg.region_grow_global_kernel,
+    "sharpen": hm.sharpen_filter_kernel,
 }
 
 

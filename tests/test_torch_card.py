@@ -404,8 +404,9 @@ def test_process_volume_kernels_equal_plain(cuda, fuse, alg):
 @pytest.mark.parametrize("fuse", [True, False])
 def test_process_volume_takes_the_wide_route(cuda, fuse):
     # k = 65: the volume path's preprocess reaches the wide median kernel,
-    # once over the study's planes, through the unfused route or the median
-    # dispatch, with no code of its own; masks equal to the plain ops
+    # once over the study's planes, through the split route (then the
+    # sharpen kernel) or the median dispatch, with no code of its own;
+    # masks equal to the plain ops
     from nm03_capstone_project_tpu_torch.pipeline import process_volume
 
     # lesions wide enough to outlive a 65 x 65 median (over 65 * 65 / 2 pixels)
@@ -620,13 +621,127 @@ def test_median_select_signed_zeros_and_nan(cuda):
         assert bool((torch.signbit(want) & (want == 0)).any()) and bool(torch.isnan(want).any())
 
 
-@pytest.mark.parametrize("k,ks", [(17, 9), (7, 33), (31, 35), (65, 9)])
-def test_fused_unfused_route(cuda, k, ks):
+def _median_route(k):
+    return (hm.vector_median_filter_kernel if k <= hm.MAX_WINDOW else
+            hm.vector_median_select_kernel if k <= hm.MAX_SELECT_WINDOW else
+            hm.vector_median_wide_kernel)
+
+
+@pytest.mark.parametrize("k,ks", [(17, 9), (7, 33), (31, 35), (65, 9), (15, 65), (127, 33)])
+def test_fused_split_route(cuda, k, ks):
+    # two launches and no torch op: the window's median with normalize and
+    # clip on load, then the sharpen kernel
     x = (torch.rand(3, 251, 241) * 9000).to(cuda)
     kw = dict(PRE, median_window=k, sharpen_kernel=ks)
-    fused = hm.fused_preprocess_kernel.launches
+    counters = (hm.fused_preprocess_kernel, _median_route(k), hm.sharpen_filter_kernel)
+    before = [fn.launches for fn in counters]
     assert _same_bits(hm.fused_preprocess_kernel(x, **kw), hm._fused_preprocess_plain(x, **kw))
-    assert hm.fused_preprocess_kernel.launches == fused  # no fused launch: the unfused route
+    assert [fn.launches - b for fn, b in zip(counters, before)] == [0, 1, 1]
+
+
+@pytest.mark.parametrize("ks", range(1, 66, 2))
+def test_sharpen_kernel_taps(cuda, ks):
+    # odd canvases, and one shorter than the sharpen's halo on both sides
+    from nm03_capstone_project_tpu_torch.ops.sharpen import sharpen
+
+    g = torch.Generator().manual_seed(ks)
+    for shape in [(3, 251, 241), (2, 37, 300), (2, 5, 7), (1, 1, 1)]:
+        x = (torch.rand(shape, generator=g) * 4000 + 0.68).to(cuda)
+        before = hm.sharpen_filter_kernel.launches
+        got = hm.sharpen_filter_kernel(x, 2.0, 0.5, ks)
+        assert _same_bits(got, sharpen(x, 2.0, 0.5, ks)), shape
+        assert hm.sharpen_filter_kernel.launches == before + 1
+
+
+@pytest.mark.parametrize("ks", [177, 179, 257, 1025])
+def test_sharpen_kernel_past_the_staged_tile(cuda, ks):
+    # past 177 taps: the rows of one pass staged, the median read through L1
+    from nm03_capstone_project_tpu_torch.ops.sharpen import sharpen
+
+    x = (torch.rand(2, 256, 256, generator=torch.Generator().manual_seed(ks)) * 4000).to(cuda)
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert hm.sharpen_launch_shape(2, 256, 256, ks, n_sm).staged == (ks <= 177)
+    assert _same_bits(hm.sharpen_filter_kernel(x, 2.0, 0.5, ks), sharpen(x, 2.0, 0.5, ks))
+
+
+@pytest.mark.parametrize("ks,shape,tile_h,scratch", [
+    (5001, (2, 37, 70), 8, False),  # V of 8-row tiles in shared memory
+    (58201, (2, 3, 70), 1, True),  # one row of V a CTA in a device scratch
+])
+def test_sharpen_kernel_short_tiles_and_scratch(cuda, ks, shape, tile_h, scratch):
+    from nm03_capstone_project_tpu_torch.ops.sharpen import sharpen
+
+    x = (torch.rand(shape, generator=torch.Generator().manual_seed(ks)) * 4000).to(cuda)
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    sl = hm.sharpen_launch_shape(*shape, ks, n_sm)
+    assert (sl.staged, sl.tile_h, bool(sl.scratch)) == (False, tile_h, scratch)
+    before = hm.sharpen_filter_kernel.launches
+    assert _same_bits(hm.sharpen_filter_kernel(x, 2.0, 0.5, ks), sharpen(x, 2.0, 0.5, ks))
+    assert hm.sharpen_filter_kernel.launches == before + 1
+
+
+def _prologue_case(k):
+    """NaNs, infinities, signed zeros and ±1 that survive normalize (a low
+    end of -0.0) and a clip around 0, so the median meets -0.0 and +0.0."""
+    rng = np.random.default_rng(k)
+    z = rng.choice(np.array([-0.0, 0.0, 1000.0, -1000.0, 5000.0], np.float32),
+                   size=(4, 48, 80), p=[0.3, 0.3, 0.15, 0.15, 0.1])
+    z[0, 5, 5] = np.float32("nan")
+    z[1, 30, 60] = np.float32("inf")
+    z[2, 7, 70] = np.float32("-inf")
+    kw = dict(norm_low=-0.0, norm_high=2.0, norm_min=0.0, norm_max=4000.0, clip_low=-1.0,
+              clip_high=1.0)
+    return torch.from_numpy(z), kw
+
+
+@pytest.mark.parametrize("k", [17, 65])
+def test_the_median_prologue_with_nans_and_signed_zeros(cuda, k):
+    from nm03_capstone_project_tpu_torch.ops.elementwise import clip_intensity, normalize
+
+    z, kw = _prologue_case(k)
+    z = z.to(cuda)
+    pro = hm.Prologue.of(**kw)
+    want = vector_median_filter(clip_intensity(
+        normalize(z, kw["norm_low"], kw["norm_high"], kw["norm_min"], kw["norm_max"]),
+        kw["clip_low"], kw["clip_high"]), k)
+    before = _median_route(k).launches
+    got = hm.vector_median_filter_kernel(z, k, pro)
+    assert _median_route(k).launches == before + 1
+    assert _same_bits(got, want)
+    zero = want == 0
+    assert bool((zero & torch.signbit(want)).any()) and bool((zero & ~torch.signbit(want)).any())
+    assert bool(torch.isnan(want).any())
+    # the whole route over the same input: NaN spreads through the blur
+    # the same way in both
+    full = dict(PRE, **kw, median_window=k)
+    assert _same_bits(hm.fused_preprocess_kernel(z, **full), hm._fused_preprocess_plain(z, **full))
+
+
+@pytest.mark.parametrize("k,ks", [(17, 9), (65, 9), (7, 33)])
+def test_split_replays_in_a_cuda_graph(cuda, k, ks):
+    # the split route captured after one eager call on the capture stream
+    # (the taps' device buffer and the kernels' attributes), its median
+    # buffer from the graph's pool, replayed on new inputs bitwise
+    kw = dict(PRE, median_window=k, sharpen_kernel=ks)
+    g = torch.Generator(device="cpu").manual_seed(k + ks)
+    static = (torch.rand(2, 256, 256, generator=g) * 9000).to(cuda)
+    stream = torch.cuda.Stream(cuda)
+    stream.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(stream):
+        hm.fused_preprocess_kernel(static, **kw)
+    torch.cuda.current_stream(cuda).wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    counters = (_median_route(k), hm.sharpen_filter_kernel)
+    before = [fn.launches for fn in counters]
+    with torch.cuda.graph(graph, stream=stream):
+        out = hm.fused_preprocess_kernel(static, **kw)
+    assert [fn.launches - b for fn, b in zip(counters, before)] == [1, 1]
+    for rnd in range(2):
+        new = (torch.rand(2, 256, 256, generator=g) * 9000).to(cuda)
+        static.copy_(new)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert _same_bits(out, hm._fused_preprocess_plain(new, **kw)), rnd
 
 
 @pytest.mark.parametrize("hw", [(2304, 2304), (1024, 4096), (512, 8192), (16385, 2304),
@@ -890,13 +1005,13 @@ def _phantom_batch(b, canvas, seed):
 
 @pytest.mark.parametrize("canvas,k,held", [
     (3072, 7, {"fused": 1, "grow_global": 1}),
-    (3072, 17, {"median_select": 1, "grow_global": 1}),
-    (256, 65, {"median_wide": 1, "grow": 1}),
+    (3072, 17, {"median_select": 1, "sharpen": 1, "grow_global": 1}),
+    (256, 65, {"median_wide": 1, "sharpen": 1, "grow": 1}),
 ])
 def test_bucket_graphs_hold_every_route(cuda, canvas, k, held):
     # the global grow (a cooperative launch, its scratch zeroed inside the
-    # graph), the select and the wide median between the unfused route's
-    # torch ops, captured and replayed twice on new inputs: each replay
+    # graph), the split route's select and wide median (normalize and clip
+    # on load) and its sharpen kernel, captured and replayed twice on new inputs: each replay
     # bitwise equal to eager _process with the kernels and to the plain ops
     from nm03_capstone_project_tpu_torch.pipeline.slice_pipeline import _process
     from nm03_capstone_project_tpu_torch.serving.graphs import BucketGraph

@@ -9,8 +9,9 @@ config before launch (``ops/hopper_median.py``,
 * the median from k = 17 by exact selection (``select``) and past
   MAX_SELECT_WINDOW by the same selection over sorted column segments kept
   down a strip of rows (``wide``),
-  the fused preprocess past its plans or taps by the median kernel between
-  torch ops (``unfused``), grow past one cluster's shared memory with the
+  the fused preprocess past its plans or taps by the median kernel with
+  normalize and clip on load, then the sharpen kernel (``split``; its
+  schedule: ``tests/test_torch_split.py``), grow past one cluster's shared memory with the
   region in global memory (``global``), at any slice size;
 * the launch-shape functions name the route for every size and window of
   the envelope and never raise a KeyError;
@@ -83,11 +84,11 @@ def test_wide_windows_take_the_select_and_unfused_routes(k):
         med = hm.median_launch_shape(b, h, w, k)
         assert med == ("select", -(-b // hm.MAX_BATCH))
         fused = hm.fused_launch_shape(b, h, w, k, 9, N_SM)
-        assert fused == hm.UNFUSED and fused.route == "unfused"
+        assert fused == hm.SPLIT and fused.route == "split"
 
 
 def test_a_long_sharpen_takes_the_unfused_route():
-    assert hm.fused_launch_shape(25, 256, 256, 7, 33, N_SM).route == "unfused"
+    assert hm.fused_launch_shape(25, 256, 256, 7, 33, N_SM).route == "split"
     assert hm.fused_launch_shape(25, 256, 256, 7, 31, N_SM).route == "fused"
     # the main path's tiles are what they were
     assert hm.fused_launch_shape(25, 256, 256, 7, 9, N_SM) == (52, 256, 125, 134196)
@@ -97,7 +98,7 @@ def test_a_long_sharpen_takes_the_unfused_route():
 def test_no_window_or_sharpen_length_raises_a_key_error(k):
     for ks in range(1, 66, 2):
         route = hm.fused_launch_shape(3, 97, 300, k, ks, N_SM).route
-        assert route == ("fused" if k <= hm.MAX_WINDOW and ks <= hm.MAX_TAPS else "unfused")
+        assert route == ("fused" if k <= hm.MAX_WINDOW and ks <= hm.MAX_TAPS else "split")
     want = "network" if k <= hm.MAX_WINDOW else "select"
     assert hm.median_launch_shape(3, 97, 300, k).route == want
 
@@ -106,7 +107,7 @@ def test_no_window_or_sharpen_length_raises_a_key_error(k):
 def test_windows_past_the_select_take_the_wide_route(k):
     for b, h, w in [(2, 256, 256), (1, 64, 64), (70000, 16, 16)]:
         assert hm.median_launch_shape(b, h, w, k) == ("wide", -(-b // hm.MAX_BATCH))
-        assert hm.fused_launch_shape(b, h, w, k, 9, N_SM) == hm.UNFUSED
+        assert hm.fused_launch_shape(b, h, w, k, 9, N_SM) == hm.SPLIT
     # the CTA's k sorted segments of its strip's 32 + k - 1 columns (a plane
     # rounded up to 32 words) sit in shared memory where they fit a block:
     # up to k = 225 (230,400 bytes), in a device scratch past that
@@ -156,7 +157,9 @@ class _Fn:
 class _Lib:
     def __init__(self, calls):
         for fn in ("nm03_median_filter", "nm03_median_select", "nm03_median_wide",
-                   "nm03_fused_preprocess", "nm03_region_grow", "nm03_region_grow_global"):
+                   "nm03_median_filter_pre", "nm03_median_select_pre", "nm03_median_wide_pre",
+                   "nm03_fused_preprocess", "nm03_sharpen", "nm03_region_grow",
+                   "nm03_region_grow_global"):
             setattr(self, fn, _Fn(calls, fn))
 
 
@@ -185,8 +188,8 @@ def stand_in_card(monkeypatch, caplog):
     monkeypatch.setattr(logger, "propagate", True)
     caplog.set_level(logging.INFO, logger="nm03_torch")
     for fn in (hm.vector_median_filter_kernel, hm.vector_median_select_kernel,
-               hm.vector_median_wide_kernel, hm.fused_preprocess_kernel, hg.region_grow_kernel,
-               hg.region_grow_global_kernel):
+               hm.vector_median_wide_kernel, hm.fused_preprocess_kernel,
+               hm.sharpen_filter_kernel, hg.region_grow_kernel, hg.region_grow_global_kernel):
         monkeypatch.setattr(fn, "launches", 0)
     return calls
 
@@ -246,13 +249,16 @@ def test_the_unfused_route_runs_the_median_kernel_between_torch_ops(stand_in_car
                                                                     k, ks):
     x = torch.rand(2, 30, 40) * 9000
     hm.fused_preprocess_kernel(x, median_window=k, sharpen_kernel=ks)
-    want = ("nm03_median_filter" if k <= hm.MAX_WINDOW else
-            "nm03_median_select" if k <= hm.MAX_SELECT_WINDOW else "nm03_median_wide")
-    assert [c[0] for c in stand_in_card] == [want]
+    route = ("network" if k <= hm.MAX_WINDOW else
+             "select" if k <= hm.MAX_SELECT_WINDOW else "wide")
+    want = {"network": "nm03_median_filter_pre", "select": "nm03_median_select_pre",
+            "wide": "nm03_median_wide_pre"}[route]
+    assert [c[0] for c in stand_in_card] == [want, "nm03_sharpen"]
     assert hm.fused_preprocess_kernel.launches == 0
+    assert hm.sharpen_filter_kernel.launches == 1
     assert _routes(caplog)[0] == (
-        f"fused: route unfused (k={k}, {ks} sharpen taps: the median kernel between "
-        "torch normalize, clip and sharpen)")
+        f"fused: route split (k={k}, {ks} sharpen taps: the {route} median with normalize "
+        "and clip on load, then the sharpen kernel)")
 
 
 def test_the_fused_route_is_untouched(stand_in_card, caplog):

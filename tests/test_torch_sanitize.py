@@ -191,7 +191,8 @@ class TestRecompileWatchdog:
         monkeypatch.setattr(build, "_RECORDS", {})  # this load's record stays here
         (tmp_path / "libfused.so").write_bytes(b"")
         monkeypatch.setattr(build.ctypes, "CDLL", lambda path: type("L", (), {
-            "nm03_fused_preprocess": type("F", (), {})()})())
+            "nm03_fused_preprocess": type("F", (), {})(),
+            "nm03_sharpen": type("F", (), {})()})())
         st = sanitize.enable()
         try:
             sanitize.mark_warm()

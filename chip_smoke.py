@@ -362,7 +362,9 @@ toolkit. Phases, each printing one JSON line:
    signed zeros, negatives and NaNs of both signs at 223 and 227; the
    fused stage's ``split`` route (the median with normalize and clip on
    load, then the sharpen kernel: two launches a call) at k = 17, 65 and
-   a 33-tap sharpen, and the sharpen kernel alone at 9 and 33 taps; the
+   a 33-tap sharpen, and the sharpen kernel alone at 9 and 33 taps (its
+   device time and floor at both, on the canvas-3072 ``process_batch``'s
+   median image, and the earlier staged design beside it at 9 taps); the
    grow's ``global`` route on two phantoms at 2304², 3072², 4096², 1024 x
    4096, 16,385 x 2,304, 2,304 x 16,385 and 20,000² (past the old side
    limit) and 8192² (past the resident tiles), mask, ``converged`` and
@@ -427,6 +429,7 @@ import base64
 import hashlib
 import itertools
 import json
+import math
 import os
 import platform
 import re
@@ -715,7 +718,8 @@ def ptxas_report(log: str) -> dict:
         m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
         if m:
             k = re.search(r"(band_kernel|fused_kernel|grow_kernel|grow_global_kernel|"
-                          r"select_kernel|wide_kernel)(I(?:L[ib]\d+E)+E)?", m.group(1))
+                          r"select_kernel|wide_kernel|windowed_sharpen_kernel|sharpen_kernel)"
+                          r"(I(?:L[ib]\d+E)+E)?", m.group(1))
             name = None if k is None else k.group(1) + (
                 "<%s>" % ",".join(re.findall(r"\d+", k.group(2))) if k.group(2) else "")
             continue
@@ -4701,11 +4705,14 @@ def envelope_device_times(median_x, fused_x, pre_kw: dict) -> dict:
     select at each ENVELOPE_WINDOWS on the main batch and at
     MAX_SELECT_WINDOW, the wide route at k = 65, the split route at k = 17
     (its select and sharpen kernels, summed a call) and the sharpen kernel
-    alone on its median image, and the global grow at 4096 x 4096 and
+    alone on its median image at 9 and 33 taps and, at 9, the earlier design
+    (:func:`sharpen_earlier_design`) and on the canvas-3072
+    ``process_batch``'s median image, and the global grow at 4096 x 4096 and
     20,000 x 20,000."""
     from nm03_capstone_project_tpu_torch.config import PipelineConfig
     from nm03_capstone_project_tpu_torch.ops import hopper_median as hm
     from nm03_capstone_project_tpu_torch.ops import hopper_region_growing as hg
+    from nm03_capstone_project_tpu_torch.ops.neighborhood import extend_edges
 
     t0 = time.perf_counter()
     sel, gg = hm.vector_median_select_kernel, hg.region_grow_global_kernel
@@ -4724,10 +4731,22 @@ def envelope_device_times(median_x, fused_x, pre_kw: dict) -> dict:
     times["split"] = device_ms(lambda: hm.fused_preprocess_kernel(fused_x, **kw),
                                ("select_kernel", "sharpen_kernel"), shp, repeats=5)
     med = split_median(fused_x, kw)
-    times["sharpen"] = device_ms(lambda: shp(med, kw["sharpen_gain"], kw["sharpen_sigma"],
-                                             kw["sharpen_kernel"]), "sharpen_kernel", shp,
-                                 repeats=5)
+    for row, ks in (("sharpen", kw["sharpen_kernel"]), ("sharpen_33", ENVELOPE_TAPS)):
+        times[row] = device_ms(lambda: shp(med, kw["sharpen_gain"], kw["sharpen_sigma"], ks),
+                               "sharpen_kernel", shp, repeats=5)
+    earlier = sharpen_earlier_design(med, kw)
+    times["sharpen_earlier"] = device_ms(earlier, "sharpen_kernel", earlier, repeats=5)
     del med
+    # the canvas-3072 process_batch's median image (envelope_phase's inputs)
+    c, k = ENVELOPE_PIPELINE
+    bt = envelope_phantoms(c, c, 30)
+    ckw = preprocess_kwargs(PipelineConfig(canvas=c, median_window=k))
+    big = split_median(extend_edges(bt.pixels, bt.dims), ckw)
+    times["sharpen_3072"] = device_ms(lambda: shp(big, ckw["sharpen_gain"], ckw["sharpen_sigma"],
+                                                  ckw["sharpen_kernel"]), "sharpen_kernel", shp,
+                                      repeats=5)
+    times["sharpen_3072_shape"] = list(big.shape)
+    del big, bt
     cfg = PipelineConfig(canvas=256)
     for name, (img, seeds, valid), repeats in (
             ("grow_4096", envelope_grow_inputs(envelope_phantoms(4096, 4096, 10), pre_kw), 5),
@@ -4738,6 +4757,33 @@ def envelope_device_times(median_x, fused_x, pre_kw: dict) -> dict:
                                 "grow_global_kernel", gg, repeats=repeats)
     times["seconds"] = time.perf_counter() - t0
     return times
+
+
+def sharpen_earlier_design(med, kw: dict):
+    """One launch of the earlier sharpen design on ``med`` at the main path's
+    taps: ``nm03_sharpen``'s staged plan (32 x 64 tiles, one tile a CTA),
+    which the wrapper runs only past the windowed plan's taps. A callable
+    that counts its own launches (``.launches``) and no wrapper's."""
+    from nm03_capstone_project_tpu_torch.kernels import build
+    from nm03_capstone_project_tpu_torch.ops import hopper_median as hm
+
+    b, h, w = med.shape
+    ks, rows, cols = kw["sharpen_kernel"], hm.SHARPEN_ROWS, hm.SHARPEN_COLS
+    out = torch.empty_like(med)
+    taps = hm._device_taps(float(kw["sharpen_sigma"]), ks, med.device)
+    tiles = b * -(-h // rows) * -(-w // cols)
+
+    def launch():
+        err = build.load("fused").nm03_sharpen(
+            med.data_ptr(), out.data_ptr(), taps.data_ptr(), None, b, h, w, ks,
+            kw["sharpen_gain"], rows, cols, hm.PLANS.index("staged"), tiles,
+            torch.cuda.current_stream().cuda_stream)
+        build.check(err, "nm03_sharpen (staged)")
+        launch.launches += 1
+        return out
+
+    launch.launches = 0
+    return launch
 
 
 def split_median(fused_x, kw: dict):
@@ -5059,25 +5105,44 @@ def envelope_phase(median_x, fused_x, pre_kw: dict, smi: str, kernels: dict, res
                            "profiler_missed": f_missed, "bound_ms": b_ms, "bound_by": b_by,
                            "first_design_bound_ms": f_bound}
     # the sharpen's floor: one read of the median image, one write (8 bytes
-    # an output), against two ks-tap passes and the update
-    s_bound = bound(8 * n, {"add_mul": (2 * (2 * ks - 1) + 3) * n})
+    # an output), against two ks-tap passes and the update (4 ks + 1
+    # operations an output)
+    def sharpen_bound(outputs: int, taps: int):
+        return bound(8 * outputs, {"add_mul": (2 * (2 * taps - 1) + 3) * outputs})
+
+    s_bound = sharpen_bound(n, ks)
     s_ms = cuda_ms(lambda: shp(med_img, kw["sharpen_gain"], kw["sharpen_sigma"], ks), repeats=5)
     s_plain = cuda_ms(lambda: sharpen(med_img, kw["sharpen_gain"], kw["sharpen_sigma"], ks),
                       repeats=5)
     s_dev, s_by, s_missed = times["sharpen"]
+    e_dev, e_by, _ = times["sharpen_earlier"]
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def plan(shape, taps):
+        return hm.sharpen_launch_shape(*shape, taps, n_sm)._asdict()
+
     results["sharpen"] = dict(max_abs_err=0.0, ms=s_ms, device_ms=s_dev, device_ms_by=s_by,
                               plain_ms=s_plain, bound_ms=s_bound[0], bound_by=s_bound[1],
-                              library_ms=None)
-    line["sharpen"] = {"bitwise": True, "cases": sharpen_cases,
-                       "timed": f"{ks} taps on {list(med_img.shape)}", "ms": s_ms,
-                       "plain_ms": s_plain, "device_ms": s_dev, "device_ms_by": s_by,
-                       "profiler_missed": s_missed, "bound_ms": s_bound[0],
-                       "bound_by": s_bound[1],
-                       "launch_shape": hm.sharpen_launch_shape(*med_img.shape, ks, n_sm)._asdict(),
-                       "ms_at_33_taps": cuda_ms(lambda: shp(med_img, kw["sharpen_gain"],
-                                                            kw["sharpen_sigma"], ENVELOPE_TAPS),
-                                                repeats=5)}
+                              library_ms=None, earlier_design_device_ms=e_dev)
+    at33, big = times["sharpen_33"], times["sharpen_3072_shape"]
+    b33, b3072 = sharpen_bound(n, ENVELOPE_TAPS), sharpen_bound(math.prod(big), ks)
+    line["sharpen"] = {
+        "bitwise": True, "cases": sharpen_cases,
+        "timed": f"{ks} taps on {list(med_img.shape)}", "ms": s_ms,
+        "plain_ms": s_plain, "device_ms": s_dev, "device_ms_by": s_by,
+        "profiler_missed": s_missed, "bound_ms": s_bound[0], "bound_by": s_bound[1],
+        "launch_shape": plan(med_img.shape, ks),
+        "earlier_design": {"of": "the staged plan, 32 x 64 tiles, one tile a CTA",
+                           "device_ms": e_dev, "device_ms_by": e_by},
+        "at_33_taps": {"device_ms": at33[0], "device_ms_by": at33[1], "bound_ms": b33[0],
+                       "bound_by": b33[1], "launch_shape": plan(med_img.shape, ENVELOPE_TAPS),
+                       "ms": cuda_ms(lambda: shp(med_img, kw["sharpen_gain"],
+                                                 kw["sharpen_sigma"], ENVELOPE_TAPS),
+                                     repeats=5)},
+        "canvas3072": {"timed": f"{ks} taps on {big}, the canvas-3072 process_batch's median "
+                                "image", "device_ms": times["sharpen_3072"][0],
+                       "device_ms_by": times["sharpen_3072"][1], "bound_ms": b3072[0],
+                       "bound_by": b3072[1], "launch_shape": plan(big, ks)}}
     del med_img, rand_f
 
     step("fused_split")
@@ -5831,7 +5896,8 @@ def main() -> int:
             "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
-            **{b: r[b] for b in ("own_design_bound_ms", "first_design_bound_ms") if b in r},
+            **{b: r[b] for b in ("own_design_bound_ms", "first_design_bound_ms",
+                                 "earlier_design_device_ms") if b in r},
         })
     emit({"phase": "script", "seconds": round(time.perf_counter() - _SCRIPT_T0, 3),
           "nvidia_smi": smi})

@@ -51,26 +51,52 @@
 // _fused_band_kernel (ops/pallas_median.py:165), which the JAX package
 // runs as XLA ops where no band fits VMEM.
 //
-// Design. Each CTA takes tiles of TH x TW outputs. It stages the median
-// tile plus rs = ks / 2 rows and columns each side in shared memory, each
-// read at its canvas-clamped index, which is the plain version's edge pad
-// on both passes (the horizontal pass pads the vertical result, and the
-// vertical result at a clamped column is the blur of the clamped column),
-// so neither pass clamps an index. The vertical pass fills V (the tile's
-// rows over its staged columns), then the horizontal pass and c + gain *
-// (c - blur); a thread sums BLUR_ROWS rows of one column at once, one
-// shared load of a tap for the four. Each pass sums its taps in the plain
-// order (acc = t0 x0, then acc + ti xi), every product and sum rounded on
-// its own, as fused_kernel does. The taps come from a device buffer into
-// shared memory. Where the staged tile does not fit a block (past 177
-// taps at 32 x 64 tiles), the kernel stages only V, the rows of one pass,
-// and the vertical pass reads the median through L1 at clamped indices;
-// the wrapper shortens the tile until V fits, reads the taps from their
-// buffer where they do not fit beside it, and past that keeps V in a
-// device scratch of its own (a sharpen longer than a block's shared
-// memory holds twice). Bound on the H100: bytes, one read of the median
-// and one write of the output (8 bytes an output), against 4 ks + 3
-// operations an output.
+// Design (up to 33 taps, windowed_sharpen_kernel<KS>, one instantiation
+// an odd KS: windowed_kernel's switch, WIN_MAX_TAPS in the wrapper). Each
+// CTA takes tiles of TH x TW outputs (one tile a CTA as the wrapper
+// launches it). It stages the median tile plus
+// rs = KS / 2 rows each side and RSP = rs rounded up to 4 columns each
+// side, so its rows are whole 16-byte chunks, with cp.async: a chunk
+// inside the canvas goes as one 16-byte copy where the rows start 16-byte
+// aligned (W % 4 == 0 and an aligned base), any other chunk as four 4-byte
+// copies from canvas-clamped columns, and every row from its
+// canvas-clamped row. That is the plain version's edge pad on both passes
+// (the horizontal pass pads the vertical result, and the vertical result
+// at a clamped column is the blur of the clamped column), so no index is
+// clamped after staging and nothing is fixed up after a copy lands. The
+// vertical pass is a register window: a thread takes one column and
+// WIN_SEG rows of V and reads each staged row once (KS + WIN_SEG - 1
+// shared loads for WIN_SEG outputs, against KS each); the taps sit in
+// registers. The horizontal pass takes four adjacent outputs a thread from
+// 16-byte reads of V (KS + 3 values in (KS + 6) / 4 loads, against 4 KS)
+// and writes them with one 16-byte store where the row is aligned. A tile
+// is computed whole (rows and columns past the canvas read clamped values)
+// and only its outputs on the canvas are stored. Each pass sums its taps
+// in the plain order (acc = t0 x0, then acc + ti xi), every product and
+// sum rounded on its own. On the card (scripts/torch_kernel_probe.py
+// sharpen) cp.async staging beats 16-byte loads through registers, and one
+// staged tile a CTA with the hardware scheduling CTAs beats two staged
+// tiles a CTA on a persistent grid that copies its next tile in while it
+// blurs one: the second tile's shared memory costs more CTAs an SM than
+// the overlap gains. The staging and stores alone take about twice a
+// plain copy of the same bytes at the main batch's size, and a tile's
+// loads are not hidden behind another tile's blur.
+
+// Past 33 taps (sharpen_kernel<STAGED>, the general loop): each CTA takes
+// tiles of TH x TW outputs and stages the median tile plus rs rows and
+// columns each side at canvas-clamped indices; the vertical pass fills V,
+// then the horizontal pass and c + gain * (c - blur); a thread sums
+// BLUR_ROWS rows of one column at once, one shared load of a tap for the
+// four. Where the staged tile does not fit a block (past 177 taps at 32 x
+// 64 tiles), the kernel stages only V, the rows of one pass, and the
+// vertical pass reads the median through L1 at clamped indices; the
+// wrapper shortens the tile until V fits, reads the taps from their buffer
+// where they do not fit beside it, and past that keeps V in a device
+// scratch of its own (a sharpen longer than a block's shared memory holds
+// twice). The taps come from a device buffer in every plan. Bound on the
+// H100: bytes, one read of the median and one write of the output (8
+// bytes an output), against 4 ks + 1 operations an output, which pass the
+// bytes from 21 taps on (133 operations an output at 33).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -401,6 +427,204 @@ cudaError_t launch_sharpen(const float* m, float* out, const float* taps, float*
   return cudaGetLastError();
 }
 
+
+constexpr int WIN_SEG = 8;  // rows of V a thread's vertical window fills
+
+// cp.async: a copy from global to shared memory that the thread does not
+// wait on; the copies a thread committed complete together at the wait.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)), "l"(src));
+}
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)), "l"(src));
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
+// The layout of a windowed CTA, the wrapper's sharpen_smem_bytes("windowed")
+// / 4: the staged tile, srows x ss (staged column j is canvas column x0 -
+// rsp + j, row i canvas row y0 - rs + i), then V, TH rows of vs (V column c
+// is canvas column x0 - rs + c; the columns from TW + ks - 1 on are read by
+// the horizontal pass's last 16-byte loads and never summed).
+struct WinLayout {
+  int rsp, ss, vs, srows;
+  __host__ __device__ WinLayout(int ks, int TH, int TW)
+      : rsp((ks / 2 + 3) & ~3),
+        ss(TW + 2 * ((ks / 2 + 3) & ~3)),
+        vs(TW - 4 + 4 * ((ks + 6) / 4)),
+        srows(TH + ks - 1) {}
+  __host__ __device__ size_t floats(int TH) const { return (size_t)srows * ss + (size_t)TH * vs; }
+};
+
+template <int KS>
+__global__ void __launch_bounds__(SHARPEN_THREADS)
+windowed_sharpen_kernel(const float* __restrict__ m, float* __restrict__ out,
+                        const float* __restrict__ taps, int H, int W, float gain, int TH,
+                        int TW, long long tiles) {
+  constexpr int rs = KS / 2, RSP = (rs + 3) & ~3, VW = 4 * ((KS + 6) / 4);
+  extern __shared__ __align__(16) float smem_win[];  // the staged tile, then V
+  const WinLayout L(KS, TH, TW);
+  float* S = smem_win;
+  float* V = smem_win + L.srows * L.ss;
+  float t[KS];
+#pragma unroll
+  for (int k = 0; k < KS; ++k) t[k] = __ldg(taps + k);
+  const int n_r = (H + TH - 1) / TH, n_c = (W + TW - 1) / TW;
+  const bool vec_in = W % 4 == 0 && ((uintptr_t)m & 15) == 0;
+  const bool vec_out = W % 4 == 0 && ((uintptr_t)out & 15) == 0;
+  const int cpr = L.ss / 4, chunks = L.srows * cpr;  // 16-byte chunks: a row's, a tile's
+  const FastDiv div_cpr(cpr);
+
+  for (long long tt = blockIdx.x; tt < tiles; tt += gridDim.x) {
+    const long long b = tt / ((long long)n_c * n_r);
+    const int y0 = (int)((tt / n_c) % n_r) * TH, x0 = (int)(tt % n_c) * TW;
+    const int th = min(TH, H - y0), tw = min(TW, W - x0);
+    const float* mb = m + (size_t)b * H * W;
+
+    // stage: chunk (i, q) is staged row i, columns 4q .. 4q + 3
+    for (int idx = threadIdx.x; idx < chunks; idx += SHARPEN_THREADS) {
+      const int i = div_cpr(idx), q = idx - i * cpr;
+      const float* row = mb + (size_t)clampi(y0 - rs + i, 0, H - 1) * W;
+      float* dst = S + i * L.ss + 4 * q;
+      const int cx = x0 - RSP + 4 * q;
+      if (vec_in && cx >= 0 && cx + 4 <= W) {
+        cp_async16(dst, row + cx);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) cp_async4(dst + e, row + clampi(cx + e, 0, W - 1));
+      }
+    }
+    cp_async_wait_all();
+    __syncthreads();
+
+    // vertical pass: V (y, c) = sum_k t_k S (y + k, c + RSP - rs); a thread
+    // walks WIN_SEG rows of one column, each staged row read once and
+    // added to every sum that takes it, in tap order
+    const int nvc = TW + KS - 1;
+    for (int q = threadIdx.x; q < nvc * (TH / WIN_SEG); q += SHARPEN_THREADS) {
+      const int g = q / nvc, c = q - g * nvc;
+      const float* s = S + g * WIN_SEG * L.ss + c + (RSP - rs);
+      float acc[WIN_SEG];
+#pragma unroll
+      for (int r = 0; r < KS + WIN_SEG - 1; ++r) {
+        const float v = s[r * L.ss];
+#pragma unroll
+        for (int u = 0; u < WIN_SEG; ++u) {
+          const int k = r - u;
+          if (k >= 0 && k < KS) {
+            const float term = __fmul_rn(t[k], v);
+            acc[u] = k == 0 ? term : __fadd_rn(acc[u], term);
+          }
+        }
+      }
+      float* vo = V + g * WIN_SEG * L.vs + c;
+#pragma unroll
+      for (int u = 0; u < WIN_SEG; ++u) vo[u * L.vs] = acc[u];
+    }
+    __syncthreads();
+
+    // horizontal pass and the unsharp update: outputs (y, xx .. xx + 3) from
+    // V (y, xx .. xx + KS + 2), read 16 bytes at a time
+    const int groups = TW / 4;
+    float* ob = out + (size_t)b * H * W;
+    for (int q = threadIdx.x; q < TH * groups; q += SHARPEN_THREADS) {
+      const int y = q / groups, xx = 4 * (q - y * groups);
+      if (y >= th || xx >= tw) continue;  // off the canvas: nothing to store
+      const float4* vrow = reinterpret_cast<const float4*>(V + y * L.vs + xx);
+      float acc[4];
+#pragma unroll
+      for (int j = 0; j < VW / 4; ++j) {
+        const float4 v4 = vrow[j];
+        const float vv[4] = {v4.x, v4.y, v4.z, v4.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int k = 4 * j + e - u;
+            if (k >= 0 && k < KS) {
+              const float term = __fmul_rn(t[k], vv[e]);
+              acc[u] = k == 0 ? term : __fadd_rn(acc[u], term);
+            }
+          }
+        }
+      }
+      const float4 c4 = *reinterpret_cast<const float4*>(S + (y + rs) * L.ss + RSP + xx);
+      const float c[4] = {c4.x, c4.y, c4.z, c4.w};
+      float o[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        o[u] = __fadd_rn(c[u], __fmul_rn(gain, __fsub_rn(c[u], acc[u])));
+      }
+      float* orow = ob + (size_t)(y0 + y) * W + x0 + xx;
+      if (vec_out && xx + 4 <= tw) {
+        *reinterpret_cast<float4*>(orow) = make_float4(o[0], o[1], o[2], o[3]);
+      } else {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          if (xx + u < tw) orow[u] = o[u];
+        }
+      }
+    }
+    __syncthreads();  // the next tile stages into S and overwrites V
+  }
+}
+
+using WinKernel = void (*)(const float*, float*, const float*, int, int, float, int, int,
+                           long long);
+
+WinKernel windowed_kernel(int ks) {
+  switch (ks) {
+    case 1: return windowed_sharpen_kernel<1>;
+    case 3: return windowed_sharpen_kernel<3>;
+    case 5: return windowed_sharpen_kernel<5>;
+    case 7: return windowed_sharpen_kernel<7>;
+    case 9: return windowed_sharpen_kernel<9>;
+    case 11: return windowed_sharpen_kernel<11>;
+    case 13: return windowed_sharpen_kernel<13>;
+    case 15: return windowed_sharpen_kernel<15>;
+    case 17: return windowed_sharpen_kernel<17>;
+    case 19: return windowed_sharpen_kernel<19>;
+    case 21: return windowed_sharpen_kernel<21>;
+    case 23: return windowed_sharpen_kernel<23>;
+    case 25: return windowed_sharpen_kernel<25>;
+    case 27: return windowed_sharpen_kernel<27>;
+    case 29: return windowed_sharpen_kernel<29>;
+    case 31: return windowed_sharpen_kernel<31>;
+    case 33: return windowed_sharpen_kernel<33>;
+    default: return nullptr;
+  }
+}
+
+// One launch of the windowed kernel for ks taps at TH x TW tiles; an error
+// where ks has no instantiation, the tile breaks the kernel's layout or
+// does not fit a block.
+cudaError_t launch_windowed(const float* m, float* out, const float* taps, int B, int H, int W,
+                            int ks, float gain, int TH, int TW, int grid, cudaStream_t stream) {
+  const WinKernel kernel = windowed_kernel(ks);
+  if (kernel == nullptr || TH < WIN_SEG || TH % WIN_SEG || TW < 4 || TW % 4) {
+    return cudaErrorInvalidValue;
+  }
+  const size_t bytes = WinLayout(ks, TH, TW).floats(TH) * sizeof(float);
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  if (bytes > (size_t)optin) return cudaErrorInvalidConfiguration;
+  if (bytes > 48 * 1024) {
+    err = cudaFuncSetAttribute((const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)bytes);
+    if (err != cudaSuccess) return err;
+  }
+  const long long tiles = (long long)B * ((H + TH - 1) / TH) * ((W + TW - 1) / TW);
+  const int g = tiles < grid ? (int)tiles : grid;
+  kernel<<<g, SHARPEN_THREADS, bytes, stream>>>(m, out, taps, H, W, gain, TH, TW, tiles);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // normalize -> clip -> k x k median -> unsharp sharpen of a (B, H, W)
@@ -442,23 +666,28 @@ extern "C" int nm03_fused_preprocess(const float* x, float* out, int B, int H, i
 // The unsharp sharpen of a (B, H, W) float32 batch: c + gain * (c -
 // blur(c)), the blur ks taps (a device array, any odd ks) down the rows,
 // then along them, clamp-to-edge. `grid` CTAs walk the tiles of tile_h x
-// tile_w outputs. `staged` stages the median tile, the taps and V in shared
-// memory (then `vscratch` must be null); else the median and the taps are
-// read from their buffers through L1, and V goes to shared memory, or with
-// `vscratch` not null to that device scratch (grid x tile_h x (tile_w + ks
-// - 1) floats).
+// tile_w outputs. `plan` 2, windowed (odd ks <= 33; tile_h a multiple of
+// 8, tile_w of 4): the staged tile and V in shared memory, register
+// windows down and 16-byte reads across. `plan` 1, staged: the median
+// tile, the taps and V in shared memory. `plan` 0: the median and the taps
+// read from their buffers through L1, and V in shared memory, or with
+// `vscratch` not null in that device scratch (grid x tile_h x (tile_w + ks
+// - 1) floats). `vscratch` is null in the other plans.
 extern "C" int nm03_sharpen(const float* m, float* out, const float* taps, void* vscratch,
                             int B, int H, int W, int ks, float gain, int tile_h, int tile_w,
-                            int staged, int grid, void* stream) {
+                            int plan, int grid, void* stream) {
   (void)cudaGetLastError();  // clear an error already reported by an earlier call
   float* vs = static_cast<float*>(vscratch);
   if (B <= 0 || H <= 0 || W <= 0 || ks < 1 || ks % 2 == 0 || tile_h < 1 || tile_w < 1 ||
-      grid < 1 || taps == nullptr || (staged && vs != nullptr)) {
+      grid < 1 || taps == nullptr || plan < 0 || plan > 2 || (plan && vs != nullptr)) {
     return cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return staged ? launch_sharpen<true>(m, out, taps, vs, B, H, W, ks, gain, tile_h, tile_w,
-                                       grid, s)
-                : launch_sharpen<false>(m, out, taps, vs, B, H, W, ks, gain, tile_h, tile_w,
-                                        grid, s);
+  if (plan == 2) {
+    return launch_windowed(m, out, taps, B, H, W, ks, gain, tile_h, tile_w, grid, s);
+  }
+  return plan ? launch_sharpen<true>(m, out, taps, vs, B, H, W, ks, gain, tile_h, tile_w, grid,
+                                     s)
+              : launch_sharpen<false>(m, out, taps, vs, B, H, W, ks, gain, tile_h, tile_w,
+                                      grid, s);
 }

@@ -32,7 +32,9 @@ hold it against:
   bits as the plain composition;
 * :func:`sharpen_filter_kernel` — the unsharp sharpen alone, bit-identical
   to :func:`.sharpen.sharpen`, over tiles that :func:`sharpen_launch_shape`
-  picks.
+  picks: up to WIN_MAX_TAPS taps tiles staged with cp.async and blurred by
+  register windows down and 16-byte reads across, past that the general
+  loop.
 
 Torch ops remain around a median kernel only where the caller asks for
 the stages apart (``PipelineConfig(fuse_preprocess=False)``): the plain
@@ -75,7 +77,7 @@ MAX_TILE_W = 256  # widest tile of the fused kernel
 BLUR_ROWS = 4  # rows the fused kernel's blur accumulates together
 SMEM_PER_BLOCK = 232448  # the H100's opt-in shared memory per block (227 KB)
 SELECT_ROWS, SELECT_COLS = 8, 32  # outputs of a select CTA (STH, STW in csrc/median.cu)
-SHARPEN_ROWS, SHARPEN_COLS = 32, 64  # a sharpen tile's outputs, where its staged tile fits
+SHARPEN_ROWS, SHARPEN_COLS = 32, 64  # a sharpen tile's outputs past the windowed plan
 WIDE_COLS, WIDE_THREADS = 32, 256  # a wide tile's output columns, a wide CTA's threads (WTW, WNT)
 
 
@@ -242,14 +244,27 @@ def fused_launch_shape(b: int, h: int, w: int, k: int, ks: int, n_sm: int) -> Fu
     return FusedLaunch(th, tw, grid, smem(th))
 
 
-def sharpen_smem_bytes(ks: int, th: int, tw: int, staged: bool) -> int:
-    """Shared bytes of a sharpen CTA that holds V (the vertical pass: th
-    rows of tw + ks - 1) in shared memory (``sharpen_floats`` in
-    ``csrc/fused.cu``); ``staged``, also the ks taps and the staged median
-    tile (th + ks - 1 rows of tw + ks - 1: its outputs plus ks // 2 rows
-    and columns each side)."""
+WIN_MAX_TAPS = 33  # the windowed plan's taps: every odd count up to here is compiled
+WIN_SEG = 8  # rows of V a thread of the windowed plan fills (WIN_SEG in csrc/fused.cu)
+WIN_ROWS, WIN_COLS = 32, 128  # a windowed tile's outputs at most
+PLANS = ("rows", "staged", "windowed")  # nm03_sharpen's `plan` argument is the index
+
+
+def sharpen_smem_bytes(ks: int, th: int, tw: int, plan: str) -> int:
+    """Shared bytes of a sharpen CTA at th x tw tiles under ``plan``
+    (``WinLayout`` and ``sharpen_floats`` in ``csrc/fused.cu``):
+
+    * ``windowed``: the staged tile (th + ks - 1 rows of tw + 2 rsp, rsp =
+      ks // 2 rounded up to 4) and V (th rows of tw - 4 + 4 ceil((ks + 3) /
+      4): the horizontal pass's 16-byte loads);
+    * ``staged``: the ks taps, the staged tile (th + ks - 1 rows of tw + ks
+      - 1) and V (th rows of tw + ks - 1);
+    * ``rows``: V alone."""
+    if plan == "windowed":
+        rsp = (ks // 2 + 3) & ~3
+        return 4 * ((th + ks - 1) * (tw + 2 * rsp) + th * (tw - 4 + 4 * ((ks + 6) // 4)))
     sw = tw + ks - 1
-    return 4 * ((ks + (th + ks - 1) * sw) * staged + th * sw)
+    return 4 * ((ks + (th + ks - 1) * sw) * (plan == "staged") + th * sw)
 
 
 class SharpenLaunch(NamedTuple):
@@ -257,35 +272,54 @@ class SharpenLaunch(NamedTuple):
 
     tile_h: int
     tile_w: int
-    staged: bool  # the median tile, the taps and V in shared memory
+    plan: str  # one of PLANS; "rows" with V in a device scratch where ``scratch``
     grid: int  # CTAs, each walking every grid-th tile
     smem: int  # shared bytes a CTA
     scratch: int  # floats of the device scratch that holds V; 0 where V is shared
+
+    @property
+    def staged(self) -> bool:
+        """Whether the median tile is staged in shared memory."""
+        return self.plan != "rows"
 
 
 MAX_GRID = 2**31 - 1  # a launch's largest x dimension
 
 
+def windowed_tile(h: int, w: int) -> tuple[int, int]:
+    """The windowed plan's tile for an h x w canvas: WIN_ROWS x WIN_COLS,
+    cut to the canvas rounded up to WIN_SEG rows and 4 columns (the kernel
+    computes whole tiles)."""
+    return (min(WIN_ROWS, -(-h // WIN_SEG) * WIN_SEG), min(WIN_COLS, -(-w // 4) * 4))
+
+
 @functools.lru_cache(maxsize=None)
 def sharpen_launch_shape(b: int, h: int, w: int, ks: int, n_sm: int) -> SharpenLaunch:
-    """The sharpen kernel's tiles and memory for a (b, h, w) batch and an
-    odd ks.
+    """The sharpen kernel's plan, tiles and memory for a (b, h, w) batch
+    and an odd ks on a card of ``n_sm`` SMs.
 
-    The first that fits a block's shared memory: SHARPEN_ROWS x
-    SHARPEN_COLS tiles with the median tile, the taps and V staged (up to
-    177 taps), one tile a CTA; else the rows of one pass only, V staged and
-    the median and the taps read through L1, the tile halved in height
-    until V fits; else one-row tiles with V in a device scratch, one CTA an
-    SM, each with its own V."""
+    Up to WIN_MAX_TAPS taps the windowed plan: :func:`windowed_tile`'s
+    tiles, one a CTA (``scripts/torch_kernel_probe.py sharpen`` times tile
+    shapes and grids on the card). Past it the first that fits a block's
+    shared memory: SHARPEN_ROWS x SHARPEN_COLS tiles with the median tile,
+    the taps and V staged (up to 177 taps), one tile a CTA; else the rows of
+    one pass only, V staged and the median and the taps read through L1,
+    the tile halved in height until V fits; else one-row tiles with V in a
+    device scratch, one CTA an SM, each with its own V."""
+    if ks <= WIN_MAX_TAPS:
+        th, tw = windowed_tile(h, w)
+        tiles = b * -(-h // th) * -(-w // tw)
+        return SharpenLaunch(th, tw, "windowed", min(tiles, MAX_GRID),
+                             sharpen_smem_bytes(ks, th, tw, "windowed"), 0)
     tw = SHARPEN_COLS
     heights = [SHARPEN_ROWS >> i for i in range(SHARPEN_ROWS.bit_length())]  # 32, 16, ..., 1
-    for th, staged in [(SHARPEN_ROWS, True)] + [(th, False) for th in heights]:
-        smem = sharpen_smem_bytes(ks, th, tw, staged)
+    for th, plan in [(SHARPEN_ROWS, "staged")] + [(th, "rows") for th in heights]:
+        smem = sharpen_smem_bytes(ks, th, tw, plan)
         if smem <= SMEM_PER_BLOCK:
             tiles = b * -(-h // th) * -(-w // tw)
-            return SharpenLaunch(th, tw, staged, min(tiles, MAX_GRID), smem, 0)
+            return SharpenLaunch(th, tw, plan, min(tiles, MAX_GRID), smem, 0)
     grid = min(b * h * -(-w // tw), n_sm)
-    return SharpenLaunch(1, tw, False, grid, 0, grid * (tw + ks - 1))
+    return SharpenLaunch(1, tw, "rows", grid, 0, grid * (tw + ks - 1))
 
 
 @functools.lru_cache(maxsize=None)
@@ -480,7 +514,7 @@ def sharpen_filter_kernel(x: torch.Tensor, gain: float = 2.0, sigma: float = 0.5
     if xb.numel() == 0:
         return out.reshape(x.shape)
     sl = sharpen_launch_shape(b, h, w, size, _sm_count(xb.device.index or 0))
-    if not sl.staged:
+    if sl.plan == "rows":
         v_in = "a device scratch" if sl.scratch else "shared memory"
         _note_route("sharpen", "rows", f"{size} taps over {h}x{w}: {sl.tile_h}-row tiles, the "
                     f"median and the taps through L1, V in {v_in}")
@@ -490,7 +524,7 @@ def sharpen_filter_kernel(x: torch.Tensor, gain: float = 2.0, sigma: float = 0.5
     err = build.load("fused").nm03_sharpen(
         xb.data_ptr(), out.data_ptr(), taps.data_ptr(),
         None if scratch is None else scratch.data_ptr(), b, h, w, size, gain, sl.tile_h,
-        sl.tile_w, int(sl.staged), sl.grid,
+        sl.tile_w, PLANS.index(sl.plan), sl.grid,
         torch.cuda.current_stream(xb.device).cuda_stream)
     build.check(err, "nm03_sharpen")
     sharpen_filter_kernel.launches += 1

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Where the port's fused, grow and wide median kernels spend their time, on the card.
+"""Where the port's fused, grow, wide median and sharpen kernels spend their time, on the card.
 
     python scripts/torch_kernel_probe.py            # every probe
-    python scripts/torch_kernel_probe.py fused      # or one of fused, grow, grow_global, wide
+    python scripts/torch_kernel_probe.py fused      # or one of fused, grow, grow_global, wide,
+                                                    # sharpen
 
 Run from the repository root on a machine with an NVIDIA H100 and the CUDA
 toolkit; it needs no profiler such as ``ncu``. The script builds copies of
@@ -33,7 +34,24 @@ boundaries, and prints one JSON line per measurement:
   wrapper's own choice marked (``wide_launch_shape``), and at each
   height the cycles of a CTA's first tile in its sort (load and bitonic
   network) and in its walk down the band (upkeep and bisection), the
-  median over the CTAs.
+  median over the CTAs;
+* ``sharpen``: the sharpen kernel at 9 and 33 taps on random (25, 256, 256)
+  (the main batch's shape) and (2, 3072, 3072) (the canvas-3072
+  ``process_batch``'s): the device time a launch (torch.profiler over 20
+  launches, the input warm in L2) of the wrapper's plan
+  (``sharpen_launch_shape``), and of 32 x 64, 64 x 64 and 32 x 128 tiles
+  with one tile a CTA and with four CTAs an SM walking them: as built;
+  without the blur (staging and stores only: the design's memory time),
+  the same staged through registers in place of cp.async, and with no
+  staging at all (each centre read and stored); the whole kernel staged
+  through registers; with 16-row vertical windows; capped at 40 and 32
+  registers (six and eight CTAs an SM). At the wrapper's plan, the phases
+  of each CTA's first tile (``%globaltimer`` stamps of the first 2048
+  CTAs: landed, vertical pass, horizontal pass and stores, and when the
+  CTAs end). Beside them the staged plan (one tile a CTA), a torch
+  copy of the same bytes, plain copy kernels of six CTA shapes (their
+  CTAs' start spread and ends), and each sharpen kernel's registers and
+  spills from the build's ptxas log.
 
 Every line carries the card's name and power limit. Nothing here is used
 by the port.
@@ -424,6 +442,198 @@ def probe_wide(card: dict) -> None:
                           **card}), flush=True)
 
 
+def ptxas_sharpen() -> dict:
+    """Registers and spill bytes of each sharpen kernel in the build's ptxas log."""
+    from chip_smoke import ptxas_report
+
+    log = build.build_dir() / "fused.log"
+    report = ptxas_report(log.read_text()) if log.exists() else {}
+    return {k: v for k, v in report.items() if "sharpen" in k}
+
+
+def device_ms(fn, n: int = 20) -> float:
+    """The device time a call of ``fn``: torch.profiler's self device time
+    of every kernel and copy in a window of ``n`` calls, over ``n``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()) / n / 1e3
+
+
+SHARPEN_TILES = ((32, 64), (64, 64), (32, 128))
+
+
+def sharpen_variants() -> dict:
+    """Copies of the windowed sharpen kernel (``csrc/fused.cu``), by name:
+    substitutions on its source."""
+    kernel = ("template <int KS>\n__global__ void __launch_bounds__(SHARPEN_THREADS)\n"
+              "windowed_sharpen_kernel")
+    timer = ('{ unsigned long long g; asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(g)); '
+             "if (threadIdx.x == 0 && blockIdx.x < 2048) "
+             "g_stamp[blockIdx.x * 16 + (SLOT)] = (long long)g; }\n")
+    first = "if (tt == blockIdx.x) "
+    vertical = "for (int q = threadIdx.x; q < nvc * (TH / WIN_SEG); q += SHARPEN_THREADS) {"
+    no_blur = [(vertical, vertical.replace("nvc * (TH / WIN_SEG)", "0")),
+               ("o[u] = __fadd_rn(c[u], __fmul_rn(gain, __fsub_rn(c[u], acc[u])));",
+                "o[u] = c[u];")]
+    ldg = [("        cp_async16(dst, row + cx);",
+            "        *reinterpret_cast<float4*>(dst) = __ldg(reinterpret_cast<const float4*>("
+            "row + cx));"),
+           ("for (int e = 0; e < 4; ++e) cp_async4(dst + e, row + clampi(cx + e, 0, W - 1));",
+            "for (int e = 0; e < 4; ++e) dst[e] = __ldg(row + clampi(cx + e, 0, W - 1));")]
+    end = "    __syncthreads();  // the next tile stages into S and overwrites V\n  }\n}"
+    # a plain copy of float4s, PER a thread, its CTAs stamped at start and end
+    copy = ("}  // namespace\n", "}  // namespace\n"
+            "template <int PER> __global__ void probe_copy_kernel(const float4* x, float4* y, "
+            "long long n) {\n" + timer.replace("SLOT", "8")
+            + "  long long i = (long long)blockIdx.x * blockDim.x * PER + threadIdx.x;\n"
+            "  float4 v[PER];\n"
+            "#pragma unroll\n  for (int k = 0; k < PER; ++k) if (i + k * blockDim.x < n) "
+            "v[k] = x[i + k * blockDim.x];\n"
+            "#pragma unroll\n  for (int k = 0; k < PER; ++k) if (i + k * blockDim.x < n) "
+            "y[i + k * blockDim.x] = v[k];\n  __syncthreads();\n"
+            + timer.replace("SLOT", "9") + "}\n"
+            'extern "C" int probe_copy(const float* x, float* y, long long n, int threads, '
+            "int per, void* stream) {\n  const long long n4 = n / 4, g = (n4 + (long long)"
+            "threads * per - 1) / (threads * per);\n  cudaStream_t s = (cudaStream_t)stream;\n"
+            "  if (per == 1) probe_copy_kernel<1><<<g, threads, 0, s>>>((const float4*)x, "
+            "(float4*)y, n4);\n  else if (per == 2) probe_copy_kernel<2><<<g, threads, 0, s>>>"
+            "((const float4*)x, (float4*)y, n4);\n  else probe_copy_kernel<4><<<g, threads, 0, "
+            "s>>>((const float4*)x, (float4*)y, n4);\n  return (int)cudaGetLastError();\n}\n")
+    return {
+        # globaltimer stamps: start, first tile landed, vertical pass, first tile done, end
+        "stamped": [
+            ("  const FastDiv div_cpr(cpr);\n",
+             "  const FastDiv div_cpr(cpr);\n" + timer.replace("SLOT", "0")),
+            ("    cp_async_wait_all();\n    __syncthreads();\n",
+             "    cp_async_wait_all();\n    __syncthreads();\n    " + first
+             + timer.replace("SLOT", "1")),
+            ("    __syncthreads();\n\n    // horizontal pass and",
+             "    __syncthreads();\n    " + first + timer.replace("SLOT", "2")
+             + "\n    // horizontal pass and"),
+            (end, end[:-5] + "    " + first + timer.replace("SLOT", "3") + "  }\n  "
+             + timer.replace("SLOT", "4") + "}"),
+            copy],
+        # the staging and the centres' stores only: the design's memory time
+        "no_blur": no_blur,
+        # the same with 16-byte loads through registers in place of cp.async
+        "no_blur_ldg": no_blur + ldg,
+        # no staging at all: each centre read from global and stored (the kernel's
+        # CTAs, shared memory and barriers around a plain copy's traffic)
+        "no_staging": no_blur + [
+            ("for (int idx = threadIdx.x; idx < chunks; idx += SHARPEN_THREADS) {",
+             "for (int idx = threadIdx.x; idx < 0; idx += SHARPEN_THREADS) {"),
+            ("      const float4 c4 = *reinterpret_cast<const float4*>(S + (y + rs) * L.ss + RSP + xx);",
+             "      const float4 c4 = __ldg(reinterpret_cast<const float4*>(m + (size_t)b * H * W"
+             " + (size_t)(y0 + y) * W + x0 + xx));")],
+        # the whole kernel staged through registers
+        "ldg": ldg,
+        # sixteen rows a vertical window in place of eight
+        "seg16": [("constexpr int WIN_SEG = 8;", "constexpr int WIN_SEG = 16;")],
+        # at most 40 and 32 registers a thread: six and eight CTAs an SM
+        "six_per_sm": [(kernel, kernel.replace("(SHARPEN_THREADS)", "(SHARPEN_THREADS, 6)"))],
+        "eight_per_sm": [(kernel, kernel.replace("(SHARPEN_THREADS)", "(SHARPEN_THREADS, 8)"))],
+    }
+
+
+def probe_sharpen(card: dict) -> None:
+    from nm03_capstone_project_tpu_torch.ops.sharpen import sharpen
+
+    dirs = {name: (variant(f"sharpen_{name}", "fused", subs), "fused")
+            for name, subs in sharpen_variants().items()}
+    libs = {"built": build.load("fused"), **compile_all(dirs)}
+    for lib in libs.values():
+        lib.nm03_sharpen.argtypes = build.ARGTYPES["fused"]["nm03_sharpen"]
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    stream = torch.cuda.current_stream().cuda_stream
+    gen = torch.Generator().manual_seed(19)
+    windowed = hm.PLANS.index("windowed")
+    print(json.dumps({"probe": "sharpen_ptxas", "kernels": ptxas_sharpen(), **card}), flush=True)
+
+    for name, shape in (("main", (25, 256, 256)), ("canvas3072", (2, 3072, 3072))):
+        b, h, w = shape
+        x = (torch.rand(shape, generator=gen) * 4000 + 0.68).cuda()
+        out = torch.empty_like(x)
+        copy_ms = device_ms(lambda: out.copy_(x))
+        for ks in (9, 33):
+            want = sharpen(x, 2.0, 0.5, ks)
+            taps = hm._device_taps(0.5, ks, x.device)
+            chosen = hm.sharpen_launch_shape(b, h, w, ks, n_sm)
+
+            def time_plan(lib, plan, th, tw, grid, check=True):
+                def call():
+                    build.check(lib.nm03_sharpen(x.data_ptr(), out.data_ptr(), taps.data_ptr(),
+                                                 None, b, h, w, ks, 2.0, th, tw, plan, grid,
+                                                 stream), "nm03_sharpen (probe)")
+
+                out.fill_(float("nan"))
+                ms = device_ms(call)
+                torch.cuda.synchronize()
+                if check and not torch.equal(out.view(torch.int32), want.view(torch.int32)):
+                    raise RuntimeError(f"probe sharpen: {name} {ks} taps, plan {plan}, "
+                                       f"{th}x{tw}, grid {grid} differs from the plain sharpen")
+                return ms
+
+            def sweep(lname):
+                lib, check = libs[lname], not lname.startswith("no_")
+                res = {}
+                for th, tw in SHARPEN_TILES:
+                    tiles = b * -(-h // th) * -(-w // tw)
+                    res[f"{th}x{tw}"] = {p: time_plan(lib, windowed, th, tw, g, check) for p, g in (
+                        ("one_tile_a_cta_ms", tiles), ("four_ctas_an_sm_ms", min(tiles, 4 * n_sm)))}
+                return res
+
+            result = {"probe": "sharpen", "case": name, "shape": list(shape), "taps": ks,
+                      "chosen": chosen._asdict(), "torch_copy_ms": copy_ms,
+                      "chosen_ms": time_plan(libs["built"], windowed, chosen.tile_h,
+                                             chosen.tile_w, chosen.grid),
+                      **{v: sweep(v) for v in ("built", "no_blur", "no_blur_ldg", "no_staging",
+                                               "ldg", "seg16", "six_per_sm", "eight_per_sm")},
+                      "staged_plan_ms": time_plan(libs["built"], hm.PLANS.index("staged"), 32, 64,
+                                                  b * -(-h // 32) * -(-w // 64))}
+            lib = libs["stamped"]
+            result["stamped_ms"] = time_plan(lib, windowed, chosen.tile_h, chosen.tile_w,
+                                             chosen.grid)
+            st = stamps(lib)[:min(chosen.grid, 2048), :5].astype(np.float64)
+            t0 = st[:, 0].min()
+            result["stamps_ns"] = {
+                "ctas_stamped": len(st),
+                "span": float(st[:, 4].max() - t0),
+                "start_spread": float(st[:, 0].max() - t0),
+                "first_tile_landed": float(np.median(st[:, 1] - st[:, 0])),
+                "vertical": float(np.median(st[:, 2] - st[:, 1])),
+                "horizontal_and_store": float(np.median(st[:, 3] - st[:, 2])),
+                "cta_life": float(np.median(st[:, 4] - st[:, 0])),
+                "ends_q50_q90_q100": [float(np.quantile(st[:, 4] - t0, q))
+                                      for q in (0.5, 0.9, 1.0)]}
+            if ks == 9 and name == "main":  # plain copies of the same bytes, by CTA shape
+                lib.probe_copy.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                                           ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                copies = {}
+                for threads, per in ((256, 1), (256, 2), (256, 4), (128, 4), (1024, 1),
+                                     (1024, 4)):
+                    def call():
+                        build.check(lib.probe_copy(x.data_ptr(), out.data_ptr(), x.numel(),
+                                                   threads, per, stream), "probe_copy")
+
+                    ms = device_ms(call)
+                    g = -(-x.numel() // 4 // (threads * per))
+                    st = stamps(lib)[:min(g, 2048), 8:10].astype(np.float64)
+                    t0 = st[:, 0].min()
+                    copies[f"{threads}x{per}"] = {
+                        "ctas": g, "ms": ms, "start_spread_ns": float(st[:, 0].max() - t0),
+                        "ends_q50_q100_ns": [float(np.quantile(st[:, 1] - t0, q))
+                                             for q in (0.5, 1.0)]}
+                if not torch.equal(out, x):
+                    raise RuntimeError("probe sharpen: the copy kernel differs")
+                result["copy_kernels"] = copies
+            print(json.dumps({**result, **card}), flush=True)
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("torch_kernel_probe: CUDA is not available", file=sys.stderr)
@@ -440,6 +650,8 @@ def main() -> int:
         probe_grow_global(card)
     if which in ("all", "wide"):
         probe_wide(card)
+    if which in ("all", "sharpen"):
+        probe_sharpen(card)
     return 0
 
 

@@ -680,6 +680,41 @@ def test_sharpen_kernel_short_tiles_and_scratch(cuda, ks, shape, tile_h, scratch
     assert hm.sharpen_filter_kernel.launches == before + 1
 
 
+@pytest.mark.parametrize("ks", [1, 3, 9, 17, 33])
+def test_sharpen_kernel_windowed_rows_and_walks(cuda, ks):
+    # the windowed plan on widths with W % 4 = 0, 1, 2 and 3, canvases
+    # shorter than the halo, a base 4 bytes past 16-byte alignment (every
+    # row off it), and grids of 1 and 3 CTAs that walk every tile
+    from nm03_capstone_project_tpu_torch.kernels import build
+    from nm03_capstone_project_tpu_torch.ops.sharpen import sharpen
+
+    g = torch.Generator().manual_seed(ks)
+    lib = build.load("fused")
+    taps = hm._device_taps(0.5, ks, cuda)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for shape in [(2, 40, 256), (3, 37, 301), (2, 21, 302), (2, 70, 303), (2, 3, 5), (1, 2, 9)]:
+        n = int(np.prod(shape))
+        data = (torch.rand(n, generator=g) * 4000 + 0.68).to(cuda)
+        base = torch.empty(n + 1, device=cuda)
+        base[1:] = data
+        for x in (data.view(shape), base[1:].view(shape)):
+            want = sharpen(x, 2.0, 0.5, ks)
+            before = hm.sharpen_filter_kernel.launches
+            assert _same_bits(hm.sharpen_filter_kernel(x, 2.0, 0.5, ks), want), shape
+            assert hm.sharpen_filter_kernel.launches == before + 1
+            sl = hm.sharpen_launch_shape(*shape, ks, n_sm)
+            assert sl.plan == "windowed"
+            for grid in (1, 3):
+                out = torch.full_like(x, float("nan"))
+                build.check(lib.nm03_sharpen(
+                    x.data_ptr(), out.data_ptr(), taps.data_ptr(), None, *shape, ks, 2.0,
+                    sl.tile_h, sl.tile_w, hm.PLANS.index("windowed"), grid, stream),
+                    "nm03_sharpen")
+                torch.cuda.synchronize()
+                assert _same_bits(out, want), (shape, grid, x.data_ptr() % 16)
+
+
 def _prologue_case(k):
     """NaNs, infinities, signed zeros and ±1 that survive normalize (a low
     end of -0.0) and a clip around 0, so the median meets -0.0 and +0.0."""

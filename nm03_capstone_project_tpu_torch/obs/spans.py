@@ -19,6 +19,12 @@ Stage-label cardinality stays bounded even for per-patient section names:
 the histogram label is the FIRST ``/``-component of the span name
 (``load/<patient>`` feeds one ``stage="load"`` histogram while
 ``report()`` keeps the per-patient keys).
+
+:class:`StageRecorder` keeps the pipeline's stage spans themselves, each
+with its start and end, and its counters, in memory for its caller to
+read afterwards (:func:`..pipeline.stage_spans`): on the wall clock in
+nanoseconds that ``torch.profiler``'s records carry, so a span lines up
+with the device's activity in a trace.
 """
 
 from __future__ import annotations
@@ -26,7 +32,7 @@ from __future__ import annotations
 import contextlib
 import threading
 import time
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 from nm03_capstone_project_tpu_torch.obs.metrics import STAGE_LATENCY_METRIC
 
@@ -95,3 +101,61 @@ class SpanRecorder:
     def report(self) -> Dict[str, float]:
         with self._lock:
             return dict(sorted(self.sections.items()))
+
+
+class StageRecorder:
+    """The pipeline's stage spans and counters of one thread, in memory.
+
+    ``spans`` holds ``(start_ns, end_ns, name, parent)`` in the order the
+    spans began: ``time.time_ns()`` at each end, and ``parent`` the index
+    in ``spans`` of the innermost span open when it began (-1 at the top),
+    so a span's path is its parents' names and its own joined by ``/``,
+    as :meth:`SpanRecorder.current_path` joins them. ``counters`` sums the
+    values recorded under each name. Nothing here touches a tensor; one
+    thread records into a recorder at a time.
+    """
+
+    def __init__(self):
+        self.spans: List[Tuple[int, int, str, int]] = []
+        self.counters: Dict[str, int] = {}
+        self._open: List[int] = []
+
+    def span(self, name: str) -> "_StageSpan":
+        return _StageSpan(self, name)
+
+    def count(self, name: str, value: int = 1) -> None:
+        self.counters[name] = self.counters.get(name, 0) + int(value)
+
+    def path(self, i: int) -> str:
+        """The ``/``-joined names from the outermost span down to span ``i``."""
+        names = []
+        while i >= 0:
+            _, _, name, i = self.spans[i]
+            names.append(name)
+        return "/".join(reversed(names))
+
+
+class _StageSpan:
+    """One span of a :class:`StageRecorder`: the clock is read last on the
+    way in and first on the way out, so sibling spans leave the least
+    time between them."""
+
+    __slots__ = ("_rec", "_name", "_i")
+
+    def __init__(self, rec: StageRecorder, name: str):
+        self._rec, self._name = rec, name
+
+    def __enter__(self):
+        rec = self._rec
+        parent = rec._open[-1] if rec._open else -1
+        self._i = len(rec.spans)
+        rec._open.append(self._i)
+        rec.spans.append((time.time_ns(), 0, self._name, parent))
+
+    def __exit__(self, *exc):
+        end = time.time_ns()
+        rec = self._rec
+        rec._open.pop()
+        start, _, name, parent = rec.spans[self._i]
+        rec.spans[self._i] = (start, end, name, parent)
+        return False

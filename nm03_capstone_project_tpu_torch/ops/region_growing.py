@@ -14,10 +14,16 @@ It is the plain version the CUDA grow kernel
 :func:`region_grow_jump` is the other convergence schedule of the JAX
 package, pointer-jumping label merge: the same sets in O(log diameter)
 rounds. No kernel computes it, in either package.
+
+The 3D growth's loops (:func:`jump_fill` here, ``ops.volume``) take the
+pipeline's stage hooks as arguments, ``stage(name)`` a context and
+``counter(name)``; :func:`no_stage` and :func:`no_count` are the hooks of
+a caller that records nothing.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
@@ -97,8 +103,19 @@ def region_grow(
 # label-chain compressions (gathers) after each neighbour-min, as in the JAX package
 _JUMPS_PER_ROUND = 2
 
+_NO_STAGE = contextlib.nullcontext()
 
-def jump_fill(band: torch.Tensor, seeds: torch.Tensor, offsets, max_rounds: int):
+
+def no_stage(name: str):
+    return _NO_STAGE
+
+
+def no_count(name: str, value: int = 1) -> None:
+    pass
+
+
+def jump_fill(band: torch.Tensor, seeds: torch.Tensor, offsets, max_rounds: int,
+              stage=no_stage, counter=no_count):
     """Pointer-jumping label merge over a batch of 2D or 3D grids.
 
     ``band`` and ``seeds`` are bool (B, *grid); ``offsets`` are the
@@ -114,6 +131,10 @@ def jump_fill(band: torch.Tensor, seeds: torch.Tensor, offsets, max_rounds: int)
     first round that changes no grid, since a grid at its fixpoint stays
     there. A cell joins the region iff its component's label is one a seed
     carries.
+
+    ``stage`` and ``counter`` are the 3D growth's hooks: a round is a
+    ``grow3d.block`` span, its flag read a ``grow3d.sync`` span counted
+    under ``grow3d.syncs``.
     """
     b, grid = band.shape[0], band.shape[1:]
     n = math.prod(grid)
@@ -137,9 +158,17 @@ def jump_fill(band: torch.Tensor, seeds: torch.Tensor, offsets, max_rounds: int)
             labels = torch.where(band, gather(flat, labels), sentinel)
         return labels
 
-    prev, labels, it = labels0, round_(labels0), 1
-    while bool((prev != labels).any()) and it < max_rounds:
-        prev, labels = labels, round_(labels)
+    def changed(prev, labels):
+        with stage("grow3d.sync"):
+            flag = bool((prev != labels).any())
+        counter("grow3d.syncs")
+        return flag
+
+    with stage("grow3d.block"):
+        prev, labels, it = labels0, round_(labels0), 1
+    while changed(prev, labels) and it < max_rounds:
+        with stage("grow3d.block"):
+            prev, labels = labels, round_(labels)
         it += 1
     converged = (prev == labels).reshape(b, n).all(dim=1)
 

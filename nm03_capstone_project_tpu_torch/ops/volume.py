@@ -19,6 +19,11 @@ none does here: they are torch ops on whatever device the volume is on.
   condition once per block.
 * :func:`region_grow_jump_3d` is the pointer-jumping label merge, one
   (D, H, W) volume at a time.
+
+Both growths take the pipeline's stage hooks (``stage``, ``counter``):
+each block of steps (each round) is a ``grow3d.block`` span, each read
+that waits on the card a ``grow3d.sync`` span counted under
+``grow3d.syncs``.
 """
 
 from __future__ import annotations
@@ -28,7 +33,12 @@ from typing import List, Optional, Tuple
 import torch
 
 from nm03_capstone_project_tpu_torch.ops.neighborhood import constant_shifted_views
-from nm03_capstone_project_tpu_torch.ops.region_growing import grow_band, jump_fill
+from nm03_capstone_project_tpu_torch.ops.region_growing import (
+    grow_band,
+    jump_fill,
+    no_count,
+    no_stage,
+)
 
 _SHAPES = {6: "cross", 26: "box"}
 
@@ -100,6 +110,8 @@ def region_grow_3d(
     block_iters: int = 16,
     max_iters: int = 4096,
     return_steps: bool = False,
+    stage=no_stage,
+    counter=no_count,
 ):
     """3D seeded region growing; returns ``(mask, converged)``.
 
@@ -127,13 +139,21 @@ def region_grow_3d(
             r = dilate3d(r, 3, shape) & band
         return r
 
-    region = grow_block(region0)
-    prev, count = region0.sum(), region.sum()
+    def grew(count, prev):
+        # one popcount back to the host per block: the loop's only sync
+        with stage("grow3d.sync"):
+            flag = bool(count != prev)
+        counter("grow3d.syncs")
+        return flag
+
+    with stage("grow3d.block"):
+        region = grow_block(region0)
+        prev, count = region0.sum(), region.sum()
     iters = block_iters
-    # one popcount back to the host per block: the loop's only sync
-    while bool(count != prev) and iters < max_iters:
-        region = grow_block(region)
-        prev, count = count, region.sum()
+    while grew(count, prev) and iters < max_iters:
+        with stage("grow3d.block"):
+            region = grow_block(region)
+            prev, count = count, region.sum()
         iters += block_iters
     out = (region.to(torch.uint8), count == prev)
     return out + (iters,) if return_steps else out
@@ -148,6 +168,8 @@ def region_grow_jump_3d(
     connectivity: int = 6,
     max_rounds: int = 256,
     return_steps: bool = False,
+    stage=no_stage,
+    counter=no_count,
 ):
     """3D flood fill in O(log diameter) rounds via pointer-jumping label merge.
 
@@ -169,6 +191,7 @@ def region_grow_jump_3d(
     band = grow_band(volume, low, high, valid)
     seeds = torch.broadcast_to(seeds.bool(), band.shape)
     offsets = footprint_offsets_3d(3, _SHAPES[connectivity])
-    region, converged, rounds = jump_fill(band[None], seeds[None], offsets, max_rounds)
+    region, converged, rounds = jump_fill(band[None], seeds[None], offsets, max_rounds,
+                                          stage, counter)
     out = (region[0], converged[0])
     return out + (rounds,) if return_steps else out

@@ -7,6 +7,7 @@ from nm03_capstone_project_tpu_torch.pipeline.slice_pipeline import (  # noqa: F
     process_slice,
     process_slice_stages,
     segment,
+    stage_spans,
 )
 from nm03_capstone_project_tpu_torch.pipeline.volume_pipeline import (  # noqa: F401
     process_volume,

@@ -28,18 +28,31 @@ stage is held to ``torch.isfinite`` (the fused kernel's output is one
 stage) and a host array reaching :func:`_inputs` for the card inside a
 guarded dispatch raises; both hooks are a module-global read otherwise.
 
-Under :func:`stage_ranges` each stage of ``_process`` runs inside a
-``record_function`` range named after it (``normalize``, ``median7``,
-``sharpen``, ``grow``, ``morph``): the serving executor records one eager
-run so at warmup, the device-time ledger's map from a kernel's position to
-its stage. Outside it the ranges cost nothing.
+Each stage of an entry call is named once, by :func:`_stage`, for two
+readers:
+
+* under :func:`stage_ranges` each stage of ``_process`` runs inside a
+  ``record_function`` range named after its stage in the device-time
+  ledger (``normalize``, ``median7``, ``sharpen``, ``grow``, ``morph``):
+  the serving executor records one eager run so at warmup, the ledger's
+  map from a kernel's position to its stage;
+* under :func:`stage_spans` every stage is a span in a
+  :class:`~..obs.spans.StageRecorder`: ``entry`` (the whole call of
+  :func:`process_batch` or :func:`process_volume`), ``inputs``,
+  ``normalize``, ``median7``, ``sharpen``, ``seeds`` (the seed grid and the
+  valid mask), ``grow``, ``grow3d`` with its ``grow3d.block`` and
+  ``grow3d.sync`` spans, ``morph``; and the 3D growth counts
+  ``grow3d.steps`` and ``grow3d.syncs``.
+
+With neither open a stage costs one thread-local read: no tensor op, no
+sync, no allocation.
 """
 
 from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -47,6 +60,7 @@ import torch
 from nm03_capstone_project_tpu_torch.config import DEFAULT_CONFIG, PipelineConfig
 from nm03_capstone_project_tpu_torch.core.backend import resolve_device
 from nm03_capstone_project_tpu_torch.core.image import valid_mask
+from nm03_capstone_project_tpu_torch.obs.spans import StageRecorder
 from nm03_capstone_project_tpu_torch.ops.elementwise import (
     cast_uint8,
     clip_intensity,
@@ -61,32 +75,71 @@ from nm03_capstone_project_tpu_torch.ops.sharpen import sharpen
 from nm03_capstone_project_tpu_torch.utils import sanitize
 
 
-_ranges = threading.local()
+# this thread's (ranges on, recorder or None) while either is open, else unset
+_hooks = threading.local()
+_OFF = contextlib.nullcontext()
+
+# each stage's range under stage_ranges: its stage in the device-time ledger
+# (obs.ledger.STAGES). The seed grid and valid mask are the grow stage's, as
+# when they were the grow call's arguments; the other stages have no range.
+_LEDGER_STAGE = {"normalize": "normalize", "median7": "median7", "sharpen": "sharpen",
+                 "seeds": "grow", "grow": "grow", "grow3d": "grow", "morph": "morph"}
 
 
 @contextlib.contextmanager
-def stage_ranges():
-    """Name each pipeline stage on the profiler timeline (this thread)."""
-    prev = getattr(_ranges, "on", False)
-    _ranges.on = True
+def _opened(ranges: bool = False, recorder: Optional[StageRecorder] = None):
+    prev = getattr(_hooks, "state", None)
+    was_ranges, was_recorder = prev or (False, None)
+    _hooks.state = (ranges or was_ranges, recorder or was_recorder)
     try:
         yield
     finally:
-        _ranges.on = prev
+        _hooks.state = prev
+
+
+def stage_ranges():
+    """Name each pipeline stage on the profiler timeline (this thread)."""
+    return _opened(ranges=True)
+
+
+def stage_spans(recorder: StageRecorder):
+    """Record each stage's span and the stages' counters into ``recorder``
+    (this thread) while open."""
+    return _opened(recorder=recorder)
 
 
 def _stage(name: str):
-    if getattr(_ranges, "on", False):
-        return torch.profiler.record_function(name)
-    return contextlib.nullcontext()
+    state = getattr(_hooks, "state", None)
+    if state is None:
+        return _OFF
+    ranges, recorder = state
+    ledger = _LEDGER_STAGE.get(name) if ranges else None
+    if recorder is None:
+        return torch.profiler.record_function(ledger) if ledger else _OFF
+    if ledger is None:
+        return recorder.span(name)
+    return _ranged_span(ledger, recorder.span(name))
+
+
+@contextlib.contextmanager
+def _ranged_span(ledger: str, span):
+    with torch.profiler.record_function(ledger), span:
+        yield
+
+
+def _count(name: str, value: int = 1) -> None:
+    state = getattr(_hooks, "state", None)
+    if state is not None and state[1] is not None:
+        state[1].count(name, value)
 
 
 def _inputs(pixels, dims, device) -> Tuple[torch.Tensor, torch.Tensor]:
     """Pixels (float32) and dims (int32) as tensors on the resolved device."""
-    dev = resolve_device(device)
-    sanitize.check_upload(pixels, dev)
-    px = torch.as_tensor(pixels, dtype=torch.float32, device=dev)
-    dm = torch.as_tensor(dims, dtype=torch.int32, device=dev)
+    with _stage("inputs"):
+        dev = resolve_device(device)
+        sanitize.check_upload(pixels, dev)
+        px = torch.as_tensor(pixels, dtype=torch.float32, device=dev)
+        dm = torch.as_tensor(dims, dtype=torch.int32, device=dev)
     return px, dm
 
 
@@ -136,13 +189,15 @@ def _segment(
     pre: torch.Tensor, dm: torch.Tensor, cfg: PipelineConfig
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     canvas_hw = tuple(pre.shape[-2:])
+    with _stage("seeds"):
+        seeds, valid = seed_mask(dm, canvas_hw), valid_mask(dm, canvas_hw)
     with _stage("grow"):
         return grow_dispatch(
             pre,
-            seed_mask(dm, canvas_hw),
+            seeds,
             cfg.grow_low,
             cfg.grow_high,
-            valid=valid_mask(dm, canvas_hw),
+            valid=valid,
             block_iters=cfg.grow_block_iters,
             max_iters=cfg.grow_max_iters,
             use_kernels=cfg.use_kernels,
@@ -209,13 +264,14 @@ def process_batch(
     ``mask`` is uint8 (B, H, W) and ``grow_converged`` bool (B,), as the
     JAX package's vmapped ``process_batch`` returns them.
     """
-    px, dm = _inputs(pixels, dims, device)
-    if px.dim() != 3 or tuple(dm.shape) != (px.shape[0], 2):
-        raise ValueError(
-            f"process_batch takes (B, H, W) pixels and (B, 2) dims, got "
-            f"{tuple(px.shape)} and {tuple(dm.shape)}"
-        )
-    return _process(px, dm, cfg)
+    with _stage("entry"):
+        px, dm = _inputs(pixels, dims, device)
+        if px.dim() != 3 or tuple(dm.shape) != (px.shape[0], 2):
+            raise ValueError(
+                f"process_batch takes (B, H, W) pixels and (B, 2) dims, got "
+                f"{tuple(px.shape)} and {tuple(dm.shape)}"
+            )
+        return _process(px, dm, cfg)
 
 
 def process_slice_stages(

@@ -33,7 +33,12 @@ from nm03_capstone_project_tpu_torch.ops.volume import (
     region_grow_3d,
     region_grow_jump_3d,
 )
-from nm03_capstone_project_tpu_torch.pipeline.slice_pipeline import _inputs, _preprocess
+from nm03_capstone_project_tpu_torch.pipeline.slice_pipeline import (
+    _count,
+    _inputs,
+    _preprocess,
+    _stage,
+)
 
 
 def volume_grow_inputs(
@@ -49,8 +54,9 @@ def volume_grow_inputs(
     d = px.shape[-3]
     canvas_hw = tuple(px.shape[-2:])
     pre = _preprocess(px, dm.expand(d, 2), cfg)
-    seeds = seed_mask(dm, canvas_hw).expand(d, *canvas_hw)
-    valid = valid_mask(dm, canvas_hw).expand(d, *canvas_hw)
+    with _stage("seeds"):
+        seeds = seed_mask(dm, canvas_hw).expand(d, *canvas_hw)
+        valid = valid_mask(dm, canvas_hw).expand(d, *canvas_hw)
     return pre, seeds, valid
 
 
@@ -61,25 +67,32 @@ def grow_volume(pre, seeds, valid, cfg: PipelineConfig, return_steps: bool = Fal
     its round cap unchanged, as the JAX package's ``process_volume`` does
     (unlike the 2D dispatch, which derives a log2 budget). With
     ``return_steps`` a third value holds the dilation steps or the jump
-    rounds run.
+    rounds run, which the ``grow3d.steps`` counter records under
+    :func:`.slice_pipeline.stage_spans`.
     """
-    if cfg.grow_algorithm == "jump":
-        return region_grow_jump_3d(
-            pre, seeds, cfg.grow_low, cfg.grow_high, valid=valid,
-            max_rounds=cfg.grow_max_iters, return_steps=return_steps,
-        )
-    return region_grow_3d(
-        pre, seeds, cfg.grow_low, cfg.grow_high, valid=valid,
-        block_iters=cfg.grow_block_iters, max_iters=cfg.grow_max_iters,
-        return_steps=return_steps,
-    )
+    with _stage("grow3d"):
+        if cfg.grow_algorithm == "jump":
+            out = region_grow_jump_3d(
+                pre, seeds, cfg.grow_low, cfg.grow_high, valid=valid,
+                max_rounds=cfg.grow_max_iters, return_steps=True,
+                stage=_stage, counter=_count,
+            )
+        else:
+            out = region_grow_3d(
+                pre, seeds, cfg.grow_low, cfg.grow_high, valid=valid,
+                block_iters=cfg.grow_block_iters, max_iters=cfg.grow_max_iters,
+                return_steps=True, stage=_stage, counter=_count,
+            )
+    _count("grow3d.steps", out[2])
+    return out if return_steps else out[:2]
 
 
 def _process_volume(px: torch.Tensor, dm: torch.Tensor, cfg: PipelineConfig):
     pre, seeds, valid = volume_grow_inputs(px, dm, cfg)
     seg, converged = grow_volume(pre, seeds, valid, cfg)
-    mask = dilate3d(cast_uint8(seg), cfg.morph_size)
-    mask = mask * valid.to(mask.dtype)
+    with _stage("morph"):
+        mask = dilate3d(cast_uint8(seg), cfg.morph_size)
+        mask = mask * valid.to(mask.dtype)
     return {"original": px, "mask": mask, "grow_converged": converged}
 
 
@@ -100,10 +113,11 @@ def process_volume(
     plane's true extent), and a 0-d bool that is False when the growing
     fixpoint hit its cap (a truncated, under-covering mask).
     """
-    px, dm = _inputs(volume, dims, device)
-    if px.dim() != 3 or tuple(dm.shape) != (2,):
-        raise ValueError(
-            f"process_volume takes (D, H, W) pixels and (2,) dims, got "
-            f"{tuple(px.shape)} and {tuple(dm.shape)}"
-        )
-    return _process_volume(px, dm, cfg)
+    with _stage("entry"):
+        px, dm = _inputs(volume, dims, device)
+        if px.dim() != 3 or tuple(dm.shape) != (2,):
+            raise ValueError(
+                f"process_volume takes (D, H, W) pixels and (2,) dims, got "
+                f"{tuple(px.shape)} and {tuple(dm.shape)}"
+            )
+        return _process_volume(px, dm, cfg)

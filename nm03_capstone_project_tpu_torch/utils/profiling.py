@@ -4,8 +4,6 @@ The port's counterpart of the JAX package's ``utils/profiling.py``:
 
 * :func:`profile_trace` — capture a Chrome trace of a block into a
   directory (view it in Perfetto or ``chrome://tracing``);
-* :func:`annotate` — a named range on the profiler timeline
-  (``torch.profiler.record_function``);
 * :func:`capture_profile` — the on-demand capture behind ``GET
   /debug/profile`` and the ledger's sampler: a ``duration_ms`` window of
   every thread's ops and, on a card, its kernels, returned as a zipped
@@ -92,13 +90,6 @@ def profile_trace(trace_dir: str | None):
         yield
     prof.export_chrome_trace(str(out / TRACE_NAME))
     _log.info("profiler trace written to %s", out)
-
-
-def annotate(name: str):
-    """Named range that appears on the profiler timeline."""
-    import torch
-
-    return torch.profiler.record_function(name)
 
 
 def capture_profile(duration_ms: int, zip_cap_bytes: int = MAX_ZIP_BYTES) -> dict:

@@ -84,15 +84,17 @@ toolkit. Phases, each printing one JSON line:
    every mask read back from ``mask.mhd`` equal to the golden the JAX
    package made (``testdata/volume_golden.json``: sha256, voxels,
    ``grow_converged``); masks and JPEG bytes equal between the kernels and
-   the plain run; the fused kernel launched once a patient and the grow
-   kernel never (the growth is 3D torch ops). The cohort holds two
+   the plain run; the fused kernel launched once a patient, the 3D grow
+   kernel (``csrc/grow3d.cu``) once a block of steps, at least once a
+   patient, and the 2D grow kernel never. The cohort holds two
    distinct masks, so four phantom volumes of other shapes go through
    ``process_volume`` with the kernels, each equal to its entry in the
    golden. One patient each with ``--render-stage device``,
    ``--no-preprocess-fuse`` (the median kernel, once) and
    ``--grow-algorithm jump`` (converged) equals the kernels run. Then a
    long phantom study of 160 x 512 x 512 through ``process_volume`` with
-   the kernels (one fused launch) and with the plain ops, masks and
+   the kernels (one fused launch, a 3D grow launch a block) and with the
+   plain ops, masks and
    ``converged`` equal (the ``fused`` phase also holds the kernel bitwise at
    that shape). The line has volumes/s and slices/s (the results JSON's
    ``wall_s``, median over the turns), the ``timings_s`` shares of a
@@ -101,8 +103,13 @@ toolkit. Phases, each printing one JSON line:
    for the cohort's median patient and for the long study, the launches
    and the card's name and power limit. One more volume CLI run with the
    telemetry flags passes ``check_telemetry.py --expect-patients 20`` and
-   its profile names the fused kernel (the volume driver launches no grow
-   kernel); the line's ``telemetry``.
+   its profile names the fused and the 3D grow kernels; the line's
+   ``telemetry``. ``grow3d`` times the 3D grow kernel, held bitwise to the
+   plain loop first, on a BraTS-sized 155 x 256 x 256 phantom study and on
+   a 25-plane cohort patient: the wrapper's milliseconds (its flag reads
+   included), its kernels' device time a call (pack, blocks and unpack;
+   taken by the profiler right after the ``grow`` phase, as the envelope's
+   are), the plain loop's milliseconds and the floor.
 7. ``shard`` — multi-device inference (``parallel/``) on the one card,
    whose meshes name ``cuda:0`` several times (NCCL refuses two ranks on
    one GPU). (a) ``process_volume_zsharded`` over ``[cuda:0] x 4``: the
@@ -183,8 +190,8 @@ toolkit. Phases, each printing one JSON line:
    300 steps in bf16 (the loss must fall below 0.7x its first value, IoU
    against the teacher above 0.6), ``--eval-only --restore`` must give the
    same IoU to 4 decimals, and ``--model-3d --volume-depth 8`` trains the
-   3D student 100 steps on 20 volumes (one fused launch a volume; the same
-   checks). The trained 2D student's f32 forward on a (25, 256, 256)
+   3D student 100 steps on 20 volumes (one fused launch a volume and the
+   3D grow kernel's blocks for the teacher's labels; the same checks). The trained 2D student's f32 forward on a (25, 256, 256)
    patient on the card, with ``cudnn.allow_tf32`` turned on first, must
    equal the CPU forward within 1e-5 x max |logit|, and the same forward
    with the model's own TF32 guard bypassed must miss that bound (so the
@@ -656,27 +663,35 @@ def cuda_ms(fn, repeats: int = REPEATS) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, kernel, wrapper, repeats: int = REPEATS):
+def device_ms(fn, kernel, wrapper, repeats: int = REPEATS, per_call=None, events=True):
     """The kernel's own device time a launch, and how it was taken.
 
     torch.profiler's self device time of the kernels whose name holds
-    ``kernel`` (a name, or a tuple of names a call launches one each of:
-    their sum a call), over a window of ``repeats`` calls, in which
-    ``wrapper``'s launch counter must rise by ``repeats``. Each window is
-    held open ``PROFILE_MARGIN_S`` on both sides of the calls, so that
-    records whose device timestamps land just outside the calls' few
-    milliseconds still fall in it. A window in which any one name's kernel
-    records are not ``repeats`` (on an
+    ``kernel`` (a name, or a tuple of names a call launches one each of, or
+    ``per_call`` of: their sum a call), over a window of ``repeats`` calls,
+    in which ``wrapper``'s launch counter must rise by ``repeats`` (times
+    the largest of ``per_call``, where a wrapper counts each of its
+    launches). Each window is held open ``PROFILE_MARGIN_S`` on both sides
+    of the calls, so that records whose device timestamps land just outside
+    the calls' few milliseconds still fall in it. A window in which any one
+    name's kernel records are not ``repeats`` (times its ``per_call``; on an
     H100 windows lose records after a million launches outside any window:
     ``scripts/torch_profiler_windows.py --launches``) is opened again, up to
     ``PROFILE_TRIES`` windows; after that the time is ``repeats`` calls
     between CUDA events behind a sleep kernel of ``BACKLOG_S``, so that the
     calls run back to back on the card and the events hold no host time.
-    Returns ``(ms, "profiler" | "cuda_events", the missed windows: their
-    records of the kernel and the device records they did hold, by name)``.
+    A call that waits on the card between its launches (``events`` false)
+    would put the host's time between the events, so its time is then
+    "not measured".
+    Returns ``(ms, "profiler" | "cuda_events" | "not measured", the missed
+    windows: their records of the kernel and the device records they did
+    hold, by name)``.
     """
     from torch.profiler import ProfilerActivity, profile
 
+    names = (kernel,) if isinstance(kernel, str) else kernel
+    per_call = per_call or (1,) * len(names)
+    launched = repeats * max(per_call)
     fn()
     torch.cuda.synchronize()
     missed = []
@@ -688,16 +703,17 @@ def device_ms(fn, kernel, wrapper, repeats: int = REPEATS):
                 fn()
             torch.cuda.synchronize()
             time.sleep(PROFILE_MARGIN_S)
-        require(wrapper.launches - before == repeats,
-                f"{kernel}: the wrapper launched {wrapper.launches - before}, not {repeats}")
-        events = prof.key_averages()
-        names = (kernel,) if isinstance(kernel, str) else kernel
-        hits = [e for e in events if any(n in e.key for n in names)]
+        require(wrapper.launches - before == launched,
+                f"{kernel}: the wrapper launched {wrapper.launches - before}, not {launched}")
+        records = prof.key_averages()
+        hits = [e for e in records if any(n in e.key for n in names)]
         calls = [sum(e.count for e in hits if n in e.key) for n in names]
-        if calls == [repeats] * len(names):
+        if calls == [repeats * c for c in per_call]:
             return sum(e.self_device_time_total for e in hits) / repeats / 1e3, "profiler", missed
-        missed.append({"calls": calls, "saw": {e.key[:60]: e.count for e in events
+        missed.append({"calls": calls, "saw": {e.key[:60]: e.count for e in records
                                                if e.self_device_time_total > 0}})
+    if not events:
+        return "not measured", "not measured", missed
     before = wrapper.launches
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda._sleep(int(BACKLOG_S * 2e9))  # cycles: the H100's SM clock is below 2 GHz
@@ -706,8 +722,8 @@ def device_ms(fn, kernel, wrapper, repeats: int = REPEATS):
         fn()
     end.record()
     end.synchronize()
-    require(wrapper.launches - before == repeats,
-            f"{kernel}: the wrapper launched {wrapper.launches - before}, not {repeats}")
+    require(wrapper.launches - before == launched,
+            f"{kernel}: the wrapper launched {wrapper.launches - before}, not {launched}")
     return start.elapsed_time(end) / repeats, "cuda_events", missed
 
 
@@ -1272,11 +1288,92 @@ def grow_stats(px, dm, cfg) -> dict:
             "blocks": steps // cfg.grow_block_iters, "converged": bool(conv)}
 
 
-def volume_phase(tmp: Path, cohort: Path, study, smi: str, kernels: dict, reset) -> dict:
+GROW3D_KERNELS = ("grow3d_pack_kernel", "grow3d_kernel", "grow3d_unpack_kernel")
+
+
+def grow3d_inputs(cfg) -> dict:
+    """The 3D grow kernel's timed volumes on the card, as
+    ``volume_grow_inputs`` gives them to the growth: a BraTS-sized
+    155-plane phantom study (the benchmark's volume cell) and the cohort's
+    first patient, the 25 planes ``write_synthetic_cohort`` writes for
+    PGBM-0001."""
+    from nm03_capstone_project_tpu_torch.data.synthetic import phantom_series, phantom_volume
+    from nm03_capstone_project_tpu_torch.pipeline.volume_pipeline import volume_grow_inputs
+
+    _, n_sl, size = DRIVER_COHORT
+    bvol = np.zeros((155, size, size), np.float32)
+    bvol[:, :240, :240] = phantom_volume(155, 240, 240, seed=21)
+    cvol = np.clip(np.stack(phantom_series(n_sl, size, size, seed=0)), 0, 65535)
+    return {name: volume_grow_inputs(torch.from_numpy(vol.astype(np.float32)).cuda(),
+                                     torch.tensor(hw, dtype=torch.int32, device="cuda"), cfg)
+            for name, vol, hw in (("brats", bvol, (240, 240)),
+                                  ("cohort_patient", cvol.astype(np.uint16), (size, size)))}
+
+
+def grow3d_kwargs(valid, cfg) -> dict:
+    return dict(low=cfg.grow_low, high=cfg.grow_high, valid=valid,
+                block_iters=cfg.grow_block_iters, max_iters=cfg.grow_max_iters, return_steps=True)
+
+
+def grow3d_device_times(cfg) -> dict:
+    """The 3D grow kernel's own device time a call on :func:`grow3d_inputs`
+    (:func:`device_ms`: the pack, a launch a block of steps and the unpack,
+    summed a call), taken early, beside the envelope's: after the
+    launch-heavy phases the profiler's windows came back short. A call
+    reads its flag between blocks, so no CUDA-event fallback.
+    ``{name: (ms, method, missed windows)}``."""
+    from nm03_capstone_project_tpu_torch.ops import hopper_volume as hv
+
+    out = {}
+    for name, (pre, seeds, valid) in grow3d_inputs(cfg).items():
+        kw = grow3d_kwargs(valid, cfg)
+        blocks = hv.region_grow_3d_kernel(pre, seeds, **kw)[2] // cfg.grow_block_iters
+        out[name] = device_ms(lambda: hv.region_grow_3d_kernel(pre, seeds, **kw), GROW3D_KERNELS,
+                              hv.region_grow_3d_kernel, per_call=(1, blocks, 1), events=False)
+    return out
+
+
+def grow3d_times(cfg, dev_times: dict) -> dict:
+    """The 3D grow kernel (``ops/hopper_volume.py``) on each of
+    :func:`grow3d_inputs`, held bitwise to the plain loop (mask, converged,
+    steps) and then timed: the wrapper's milliseconds a call (CUDA events;
+    its flag reads wait on the card), its kernels' own device time a call
+    from ``dev_times`` (:func:`grow3d_device_times`), the plain loop's
+    milliseconds and the floor: the bytes that reach HBM, the float32
+    volume read once and the mask written once (each step's packed region
+    and band, 3/8 of a byte a voxel, stay in L2: ``l2_bytes``, not
+    charged), or ten bitwise operations a 32-voxel word a step against the
+    card's rate."""
+    from nm03_capstone_project_tpu_torch.ops import hopper_volume as hv
+    from nm03_capstone_project_tpu_torch.ops.volume import region_grow_3d
+
+    out = {}
+    for name, (pre, seeds, valid) in grow3d_inputs(cfg).items():
+        kw = grow3d_kwargs(valid, cfg)
+        got = hv.region_grow_3d_kernel(pre, seeds, **kw)
+        want = region_grow_3d(pre, seeds, **kw)
+        require(torch.equal(got[0], want[0]) and bool(got[1]) == bool(want[1])
+                and got[2] == want[2], f"3D grow kernel != plain at {tuple(pre.shape)}")
+        steps, n = got[2], pre.numel()
+        b_ms, b_by = bound(4 * n + n, {"minmax_bitwise": 10 * steps * n / 32})
+        dev_ms, dev_by, dev_missed = dev_times[name]
+        out[name] = {
+            "shape": list(pre.shape), "steps": steps, "blocks": steps // cfg.grow_block_iters,
+            "voxels": int(got[0].sum()), "converged": bool(got[1]), "max_abs_err": 0.0,
+            "ms": cuda_ms(lambda: hv.region_grow_3d_kernel(pre, seeds, **kw)),
+            "device_ms": dev_ms, "device_ms_by": dev_by, "profiler_missed": dev_missed,
+            "plain_ms": cuda_ms(lambda: region_grow_3d(pre, seeds, **kw), repeats=3),
+            "bound_ms": b_ms, "bound_by": b_by, "l2_bytes": steps * 3 * n / 8}
+    return out
+
+
+def volume_phase(tmp: Path, cohort: Path, study, smi: str, kernels: dict, reset,
+                 grow3d_dev: dict) -> dict:
     """The 3D volume path on the card (phase 6 of the docstring).
 
-    Returns each kernel's launches in the volume driver's main run (the
-    median kernel's from the unfused patient).
+    ``grow3d_dev`` is :func:`grow3d_device_times`, taken early. Returns each
+    kernel's launches in the volume driver's main run (the median kernel's
+    from the unfused patient).
     """
     from torch.profiler import ProfilerActivity, profile
 
@@ -1328,8 +1425,8 @@ def volume_phase(tmp: Path, cohort: Path, study, smi: str, kernels: dict, reset)
         require(len(pats) == n_pat and sum(p["exported"] for p in pats.values()) == n
                 and sum(p["slices"] for p in pats.values()) == n,
                 f"volume run {i} ({which}): {len(pats)} patients")
-        require(kl == (launch_dict(fused=n_pat, grow=0, median=0) if which == "kernels"
-                       else launch_dict(fused=0, grow=0, median=0)),
+        require(kl == (launch_dict(fused=n_pat, grow3d=kl["grow3d"]) if which == "kernels"
+                       else launch_dict()) and (kl["grow3d"] >= n_pat) == (which == "kernels"),
                 f"volume run {i} ({which}) launches {kl}")
         files, masks = outputs(out, rec)
         require(len(files) == 2 * n, f"volume run {i}: {len(files)} JPEG files, not {2 * n}")
@@ -1378,8 +1475,11 @@ def volume_phase(tmp: Path, cohort: Path, study, smi: str, kernels: dict, reset)
         reset()
         rec = cli(base, out, *extra)
         vl = {k: fn.launches for k, fn in kernels.items()}
-        want = launch_dict(**need)
-        require(vl == want == rec["kernel_launches"], f"volume {key}: launches {vl}")
+        # the dilate schedule grows on the 3D grow kernel, the jump one on torch ops
+        dilate = key != "jump"
+        want = launch_dict(**need, **({"grow3d": vl["grow3d"]} if dilate else {}))
+        require(vl == want == rec["kernel_launches"] and (vl["grow3d"] >= 1) == dilate,
+                f"volume {key}: launches {vl}")
         vfiles, vmasks = outputs(out, rec)
         conv = pid not in rec["grow_truncated_patients"]
         # the jump schedule converges within its 1024 rounds here, and then
@@ -1406,11 +1506,11 @@ def volume_phase(tmp: Path, cohort: Path, study, smi: str, kernels: dict, reset)
     busy_ms = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
 
     phase_step("profiled_run")
-    # the volume driver's telemetry, apart from the turns (it launches no
-    # grow kernel: the 3D growth is torch ops)
+    # the volume driver's telemetry, apart from the turns (the fused kernel
+    # and the 3D grow kernel; not the 2D grow kernel)
     telemetry = telemetry_run(volume_cli.main, ["--base-path", str(cohort), "--canvas",
                                                 str(size), "--export-mhd"],
-                              tmp / "volume_telemetry", kernels, reset, ("fused",),
+                              tmp / "volume_telemetry", kernels, reset, ("fused", "grow3d"),
                               feed_stall=False)
 
     phase_step("telemetry")
@@ -1424,6 +1524,11 @@ def volume_phase(tmp: Path, cohort: Path, study, smi: str, kernels: dict, reset)
     median_pid = by_ms[len(by_ms) // 2]
 
     phase_step("growth_3d")
+    # the 3D grow kernel alone: a BraTS-sized study (the benchmark's volume
+    # cell) and a 25-plane cohort patient
+    grow3d = grow3d_times(cfg, grow3d_dev)
+
+    phase_step("grow3d_kernel")
     # one long study through process_volume, kernels and plain
     svol, sdims = study
     spx, sdm = torch.from_numpy(svol).cuda(), torch.from_numpy(sdims).cuda()
@@ -1441,8 +1546,8 @@ def volume_phase(tmp: Path, cohort: Path, study, smi: str, kernels: dict, reset)
     sfast, first_s = study_run(scfg)
     study_launches = {k: fn.launches for k, fn in kernels.items()}
     sslow, first_plain_s = study_run(splain)
-    require(study_launches == launch_dict(fused=1, grow=0, median=0),
-            f"long study launches {study_launches}")
+    require(study_launches == launch_dict(fused=1, grow3d=study_launches["grow3d"])
+            and study_launches["grow3d"] >= 1, f"long study launches {study_launches}")
     require(torch.equal(sfast["mask"], sslow["mask"]), "long study: kernel mask != plain")
     require(bool(sfast["grow_converged"]) == bool(sslow["grow_converged"]),
             "long study: converged differs")
@@ -1483,10 +1588,10 @@ def volume_phase(tmp: Path, cohort: Path, study, smi: str, kernels: dict, reset)
                          "voxels": int(sfast["mask"].sum()),
                          "converged": bool(sfast["grow_converged"]), **study_grow},
           "variants": variants, "telemetry": telemetry, "launches": launches,
-          "seconds": time.perf_counter() - t_phase, "steps_s": phase_step.spent,
-          "nvidia_smi": smi})
+          "grow3d": grow3d, "seconds": time.perf_counter() - t_phase,
+          "steps_s": phase_step.spent, "nvidia_smi": smi})
     return launches, {"masks": kmasks, "volumes_per_s": rate(runs["kernels"])["volumes_per_s"],
-                      "mhd_dir": kout}
+                      "mhd_dir": kout, "grow3d": grow3d["brats"]}
 
 
 def free_port() -> int:
@@ -2555,7 +2660,11 @@ def student_phase(tmp: Path, driver_out: dict, volume_out: dict, smi: str, kerne
     rec3, loss3, train3_s = train(tmp / "student3d", "--model-3d", "--volume-depth", "8",
                                   "--steps", str(steps_3d), "--bf16")
     launches_3d = {k: fn.launches for k, fn in kernels.items()}
-    require(rec3["volumes"] == n_pat and launches_3d == launch_dict(fused=n_pat, grow=0, median=0),
+    # the teacher's labels: process_volume, the fused kernel once a volume
+    # and the 3D grow kernel once a block of steps
+    require(rec3["volumes"] == n_pat
+            and launches_3d == launch_dict(fused=n_pat, grow3d=launches_3d["grow3d"])
+            and launches_3d["grow3d"] >= n_pat,
             f"3D training: {rec3['volumes']} volumes, launches {launches_3d}")
     require(loss3 is not None and all(np.isfinite(loss3)) and loss3[1] < 0.7 * loss3[0],
             f"3D loss did not fall: {loss3}")
@@ -3307,7 +3416,7 @@ def telemetry_run(main_fn, argv: list, out: Path, kernels: dict, reset, launched
                           "--profile-dir", str(prof)])
             require(rc == 0, f"telemetry run {out.name}, profile {attempt}: exited {rc}")
         trace = (prof / "nm03.pt.trace.json").read_text()
-        names = {k: f"{k}_kernel" in trace for k in ("fused", "grow")}
+        names = {k: f"{k}_kernel" in trace for k in ("fused", "grow", "grow3d")}
         if all(names[k] for k in launched):
             break
         missed.append(names)
@@ -4208,6 +4317,7 @@ def compile_cache_phase(tmp: Path, driver_out: dict, smi: str, kernels: dict, re
             launches[k] += v
 
     out, step = {}, StepTimer()
+    n_libs = len(build.SOURCES)
     try:
         reset()  # the main path's run: the servers' own counts are read below
         # -- 1. cold: an empty directory ------------------------------------
@@ -4216,22 +4326,22 @@ def compile_cache_phase(tmp: Path, driver_out: dict, smi: str, kernels: dict, re
         require(cold["readyz"]["replica"]["compile_cache_hits"] == 0, "cold: hits")
         require(sources(cold) == dict.fromkeys(build.SOURCES, "built"), f"cold {sources(cold)}")
         rows = scan_entries(cache)
-        require([r["status"] for r in rows] == ["ok"] * 3, f"cold entries {rows}")
+        require([r["status"] for r in rows] == ["ok"] * n_libs, f"cold entries {rows}")
         answers = serve(cold["url"], "cold")
         count(cold["url"])
         out["cold"] = hub_of(cold)
-        out["cold"]["stop_s"] = stop(cold, 0, 3)
+        out["cold"]["stop_s"] = stop(cold, 0, n_libs)
         step("cold")
 
         # -- 2. warm, with nvcc out of reach, on its own ---------------------
         warm, = ready(start("warm", cache, env_=no_nvcc))
-        require(warm["readyz"]["replica"]["compile_cache_hits"] == 3, "warm: replica hits")
+        require(warm["readyz"]["replica"]["compile_cache_hits"] == n_libs, "warm: replica hits")
         require(sources(warm) == dict.fromkeys(build.SOURCES, "cache"), f"warm {sources(warm)}")
         require(warm["readyz"]["compile_hub"]["builds"] == 0, "warm: a library was built")
         require(serve(warm["url"], "warm") == answers, "warm answers != cold answers")
         count(warm["url"])
         out["warm"] = hub_of(warm)
-        out["warm"]["stop_s"] = stop(warm, 3, 0)
+        out["warm"]["stop_s"] = stop(warm, n_libs, 0)
         step("warm")
 
         # -- 3, 4 and 5 at once, each on its own directory ------------------
@@ -4258,34 +4368,34 @@ def compile_cache_phase(tmp: Path, driver_out: dict, smi: str, kernels: dict, re
             *[start(f"r{i}", shared) for i in range(COMPILE_CACHE_REPLICAS)])
         step("four_starts")
         for s_ in (corrupt, fault):
-            require(sources(s_) == {"fused": "cache", "grow": "cache", "median": "built"},
+            require(sources(s_) == {**dict.fromkeys(build.SOURCES, "cache"), "median": "built"},
                     f"{s_['tag']} {sources(s_)}")
             require(serve(s_["url"], s_["tag"]) == answers, f"{s_['tag']} answers differ")
             count(s_["url"])
         out["corrupt"] = {**hub_of(corrupt), "verify_before": report["corrupt"]}
         out["store_fault"] = hub_of(fault)
-        out["corrupt"]["stop_s"] = stop(corrupt, 2, 1)
-        out["store_fault"]["stop_s"] = stop(fault, 2, 1, (
+        out["corrupt"]["stop_s"] = stop(corrupt, n_libs - 1, 1)
+        out["store_fault"]["stop_s"] = stop(fault, n_libs - 1, 1, (
             "--expect-counter", "resilience_faults_injected_total{site=cache,kind=io_error}==1"))
         rc, report = cache_cli("--dir", str(broken), "verify")
-        require(rc == 0 and report["ok"] == 3, f"verify after the rebuild: {rc} {report}")
+        require(rc == 0 and report["ok"] == n_libs, f"verify after the rebuild: {rc} {report}")
         tmps = list(faulty.glob("*.tmp"))
         require(len(tmps) == 1 and not (faulty / name).exists(),
                 f"after the aborted store: {tmps}")
         old = time.time() - 3600  # past the ten-minute grace for a live writer's tmp
         os.utime(tmps[0], (old, old))
         rc, report = cache_cli("--dir", str(faulty), "gc")
-        require(rc == 0 and report["removed"] == [tmps[0].name] and report["kept"] == 2,
+        require(rc == 0 and report["removed"] == [tmps[0].name] and report["kept"] == n_libs - 1,
                 f"gc: {rc} {report}")
         out["store_fault"]["gc"] = report
         step("corrupt_and_store_fault")
         for s in reps:
             hub = s["readyz"]["compile_hub"]
-            require(hub["cache_hits"] + hub["cache_misses"] == 3, f"{s['tag']} {hub}")
+            require(hub["cache_hits"] + hub["cache_misses"] == n_libs, f"{s['tag']} {hub}")
             require(serve(s["url"], s["tag"]) == answers, f"{s['tag']} answers differ")
             count(s["url"])
         rc, report = cache_cli("--dir", str(shared), "verify")
-        require(rc == 0 and report["ok"] == 3 and report["entries"] == 3,
+        require(rc == 0 and report["ok"] == n_libs and report["entries"] == n_libs,
                 f"verify after the concurrent cold start: {rc} {report}")
         step("together")
         out["together"] = {"seconds": max(s["warm_s"] for s in reps), "replicas": [
@@ -4308,7 +4418,7 @@ def compile_cache_phase(tmp: Path, driver_out: dict, smi: str, kernels: dict, re
         restarted = []
         require(len(report["replicas"]) == len(walked), f"fleet restart walked {report}")
         for e, s in zip(report["replicas"], walked):
-            require(e["compile_cache_hits"] == 3 and e["builds"] == 0,
+            require(e["compile_cache_hits"] == n_libs and e["builds"] == 0,
                     f"relaunch of {e['replica']}: {e}")
             _, st = get_json(s["url"] + "/readyz")
             require(st["replica"]["pid"] == e["new_pid"], f"{e['replica']} pid")
@@ -5709,6 +5819,8 @@ def main() -> int:
     # the envelope routes' device times, before the launch-heavy phases
     envelope_times = envelope_device_times(median_input(main_px, main_dims),
                                            extend_edges(main_px, main_dims), pre_kw)
+    # and the 3D grow kernel's, for the volume phase
+    grow3d_dev = grow3d_device_times(PipelineConfig(canvas=DRIVER_COHORT[2]))
 
     # -- 3. the cohort through process_batch ---------------------------------
     t_phase = time.perf_counter()
@@ -5814,7 +5926,8 @@ def main() -> int:
         serve_launches = serve_phase(driver_out, smi, kernels, reset)
         # -- 6. the 3D volume path ----------------------------------------
         volume_launches, volume_out = volume_phase(Path(tmp), driver_out["cohort"], study,
-                                                   smi, kernels, reset)
+                                                   smi, kernels, reset, grow3d_dev)
+        results["grow3d"] = volume_out["grow3d"]
         # -- 7. multi-device inference on the one card --------------------
         shard_launches = shard_phase(Path(tmp), driver_out, volume_out, study,
                                      (cohort, masks, conv), smi, kernels, reset)
@@ -5867,6 +5980,8 @@ def main() -> int:
         "grow_global": ("region_grow:global", "csrc/grow.cu",
                         "nm03_capstone_project_tpu/ops/pallas_region_growing.py:30",
                         "grow_global"),
+        "grow3d": ("region_grow_3d", "csrc/grow3d.cu",
+                   "none (the JAX package's 3D growth is XLA ops)", "grow3d"),
     }
     rows = []
     for key, (name, src, replaces, lk) in meta.items():
@@ -5876,8 +5991,10 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"nm03_capstone_project_tpu_torch/{src}", "replaces": replaces,
             # the main path's launches: the envelope's process_batch for the
-            # routes past the plans and one cluster, the drivers' for the rest
-            "launches": envelope_launches[lk] if new_route else driver_launches[key],
+            # routes past the plans and one cluster, the volume driver's for
+            # the 3D growth, the batch drivers' for the rest
+            "launches": (envelope_launches[lk] if new_route else volume_launches[lk]
+                         if key == "grow3d" else driver_launches[key]),
             "slice_launches": launches.get(lk, 0),
             "serve_launches": serve_launches.get(lk, 0),
             "volume_launches": volume_launches.get(lk, 0),

@@ -78,7 +78,7 @@ log = get_logger("compilehub")
 PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 BUILD_ROOT = PKG / "_build"
-SOURCES = ("median", "fused", "grow")
+SOURCES = ("median", "fused", "grow", "grow3d")
 ARCH = "sm_90a"
 NVCC_FLAGS = (
     "-gencode", f"arch=compute_{ARCH[3:]},code={ARCH}",
@@ -89,6 +89,7 @@ MEDIAN_WINDOWS = (1, 3, 5, 7, 9, 11, 13, 15)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 ARGTYPES = {
     "median": {
         "nm03_median_filter": [_P, _P, _I, _I, _I, _I, _P],
@@ -112,6 +113,14 @@ ARGTYPES = {
                              _P],
         "nm03_region_grow_global": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                     _F, _F, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    },
+    "grow3d": {
+        # pre, seeds and its four strides, valid and its four, band, the
+        # two region buffers, flag, B, D, H, W, words a buffer, low, high
+        "nm03_grow3d_pack": [_P, _P, _L, _L, _L, _L, _P, _L, _L, _L, _L, _P, _P, _P, _P,
+                             _I, _I, _I, _I, _L, _F, _F, _P],
+        "nm03_grow3d_block": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _I, _I, _P],
+        "nm03_grow3d_unpack": [_P, _P, _I, _P, _P, _I, _I, _I, _I, _L, _P],
     },
 }
 

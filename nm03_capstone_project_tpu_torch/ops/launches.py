@@ -6,7 +6,8 @@ these names. ``median_select`` and ``median_wide`` are the routes of the
 median wrapper past the generated plans and past the select kernel's
 planes, ``grow_global`` the grow wrapper's past one cluster. ``sharpen``
 is the second launch of the fused wrapper's ``split`` route (the first is
-the window's median route, counted under its own name).
+the window's median route, counted under its own name). ``grow3d`` is the
+3D grow kernel of the volume path, one launch a block of steps.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from typing import Dict
 
 from nm03_capstone_project_tpu_torch.ops import hopper_median as hm
 from nm03_capstone_project_tpu_torch.ops import hopper_region_growing as hg
+from nm03_capstone_project_tpu_torch.ops import hopper_volume as hv
 
 KERNELS = {
     "fused": hm.fused_preprocess_kernel,
@@ -24,6 +26,7 @@ KERNELS = {
     "median_wide": hm.vector_median_wide_kernel,
     "grow_global": hg.region_grow_global_kernel,
     "sharpen": hm.sharpen_filter_kernel,
+    "grow3d": hv.region_grow_3d_kernel,
 }
 
 

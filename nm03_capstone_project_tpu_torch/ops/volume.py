@@ -7,8 +7,12 @@ The 'cross' footprint at size 3 is the 6-connected structuring element (the
 3D analog of the reference's 4-connected flood fill); 'box' gives
 26-connectivity.
 
-No Pallas kernel computes these in the JAX package (they are XLA ops), and
-none does here: they are torch ops on whatever device the volume is on.
+No Pallas kernel computes these in the JAX package (they are XLA ops).
+Here they are torch ops on whatever device the volume is on, and
+:func:`region_grow_3d` is also the plain version of the one hand-written
+kernel of the volume path, :func:`.hopper_volume.region_grow_3d_kernel`,
+which the pipeline takes for the dilate schedule on the card with
+``use_kernels`` (``pipeline/volume_pipeline.py::grow_volume``).
 
 * :func:`dilate3d` / :func:`erode3d` work on the last three axes of any
   (..., D, H, W) tensor and keep its dtype (bool or uint8); outside the
@@ -16,7 +20,8 @@ none does here: they are torch ops on whatever device the volume is on.
 * :func:`region_grow_3d` is the dilate-schedule fixpoint. Its loop reads
   one popcount per block of ``block_iters`` steps back to the host (a
   synchronization on the card), as the JAX ``while_loop`` evaluates its
-  condition once per block.
+  condition once per block; the kernel keeps the schedule and reads one
+  "changed" flag instead.
 * :func:`region_grow_jump_3d` is the pointer-jumping label merge, one
   (D, H, W) volume at a time.
 

@@ -17,9 +17,12 @@ bit:
   same number of blocks;
 * the final dilation — one more exchange, ``morph_size // 2`` planes deep.
 
-The 3D growth and dilation are torch ops, as they are XLA ops in the JAX
-package; the 2D grow kernel does not run here. ``grow_algorithm="jump"``
-has no sharded form: these paths always grow by dilation.
+The 3D growth and dilation here are torch ops, as they are XLA ops in the
+JAX package: the sharded growth runs its own loop with the halo exchange
+between steps, so neither the unsharded volume path's 3D grow kernel
+(:mod:`..ops.hopper_volume`, which knows no halo) nor the 2D grow kernel
+runs here. ``grow_algorithm="jump"`` has no sharded form: these paths
+always grow by dilation.
 
 Two transports sit behind the one :func:`_halo_pad` and the one count:
 

@@ -42,7 +42,8 @@ readers:
   ``normalize``, ``median7``, ``sharpen``, ``seeds`` (the seed grid and the
   valid mask), ``grow``, ``grow3d`` with its ``grow3d.block`` and
   ``grow3d.sync`` spans, ``morph``; and the 3D growth counts
-  ``grow3d.steps`` and ``grow3d.syncs``.
+  ``grow3d.steps`` and ``grow3d.syncs``, and on the 3D grow kernel
+  ``grow3d.launches``, one a block.
 
 With neither open a stage costs one thread-local read: no tensor op, no
 sync, no allocation.

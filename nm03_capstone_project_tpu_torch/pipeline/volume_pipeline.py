@@ -11,8 +11,12 @@ batched :func:`.slice_pipeline._preprocess` takes the D planes as its batch,
 so with ``cfg.use_kernels`` on the card a volume's preprocessing is ONE
 launch of the fused preprocess kernel (or, with ``fuse_preprocess=False``,
 one launch of the median kernel between the plain elementwise and sharpen
-ops). The 3D growth and dilation are torch ops (:mod:`..ops.volume`), as
-they are XLA ops in the JAX package; the 2D grow kernel does not run here.
+ops). The 3D growth on the dilate schedule is, with ``cfg.use_kernels`` on
+the card, the hand-written kernel of :mod:`..ops.hopper_volume` (one
+launch a block of steps; the JAX package has XLA ops there and no Pallas
+kernel), and on the CPU the torch loop of :mod:`..ops.volume`; the jump
+schedule and the final 3D dilation are torch ops on either. The 2D grow
+kernel does not run here.
 
 :func:`process_volume` runs on ``cuda`` unless the caller passes
 ``device="cpu"``; with no GPU and no explicit CPU request it raises.
@@ -27,6 +31,7 @@ import torch
 from nm03_capstone_project_tpu_torch.config import DEFAULT_CONFIG, PipelineConfig
 from nm03_capstone_project_tpu_torch.core.image import valid_mask
 from nm03_capstone_project_tpu_torch.ops.elementwise import cast_uint8
+from nm03_capstone_project_tpu_torch.ops.hopper_volume import region_grow_3d_kernel
 from nm03_capstone_project_tpu_torch.ops.seeds import seed_mask
 from nm03_capstone_project_tpu_torch.ops.volume import (
     dilate3d,
@@ -61,11 +66,17 @@ def volume_grow_inputs(
 
 
 def grow_volume(pre, seeds, valid, cfg: PipelineConfig, return_steps: bool = False):
-    """The 3D growth of :func:`process_volume` on its inputs, by schedule.
+    """The 3D growth of :func:`process_volume` on its inputs, by schedule
+    and device.
 
-    ``jump`` passes ``cfg.grow_max_iters`` to ``region_grow_jump_3d`` as
-    its round cap unchanged, as the JAX package's ``process_volume`` does
-    (unlike the 2D dispatch, which derives a log2 budget). With
+    ``dilate``: the 3D grow kernel
+    (:func:`..ops.hopper_volume.region_grow_3d_kernel`) for a volume off the
+    CPU with ``cfg.use_kernels``, as the 2D ``grow_dispatch`` picks, else
+    the torch loop :func:`..ops.volume.region_grow_3d`; the same bits, the
+    same schedule. ``jump`` (torch ops on any device) passes
+    ``cfg.grow_max_iters`` to ``region_grow_jump_3d`` as its round cap
+    unchanged, as the JAX package's ``process_volume`` does (unlike the 2D
+    dispatch, which derives a log2 budget). With
     ``return_steps`` a third value holds the dilation steps or the jump
     rounds run, which the ``grow3d.steps`` counter records under
     :func:`.slice_pipeline.stage_spans`.
@@ -78,7 +89,9 @@ def grow_volume(pre, seeds, valid, cfg: PipelineConfig, return_steps: bool = Fal
                 stage=_stage, counter=_count,
             )
         else:
-            out = region_grow_3d(
+            grow = (region_grow_3d_kernel if cfg.use_kernels and pre.device.type != "cpu"
+                    else region_grow_3d)
+            out = grow(
                 pre, seeds, cfg.grow_low, cfg.grow_high, valid=valid,
                 block_iters=cfg.grow_block_iters, max_iters=cfg.grow_max_iters,
                 return_steps=True, stage=_stage, counter=_count,

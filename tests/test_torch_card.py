@@ -511,16 +511,19 @@ def test_student_forward_equals_the_cpu_with_tf32_on(cuda, ndim, monkeypatch):
     assert not bool(differ[f32.abs() >= 2.0].any())
 
 
-# one process's run of the three kernels on seeded inputs: each output's
-# sha256, whether it equals its plain version, and where each library came from
+# one process's run of the four kernel libraries on seeded inputs: each
+# output's sha256, whether it equals its plain version, and where each
+# library came from
 _CACHE_RUN = r'''
 import hashlib, json, sys
 import torch
 from nm03_capstone_project_tpu_torch.kernels import build
 from nm03_capstone_project_tpu_torch.ops import hopper_median as hm
 from nm03_capstone_project_tpu_torch.ops import hopper_region_growing as hg
+from nm03_capstone_project_tpu_torch.ops import hopper_volume as hv
 from nm03_capstone_project_tpu_torch.ops.median import vector_median_filter
 from nm03_capstone_project_tpu_torch.ops.region_growing import region_grow
+from nm03_capstone_project_tpu_torch.ops.volume import region_grow_3d
 pre = json.loads(sys.argv[1])
 g = torch.Generator().manual_seed(11)
 x = (torch.rand(3, 251, 241, generator=g) * 4000 + 0.68).cuda()
@@ -530,9 +533,11 @@ seeds[:, 120, 120] = True
 seeds = seeds.cuda()
 got = {"median": hm.vector_median_filter_kernel(x, 7),
        "fused": hm.fused_preprocess_kernel(x, **pre),
-       "grow": hg.region_grow_kernel(img, seeds, 0.74, 0.91)[0]}
+       "grow": hg.region_grow_kernel(img, seeds, 0.74, 0.91)[0],
+       "grow3d": hv.region_grow_3d_kernel(img, seeds, 0.74, 0.91)[0]}
 plain = {"median": vector_median_filter(x, 7), "fused": img,
-         "grow": region_grow(img, seeds, 0.74, 0.91)[0]}
+         "grow": region_grow(img, seeds, 0.74, 0.91)[0],
+         "grow3d": region_grow_3d(img, seeds, 0.74, 0.91)[0]}
 torch.cuda.synchronize()
 print(json.dumps({
     "sha": {k: hashlib.sha256(v.cpu().numpy().tobytes()).hexdigest() for k, v in got.items()},
@@ -552,6 +557,7 @@ def test_a_cached_library_runs_bitwise_like_a_fresh_build(cuda, tmp_path):
     import sys
 
     from nm03_capstone_project_tpu_torch.compilehub import ENV_CACHE_DIR, scan_entries
+    from nm03_capstone_project_tpu_torch.kernels import build
 
     repo = pathlib.Path(__file__).resolve().parents[1]
     cache = tmp_path / "cache"
@@ -564,13 +570,13 @@ def test_a_cached_library_runs_bitwise_like_a_fresh_build(cuda, tmp_path):
 
     env = dict(os.environ, **{ENV_CACHE_DIR: str(cache)})
     cold = run(env)
-    assert cold["sources"] == {"fused": "built", "grow": "built", "median": "built"}
-    assert [r["status"] for r in scan_entries(cache)] == ["ok"] * 3
+    assert cold["sources"] == dict.fromkeys(build.SOURCES, "built")
+    assert [r["status"] for r in scan_entries(cache)] == ["ok"] * len(build.SOURCES)
     no_nvcc = dict(env, CUDA_HOME=str(tmp_path / "no-toolkit"), PATH=os.pathsep.join(
         p for p in env.get("PATH", "").split(os.pathsep)
         if not os.path.exists(os.path.join(p, "nvcc"))))
     warm = run(no_nvcc)
-    assert warm["sources"] == {"fused": "cache", "grow": "cache", "median": "cache"}
+    assert warm["sources"] == dict.fromkeys(build.SOURCES, "cache")
     assert warm["sha"] == cold["sha"]
     assert all(cold["plain_equal"].values()) and all(warm["plain_equal"].values())
 
@@ -1106,3 +1112,143 @@ def test_two_lanes_serve_the_global_route_at_once(cuda):
     finally:
         app.begin_drain(reason="test")
         app.close()
+
+
+# -- the 3D grow kernel (csrc/grow3d.cu) against the plain loop --------------------
+
+
+def _maze3d(shape, cuda, seed, fill=0.45):
+    """Voxels in band with probability ``fill`` (above the percolation
+    threshold, so the growth winds for many blocks), a few seeds, and
+    a valid mask of one plane cutting the last columns."""
+    g = torch.Generator().manual_seed(seed)
+    vol = torch.where(torch.rand(shape, generator=g) < fill, 0.8, 0.5)
+    seeds = torch.rand(shape[-2:], generator=g) < 0.002
+    seeds[0, 0] = True
+    vol[..., 0, 0] = 0.8
+    valid = torch.ones(shape[-2:], dtype=torch.bool)
+    if shape[-1] > 4:
+        valid[:, -3:] = False
+    return (vol.float().to(cuda), seeds.expand(shape).to(cuda),
+            valid.expand(shape).to(cuda))
+
+
+def _grow3d_same(cuda, vol, seeds, valid, **kw):
+    from nm03_capstone_project_tpu_torch.ops import hopper_volume as hv
+    from nm03_capstone_project_tpu_torch.ops.volume import region_grow_3d
+
+    kw = dict(kw, return_steps=True)
+    before = hv.region_grow_3d_kernel.launches
+    got = hv.region_grow_3d_kernel(vol, seeds, valid=valid, **kw)
+    torch.cuda.synchronize()
+    want = region_grow_3d(vol, seeds, valid=valid, **kw)
+    assert got[0].dtype == torch.uint8 and got[0].shape == vol.shape
+    assert got[1].device.type == "cuda" and got[1].shape == ()
+    assert torch.equal(got[0], want[0])
+    assert bool(got[1]) is bool(want[1]) and got[2] == want[2]
+    assert hv.region_grow_3d_kernel.launches - before == got[2] // kw.get("block_iters", 16)
+    return got
+
+
+GROW3D_SHAPES = [(155, 256, 256), (25, 251, 241), (7, 33, 65), (1, 1, 1), (1, 40, 70),
+                 (2, 9, 30, 50)]
+
+
+@pytest.mark.parametrize("connectivity", [6, 26])
+@pytest.mark.parametrize("shape", GROW3D_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_grow3d_kernel_equals_the_plain_loop(cuda, shape, connectivity):
+    vol, seeds, valid = _maze3d(shape, cuda, seed=sum(shape))
+    for bi, mi in ((16, 4096), (1, 4096), (7, 4096)):
+        _grow3d_same(cuda, vol, seeds, valid, connectivity=connectivity, block_iters=bi,
+                     max_iters=mi)
+
+
+def test_grow3d_kernel_on_a_brats_study(cuda):
+    # the benchmark's volume cell: one 155-plane phantom study on the 256
+    # canvas through the pipeline's own grow inputs (expanded seed and
+    # valid planes), grown to its fixpoint in blocks of 16
+    from nm03_capstone_project_tpu_torch.data.synthetic import phantom_volume
+    from nm03_capstone_project_tpu_torch.pipeline.volume_pipeline import volume_grow_inputs
+
+    vol = np.zeros((155, 256, 256), np.float32)
+    vol[:, :240, :240] = phantom_volume(155, 240, 240, seed=21)
+    cfg = PipelineConfig()
+    pre, seeds, valid = volume_grow_inputs(torch.from_numpy(vol).to(cuda),
+                                           torch.tensor([240, 240], dtype=torch.int32,
+                                                        device=cuda), cfg)
+    assert seeds.stride()[0] == 0 and valid.stride()[0] == 0
+    got = _grow3d_same(cuda, pre, seeds, valid, low=cfg.grow_low, high=cfg.grow_high,
+                       block_iters=16, max_iters=1024)
+    assert int(got[0].sum()) > 0 and bool(got[1]) and got[2] >= 32
+
+
+@pytest.mark.parametrize("max_iters", [16, 32])
+@pytest.mark.parametrize("connectivity", [6, 26])
+def test_grow3d_kernel_truncates_as_the_plain_loop(cuda, max_iters, connectivity):
+    # a region still growing when the cap cuts it: converged False, the same mask
+    vol, seeds, valid = _maze3d((25, 96, 96), cuda, seed=5, fill=0.6)
+    got = _grow3d_same(cuda, vol, seeds, valid, connectivity=connectivity, block_iters=16,
+                       max_iters=max_iters)
+    assert not bool(got[1]) and got[2] == max_iters
+
+
+@pytest.mark.parametrize("case", ["no_seeds", "all_in_band", "uint8_seeds", "no_valid"])
+def test_grow3d_kernel_edge_inputs(cuda, case):
+    vol, seeds, valid = _maze3d((9, 31, 47), cuda, seed=9)
+    if case == "no_seeds":
+        seeds = torch.zeros_like(seeds)
+    elif case == "all_in_band":
+        vol = torch.full_like(vol, 0.8)
+        valid = torch.ones_like(valid)
+    elif case == "uint8_seeds":
+        seeds = seeds.to(torch.uint8) * 3
+        valid = valid.float()
+    else:
+        valid = None
+    got = _grow3d_same(cuda, vol, seeds, valid, block_iters=4)
+    if case == "no_seeds":
+        assert int(got[0].sum()) == 0 and bool(got[1]) and got[2] == 4
+    if case == "all_in_band":
+        assert int(got[0].sum()) == vol.numel()
+
+
+def test_grow3d_kernel_refuses_what_it_cannot_take(cuda):
+    from nm03_capstone_project_tpu_torch.ops import hopper_volume as hv
+
+    vol, seeds, valid = _maze3d((3, 8, 8), cuda, seed=1)
+    with pytest.raises(ValueError, match="connectivity"):
+        hv.region_grow_3d_kernel(vol, seeds, connectivity=8)
+    with pytest.raises(ValueError, match="positive"):
+        hv.region_grow_3d_kernel(vol, seeds, block_iters=0)
+    with pytest.raises(TypeError, match="float32"):
+        hv.region_grow_3d_kernel(vol.double(), seeds)
+    with pytest.raises(ValueError, match="CUDA"):
+        hv.region_grow_3d_kernel(vol.cpu(), seeds.cpu())
+    with pytest.raises(ValueError, match="seeds is on cpu"):
+        hv.region_grow_3d_kernel(vol, seeds.cpu())
+
+
+def test_grow3d_under_stage_spans_and_process_volume_equals_the_cpu(cuda):
+    from nm03_capstone_project_tpu_torch.data.synthetic import phantom_volume
+    from nm03_capstone_project_tpu_torch.obs.spans import StageRecorder
+    from nm03_capstone_project_tpu_torch.ops import hopper_volume as hv
+    from nm03_capstone_project_tpu_torch.pipeline import process_volume, stage_spans
+
+    vol = np.zeros((12, 256, 256), np.float32)
+    vol[:, :240, :200] = phantom_volume(12, 240, 200, seed=3)
+    dims = np.asarray([240, 200], np.int32)
+    for bi in (16, 5):
+        cfg = PipelineConfig(grow_block_iters=bi)
+        before = hv.region_grow_3d_kernel.launches
+        rec = StageRecorder()
+        with stage_spans(rec):
+            got = process_volume(vol, dims, cfg)
+        launched = hv.region_grow_3d_kernel.launches - before
+        c = rec.counters
+        assert launched > 0 and c["grow3d.launches"] == c["grow3d.syncs"] == launched
+        assert c["grow3d.steps"] == bi * launched
+        names = [n for _, _, n, _ in rec.spans]
+        assert names.count("grow3d.block") == names.count("grow3d.sync") == launched
+        want = process_volume(vol, dims, cfg, device="cpu")
+        assert torch.equal(got["mask"].cpu(), want["mask"]) and int(want["mask"].sum()) > 0
+        assert bool(got["grow_converged"]) is bool(want["grow_converged"])

@@ -353,11 +353,12 @@ def test_cold_then_warm_through_the_cache(stub_build, monkeypatch, tmp_path):
     (names, where), = stub_build
     assert names == list(build.SOURCES) and where == tmp_path / "private"
     assert not build.BUILD_ROOT.exists()  # nothing beside the package
+    n = len(build.SOURCES)
     s = cold.stats()
-    assert (s["misses"], s["hits"], s["stores"]) == (3, 0, 3)
+    assert (s["misses"], s["hits"], s["stores"]) == (n, 0, n)
     assert {r["source"] for r in build.records().values()} == {"built"}
     built = {n: pathlib.Path(lib.path).read_bytes() for n, lib in libs.items()}
-    assert [r["status"] for r in persist.scan_entries(root)] == ["ok"] * 3
+    assert [r["status"] for r in persist.scan_entries(root)] == ["ok"] * n
 
     fresh_process(monkeypatch, tmp_path / "private2")
     (tmp_path / "private2").mkdir()
@@ -366,7 +367,7 @@ def test_cold_then_warm_through_the_cache(stub_build, monkeypatch, tmp_path):
     libs = _load_all()
     assert len(stub_build) == 1  # no build
     s = warm.stats()
-    assert (s["hits"], s["misses"], s["stores"]) == (3, 0, 0)
+    assert (s["hits"], s["misses"], s["stores"]) == (len(build.SOURCES), 0, 0)
     recs = build.records()
     assert {r["source"] for r in recs.values()} == {"cache"}
     assert all(r["build_s"] is None and r["load_s"] > 0 and r["entry"] for r in recs.values())
@@ -376,11 +377,11 @@ def test_cold_then_warm_through_the_cache(stub_build, monkeypatch, tmp_path):
 def test_the_variable_is_read_and_an_attached_cache_wins(stub_build, monkeypatch, tmp_path):
     monkeypatch.setenv(persist.ENV_CACHE_DIR, str(tmp_path / "env"))
     _load_all()
-    assert len(list((tmp_path / "env").glob(f"*{persist.ENTRY_SUFFIX}"))) == 3
+    assert len(list((tmp_path / "env").glob(f"*{persist.ENTRY_SUFFIX}"))) == len(build.SOURCES)
     fresh_process(monkeypatch, tmp_path / "private")
     build.attach_cache(KernelCache(tmp_path / "flag"))
     _load_all()
-    assert len(list((tmp_path / "flag").glob(f"*{persist.ENTRY_SUFFIX}"))) == 3
+    assert len(list((tmp_path / "flag").glob(f"*{persist.ENTRY_SUFFIX}"))) == len(build.SOURCES)
     assert build.records()["median"]["source"] == "built"  # not the variable's
 
 
@@ -408,7 +409,7 @@ def test_a_corrupt_entry_rebuilds_that_library_only(stub_build, monkeypatch, tmp
     _load_all()
     assert stub_build[-1][0] == ["median"]
     s = cache.stats()
-    assert (s["hits"], s["misses"], s["corrupt"], s["stores"]) == (2, 1, 1, 1)
+    assert (s["hits"], s["misses"], s["corrupt"], s["stores"]) == (len(build.SOURCES) - 1, 1, 1, 1)
     assert build.records()["median"]["source"] == "built"
     assert cache_cli.main(["--dir", str(root), "verify"]) == 0
 
@@ -427,9 +428,10 @@ def test_a_failed_store_serves_from_the_private_build(stub_build, tmp_path):
                                        "load_s": build.records()["grow"]["load_s"],
                                        "entry": None}
     s = cache.stats()
-    assert (s["misses"], s["stores"], s["store_errors"]) == (3, 2, 1)
+    n = len(build.SOURCES)
+    assert (s["misses"], s["stores"], s["store_errors"]) == (n, n - 1, 1)
     assert len(list(root.glob("*.tmp"))) == 1
-    assert {r["name"] for r in persist.scan_entries(root)} == {"median", "fused"}
+    assert {r["name"] for r in persist.scan_entries(root)} == set(build.SOURCES) - {"grow"}
 
 
 # -- scan and gc against the JAX functions ----------------------------------------
@@ -747,8 +749,8 @@ def _checker(*argv):
 @pytest.mark.parametrize("start", ["cold", "warm"])
 def test_a_server_with_a_cache_publishes_the_counters(start, stub_build, monkeypatch,
                                                       tmp_path):
-    """On the card the warmup's captures load the three libraries; on the
-    CPU nothing loads, so the test loads them where the warmup would."""
+    """On the card the warmup's captures load every library; on the CPU
+    nothing loads, so the test loads them where the warmup would."""
     from nm03_capstone_project_tpu_torch.config import PipelineConfig
     from nm03_capstone_project_tpu_torch.obs import RunContext
     from nm03_capstone_project_tpu_torch.serving.server import ServingApp
@@ -767,11 +769,12 @@ def test_a_server_with_a_cache_publishes_the_counters(start, stub_build, monkeyp
         _load_all()
         app.start()
         st = app.status()
-        hits = 3 if start == "warm" else 0
+        n = len(build.SOURCES)
+        hits = n if start == "warm" else 0
         assert st["replica"]["compile_cache_hits"] == hits
         hub = st["compile_hub"]
-        assert (hub["cache_hits"], hub["cache_misses"]) == (hits, 3 - hits)
-        assert hub["cache_dir"] == str(root) and hub["builds"] == 3 - hits
+        assert (hub["cache_hits"], hub["cache_misses"]) == (hits, n - hits)
+        assert hub["cache_dir"] == str(root) and hub["builds"] == n - hits
         assert hub["cache_loads"] == hits
         assert {r["source"] for r in hub["libraries"].values()} == {
             "cache" if hits else "built"}
@@ -781,7 +784,7 @@ def test_a_server_with_a_cache_publishes_the_counters(start, stub_build, monkeyp
     assert build.attached_cache() is None  # the app detached its cache
     res = _checker("--metrics", metrics,
                    "--expect-counter", f"compile_cache_hits_total=={hits}",
-                   "--expect-counter", f"compile_cache_misses_total=={3 - hits}")
+                   "--expect-counter", f"compile_cache_misses_total=={n - hits}")
     assert res.returncode == 0, res.stdout + res.stderr
 
 

@@ -491,6 +491,8 @@ class TestBuild:
                     want.append(ctypes.c_void_p)
                 elif p.startswith("float"):
                     want.append(ctypes.c_float)
+                elif p.startswith("long long "):
+                    want.append(ctypes.c_longlong)
                 else:
                     assert p.startswith("int "), p
                     want.append(ctypes.c_int)

@@ -61,13 +61,15 @@ from nm03_capstone_project_tpu_torch.data.synthetic import (  # noqa: E402
     write_synthetic_cohort,
 )
 from nm03_capstone_project_tpu_torch.ops import hopper_median as hm  # noqa: E402
+from nm03_capstone_project_tpu_torch.obs.spans import StageRecorder  # noqa: E402
 from nm03_capstone_project_tpu_torch.ops import hopper_region_growing as hg  # noqa: E402
+from nm03_capstone_project_tpu_torch.ops import hopper_volume as hv  # noqa: E402
 from nm03_capstone_project_tpu_torch.ops import volume  # noqa: E402
 from nm03_capstone_project_tpu_torch.ops.region_growing import (  # noqa: E402
     region_grow,
     region_grow_jump,
 )
-from nm03_capstone_project_tpu_torch.pipeline import process_volume  # noqa: E402
+from nm03_capstone_project_tpu_torch.pipeline import process_volume, stage_spans  # noqa: E402
 from tests.oracles import region_grow_oracle  # noqa: E402
 
 GOLDEN = (
@@ -400,14 +402,31 @@ class TestProcessVolume:
 
     def test_cpu_launches_no_kernel(self):
         vol, dims, c = _volume_case("6x61x53_on_96")
-        for fn in (hm.fused_preprocess_kernel, hm.vector_median_filter_kernel,
-                   hg.region_grow_kernel):
+        kernels = (hm.fused_preprocess_kernel, hm.vector_median_filter_kernel,
+                   hg.region_grow_kernel, hv.region_grow_3d_kernel)
+        for fn in kernels:
             fn.launches = 0
         for fuse in (True, False):
             process_volume(vol, dims, PipelineConfig(canvas=c, fuse_preprocess=fuse),
                            device="cpu")
-        assert (hm.fused_preprocess_kernel.launches, hm.vector_median_filter_kernel.launches,
-                hg.region_grow_kernel.launches) == (0, 0, 0)
+        assert tuple(fn.launches for fn in kernels) == (0, 0, 0, 0)
+
+    @pytest.mark.parametrize("use_kernels", [True, False])
+    def test_cpu_grows_by_the_torch_loop(self, use_kernels):
+        # on the CPU, kernels asked for or not, the growth is the torch loop:
+        # its blocks and syncs are counted, no 3D grow kernel launch is
+        vol, dims, c = _volume_case("6x61x53_on_96")
+        cfg = PipelineConfig(canvas=c, use_kernels=use_kernels)
+        before = hv.region_grow_3d_kernel.launches
+        rec = StageRecorder()
+        with stage_spans(rec):
+            out = process_volume(vol, dims, cfg, device="cpu")
+        assert hv.region_grow_3d_kernel.launches == before
+        assert rec.counters.get("grow3d.launches", 0) == 0
+        assert rec.counters["grow3d.syncs"] > 0
+        assert rec.counters["grow3d.syncs"] * cfg.grow_block_iters == rec.counters["grow3d.steps"]
+        want = process_volume(vol, dims, PipelineConfig(canvas=c), device="cpu")
+        assert torch.equal(out["mask"], want["mask"])
 
 
 class TestMetaImage:

@@ -23,7 +23,12 @@ toolkit. Phases, each printing one JSON line:
    device time a launch (``device_ms``, torch.profiler's self device time
    by kernel name; ``device_ms_by`` says ``cuda_events`` where three
    profiler windows in turn missed the kernel's records) and the least
-   time the card could take.
+   time the card could take. ``masks`` does the same for the seed/valid and
+   finish kernels (``csrc/masks.cu``) on the TCIA batch, a BraTS-sized
+   batch of 155 planes and its volume (the 3D finish), each bitwise to the
+   torch ops. Every later phase that runs ``process_batch``,
+   ``process_volume`` or a served graph under the kernels counts one
+   launch of each of the two a call or a replay.
 3. ``slice`` — a cohort of 20 patients x 25 slices (the size of the TCIA
    Brain-Tumor-Progression cohort the reference targets) through
    ``process_batch`` in batches of 25, with the kernels and again with the
@@ -639,6 +644,13 @@ def launch_dict(**nonzero) -> dict:
     return {k: nonzero.get(k, 0) for k in KERNELS}
 
 
+def per_entry(calls: int) -> dict:
+    """The launches of the seed/valid and finish kernels in ``calls`` entry
+    calls (``process_batch``, ``process_volume``, ``_process``) under the
+    kernels: one each a call."""
+    return {"seeds": calls, "finish": calls}
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -845,7 +857,8 @@ def driver_phase(tmp: Path, smi: str, kernels: dict, reset):
     statuses = [s for pat in manifest.values() for s in pat.values()]
     require(len(statuses) == n and set(statuses) == {"done"},
             f"manifest: {len(statuses)} slices, statuses {sorted(set(statuses))}")
-    require(launches["fused"] > 0 and launches["grow"] > 0,
+    require(launches["fused"] > 0 and launches["grow"] > 0
+            and launches["seeds"] == launches["finish"] == launches["fused"],
             f"the driver did not launch every kernel of its path: {launches}")
     require(len(masks) == n, f"the mask sink saw {len(masks)} slices")
 
@@ -907,7 +920,8 @@ def driver_phase(tmp: Path, smi: str, kernels: dict, reset):
         vl = {k: fn.launches for k, fn in kernels.items()}
         require(res.succeeded == n_sl, f"{key}: {res.succeeded}/{n_sl} slices")
         need = ("median", "grow") if key == "unfused" else ("fused", "grow")
-        require(all(vl[k] > 0 for k in need), f"{key}: launches {vl}")
+        require(all(vl[k] > 0 for k in need) and vl["seeds"] == vl["finish"] == vl[need[0]],
+                f"{key}: launches {vl}")
         for (p_, stem), m in vmasks.items():
             require(np.array_equal(m, masks[(p_, stem)]), f"{key}: {p_}/{stem} mask differs")
         require(len(vmasks) == n_sl, f"{key}: the sink saw {len(vmasks)} slices")
@@ -934,7 +948,8 @@ def driver_phase(tmp: Path, smi: str, kernels: dict, reset):
         require(rec["summary"]["slices_ok"] == n, f"CLI run {i}: {rec['summary']['slices_ok']}")
         require(rec["backend"] == "cuda" and not rec["backend_degraded"], f"CLI run {i}: {rec}")
         kl = rec["kernel_launches"]
-        require((kl["fused"] > 0 and kl["grow"] > 0) if which == "kernels"
+        require((kl["fused"] > 0 and kl["grow"] > 0
+                 and kl["seeds"] == kl["finish"] == kl["fused"]) if which == "kernels"
                 else sum(kl.values()) == 0, f"CLI run {i} ({which}) launches {kl}")
         runs[which].append(n / rec["wall_s"])
         timing[f"{which}_{i}"] = {"wall_s": rec["wall_s"], "timing_s": rec["timing_s"]}
@@ -1137,7 +1152,9 @@ def serve_phase(driver_out: dict, smi: str, kernels: dict, reset) -> dict:
         replays = {b: g["replays"] for b, g in app.status()["cuda_graphs"]["lanes"]["0"].items()}
         launches = app.executor.replay_launches()
         require(all(n > 0 for n in replays.values()), f"a bucket never replayed: {replays}")
-        require(launches.get("fused", 0) > 0 and launches.get("grow", 0) > 0,
+        # each replay launches the seed/valid and finish kernels once
+        require(launches.get("fused", 0) > 0 and launches.get("grow", 0) > 0
+                and launches.get("seeds") == launches.get("finish") == sum(replays.values()),
                 f"the graphs did not launch every kernel of the path: {launches}")
         wrapper_launches = {k: fn.launches for k, fn in kernels.items()}
         require(sum(wrapper_launches.values()) == 0,
@@ -1237,7 +1254,8 @@ def serve_phase(driver_out: dict, smi: str, kernels: dict, reset) -> dict:
         m = dmasks[(pid, stem)]
         require(payload["mask_sha256"] == hashlib.sha256(m.tobytes()).hexdigest(),
                 f"unfused served {pid}/{stem}: mask != the driver's")
-    require(ulaunch.get("median", 0) > 0 and "fused" not in ulaunch,
+    require(ulaunch.get("median", 0) > 0 and "fused" not in ulaunch
+            and ulaunch.get("seeds") == ulaunch.get("finish") == ulaunch["median"],
             f"the unfused graphs' launches: {ulaunch}")
 
     serve_launches = {k: launches.get(k, 0) + ulaunch.get(k, 0) for k in kernels}
@@ -1367,6 +1385,73 @@ def grow3d_times(cfg, dev_times: dict) -> dict:
     return out
 
 
+MASKS_KERNELS = {"seeds": "seed_valid_kernel", "finish": "finish_kernel"}
+
+
+def masks_phase(cfg, main_px, main_dims, smi: str) -> dict:
+    """The seed/valid and finish kernels (``ops/hopper_masks.py``) on the
+    main path's studies, each held bitwise to the torch ops and then timed:
+    the TCIA batch (``main_px``, the cohort's sizes), a BraTS-sized batch of
+    155 planes of 240 x 240 on the 256 canvas (:func:`grow3d_inputs`), and
+    its volume (one seed plane; the 3D finish). The finish takes each
+    study's grown mask. Timed: the wrapper's milliseconds (CUDA events), the
+    kernel's own device time (:func:`device_ms`), the torch ops'
+    milliseconds and the floor: the bytes, 2 a pixel written for the seeds
+    and valid, 1 read and 1 written a voxel for the finish. Prints the
+    ``masks`` line; returns the kernels table's two rows (the TCIA batch)."""
+    from nm03_capstone_project_tpu_torch.ops import hopper_masks as hk
+    from nm03_capstone_project_tpu_torch.ops import hopper_median as hm
+    from nm03_capstone_project_tpu_torch.ops import hopper_region_growing as hg
+    from nm03_capstone_project_tpu_torch.ops import hopper_volume as hv
+    from nm03_capstone_project_tpu_torch.ops.neighborhood import extend_edges
+
+    t_phase = time.perf_counter()
+    grow_kw = dict(low=cfg.grow_low, high=cfg.grow_high)
+    hw = tuple(main_px.shape[-2:])
+    pre = hm._fused_preprocess_plain(extend_edges(main_px, main_dims), **preprocess_kwargs(cfg))
+    seeds, valid = hk.seed_valid_masks_plain(main_dims, hw)
+    tcia_seg = hg.region_grow_kernel(pre, seeds, valid=valid, **grow_kw)[0]
+    bpre, bseeds, bvalid = grow3d_inputs(cfg)["brats"]
+    bdims = torch.tensor([[240, 240]] * bpre.shape[0], dtype=torch.int32, device="cuda")
+    vdims = bdims[0].clone()
+    studies = {
+        "tcia": (main_dims, tcia_seg, False),
+        "brats_slices": (bdims, hg.region_grow_kernel(bpre, bseeds, valid=bvalid, **grow_kw)[0],
+                         False),
+        "volume": (vdims, hv.region_grow_3d_kernel(bpre, bseeds, valid=bvalid, **grow_kw)[0],
+                   True),
+    }
+    out = {"seeds": {}, "finish": {}}
+    for study, (dims, seg, volume) in studies.items():
+        calls = {
+            "seeds": (lambda d=dims: hk.seed_valid_masks_kernel(d, hw),
+                      lambda d=dims: hk.seed_valid_masks_plain(d, hw),
+                      hk.seed_valid_masks_kernel, 2 * dims[..., 0].numel() * hw[0] * hw[1]),
+            "finish": (lambda d=dims, s=seg, v=volume: hk.finish_mask_kernel(
+                           s, d, cfg.morph_size, v),
+                       lambda d=dims, s=seg, v=volume: hk.finish_mask_plain(
+                           s, d, cfg.morph_size, v),
+                       hk.finish_mask_kernel, 2 * seg.numel()),
+        }
+        for key, (kernel, plain, wrapper, nbytes) in calls.items():
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            got, want = (torch.stack(got), torch.stack(want)) if key == "seeds" else (got, want)
+            require(torch.equal(got, want), f"{key} kernel != torch ops ({study})")
+            dev_ms, dev_by, dev_missed = device_ms(kernel, MASKS_KERNELS[key], wrapper)
+            b_ms, b_by = bound(nbytes, {"minmax_bitwise": 0})
+            out[key][study] = {
+                "shape": list(got.shape), "voxels": int(got.sum()), "max_abs_err": 0.0,
+                "ms": cuda_ms(kernel), "device_ms": dev_ms, "device_ms_by": dev_by,
+                "profiler_missed": dev_missed, "plain_ms": cuda_ms(plain),
+                "bound_ms": b_ms, "bound_by": b_by}
+    emit({"phase": "masks", "bitwise": True, "morph_size": cfg.morph_size, **out,
+          "launches": {"seeds": hk.seed_valid_masks_kernel.launches,
+                       "finish": hk.finish_mask_kernel.launches},
+          "seconds": time.perf_counter() - t_phase, "nvidia_smi": smi})
+    return {k: v["tcia"] for k, v in out.items()}
+
+
 def volume_phase(tmp: Path, cohort: Path, study, smi: str, kernels: dict, reset,
                  grow3d_dev: dict) -> dict:
     """The 3D volume path on the card (phase 6 of the docstring).
@@ -1425,8 +1510,8 @@ def volume_phase(tmp: Path, cohort: Path, study, smi: str, kernels: dict, reset,
         require(len(pats) == n_pat and sum(p["exported"] for p in pats.values()) == n
                 and sum(p["slices"] for p in pats.values()) == n,
                 f"volume run {i} ({which}): {len(pats)} patients")
-        require(kl == (launch_dict(fused=n_pat, grow3d=kl["grow3d"]) if which == "kernels"
-                       else launch_dict()) and (kl["grow3d"] >= n_pat) == (which == "kernels"),
+        require(kl == (launch_dict(fused=n_pat, grow3d=kl["grow3d"], **per_entry(n_pat))
+                       if which == "kernels" else launch_dict()) and (kl["grow3d"] >= n_pat) == (which == "kernels"),
                 f"volume run {i} ({which}) launches {kl}")
         files, masks = outputs(out, rec)
         require(len(files) == 2 * n, f"volume run {i}: {len(files)} JPEG files, not {2 * n}")
@@ -1477,7 +1562,8 @@ def volume_phase(tmp: Path, cohort: Path, study, smi: str, kernels: dict, reset,
         vl = {k: fn.launches for k, fn in kernels.items()}
         # the dilate schedule grows on the 3D grow kernel, the jump one on torch ops
         dilate = key != "jump"
-        want = launch_dict(**need, **({"grow3d": vl["grow3d"]} if dilate else {}))
+        want = launch_dict(**need, **per_entry(1),
+                           **({"grow3d": vl["grow3d"]} if dilate else {}))
         require(vl == want == rec["kernel_launches"] and (vl["grow3d"] >= 1) == dilate,
                 f"volume {key}: launches {vl}")
         vfiles, vmasks = outputs(out, rec)
@@ -1546,7 +1632,8 @@ def volume_phase(tmp: Path, cohort: Path, study, smi: str, kernels: dict, reset,
     sfast, first_s = study_run(scfg)
     study_launches = {k: fn.launches for k, fn in kernels.items()}
     sslow, first_plain_s = study_run(splain)
-    require(study_launches == launch_dict(fused=1, grow3d=study_launches["grow3d"])
+    require(study_launches == launch_dict(fused=1, grow3d=study_launches["grow3d"],
+                                          **per_entry(1))
             and study_launches["grow3d"] >= 1, f"long study launches {study_launches}")
     require(torch.equal(sfast["mask"], sslow["mask"]), "long study: kernel mask != plain")
     require(bool(sfast["grow_converged"]) == bool(sslow["grow_converged"]),
@@ -1784,7 +1871,7 @@ def shard_phase(tmp: Path, driver_out: dict, volume_out: dict, study, smoke, smi
                                                         mask_only=True) for b in dp_batches])
     launches["dp"] = {k: fn.launches for k, fn in kernels.items()}
     require(launches["dp"] == launch_dict(fused=4 * len(dp_batches), grow=4 * len(dp_batches),
-                                          median=0), f"data-parallel launches {launches['dp']}")
+                                          **per_entry(4 * len(dp_batches))), f"data-parallel launches {launches['dp']}")
     dp_masks = torch.cat([o["mask"] for o in dp_out]).cpu().numpy()
     dp_conv = torch.cat([o["grow_converged"] for o in dp_out]).cpu().numpy()
     require(np.array_equal(dp_masks, smoke_masks) and np.array_equal(dp_conv, smoke_conv),
@@ -1799,7 +1886,7 @@ def shard_phase(tmp: Path, driver_out: dict, volume_out: dict, study, smoke, smi
                                 dataclasses.replace(cfg, fuse_preprocess=False), dmesh)
     torch.cuda.synchronize()
     launches["dp_unfused"] = {k: fn.launches for k, fn in kernels.items()}
-    require(launches["dp_unfused"] == launch_dict(fused=0, grow=4, median=4)
+    require(launches["dp_unfused"] == launch_dict(grow=4, median=4, **per_entry(4))
             and np.array_equal(unf["mask"].cpu().numpy(), smoke_masks[:100]),
             f"unfused data-parallel: launches {launches['dp_unfused']}")
 
@@ -1888,7 +1975,8 @@ def shard_phase(tmp: Path, driver_out: dict, volume_out: dict, study, smoke, smi
         launches["parallel_local"] = {k: fn.launches for k, fn in kernels.items()}
         require(rc == 0, f"parallel driver over 4 local devices exited {rc}")
         require(launches["parallel_local"] == launch_dict(fused=4 * n_batches,
-                                                          grow=4 * n_batches, median=0),
+                                                          grow=4 * n_batches,
+                                                          **per_entry(4 * n_batches)),
                 f"parallel driver's data mesh launches {launches['parallel_local']}, "
                 f"not 4 fused and 4 grow for each of {n_batches} batches")
         require(files_of(out) == driver_out["files"],
@@ -2640,7 +2728,8 @@ def student_phase(tmp: Path, driver_out: dict, volume_out: dict, smi: str, kerne
     rec2, loss2, train2_s = train(tmp / "student2d", "--max-slices", "256",
                                   "--steps", str(steps_2d), "--bf16")
     launches_2d = {k: fn.launches for k, fn in kernels.items()}
-    require(launches_2d["fused"] > 0 and launches_2d["grow"] > 0,
+    require(launches_2d["fused"] > 0 and launches_2d["grow"] > 0
+            and launches_2d["seeds"] == launches_2d["finish"] == launches_2d["fused"],
             f"the 2D teacher did not launch its kernels: {launches_2d}")
     require(rec2["slices"] == min(256, n) and rec2["steps"] == steps_2d,
             f"2D training: {rec2['slices']} slices, {rec2['steps']} steps")
@@ -2663,7 +2752,8 @@ def student_phase(tmp: Path, driver_out: dict, volume_out: dict, smi: str, kerne
     # the teacher's labels: process_volume, the fused kernel once a volume
     # and the 3D grow kernel once a block of steps
     require(rec3["volumes"] == n_pat
-            and launches_3d == launch_dict(fused=n_pat, grow3d=launches_3d["grow3d"])
+            and launches_3d == launch_dict(fused=n_pat, grow3d=launches_3d["grow3d"],
+                                           **per_entry(n_pat))
             and launches_3d["grow3d"] >= n_pat,
             f"3D training: {rec3['volumes']} volumes, launches {launches_3d}")
     require(loss3 is not None and all(np.isfinite(loss3)) and loss3[1] < 0.7 * loss3[0],
@@ -2917,7 +3007,7 @@ def student_phase(tmp: Path, driver_out: dict, volume_out: dict, smi: str, kerne
         finally:
             mesh_mod.local_devices = real_local_devices
         got = {k: fn.launches for k, fn in kernels.items()}
-        require(got == launch_dict(fused=1, grow=1, median=0),
+        require(got == launch_dict(fused=1, grow=1, **per_entry(1)),
                 f"train driver ({tag}): the teacher's launches {got}")
         multi_launches = {k: multi_launches[k] + got[k] for k in kernels}
         require(not dist.is_initialized(), f"train driver ({tag}) left its process group")
@@ -5386,7 +5476,7 @@ def envelope_phase(median_x, fused_x, pre_kw: dict, smi: str, kernels: dict, res
     fast = process_batch(bt.pixels, bt.dims, kcfg)
     torch.cuda.synchronize()
     launches = {n: fn.launches for n, fn in kernels.items()}
-    require(launches == launch_dict(median_select=1, sharpen=1, grow_global=1),
+    require(launches == launch_dict(median_select=1, sharpen=1, grow_global=1, **per_entry(1)),
             f"canvas {c}, k={k}: launches {launches}")
     slow = process_batch(bt.pixels, bt.dims, pcfg)
     torch.cuda.synchronize()
@@ -5428,7 +5518,7 @@ def envelope_phase(median_x, fused_x, pre_kw: dict, smi: str, kernels: dict, res
     fast = process_batch(wide_bt.pixels, wide_bt.dims, kcfg)
     torch.cuda.synchronize()
     wide_launches = {n: fn.launches for n, fn in kernels.items()}
-    require(wide_launches == launch_dict(median_wide=1, sharpen=1, grow=1),
+    require(wide_launches == launch_dict(median_wide=1, sharpen=1, grow=1, **per_entry(1)),
             f"canvas {wc}, k={wk}: launches {wide_launches}")
     slow = process_batch(wide_bt.pixels, wide_bt.dims, pcfg)
     torch.cuda.synchronize()
@@ -5822,6 +5912,9 @@ def main() -> int:
     # and the 3D grow kernel's, for the volume phase
     grow3d_dev = grow3d_device_times(PipelineConfig(canvas=DRIVER_COHORT[2]))
 
+    # -- the seed/valid and finish kernels (csrc/masks.cu) ----------------------
+    results.update(masks_phase(cfg, main_px, main_dims, smi))
+
     # -- 3. the cohort through process_batch ---------------------------------
     t_phase = time.perf_counter()
 
@@ -5839,7 +5932,8 @@ def main() -> int:
     fast = run(cfg)
     launches = {k: fn.launches for k, fn in kernels.items()}
     slow = run(plain_cfg)
-    require(launches["fused"] > 0 and launches["grow"] > 0,
+    require(launches["fused"] > 0 and launches["grow"] > 0
+            and launches["seeds"] == launches["finish"] == len(batches),
             f"the main path did not launch every kernel: {launches}")
     for i, (a, p) in enumerate(zip(fast, slow)):
         require(torch.equal(a["mask"], p["mask"]), f"batch {i}: kernel masks != plain")
@@ -5863,7 +5957,8 @@ def main() -> int:
     unfused = process_batch(batches[1].pixels, batches[1].dims, unfused_cfg)
     torch.cuda.synchronize()
     unfused_launches = {k: fn.launches for k, fn in kernels.items()}
-    require(unfused_launches["median"] > 0 and unfused_launches["grow"] > 0,
+    require(unfused_launches["median"] > 0 and unfused_launches["grow"] > 0
+            and unfused_launches["seeds"] == unfused_launches["finish"] == 1,
             f"the unfused path did not launch its kernels: {unfused_launches}")
     require(torch.equal(unfused["mask"], fast[1]["mask"]), "unfused masks != fused masks")
     launches["median"] = unfused_launches["median"]
@@ -5982,6 +6077,10 @@ def main() -> int:
                         "grow_global"),
         "grow3d": ("region_grow_3d", "csrc/grow3d.cu",
                    "none (the JAX package's 3D growth is XLA ops)", "grow3d"),
+        "seeds": ("seed_valid_masks", "csrc/masks.cu",
+                  "none (the JAX package's seed grid and valid mask are XLA ops)", "seeds"),
+        "finish": ("finish_mask", "csrc/masks.cu",
+                   "none (the JAX package's cast, dilation and cut are XLA ops)", "finish"),
     }
     rows = []
     for key, (name, src, replaces, lk) in meta.items():

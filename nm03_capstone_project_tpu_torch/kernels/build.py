@@ -78,7 +78,7 @@ log = get_logger("compilehub")
 PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 BUILD_ROOT = PKG / "_build"
-SOURCES = ("median", "fused", "grow", "grow3d")
+SOURCES = ("median", "fused", "grow", "grow3d", "masks")
 ARCH = "sm_90a"
 NVCC_FLAGS = (
     "-gencode", f"arch=compute_{ARCH[3:]},code={ARCH}",
@@ -121,6 +121,12 @@ ARGTYPES = {
                              _I, _I, _I, _I, _L, _F, _F, _P],
         "nm03_grow3d_block": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _I, _I, _P],
         "nm03_grow3d_unpack": [_P, _P, _I, _P, _P, _I, _I, _I, _I, _L, _P],
+    },
+    "masks": {
+        # dims, seeds, valid, P, H, W
+        "nm03_seed_valid": [_P, _P, _P, _I, _I, _I, _P],
+        # seg, dims, dims_step, out, P, depth, H, W, radius, radius through z
+        "nm03_finish": [_P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P],
     },
 }
 

@@ -79,6 +79,10 @@ KERNEL_STAGES: Tuple[Tuple[str, str], ...] = (
     ("fused_kernel", "median7"),  # csrc/fused.cu, nm03_fused_preprocess
     ("band_kernel", "median7"),  # csrc/median.cu, nm03_median_filter
     ("grow_kernel", "grow"),  # csrc/grow.cu, nm03_region_grow
+    # csrc/masks.cu: the seeds and valid mask are the grow stage's, as their
+    # torch ops were; the cast, dilation and cut the morph stage's
+    ("seed_valid_kernel", "grow"),  # nm03_seed_valid
+    ("finish_kernel", "morph"),  # nm03_finish
 )
 
 # graph-capture byte counts -> the {kind} label of

@@ -7,13 +7,16 @@ median wrapper past the generated plans and past the select kernel's
 planes, ``grow_global`` the grow wrapper's past one cluster. ``sharpen``
 is the second launch of the fused wrapper's ``split`` route (the first is
 the window's median route, counted under its own name). ``grow3d`` is the
-3D grow kernel of the volume path, one launch a block of steps.
+3D grow kernel of the volume path, one launch a block of steps. ``seeds``
+(the seed and valid masks) and ``finish`` (the final dilation cut to the
+true size) launch once an entry call each, before and after the growth.
 """
 
 from __future__ import annotations
 
 from typing import Dict
 
+from nm03_capstone_project_tpu_torch.ops import hopper_masks as hk
 from nm03_capstone_project_tpu_torch.ops import hopper_median as hm
 from nm03_capstone_project_tpu_torch.ops import hopper_region_growing as hg
 from nm03_capstone_project_tpu_torch.ops import hopper_volume as hv
@@ -27,6 +30,8 @@ KERNELS = {
     "grow_global": hg.region_grow_global_kernel,
     "sharpen": hm.sharpen_filter_kernel,
     "grow3d": hv.region_grow_3d_kernel,
+    "seeds": hk.seed_valid_masks_kernel,
+    "finish": hk.finish_mask_kernel,
 }
 
 

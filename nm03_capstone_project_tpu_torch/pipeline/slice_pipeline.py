@@ -9,7 +9,9 @@ Hopper kernels on the GPU (``cfg.use_kernels``):
 * preprocess: the fused normalize -> clip -> median -> sharpen kernel, or,
   with ``fuse_preprocess=False``, the standalone median kernel between the
   plain elementwise and sharpen ops;
-* segment: the region-growing kernel.
+* segment: the seed and valid masks in one kernel launch, then the
+  region-growing kernel;
+* morph: the cast, dilation and cut to the true size in one kernel launch.
 
 Two variants mirror the reference's drivers:
 
@@ -67,11 +69,11 @@ from nm03_capstone_project_tpu_torch.ops.elementwise import (
     clip_intensity,
     normalize,
 )
+from nm03_capstone_project_tpu_torch.ops.hopper_masks import finish_mask, seed_valid_masks
 from nm03_capstone_project_tpu_torch.ops.hopper_median import fused_preprocess, median_filter
 from nm03_capstone_project_tpu_torch.ops.hopper_region_growing import grow_dispatch
 from nm03_capstone_project_tpu_torch.ops.morphology import dilate, erode
 from nm03_capstone_project_tpu_torch.ops.neighborhood import extend_edges
-from nm03_capstone_project_tpu_torch.ops.seeds import seed_mask
 from nm03_capstone_project_tpu_torch.ops.sharpen import sharpen
 from nm03_capstone_project_tpu_torch.utils import sanitize
 
@@ -191,7 +193,7 @@ def _segment(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     canvas_hw = tuple(pre.shape[-2:])
     with _stage("seeds"):
-        seeds, valid = seed_mask(dm, canvas_hw), valid_mask(dm, canvas_hw)
+        seeds, valid = seed_valid_masks(dm, canvas_hw, cfg.use_kernels)
     with _stage("grow"):
         return grow_dispatch(
             pre,
@@ -232,10 +234,9 @@ def segment(
 def _process(px: torch.Tensor, dm: torch.Tensor, cfg: PipelineConfig) -> Dict[str, torch.Tensor]:
     seg, converged = _segment(_preprocess(px, dm, cfg), dm, cfg)
     with _stage("morph"):
-        mask = dilate(cast_uint8(seg), cfg.morph_size)
-        # dilation must not spill into the canvas padding — the reference's
-        # Dilation runs on the exact-size image and can never write there
-        mask = mask * valid_mask(dm, tuple(px.shape[-2:])).to(mask.dtype)
+        # cut to the true size: the reference's Dilation runs on the
+        # exact-size image and can never write into the canvas padding
+        mask = finish_mask(seg, dm, cfg.morph_size, cfg.use_kernels)
     return {"original": px, "mask": mask, "grow_converged": converged}
 
 

@@ -15,8 +15,10 @@ ops). The 3D growth on the dilate schedule is, with ``cfg.use_kernels`` on
 the card, the hand-written kernel of :mod:`..ops.hopper_volume` (one
 launch a block of steps; the JAX package has XLA ops there and no Pallas
 kernel), and on the CPU the torch loop of :mod:`..ops.volume`; the jump
-schedule and the final 3D dilation are torch ops on either. The 2D grow
-kernel does not run here.
+schedule is torch ops on either. The seed grid and valid plane, and the
+final 3D dilation cut to the true size, are one launch each of the
+kernels of :mod:`..ops.hopper_masks` on the card with ``cfg.use_kernels``,
+torch ops elsewhere. The 2D grow kernel does not run here.
 
 :func:`process_volume` runs on ``cuda`` unless the caller passes
 ``device="cpu"``; with no GPU and no explicit CPU request it raises.
@@ -29,15 +31,9 @@ from typing import Dict, Tuple
 import torch
 
 from nm03_capstone_project_tpu_torch.config import DEFAULT_CONFIG, PipelineConfig
-from nm03_capstone_project_tpu_torch.core.image import valid_mask
-from nm03_capstone_project_tpu_torch.ops.elementwise import cast_uint8
+from nm03_capstone_project_tpu_torch.ops.hopper_masks import finish_mask, seed_valid_masks
 from nm03_capstone_project_tpu_torch.ops.hopper_volume import region_grow_3d_kernel
-from nm03_capstone_project_tpu_torch.ops.seeds import seed_mask
-from nm03_capstone_project_tpu_torch.ops.volume import (
-    dilate3d,
-    region_grow_3d,
-    region_grow_jump_3d,
-)
+from nm03_capstone_project_tpu_torch.ops.volume import region_grow_3d, region_grow_jump_3d
 from nm03_capstone_project_tpu_torch.pipeline.slice_pipeline import (
     _count,
     _inputs,
@@ -60,9 +56,8 @@ def volume_grow_inputs(
     canvas_hw = tuple(px.shape[-2:])
     pre = _preprocess(px, dm.expand(d, 2), cfg)
     with _stage("seeds"):
-        seeds = seed_mask(dm, canvas_hw).expand(d, *canvas_hw)
-        valid = valid_mask(dm, canvas_hw).expand(d, *canvas_hw)
-    return pre, seeds, valid
+        seeds, valid = seed_valid_masks(dm, canvas_hw, cfg.use_kernels)
+    return pre, seeds.expand(d, *canvas_hw), valid.expand(d, *canvas_hw)
 
 
 def grow_volume(pre, seeds, valid, cfg: PipelineConfig, return_steps: bool = False):
@@ -101,11 +96,9 @@ def grow_volume(pre, seeds, valid, cfg: PipelineConfig, return_steps: bool = Fal
 
 
 def _process_volume(px: torch.Tensor, dm: torch.Tensor, cfg: PipelineConfig):
-    pre, seeds, valid = volume_grow_inputs(px, dm, cfg)
-    seg, converged = grow_volume(pre, seeds, valid, cfg)
+    seg, converged = grow_volume(*volume_grow_inputs(px, dm, cfg), cfg)
     with _stage("morph"):
-        mask = dilate3d(cast_uint8(seg), cfg.morph_size)
-        mask = mask * valid.to(mask.dtype)
+        mask = finish_mask(seg, dm, cfg.morph_size, cfg.use_kernels, volume=True)
     return {"original": px, "mask": mask, "grow_converged": converged}
 
 

@@ -3,8 +3,8 @@
 The JAX package warms one AOT-compiled executable per (lane, bucket)
 (``compilehub/programs.py::serve_mask``) so a serve-time dispatch is a
 lookup plus an execute. Eager PyTorch has no compile step to amortize, but
-it pays the host for every one of the ~40 small ops around the two kernels
-of a batch (``pipeline/slice_pipeline.py::_process``), and at one to
+it pays the host for every one of the ~20 small ops around the kernels of
+a batch (``pipeline/slice_pipeline.py::_process``), and at one to
 sixteen slices a batch that host work is the batch's whole cost. A
 :class:`BucketGraph` captures ``_process`` once, at the bucket's shape, on
 static device buffers:
@@ -17,8 +17,9 @@ static device buffers:
 A replay (:meth:`BucketGraph.launch`) is then four asynchronous copies
 and one ``cudaGraphLaunch`` on the lane's stream; :meth:`BucketGraph.fetch`
 waits on an event recorded after the copy back. The fused preprocess and
-grow kernels (and the standalone median kernel under
-``fuse_preprocess=False``) are kernel nodes of the graph; the grow
+grow kernels, the seed/valid and finish kernels (and the standalone
+median kernel under ``fuse_preprocess=False``) are kernel nodes of the
+graph; the grow
 kernel's thread-block cluster launch (``cudaLaunchKernelEx``) is captured
 as a cluster kernel node.
 

@@ -214,7 +214,9 @@ def test_bucket_graphs_equal_eager_and_plain(cuda, fuse):
     graphs = {b: BucketGraph(cfg, b, cuda, pool, stream) for b in (1, 2, 4, 8, 16)}
     for g in graphs.values():
         assert g.capture() > 0
-        assert g.kernels == ({"fused": 1, "grow": 1} if fuse else {"median": 1, "grow": 1})
+        # the seed/valid and finish kernels once a replay besides the path's
+        assert g.kernels == ({"fused": 1, "grow": 1} if fuse else {"median": 1, "grow": 1}) | {
+            "seeds": 1, "finish": 1}
     for rnd in range(2):  # the static inputs take new data on every replay
         for b, g in graphs.items():
             px, dm = _serve_batch(b, seed=10 * rnd + b)
@@ -511,13 +513,14 @@ def test_student_forward_equals_the_cpu_with_tf32_on(cuda, ndim, monkeypatch):
     assert not bool(differ[f32.abs() >= 2.0].any())
 
 
-# one process's run of the four kernel libraries on seeded inputs: each
+# one process's run of the five kernel libraries on seeded inputs: each
 # output's sha256, whether it equals its plain version, and where each
 # library came from
 _CACHE_RUN = r'''
 import hashlib, json, sys
 import torch
 from nm03_capstone_project_tpu_torch.kernels import build
+from nm03_capstone_project_tpu_torch.ops import hopper_masks as hk
 from nm03_capstone_project_tpu_torch.ops import hopper_median as hm
 from nm03_capstone_project_tpu_torch.ops import hopper_region_growing as hg
 from nm03_capstone_project_tpu_torch.ops import hopper_volume as hv
@@ -531,13 +534,18 @@ img = hm._fused_preprocess_plain(x, **pre)
 seeds = torch.zeros(img.shape, dtype=torch.bool)
 seeds[:, 120, 120] = True
 seeds = seeds.cuda()
+dims = torch.tensor([[251, 241], [197, 233], [9, 5]], dtype=torch.int32).cuda()
+grown = region_grow(img, seeds, 0.74, 0.91)[0]
 got = {"median": hm.vector_median_filter_kernel(x, 7),
        "fused": hm.fused_preprocess_kernel(x, **pre),
        "grow": hg.region_grow_kernel(img, seeds, 0.74, 0.91)[0],
-       "grow3d": hv.region_grow_3d_kernel(img, seeds, 0.74, 0.91)[0]}
-plain = {"median": vector_median_filter(x, 7), "fused": img,
-         "grow": region_grow(img, seeds, 0.74, 0.91)[0],
-         "grow3d": region_grow_3d(img, seeds, 0.74, 0.91)[0]}
+       "grow3d": hv.region_grow_3d_kernel(img, seeds, 0.74, 0.91)[0],
+       "seeds": torch.stack(hk.seed_valid_masks_kernel(dims, (251, 241))),
+       "finish": hk.finish_mask_kernel(grown, dims, 3)}
+plain = {"median": vector_median_filter(x, 7), "fused": img, "grow": grown,
+         "grow3d": region_grow_3d(img, seeds, 0.74, 0.91)[0],
+         "seeds": torch.stack(hk.seed_valid_masks_plain(dims, (251, 241))),
+         "finish": hk.finish_mask_plain(grown, dims, 3)}
 torch.cuda.synchronize()
 print(json.dumps({
     "sha": {k: hashlib.sha256(v.cpu().numpy().tobytes()).hexdigest() for k, v in got.items()},
@@ -1062,7 +1070,7 @@ def test_bucket_graphs_hold_every_route(cuda, canvas, k, held):
     pool, stream = torch.cuda.graph_pool_handle(), torch.cuda.Stream(cuda)
     graphs = {b: BucketGraph(cfg, b, cuda, pool, stream) for b in (1, 2)}
     for g in graphs.values():
-        assert g.capture() > 0 and g.kernels == held
+        assert g.capture() > 0 and g.kernels == held | {"seeds": 1, "finish": 1}
     for rnd in range(2):
         for b, g in graphs.items():
             px, dm = _phantom_batch(b, canvas, seed=40 + 10 * rnd + b)

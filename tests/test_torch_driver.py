@@ -151,7 +151,8 @@ class TestAgainstJax:
         assert rec["jpeg_encoder"] == "PIL"
         assert rec["kernel_launches"] == {"fused": 0, "grow": 0, "median": 0,
                                           "median_select": 0, "median_wide": 0,
-                                          "grow_global": 0, "sharpen": 0, "grow3d": 0}
+                                          "grow_global": 0, "sharpen": 0, "grow3d": 0,
+                                          "seeds": 0, "finish": 0}
         assert rec["ingest"]["counts"]["yielded"] > 0
 
     def test_python_decode_path_is_identical(self, jax_runs, cohort, tmp_path):

@@ -241,6 +241,15 @@ def test_kernel_sequence_from_stage_ranges():
     assert ledger.stage_for_kernel("void at::native::vectorized_elementwise_kernel") is None
 
 
+@pytest.mark.parametrize("name, stage", [
+    ("(anonymous namespace)::seed_valid_kernel(int const*, unsigned char*, int)", "grow"),
+    ("(anonymous namespace)::finish_kernel(unsigned char const*, int const*, int)", "morph"),
+    ("void (anonymous namespace)::fused_kernel<7, 16>(float const*)", "median7"),
+])
+def test_the_hand_written_kernels_map_to_their_stages_by_name(name, stage):
+    assert ledger.stage_for_kernel(name) == stage
+
+
 def test_graph_replays_label_by_position_and_a_recapture_goes_to_other():
     seq = list(zip(NAMES, STAGES))
     replays = (_card_run(1000.0, 500, NAMES, graph=True)

@@ -90,29 +90,30 @@ toolkit. Phases, each printing one JSON line:
    package made (``testdata/volume_golden.json``: sha256, voxels,
    ``grow_converged``); masks and JPEG bytes equal between the kernels and
    the plain run; the fused kernel launched once a patient, the 3D grow
-   kernel (``csrc/grow3d.cu``) once a block of steps, at least once a
-   patient, and the 2D grow kernel never. The cohort holds two
+   kernel (``csrc/grow3d.cu``) once a patient (one cooperative launch runs
+   a growth's every block), and the 2D grow kernel never. The cohort holds two
    distinct masks, so four phantom volumes of other shapes go through
    ``process_volume`` with the kernels, each equal to its entry in the
    golden. One patient each with ``--render-stage device``,
    ``--no-preprocess-fuse`` (the median kernel, once) and
    ``--grow-algorithm jump`` (converged) equals the kernels run. Then a
    long phantom study of 160 x 512 x 512 through ``process_volume`` with
-   the kernels (one fused launch, a 3D grow launch a block) and with the
+   the kernels (one fused launch, one 3D grow launch) and with the
    plain ops, masks and
    ``converged`` equal (the ``fused`` phase also holds the kernel bitwise at
    that shape). The line has volumes/s and slices/s (the results JSON's
    ``wall_s``, median over the turns), the ``timings_s`` shares of a
    kernels run, the device's idle share under the profiler for one kernels
-   pass, the 3D growth's time, steps and blocks (one host sync a block)
+   pass, the 3D growth's time, steps and blocks (run on the card: no host sync)
    for the cohort's median patient and for the long study, the launches
    and the card's name and power limit. One more volume CLI run with the
    telemetry flags passes ``check_telemetry.py --expect-patients 20`` and
    its profile names the fused and the 3D grow kernels; the line's
    ``telemetry``. ``grow3d`` times the 3D grow kernel, held bitwise to the
    plain loop first, on a BraTS-sized 155 x 256 x 256 phantom study and on
-   a 25-plane cohort patient: the wrapper's milliseconds (its flag reads
-   included), its kernels' device time a call (pack, blocks and unpack;
+   a 25-plane cohort patient: the wrapper's milliseconds (CUDA events
+   around calls that wait on nothing), its kernels' device time a call
+   (pack, run and unpack;
    taken by the profiler right after the ``grow`` phase, as the envelope's
    are), the plain loop's milliseconds and the floor.
 7. ``shard`` — multi-device inference (``parallel/``) on the one card,
@@ -195,8 +196,8 @@ toolkit. Phases, each printing one JSON line:
    300 steps in bf16 (the loss must fall below 0.7x its first value, IoU
    against the teacher above 0.6), ``--eval-only --restore`` must give the
    same IoU to 4 decimals, and ``--model-3d --volume-depth 8`` trains the
-   3D student 100 steps on 20 volumes (one fused launch a volume and the
-   3D grow kernel's blocks for the teacher's labels; the same checks). The trained 2D student's f32 forward on a (25, 256, 256)
+   3D student 100 steps on 20 volumes (one fused and one 3D grow launch a
+   volume for the teacher's labels; the same checks). The trained 2D student's f32 forward on a (25, 256, 256)
    patient on the card, with ``cudnn.allow_tf32`` turned on first, must
    equal the CPU forward within 1e-5 x max |logit|, and the same forward
    with the model's own TF32 guard bypassed must miss that bound (so the
@@ -1287,8 +1288,8 @@ def long_study():
 def grow_stats(px, dm, cfg) -> dict:
     """The 3D growth of ``process_volume`` alone on one volume on the card:
     its milliseconds (host clock around it, synchronized; median of 3), the
-    dilation steps it ran and the blocks of ``grow_block_iters`` steps (one
-    host sync each)."""
+    dilation steps it ran and the blocks of ``grow_block_iters`` steps (on
+    the kernel the card decides each block; read here after the growth)."""
     from nm03_capstone_project_tpu_torch.pipeline.volume_pipeline import (
         grow_volume,
         volume_grow_inputs,
@@ -1302,6 +1303,7 @@ def grow_stats(px, dm, cfg) -> dict:
         _, conv, steps = grow_volume(pre, seeds, valid, cfg, return_steps=True)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
+    steps = int(steps)
     return {"grow_ms": statistics.median(times), "steps": steps,
             "blocks": steps // cfg.grow_block_iters, "converged": bool(conv)}
 
@@ -1335,19 +1337,19 @@ def grow3d_kwargs(valid, cfg) -> dict:
 
 def grow3d_device_times(cfg) -> dict:
     """The 3D grow kernel's own device time a call on :func:`grow3d_inputs`
-    (:func:`device_ms`: the pack, a launch a block of steps and the unpack,
-    summed a call), taken early, beside the envelope's: after the
+    (:func:`device_ms`: the pack, the one cooperative run of every block and
+    the unpack, summed a call; the profiler's records must show each of the
+    three once a call), taken early, beside the envelope's: after the
     launch-heavy phases the profiler's windows came back short. A call
-    reads its flag between blocks, so no CUDA-event fallback.
+    waits on nothing, so CUDA events time it where the profiler misses.
     ``{name: (ms, method, missed windows)}``."""
     from nm03_capstone_project_tpu_torch.ops import hopper_volume as hv
 
     out = {}
     for name, (pre, seeds, valid) in grow3d_inputs(cfg).items():
         kw = grow3d_kwargs(valid, cfg)
-        blocks = hv.region_grow_3d_kernel(pre, seeds, **kw)[2] // cfg.grow_block_iters
         out[name] = device_ms(lambda: hv.region_grow_3d_kernel(pre, seeds, **kw), GROW3D_KERNELS,
-                              hv.region_grow_3d_kernel, per_call=(1, blocks, 1), events=False)
+                              hv.region_grow_3d_kernel)
     return out
 
 
@@ -1355,7 +1357,7 @@ def grow3d_times(cfg, dev_times: dict) -> dict:
     """The 3D grow kernel (``ops/hopper_volume.py``) on each of
     :func:`grow3d_inputs`, held bitwise to the plain loop (mask, converged,
     steps) and then timed: the wrapper's milliseconds a call (CUDA events;
-    its flag reads wait on the card), its kernels' own device time a call
+    the call reads nothing back), its kernels' own device time a call
     from ``dev_times`` (:func:`grow3d_device_times`), the plain loop's
     milliseconds and the floor: the bytes that reach HBM, the float32
     volume read once and the mask written once (each step's packed region
@@ -1371,8 +1373,8 @@ def grow3d_times(cfg, dev_times: dict) -> dict:
         got = hv.region_grow_3d_kernel(pre, seeds, **kw)
         want = region_grow_3d(pre, seeds, **kw)
         require(torch.equal(got[0], want[0]) and bool(got[1]) == bool(want[1])
-                and got[2] == want[2], f"3D grow kernel != plain at {tuple(pre.shape)}")
-        steps, n = got[2], pre.numel()
+                and int(got[2]) == want[2], f"3D grow kernel != plain at {tuple(pre.shape)}")
+        steps, n = want[2], pre.numel()
         b_ms, b_by = bound(4 * n + n, {"minmax_bitwise": 10 * steps * n / 32})
         dev_ms, dev_by, dev_missed = dev_times[name]
         out[name] = {
@@ -1510,8 +1512,8 @@ def volume_phase(tmp: Path, cohort: Path, study, smi: str, kernels: dict, reset,
         require(len(pats) == n_pat and sum(p["exported"] for p in pats.values()) == n
                 and sum(p["slices"] for p in pats.values()) == n,
                 f"volume run {i} ({which}): {len(pats)} patients")
-        require(kl == (launch_dict(fused=n_pat, grow3d=kl["grow3d"], **per_entry(n_pat))
-                       if which == "kernels" else launch_dict()) and (kl["grow3d"] >= n_pat) == (which == "kernels"),
+        require(kl == (launch_dict(fused=n_pat, grow3d=n_pat, **per_entry(n_pat))
+                       if which == "kernels" else launch_dict()),
                 f"volume run {i} ({which}) launches {kl}")
         files, masks = outputs(out, rec)
         require(len(files) == 2 * n, f"volume run {i}: {len(files)} JPEG files, not {2 * n}")
@@ -1562,10 +1564,8 @@ def volume_phase(tmp: Path, cohort: Path, study, smi: str, kernels: dict, reset,
         vl = {k: fn.launches for k, fn in kernels.items()}
         # the dilate schedule grows on the 3D grow kernel, the jump one on torch ops
         dilate = key != "jump"
-        want = launch_dict(**need, **per_entry(1),
-                           **({"grow3d": vl["grow3d"]} if dilate else {}))
-        require(vl == want == rec["kernel_launches"] and (vl["grow3d"] >= 1) == dilate,
-                f"volume {key}: launches {vl}")
+        want = launch_dict(**need, **per_entry(1), **({"grow3d": 1} if dilate else {}))
+        require(vl == want == rec["kernel_launches"], f"volume {key}: launches {vl}")
         vfiles, vmasks = outputs(out, rec)
         conv = pid not in rec["grow_truncated_patients"]
         # the jump schedule converges within its 1024 rounds here, and then
@@ -1632,9 +1632,8 @@ def volume_phase(tmp: Path, cohort: Path, study, smi: str, kernels: dict, reset,
     sfast, first_s = study_run(scfg)
     study_launches = {k: fn.launches for k, fn in kernels.items()}
     sslow, first_plain_s = study_run(splain)
-    require(study_launches == launch_dict(fused=1, grow3d=study_launches["grow3d"],
-                                          **per_entry(1))
-            and study_launches["grow3d"] >= 1, f"long study launches {study_launches}")
+    require(study_launches == launch_dict(fused=1, grow3d=1, **per_entry(1)),
+            f"long study launches {study_launches}")
     require(torch.equal(sfast["mask"], sslow["mask"]), "long study: kernel mask != plain")
     require(bool(sfast["grow_converged"]) == bool(sslow["grow_converged"]),
             "long study: converged differs")
@@ -2749,12 +2748,10 @@ def student_phase(tmp: Path, driver_out: dict, volume_out: dict, smi: str, kerne
     rec3, loss3, train3_s = train(tmp / "student3d", "--model-3d", "--volume-depth", "8",
                                   "--steps", str(steps_3d), "--bf16")
     launches_3d = {k: fn.launches for k, fn in kernels.items()}
-    # the teacher's labels: process_volume, the fused kernel once a volume
-    # and the 3D grow kernel once a block of steps
+    # the teacher's labels: process_volume, the fused kernel and the 3D
+    # grow kernel once a volume
     require(rec3["volumes"] == n_pat
-            and launches_3d == launch_dict(fused=n_pat, grow3d=launches_3d["grow3d"],
-                                           **per_entry(n_pat))
-            and launches_3d["grow3d"] >= n_pat,
+            and launches_3d == launch_dict(fused=n_pat, grow3d=n_pat, **per_entry(n_pat)),
             f"3D training: {rec3['volumes']} volumes, launches {launches_3d}")
     require(loss3 is not None and all(np.isfinite(loss3)) and loss3[1] < 0.7 * loss3[0],
             f"3D loss did not fall: {loss3}")

@@ -5,15 +5,19 @@
 // torch ops, about 11 eager launches a dilation step over the whole volume
 // (a 155 x 256 x 256 study: 48 steps, ~530 launches, ~12 ms of elementwise
 // kernels on the card and as long again of host launching). These kernels
-// run the same fixpoint in one launch a block of steps, between one launch
-// that packs the inputs and one that unpacks the mask.
+// run the same fixpoint in three launches a growth: one packs the inputs,
+// one cooperative launch runs every block of steps and decides on the card
+// when to stop, one unpacks the mask. The host reads nothing back: the
+// wrapper returns as soon as the three are enqueued.
 //
 // Semantics, as ops/volume.py::region_grow_3d: band = (x >= low) & (x <= high)
 // & valid, low/high compared as float32 (a NaN is out of band); region0 =
 // seeds & band; each step is region <- (centre | its 6 face neighbours, or
 // all 26 for connectivity 26) & band, with neighbours outside the (D, H, W)
 // volume 0 on all three axes; leading batch axes are independent volumes.
-// Steps are Jacobi: each reads one buffer and writes the other.
+// Steps are Jacobi: each reads one buffer and writes the other. The
+// schedule: one unconditional block of `block_iters` steps, then blocks
+// while the last one changed a voxel and fewer than `max_iters` steps ran.
 //
 // Layout (grow3d_layout in ops/hopper_volume.py computes the same): band and
 // the two region buffers bit-packed, 32 voxels a word along W (bit b of word
@@ -32,35 +36,44 @@
 // 155 x 256 x 256 takes 1.44 MB a buffer, so the band and both region
 // buffers stay in the 50 MB L2 for the whole growth.
 //
+// A growth's state is STATE_WORDS int32 words on the card: FLAG (the number
+// of the last block in which some word changed, 0 for none), STEPS (the
+// steps run), CUR (the buffer that holds the region: 0 or 1) and BLOCKS
+// (the blocks run). The pack zeroes them, the run writes them, the unpack
+// and the wrapper's caller read them on the card.
+//
 // * grow3d_pack_kernel: one warp a padded row; reads the float32 volume
 //   once (a lane a voxel, 128 bytes a warp), seeds and valid through their
 //   element strides (expanded views of one plane are not materialised),
 //   and writes the band and seeds & band into both region buffers by
-//   warp ballots; every border word 0; the block flag 0.
-// * grow3d_kernel: one cooperative launch runs a block of `steps` Jacobi
-//   steps, a persistent grid sized to co-residency, one grid barrier
-//   between steps. A warp steps 32 consecutive words: the row's word and
-//   its horizontal dilation (neighbour words by shuffles, the warp's two
-//   edge words loaded), the rows above and below, the planes before and
-//   after (for 26: the horizontal dilation of all nine rows), AND the band.
+//   warp ballots; every border word 0; the state 0.
+// * grow3d_kernel: one cooperative launch runs the whole fixpoint, a
+//   persistent grid sized to co-residency, one grid barrier after every
+//   step; grow3d_block runs a block's steps. A warp steps 32 consecutive words: the row's word and its
+//   horizontal dilation (neighbour words by shuffles, the warp's two edge
+//   words loaded), the rows above and below, the planes before and after
+//   (for 26: the horizontal dilation of all nine rows), AND the band.
 //   Region reads bypass L1 (__ldcg): other SMs wrote them before the
 //   barrier. The growth is monotone (region0 is in the band and a dilation
 //   holds its centre), so "the popcount changed over the block" is exactly
-//   "some word changed in some step": each CTA ORs its threads' and writes
-//   `epoch` (the block's number, counted by the host) into the flag if so.
-//   The flag replaces the two popcounts of the torch loop.
+//   "some word changed in some step": each CTA ORs its threads' and, if
+//   so, writes the block's number into FLAG before the block's last
+//   barrier; past it every thread reads FLAG (a volatile load) and every
+//   CTA takes the same decision. The flag replaces the two popcounts of the torch loop and
+//   the host's read of them.
 // * grow3d_unpack_kernel: one warp a row of the (B, D, H, W) uint8 mask,
-//   4 voxels a lane (one 32-bit store) where W % 4 == 0, and the 0-d
-//   converged flag (flag != epoch of the last block).
+//   4 voxels a lane (one 32-bit store) where W % 4 == 0, from the buffer
+//   CUR names, and the 0-d converged flag (FLAG != BLOCKS: the last block
+//   changed nothing).
 //
 // Bound on the H100: bytes. Only the pack's read of the float32 volume (4 N
 // bytes for N voxels) and the unpack's write of the mask (N) reach HBM:
 // 50.8 MB at 155 x 256 x 256, 15.2 us at 3.35 TB/s. A step reads the region
 // and the band and writes a region, 3 N / 8 bytes (3.81 MB there), all in
 // L2. The step's work is a few ORs a word, so past the bytes the time is
-// the grid barrier between steps (one a step; the fixpoint is sequential in
-// its depth) and the loads' L2 latency, which the persistent grid hides
-// with every warp the SMs hold. All offsets are 64-bit.
+// the grid barrier after each step (the fixpoint is sequential in its
+// depth) and the loads' L2 latency, which the persistent grid hides with
+// every warp the SMs hold. All offsets are 64-bit.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -74,6 +87,9 @@ constexpr int PACK_THREADS = 256;
 constexpr int GROW_THREADS = 512;
 constexpr int UNPACK_THREADS = 256;
 constexpr unsigned FULL = 0xffffffffu;
+
+// The growth's state words (the top of this file).
+enum { FLAG = 0, STEPS = 1, CUR = 2, BLOCKS = 3, STATE_WORDS = 4 };
 
 struct Layout {
   long long rp, pl, front, planes, total;
@@ -112,13 +128,13 @@ __global__ void __launch_bounds__(PACK_THREADS)
 grow3d_pack_kernel(const float* __restrict__ pre, const uint8_t* __restrict__ seeds, Strides ss,
                    const uint8_t* __restrict__ valid, Strides vs, uint32_t* __restrict__ band,
                    uint32_t* __restrict__ buf0, uint32_t* __restrict__ buf1,
-                   int* __restrict__ flag, int B, int D, int H, int W, float low, float high,
+                   int* __restrict__ state, int B, int D, int H, int W, float low, float high,
                    Layout g) {
   const int lane = threadIdx.x & 31;
   const long long warp = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const long long warps = ((long long)gridDim.x * blockDim.x) >> 5;
   const int WW = (int)g.rp - 1;
-  if (warp == 0 && lane == 0) *flag = 0;
+  if (warp == 0 && lane < STATE_WORDS) state[lane] = 0;
   // the front and back margins: zero
   for (long long w = warp * 32 + lane; w < 2 * g.front; w += warps * 32) {
     const long long at = w < g.front ? w : g.total - 2 * g.front + w;
@@ -182,11 +198,16 @@ __device__ __forceinline__ uint32_t row_dilate(const uint32_t* p, int lane, uint
   return hdilate(c, l, r);
 }
 
+// One block of `steps` Jacobi steps from buf_a (the region is in buf_b after
+// an odd number of steps, in buf_a after an even one), one grid barrier
+// between steps; whether some word of this thread changed. The parity of
+// the step picks the buffers: with the buffers picked by a flag carried
+// across blocks instead, a step took 4.0 us on an H100 at 155 x 256 x 256,
+// against 3.1 us so.
 template <bool CONN26>
-__global__ void __launch_bounds__(GROW_THREADS)
-grow3d_kernel(const uint32_t* __restrict__ band, uint32_t* buf_a, uint32_t* buf_b,
-              int* __restrict__ flag, int epoch, int steps, Layout g) {
-  cg::grid_group grid = cg::this_grid();
+__device__ __forceinline__ bool grow3d_block(const uint32_t* __restrict__ band, uint32_t* buf_a,
+                                             uint32_t* buf_b, int steps, const Layout& g,
+                                             cg::grid_group& grid) {
   const int lane = threadIdx.x & 31;
   const long long warp = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const long long warps = ((long long)gridDim.x * blockDim.x) >> 5;
@@ -216,17 +237,45 @@ grow3d_kernel(const uint32_t* __restrict__ band, uint32_t* buf_a, uint32_t* buf_
     }
     if (t + 1 < steps) grid.sync();
   }
-  if (__syncthreads_or(changed) && threadIdx.x == 0) *flag = epoch;
+  return changed;
+}
+
+template <bool CONN26>
+__global__ void __launch_bounds__(GROW_THREADS)
+grow3d_kernel(const uint32_t* __restrict__ band, uint32_t* buf0, uint32_t* buf1,
+              int* state, int block_iters, long long max_iters, Layout g) {
+  cg::grid_group grid = cg::this_grid();
+  int cur = 0, block = 0;  // the region is in buf0 (cur 0) or buf1; blocks run
+  long long steps = 0;
+  for (;;) {
+    ++block;
+    const bool changed = grow3d_block<CONN26>(band, cur ? buf1 : buf0, cur ? buf0 : buf1,
+                                              block_iters, g, grid);
+    cur ^= block_iters & 1;
+    steps += block_iters;
+    if (__syncthreads_or(changed) && threadIdx.x == 0) state[FLAG] = block;
+    grid.sync();
+    // a volatile read, past the barrier and L1; ">=", not "==": a CTA that
+    // went on may write block + 1 before a slower one reads, which it does
+    // only where this block changed a word
+    if (*(volatile int*)(state + FLAG) < block || steps >= max_iters) break;
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    state[STEPS] = (int)steps;
+    state[CUR] = cur;
+    state[BLOCKS] = block;
+  }
 }
 
 __global__ void __launch_bounds__(UNPACK_THREADS)
-grow3d_unpack_kernel(const uint32_t* __restrict__ region, const int* __restrict__ flag, int epoch,
-                     uint8_t* __restrict__ mask, uint8_t* __restrict__ conv, int B, int D, int H,
-                     int W, int vec4, Layout g) {
+grow3d_unpack_kernel(const uint32_t* __restrict__ buf0, const uint32_t* __restrict__ buf1,
+                     const int* __restrict__ state, uint8_t* __restrict__ mask,
+                     uint8_t* __restrict__ conv, int B, int D, int H, int W, int vec4, Layout g) {
   const int lane = threadIdx.x & 31;
   const long long warp = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const long long warps = ((long long)gridDim.x * blockDim.x) >> 5;
-  if (warp == 0 && lane == 0) *conv = *flag != epoch;
+  const uint32_t* region = state[CUR] ? buf1 : buf0;
+  if (warp == 0 && lane == 0) *conv = state[FLAG] != state[BLOCKS];
   const long long rows = (long long)B * D * H;
   for (long long r = warp; r < rows; r += warps) {
     const long long bz = r / H;
@@ -269,12 +318,12 @@ unsigned blocks_for(long long warps_needed, int threads, long long cap) {
 // Pack B volumes of D x H x W: `pre` float32 contiguous; `seeds` and
 // `valid` uint8 read at b s_b + z s_z + y s_y + x s_x (valid may be null:
 // every voxel valid); `band`, `buf0`, `buf1` `words` uint32 words each (the
-// layout's total); `flag` one int32, set to 0.
+// layout's total); `state` STATE_WORDS int32, set to 0.
 extern "C" int nm03_grow3d_pack(const float* pre, const uint8_t* seeds, long long s_b,
                                 long long s_z, long long s_y, long long s_x,
                                 const uint8_t* valid, long long v_b, long long v_z,
                                 long long v_y, long long v_x, uint32_t* band, uint32_t* buf0,
-                                uint32_t* buf1, int* flag, int B, int D, int H, int W,
+                                uint32_t* buf1, int* state, int B, int D, int H, int W,
                                 long long words, float low, float high, void* stream) {
   (void)cudaGetLastError();  // clear an error already reported by an earlier call
   if (!valid_shape(B, D, H, W, words)) return cudaErrorInvalidValue;
@@ -282,20 +331,23 @@ extern "C" int nm03_grow3d_pack(const float* pre, const uint8_t* seeds, long lon
   const Strides ss = {s_b, s_z, s_y, s_x}, vs = {v_b, v_z, v_y, v_x};
   const unsigned blocks = blocks_for(g.planes * (H + 1), PACK_THREADS, 1 << 20);
   grow3d_pack_kernel<<<blocks, PACK_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      pre, seeds, ss, valid, vs, band, buf0, buf1, flag, B, D, H, W, low, high, g);
+      pre, seeds, ss, valid, vs, band, buf0, buf1, state, B, D, H, W, low, high, g);
   return cudaGetLastError();
 }
 
-// One block of `steps` Jacobi steps from `src` into `dst` (the region is in
-// dst after an odd number of steps, in src after an even one), connectivity
-// 6 or 26; `flag` set to `epoch` where any word changed. One cooperative
-// launch: one warp a 32-word chunk, at most two CTAs an SM and as many as
-// the SMs hold at once.
-extern "C" int nm03_grow3d_block(const uint32_t* band, uint32_t* src, uint32_t* dst, int* flag,
-                                 int epoch, int B, int D, int H, int W, long long words,
-                                 int connectivity, int steps, void* stream) {
+// The whole fixpoint from the packed region in `buf0`, connectivity 6 or
+// 26: blocks of `block_iters` Jacobi steps between `buf0` and `buf1`, the
+// first unconditional, the next while the last changed a word and fewer
+// than `max_iters` steps ran; `state` (STATE_WORDS int32, zeroed by the
+// pack) then holds the last changing block, the steps, the buffer that
+// holds the region and the blocks. One cooperative launch: one warp a
+// 32-word chunk, at most two CTAs an SM and as many as the SMs hold at once.
+extern "C" int nm03_grow3d_run(const uint32_t* band, uint32_t* buf0, uint32_t* buf1, int* state,
+                               int B, int D, int H, int W, long long words, int connectivity,
+                               int block_iters, long long max_iters, void* stream) {
   (void)cudaGetLastError();
-  if (!valid_shape(B, D, H, W, words) || steps < 1 || (connectivity != 6 && connectivity != 26)) {
+  if (!valid_shape(B, D, H, W, words) || block_iters < 1 || max_iters < 1 ||
+      (connectivity != 6 && connectivity != 26)) {
     return cudaErrorInvalidValue;
   }
   const Layout g = layout_of(B, D, H, W);
@@ -326,18 +378,20 @@ extern "C" int nm03_grow3d_block(const uint32_t* band, uint32_t* src, uint32_t* 
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   if (connectivity == 26) {
-    err = cudaLaunchKernelEx(&cfg, grow3d_kernel<true>, band, src, dst, flag, epoch, steps, g);
+    err = cudaLaunchKernelEx(&cfg, grow3d_kernel<true>, band, buf0, buf1, state, block_iters,
+                             max_iters, g);
   } else {
-    err = cudaLaunchKernelEx(&cfg, grow3d_kernel<false>, band, src, dst, flag, epoch, steps, g);
+    err = cudaLaunchKernelEx(&cfg, grow3d_kernel<false>, band, buf0, buf1, state, block_iters,
+                             max_iters, g);
   }
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
 // The uint8 {0, 1} mask of B volumes of D x H x W (contiguous) from the
-// packed `region`, and `conv` (one byte, a bool) = (*flag != epoch): the
-// last block changed nothing.
-extern "C" int nm03_grow3d_unpack(const uint32_t* region, const int* flag, int epoch,
+// packed region in the buffer `state` names (after nm03_grow3d_run), and
+// `conv` (one byte, a bool): the last block changed nothing.
+extern "C" int nm03_grow3d_unpack(const uint32_t* buf0, const uint32_t* buf1, const int* state,
                                   uint8_t* mask, uint8_t* conv, int B, int D, int H, int W,
                                   long long words, void* stream) {
   (void)cudaGetLastError();
@@ -346,6 +400,6 @@ extern "C" int nm03_grow3d_unpack(const uint32_t* region, const int* flag, int e
   const int vec4 = W % 4 == 0 && aligned(mask, 4);
   const unsigned blocks = blocks_for((long long)B * D * H, UNPACK_THREADS, 1 << 20);
   grow3d_unpack_kernel<<<blocks, UNPACK_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      region, flag, epoch, mask, conv, B, D, H, W, vec4, g);
+      buf0, buf1, state, mask, conv, B, D, H, W, vec4, g);
   return cudaGetLastError();
 }

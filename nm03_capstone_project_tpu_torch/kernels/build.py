@@ -116,11 +116,13 @@ ARGTYPES = {
     },
     "grow3d": {
         # pre, seeds and its four strides, valid and its four, band, the
-        # two region buffers, flag, B, D, H, W, words a buffer, low, high
+        # two region buffers, state, B, D, H, W, words a buffer, low, high
         "nm03_grow3d_pack": [_P, _P, _L, _L, _L, _L, _P, _L, _L, _L, _L, _P, _P, _P, _P,
                              _I, _I, _I, _I, _L, _F, _F, _P],
-        "nm03_grow3d_block": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _I, _I, _P],
-        "nm03_grow3d_unpack": [_P, _P, _I, _P, _P, _I, _I, _I, _I, _L, _P],
+        # band, the two region buffers, state, B, D, H, W, words a buffer,
+        # connectivity, block_iters, max_iters
+        "nm03_grow3d_run": [_P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _I, _L, _P],
+        "nm03_grow3d_unpack": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _P],
     },
     "masks": {
         # dims, seeds, valid, P, H, W

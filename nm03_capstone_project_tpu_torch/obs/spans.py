@@ -111,20 +111,37 @@ class StageRecorder:
     in ``spans`` of the innermost span open when it began (-1 at the top),
     so a span's path is its parents' names and its own joined by ``/``,
     as :meth:`SpanRecorder.current_path` joins them. ``counters`` sums the
-    values recorded under each name. Nothing here touches a tensor; one
-    thread records into a recorder at a time.
+    values recorded under each name. A value may be a 0-d tensor that the
+    device has yet to compute (the 3D grow kernel's steps): it is kept
+    unread and read when ``counters`` is, so recording one never waits on
+    the device inside the call that counts it. One thread records into a
+    recorder at a time.
     """
 
     def __init__(self):
         self.spans: List[Tuple[int, int, str, int]] = []
-        self.counters: Dict[str, int] = {}
+        self._counts: Dict[str, int] = {}
+        self._unread: Dict[str, list] = {}
         self._open: List[int] = []
 
     def span(self, name: str) -> "_StageSpan":
         return _StageSpan(self, name)
 
-    def count(self, name: str, value: int = 1) -> None:
-        self.counters[name] = self.counters.get(name, 0) + int(value)
+    def count(self, name: str, value=1) -> None:
+        """Add ``value`` (an int, or a 0-d tensor read later) under ``name``."""
+        if isinstance(value, int):
+            self._counts[name] = self._counts.get(name, 0) + value
+        else:
+            self._counts.setdefault(name, 0)
+            self._unread.setdefault(name, []).append(value)
+
+    @property
+    def counters(self) -> Dict[str, int]:
+        """The sums by name, every tensor counted so far read into them."""
+        for name, values in self._unread.items():
+            self._counts[name] += sum(int(v) for v in values)
+        self._unread.clear()
+        return self._counts
 
     def path(self, i: int) -> str:
         """The ``/``-joined names from the outermost span down to span ``i``."""

@@ -7,10 +7,13 @@ over the whole volume (a 155 x 256 x 256 study: 48 steps, ~530 launches,
 12 ms of elementwise kernels on the card and as long again of host
 launching). It was added because that loop was most of
 ``process_volume``'s time. :func:`region_grow_3d_kernel` runs the same
-fixpoint through ``csrc/grow3d.cu``: one launch packs the band and the
-seeded region, one cooperative launch runs each block of
-``block_iters`` steps, one unpacks the mask; bit for bit the plain loop's
-mask, ``converged`` and steps.
+fixpoint through ``csrc/grow3d.cu`` in three launches: one packs the band
+and the seeded region, one cooperative launch runs every block of
+``block_iters`` steps and decides on the card, after each, whether to run
+another, one unpacks the mask. Bit for bit the plain loop's mask,
+``converged`` and steps; the host reads none of them, so the call returns
+as soon as the launches are enqueued and the card's next work (the next
+study's copy) can run under the growth.
 
 Bound: bytes. The pack reads the float32 volume once and the unpack
 writes the uint8 mask once: the only traffic to HBM. A step reads the
@@ -19,10 +22,11 @@ L2. The design keeps the band and both region buffers bit-packed (32
 voxels a word along W, 1.44 MB a buffer at 155 x 256 x 256) and so in
 L2 for the whole growth, lays them out with a
 border of zero words (:func:`grow3d_layout`) so that a step tests no
-edge, and runs a block's steps in one persistent grid with one grid
-barrier between steps. The block ends in one flag, not two popcounts: the
-growth is monotone, so the count changed over a block exactly where some
-word changed in it.
+edge, and runs every step in one persistent grid with one grid barrier
+after each. A block ends in one flag, not two popcounts: the growth is
+monotone, so the count changed over a block exactly where some word
+changed in it. The flag, the steps, the blocks and the buffer that holds
+the result stay in device words (``GROW3D_STATE``).
 """
 
 from __future__ import annotations
@@ -37,6 +41,10 @@ from nm03_capstone_project_tpu_torch.kernels import build
 from nm03_capstone_project_tpu_torch.ops.region_growing import no_count, no_stage
 
 CONNECTIVITY = (6, 26)
+# the growth's int32 state words on the card (csrc/grow3d.cu): the last
+# block that changed a word (0: none), the steps run, the buffer that holds
+# the region, the blocks run
+GROW3D_STATE = ("flag", "steps", "cur", "blocks")
 
 
 class Grow3dLayout(NamedTuple):
@@ -89,16 +97,19 @@ def region_grow_3d_kernel(
 ):
     """:func:`.volume.region_grow_3d` of a (..., D, H, W) CUDA float32 volume
     on the kernels of ``csrc/grow3d.cu``: ``(mask uint8, converged)``, and
-    the steps run with ``return_steps``.
+    the steps run with ``return_steps``, a 0-d int32 tensor on the device.
 
     The plain loop's schedule, block for block: one unconditional block of
     ``block_iters`` steps, then blocks while the last one changed a voxel
-    and fewer than ``max_iters`` steps ran; ``converged`` is ONE 0-d bool
-    on the device for the whole input (leading batch axes are independent
-    volumes under one flag, as the popcount sums every axis). Each block is
-    one launch inside a ``grow3d.block`` span counted under
-    ``grow3d.launches``, and one read of its flag inside a ``grow3d.sync``
-    span counted under ``grow3d.syncs``, the host's only wait.
+    and fewer than ``max_iters`` steps ran, decided on the card;
+    ``converged`` is ONE 0-d bool on the device for the whole input
+    (leading batch axes are independent volumes under one flag, as the
+    popcount sums every axis). Three launches (pack, run, unpack) and no
+    read on the host: the call returns before the growth has run. The run
+    is one launch inside a ``grow3d.block`` span, counted once under
+    ``grow3d.launches`` and in ``launches``; ``grow3d.syncs`` counts 0 and
+    ``grow3d.blocks`` the blocks run, a 0-d tensor that the counter's
+    reader resolves when it reads it.
     """
     if volume.device.type != "cuda":
         raise ValueError(f"region_grow_3d_kernel takes CUDA tensors, got {volume.device}")
@@ -121,51 +132,35 @@ def region_grow_3d_kernel(
     if mask.numel() == 0:
         # the plain loop's answer on nothing: one block, nothing changed
         out = (mask, torch.ones((), dtype=torch.bool, device=vol.device))
-        return out + (block_iters,) if return_steps else out
+        return out + (torch.full((), block_iters, dtype=torch.int32, device=vol.device),) \
+            if return_steps else out
     sd, ss = _strided_u8(seeds, vol.shape, b)
     vd, vs = (None, (0, 0, 0, 0)) if valid is None else _strided_u8(valid, vol.shape, b)
     lay = grow3d_layout(b, d, h, w)
     bufs = torch.empty((3, lay.total), dtype=torch.int32, device=vol.device)
-    flag = torch.empty((1,), dtype=torch.int32, device=vol.device)
+    state = torch.empty((len(GROW3D_STATE),), dtype=torch.int32, device=vol.device)
     conv = torch.empty((), dtype=torch.bool, device=vol.device)
     lib = build.load("grow3d")
     stream = torch.cuda.current_stream(vol.device).cuda_stream
-    band, regions = bufs[0].data_ptr(), (bufs[1].data_ptr(), bufs[2].data_ptr())
+    band, buf0, buf1 = (bufs[i].data_ptr() for i in range(3))
     build.check(lib.nm03_grow3d_pack(
         vol.data_ptr(), sd.data_ptr(), *ss, None if vd is None else vd.data_ptr(), *vs,
-        band, regions[0], regions[1], flag.data_ptr(), b, d, h, w, lay.total,
+        band, buf0, buf1, state.data_ptr(), b, d, h, w, lay.total,
         float(np.float32(low)), float(np.float32(high)), stream), "nm03_grow3d_pack")
-    cur, epoch = 0, 0  # the region is in regions[cur]; blocks launched
-
-    def grow_block() -> None:
-        nonlocal cur, epoch
-        epoch += 1
-        build.check(lib.nm03_grow3d_block(
-            band, regions[cur], regions[cur ^ 1], flag.data_ptr(), epoch, b, d, h, w,
-            lay.total, connectivity, block_iters, stream), "nm03_grow3d_block")
-        cur ^= block_iters & 1
-        region_grow_3d_kernel.launches += 1
-        counter("grow3d.launches")
-
-    def grew() -> bool:
-        # one read of the block's flag: the loop's only sync
-        with stage("grow3d.sync"):
-            changed = int(flag.item()) == epoch
-        counter("grow3d.syncs")
-        return changed
-
     with stage("grow3d.block"):
-        grow_block()
-    iters = block_iters
-    while grew() and iters < max_iters:
-        with stage("grow3d.block"):
-            grow_block()
-        iters += block_iters
+        build.check(lib.nm03_grow3d_run(
+            band, buf0, buf1, state.data_ptr(), b, d, h, w, lay.total, connectivity,
+            block_iters, max_iters, stream), "nm03_grow3d_run")
+    region_grow_3d_kernel.launches += 1
+    counter("grow3d.launches")
+    counter("grow3d.syncs", 0)
+    _, steps, _, blocks = state.unbind()
+    counter("grow3d.blocks", blocks)
     build.check(lib.nm03_grow3d_unpack(
-        regions[cur], flag.data_ptr(), epoch, mask.data_ptr(), conv.data_ptr(), b, d, h, w,
-        lay.total, stream), "nm03_grow3d_unpack")
+        buf0, buf1, state.data_ptr(), mask.data_ptr(), conv.data_ptr(), b, d, h, w, lay.total,
+        stream), "nm03_grow3d_unpack")
     out = (mask, conv)
-    return out + (iters,) if return_steps else out
+    return out + (steps,) if return_steps else out
 
 
 region_grow_3d_kernel.launches = 0

@@ -7,7 +7,9 @@ median wrapper past the generated plans and past the select kernel's
 planes, ``grow_global`` the grow wrapper's past one cluster. ``sharpen``
 is the second launch of the fused wrapper's ``split`` route (the first is
 the window's median route, counted under its own name). ``grow3d`` is the
-3D grow kernel of the volume path, one launch a block of steps. ``seeds``
+3D grow kernel of the volume path, one launch a growth (the cooperative
+run of every block; its pack and unpack launches beside it are not
+counted). ``seeds``
 (the seed and valid masks) and ``finish`` (the final dilation cut to the
 true size) launch once an entry call each, before and after the growth.
 """

@@ -20,8 +20,8 @@ which the pipeline takes for the dilate schedule on the card with
 * :func:`region_grow_3d` is the dilate-schedule fixpoint. Its loop reads
   one popcount per block of ``block_iters`` steps back to the host (a
   synchronization on the card), as the JAX ``while_loop`` evaluates its
-  condition once per block; the kernel keeps the schedule and reads one
-  "changed" flag instead.
+  condition once per block; the kernel keeps the schedule and tests one
+  "changed" flag on the card instead, with no read on the host.
 * :func:`region_grow_jump_3d` is the pointer-jumping label merge, one
   (D, H, W) volume at a time.
 

@@ -42,10 +42,16 @@ readers:
   :class:`~..obs.spans.StageRecorder`: ``entry`` (the whole call of
   :func:`process_batch` or :func:`process_volume`), ``inputs``,
   ``normalize``, ``median7``, ``sharpen``, ``seeds`` (the seed grid and the
-  valid mask), ``grow``, ``grow3d`` with its ``grow3d.block`` and
-  ``grow3d.sync`` spans, ``morph``; and the 3D growth counts
-  ``grow3d.steps`` and ``grow3d.syncs``, and on the 3D grow kernel
-  ``grow3d.launches``, one a block.
+  valid mask), ``grow``, ``grow3d`` with its ``grow3d.block`` spans (a
+  block of steps on the torch loop, the one launch of the whole fixpoint
+  on the 3D grow kernel) and, on the torch loop only, its ``grow3d.sync``
+  spans (a read that waits on the card), ``morph``; and the 3D growth
+  counts ``grow3d.steps`` and ``grow3d.syncs`` (the host's reads: one a
+  block on the torch loop, 0 on the kernel), and on the 3D grow kernel
+  ``grow3d.launches`` (one a growth) and ``grow3d.blocks`` (the blocks
+  the card ran). The kernel's steps and blocks are 0-d tensors on the
+  card, which the recorder reads only when its counters are read, after
+  the call.
 
 With neither open a stage costs one thread-local read: no tensor op, no
 sync, no allocation.

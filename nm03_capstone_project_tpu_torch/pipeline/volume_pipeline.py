@@ -13,8 +13,9 @@ launch of the fused preprocess kernel (or, with ``fuse_preprocess=False``,
 one launch of the median kernel between the plain elementwise and sharpen
 ops). The 3D growth on the dilate schedule is, with ``cfg.use_kernels`` on
 the card, the hand-written kernel of :mod:`..ops.hopper_volume` (one
-launch a block of steps; the JAX package has XLA ops there and no Pallas
-kernel), and on the CPU the torch loop of :mod:`..ops.volume`; the jump
+launch for the whole fixpoint, which reads nothing back to the host; the
+JAX package has XLA ops there and no Pallas kernel), and on the CPU the
+torch loop of :mod:`..ops.volume`; the jump
 schedule is torch ops on either. The seed grid and valid plane, and the
 final 3D dilation cut to the true size, are one launch each of the
 kernels of :mod:`..ops.hopper_masks` on the card with ``cfg.use_kernels``,
@@ -73,7 +74,8 @@ def grow_volume(pre, seeds, valid, cfg: PipelineConfig, return_steps: bool = Fal
     unchanged, as the JAX package's ``process_volume`` does (unlike the 2D
     dispatch, which derives a log2 budget). With
     ``return_steps`` a third value holds the dilation steps or the jump
-    rounds run, which the ``grow3d.steps`` counter records under
+    rounds run (on the kernel a 0-d int32 tensor on the card, read by no
+    one here), which the ``grow3d.steps`` counter records under
     :func:`.slice_pipeline.stage_spans`.
     """
     with _stage("grow3d"):

@@ -1152,10 +1152,12 @@ def _grow3d_same(cuda, vol, seeds, valid, **kw):
     want = region_grow_3d(vol, seeds, valid=valid, **kw)
     assert got[0].dtype == torch.uint8 and got[0].shape == vol.shape
     assert got[1].device.type == "cuda" and got[1].shape == ()
+    assert got[2].device.type == "cuda" and got[2].shape == () and got[2].dtype == torch.int32
     assert torch.equal(got[0], want[0])
-    assert bool(got[1]) is bool(want[1]) and got[2] == want[2]
-    assert hv.region_grow_3d_kernel.launches - before == got[2] // kw.get("block_iters", 16)
-    return got
+    assert bool(got[1]) is bool(want[1]) and int(got[2]) == want[2]
+    # one launch a growth, whatever the blocks: the card decides when to stop
+    assert hv.region_grow_3d_kernel.launches - before == 1
+    return got[0], got[1], int(got[2])
 
 
 GROW3D_SHAPES = [(155, 256, 256), (25, 251, 241), (7, 33, 65), (1, 1, 1), (1, 40, 70),
@@ -1236,6 +1238,50 @@ def test_grow3d_kernel_refuses_what_it_cannot_take(cuda):
         hv.region_grow_3d_kernel(vol, seeds.cpu())
 
 
+@pytest.mark.parametrize("block_iters,max_iters", [(7, 3), (7, 7), (7, 10), (7, 14), (5, 4096),
+                                                   (16, 24)])
+def test_grow3d_kernel_and_process_volume_make_no_host_sync(cuda, block_iters, max_iters):
+    # odd blocks leave the region in either buffer by the blocks' parity,
+    # and the cap falls below, at and between multiples of a block: the
+    # card decides all of it, and the host waits on nothing
+    from nm03_capstone_project_tpu_torch.data.synthetic import phantom_volume
+    from nm03_capstone_project_tpu_torch.ops import hopper_volume as hv
+    from nm03_capstone_project_tpu_torch.ops.volume import region_grow_3d
+    from nm03_capstone_project_tpu_torch.pipeline import process_volume
+
+    vol, seeds, valid = _maze3d((25, 96, 96), cuda, seed=5, fill=0.6)
+    kw = dict(valid=valid, block_iters=block_iters, max_iters=max_iters, return_steps=True)
+    study = np.zeros((12, 256, 256), np.float32)
+    study[:, :240, :200] = phantom_volume(12, 240, 200, seed=3)
+    px = torch.from_numpy(study).to(cuda)
+    dm = torch.tensor([240, 200], dtype=torch.int32, device=cuda)
+    cfg = PipelineConfig(grow_block_iters=block_iters, grow_max_iters=max_iters)
+    hv.region_grow_3d_kernel(vol, seeds, **kw)  # the build, outside the check
+    process_volume(px, dm, cfg)
+    torch.cuda.synchronize()
+    before = hv.region_grow_3d_kernel.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = hv.region_grow_3d_kernel(vol, seeds, **kw)
+        out = process_volume(px, dm, cfg)
+        with pytest.raises(RuntimeError, match="synchroniz"):  # the check sees a host read
+            got[2].item()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert hv.region_grow_3d_kernel.launches - before == 2
+    want = region_grow_3d(vol, seeds, **kw)
+    assert torch.equal(got[0], want[0]) and bool(got[1]) is bool(want[1])
+    assert int(got[2]) == want[2]
+    # the maze still grows past 32 steps (the truncation test above), so
+    # every cap here but the last cuts it at its first block past the cap
+    assert bool(want[1]) is (max_iters == 4096)
+    if not bool(want[1]):
+        assert want[2] == -(-max_iters // block_iters) * block_iters
+    ref = process_volume(study, np.asarray([240, 200], np.int32), cfg, device="cpu")
+    assert torch.equal(out["mask"].cpu(), ref["mask"])
+    assert bool(out["grow_converged"]) is bool(ref["grow_converged"])
+
+
 def test_grow3d_under_stage_spans_and_process_volume_equals_the_cpu(cuda):
     from nm03_capstone_project_tpu_torch.data.synthetic import phantom_volume
     from nm03_capstone_project_tpu_torch.obs.spans import StageRecorder
@@ -1253,10 +1299,10 @@ def test_grow3d_under_stage_spans_and_process_volume_equals_the_cpu(cuda):
             got = process_volume(vol, dims, cfg)
         launched = hv.region_grow_3d_kernel.launches - before
         c = rec.counters
-        assert launched > 0 and c["grow3d.launches"] == c["grow3d.syncs"] == launched
-        assert c["grow3d.steps"] == bi * launched
+        assert launched == c["grow3d.launches"] == 1 and c["grow3d.syncs"] == 0
+        assert c["grow3d.blocks"] >= 1 and c["grow3d.blocks"] * bi == c["grow3d.steps"]
         names = [n for _, _, n, _ in rec.spans]
-        assert names.count("grow3d.block") == names.count("grow3d.sync") == launched
+        assert names.count("grow3d.block") == 1 and "grow3d.sync" not in names
         want = process_volume(vol, dims, cfg, device="cpu")
         assert torch.equal(got["mask"].cpu(), want["mask"]) and int(want["mask"].sum()) > 0
         assert bool(got["grow_converged"]) is bool(want["grow_converged"])

@@ -3,7 +3,8 @@
 ``csrc/grow3d.cu`` cannot run here. What it computes word for word is
 written out below in numpy on the layout :func:`grow3d_layout` gives it
 (the pack, the Jacobi steps over the stepped range with every neighbour
-at a fixed offset, the block flag, the unpack) and held bitwise to the
+at a fixed offset, the block flag and the state words the card decides
+by, the unpack from the buffer they name) and held bitwise to the
 plain :func:`region_grow_3d` in mask, ``converged`` and steps: ragged
 widths, one plane, one voxel, both connectivities, a batch axis, truncated
 runs. The card tests (``tests/test_torch_card.py``) hold the kernel itself
@@ -81,33 +82,34 @@ def _grow3d_words(vol, seeds, valid, connectivity, block_iters, max_iters):
                      | cur[words - lay.plane] | cur[words + lay.plane])
         return grown & band[words]
 
-    flag, epoch, cur = 0, 0, 0
-
-    def grow_block():
-        nonlocal flag, epoch, cur
-        epoch += 1
+    # the run: every block on the card, the state words as csrc/grow3d.cu
+    # leaves them (the last block that changed a word, the steps, the
+    # buffer that holds the region, the blocks)
+    state = dict.fromkeys(hv.GROW3D_STATE, 0)
+    cur = 0
+    while True:
+        state["blocks"] += 1
         changed = False
         for _ in range(block_iters):
             out = step(bufs[cur])
             changed |= bool((out != bufs[cur][words]).any())
             bufs[cur ^ 1][words] = out
             cur ^= 1
+        state["steps"] += block_iters
         if changed:
-            flag = epoch
-
-    grow_block()
-    iters = block_iters
-    while flag == epoch and iters < max_iters:
-        grow_block()
-        iters += block_iters
-    region = bufs[cur]
+            state["flag"] = state["blocks"]
+        if state["flag"] < state["blocks"] or state["steps"] >= max_iters:
+            break
+    state["cur"] = cur
+    # the unpack
+    region = bufs[state["cur"]]
     # every border word is still 0
     border = np.ones(lay.total, bool)
     border[at] = False
     assert not region[border].any() and not band[border].any()
     bits = (region[at][..., None] >> np.arange(32, dtype=np.uint32)) & 1
     mask = bits.reshape(b, d, h, ww * 32)[..., :w].astype(np.uint8).reshape(vol.shape)
-    return mask, flag != epoch, iters
+    return mask, state["flag"] != state["blocks"], state["steps"]
 
 
 def _phantom(shape, seed, fill=0.55):
@@ -145,6 +147,21 @@ def test_the_kernels_words_equal_the_plain_loop(shape, connectivity):
         got = _grow3d_words(vol, seeds, valid, connectivity, block_iters, max_iters)
         assert np.array_equal(got[0], want[0]), (block_iters, max_iters)
         assert got[1:] == want[1:], (block_iters, max_iters)
+
+
+@pytest.mark.parametrize("block_iters,max_iters", [(7, 3), (7, 7), (7, 10), (7, 14), (5, 4096),
+                                                   (16, 24)])
+def test_the_card_stops_where_the_plain_loop_does(block_iters, max_iters):
+    # odd blocks leave the region in either buffer by the blocks' parity,
+    # and the cap falls below, at and between multiples of a block
+    vol, seeds, valid = _phantom((9, 20, 37), seed=11, fill=0.6)
+    want = _plain(vol, seeds, valid, 6, block_iters, max_iters)
+    got = _grow3d_words(vol, seeds, valid, 6, block_iters, max_iters)
+    assert np.array_equal(got[0], want[0]) and got[1:] == want[1:]
+    # every cap here but the last cuts the growth at its first block past the cap
+    assert got[1] is (max_iters == 4096)
+    if not got[1]:
+        assert got[2] == -(-max_iters // block_iters) * block_iters
 
 
 def test_the_words_truncate_where_the_plain_loop_does():

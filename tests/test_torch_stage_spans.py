@@ -146,6 +146,45 @@ def test_the_spans_add_no_tensor_op_and_no_sync(entry, kw):
     assert rec.spans and off.ops == on.ops
 
 
+# one growth's counts as the 3D grow kernel gives them, twice over
+COUNTS = [("grow3d.launches", 1), ("grow3d.syncs", 0), ("grow3d.blocks", 3),
+          ("grow3d.steps", 48), ("grow3d.launches", 1), ("grow3d.syncs", 0),
+          ("grow3d.blocks", 2), ("grow3d.steps", 32)]
+
+
+@pytest.mark.parametrize("tensors", [(), ("grow3d.steps",), ("grow3d.steps", "grow3d.blocks"),
+                                     ("grow3d.launches", "grow3d.syncs", "grow3d.blocks",
+                                      "grow3d.steps")])
+def test_tensor_counts_sum_with_int_counts_to_the_same_totals(tensors):
+    rec = StageRecorder()
+    for name, value in COUNTS:
+        rec.count(name, torch.tensor(value, dtype=torch.int32) if name in tensors else value)
+    assert rec.counters == {"grow3d.launches": 2, "grow3d.syncs": 0, "grow3d.blocks": 5,
+                            "grow3d.steps": 80}
+    assert all(type(v) is int for v in rec.counters.values())
+
+
+def test_a_tensor_count_stays_unread_until_the_counters_are_read():
+    # the kernel's steps are a device value that becomes ready after the
+    # call: counting one reads nothing, reading the counters reads it once
+    steps = torch.tensor(0, dtype=torch.int32)
+    rec = StageRecorder()
+    with _Ops() as counting:
+        rec.count("grow3d.launches")
+        rec.count("grow3d.steps", steps)
+        rec.count("grow3d.steps", 16)
+    assert counting.ops == []
+    steps.fill_(32)  # the value lands after it was counted
+    with _Ops() as reading:
+        assert rec.counters == {"grow3d.launches": 1, "grow3d.steps": 48}
+    assert reading.ops.count("aten._local_scalar_dense") == 1
+    with _Ops() as again:
+        assert rec.counters == {"grow3d.launches": 1, "grow3d.steps": 48}
+    assert again.ops == []
+    rec.count("grow3d.steps", torch.tensor(16))
+    assert rec.counters["grow3d.steps"] == 64
+
+
 def test_a_closed_stage_makes_nothing():
     """With nothing open every stage hands back one shared null context and
     a count touches nothing: no object is made a stage."""
